@@ -455,6 +455,9 @@ def main() -> int:
     log("[3] kernels against their plain versions (card)")
     table = KernelTable()
     phase_kernels(table)
+    from repro_torch.kernels import ops
+    log(f"  launches in this phase (checks and timing): "
+        f"{json.dumps(ops.kernel_launches())}")
 
     log("[4] small end to end: opt-proxy smoke, card against CPU plain")
     phase_small_end_to_end()

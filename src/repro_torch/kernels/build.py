@@ -97,8 +97,7 @@ def ptxas_report() -> Dict[str, str]:
         text = log.read_text() if log.exists() else ""
         rep[name] = "\n".join(
             ln.strip() for ln in text.splitlines()
-            if "ptxas" in ln and ("registers" in ln or "spill" in ln
-                                  or "Compiling entry" in ln))
+            if "registers" in ln or "spill" in ln or "Compiling entry" in ln)
     return rep
 
 

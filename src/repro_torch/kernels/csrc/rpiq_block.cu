@@ -11,8 +11,9 @@
 // all fp32 FFMA (the reference pins fp32 and the tensor cores take none).
 // The n-long contraction in the right-hand side dominates.
 //
-// Design: grid (B, out/BO) with BO = 32 rows per block. Each block runs
-// rounds 0..t_max and every column block of its rows inside one launch,
+// Design: grid (B, out/BO) with BO = 16 rows per block (narrow row tiles
+// give the main path's groups 48 to 192 blocks for the 132 SMs). Each block
+// runs rounds 0..t_max and every column block of its rows in one launch,
 // keeping the Pallas kernel's deferred-bookkeeping split: the trajectory
 // does not depend on the early stop or the best-candidate choice, so every
 // round runs and emits its per-row-tile Gamma and projected-loss partials
@@ -23,8 +24,8 @@
 // (n, BO) Y_q slab lives in the y_q output and the (n, BO) / (bs, BO)
 // intermediates in a per-block global scratch: at n = 512 they exceed what
 // shared memory holds next to the product tiles, and they stay in L2.
-// Products run as a block-level tiled FFMA GEMM (128 x 32 output tiles,
-// 16-deep k slabs in shared memory, a 4 x 4 register tile per thread, each
+// Products run as a block-level tiled FFMA GEMM (128 x 16 output tiles,
+// 16-deep k slabs in shared memory, a 2 x 4 register tile per thread, each
 // sum taken in ascending k).
 // Lanes that stopped early still run their remaining rounds (the
 // documented trade of the deferred bookkeeping), and wp_all costs
@@ -39,9 +40,10 @@
 
 namespace {
 
-constexpr int BO = 32;         // rows per block
+constexpr int BO = 16;         // rows per block
 constexpr int THREADS = 256;
-constexpr int TM = 128, TN = 32, KC = 16;   // block_gemm tiles
+// block_gemm tiles: TN = BO output columns, RM x 4 outputs per thread
+constexpr int TN = BO, RM = 2, TM = THREADS / (TN / 4) * RM, KC = 16;
 
 __device__ __forceinline__ float clampf(float v, float lo, float hi) {
     return fminf(fmaxf(v, lo), hi);
@@ -57,9 +59,9 @@ __device__ __forceinline__ float project(float b, float s, float z,
 
 // C(m, n) = sum_k A(m, k) * B(k, n) for m < M, n < N, over ascending k.
 // Every thread of the block must call it; it ends with a barrier. Output
-// tiles of TM x TN; each thread keeps a 4 x 4 block of outputs in
-// registers and reads one float4 of A and one of B from shared memory per
-// k step (A is staged k-major so that both reads are 16-byte vectors).
+// tiles of TM x TN; each thread keeps an RM x 4 block of outputs in
+// registers and reads RM values of A and a float4 of B from shared memory
+// per k step (A is staged k-major, so both reads are contiguous).
 __device__ void block_gemm(const float* A, long sam, long sak,
                            const float* B, long sbk, long sbn,
                            float* C, long scm, long scn,
@@ -67,12 +69,12 @@ __device__ void block_gemm(const float* A, long sam, long sak,
     __shared__ __align__(16) float As[KC][TM + 4];
     __shared__ __align__(16) float Bs[KC][TN + 4];
     const int tid = threadIdx.x;
-    const int tx = tid % (TN / 4), ty = tid / (TN / 4);   // 8 x 32 threads
+    const int tx = tid % (TN / 4), ty = tid / (TN / 4);
     for (int m0 = 0; m0 < M; m0 += TM) {
         for (int n0 = 0; n0 < N; n0 += TN) {
-            float acc[4][4];
+            float acc[RM][4];
 #pragma unroll
-            for (int i = 0; i < 4; ++i)
+            for (int i = 0; i < RM; ++i)
 #pragma unroll
                 for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
             for (int k0 = 0; k0 < K; k0 += KC) {
@@ -93,23 +95,22 @@ __device__ void block_gemm(const float* A, long sam, long sak,
                 __syncthreads();
                 const int kn = min(KC, K - k0);
                 for (int kk = 0; kk < kn; ++kk) {
-                    const float4 a = *reinterpret_cast<const float4*>(
-                        &As[kk][ty * 4]);
                     const float4 b = *reinterpret_cast<const float4*>(
                         &Bs[kk][tx * 4]);
-                    const float av[4] = {a.x, a.y, a.z, a.w};
                     const float bv[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
-                    for (int i = 0; i < 4; ++i)
+                    for (int i = 0; i < RM; ++i) {
+                        const float av = As[kk][ty * RM + i];
 #pragma unroll
                         for (int j = 0; j < 4; ++j)
-                            acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+                            acc[i][j] = fmaf(av, bv[j], acc[i][j]);
+                    }
                 }
                 __syncthreads();
             }
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                const int m = m0 + ty * 4 + i;
+            for (int i = 0; i < RM; ++i) {
+                const int m = m0 + ty * RM + i;
                 if (m >= M) continue;
 #pragma unroll
                 for (int j = 0; j < 4; ++j) {
@@ -241,7 +242,7 @@ rpiq_block_kernel(const float* __restrict__ w0, const float* __restrict__ yo_all
 
 // Shapes: w0/s/z/w_cont (B, out, in), y_orig/y_q (B, n, out), x (B, n, in),
 // hinv (B, in, bs), wp_all (B, t_max+1, out, in), hist/pls
-// (B, out/32, t_max+1), scratch (B, out/32, 2*n*32 + 2*bs*32); out % 32 == 0.
+// (B, out/16, t_max+1), scratch (B, out/16, 2*n*16 + 2*bs*16); out % 16 == 0.
 extern "C" int rpiq_block_launch(const float* w0, const float* y_orig,
                                  const float* x, const float* hinv,
                                  const float* s_full, const float* z_full,
