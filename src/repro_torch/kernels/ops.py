@@ -108,8 +108,9 @@ def w4a16_matmul_cuda(x: Tensor, packed: Tensor, scales: Tensor,
     _require(scales.dtype == torch.float32 and zeros.dtype == torch.float32,
              op, "scales/zeros must be float32")
     _require(kh * 2 == k, op, f"x has k={k}, packed has {2 * kh} columns")
-    _require(k % 32 == 0, op, f"k={k} must be a multiple of 32 (16-byte "
-             "packed loads)")
+    _require(k % 32 == 0 and packed.data_ptr() % 16 == 0, op,
+             f"k={k} must be a multiple of 32 and packed 16-byte aligned "
+             "(16-byte packed loads)")
     _require(group_size % 2 == 0 and k % group_size == 0, op,
              f"group_size {group_size} must be even and divide k={k}")
     _require(scales.shape == (n, k // group_size) == zeros.shape, op,
