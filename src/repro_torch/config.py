@@ -7,7 +7,7 @@ configuration, plus the dotted ``key=value`` override helpers.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List
 
 
 @dataclass
@@ -16,20 +16,13 @@ class ModelConfig:
     num_layers: int = 2
     d_model: int = 128
     num_heads: int = 4
-    num_kv_heads: int = 4
     head_dim: int = 0               # 0 => d_model // num_heads
     d_ff: int = 512
     vocab_size: int = 512
-    block_pattern: Tuple[str, ...] = ("attn",)
-    window_size: int = 0
     norm: str = "rmsnorm"           # rmsnorm | layernorm
     act: str = "silu"               # silu (gated) | gelu (ungated)
     gated_mlp: bool = True
     rope_theta: float = 10000.0
-    use_rope: bool = True
-    tie_embeddings: bool = False
-    logits_softcap: float = 0.0
-    attn_logits_softcap: float = 0.0
     dtype: str = "bfloat16"         # compute dtype
 
     def __post_init__(self):
@@ -70,8 +63,6 @@ def _coerce(value: str, current: Any) -> Any:
         return int(value)
     if isinstance(current, float):
         return float(value)
-    if isinstance(current, tuple):
-        return tuple(p for p in value.split(",") if p)
     return value
 
 

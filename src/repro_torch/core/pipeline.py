@@ -199,7 +199,6 @@ def quantize_model(cfg: Config, params: Dict, calib: List[Dict[str, Tensor]],
     ``qscales``/``qzeros``), and the :class:`QuantReport`.
     """
     dev = resolve_device(device)
-    T.check_supported(cfg.model)
     t_start = time.perf_counter()
     report = QuantReport()
     params = _to_device(params, dev)

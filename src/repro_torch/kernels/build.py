@@ -54,6 +54,9 @@ def build_dir() -> Path:
         h.update(name.encode())
         h.update((CSRC / f"{name}.cu").read_bytes())
         h.update(" ".join(_flags(name)).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
@@ -103,6 +106,9 @@ def ptxas_report() -> Dict[str, str]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of one source, building all sources first."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
@@ -124,8 +130,10 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
             "gptq_block_rows_per_block": []},
         "rpiq_block": {
             "rpiq_block_launch": [p] * 12 + [i] * 6 + [f, i, i, p],
-            "rpiq_block_rows_per_block": []},
+            "rpiq_block_rows_per_block": [],
+            "rpiq_block_scratch_floats": [i, i]},
     }[name]
     for fn, args in sigs.items():
         getattr(lib, fn).argtypes = args
-        getattr(lib, fn).restype = ctypes.c_int
+        getattr(lib, fn).restype = (ctypes.c_long if fn.endswith("_floats")
+                                    else ctypes.c_int)

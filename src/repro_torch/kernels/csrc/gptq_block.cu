@@ -32,6 +32,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "smem.cuh"
+
 namespace {
 
 constexpr int R = 16;          // rows per block
@@ -164,10 +166,8 @@ extern "C" int gptq_block_launch(float* w, const float* u, float* scales,
                                  int group_size, int bs, int symmetric,
                                  void* stream) {
     const size_t smem = sizeof(float) * ((size_t)bs * bs + 2 * R * bs);
-    cudaError_t err = cudaFuncSetAttribute(
-        gptq_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
+    if (grant_max_dynamic_smem<gptq_block_kernel>() < 0)
+        return smem_grant_error();
     dim3 grid(B, out_dim / R);
     gptq_block_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
         w, u, scales, zeros, err_rows, out_dim, in_dim, bits, group_size,

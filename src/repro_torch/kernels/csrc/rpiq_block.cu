@@ -20,10 +20,15 @@
 // (a (B, tiles, t_max+1) array: no atomics, the host sums them in a fixed
 // order) and its projected candidate into wp_all[b, t]; the host replays
 // the stop and the strict-improvement choice (ops._rpiq_select). Round 0
-// writes Y_q = X W0^T, the Gamma_0 partial and candidate slot 0 = W0. The
-// (n, BO) Y_q slab lives in the y_q output and the (n, BO) / (bs, BO)
-// intermediates in a per-block global scratch: at n = 512 they exceed what
-// shared memory holds next to the product tiles, and they stay in L2.
+// writes Y_q = X W0^T, the Gamma_0 partial and candidate slot 0 = W0.
+// The block's working set is the running (n, BO) Y_q slab, one (n, BO)
+// buffer (stale block output, then directed residual in place, then fresh
+// block output) and the (bs, BO) right-hand side and solution:
+// 4*(2*n*BO + 2*bs*BO) bytes, 80 KB at n = 512 and bs = 128. It lives in
+// dynamic shared memory whenever it fits (two blocks still fit one SM at
+// n = 512); only above that does it go to a per-block global scratch, with
+// Y_q in the y_q output. Y_q is written out once at the end. y_orig stays
+// in device memory: it is read once per column block.
 // Products run as a block-level tiled FFMA GEMM (128 x 16 output tiles,
 // 16-deep k slabs in shared memory, a 2 x 4 register tile per thread, each
 // sum taken in ascending k).
@@ -35,8 +40,13 @@
 // (rintf). This file is compiled with -fmad=false so that the elementwise
 // steps (directed residual, damped update, Y_q update) round each product
 // and sum like the plain version; the dot products use explicit fmaf.
+// Keeping Y_q - y_qi in place of Y_q between the two halves of a column
+// block stores the very value the plain version rounds to in
+// y_q - y_qi + X_i B_new^T, so the trajectory is unchanged.
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "smem.cuh"
 
 namespace {
 
@@ -152,9 +162,10 @@ rpiq_block_kernel(const float* __restrict__ w0, const float* __restrict__ yo_all
                   const float* __restrict__ z_all, float* __restrict__ wc_all,
                   float* __restrict__ wp_all, float* __restrict__ yq_all,
                   float* __restrict__ hist, float* __restrict__ pls,
-                  float* __restrict__ scratch, int out_dim, int in_dim,
-                  int n, int bs, int t_max, float alpha, int bits,
+                  float* __restrict__ scratch, int in_smem, int out_dim,
+                  int in_dim, int n, int bs, int t_max, float alpha, int bits,
                   int symmetric) {
+    extern __shared__ __align__(16) float slab[];
     const int b = blockIdx.x, tile = blockIdx.y, tiles = gridDim.y;
     const int o0 = tile * BO;
     const int tid = threadIdx.x;
@@ -167,14 +178,23 @@ rpiq_block_kernel(const float* __restrict__ w0, const float* __restrict__ yo_all
     float* Wc = wc_all + wofs;
     const float* X = x_all + (long)b * n * in_dim;
     const float* Yo = yo_all + (long)b * n * out_dim + o0;
-    float* Yq = yq_all + (long)b * n * out_dim + o0;
+    float* Yout = yq_all + (long)b * n * out_dim + o0;
     const float* Hv = hinv_all + (long)b * in_dim * bs;
     const long cand = (long)out_dim * in_dim;
     float* WP = wp_all + (long)b * (t_max + 1) * cand + (long)o0 * in_dim;
-    float* yqi = scratch + ((long)b * tiles + tile)
-                           * (2L * n * BO + 2L * bs * BO);
-    float* dd = yqi + (long)n * BO;
-    float* rhs = dd + (long)n * BO;
+    // running Y_q (row stride ldq), the (n, BO) buffer, rhs, B*^T
+    float *Yq, *buf;
+    long ldq;
+    if (in_smem) {
+        Yq = slab;
+        buf = Yq + (long)n * BO;
+        ldq = BO;
+    } else {
+        Yq = Yout;
+        buf = scratch + ((long)b * tiles + tile) * ((long)n * BO + 2L * bs * BO);
+        ldq = out_dim;
+    }
+    float* rhs = buf + (long)n * BO;
     float* bst = rhs + (long)bs * BO;
     float* hrow = hist + ((long)b * tiles + tile) * (t_max + 1);
     float* prow = pls + ((long)b * tiles + tile) * (t_max + 1);
@@ -184,25 +204,27 @@ rpiq_block_kernel(const float* __restrict__ w0, const float* __restrict__ yo_all
         Wc[e] = W0[e];
         WP[e] = W0[e];
     }
-    block_gemm(X, in_dim, 1, W0, 1, in_dim, Yq, out_dim, 1, n, BO, in_dim);
-    const float g0 = block_sq_diff(Yo, out_dim, Yq, out_dim, n);
+    block_gemm(X, in_dim, 1, W0, 1, in_dim, Yq, ldq, 1, n, BO, in_dim);
+    const float g0 = block_sq_diff(Yo, out_dim, Yq, ldq, n);
     if (tid == 0) { hrow[0] = g0; prow[0] = g0; }
 
     for (int t = 1; t <= t_max; ++t) {
         for (int c1 = 0; c1 < in_dim; c1 += bs) {
             const float* Xi = X + c1;
             // stale block output  y_qi = X_i B_old^T
-            block_gemm(Xi, in_dim, 1, Wc + c1, 1, in_dim, yqi, BO, 1,
+            block_gemm(Xi, in_dim, 1, Wc + c1, 1, in_dim, buf, BO, 1,
                        n, BO, bs);
-            // directed residual  d = y_orig - (y_q - y_qi)   (eq. 4/20)
+            // Y_q <- Y_q - y_qi, directed residual d = y_orig - that
+            // (eq. 4/20), written over y_qi
             for (int e = tid; e < n * BO; e += THREADS) {
                 const int m = e / BO, o = e % BO;
-                dd[e] = Yo[(long)m * out_dim + o]
-                        - (Yq[(long)m * out_dim + o] - yqi[e]);
+                const float rest = Yq[(long)m * ldq + o] - buf[e];
+                Yq[(long)m * ldq + o] = rest;
+                buf[e] = Yo[(long)m * out_dim + o] - rest;
             }
             __syncthreads();
             // rhs = X_i^T d  (bs, BO)
-            block_gemm(Xi, 1, in_dim, dd, BO, 1, rhs, BO, 1, bs, BO, n);
+            block_gemm(Xi, 1, in_dim, buf, BO, 1, rhs, BO, 1, bs, BO, n);
             // B*^T = H_i^-1 rhs  (eq. 13-14)
             block_gemm(Hv + (long)c1 * bs, bs, 1, rhs, BO, 1, bst, BO, 1,
                        bs, BO, bs);
@@ -216,33 +238,49 @@ rpiq_block_kernel(const float* __restrict__ w0, const float* __restrict__ yo_all
                 Wc[wi] = bo + alpha * (bp - bo);
             }
             __syncthreads();
-            // fresh block output, then y_q = y_q - y_qi + X_i B_new^T
-            block_gemm(Xi, in_dim, 1, Wc + c1, 1, in_dim, dd, BO, 1,
+            // fresh block output, then y_q = (y_q - y_qi) + X_i B_new^T
+            block_gemm(Xi, in_dim, 1, Wc + c1, 1, in_dim, buf, BO, 1,
                        n, BO, bs);
             for (int e = tid; e < n * BO; e += THREADS) {
                 const int m = e / BO, o = e % BO;
-                const long yi = (long)m * out_dim + o;
-                Yq[yi] = (Yq[yi] - yqi[e]) + dd[e];
+                Yq[(long)m * ldq + o] += buf[e];
             }
             __syncthreads();
         }
-        const float gam = block_sq_diff(Yo, out_dim, Yq, out_dim, n);
+        const float gam = block_sq_diff(Yo, out_dim, Yq, ldq, n);
         if (tid == 0) hrow[t] = gam;
         float* WPt = WP + (long)t * cand;
         for (long e = tid; e < (long)BO * in_dim; e += THREADS)
             WPt[e] = project(Wc[e], S[e], Z[e], qmax, half, symmetric);
         __syncthreads();
-        block_gemm(X, in_dim, 1, WPt, 1, in_dim, yqi, BO, 1, n, BO, in_dim);
-        const float pl = block_sq_diff(Yo, out_dim, yqi, BO, n);
+        block_gemm(X, in_dim, 1, WPt, 1, in_dim, buf, BO, 1, n, BO, in_dim);
+        const float pl = block_sq_diff(Yo, out_dim, buf, BO, n);
         if (tid == 0) prow[t] = pl;
     }
+    if (in_smem)
+        for (int e = tid; e < n * BO; e += THREADS)
+            Yout[(long)(e / BO) * out_dim + e % BO] = Yq[e];
+}
+
+size_t slab_bytes(int n, int bs) {
+    return sizeof(float) * (2 * (size_t)n * BO + 2 * (size_t)bs * BO);
 }
 
 }  // namespace
 
+// Floats of global scratch one block needs: 0 when its working set fits
+// shared memory, -1 on a CUDA error.
+extern "C" long rpiq_block_scratch_floats(int n, int bs) {
+    const int lim = grant_max_dynamic_smem<rpiq_block_kernel>();
+    if (lim < 0) return -1;
+    if (slab_bytes(n, bs) <= (size_t)lim) return 0;
+    return (long)n * BO + 2L * bs * BO;
+}
+
 // Shapes: w0/s/z/w_cont (B, out, in), y_orig/y_q (B, n, out), x (B, n, in),
 // hinv (B, in, bs), wp_all (B, t_max+1, out, in), hist/pls
-// (B, out/16, t_max+1), scratch (B, out/16, 2*n*16 + 2*bs*16); out % 16 == 0.
+// (B, out/16, t_max+1), scratch (B, out/16, rpiq_block_scratch_floats) or
+// unused when that is 0; out % 16 == 0.
 extern "C" int rpiq_block_launch(const float* w0, const float* y_orig,
                                  const float* x, const float* hinv,
                                  const float* s_full, const float* z_full,
@@ -251,10 +289,15 @@ extern "C" int rpiq_block_launch(const float* w0, const float* y_orig,
                                  int B, int out_dim, int in_dim, int n,
                                  int bs, int t_max, float alpha, int bits,
                                  int symmetric, void* stream) {
+    const long need = rpiq_block_scratch_floats(n, bs);
+    if (need < 0) return smem_grant_error();
+    const int in_smem = need == 0;
+    const size_t smem = in_smem ? slab_bytes(n, bs) : 0;
     dim3 grid(B, out_dim / BO);
-    rpiq_block_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+    rpiq_block_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
         w0, y_orig, x, hinv, s_full, z_full, w_cont, wp_all, y_q, hist, pls,
-        scratch, out_dim, in_dim, n, bs, t_max, alpha, bits, symmetric);
+        scratch, in_smem, out_dim, in_dim, n, bs, t_max, alpha, bits,
+        symmetric);
     return (int)cudaGetLastError();
 }
 

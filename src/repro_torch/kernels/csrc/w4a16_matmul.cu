@@ -24,6 +24,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "smem.cuh"
+
 namespace {
 
 constexpr int MT = 4;          // x rows per tile
@@ -107,10 +109,8 @@ int launch(const T* x, const uint8_t* packed, const float* scales,
            const float* zeros, T* y, int m, int n, int k, int group_size,
            void* stream) {
     const size_t smem = sizeof(float) * MT * (size_t)(k + k / 32);
-    cudaError_t err = cudaFuncSetAttribute(
-        w4a16_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
+    if (grant_max_dynamic_smem<w4a16_kernel<T>>() < 0)
+        return smem_grant_error();
     dim3 grid((n + ROWS - 1) / ROWS, (m + MT - 1) / MT);
     w4a16_kernel<T><<<grid, 32 * ROWS, smem, (cudaStream_t)stream>>>(
         x, packed, scales, zeros, y, m, n, k, group_size);

@@ -244,8 +244,11 @@ def rpiq_block_cuda(w0: Tensor, y_orig: Tensor, x: Tensor, hinv_flat: Tensor,
     hist = torch.empty((b, tiles, t_max + 1), dtype=torch.float32,
                        device=dev)
     pls = torch.empty_like(hist)
-    scratch = torch.empty((b, tiles, 2 * n * rows + 2 * block_size * rows),
-                          dtype=torch.float32, device=dev)
+    per_block = lib.rpiq_block_scratch_floats(n, block_size)
+    _require(per_block >= 0, op, "querying the card's shared memory failed")
+    # empty when the block's working set fits shared memory
+    scratch = torch.empty((b, tiles, per_block), dtype=torch.float32,
+                          device=dev)
     _launch(op, lib.rpiq_block_launch, *(a.data_ptr() for a in args),
             w_cont.data_ptr(), wp_all.data_ptr(), y_q.data_ptr(),
             hist.data_ptr(), pls.data_ptr(), scratch.data_ptr(), b, out_dim,

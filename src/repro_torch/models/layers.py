@@ -76,15 +76,7 @@ def embed(p: Dict, tokens: Tensor, dtype: torch.dtype) -> Tensor:
 def unembed(cfg: ModelConfig, params: Dict, h: Tensor) -> Tensor:
     """Final projection to fp32 vocab logits (a plain matmul: lm_head is
     not quantized)."""
-    if cfg.tie_embeddings:
-        w = params["embed"]["embedding"]
-        logits = h.float() @ w.T.to(h.dtype).float()
-    else:
-        logits = dense(params["lm_head"], h).float()
-    if cfg.logits_softcap > 0:
-        c = cfg.logits_softcap
-        logits = torch.tanh(logits / c) * c
-    return logits
+    return dense(params["lm_head"], h).float()
 
 
 def init_embed(gen: torch.Generator, vocab: int, d: int, device) -> Dict:

@@ -1,14 +1,14 @@
 """Decoder-only LM assembly (the attn + dense-MLP layers of opt-proxy).
 
 Param layout: ``{"embed": {...}, "layers": [layer, ...], "final_norm":
-{...}, "lm_head"?: {...}}`` — a plain per-layer list where the JAX package
+{...}, "lm_head": {...}}`` — a plain per-layer list where the JAX package
 stacks layers along a scan axis (``convert.params_from_numpy`` unstacks).
 A layer is ``{"norm1", "mixer": {q, k, v, o}, "norm2", "mlp": {up, down
 (, gate)}}``; dense weights are stored (in, out).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -25,13 +25,6 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    if set(cfg.block_pattern) != {"attn"} or cfg.window_size:
-        raise NotImplementedError(
-            "repro_torch ports full-attention decoder layers only; other "
-            "block kinds are listed in ROADMAP.md")
-
-
 def init_layer(cfg: ModelConfig, gen: torch.Generator, device) -> Dict:
     bias = cfg.norm == "layernorm"
     return {"norm1": init_norm(cfg, cfg.d_model, device),
@@ -43,17 +36,14 @@ def init_layer(cfg: ModelConfig, gen: torch.Generator, device) -> Dict:
 def init_params(cfg: ModelConfig, gen: torch.Generator, device) -> Dict:
     """Random weights with the JAX package's shapes and scales, drawn from
     ``gen`` (which must live on ``device``)."""
-    check_supported(cfg)
-    params: Dict[str, Any] = {
+    return {
         "embed": init_embed(gen, cfg.vocab_size, cfg.d_model, device),
         "layers": [init_layer(cfg, gen, device)
                    for _ in range(cfg.num_layers)],
         "final_norm": init_norm(cfg, cfg.d_model, device),
+        "lm_head": init_dense(gen, cfg.d_model, cfg.vocab_size,
+                              device=device),
     }
-    if not cfg.tie_embeddings:
-        params["lm_head"] = init_dense(gen, cfg.d_model, cfg.vocab_size,
-                                       device=device)
-    return params
 
 
 def layer_forward(cfg: ModelConfig, p: Dict, h: Tensor, positions: Tensor

@@ -261,10 +261,16 @@ def test_gpu_w4a16(cuda, m, dtype):
 
 
 @pytest.mark.gpu
-def test_gpu_gptq_and_rpiq(cuda):
+@pytest.mark.parametrize("n", [256, 2048])
+def test_gpu_gptq_and_rpiq(cuda, n):
+    """At n = 2048 rpiq_block's working set exceeds shared memory and the
+    kernel keeps it in global scratch."""
+    from repro_torch.kernels import build
     rng = np.random.RandomState(7)
-    b, out_dim, in_dim, n, g, bs = 2, 96, 256, 256, 64, 128
-    x_all, hd, u = _hessian_case(rng, b, 512, in_dim)
+    b, out_dim, in_dim, g, bs = 2, 96, 256, 64, 128
+    scratch = build.load("rpiq_block").rpiq_block_scratch_floats(n, bs)
+    assert (scratch > 0) == (n == 2048)
+    x_all, hd, u = _hessian_case(rng, b, max(n, 512), in_dim)
     w = (rng.randn(b, out_dim, in_dim) * in_dim ** -0.5).astype(np.float32)
     kw = dict(bits=4, group_size=g, blocksize=bs, symmetric=False)
     wt, ut = t(w).to(cuda), t(u).to(cuda)
@@ -282,6 +288,8 @@ def test_gpu_gptq_and_rpiq(cuda):
     rkw = dict(bits=4, block_size=bs, alpha=0.1, t_max=4, symmetric=False)
     want_r = tref.rpiq_block(*args, **rkw)
     got_r = tops.rpiq_block_cuda(*args, **rkw)
+    assert_cells_close(got_r[0].cpu(), want_r[0].cpu())
     assert_cells_close(got_r[1].cpu(), want_r[1].cpu())
+    assert float((got_r[2] - want_r[2]).norm() / want_r[2].norm()) <= 1e-4
     assert_rel(got_r[3].cpu(), want_r[3].cpu(), 1e-5)
     assert_rel(got_r[4].cpu(), want_r[4].cpu(), 1e-5)
