@@ -3,9 +3,9 @@ silent run on the CPU.
 
 (1) A fresh interpreter imports every ``repro_torch`` module and finds no
 ``jax*`` and no ``repro``/``repro.*`` module loaded; an AST scan of the
-port's sources and ``chip_smoke.py`` finds no such import. (2) Without a
-CUDA device the entry points raise unless the caller passes
-``device="cpu"``.
+port's sources, ``chip_smoke.py`` and ``chip_compare.py`` finds no such
+import. (2) Without a CUDA device the entry points raise unless the caller
+passes ``device="cpu"``.
 """
 import ast
 import os
@@ -18,7 +18,8 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                        ROOT / "chip_compare.py"]
 
 
 def _modules():
