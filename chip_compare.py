@@ -12,7 +12,12 @@ line: the checkout, the kernel and shape, and
   the mean CUDA-event time of one launch and the sums of its five outputs
   (equal sums across checkouts show equal results);
 - for ``w4a16_matmul`` at decode (m 4): the mean time per call of a loop
-  of wrapper calls, which the host's per-call cost sets at this size.
+  of wrapper calls, which the host's per-call cost sets at this size;
+- where the checkout has them, ``int8_kv_attention`` (bf16 queries at
+  internlm2's decode shape, S 545 and 4096) and ``quant_pack`` (fp32,
+  internlm2's widest linears): the device time per call from a CUDA graph
+  over copies beyond L2 (``chip_smoke.graph_ms``), the error against the
+  plain version and an output sum.
 """
 import os
 import sys
@@ -79,6 +84,44 @@ def main() -> int:
             x, packed, qp.scales, qp.zeros, gs), 500)
         print(f"{root} w4a16_matmul m=4 k={k} n={n}: ms per wrapper call "
               f"(host-bound loop) {ms:.5f}", flush=True)
+
+    from chip_smoke import graph_ms
+    from repro_torch.kernels import ref
+    if hasattr(ops, "int8_kv_attention_cuda"):
+        b, kv, r, hd = 4, 8, 2, 128
+        for s, blk in ((545, 128), (4096, 128), (4096, 64)):
+            codes = torch.randint(-127, 128, (2, b, s, kv, hd), generator=g,
+                                  device=dev).to(torch.int8)
+            scales = torch.rand((2, b, s, kv, hd // blk), generator=g,
+                                device=dev) * 0.02 + 1e-3
+            kpos = torch.arange(s, device=dev, dtype=torch.int32).repeat(
+                b, 1)
+            cache = (codes[0], scales[0], codes[1], scales[1], kpos)
+            q = (torch.randn((b, kv, r, hd), generator=g, device=dev)
+                 * hd ** -0.5).to(torch.bfloat16)
+            out = ops.int8_kv_attention_cuda(q, *cache, blk).float()
+            err = float((out - ref.int8_kv_attention(q, *cache, blk).float())
+                        .abs().max())
+            nbytes = sum(t.numel() * t.element_size() for t in cache)
+            copies = [cache] + [tuple(t.clone() for t in cache)
+                                for _ in range(int(100e6 // nbytes))]
+            ms = graph_ms([(lambda c=c: ops.int8_kv_attention_cuda(
+                q, *c, blk)) for c in copies])
+            print(f"{root} int8_kv_attention S={s} kv_block={blk}: "
+                  f"ms={ms:.4f} max_abs_err={err:.3e} "
+                  f"sum={float(out.double().sum())}", flush=True)
+    if hasattr(ops, "quant_pack_cuda"):
+        for n, k in ((2048, 8192), (8192, 2048)):
+            w = torch.randn((n, k), generator=g, device=dev) * k ** -0.5
+            qp = compute_qparams(w, 4, gs)
+            args = (w, qp.scales, qp.zeros)
+            same = torch.equal(ops.quant_pack_cuda(*args, gs),
+                               ref.quant_pack(*args, gs))
+            copies = [args] + [tuple(t.clone() for t in args)]
+            ms = graph_ms([(lambda c=c: ops.quant_pack_cuda(*c, gs))
+                           for c in copies])
+            print(f"{root} quant_pack n={n} k={k}: ms={ms:.4f} "
+                  f"bitwise equal to the plain version {same}", flush=True)
     return 0
 
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one CUDA card and check it.
+"""Drive the PyTorch port's main paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -8,22 +8,33 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
   2. build: every CUDA kernel from ``src/repro_torch/kernels/csrc`` with
      nvcc (in parallel), printing each kernel's ptxas registers, shared
      memory and spills;
-  3. kernels: each kernel's wrapper against its plain PyTorch version on
-     the card, at the shapes the main path gives it, with the error against
-     the stated tolerance and CUDA-event times (kernel, plain, library
-     yardstick where one exists) beside the least time the card could take;
-  4. small end to end: opt-proxy smoke quantized, packed and served on the
-     card against the same run of the plain versions on the CPU;
+  3. kernels: each of the six kernels' wrappers against its plain PyTorch
+     version on the card, at the shapes the main paths give it (opt-proxy
+     and internlm2-1.8b), with the error against the stated tolerance and
+     CUDA-event times (kernel, plain, library yardstick where one exists)
+     beside the least time the card could take;
+  4. small end to end: opt-proxy smoke (bf16 cache) and internlm2 smoke
+     (int8 KV cache) quantized, packed and served on the card against the
+     same runs of the plain versions on the CPU;
   5. main path at full width: opt-proxy (OPT-125M shape) from seeded random
      weights → quantize_model → pack_for_serving → generate, with launch
      counters reset just before and read just after, the packed-vs-float
-     logits check, and the decoded tokens.
+     logits check, and the decoded tokens;
+  6. the int8-KV main path at full width and depth: internlm2-1.8b (GQA,
+     16 heads over 8 KV heads) → quantize_model → pack_for_serving →
+     generate with ``serve.kv_cache=int8`` (4 requests x 512 prompt + 32
+     new tokens), counters reset and read around it; the packed-vs-float
+     logits (in fp32 compute), the int8-vs-bf16 cache drift rule, and
+     ``quant_pack`` (kernel and plain version) bitwise against every
+     packed linear.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object with one entry per kernel
+(``launches`` sums phases 5 and 6); the last line is ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -44,6 +55,10 @@ KERNEL_SOURCES = {
                    "src/repro/kernels/rpiq_block.py:168"),
     "w4a16_matmul": ("src/repro_torch/kernels/csrc/w4a16_matmul.cu",
                      "src/repro/kernels/w4a16_matmul.py:69"),
+    "int8_kv_attention": ("src/repro_torch/kernels/csrc/int8_kv_attention.cu",
+                          "src/repro/kernels/kv_attention.py:86"),
+    "quant_pack": ("src/repro_torch/kernels/csrc/quant_pack.cu",
+                   "src/repro/kernels/quant_pack.py:40"),
 }
 
 
@@ -156,6 +171,17 @@ def check(cond: bool, what: str) -> None:
         raise SystemExit(f"FAILED: {what}")
 
 
+def within_bf16_ulp(diff, want) -> bool:
+    """|got - want| within one bf16 ulp of each output, taken at no less
+    than 1e-3 of the largest output: below that, cancellation leaves values
+    whose fp32 sums' own rounding (~1e-6 of the largest) exceeds their
+    bf16 ulp."""
+    import torch
+    wf = want.float().abs().clamp_min(1e-3 * float(want.float().abs().max()))
+    ulp = torch.exp2(torch.floor(torch.log2(wf)) - 7)
+    return bool((diff <= ulp).all())
+
+
 def frac_differing(a, b, tol_abs: float = 0.0, tol_rel: float = 0.0):
     d = (a - b).abs()
     return float((d > tol_abs + tol_rel * b.abs()).float().mean())
@@ -174,8 +200,8 @@ def phase_kernels(table: KernelTable) -> None:
     g.manual_seed(1234)
     n_tok, gs, bs, t_max, alpha = 512, 128, 128, 5, 0.01
 
-    # -- hessian_accum: H += X^T X -------------------------------------------
-    for d in (768, 3072):
+    # -- hessian_accum: H += X^T X (opt-proxy d, then internlm2 d) -----------
+    for d in (768, 3072, 2048, 8192):
         x = torch.randn((n_tok, d), generator=g, device=dev)
         H0 = torch.randn((d, d), generator=g, device=dev)
         H0 = H0 + H0.T
@@ -199,62 +225,64 @@ def phase_kernels(table: KernelTable) -> None:
         check(err <= tol, f"hessian_accum d={d}")
 
     # -- w4a16_matmul: y = x @ dequant(W)^T ----------------------------------
-    for m in (4, 64):
-        for k, n in ((768, 768), (768, 3072), (3072, 768)):
-            for dt in ((torch.bfloat16, torch.float32) if (m, k, n) ==
-                       (4, 768, 768) else (torch.bfloat16,)):
-                w = torch.randn((n, k), generator=g, device=dev) * k ** -0.5
-                qp = compute_qparams(w, 4, gs)
-                packed = pack_int4(quantize_codes(w, qp, 4, gs))
-                x = torch.randn((m, k), generator=g, device=dev).to(dt)
-                want = ref.w4a16_matmul(x, packed, qp.scales, qp.zeros, gs)
-                got = ops.w4a16_matmul_cuda(x, packed, qp.scales, qp.zeros,
-                                            gs)
-                diff = (got.float() - want.float()).abs()
-                err = float(diff.max())
-                if dt == torch.float32:
-                    ok = err <= 1e-5 * float(want.abs().max())
-                    tol_s = "1e-5 rel"
-                else:
-                    # one bf16 ulp of the output, taken at no less than
-                    # 1e-3 of the largest output: below that, cancellation
-                    # leaves values whose fp32 sums' own rounding (~1e-6
-                    # of the largest) exceeds their bf16 ulp
-                    wf = want.float().abs().clamp_min(
-                        1e-3 * float(want.float().abs().max()))
-                    ulp = torch.exp2(torch.floor(torch.log2(wf)) - 7)
-                    ok = bool((diff <= ulp).all())
-                    tol_s = "1 bf16 ulp"
-                esz = 2 if dt == torch.bfloat16 else 4
-                nbytes = (n * k / 2 + 2 * n * (k / gs) * 4 + m * k * esz
-                          + m * n * esz)
-                # distinct weight copies, 100 MB in all: each call reads
-                # its weights from device memory, not from L2
-                copies = [(packed, qp.scales, qp.zeros)] + [
-                    (packed.clone(), qp.scales.clone(), qp.zeros.clone())
-                    for _ in range(min(255, int(100e6 // nbytes)))]
-                ms = graph_ms([
-                    (lambda c=c: ops.w4a16_matmul_cuda(x, *c, gs))
-                    for c in copies])
-                pms = graph_ms([
-                    (lambda c=c: ref.w4a16_matmul(x, *c, gs))
-                    for c in copies])
-                del copies
-                if dt == torch.bfloat16:
-                    b_ms, by = table.add("w4a16_matmul", ms=ms,
-                                         plain_ms=pms, flop=2 * m * n * k,
-                                         nbytes=nbytes, err=err)
-                else:
-                    b_ms, by = bound(2 * m * n * k, nbytes)
-                log(f"  w4a16_matmul m={m} k={k} n={n} {dt}: "
-                    f"max_abs_err={err:.3e} ({tol_s}) ms={ms:.4f} "
-                    f"plain_ms={pms:.4f} library_ms=none "
-                    f"bound_ms={b_ms:.4f} ({by})")
-                check(ok, f"w4a16_matmul m={m} k={k} n={n} {dt}")
+    # opt-proxy (k, n) at decode m 4 and m 64; internlm2's q/o, k/v,
+    # gate/up and down at decode m 4 and its prefill m 4 x 512
+    cases = [(m, k, n) for m in (4, 64)
+             for k, n in ((768, 768), (768, 3072), (3072, 768))]
+    cases += [(m, k, n) for m in (4, 2048)
+              for k, n in ((2048, 2048), (2048, 1024), (2048, 8192),
+                           (8192, 2048))]
+    for m, k, n in cases:
+        for dt in ((torch.bfloat16, torch.float32) if (m, k, n) ==
+                   (4, 768, 768) else (torch.bfloat16,)):
+            w = torch.randn((n, k), generator=g, device=dev) * k ** -0.5
+            qp = compute_qparams(w, 4, gs)
+            packed = pack_int4(quantize_codes(w, qp, 4, gs))
+            x = torch.randn((m, k), generator=g, device=dev).to(dt)
+            want = ref.w4a16_matmul(x, packed, qp.scales, qp.zeros, gs)
+            got = ops.w4a16_matmul_cuda(x, packed, qp.scales, qp.zeros,
+                                        gs)
+            diff = (got.float() - want.float()).abs()
+            err = float(diff.max())
+            if dt == torch.float32:
+                ok = err <= 1e-5 * float(want.abs().max())
+                tol_s = "1e-5 rel"
+            else:
+                ok = within_bf16_ulp(diff, want)
+                tol_s = "1 bf16 ulp"
+            esz = 2 if dt == torch.bfloat16 else 4
+            nbytes = (n * k / 2 + 2 * n * (k / gs) * 4 + m * k * esz
+                      + m * n * esz)
+            # distinct weight copies, 100 MB in all: each call reads
+            # its weights from device memory, not from L2
+            copies = [(packed, qp.scales, qp.zeros)] + [
+                (packed.clone(), qp.scales.clone(), qp.zeros.clone())
+                for _ in range(min(255, int(100e6 // nbytes)))]
+            ms = graph_ms([
+                (lambda c=c: ops.w4a16_matmul_cuda(x, *c, gs))
+                for c in copies])
+            pms = graph_ms([
+                (lambda c=c: ref.w4a16_matmul(x, *c, gs))
+                for c in copies])
+            del copies
+            if dt == torch.bfloat16:
+                b_ms, by = table.add("w4a16_matmul", ms=ms,
+                                     plain_ms=pms, flop=2 * m * n * k,
+                                     nbytes=nbytes, err=err)
+            else:
+                b_ms, by = bound(2 * m * n * k, nbytes)
+            log(f"  w4a16_matmul m={m} k={k} n={n} {dt}: "
+                f"max_abs_err={err:.3e} ({tol_s}) ms={ms:.4f} "
+                f"plain_ms={pms:.4f} library_ms=none "
+                f"bound_ms={b_ms:.4f} ({by})")
+            check(ok, f"w4a16_matmul m={m} k={k} n={n} {dt}")
 
     # -- gptq_block and rpiq_block on realistic Hessians ---------------------
+    # opt-proxy's three groups, then internlm2's q / o, k+v, gate+up, down
     for b, out_dim, in_dim in ((4, 768, 768), (1, 3072, 768),
-                               (1, 768, 3072)):
+                               (1, 768, 3072), (1, 2048, 2048),
+                               (2, 1024, 2048), (2, 8192, 2048),
+                               (1, 2048, 8192)):
         x = torch.randn((b, n_tok, in_dim), generator=g, device=dev)
         w = torch.randn((b, out_dim, in_dim), generator=g, device=dev) \
             * in_dim ** -0.5
@@ -272,9 +300,18 @@ def phase_kernels(table: KernelTable) -> None:
         # a grid cell that flips moves the rest of its row, and the scales
         # of that row's later groups with it: rows with no flipped cell
         # hold their scales to 1e-6 rel
-        clean = ~((got[0] - want[0]).abs() > 1e-6).any(dim=-1)
+        differs = (got[0] - want[0]).abs() > 1e-6
+        clean = ~differs.any(dim=-1)
         s_rel = ((got[1] - want[1]).abs() / want[1].abs())[clean]
         s_clean = float(s_rel.max()) if s_rel.numel() else 0.0
+        # where a row first differs, a value within float rounding of a
+        # rounding tie went to the neighbouring code: exactly one grid step
+        bi, ri = (~clean).nonzero(as_tuple=True)
+        fc = differs.float().argmax(dim=-1)[bi, ri]
+        steps = ((got[0] - want[0]).abs()[bi, ri, fc]
+                 / want[1][bi, ri, fc // gs])
+        one_step = bool(((steps - 1.0).abs() <= 1e-3).all())
+        origins = bi.numel() / w.numel()
         err = float((got[0] - want[0]).abs().max())
         e_rel = float(((got[3].sum(1) - want[3].sum(1)).abs()
                        / want[3].sum(1).abs()).max())
@@ -291,16 +328,32 @@ def phase_kernels(table: KernelTable) -> None:
         pms = time_ms(lambda: ref.gptq_block(w, u, **kw), 0.1, 2)
         b_ms, by = table.add("gptq_block", ms=ms, plain_ms=pms, flop=flop,
                              nbytes=nbytes, err=err)
-        log(f"  gptq_block B={b} out={out_dim} in={in_dim}: w_q cells "
-            f"differing >1e-6: {fw:.2e}, scales >1e-6 rel: {fs:.2e}, "
-            f"zeros: {fz:.2e} (tol 1e-3 each); scales in rows with no "
-            f"flipped cell: max rel {s_clean:.2e} (tol 1e-6); sum err^2 "
-            f"rel {e_rel:.2e} (tol 1e-3); max_abs_err={err:.3e} "
-            f"ms={ms:.4f} plain_ms={pms:.4f} library_ms=none "
-            f"bound_ms={b_ms:.4f} ({by}); stage-1 factorization (library "
-            f"Cholesky x2 + solve) ms={chol_ms:.4f}")
-        check(fw <= 1e-3 and fs <= 1e-3 and fz <= 1e-3 and s_clean <= 1e-6
-              and e_rel <= 1e-3, f"gptq_block {b}x{out_dim}x{in_dim}")
+        # opt-proxy's groups also keep their first pins on the cells a flip
+        # carries along its row; how many that is depends on where in the
+        # row the flips fall and grows with in, so the internlm2 groups are
+        # held by the flips themselves
+        spread_pinned = (b, out_dim, in_dim) in ((4, 768, 768),
+                                                (1, 3072, 768),
+                                                (1, 768, 3072))
+        # a group's scale comes from running weights that the tail update's
+        # in-term fp32 sums feed; their rounding grows like sqrt(in): 8.7e-7
+        # at in 3072 becomes ~1.4e-6 at in 8192
+        s_tol = 1e-6 if in_dim <= 3072 else 2e-6
+        log(f"  gptq_block B={b} out={out_dim} in={in_dim}: rows whose "
+            f"first difference is one grid step: {bi.numel()} of "
+            f"{b * out_dim} all one step {one_step}, flip origins per cell "
+            f"{origins:.2e} (tol 1e-5); w_q cells differing >1e-6: "
+            f"{fw:.2e}, scales >1e-6 rel: {fs:.2e}, zeros: {fz:.2e} ("
+            f"{'tol 1e-3 each' if spread_pinned else 'carried by flips'}); "
+            f"scales in rows with no flipped cell: max rel {s_clean:.2e} "
+            f"(tol {s_tol:.0e}); sum err^2 rel {e_rel:.2e} (tol 1e-3); "
+            f"max_abs_err={err:.3e} ms={ms:.4f} plain_ms={pms:.4f} "
+            f"library_ms=none bound_ms={b_ms:.4f} ({by}); stage-1 "
+            f"factorization (library Cholesky x2 + solve) ms={chol_ms:.4f}")
+        spread_ok = fw <= 1e-3 and fs <= 1e-3 and fz <= 1e-3
+        check(one_step and origins <= 1e-5 and s_clean <= s_tol
+              and e_rel <= 1e-3 and (spread_ok or not spread_pinned),
+              f"gptq_block {b}x{out_dim}x{in_dim}")
 
         w0, scales, zeros = want[0], want[1], want[2]
         hinv = _block_curvature_inv(x, hd, count, count, block_size=bs,
@@ -354,9 +407,137 @@ def phase_kernels(table: KernelTable) -> None:
               and h_rel <= 1e-5 and p_rel <= 1e-5 and iters_eq,
               f"rpiq_block {b}x{out_dim}x{in_dim}")
 
+    kernels_int8_kv_attention(table, g)
+    kernels_quant_pack(table, g)
 
-def phase_small_end_to_end() -> None:
-    """opt-proxy smoke in fp32: the card's run against the CPU plain run."""
+
+def kernels_int8_kv_attention(table: KernelTable, g) -> None:
+    """The decode attention over an int8 cache at internlm2's shape (B 4,
+    KV 8, R 2, hd 128): the serving path's S 545 and a long history S 4096
+    at kv_block 128 and 64, kpos with -1 holes and a lane with no valid
+    slot. Held in fp32 (1e-5 of the largest output) and bf16, the path's
+    dtype (one bf16 ulp), and timed in bf16 from a CUDA graph over cache
+    copies beyond L2, as a decode step's 24 layers read theirs."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import kv_codec, ops, ref
+
+    dev = torch.device("cuda")
+    b, kv, r, hd = 4, 8, 2, 128
+    for s, blk in ((545, 128), (4096, 128), (4096, 64)):
+        nb = hd // blk
+        x = torch.randn((2, b, s, kv, hd), generator=g, device=dev)
+        kc, ks = kv_codec.enc_int8_blocks(x[0], blk)
+        vc, vs = kv_codec.enc_int8_blocks(x[1], blk)
+        kpos = torch.arange(s, device=dev, dtype=torch.int32).repeat(b, 1)
+        holes = torch.rand((b, s), generator=g, device=dev) < 0.1
+        kpos = torch.where(holes, torch.full_like(kpos, -1), kpos)
+        kpos[-1] = -1
+        q32 = torch.randn((b, kv, r, hd), generator=g, device=dev) \
+            * hd ** -0.5
+        cache = (kc, ks, vc, vs, kpos)
+        want = ref.int8_kv_attention(q32, *cache, blk)
+        got = ops.int8_kv_attention_cuda(q32, *cache, blk)
+        err32 = float((got - want).abs().max())
+        ok32 = err32 <= 1e-5 * float(want.abs().max())
+        q = q32.to(torch.bfloat16)
+        want = ref.int8_kv_attention(q, *cache, blk)
+        got = ops.int8_kv_attention_cuda(q, *cache, blk)
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        ok = within_bf16_ulp(diff, want)
+        zero = float(got[-1].abs().max()) == 0.0
+        # each input read once, each output written once
+        nbytes = (2 * b * s * kv * hd + 2 * b * s * kv * nb * 4 + 4 * b * s
+                  + 2 * 2 * b * kv * r * hd)
+        flop = 4 * b * kv * r * s * hd
+        copies = [cache] + [tuple(t.clone() for t in cache)
+                            for _ in range(int(100e6 // nbytes))]
+        ms = graph_ms([(lambda c=c: ops.int8_kv_attention_cuda(q, *c, blk))
+                       for c in copies])
+        pms = graph_ms([(lambda c=c: ref.int8_kv_attention(q, *c, blk))
+                        for c in copies])
+        del copies
+        # aside: the bf16-cache attention the int8 cache replaces, through
+        # the library's fused attention (not a yardstick of this function)
+        kb = kv_codec.dec_int8_blocks(kc, ks, blk).to(torch.bfloat16)
+        vb = kv_codec.dec_int8_blocks(vc, vs, blk).to(torch.bfloat16)
+        kb, vb = (t.transpose(1, 2).contiguous() for t in (kb, vb))
+        mask = (kpos >= 0)[:, None, None, :]
+        qh = q.reshape(b, kv * r, 1, hd)
+        bf16_copies = [(kb, vb)] + [
+            (kb.clone(), vb.clone())
+            for _ in range(int(100e6 // (4 * kb.numel())))]
+        sdpa_calls = [(lambda c=c: F.scaled_dot_product_attention(
+            qh, c[0], c[1], attn_mask=mask, scale=1.0, enable_gqa=True))
+            for c in bf16_copies]
+        try:
+            sdpa = f"{graph_ms(sdpa_calls):.4f}"
+        except RuntimeError as e:       # an aside: report, do not stop
+            sdpa = f"not measured ({type(e).__name__}: {str(e)[:80]})"
+        del bf16_copies
+        b_ms, by = table.add("int8_kv_attention", ms=ms, plain_ms=pms,
+                             flop=flop, nbytes=nbytes, err=err)
+        log(f"  int8_kv_attention B={b} S={s} KV={kv} R={r} hd={hd} "
+            f"kv_block={blk}: fp32 max_abs_err={err32:.3e} (tol 1e-5 rel) "
+            f"bf16 max_abs_err={err:.3e} (1 bf16 ulp); lane with no valid "
+            f"slot is 0: {zero}; ms={ms:.4f} plain_ms={pms:.4f} "
+            f"library_ms=none bound_ms={b_ms:.4f} ({by}); aside, "
+            f"scaled_dot_product_attention on a bf16 cache of the same "
+            f"shape ms={sdpa}")
+        check(ok32 and ok and zero, f"int8_kv_attention S={s} block={blk}")
+
+
+def kernels_quant_pack(table: KernelTable, g) -> None:
+    """The int4 packer at internlm2's widest shapes, fp32 weights as
+    pack_for_serving gives them, half the cells exactly on a .5 tie of
+    w / s; bitwise against the plain version and the older packer."""
+    import torch
+    from repro_torch.core.quant import QuantParams, pack_int4, \
+        quantize_codes
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    gs = 128
+    for n, k in ((2048, 8192), (8192, 2048)):
+        scales = torch.exp2(torch.randint(-8, -4, (n, k // gs), generator=g,
+                                          device=dev).float())
+        zeros = torch.randint(0, 16, (n, k // gs), generator=g,
+                              device=dev).float()
+        s_full = scales.repeat_interleave(gs, dim=1)
+        ties = (torch.randint(-12, 12, (n, k), generator=g, device=dev)
+                + 0.5) * s_full
+        free = torch.randn((n, k), generator=g, device=dev) * 8 * s_full
+        w = torch.where(torch.rand((n, k), generator=g, device=dev) < 0.5,
+                        ties, free)
+        want = ref.quant_pack(w, scales, zeros, gs)
+        got = ops.quant_pack_cuda(w, scales, zeros, gs)
+        older = pack_int4(quantize_codes(w, QuantParams(scales, zeros), 4,
+                                         gs))
+        n_diff = int((got != want).sum())
+        err = float((got.int() - want.int()).abs().max())
+        same = n_diff == 0 and torch.equal(want, older)
+        nbytes = 4 * n * k + 8 * n * k / gs + n * k / 2
+        args = (w, scales, zeros)
+        copies = [args] + [tuple(t.clone() for t in args)
+                           for _ in range(int(100e6 // nbytes))]
+        ms = graph_ms([(lambda c=c: ops.quant_pack_cuda(*c, gs))
+                       for c in copies])
+        pms = graph_ms([(lambda c=c: ref.quant_pack(*c, gs))
+                        for c in copies])
+        del copies
+        b_ms, by = table.add("quant_pack", ms=ms, plain_ms=pms,
+                             flop=4 * n * k, nbytes=nbytes, err=err)
+        log(f"  quant_pack n={n} k={k} fp32 g={gs}: bytes differing from "
+            f"the plain version {n_diff} (tol 0; plain equals the older "
+            f"packer: {torch.equal(want, older)}) ms={ms:.4f} "
+            f"plain_ms={pms:.4f} library_ms=none bound_ms={b_ms:.4f} "
+            f"({by})")
+        check(same, f"quant_pack {n}x{k}")
+
+
+def phase_small_end_to_end(arch: str, kv_cache: str) -> None:
+    """A smoke config in fp32: the card's run against the CPU plain run."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.pipeline import pack_for_serving, quantize_model
@@ -364,8 +545,9 @@ def phase_small_end_to_end() -> None:
     from repro_torch.models import transformer as T
     from repro_torch.serving.engine import generate
 
-    cfg = get_config("opt-proxy", smoke=True)
+    cfg = get_config(arch, smoke=True)
     cfg.model.dtype = "float32"
+    cfg.serve.kv_cache = kv_cache
     gen = torch.Generator()
     gen.manual_seed(0)
     params = T.init_params(cfg.model, gen, "cpu")
@@ -382,18 +564,19 @@ def phase_small_end_to_end() -> None:
     (rc, pc, lc, tc), (rg, pg, lg, tg) = runs["cpu"], runs["cuda"]
     modes = all(a.mode == b.mode and a.iters == b.iters
                 for a, b in zip(rc.linears, rg.linears))
-    codes = [(a["mixer"][k]["w"].packed, b["mixer"][k]["w"].packed)
+    codes = [(a[sub][k]["w"].packed, b[sub][k]["w"].packed)
              for a, b in zip(pc["layers"], pg["layers"])
-             for k in ("q", "k", "v", "o")]
+             for sub in ("mixer", "mlp") for k in a[sub]]
     mism = sum(int((a != b.cpu()).sum()) for a, b in codes) / sum(
         a.numel() for a, _ in codes)
     rel = float((lg - lc).norm() / lc.norm())
-    log(f"  smoke fp32, card vs CPU plain: modes/iters equal {modes}; "
-        f"packed-byte mismatch {mism:.2e} (tol 1e-2); packed logits rel "
-        f"{rel:.2e} (tol 1e-3); greedy tokens equal "
-        f"{bool(torch.equal(tc, tg))}")
+    log(f"  {cfg.model.name} fp32 kv_cache={kv_cache}, card vs CPU plain: "
+        f"modes/iters equal {modes}; packed-byte mismatch {mism:.2e} (tol "
+        f"1e-2); packed logits rel {rel:.2e} (tol 1e-3); greedy tokens "
+        f"equal {bool(torch.equal(tc, tg))}")
     check(modes and mism <= 1e-2 and rel <= 1e-3 and torch.equal(tc, tg),
-          "small end to end, card against CPU plain")
+          f"small end to end {arch} kv_cache={kv_cache}, card against CPU "
+          "plain")
 
 
 def _nbytes_bf16_vs_int4(pk) -> tuple:
@@ -411,7 +594,12 @@ def _nbytes_bf16_vs_int4(pk) -> tuple:
     return bf16, int4
 
 
-def phase_main_path(table: KernelTable) -> dict:
+def drive_main_path(arch: str, kv_cache: str, n_req: int, n_prompt: int,
+                    n_new: int) -> dict:
+    """A config at full width and depth from seeded random weights:
+    quantize_model → pack_for_serving → generate, with the launch counters
+    reset just before and read just after; prints the counters, walls,
+    bytes and peak memory and returns what the checks need."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.pipeline import pack_for_serving, quantize_model
@@ -420,20 +608,22 @@ def phase_main_path(table: KernelTable) -> dict:
     from repro_torch.models import transformer as T
     from repro_torch.serving.engine import generate
 
-    cfg = get_config("opt-proxy")
-    mc = cfg.model
+    cfg = get_config(arch)
+    cfg.serve.kv_cache = kv_cache
+    mc, qc = cfg.model, cfg.quant
     log(f"  config: {mc.name} layers={mc.num_layers} d_model={mc.d_model} "
-        f"heads={mc.num_heads} d_ff={mc.d_ff} vocab={mc.vocab_size} "
-        f"dtype={mc.dtype}; quant group={cfg.quant.group_size} "
-        f"blocksize={cfg.quant.blocksize} rpiq_iters={cfg.quant.rpiq_iters}"
-        " (depth not cut)")
+        f"heads={mc.num_heads} kv_heads={mc.num_kv_heads} "
+        f"head_dim={mc.head_dim} d_ff={mc.d_ff} vocab={mc.vocab_size} "
+        f"dtype={mc.dtype}; quant group={qc.group_size} "
+        f"blocksize={qc.blocksize} rpiq_iters={qc.rpiq_iters}; serve "
+        f"kv_cache={kv_cache} (depth not cut)")
     torch.cuda.synchronize()
     held_before = torch.cuda.memory_allocated()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     params = T.init_params(mc, gen, "cuda")
     calib = calibration_batches(MarkovLM(mc.vocab_size, seed=7), 4, 4, 128)
-    prompt = MarkovLM(mc.vocab_size, seed=3).batch(4, 16)
+    prompt = MarkovLM(mc.vocab_size, seed=3).batch(n_req, n_prompt)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -444,32 +634,48 @@ def phase_main_path(table: KernelTable) -> dict:
     packed = pack_for_serving(cfg, params_q)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    res = generate(cfg, packed, prompt, max_new_tokens=16)
+    res = generate(cfg, packed, prompt, max_new_tokens=n_new)
     torch.cuda.synchronize()
     t3 = time.perf_counter()
     launches = ops.kernel_launches()
+    peak = torch.cuda.max_memory_allocated()
 
     log(f"  kernels: {json.dumps(launches)}")
     log(f"  report: {report.summary()}")
+    rest = report.seconds_total - report.seconds_stage1 \
+        - report.seconds_stage2
     log(f"  walls (s): quantize_model={t1 - t0:.3f} (stage1="
         f"{report.seconds_stage1:.3f} stage2={report.seconds_stage2:.3f} "
-        f"capture+propagate+rest={report.seconds_total - report.seconds_stage1 - report.seconds_stage2:.3f})"
-        f" pack_for_serving={t2 - t1:.3f} generate={t3 - t2:.3f} "
-        f"(4 requests x 16 prompt + 16 new tokens)")
+        f"capture+propagate+rest={rest:.3f}) pack_for_serving="
+        f"{t2 - t1:.3f} generate={t3 - t2:.3f} ({n_req} requests x "
+        f"{n_prompt} prompt + {n_new} new tokens)")
     log(f"  layer step walls (s): "
-        f"{[round(s, 3) for s in report.layer_step_seconds]}")
+        f"{[round(x, 3) for x in report.layer_step_seconds]}")
     bf16, int4 = _nbytes_bf16_vs_int4(packed)
     log(f"  quantized linear bytes: bf16 {bf16} vs int4+scales+zeros {int4}"
         f" ({bf16 / int4:.2f}x)")
-    peak = torch.cuda.max_memory_allocated()
     log(f"  peak device memory: {peak} bytes, of which {held_before} were "
-        f"held by earlier phases: main path {peak - held_before} bytes")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+        f"held by earlier phases: this path {peak - held_before} bytes")
+    return dict(cfg=cfg, params_q=params_q, packed=packed, calib=calib,
+                prompt=prompt, res=res, launches=launches)
 
-    toks = calib[-1]["tokens"].cuda()
-    lq = T.forward(mc, packed, toks)
-    lf = T.forward(mc, params_q, toks)
+
+def phase_main_path() -> dict:
+    """opt-proxy served with the bf16 cache."""
+    import torch
+    from repro_torch.models import transformer as T
+
+    r = drive_main_path("opt-proxy", "fp16", 4, 16, 16)
+    launches, res = r["launches"], r["res"]
+    for name in ("hessian_accum", "gptq_block", "rpiq_block",
+                 "w4a16_matmul", "quant_pack"):
+        check(launches[name] > 0,
+              f"kernel {name} was not launched on the main path")
+
+    mc = r["cfg"].model
+    toks = r["calib"][-1]["tokens"].cuda()
+    lq = T.forward(mc, r["packed"], toks)
+    lf = T.forward(mc, r["params_q"], toks)
     rel = float((lq - lf).norm() / (lf.norm() + 1e-9))
     ok_shape = tuple(res.tokens.shape) == (4, 16)
     finite = bool(torch.isfinite(lq).all())
@@ -478,6 +684,124 @@ def phase_main_path(table: KernelTable) -> dict:
     log(f"  decoded tokens: {res.tokens.tolist()} steps "
         f"{res.steps.tolist()}")
     check(rel < 2e-2 and finite and ok_shape, "main path output check")
+    return launches
+
+
+def phase_int8_kv_path() -> dict:
+    """internlm2-1.8b served with the int8 KV cache: the cache bytes, the
+    launch counts, the packed-vs-float logits, the int8-vs-bf16 cache
+    drift and quant_pack against the packed artifact."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import transformer as T
+
+    n_req, n_prompt, n_new = 4, 512, 32
+    r = drive_main_path("internlm2-1.8b", "int8", n_req, n_prompt, n_new)
+    cfg, params_q, packed = r["cfg"], r["params_q"], r["packed"]
+    launches, res, prompt = r["launches"], r["res"], r["prompt"]
+    mc, qc = cfg.model, cfg.quant
+    max_len = n_prompt + n_new + 1
+    cache_bytes = {
+        kind: mc.num_layers * sum(
+            t.numel() * t.element_size() for t in T.init_layer_cache(
+                mc, n_req, max_len, "cuda", dt).values())
+        for kind, dt in (("int8", "int8"), ("bf16", torch.bfloat16))}
+    log(f"  KV cache bytes at {n_req} x {max_len} slots: int8 (codes + "
+        f"scales + error accumulators) {cache_bytes['int8']} vs bf16 "
+        f"{cache_bytes['bf16']} "
+        f"({cache_bytes['bf16'] / cache_bytes['int8']:.2f}x)")
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched on the int8-KV path")
+    decode_calls = mc.num_layers * (n_new - 1)
+    check(launches["int8_kv_attention"] == decode_calls,
+          f"int8_kv_attention launched {launches['int8_kv_attention']} "
+          f"times, expected {decode_calls} (layers x decode steps)")
+
+    # packed int4 against the refined grid: in fp32 compute both models
+    # hold the same weights and differ only in summation order; in bf16 the
+    # float model also rounds its weights to bf16 before each product (the
+    # packed one dequantizes exactly), which 24 layers carry to ~2e-2
+    toks = r["calib"][-1]["tokens"].cuda()
+    rel = {}
+    for dt in ("float32", "bfloat16"):
+        mdt = dataclasses.replace(mc, dtype=dt)
+        lq = T.forward(mdt, packed, toks)
+        lf = T.forward(mdt, params_q, toks)
+        rel[dt] = float((lq - lf).norm() / (lf.norm() + 1e-9))
+        if dt == "bfloat16":
+            finite = bool(torch.isfinite(lq).all())
+        del lq, lf
+    log(f"  packed int4 vs refined-grid float logits: fp32 compute rel err "
+        f"{rel['float32']:.3e} (tol 1e-3); bf16 compute {rel['bfloat16']:.5f}"
+        f" (not pinned: the float model's bf16 weight rounding); finite "
+        f"{finite}")
+    log(f"  decoded tokens (request 0): {res.tokens[0].tolist()} steps "
+        f"{res.steps.tolist()}")
+    check(rel["float32"] < 1e-3 and finite
+          and tuple(res.tokens.shape) == (n_req, n_new),
+          "int8-KV path output check")
+
+    # drift: the int8 and the bf16 cache fed the same (bf16-chosen) stream
+    ptoks = prompt["tokens"].cuda()
+
+    def timed_prefill(dt):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = T.prefill(mc, packed, ptoks, n_prompt + 17, cache_dtype=dt)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    caches, walls = {}, {}
+    (lg, caches["bf16"]), walls["prefill bf16"] = timed_prefill(
+        torch.bfloat16)
+    (_, caches["int8"]), walls["prefill int8"] = timed_prefill("int8")
+    tok = torch.argmax(lg, -1)
+    pos = torch.full((n_req,), n_prompt, dtype=torch.long, device="cuda")
+    deltas, scale = [], 0.0
+    step = {"bf16": 0.0, "int8": 0.0}
+    for _ in range(16):
+        out = {}
+        for kind in ("bf16", "int8"):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out[kind], caches[kind] = T.decode_step(mc, packed, tok, pos,
+                                                    caches[kind])
+            torch.cuda.synchronize()
+            step[kind] += (time.perf_counter() - t) / 16
+        deltas.append(float((out["bf16"] - out["int8"]).abs().max()))
+        scale = max(scale, float(out["bf16"].abs().max()))
+        tok = torch.argmax(out["bf16"], -1)
+        pos = pos + 1
+    early, late = max(deltas[:8]), max(deltas[8:])
+    log(f"  walls (s): prefill bf16 cache {walls['prefill bf16']:.3f}, "
+        f"int8 cache {walls['prefill int8']:.3f}; decode step bf16 cache "
+        f"{step['bf16']:.4f}, int8 cache {step['int8']:.4f} (mean of 16)")
+    log(f"  drift int8 vs bf16 cache over 16 steps: max |dlogit| per step "
+        f"{[round(d, 4) for d in deltas]}; max {max(deltas):.4f} = "
+        f"{max(deltas) / scale:.3e} of max |logit| {scale:.3f}; late "
+        f"{late:.4f} <= 3 x early {early:.4f} + 0.05: "
+        f"{late <= 3 * early + 0.05}")
+    check(late <= 3 * early + 0.05, "int8 KV drift does not accumulate")
+    del caches
+
+    # quant_pack against the path's packed artifact, every quantized linear
+    n_lin = n_eq = 0
+    for layer_q, layer_p in zip(params_q["layers"], packed["layers"]):
+        for sub in ("mixer", "mlp"):
+            for name, lin in layer_q[sub].items():
+                w_oi = lin["w"].float().T.contiguous()
+                art = layer_p[sub][name]["w"].packed
+                kern = ops.quant_pack(w_oi, lin["qscales"], lin["qzeros"],
+                                      group_size=qc.group_size)
+                plain = ref.quant_pack(w_oi, lin["qscales"], lin["qzeros"],
+                                       qc.group_size)
+                n_lin += 1
+                n_eq += int(torch.equal(kern, art)
+                            and torch.equal(plain, art))
+    log(f"  quant_pack (kernel and plain version) bitwise equal to the "
+        f"packed artifact: {n_eq} of {n_lin} quantized linears")
+    check(n_eq == n_lin == 7 * mc.num_layers,
+          "quant_pack against the packed artifact")
     return launches
 
 
@@ -526,11 +850,16 @@ def main() -> int:
     log(f"  launches in this phase (checks and timing): "
         f"{json.dumps(ops.kernel_launches())}")
 
-    log("[4] small end to end: opt-proxy smoke, card against CPU plain")
-    phase_small_end_to_end()
+    log("[4] small end to end: smoke configs, card against CPU plain")
+    phase_small_end_to_end("opt-proxy", "fp16")
+    phase_small_end_to_end("internlm2-1.8b", "int8")
 
-    log("[5] main path at full width")
-    launches = phase_main_path(table)
+    log("[5] main path at full width: opt-proxy")
+    launches = phase_main_path()
+
+    log("[6] main path at full width: internlm2-1.8b, int8 KV cache")
+    for name, n in phase_int8_kv_path().items():
+        launches[name] += n
 
     log(f"  total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(table.json(launches)), flush=True)

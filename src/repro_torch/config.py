@@ -16,6 +16,7 @@ class ModelConfig:
     num_layers: int = 2
     d_model: int = 128
     num_heads: int = 4
+    num_kv_heads: int = 4           # GQA: num_heads % num_kv_heads == 0
     head_dim: int = 0               # 0 => d_model // num_heads
     d_ff: int = 512
     vocab_size: int = 512
@@ -47,6 +48,11 @@ class QuantConfig:
 class ServeConfig:
     max_new_tokens: int = 32
     temperature: float = 0.0        # 0 = greedy
+    kv_cache: str = "fp16"          # fp16 (the bf16 cache) | int8: decode
+    #                                 KV-cache precision; "int8" stores
+    #                                 per-block absmax codes + f32 scales
+    #                                 (kernels/kv_codec.py) with per-lane
+    #                                 error feedback on decode appends
 
 
 @dataclass

@@ -1,2 +1,2 @@
-"""Architecture registry of the port (opt-proxy only in this slice)."""
+"""Architecture registry of the port (opt-proxy and internlm2-1.8b)."""
 from repro_torch.configs.registry import ARCH_IDS, get_config  # noqa: F401

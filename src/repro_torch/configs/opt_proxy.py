@@ -11,7 +11,7 @@ def full() -> Config:
     cfg = Config()
     cfg.model = ModelConfig(
         name="opt-proxy",
-        num_layers=12, d_model=768, num_heads=12,
+        num_layers=12, d_model=768, num_heads=12, num_kv_heads=12,
         d_ff=3072, vocab_size=50304,
         norm="layernorm", act="gelu", gated_mlp=False,
     )
@@ -22,7 +22,7 @@ def smoke() -> Config:
     cfg = Config()
     cfg.model = ModelConfig(
         name="opt-proxy-smoke",
-        num_layers=2, d_model=64, num_heads=4,
+        num_layers=2, d_model=64, num_heads=4, num_kv_heads=4,
         d_ff=256, vocab_size=256,
         norm="layernorm", act="gelu", gated_mlp=False,
     )

@@ -17,7 +17,8 @@ do it:
         next layer, so later Hessians see the quantized network.
 
 :func:`pack_for_serving` then turns every quantized linear into an int4
-:class:`~repro_torch.core.quant.QuantizedTensor` on its stage-1 grid.
+:class:`~repro_torch.core.quant.QuantizedTensor` on its stage-1 grid,
+through the ``quant_pack`` kernel on the card.
 """
 from __future__ import annotations
 
@@ -33,10 +34,10 @@ from repro_torch.core import plan as qplan
 from repro_torch.core import stream as qstream
 from repro_torch.core.plan import MemberResult, PlanMember, QuantReport
 from repro_torch.core.quant import (QuantizedTensor, QuantParams,
-                                    compute_qparams, pack_int4,
-                                    quantize_codes)
+                                    compute_qparams)
 from repro_torch.core.stream import LayerStep, LayerWalker
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import embed
 from repro_torch.models.linear import Tap
@@ -214,8 +215,10 @@ def pack_for_serving(cfg: Config, params_q: Dict) -> Dict:
 
     Packing reuses the stage-1 grid each quantized linear carries
     (``qscales``/``qzeros``), so the refined on-grid weights round-trip
-    exactly; a weight without a grid gets a fresh one. Norms, embeddings
-    and lm_head stay float.
+    exactly; a weight without a grid gets a fresh one. The codes are
+    rounded and packed by ``ops.quant_pack`` (asymmetric 4-bit grid, the
+    layout of ``core.quant.pack_int4``). Norms, embeddings and lm_head stay
+    float.
     """
     qc = cfg.quant
 
@@ -226,9 +229,10 @@ def pack_for_serving(cfg: Config, params_q: Dict) -> Dict:
             qp = QuantParams(scales.float(), zeros.float())
         else:
             qp = compute_qparams(w_oi, qc.bits, qc.group_size)
-        codes = quantize_codes(w_oi, qp, qc.bits, qc.group_size)
-        return QuantizedTensor(pack_int4(codes), qp.scales, qp.zeros,
-                               (o, i), qc.bits, qc.group_size)
+        packed = ops.quant_pack(w_oi, qp.scales, qp.zeros,
+                                group_size=qc.group_size)
+        return QuantizedTensor(packed, qp.scales, qp.zeros, (o, i), qc.bits,
+                               qc.group_size)
 
     def walk(tree, path=""):
         if isinstance(tree, list):

@@ -22,7 +22,8 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("hessian_accum", "gptq_block", "rpiq_block", "w4a16_matmul")
+SOURCES = ("hessian_accum", "gptq_block", "rpiq_block", "w4a16_matmul",
+           "int8_kv_attention", "quant_pack")
 BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # the sweep kernels must round `a - b*c` like the plain version: no
@@ -132,6 +133,12 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
             "rpiq_block_launch": [p] * 12 + [i] * 6 + [f, i, i, p],
             "rpiq_block_rows_per_block": [],
             "rpiq_block_scratch_floats": [i, i]},
+        "int8_kv_attention": {
+            "int8_kv_attention_f32_launch": [p] * 7 + [i] * 6 + [p],
+            "int8_kv_attention_bf16_launch": [p] * 7 + [i] * 6 + [p]},
+        "quant_pack": {
+            "quant_pack_f32_launch": [p] * 4 + [i] * 3 + [p],
+            "quant_pack_bf16_launch": [p] * 4 + [i] * 3 + [p]},
     }[name]
     for fn, args in sigs.items():
         getattr(lib, fn).argtypes = args

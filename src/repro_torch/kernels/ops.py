@@ -1,4 +1,4 @@
-"""Dispatch layer for the port's four kernels.
+"""Dispatch layer for the port's six kernels.
 
 Each op takes the plain PyTorch version (:mod:`repro_torch.kernels.ref`)
 for a tensor on the CPU and launches its hand-written CUDA kernel for a
@@ -22,7 +22,8 @@ from repro_torch.kernels import build, ref
 Tensor = torch.Tensor
 
 _LAUNCHES: Dict[str, int] = {"hessian_accum": 0, "gptq_block": 0,
-                             "rpiq_block": 0, "w4a16_matmul": 0}
+                             "rpiq_block": 0, "w4a16_matmul": 0,
+                             "int8_kv_attention": 0, "quant_pack": 0}
 
 
 def kernel_launches() -> Dict[str, int]:
@@ -349,3 +350,104 @@ def rpiq_block(w_init: Tensor, w_fp: Tensor, x_last: Tensor,
     if squeeze:
         out = tuple(o[0] for o in out)
     return out
+
+
+# ---------------------------------------------------------------------------
+# one-token GQA decode attention against the int8 KV cache
+# ---------------------------------------------------------------------------
+
+def int8_kv_attention_cuda(q: Tensor, k_codes: Tensor, k_scales: Tensor,
+                           v_codes: Tensor, v_scales: Tensor, kpos: Tensor,
+                           kv_block: int) -> Tensor:
+    """Kernel wrapper: same contract as :func:`ref.int8_kv_attention`."""
+    op = "int8_kv_attention"
+    _check_cuda(op, q, k_codes, k_scales, v_codes, v_scales, kpos)
+    b, kv, r, hd = q.shape
+    s = k_codes.shape[1]
+    _require(hd % kv_block == 0 and kv_block % 4 == 0, op,
+             f"kv_block {kv_block} must be a multiple of 4 dividing "
+             f"hd={hd}")
+    nb = hd // kv_block
+    _require(k_codes.dtype == torch.int8 and v_codes.dtype == torch.int8,
+             op, "codes must be int8")
+    _require(k_scales.dtype == torch.float32 and
+             v_scales.dtype == torch.float32, op, "scales must be float32")
+    _require(kpos.dtype == torch.int32, op, "kpos must be int32")
+    _require(k_codes.shape == (b, s, kv, hd) == v_codes.shape, op,
+             f"codes must be (B, S, KV, hd) = ({b}, S, {kv}, {hd})")
+    _require(k_scales.shape == (b, s, kv, nb) == v_scales.shape, op,
+             f"scales must be (B, S, KV, hd/kv_block) = ({b}, {s}, {kv}, "
+             f"{nb})")
+    _require(kpos.shape == (b, s), op, f"kpos must be ({b}, {s})")
+    _require(1 <= r <= 8 and hd % 16 == 0 and hd <= 256 and nb <= 8, op,
+             f"R={r}, hd={hd}, kv_block={kv_block}: the kernel takes R <= 8 "
+             "query rows per kv-head, hd a multiple of 16 up to 256 and at "
+             "most 8 scale blocks per row")
+    _require(k_codes.data_ptr() % 16 == 0 and v_codes.data_ptr() % 16 == 0,
+             op, "codes must be 16-byte aligned (16-byte loads)")
+    out = torch.empty_like(q)
+    lib = build.load(op)
+    if q.dtype == torch.float32:
+        fn = lib.int8_kv_attention_f32_launch
+    elif q.dtype == torch.bfloat16:
+        fn = lib.int8_kv_attention_bf16_launch
+    else:
+        raise ValueError(f"{op}: q dtype {q.dtype} not supported")
+    _launch(op, fn, q.data_ptr(), k_codes.data_ptr(), k_scales.data_ptr(),
+            v_codes.data_ptr(), v_scales.data_ptr(), kpos.data_ptr(),
+            out.data_ptr(), b, s, kv, r, hd, kv_block, _stream())
+    return out
+
+
+def int8_kv_attention(q: Tensor, k_codes: Tensor, k_scales: Tensor,
+                      v_codes: Tensor, v_scales: Tensor, kpos: Tensor, *,
+                      kv_block: int) -> Tensor:
+    """q (B, KV, R, hd) pre-scaled; k/v codes (B, S, KV, hd) int8; k/v
+    scales (B, S, KV, hd // kv_block) f32; kpos (B, S) int32, -1 = an
+    invalid slot. Returns (B, KV, R, hd) in q.dtype."""
+    args = (q, k_codes, k_scales, v_codes, v_scales, kpos)
+    if _is_plain(q, "int8_kv_attention"):
+        return ref.int8_kv_attention(*args, kv_block)
+    return int8_kv_attention_cuda(*(a.contiguous() for a in args), kv_block)
+
+
+# ---------------------------------------------------------------------------
+# quantize onto a fixed 4-bit grid + pack two codes to a byte
+# ---------------------------------------------------------------------------
+
+def quant_pack_cuda(w: Tensor, scales: Tensor, zeros: Tensor,
+                    group_size: int) -> Tensor:
+    """Kernel wrapper: same contract as :func:`ref.quant_pack`."""
+    op = "quant_pack"
+    _check_cuda(op, w, scales, zeros)
+    n, k = w.shape
+    _require(k % 8 == 0 and w.data_ptr() % 16 == 0, op,
+             f"k={k} must be a multiple of 8 and w 16-byte aligned "
+             "(16-byte loads of 8 columns)")
+    _require(group_size >= 1 and k % group_size == 0, op,
+             f"group_size {group_size} must divide k={k}")
+    _require(scales.dtype == torch.float32 and zeros.dtype == torch.float32,
+             op, "scales/zeros must be float32")
+    _require(scales.shape == (n, k // group_size) == zeros.shape, op,
+             "scales/zeros must be (n, k/group_size)")
+    out = torch.empty((n, k // 2), dtype=torch.uint8, device=w.device)
+    lib = build.load(op)
+    if w.dtype == torch.float32:
+        fn = lib.quant_pack_f32_launch
+    elif w.dtype == torch.bfloat16:
+        fn = lib.quant_pack_bf16_launch
+    else:
+        raise ValueError(f"{op}: w dtype {w.dtype} not supported")
+    _launch(op, fn, w.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
+            out.data_ptr(), n, k, group_size, _stream())
+    return out
+
+
+def quant_pack(w: Tensor, scales: Tensor, zeros: Tensor, *,
+               group_size: int = 128) -> Tensor:
+    """w (n, k) f32/bf16 → (n, k // 2) uint8 codes on the (scales, zeros)
+    grid, the even column in the low nibble."""
+    if _is_plain(w, "quant_pack"):
+        return ref.quant_pack(w, scales, zeros, group_size)
+    return quant_pack_cuda(w.contiguous(), scales.contiguous(),
+                           zeros.contiguous(), group_size)

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the four kernels of the quantize → serve path.
+"""Plain PyTorch versions of the six kernels of the quantize → serve path.
 
 Each function has the signature of its kernel wrapper in
 :mod:`repro_torch.kernels.ops` and computes what the kernel computes, in
@@ -12,6 +12,8 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+from repro_torch.kernels import kv_codec
 
 Tensor = torch.Tensor
 
@@ -155,3 +157,39 @@ def rpiq_block(w0: Tensor, y_orig: Tensor, x: Tensor, hinv_flat: Tensor,
         pls[:, t] = ((y_orig - x @ w_proj.transpose(1, 2)) ** 2
                      ).sum(dim=(1, 2))
     return w, wp_all, y_q, hist, pls
+
+
+def int8_kv_attention(q: Tensor, k_codes: Tensor, k_scales: Tensor,
+                      v_codes: Tensor, v_scales: Tensor, kpos: Tensor,
+                      kv_block: int) -> Tensor:
+    """One-token GQA decode against an int8 KV cache, full dequant.
+
+    q (B, KV, R, hd) pre-scaled (hd^-0.5 folded in by the caller); k/v
+    codes (B, S, KV, hd) int8; k/v scales (B, S, KV, hd // kv_block) f32;
+    kpos (B, S) int32, -1 marks an invalid slot. Returns (B, KV, R, hd) in
+    q.dtype with fp32 scores, softmax and values. Invalid slots get weight
+    0, so a lane with no valid slot returns 0, as the fused kernel does
+    (the JAX oracle's plain softmax would spread such a lane uniformly).
+    """
+    k = kv_codec.dec_int8_blocks(k_codes, k_scales, kv_block)
+    v = kv_codec.dec_int8_blocks(v_codes, v_scales, kv_block)
+    s = torch.einsum("bgrd,bsgd->bgrs", q.float(), k)
+    valid = (kpos >= 0)[:, None, None, :]
+    s = torch.where(valid, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1) * valid
+    return torch.einsum("bgrs,bsgd->bgrd", p, v).to(q.dtype)
+
+
+def quant_pack(w: Tensor, scales: Tensor, zeros: Tensor,
+               group_size: int) -> Tensor:
+    """4-bit codes on a fixed asymmetric grid, two to a byte.
+
+    w (n, k) f32/bf16; scales/zeros (n, k / group_size) f32. Codes are
+    ``clip(round(w / s) + z, 0, 15)`` (half-to-even, true division);
+    returns (n, k / 2) uint8 with the even column in the low nibble.
+    """
+    s = scales.float().repeat_interleave(group_size, dim=1)
+    z = zeros.float().repeat_interleave(group_size, dim=1)
+    q = torch.clamp(torch.round(w.float() / s) + z, 0.0, 15.0)
+    q = q.to(torch.uint8)
+    return (q[:, 0::2] | (q[:, 1::2] << 4)).contiguous()

@@ -1,4 +1,5 @@
-"""Decoder-only LM assembly (the attn + dense-MLP layers of opt-proxy).
+"""Decoder-only LM assembly (attention + dense-MLP layers: opt-proxy,
+internlm2).
 
 Param layout: ``{"embed": {...}, "layers": [layer, ...], "final_norm":
 {...}, "lm_head": {...}}`` — a plain per-layer list where the JAX package
@@ -8,7 +9,7 @@ A layer is ``{"norm1", "mixer": {q, k, v, o}, "norm2", "mlp": {up, down
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Tuple, Union
 
 import torch
 
@@ -69,14 +70,17 @@ def forward(cfg: ModelConfig, params: Dict, tokens: Tensor) -> Tensor:
 
 
 def init_layer_cache(cfg: ModelConfig, batch: int, max_len: int, device,
-                     dtype: torch.dtype = torch.bfloat16) -> Dict:
+                     dtype: Union[torch.dtype, str] = torch.bfloat16) -> Dict:
+    """``dtype`` may be ``"int8"``: the quantized cache layout
+    (attention.init_kv_cache)."""
     return attn.init_kv_cache(cfg, batch, max_len, device, dtype)
 
 
 def prefill(cfg: ModelConfig, params: Dict, tokens: Tensor, max_len: int,
-            cache_dtype: torch.dtype = torch.bfloat16
+            cache_dtype: Union[torch.dtype, str] = torch.bfloat16
             ) -> Tuple[Tensor, List[Dict]]:
-    """Prefill the caches; returns (last-position logits (B, V), caches)."""
+    """Prefill the caches; returns (last-position logits (B, V), caches).
+    ``cache_dtype`` is a torch dtype or ``"int8"``."""
     h = embed(params["embed"], tokens, compute_dtype(cfg))
     b, s, _ = h.shape
     positions = positions_for(b, s, h.device)

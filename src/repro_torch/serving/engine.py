@@ -2,7 +2,9 @@
 
 Weights may be float or int4-packed (``QuantizedTensor`` leaves from
 ``pack_for_serving``); ``models.linear.dense`` dispatches per leaf, so the
-packed denses run the W4A16 kernel on the card. Finished lanes keep
+packed denses run the W4A16 kernel on the card. ``serve.kv_cache=int8``
+keeps the decode history as int8 codes read by the int8 KV attention
+kernel. Finished lanes keep
 decoding but their outputs are frozen.
 
 EOS convention (as in the JAX engine): the eos token itself is never
@@ -28,10 +30,18 @@ class GenResult(NamedTuple):
     steps: Tensor           # (B,) tokens actually produced (pre-eos)
 
 
+def cache_dtype(cfg: Config) -> Union[torch.dtype, str]:
+    """Decode-cache precision from ``serve.kv_cache``: ``"int8"`` (codes +
+    scales, models/attention.py) or bf16."""
+    return "int8" if cfg.serve.kv_cache == "int8" else torch.bfloat16
+
+
 def prefill(cfg: Config, params: Any, batch: Dict[str, Tensor],
             max_len: int) -> Tuple[Tensor, List[Dict]]:
-    """Prefill from ``{"tokens": (B, S)}`` into bf16 caches of max_len."""
-    return T.prefill(cfg.model, params, batch["tokens"], max_len)
+    """Prefill from ``{"tokens": (B, S)}`` into caches of max_len, in the
+    precision ``serve.kv_cache`` names."""
+    return T.prefill(cfg.model, params, batch["tokens"], max_len,
+                     cache_dtype=cache_dtype(cfg))
 
 
 def serve_step(cfg: Config, params: Any, token: Tensor, pos: Tensor,

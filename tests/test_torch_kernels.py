@@ -1,4 +1,4 @@
-"""The port's four kernels: plain PyTorch versions against the JAX package.
+"""The port's kernels: plain PyTorch versions against the JAX package.
 
 Each plain version (``repro_torch.kernels.ref`` through the CPU dispatcher
 ``repro_torch.kernels.ops``) is held against the JAX package's NumPy/jnp
@@ -14,9 +14,14 @@ rounding boundary (the two frameworks sum matrix products in different
 orders), so at most 1e-3 of the cells may differ by more; Γ history and
 projected loss ≤ 1e-5 relative; ``iters_run`` equal.
 
-The ``gpu``-marked tests hold each CUDA kernel against its plain version
-on the card (``python -m pytest -m gpu tests/test_torch_kernels.py``);
-without a card they skip.
+The CPU parity of ``int8_kv_attention`` and ``quant_pack`` is in
+``tests/test_torch_kv.py``.
+
+The ``gpu``-marked tests hold each CUDA kernel, the six of them, against
+its plain version on the card (``python -m pytest -m gpu
+tests/test_torch_kernels.py``); without a card they skip. Pins there:
+``int8_kv_attention`` ≤ 1e-5 of the largest output in fp32 and one bf16
+ulp (as ``bf16_ulp``) in bf16; ``quant_pack`` bitwise.
 """
 import jax
 import jax.numpy as jnp
@@ -218,7 +223,34 @@ def test_cpu_dispatch_takes_plain_version_and_counts_nothing():
     torch.testing.assert_close(
         tops.w4a16_matmul(x[:, :].repeat(1, 2), *args, group_size=g),
         tref.w4a16_matmul(x.repeat(1, 2), *args, g), rtol=0, atol=0)
+    kv = [t(a) for a in kv_case(rng, b=2, s=20, kv=2, r=2, hd=32,
+                                kv_block=32)]
+    torch.testing.assert_close(tops.int8_kv_attention(*kv, kv_block=32),
+                               tref.int8_kv_attention(*kv, 32), rtol=0,
+                               atol=0)
+    w = x.repeat(1, 2)[:8]
+    s, z = t(scales), t(zeros)
+    torch.testing.assert_close(tops.quant_pack(w, s, z, group_size=32),
+                               tref.quant_pack(w, s, z, 32), rtol=0, atol=0)
     assert tops.kernel_launches() == {k: 0 for k in tops.kernel_launches()}
+    assert len(tops.kernel_launches()) == 6
+
+
+def kv_case(rng, b, s, kv, r, hd, kv_block):
+    """int8 KV-attention inputs as numpy arrays (q, k codes, k scales,
+    v codes, v scales, kpos): kpos with -1 holes, a first lane written
+    only to half its length and a last lane with no valid slot."""
+    nb = hd // kv_block
+    q = (rng.randn(b, kv, r, hd) * hd ** -0.5).astype(np.float32)
+    kc = rng.randint(-127, 128, size=(b, s, kv, hd)).astype(np.int8)
+    vc = rng.randint(-127, 128, size=(b, s, kv, hd)).astype(np.int8)
+    ks = (rng.rand(b, s, kv, nb) * 0.02 + 1e-3).astype(np.float32)
+    vs = (rng.rand(b, s, kv, nb) * 0.02 + 1e-3).astype(np.float32)
+    kpos = np.tile(np.arange(s, dtype=np.int32), (b, 1))
+    kpos[rng.rand(b, s) < 0.2] = -1
+    kpos[0, s // 2:] = -1
+    kpos[-1] = -1
+    return q, kc, ks, vc, vs, kpos
 
 
 # ---------------------------------------------------------------------------
@@ -293,3 +325,45 @@ def test_gpu_gptq_and_rpiq(cuda, n):
     assert float((got_r[2] - want_r[2]).norm() / want_r[2].norm()) <= 1e-4
     assert_rel(got_r[3].cpu(), want_r[3].cpu(), 1e-5)
     assert_rel(got_r[4].cpu(), want_r[4].cpu(), 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,kv_block,r", [(545, 128, 2), (4096, 64, 2),
+                                          (300, 32, 8), (130, 128, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_int8_kv_attention(cuda, s, kv_block, r, dtype):
+    rng = np.random.RandomState(8)
+    args = [t(a).to(cuda) for a in kv_case(rng, b=4, s=s, kv=8, r=r,
+                                           hd=128, kv_block=kv_block)]
+    args[0] = args[0].to(dtype)
+    want = tref.int8_kv_attention(*args, kv_block).float()
+    got = tops.int8_kv_attention_cuda(*args, kv_block).float()
+    assert float(got[-1].abs().max()) == 0.0
+    if dtype == torch.float32:
+        assert float((got - want).abs().max()) <= 1e-5 * float(
+            want.abs().max())
+    else:
+        diff = (got - want).abs().cpu().numpy()
+        assert np.all(diff <= bf16_ulp(want.cpu().numpy()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,k,g", [(2048, 8192, 128), (8192, 2048, 128),
+                                   (96, 64, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_quant_pack(cuda, n, k, g, dtype):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(n + k)
+    scales = torch.exp2(torch.randint(-8, -4, (n, k // g), generator=gen,
+                                      device=cuda).float())
+    zeros = torch.randint(0, 16, (n, k // g), generator=gen,
+                          device=cuda).float()
+    s_full = scales.repeat_interleave(g, dim=1)
+    ties = (torch.randint(-12, 12, (n, k), generator=gen, device=cuda)
+            + 0.5) * s_full
+    free = torch.randn((n, k), generator=gen, device=cuda) * 8 * s_full
+    w = torch.where(torch.rand((n, k), generator=gen, device=cuda) < 0.5,
+                    ties, free).to(dtype)
+    want = tref.quant_pack(w, scales, zeros, g)
+    got = tops.quant_pack_cuda(w, scales, zeros, g)
+    assert torch.equal(got, want)

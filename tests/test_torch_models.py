@@ -1,10 +1,11 @@
-"""The port's opt-proxy model against the JAX model on converted params.
+"""The port's models against the JAX models on converted params.
 
-opt-proxy smoke with the JAX package's initial weights carried across by
+opt-proxy smoke and internlm2 smoke (GQA: 4 heads over 2 KV heads) with
+the JAX package's initial weights carried across by
 ``convert.params_from_numpy``: full-sequence logits, prefill + 3 decode
-steps, and the packed (int4 ``QuantizedTensor``) forward. Pins (relative
-Frobenius error): model dtype float32 ≤ 1e-5; the default bf16 ≤ 2e-2
-(the frameworks round bf16 intermediates at different places).
+steps (bf16 cache), and the packed (int4 ``QuantizedTensor``) forward.
+Pins (relative Frobenius error): model dtype float32 ≤ 1e-5; the default
+bf16 ≤ 2e-2 (the frameworks round bf16 intermediates at different places).
 """
 import jax
 import jax.numpy as jnp
@@ -21,6 +22,10 @@ from repro_torch.core.pipeline import pack_for_serving as tpack
 from repro_torch.models import transformer as TT
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# (arch, dtype) cases; the opt-proxy cases keep their ids
+CASES = [("opt-proxy", "float32"), ("opt-proxy", "bfloat16"),
+         ("internlm2-1.8b", "float32"), ("internlm2-1.8b", "bfloat16")]
+CASE_IDS = ["float32", "bfloat16", "internlm2-float32", "internlm2-bfloat16"]
 
 
 def to_numpy(tree):
@@ -34,13 +39,14 @@ def rel(got, want):
     return float(np.linalg.norm(got - want) / np.linalg.norm(want))
 
 
-def _setup(dtype):
-    jcfg = jget_config("opt-proxy", smoke=True)
-    tcfg = tget_config("opt-proxy", smoke=True)
+def _setup(dtype, arch="opt-proxy"):
+    jcfg = jget_config(arch, smoke=True)
+    tcfg = tget_config(arch, smoke=True)
     jcfg.model.dtype = tcfg.model.dtype = dtype
     jparams = JT.init_params(jcfg.model, jax.random.PRNGKey(0))
     tparams = params_from_numpy(to_numpy(jparams))
-    toks = np.random.RandomState(0).randint(0, 256, size=(2, 12))
+    toks = np.random.RandomState(0).randint(0, tcfg.model.vocab_size,
+                                            size=(2, 12))
     return jcfg, tcfg, jparams, tparams, toks
 
 
@@ -53,23 +59,25 @@ def test_convert_unstacks_layers():
                                       np.asarray(q[i]))
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_forward_logits(dtype):
-    jcfg, tcfg, jparams, tparams, toks = _setup(dtype)
+@pytest.mark.parametrize("arch,dtype", CASES, ids=CASE_IDS)
+def test_forward_logits(arch, dtype):
+    jcfg, tcfg, jparams, tparams, toks = _setup(dtype, arch)
     lj, _ = JT.forward(jcfg.model, jparams, jnp.asarray(toks))
     lt = TT.forward(tcfg.model, tparams, torch.from_numpy(toks))
-    assert lt.dtype == torch.float32 and lt.shape == (2, 12, 256)
+    assert lt.dtype == torch.float32
+    assert lt.shape == (2, 12, tcfg.model.vocab_size)
     assert rel(lt.numpy(), lj) <= TOL[dtype]
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_prefill_and_decode_logits(dtype):
-    jcfg, tcfg, jparams, tparams, toks = _setup(dtype)
+@pytest.mark.parametrize("arch,dtype", CASES, ids=CASE_IDS)
+def test_prefill_and_decode_logits(arch, dtype):
+    jcfg, tcfg, jparams, tparams, toks = _setup(dtype, arch)
     max_len = 16
     lj, cj = JT.prefill(jcfg.model, jparams, jnp.asarray(toks), max_len)
     lt, ct = TT.prefill(tcfg.model, tparams, torch.from_numpy(toks), max_len)
     assert rel(lt.numpy(), lj) <= TOL[dtype]
-    nxt = np.random.RandomState(1).randint(0, 256, size=(3, 2))
+    nxt = np.random.RandomState(1).randint(0, tcfg.model.vocab_size,
+                                           size=(3, 2))
     for i in range(3):
         pos = np.full((2,), 12 + i, np.int32)
         lj, cj = JT.decode_step(jcfg.model, jparams, jnp.asarray(nxt[i]),
@@ -80,9 +88,9 @@ def test_prefill_and_decode_logits(dtype):
         assert rel(lt.numpy(), lj) <= TOL[dtype]
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_packed_forward(dtype):
-    jcfg, tcfg, jparams, tparams, toks = _setup(dtype)
+@pytest.mark.parametrize("arch,dtype", CASES, ids=CASE_IDS)
+def test_packed_forward(arch, dtype):
+    jcfg, tcfg, jparams, tparams, toks = _setup(dtype, arch)
     jpacked = jpack(jcfg, jparams)
     tpacked = params_from_numpy(to_numpy(jpacked))
     mine = tpack(tcfg, tparams)

@@ -1,13 +1,21 @@
 """The port's quantize → pack → serve path against the JAX package.
 
-opt-proxy smoke at model dtype float32, the same converted initial weights
-and the same calibration stream (``MarkovLM(256, seed=7)``, 3 batches of
-4 × 32), against JAX with ``quant.jit_capture=false`` (the eager capture
-the port mirrors). Pins: per-linear record names, modes and ``iters_run``
-equal; Γ histories ≤ 1e-3 relative; packed codes differ in ≤ 1e-2 of the
-bytes; logits of the packed models ≤ 1e-3 relative. Then greedy
-``generate`` on the converted JAX-packed params gives the JAX engine's
-tokens exactly.
+opt-proxy smoke and internlm2 smoke (GQA, gated SiLU, RMSNorm) at model
+dtype float32, the same converted initial weights and the same calibration
+stream (``MarkovLM(vocab, seed=7)``, 3 batches of 4 × 32), against JAX
+with ``quant.jit_capture=false`` (the eager capture the port mirrors).
+Pins (``PINS``): per-linear record names and modes equal; packed codes
+differ in ≤ 1e-2 of the bytes; for opt-proxy ``iters_run`` equal, Γ
+histories ≤ 1e-3 relative and logits of the packed models ≤ 1e-3
+relative. internlm2 smoke has a stage-1 weight (layer 0, the gate/up
+group) within float rounding of a .5 rounding tie: the two frameworks sum
+the Hessian in different orders and round it to neighbouring codes, GPTQ
+carries the flip along its row, and layer 1 then calibrates on other
+inputs (ROADMAP.md §3). Its pins are those of one such flip: ``iters_run``
+within 1, Γ ≤ 2e-2 relative and packed-model logits ≤ 3e-2 relative.
+Then greedy ``generate`` on the converted JAX-packed
+params gives the JAX engine's tokens exactly: on the bf16 cache for
+opt-proxy, on the int8 cache (``serve.kv_cache=int8``) for internlm2.
 """
 import jax
 import jax.numpy as jnp
@@ -34,21 +42,30 @@ from repro_torch.serving import engine as tengine
 from test_torch_models import rel, to_numpy
 
 
-@pytest.fixture(scope="module")
-def runs():
-    jcfg = jget_config("opt-proxy", smoke=True)
+# arch → the serve.kv_cache its greedy run uses
+KV_CACHE = {"opt-proxy": "fp16", "internlm2-1.8b": "int8"}
+# arch → (|Δ iters_run| allowed, Γ rtol, packed-model logits rel error)
+PINS = {"opt-proxy": (0, 1e-3, 1e-3), "internlm2-1.8b": (1, 2e-2, 3e-2)}
+
+
+@pytest.fixture(scope="module", params=list(KV_CACHE))
+def runs(request):
+    arch = request.param
+    jcfg = jget_config(arch, smoke=True)
     jcfg.model.dtype = "float32"
     jcfg.quant.jit_capture = False
-    tcfg = tget_config("opt-proxy", smoke=True)
+    tcfg = tget_config(arch, smoke=True)
     tcfg.model.dtype = "float32"
+    jcfg.serve.kv_cache = tcfg.serve.kv_cache = KV_CACHE[arch]
+    vocab = tcfg.model.vocab_size
     jparams = JT.init_params(jcfg.model, jax.random.PRNGKey(0))
     tparams = params_from_numpy(to_numpy(jparams))
-    jc = jcalib(JMarkovLM(256, seed=7), 3, 4, 32)
-    tc = tcalib(TMarkovLM(256, seed=7), 3, 4, 32)
+    jc = jcalib(JMarkovLM(vocab, seed=7), 3, 4, 32)
+    tc = tcalib(TMarkovLM(vocab, seed=7), 3, 4, 32)
     jq, jrep = jquantize(jcfg, jparams, jc)
     tq, trep = tquantize(tcfg, tparams, tc, device="cpu")
     return dict(jcfg=jcfg, tcfg=tcfg, jc=jc, tc=tc, jq=jq, jrep=jrep,
-                tq=tq, trep=trep)
+                tq=tq, trep=trep, pins=PINS[arch])
 
 
 def test_calibration_streams_identical(runs):
@@ -60,11 +77,14 @@ def test_calibration_streams_identical(runs):
 def test_report_records_match(runs):
     jl, tl = runs["jrep"].linears, runs["trep"].linears
     assert [r.name for r in tl] == [r.name for r in jl]
-    assert len(tl) == runs["tcfg"].model.num_layers * 6
+    per_layer = 7 if runs["tcfg"].model.gated_mlp else 6
+    assert len(tl) == runs["tcfg"].model.num_layers * per_layer
+    d_iters, g_rtol, _ = runs["pins"]
     for a, b in zip(tl, jl):
-        assert (a.mode, a.iters, a.shape) == (b.mode, b.iters,
-                                              tuple(b.shape)), a.name
-        np.testing.assert_allclose(a.gamma, b.gamma, rtol=1e-3)
+        assert (a.mode, a.shape) == (b.mode, tuple(b.shape)), a.name
+        assert abs(a.iters - b.iters) <= d_iters, a.name
+        n = min(len(a.gamma), len(b.gamma))
+        np.testing.assert_allclose(a.gamma[:n], b.gamma[:n], rtol=g_rtol)
 
 
 def test_packed_codes_and_logits_match(runs):
@@ -72,8 +92,8 @@ def test_packed_codes_and_logits_match(runs):
     tpacked = tpack(runs["tcfg"], runs["tq"])
     diff = total = 0
     for a, b in zip(tpacked["layers"], jpacked["layers"]):
-        for sub, names in (("mixer", "qkvo"), ("mlp", ("up", "down"))):
-            for k in names:
+        for sub in ("mixer", "mlp"):
+            for k in a[sub]:
                 pa, pb = a[sub][k]["w"].packed, b[sub][k]["w"].packed
                 diff += int((pa != pb).sum())
                 total += pa.numel()
@@ -82,13 +102,13 @@ def test_packed_codes_and_logits_match(runs):
     lt = TT.forward(runs["tcfg"].model, tpacked, toks)
     lj, _ = JT.forward(runs["jcfg"].model, jpack(runs["jcfg"], runs["jq"]),
                        jnp.asarray(toks.numpy()))
-    assert rel(lt.numpy(), lj) <= 1e-3
+    assert rel(lt.numpy(), lj) <= runs["pins"][2]
 
 
 def test_generate_greedy_tokens_equal(runs):
     jpacked = jpack(runs["jcfg"], runs["jq"])
     tpacked = params_from_numpy(to_numpy(jpacked))
-    prompt = JMarkovLM(256, seed=3).batch(2, 8)
+    prompt = JMarkovLM(runs["tcfg"].model.vocab_size, seed=3).batch(2, 8)
     jr = jengine.generate(runs["jcfg"], jpacked, prompt, max_new_tokens=6)
     tr = tengine.generate(runs["tcfg"], tpacked,
                           {"tokens": torch.from_numpy(
