@@ -8,14 +8,16 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
   2. build: every CUDA kernel from ``src/repro_torch/kernels/csrc`` with
      nvcc (in parallel), printing each kernel's ptxas registers, shared
      memory and spills;
-  3. kernels: each of the six kernels' wrappers against its plain PyTorch
-     version on the card, at the shapes the main paths give it (opt-proxy
-     and internlm2-1.8b), with the error against the stated tolerance and
-     CUDA-event times (kernel, plain, library yardstick where one exists)
-     beside the least time the card could take;
-  4. small end to end: opt-proxy smoke (bf16 cache) and internlm2 smoke
-     (int8 KV cache) quantized, packed and served on the card against the
-     same runs of the plain versions on the CPU;
+  3. kernels: each of the seven kernels' wrappers against its plain
+     PyTorch version on the card, at the shapes the main paths give it
+     (opt-proxy, internlm2-1.8b and falcon-mamba-7b), with the error
+     against the stated tolerance and CUDA-event times (kernel, plain,
+     library yardstick where one exists) beside the least time the card
+     could take;
+  4. small end to end: opt-proxy smoke (bf16 cache), internlm2 smoke (int8
+     KV cache) and falcon-mamba smoke (recurrent state) quantized, packed
+     and served on the card against the same runs of the plain versions on
+     the CPU;
   5. main path at full width: opt-proxy (OPT-125M shape) from seeded random
      weights → quantize_model → pack_for_serving → generate, with launch
      counters reset just before and read just after, the packed-vs-float
@@ -26,14 +28,21 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      new tokens), counters reset and read around it; the packed-vs-float
      logits (in fp32 compute), the int8-vs-bf16 cache drift rule, and
      ``quant_pack`` (kernel and plain version) bitwise against every
-     packed linear.
+     packed linear;
+  7. the Mamba-1 main path at full width and depth: falcon-mamba-7b (64
+     layers, d_model 4096, d_inner 8192, d_state 16) → quantize_model →
+     pack_for_serving → generate (4 requests x 512 prompt + 32 new
+     tokens), counters reset and read around it (``selective_scan`` at
+     prefill, capture and propagate); the packed-vs-float logits and the
+     prefill → decode state hand-off, both in fp32 compute.
 
 The line before the last is a JSON object with one entry per kernel
-(``launches`` sums phases 5 and 6); the last line is ``{"ok": true,
+(``launches`` sums phases 5, 6 and 7); the last line is ``{"ok": true,
 "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -59,6 +68,8 @@ KERNEL_SOURCES = {
                           "src/repro/kernels/kv_attention.py:86"),
     "quant_pack": ("src/repro_torch/kernels/csrc/quant_pack.cu",
                    "src/repro/kernels/quant_pack.py:40"),
+    "selective_scan": ("src/repro_torch/kernels/csrc/selective_scan.cu",
+                       "src/repro/kernels/selective_scan.py:71"),
 }
 
 
@@ -171,15 +182,26 @@ def check(cond: bool, what: str) -> None:
         raise SystemExit(f"FAILED: {what}")
 
 
-def within_bf16_ulp(diff, want) -> bool:
-    """|got - want| within one bf16 ulp of each output, taken at no less
-    than 1e-3 of the largest output: below that, cancellation leaves values
-    whose fp32 sums' own rounding (~1e-6 of the largest) exceeds their
-    bf16 ulp."""
+def bf16_ulps(diff, want) -> float:
+    """The largest |got - want| in bf16 ulps of each output, the ulp taken
+    at no less than 1e-3 of the largest output: below that, cancellation
+    leaves values whose fp32 sums' own rounding (~1e-6 of the largest)
+    exceeds their bf16 ulp."""
     import torch
     wf = want.float().abs().clamp_min(1e-3 * float(want.float().abs().max()))
     ulp = torch.exp2(torch.floor(torch.log2(wf)) - 7)
-    return bool((diff <= ulp).all())
+    return float((diff.float().abs() / ulp).max())
+
+
+def within_bf16_ulp(diff, want) -> bool:
+    """|got - want| within one bf16 ulp of each output (``bf16_ulps``)."""
+    return bf16_ulps(diff, want) <= 1.0
+
+
+def resolve(tree, path: str):
+    for k in path.split("."):
+        tree = tree[int(k)] if isinstance(tree, list) else tree[k]
+    return tree
 
 
 def frac_differing(a, b, tol_abs: float = 0.0, tol_rel: float = 0.0):
@@ -200,8 +222,9 @@ def phase_kernels(table: KernelTable) -> None:
     g.manual_seed(1234)
     n_tok, gs, bs, t_max, alpha = 512, 128, 128, 5, 0.01
 
-    # -- hessian_accum: H += X^T X (opt-proxy d, then internlm2 d) -----------
-    for d in (768, 3072, 2048, 8192):
+    # -- hessian_accum: H += X^T X (opt-proxy d, internlm2 d, falcon-mamba
+    # d: 256 for dt, 4096 for in, 8192 for x and out) -----------------------
+    for d in (768, 3072, 2048, 8192, 256, 4096):
         x = torch.randn((n_tok, d), generator=g, device=dev)
         H0 = torch.randn((d, d), generator=g, device=dev)
         H0 = H0 + H0.T
@@ -226,12 +249,14 @@ def phase_kernels(table: KernelTable) -> None:
 
     # -- w4a16_matmul: y = x @ dequant(W)^T ----------------------------------
     # opt-proxy (k, n) at decode m 4 and m 64; internlm2's q/o, k/v,
-    # gate/up and down at decode m 4 and its prefill m 4 x 512
+    # gate/up and down, then falcon-mamba's in, x, dt and out, at decode
+    # m 4 and prefill m 4 x 512
     cases = [(m, k, n) for m in (4, 64)
              for k, n in ((768, 768), (768, 3072), (3072, 768))]
     cases += [(m, k, n) for m in (4, 2048)
               for k, n in ((2048, 2048), (2048, 1024), (2048, 8192),
-                           (8192, 2048))]
+                           (8192, 2048), (4096, 16384), (8192, 288),
+                           (256, 8192), (8192, 4096))]
     for m, k, n in cases:
         for dt in ((torch.bfloat16, torch.float32) if (m, k, n) ==
                    (4, 768, 768) else (torch.bfloat16,)):
@@ -278,11 +303,14 @@ def phase_kernels(table: KernelTable) -> None:
             check(ok, f"w4a16_matmul m={m} k={k} n={n} {dt}")
 
     # -- gptq_block and rpiq_block on realistic Hessians ---------------------
-    # opt-proxy's three groups, then internlm2's q / o, k+v, gate+up, down
+    # opt-proxy's three groups, internlm2's q / o, k+v, gate+up, down, then
+    # falcon-mamba's in, x (288 rows: dt_rank 256 + 2 x 16), dt, out
     for b, out_dim, in_dim in ((4, 768, 768), (1, 3072, 768),
                                (1, 768, 3072), (1, 2048, 2048),
                                (2, 1024, 2048), (2, 8192, 2048),
-                               (1, 2048, 8192)):
+                               (1, 2048, 8192), (1, 16384, 4096),
+                               (1, 288, 8192), (1, 8192, 256),
+                               (1, 4096, 8192)):
         x = torch.randn((b, n_tok, in_dim), generator=g, device=dev)
         w = torch.randn((b, out_dim, in_dim), generator=g, device=dev) \
             * in_dim ** -0.5
@@ -330,8 +358,8 @@ def phase_kernels(table: KernelTable) -> None:
                              nbytes=nbytes, err=err)
         # opt-proxy's groups also keep their first pins on the cells a flip
         # carries along its row; how many that is depends on where in the
-        # row the flips fall and grows with in, so the internlm2 groups are
-        # held by the flips themselves
+        # row the flips fall and grows with in, so the internlm2 and
+        # falcon-mamba groups are held by the flips themselves
         spread_pinned = (b, out_dim, in_dim) in ((4, 768, 768),
                                                 (1, 3072, 768),
                                                 (1, 768, 3072))
@@ -394,21 +422,44 @@ def phase_kernels(table: KernelTable) -> None:
         pms = time_ms(lambda: ref.rpiq_block(*rargs, **rkw), 0.1, 5)
         b_ms, by = table.add("rpiq_block", ms=ms, plain_ms=pms, flop=flop,
                              nbytes=nbytes, err=err)
+        # Gamma = |y_orig - Y_q|^2 sees a difference d in Y_q (the final
+        # Y_q rel above) through the residual r: 2<r, d>/|r|^2, where a
+        # random d meets r at a cosine ~ 1/sqrt(n x out). The 1e-5 pin was
+        # set on the groups of 512 x 768 cells and more; fewer cells scale
+        # it by the square root of the ratio (1.63e-5 at falcon-mamba's
+        # 288-row x projection)
+        g_tol = 1e-5 * max(1.0, (768 * 512 / (out_dim * n_tok)) ** 0.5)
+        # the second witness: each side's last-round Gamma against the
+        # exact (fp64) Gamma of its own last iterate w_cont, held to 1e-6
+        # (fp32 sums of n x out squares and Y_q's drift from X w_cont^T);
+        # the two exact values differ as the two iterates do
+        x64, y64 = x.double(), y_orig.double()
+        g64 = [((y64 - x64 @ w_c.double().transpose(1, 2)) ** 2).sum((1, 2))
+               for w_c in (got_r[0], want_r[0])]
+        e_k, e_p = (float(((side[3][:, t_max].double() - g).abs() / g).max())
+                    for side, g in zip((got_r, want_r), g64))
+        e_64 = float(((g64[0] - g64[1]).abs() / g64[1]).max())
+        del x64, y64, g64
         log(f"  rpiq_block B={b} out={out_dim} in={in_dim} n={n_tok}: "
             f"selected w_q cells differing >1e-6: {fwq:.2e}, candidates: "
             f"{fwp:.2e}, w_cont: {fwc:.2e} (tol 1e-3 each); final Y_q rel "
             f"{yq_rel:.2e} (tol 1e-4); Gamma rel "
-            f"{h_rel:.2e}, proj-loss rel "
-            f"{p_rel:.2e} (tol 1e-5); iters equal {iters_eq} "
+            f"{h_rel:.2e} (tol {g_tol:.3g}), proj-loss rel "
+            f"{p_rel:.2e} (tol 1e-5); last-round Gamma against the fp64 "
+            f"Gamma of its own w_cont: kernel {e_k:.2e}, plain {e_p:.2e} "
+            f"(tol 1e-6 each), the two fp64 values {e_64:.2e}; "
+            f"iters equal {iters_eq} "
             f"({sel_g[3].tolist()}); max_abs_err={err:.3e} ms={ms:.4f} "
             f"plain_ms={pms:.4f} library_ms=none bound_ms={b_ms:.4f} "
             f"({by}); stage-2 block curvature (library) ms={curv_ms:.4f}")
         check(fwq <= 1e-3 and fwp <= 1e-3 and fwc <= 1e-3 and yq_rel <= 1e-4
-              and h_rel <= 1e-5 and p_rel <= 1e-5 and iters_eq,
+              and h_rel <= g_tol and p_rel <= 1e-5 and iters_eq
+              and e_k <= 1e-6 and e_p <= 1e-6,
               f"rpiq_block {b}x{out_dim}x{in_dim}")
 
     kernels_int8_kv_attention(table, g)
     kernels_quant_pack(table, g)
+    kernels_selective_scan(table, g)
 
 
 def kernels_int8_kv_attention(table: KernelTable, g) -> None:
@@ -489,9 +540,10 @@ def kernels_int8_kv_attention(table: KernelTable, g) -> None:
 
 
 def kernels_quant_pack(table: KernelTable, g) -> None:
-    """The int4 packer at internlm2's widest shapes, fp32 weights as
-    pack_for_serving gives them, half the cells exactly on a .5 tie of
-    w / s; bitwise against the plain version and the older packer."""
+    """The int4 packer at internlm2's widest shapes and falcon-mamba's four
+    (in, x, dt, out), fp32 weights as pack_for_serving gives them, half the
+    cells exactly on a .5 tie of w / s; bitwise against the plain version
+    and the older packer."""
     import torch
     from repro_torch.core.quant import QuantParams, pack_int4, \
         quantize_codes
@@ -499,7 +551,8 @@ def kernels_quant_pack(table: KernelTable, g) -> None:
 
     dev = torch.device("cuda")
     gs = 128
-    for n, k in ((2048, 8192), (8192, 2048)):
+    for n, k in ((2048, 8192), (8192, 2048), (16384, 4096), (288, 8192),
+                 (8192, 256), (4096, 8192)):
         scales = torch.exp2(torch.randint(-8, -4, (n, k // gs), generator=g,
                                           device=dev).float())
         zeros = torch.randint(0, 16, (n, k // gs), generator=g,
@@ -536,11 +589,74 @@ def kernels_quant_pack(table: KernelTable, g) -> None:
         check(same, f"quant_pack {n}x{k}")
 
 
+def kernels_selective_scan(table: KernelTable, g) -> None:
+    """The Mamba-1 scan at falcon-mamba-7b's prefill (S 512) and
+    calibration (S 128) shapes and a ragged S 77: B 4, d 8192, n 16,
+    nonzero h0, dt > 0 as softplus gives it. u in fp32 (y and h_last within
+    1e-5 of their largest value) and in bf16, the path's dtype (y within
+    one bf16 ulp, h_last within 1e-5); timed in bf16 from a CUDA graph over
+    input copies beyond the 50 MB L2."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    b, d, n = 4, 8192, 16
+    for s in (512, 128, 77):
+        u = torch.randn((b, s, d), generator=g, device=dev)
+        dt = F.softplus(torch.randn((b, s, d), generator=g, device=dev) - 1)
+        bm, cm = (torch.randn((b, s, n), generator=g, device=dev)
+                  for _ in range(2))
+        a_log = torch.log(torch.arange(1, n + 1, dtype=torch.float32,
+                                       device=dev)).repeat(d, 1)
+        d_skip = torch.randn((d,), generator=g, device=dev)
+        h0 = torch.randn((b, d, n), generator=g, device=dev) * 0.1
+        rest = (dt, bm, cm, a_log, d_skip, h0)
+        errs, ok = {}, True
+        for name, udt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            uu = u.to(udt)
+            y_want, h_want = ref.selective_scan(uu, *rest)
+            y_got, h_got = ops.selective_scan_cuda(uu, *rest)
+            ydiff = (y_got.float() - y_want.float()).abs()
+            y_rel = float(ydiff.max()) / float(y_want.float().abs().max())
+            h_rel = float((h_got - h_want).abs().max()) \
+                / float(h_want.abs().max())
+            y_ok = (y_rel <= 1e-5 if udt == torch.float32
+                    else within_bf16_ulp(ydiff, y_want))
+            ok = ok and y_ok and h_rel <= 1e-5
+            errs[name] = (float(ydiff.max()), y_rel, h_rel, y_ok)
+        # bf16 u and y, fp32 dt / B / C / a_log / d_skip / h0 / h_last
+        nbytes = (b * s * d * (2 + 4 + 2) + 2 * b * s * n * 4
+                  + d * n * 4 + d * 4 + 2 * b * d * n * 4)
+        flop = 7 * b * s * d * n
+        timing = ""
+        if s in (512, 128):
+            args = (u.to(torch.bfloat16),) + rest
+            copies = [args] + [tuple(t.clone() for t in args)
+                               for _ in range(int(100e6 // nbytes))]
+            ms = graph_ms([(lambda c=c: ops.selective_scan_cuda(*c))
+                           for c in copies])
+            del copies
+            pms = time_ms(lambda: ref.selective_scan(*args), 0.2, 5)
+            b_ms, by = table.add("selective_scan", ms=ms, plain_ms=pms,
+                                 flop=flop, nbytes=nbytes,
+                                 err=errs["bf16"][0])
+            timing = (f" ms={ms:.4f} plain_ms={pms:.4f} library_ms=none "
+                      f"bound_ms={b_ms:.4f} ({by})")
+        f32, b16 = errs["fp32"], errs["bf16"]
+        log(f"  selective_scan B={b} S={s} d={d} n={n}: fp32 y max_abs_err="
+            f"{f32[0]:.3e} rel {f32[1]:.2e}, h_last rel {f32[2]:.2e} (tol "
+            f"1e-5 each); bf16 y max_abs_err={b16[0]:.3e} within 1 bf16 "
+            f"ulp {b16[3]}, h_last rel {b16[2]:.2e} (tol 1e-5){timing}")
+        check(ok, f"selective_scan S={s}")
+
+
 def phase_small_end_to_end(arch: str, kv_cache: str) -> None:
     """A smoke config in fp32: the card's run against the CPU plain run."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.pipeline import pack_for_serving, quantize_model
+    from repro_torch.core.quant import quantized_leaves
     from repro_torch.data import MarkovLM, calibration_batches
     from repro_torch.models import transformer as T
     from repro_torch.serving.engine import generate
@@ -564,33 +680,30 @@ def phase_small_end_to_end(arch: str, kv_cache: str) -> None:
     (rc, pc, lc, tc), (rg, pg, lg, tg) = runs["cpu"], runs["cuda"]
     modes = all(a.mode == b.mode and a.iters == b.iters
                 for a, b in zip(rc.linears, rg.linears))
-    codes = [(a[sub][k]["w"].packed, b[sub][k]["w"].packed)
-             for a, b in zip(pc["layers"], pg["layers"])
-             for sub in ("mixer", "mlp") for k in a[sub]]
+    lin_c, lin_g = (dict(quantized_leaves(p["layers"])) for p in (pc, pg))
+    codes = [(qt.packed, lin_g[k].packed) for k, qt in lin_c.items()]
+    same_set = list(lin_c) == list(lin_g) and len(codes) > 0
     mism = sum(int((a != b.cpu()).sum()) for a, b in codes) / sum(
         a.numel() for a, _ in codes)
     rel = float((lg - lc).norm() / lc.norm())
     log(f"  {cfg.model.name} fp32 kv_cache={kv_cache}, card vs CPU plain: "
-        f"modes/iters equal {modes}; packed-byte mismatch {mism:.2e} (tol "
+        f"modes/iters equal {modes}; the same {len(codes)} packed linears "
+        f"{same_set}; packed-byte mismatch {mism:.2e} (tol "
         f"1e-2); packed logits rel {rel:.2e} (tol 1e-3); greedy tokens "
         f"equal {bool(torch.equal(tc, tg))}")
-    check(modes and mism <= 1e-2 and rel <= 1e-3 and torch.equal(tc, tg),
+    check(modes and same_set and mism <= 1e-2 and rel <= 1e-3
+          and torch.equal(tc, tg),
           f"small end to end {arch} kv_cache={kv_cache}, card against CPU "
           "plain")
 
 
 def _nbytes_bf16_vs_int4(pk) -> tuple:
-    from repro_torch.core.quant import QuantizedTensor
+    from repro_torch.core.quant import quantized_leaves
     bf16 = int4 = 0
-    for layer in pk["layers"]:
-        for sub in ("mixer", "mlp"):
-            for lin in layer[sub].values():
-                w = lin["w"]
-                if isinstance(w, QuantizedTensor):
-                    o, i = w.shape
-                    bf16 += 2 * o * i
-                    int4 += (w.packed.numel() + 4 * w.scales.numel()
-                             + 4 * w.zeros.numel())
+    for _, w in quantized_leaves(pk["layers"]):
+        o, i = w.shape
+        bf16 += 2 * o * i
+        int4 += w.packed.numel() + 4 * w.scales.numel() + 4 * w.zeros.numel()
     return bf16, int4
 
 
@@ -611,9 +724,15 @@ def drive_main_path(arch: str, kv_cache: str, n_req: int, n_prompt: int,
     cfg = get_config(arch)
     cfg.serve.kv_cache = kv_cache
     mc, qc = cfg.model, cfg.quant
+    if "mamba" in mc.layer_kinds:
+        widths = (f"kinds={mc.block_pattern} d_inner="
+                  f"{mc.ssm.expand * mc.d_model} d_state={mc.ssm.d_state} "
+                  f"d_conv={mc.ssm.d_conv} dt_rank={mc.ssm.dt_rank}")
+    else:
+        widths = (f"heads={mc.num_heads} kv_heads={mc.num_kv_heads} "
+                  f"head_dim={mc.head_dim} d_ff={mc.d_ff}")
     log(f"  config: {mc.name} layers={mc.num_layers} d_model={mc.d_model} "
-        f"heads={mc.num_heads} kv_heads={mc.num_kv_heads} "
-        f"head_dim={mc.head_dim} d_ff={mc.d_ff} vocab={mc.vocab_size} "
+        f"{widths} vocab={mc.vocab_size} "
         f"dtype={mc.dtype}; quant group={qc.group_size} "
         f"blocksize={qc.blocksize} rpiq_iters={qc.rpiq_iters}; serve "
         f"kv_cache={kv_cache} (depth not cut)")
@@ -631,6 +750,7 @@ def drive_main_path(arch: str, kv_cache: str, n_req: int, n_prompt: int,
     t0 = time.perf_counter()
     params_q, report = quantize_model(cfg, params, calib)
     t1 = time.perf_counter()
+    del params          # the original float layers: no longer needed
     packed = pack_for_serving(cfg, params_q)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
@@ -657,7 +777,7 @@ def drive_main_path(arch: str, kv_cache: str, n_req: int, n_prompt: int,
     log(f"  peak device memory: {peak} bytes, of which {held_before} were "
         f"held by earlier phases: this path {peak - held_before} bytes")
     return dict(cfg=cfg, params_q=params_q, packed=packed, calib=calib,
-                prompt=prompt, res=res, launches=launches)
+                prompt=prompt, res=res, launches=launches, report=report)
 
 
 def phase_main_path() -> dict:
@@ -692,6 +812,7 @@ def phase_int8_kv_path() -> dict:
     launch counts, the packed-vs-float logits, the int8-vs-bf16 cache
     drift and quant_pack against the packed artifact."""
     import torch
+    from repro_torch.core.quant import quantized_leaves
     from repro_torch.kernels import ops, ref
     from repro_torch.models import transformer as T
 
@@ -704,14 +825,18 @@ def phase_int8_kv_path() -> dict:
     cache_bytes = {
         kind: mc.num_layers * sum(
             t.numel() * t.element_size() for t in T.init_layer_cache(
-                mc, n_req, max_len, "cuda", dt).values())
+                mc, ("attn", "dense"), n_req, max_len, "cuda", dt).values())
         for kind, dt in (("int8", "int8"), ("bf16", torch.bfloat16))}
     log(f"  KV cache bytes at {n_req} x {max_len} slots: int8 (codes + "
         f"scales + error accumulators) {cache_bytes['int8']} vs bf16 "
         f"{cache_bytes['bf16']} "
         f"({cache_bytes['bf16'] / cache_bytes['int8']:.2f}x)")
     for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the int8-KV path")
+        if name == "selective_scan":    # a Mamba kernel: none here
+            check(n == 0, "selective_scan launched on the int8-KV path")
+        else:
+            check(n > 0, f"kernel {name} was not launched on the int8-KV "
+                  "path")
     decode_calls = mc.num_layers * (n_new - 1)
     check(launches["int8_kv_attention"] == decode_calls,
           f"int8_kv_attention launched {launches['int8_kv_attention']} "
@@ -786,22 +911,283 @@ def phase_int8_kv_path() -> dict:
 
     # quant_pack against the path's packed artifact, every quantized linear
     n_lin = n_eq = 0
-    for layer_q, layer_p in zip(params_q["layers"], packed["layers"]):
-        for sub in ("mixer", "mlp"):
-            for name, lin in layer_q[sub].items():
-                w_oi = lin["w"].float().T.contiguous()
-                art = layer_p[sub][name]["w"].packed
-                kern = ops.quant_pack(w_oi, lin["qscales"], lin["qzeros"],
-                                      group_size=qc.group_size)
-                plain = ref.quant_pack(w_oi, lin["qscales"], lin["qzeros"],
-                                       qc.group_size)
-                n_lin += 1
-                n_eq += int(torch.equal(kern, art)
-                            and torch.equal(plain, art))
+    for path, packed_w in quantized_leaves(packed["layers"]):
+        lin = resolve(params_q["layers"], path.rsplit(".", 1)[0])
+        w_oi = lin["w"].float().T.contiguous()
+        art = packed_w.packed
+        kern = ops.quant_pack(w_oi, lin["qscales"], lin["qzeros"],
+                              group_size=qc.group_size)
+        plain = ref.quant_pack(w_oi, lin["qscales"], lin["qzeros"],
+                               qc.group_size)
+        n_lin += 1
+        n_eq += int(torch.equal(kern, art) and torch.equal(plain, art))
+    n_quantized = sum(1 for rec in r["report"].linears
+                      if rec.mode != "skipped")
     log(f"  quant_pack (kernel and plain version) bitwise equal to the "
-        f"packed artifact: {n_eq} of {n_lin} quantized linears")
-    check(n_eq == n_lin == 7 * mc.num_layers,
+        f"packed artifact: {n_eq} of {n_lin} packed linears ({n_quantized} "
+        f"quantized)")
+    check(n_eq == n_lin == n_quantized,
           "quant_pack against the packed artifact")
+    return launches
+
+
+def device_breakdown(fn, label: str, top: int = 6) -> None:
+    """Run fn once under torch.profiler; print its wall (with the
+    profiler's own host cost in it), its kernels' device time (their sum:
+    one stream, no overlap), the idle share and the kernels that take the
+    most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    kern = sorted((e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0),
+                  key=lambda e: -e.self_device_time_total)
+    if not kern:
+        log(f"  {label}: wall {wall_ms:.1f} ms; device time not measured "
+            "(the profiler recorded no kernel)")
+        return
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    tops = "; ".join(
+        f"{e.key.replace('(anonymous namespace)::', '')[:48]} x{e.count} "
+        f"{e.self_device_time_total / 1e3:.1f} ms" for e in kern[:top])
+    log(f"  {label} (torch.profiler): wall {wall_ms:.1f} ms, device busy "
+        f"{busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.3f}; top "
+        f"kernels: {tops}")
+
+
+@contextlib.contextmanager
+def paired_route(readings: list, kernel_inputs=None):
+    """The model code's calls of ``ops.w4a16_matmul`` and
+    ``ops.selective_scan`` run the kernel and, on the same inputs, the
+    plain version; each call appends (op, reading) to ``readings`` and the
+    path goes on with the kernel's output. The reading is phase 3's: for a
+    bf16 output ``bf16_ulps``, for fp32 the largest |kernel - plain| over
+    the largest |plain|. ``kernel_inputs`` maps id(packed weight) to a
+    faulty (packed, zeros) pair handed to the kernel only: the control."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    saved = ops.w4a16_matmul, ops.selective_scan
+    swap = kernel_inputs or {}
+
+    def reading(got, want):
+        diff = got.float() - want.float()
+        if want.dtype == torch.bfloat16:
+            return bf16_ulps(diff, want)
+        return float(diff.abs().max() / want.abs().max())
+
+    def w4a16(x, packed, scales, zeros, *, group_size=128):
+        want = ref.w4a16_matmul(x.reshape(-1, x.shape[-1]), packed, scales,
+                                zeros, group_size)
+        pk, zs = swap.get(id(packed), (packed, zeros))
+        got = saved[0](x, pk, scales, zs, group_size=group_size)
+        readings.append(("w4a16_matmul",
+                         reading(got.reshape(want.shape), want)))
+        return got
+
+    def scan(*args):
+        want, _ = ref.selective_scan(*args)
+        got = saved[1](*args)
+        readings.append(("selective_scan", reading(got[0], want)))
+        return got
+
+    ops.w4a16_matmul, ops.selective_scan = w4a16, scan
+    try:
+        yield
+    finally:
+        ops.w4a16_matmul, ops.selective_scan = saved
+
+
+def phase_mamba_path() -> dict:
+    """falcon-mamba-7b at full width and depth: the launch counts (the
+    scan once per layer and calibration batch in capture and in
+    propagate, once per layer at prefill; no KV attention), the walls,
+    bytes and the recurrent state against a bf16 KV cache of the same
+    depth; then in fp32 compute the packed-vs-float logits and the
+    prefill → decode hand-off; the first layers' kernels against their
+    plain versions in fp32 and bf16, each beside a control with a fault;
+    generate's tokens against the timed prefill and decode steps."""
+    import torch
+    from repro_torch.models import transformer as T
+
+    n_req, n_prompt, n_new = 4, 512, 32
+    r = drive_main_path("falcon-mamba-7b", "fp16", n_req, n_prompt, n_new)
+    cfg, params_q, packed = r["cfg"], r["params_q"], r["packed"]
+    launches, res, prompt = r["launches"], r["res"], r["prompt"]
+    mc = cfg.model
+    for name, k in launches.items():
+        if name == "int8_kv_attention":
+            check(k == 0, "int8_kv_attention launched on the Mamba path")
+        else:
+            check(k > 0, f"kernel {name} was not launched on the Mamba path")
+    scans = mc.num_layers * (2 * len(r["calib"]) + 1)
+    check(launches["selective_scan"] == scans,
+          f"selective_scan launched {launches['selective_scan']} times, "
+          f"expected {scans} (layers x (capture + propagate batches + "
+          "prefill))")
+    n_skipped = sum(1 for rec in r["report"].linears
+                    if rec.mode == "skipped")
+    check(n_skipped == 0, f"{n_skipped} linears skipped at full width")
+
+    max_len = n_prompt + n_new + 1
+    state = mc.num_layers * sum(
+        t.numel() * t.element_size() for t in T.init_layer_cache(
+            mc, ("mamba", "none"), n_req, max_len, "cuda",
+            torch.bfloat16).values())
+    # K and V, d_model wide per slot: an attention stack of the same width
+    kv = 2 * mc.num_layers * n_req * max_len * mc.d_model * 2
+    log(f"  recurrent state bytes ({n_req} requests, bf16, any length): "
+        f"{state}; a bf16 KV cache of the same depth and width at "
+        f"{max_len} slots: {kv} ({kv / state:.1f}x, growing with the "
+        f"context)")
+
+    ptoks = prompt["tokens"].cuda()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    lg, caches = T.prefill(mc, packed, ptoks, max_len)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    tok = torch.argmax(lg, -1)
+    greedy = [tok]
+    pos = torch.full((n_req,), n_prompt, dtype=torch.long, device="cuda")
+    n_steps = 8
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n_steps):
+        lg, caches = T.decode_step(mc, packed, tok, pos, caches)
+        tok = torch.argmax(lg, -1)
+        greedy.append(tok)
+        pos = pos + 1
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t) / n_steps
+    state_dt = {str(c[k].dtype) for c in caches for k in c}
+    log(f"  walls (s): prefill {prefill_s:.3f}; decode step {step_s:.4f} "
+        f"(mean of {n_steps}); state dtypes after decode {state_dt}")
+    check(state_dt == {"torch.bfloat16"}, "the state stays in bf16")
+    device_breakdown(lambda: T.prefill(mc, packed, ptoks, max_len),
+                     "prefill")
+    device_breakdown(lambda: T.decode_step(mc, packed, tok, pos, caches),
+                     "decode step")
+    del caches, lg
+
+    # (a) packed int4 against the refined grid; in fp32 compute both models
+    # hold the same weights and differ only in summation order
+    toks = r["calib"][-1]["tokens"].cuda()
+    m32 = dataclasses.replace(mc, dtype="float32")
+    rel = {}
+    for dt in ("float32", "bfloat16"):
+        mdt = dataclasses.replace(mc, dtype=dt)
+        lq = T.forward(mdt, packed, toks)
+        lf = T.forward(mdt, params_q, toks)
+        rel[dt] = float((lq - lf).norm() / (lf.norm() + 1e-9))
+        if dt == "bfloat16":
+            finite = bool(torch.isfinite(lq).all())
+        else:
+            lf32 = lf
+        del lq, lf
+    # how far the float model itself carries a perturbation the size of
+    # fp32 rounding: every embedding value moved by a relative 1e-6
+    emb = params_q["embed"]["embedding"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    noisy = dict(params_q, embed={"embedding": emb * (1 + 1e-6 * torch.randn(
+        emb.shape, generator=gen, device="cuda"))})
+    ln = T.forward(m32, noisy, toks)
+    sens = float((ln - lf32).norm() / lf32.norm())
+    del noisy, ln, lf32
+    log(f"  packed int4 vs refined-grid float logits: fp32 compute rel err "
+        f"{rel['float32']:.3e} (tol 1e-3); bf16 compute {rel['bfloat16']:.5f}"
+        f" (not pinned); finite {finite}; the float model's fp32 logits "
+        f"move by {sens:.3e} rel when each embedding value moves by a "
+        f"relative 1e-6")
+
+    # (b) the prefill -> decode hand-off: the kernel's h_last and the conv
+    # inputs feed the plain decode recurrence. In fp32 the two differ in
+    # the order of a few sums per layer (the decode's b = (dt*B)*u against
+    # the scan's (dt*u)*B, and y's sum over the states), over 64 layers
+    full = T.forward(m32, packed, ptoks)[:, -1]
+    _, caches = T.prefill(m32, packed, ptoks[:, :-1], n_prompt)
+    last = torch.full((n_req,), n_prompt - 1, dtype=torch.long,
+                      device="cuda")
+    stepped, _ = T.decode_step(m32, packed, ptoks[:, -1], last, caches)
+    rel_b = float((stepped - full).norm() / full.norm())
+    same_top = bool(torch.equal(stepped.argmax(-1), full.argmax(-1)))
+    log(f"  prefill of {n_prompt - 1} tokens + 1 decode step vs the full "
+        f"forward over {n_prompt}, last-position logits in fp32 compute: "
+        f"rel err {rel_b:.3e} (tol 1e-4); same argmax {same_top}")
+    del full, caches, stepped
+
+    # (c) the first layers at full width, in fp32 and in bf16 (the
+    # serving dtype): every kernel call against its plain version on the
+    # same inputs, at phase 3's pins, a check that rides on no depth's
+    # gain. The control hands layer 0's kernel a fault: one int4 code one
+    # grid step off in the out projection, or one group's zero point one
+    # off in the in projection
+    n_cmp = 4
+    mixer0 = packed["layers"][0]["mixer"]
+
+    def fault(name, code):
+        qt = mixer0[name]["w"]
+        pk, zs = qt.packed.clone(), qt.zeros.clone()
+        if code:
+            lo = pk[0, 0] & 0x0F
+            pk[0, 0] = (pk[0, 0] & 0xF0) | (lo + 1 if lo < 15 else lo - 1)
+        else:
+            zs[0, 0] += 1.0 if zs[0, 0] < 15 else -1.0
+        return {id(qt.packed): (pk, zs)}
+
+    controls = {"one code (out)": fault("out", True),
+                "one group's zero (in)": fault("in", False)}
+    pins = {"float32": 1e-5, "bfloat16": 1.0}
+    positions = T.positions_for(n_req, n_prompt, "cuda")
+    layers_ok = True
+    for dt, pin in pins.items():
+        mdt = dataclasses.replace(mc, dtype=dt)
+        h = T.embed(packed["embed"], ptoks, T.compute_dtype(mdt))
+        calls = []
+        with paired_route(calls):
+            for spec, p in zip(T.layer_specs(mdt)[:n_cmp],
+                               packed["layers"][:n_cmp]):
+                h = T.layer_forward(mdt, spec, p, h, positions)
+        sound = {op: max(v for o, v in calls if o == op)
+                 for op in ("w4a16_matmul", "selective_scan")}
+        ctrl = {}
+        for k, swap in controls.items():
+            h = T.embed(packed["embed"], ptoks, T.compute_dtype(mdt))
+            bad = []
+            with paired_route(bad, swap):
+                T.layer_forward(mdt, T.layer_specs(mdt)[0],
+                                packed["layers"][0], h, positions)
+            ctrl[k] = max(v for _, v in bad)
+        del h
+        unit = "bf16 ulps" if dt == "bfloat16" else "of the largest output"
+        log(f"  {dt}, layers 0-{n_cmp - 1}: {len(calls)} kernel calls "
+            f"against their plain versions on the same inputs, largest "
+            f"difference ({unit}): "
+            f"{ {k: f'{v:.3g}' for k, v in sound.items()} } (tol {pin:g}); "
+            f"control, layer 0 with a fault on the kernel's inputs: "
+            f"{ {k: f'{v:.3g}' for k, v in ctrl.items()} }")
+        layers_ok = layers_ok and (max(sound.values()) <= pin
+                                   < min(ctrl.values()))
+
+    # (d) generate's greedy tokens are the timed prefill's and decode
+    # steps' argmax (the same bf16 route, deterministic kernels)
+    same_gen = bool(torch.equal(res.tokens[:, :n_steps + 1].cuda(),
+                                torch.stack(greedy, dim=1)))
+    log(f"  generate's first {n_steps + 1} tokens equal the timed prefill "
+        f"and decode steps' argmax: {same_gen}")
+    log(f"  decoded tokens (request 0): {res.tokens[0].tolist()} steps "
+        f"{res.steps.tolist()}")
+    check(rel["float32"] < 1e-3 and finite and rel_b <= 1e-4 and layers_ok
+          and same_gen and tuple(res.tokens.shape) == (n_req, n_new),
+          "Mamba path output check")
     return launches
 
 
@@ -853,12 +1239,17 @@ def main() -> int:
     log("[4] small end to end: smoke configs, card against CPU plain")
     phase_small_end_to_end("opt-proxy", "fp16")
     phase_small_end_to_end("internlm2-1.8b", "int8")
+    phase_small_end_to_end("falcon-mamba-7b", "fp16")
 
     log("[5] main path at full width: opt-proxy")
     launches = phase_main_path()
 
     log("[6] main path at full width: internlm2-1.8b, int8 KV cache")
     for name, n in phase_int8_kv_path().items():
+        launches[name] += n
+
+    log("[7] main path at full width: falcon-mamba-7b (Mamba-1)")
+    for name, n in phase_mamba_path().items():
         launches[name] += n
 
     log(f"  total {time.perf_counter() - t_start:.1f}s")

@@ -7,7 +7,20 @@ configuration, plus the dotted ``key=value`` override helpers.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Tuple
+
+# the layer kinds the port runs; the JAX package's others (swa, local,
+# rglru, mla) wait in ROADMAP.md's port queue
+PORTED_KINDS = ("attn", "mamba")
+
+
+@dataclass
+class SSMConfig:
+    """Mamba-1 block configuration, read by the "mamba" layers."""
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0                # 0 => ceil(d_model/16)
 
 
 @dataclass
@@ -20,15 +33,31 @@ class ModelConfig:
     head_dim: int = 0               # 0 => d_model // num_heads
     d_ff: int = 512
     vocab_size: int = 512
+    # block kinds ("attn" | "mamba"), cycled over the layer stack
+    block_pattern: Tuple[str, ...] = ("attn",)
     norm: str = "rmsnorm"           # rmsnorm | layernorm
     act: str = "silu"               # silu (gated) | gelu (ungated)
     gated_mlp: bool = True
     rope_theta: float = 10000.0
     dtype: str = "bfloat16"         # compute dtype
+    ssm: SSMConfig = field(default_factory=SSMConfig)
 
     def __post_init__(self):
         if self.head_dim == 0:
             self.head_dim = self.d_model // self.num_heads
+        if "mamba" in self.layer_kinds and self.ssm.dt_rank == 0:
+            self.ssm.dt_rank = max(1, -(-self.d_model // 16))
+        bad = sorted(set(self.block_pattern) - set(PORTED_KINDS))
+        if bad:
+            raise ValueError(
+                f"block kinds {bad} are not ported to repro_torch yet "
+                f"(ported: {list(PORTED_KINDS)}); see ROADMAP.md, queue 1 "
+                "'Modules to port'")
+
+    @property
+    def layer_kinds(self) -> Tuple[str, ...]:
+        pat = self.block_pattern
+        return tuple(pat[i % len(pat)] for i in range(self.num_layers))
 
 
 @dataclass

@@ -1,16 +1,17 @@
 """``arch`` resolution for the port.
 
-Ported so far: ``opt-proxy`` and ``internlm2-1.8b``. The JAX package's
-other architectures (enc-dec whisper, routed MoE, MLA, SSM and RG-LRU
-hybrids, the other dense models) wait in ROADMAP.md's port queue and raise
-here.
+Ported so far: ``opt-proxy``, ``internlm2-1.8b`` and the Mamba-1 model
+``falcon-mamba-7b``. The JAX package's other architectures (enc-dec
+whisper, routed MoE, MLA, RG-LRU hybrids, the other dense models) wait in
+ROADMAP.md's port queue and raise here.
 """
 from __future__ import annotations
 
 from repro_torch.config import Config
-from repro_torch.configs import internlm2_1_8b, opt_proxy
+from repro_torch.configs import falcon_mamba_7b, internlm2_1_8b, opt_proxy
 
-_MODULES = {"opt-proxy": opt_proxy, "internlm2-1.8b": internlm2_1_8b}
+_MODULES = {"opt-proxy": opt_proxy, "internlm2-1.8b": internlm2_1_8b,
+            "falcon-mamba-7b": falcon_mamba_7b}
 ARCH_IDS = list(_MODULES)
 
 

@@ -85,11 +85,6 @@ def _to_device(tree, device):
     return tree.to(device)
 
 
-def _sync(t: Tensor) -> None:
-    if t.is_cuda:
-        torch.cuda.synchronize(t.device)
-
-
 @dataclasses.dataclass
 class CaptureResult:
     """One layer's calibration state: Hessians and last-batch inputs."""
@@ -169,16 +164,16 @@ def _walker_decoder_only(cfg: Config, params: Dict, calib: List[Dict],
     b0, s0, _ = hs[0].shape
     positions = T.positions_for(b0, s0, device)
 
-    def apply_fn(p, h, bi):
-        return T.layer_forward(mc, p, h, positions)
+    def apply_fn(spec):
+        return lambda p, h, bi: T.layer_forward(mc, spec, p, h, positions)
 
     collected: List[Optional[Dict]] = [None] * len(params["layers"])
     items = [LayerStep(name=f"layer {li + 1}",
                        params=(lambda _li=li: params["layers"][_li]),
-                       apply_fn=apply_fn, hs_slot="h",
+                       apply_fn=apply_fn(spec), hs_slot="h",
                        store=(lambda p, _li=li:
                               collected.__setitem__(_li, p)))
-             for li in range(len(params["layers"]))]
+             for li, spec in enumerate(T.layer_specs(mc))]
 
     def finalize() -> Dict:
         out = dict(params)
@@ -205,7 +200,8 @@ def quantize_model(cfg: Config, params: Dict, calib: List[Dict[str, Tensor]],
     params = _to_device(params, dev)
     walker = _walker_decoder_only(cfg, params, calib, dev)
     out = qstream.run_walker(cfg, walker, report, verbose=verbose)
-    _sync(out["layers"][-1]["mlp"]["down"]["w"])
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
     report.seconds_total = time.perf_counter() - t_start
     return out, report
 

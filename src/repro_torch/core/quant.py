@@ -43,6 +43,20 @@ class QuantizedTensor:
                 f"group_size={self.group_size})")
 
 
+def quantized_leaves(tree, path: str = ""):
+    """(dotted path, QuantizedTensor) of every packed linear weight in a
+    params tree, wherever it sits (attention, MLP or Mamba mixer; a Mamba
+    mixer's conv, a_log and d_skip are not packed and are not visited)."""
+    if isinstance(tree, QuantizedTensor):
+        yield path, tree
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from quantized_leaves(v, f"{path}.{k}" if path else k)
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from quantized_leaves(v, f"{path}.{i}" if path else str(i))
+
+
 def compute_qparams(w: Tensor, bits: int, group_size: int,
                     symmetric: bool = False) -> QuantParams:
     out_dim, in_dim = w.shape

@@ -23,12 +23,14 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("hessian_accum", "gptq_block", "rpiq_block", "w4a16_matmul",
-           "int8_kv_attention", "quant_pack")
+           "int8_kv_attention", "quant_pack", "selective_scan")
 BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# the sweep kernels must round `a - b*c` like the plain version: no
-# contraction into a fused multiply-add (their dot products call fmaf)
-EXTRA_FLAGS = {"gptq_block": ["-fmad=false"], "rpiq_block": ["-fmad=false"]}
+# the sweep kernels and the scan's state update must round `a - b*c` and
+# `a*h + b*c` like the plain version: no contraction into a fused
+# multiply-add (the sweeps' dot products call fmaf)
+EXTRA_FLAGS = {"gptq_block": ["-fmad=false"], "rpiq_block": ["-fmad=false"],
+               "selective_scan": ["-fmad=false"]}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -139,6 +141,11 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         "quant_pack": {
             "quant_pack_f32_launch": [p] * 4 + [i] * 3 + [p],
             "quant_pack_bf16_launch": [p] * 4 + [i] * 3 + [p]},
+        "selective_scan": {
+            "selective_scan_f32_launch": [p] * 9 + [i] * 4 + [p],
+            "selective_scan_bf16_launch": [p] * 9 + [i] * 4 + [p],
+            "selective_scan_channels_per_block": [],
+            "selective_scan_max_state": []},
     }[name]
     for fn, args in sigs.items():
         getattr(lib, fn).argtypes = args

@@ -1,4 +1,4 @@
-"""Dispatch layer for the port's six kernels.
+"""Dispatch layer for the port's seven kernels.
 
 Each op takes the plain PyTorch version (:mod:`repro_torch.kernels.ref`)
 for a tensor on the CPU and launches its hand-written CUDA kernel for a
@@ -23,7 +23,8 @@ Tensor = torch.Tensor
 
 _LAUNCHES: Dict[str, int] = {"hessian_accum": 0, "gptq_block": 0,
                              "rpiq_block": 0, "w4a16_matmul": 0,
-                             "int8_kv_attention": 0, "quant_pack": 0}
+                             "int8_kv_attention": 0, "quant_pack": 0,
+                             "selective_scan": 0}
 
 
 def kernel_launches() -> Dict[str, int]:
@@ -451,3 +452,59 @@ def quant_pack(w: Tensor, scales: Tensor, zeros: Tensor, *,
         return ref.quant_pack(w, scales, zeros, group_size)
     return quant_pack_cuda(w.contiguous(), scales.contiguous(),
                            zeros.contiguous(), group_size)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-1 selective scan
+# ---------------------------------------------------------------------------
+
+def selective_scan_cuda(u: Tensor, dt: Tensor, bm: Tensor, cm: Tensor,
+                        a_log: Tensor, d_skip: Tensor, h0: Tensor
+                        ) -> Tuple[Tensor, Tensor]:
+    """Kernel wrapper: same contract as :func:`ref.selective_scan`, with
+    every input but u in float32; h_last comes back in float32."""
+    op = "selective_scan"
+    args = (u, dt, bm, cm, a_log, d_skip, h0)
+    _check_cuda(op, *args)
+    _require(all(a.dtype == torch.float32 for a in args[1:]), op,
+             "dt, B, C, a_log, d_skip and h0 must be float32")
+    b, s, d = u.shape
+    n = bm.shape[-1]
+    _require(dt.shape == (b, s, d), op, f"dt must be ({b}, {s}, {d})")
+    _require(bm.shape == (b, s, n) == cm.shape, op,
+             f"B and C must be ({b}, {s}, n)")
+    _require(a_log.shape == (d, n) and d_skip.shape == (d,)
+             and h0.shape == (b, d, n), op,
+             f"a_log must be ({d}, {n}), d_skip ({d},), h0 ({b}, {d}, {n})")
+    lib = build.load(op)
+    tile = lib.selective_scan_channels_per_block()
+    n_max = lib.selective_scan_max_state()
+    _require(b >= 1 and s >= 1 and d % tile == 0 and 1 <= n <= n_max, op,
+             f"B={b}, S={s}, d={d}, n={n}: the kernel takes B, S >= 1, d "
+             f"a multiple of {tile} and n <= {n_max}")
+    if u.dtype == torch.float32:
+        fn = lib.selective_scan_f32_launch
+    elif u.dtype == torch.bfloat16:
+        fn = lib.selective_scan_bf16_launch
+    else:
+        raise ValueError(f"{op}: u dtype {u.dtype} not supported")
+    y = torch.empty_like(u)
+    h_last = torch.empty_like(h0)
+    _launch(op, fn, *(a.data_ptr() for a in args), y.data_ptr(),
+            h_last.data_ptr(), b, s, d, n, _stream())
+    return y, h_last
+
+
+def selective_scan(u: Tensor, dt: Tensor, bm: Tensor, cm: Tensor,
+                   a_log: Tensor, d_skip: Tensor, h0: Tensor
+                   ) -> Tuple[Tensor, Tensor]:
+    """u/dt (B, S, d); bm/cm (B, S, n); a_log (d, n); d_skip (d,); h0
+    (B, d, n). Returns (y (B, S, d) in u's dtype, h_last in h0's dtype).
+    B and C arrive as views of the x projection (row stride dt_rank + 2n)
+    and are made contiguous here."""
+    args = (u, dt, bm, cm, a_log, d_skip, h0)
+    if _is_plain(u, "selective_scan"):
+        return ref.selective_scan(*args)
+    y, h_last = selective_scan_cuda(
+        u.contiguous(), *(a.float().contiguous() for a in args[1:]))
+    return y, h_last.to(h0.dtype)

@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the six kernels of the quantize → serve path.
+"""Plain PyTorch versions of the seven kernels of the quantize → serve
+path.
 
 Each function has the signature of its kernel wrapper in
 :mod:`repro_torch.kernels.ops` and computes what the kernel computes, in
@@ -193,3 +194,27 @@ def quant_pack(w: Tensor, scales: Tensor, zeros: Tensor,
     q = torch.clamp(torch.round(w.float() / s) + z, 0.0, 15.0)
     q = q.to(torch.uint8)
     return (q[:, 0::2] | (q[:, 1::2] << 4)).contiguous()
+
+
+def selective_scan(u: Tensor, dt: Tensor, bm: Tensor, cm: Tensor,
+                   a_log: Tensor, d_skip: Tensor, h0: Tensor
+                   ) -> Tuple[Tensor, Tensor]:
+    """Mamba-1 diagonal SSM, a sequential loop over time in fp32.
+
+    u/dt (B, S, d); bm/cm (B, S, n); a_log (d, n) with A = -exp(a_log);
+    d_skip (d,); h0 (B, d, n). Per step ``a_t = exp(dt_t ⊙ A)``, ``h ←
+    a_t ⊙ h + (dt_t·u_t) B_t``, ``y_t = Σ_n h·C_t + d_skip ⊙ u_t``, as
+    ``repro.kernels.ref.selective_scan_ref``. Returns (y (B, S, d) in u's
+    dtype, h_last (B, d, n) in h0's dtype).
+    """
+    A = -torch.exp(a_log.float())
+    uf, dtf, bf, cf = u.float(), dt.float(), bm.float(), cm.float()
+    dsk = d_skip.float()
+    h = h0.float()
+    y = torch.empty(uf.shape, dtype=torch.float32, device=u.device)
+    for t in range(u.shape[1]):
+        dt_t, u_t = dtf[:, t], uf[:, t]
+        a_t = torch.exp(dt_t[..., None] * A[None])
+        h = a_t * h + (dt_t * u_t)[..., None] * bf[:, t, None, :]
+        y[:, t] = torch.einsum("bdn,bn->bd", h, cf[:, t]) + u_t * dsk
+    return y.to(u.dtype), h.to(h0.dtype)

@@ -1,11 +1,12 @@
-"""Shared model layers: norms, MLP, embeddings, rotary embeddings.
+"""Shared model layers: norms, MLP, embeddings, rotary embeddings, the
+depthwise causal conv of the Mamba block.
 
 Plain functions over param dicts. Compute dtype follows the input; norm
 statistics and RoPE run in float32, as in the JAX package.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -96,3 +97,38 @@ def apply_rope(x: Tensor, positions: Tensor, theta: float = 10000.0
     x1, x2 = x.float().chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      dim=-1).to(x.dtype)
+
+
+def causal_conv1d(p: Dict, x: Tensor, state: Optional[Tensor] = None
+                  ) -> Tuple[Tensor, Tensor]:
+    """Depthwise causal conv over the sequence, as the JAX package's.
+
+    x (B, S, C); p["w"] (K, C) taps; p["b"] (C,); state (B, K-1, C) the
+    trailing inputs of the previous call, or None (zeros). The taps are
+    cast to x's dtype, the K products summed in fp32 in tap order, then
+    the bias added. Returns (y (B, S, C) in x's dtype, the last K-1 inputs
+    (B, K-1, C) in x's dtype).
+    """
+    w = p["w"].to(x.dtype)
+    k = w.shape[0]
+    b, s, c = x.shape
+    if state is None:
+        state = x.new_zeros((b, k - 1, c))
+    xp = torch.cat([state.to(x.dtype), x], dim=1)           # (B, S+K-1, C)
+    y = torch.zeros((b, s, c), dtype=torch.float32, device=x.device)
+    for j in range(k):
+        y = y + xp[:, j:j + s].float() * w[j].float()
+    if "b" in p:
+        y = y + p["b"].float()
+    # a copy: a view would keep the whole padded input alive in the cache
+    new_state = xp[:, s:].clone() if k > 1 else state
+    return y.to(x.dtype), new_state
+
+
+def init_conv1d(gen: torch.Generator, width: int, channels: int, device,
+                bias: bool = True) -> Dict:
+    p = {"w": torch.randn((width, channels), generator=gen, device=device)
+         * width ** -0.5}
+    if bias:
+        p["b"] = torch.zeros((channels,), device=device)
+    return p

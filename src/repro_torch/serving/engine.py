@@ -4,8 +4,11 @@ Weights may be float or int4-packed (``QuantizedTensor`` leaves from
 ``pack_for_serving``); ``models.linear.dense`` dispatches per leaf, so the
 packed denses run the W4A16 kernel on the card. ``serve.kv_cache=int8``
 keeps the decode history as int8 codes read by the int8 KV attention
-kernel. Finished lanes keep
-decoding but their outputs are frozen.
+kernel. A Mamba layer carries a recurrent state instead of a KV cache: the
+prefill runs the selective-scan kernel and hands its last state and conv
+inputs to the plain single-step recurrence of decode, which returns a new
+state each step. Finished lanes keep decoding but their outputs are
+frozen.
 
 EOS convention (as in the JAX engine): the eos token itself is never
 emitted. The step that samples eos writes token 0 / logprob 0.0 and marks

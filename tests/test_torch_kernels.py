@@ -17,11 +17,15 @@ projected loss ≤ 1e-5 relative; ``iters_run`` equal.
 The CPU parity of ``int8_kv_attention`` and ``quant_pack`` is in
 ``tests/test_torch_kv.py``.
 
-The ``gpu``-marked tests hold each CUDA kernel, the six of them, against
+The CPU parity of ``selective_scan`` is in ``tests/test_torch_ssm.py``.
+
+The ``gpu``-marked tests hold each CUDA kernel, the seven of them, against
 its plain version on the card (``python -m pytest -m gpu
 tests/test_torch_kernels.py``); without a card they skip. Pins there:
 ``int8_kv_attention`` ≤ 1e-5 of the largest output in fp32 and one bf16
-ulp (as ``bf16_ulp``) in bf16; ``quant_pack`` bitwise.
+ulp (as ``bf16_ulp``) in bf16; ``quant_pack`` bitwise; ``selective_scan``
+y and h_last ≤ 1e-5 of their largest value in fp32, y within one bf16 ulp
+in bf16, and a shape the kernel does not take raises.
 """
 import jax
 import jax.numpy as jnp
@@ -232,8 +236,24 @@ def test_cpu_dispatch_takes_plain_version_and_counts_nothing():
     s, z = t(scales), t(zeros)
     torch.testing.assert_close(tops.quant_pack(w, s, z, group_size=32),
                                tref.quant_pack(w, s, z, 32), rtol=0, atol=0)
+    scan = [t(a) for a in scan_case(rng, b=2, s=7, d=16, n=4)]
+    for a, b in zip(tops.selective_scan(*scan), tref.selective_scan(*scan)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert tops.kernel_launches() == {k: 0 for k in tops.kernel_launches()}
-    assert len(tops.kernel_launches()) == 6
+    assert len(tops.kernel_launches()) == 7
+
+
+def scan_case(rng, b, s, d, n, h0_scale=0.1):
+    """selective-scan inputs as numpy fp32 (u, dt, B, C, a_log, d_skip,
+    h0): dt > 0 as softplus gives it, a_log as the model initializes it."""
+    return (rng.randn(b, s, d).astype(np.float32),
+            np.log1p(np.exp(rng.randn(b, s, d) - 1)).astype(np.float32),
+            rng.randn(b, s, n).astype(np.float32),
+            rng.randn(b, s, n).astype(np.float32),
+            np.log(np.tile(np.arange(1, n + 1, dtype=np.float32)[None],
+                           (d, 1))),
+            rng.randn(d).astype(np.float32),
+            (rng.randn(b, d, n) * h0_scale).astype(np.float32))
 
 
 def kv_case(rng, b, s, kv, r, hd, kv_block):
@@ -367,3 +387,36 @@ def test_gpu_quant_pack(cuda, n, k, g, dtype):
     want = tref.quant_pack(w, scales, zeros, g)
     got = tops.quant_pack_cuda(w, scales, zeros, g)
     assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,d,n", [(4, 512, 8192, 16), (4, 77, 8192, 16),
+                                     (1, 128, 8192, 16), (2, 33, 128, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_selective_scan(cuda, b, s, d, n, dtype):
+    rng = np.random.RandomState(9)
+    args = [t(a).to(cuda) for a in scan_case(rng, b, s, d, n)]
+    args[0] = args[0].to(dtype)
+    y_want, h_want = tref.selective_scan(*args)
+    y_got, h_got = tops.selective_scan_cuda(*args)
+    assert y_got.dtype == dtype and h_got.dtype == torch.float32
+    assert float((h_got - h_want).abs().max()) <= 1e-5 * float(
+        h_want.abs().max())
+    diff = (y_got.float() - y_want.float()).abs()
+    if dtype == torch.float32:
+        assert float(diff.max()) <= 1e-5 * float(y_want.abs().max())
+    else:
+        assert np.all(diff.cpu().numpy()
+                      <= bf16_ulp(y_want.float().cpu().numpy()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,n", [(8192 + 32, 16), (128, 17)],
+                         ids=["d-not-a-tile-multiple", "n-above-limit"])
+def test_gpu_selective_scan_rejects_shapes_it_does_not_take(cuda, d, n):
+    rng = np.random.RandomState(10)
+    args = [t(a).to(cuda) for a in scan_case(rng, 1, 8, d, n)]
+    tops.reset_kernel_launches()
+    with pytest.raises(ValueError, match="selective_scan"):
+        tops.selective_scan(*args)
+    assert tops.kernel_launches()["selective_scan"] == 0

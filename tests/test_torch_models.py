@@ -1,7 +1,8 @@
 """The port's models against the JAX models on converted params.
 
-opt-proxy smoke and internlm2 smoke (GQA: 4 heads over 2 KV heads) with
-the JAX package's initial weights carried across by
+opt-proxy smoke, internlm2 smoke (GQA: 4 heads over 2 KV heads) and
+falcon-mamba smoke (Mamba-1: the selective scan at prefill, the recurrent
+state at decode) with the JAX package's initial weights carried across by
 ``convert.params_from_numpy``: full-sequence logits, prefill + 3 decode
 steps (bf16 cache), and the packed (int4 ``QuantizedTensor``) forward.
 Pins (relative Frobenius error): model dtype float32 ≤ 1e-5; the default
@@ -19,13 +20,16 @@ from repro.models import transformer as JT
 from repro_torch.configs import get_config as tget_config
 from repro_torch.convert import params_from_numpy
 from repro_torch.core.pipeline import pack_for_serving as tpack
+from repro_torch.core.quant import quantized_leaves
 from repro_torch.models import transformer as TT
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # (arch, dtype) cases; the opt-proxy cases keep their ids
 CASES = [("opt-proxy", "float32"), ("opt-proxy", "bfloat16"),
-         ("internlm2-1.8b", "float32"), ("internlm2-1.8b", "bfloat16")]
-CASE_IDS = ["float32", "bfloat16", "internlm2-float32", "internlm2-bfloat16"]
+         ("internlm2-1.8b", "float32"), ("internlm2-1.8b", "bfloat16"),
+         ("falcon-mamba-7b", "float32"), ("falcon-mamba-7b", "bfloat16")]
+CASE_IDS = ["float32", "bfloat16", "internlm2-float32", "internlm2-bfloat16",
+            "falcon-mamba-float32", "falcon-mamba-bfloat16"]
 
 
 def to_numpy(tree):
@@ -94,11 +98,12 @@ def test_packed_forward(arch, dtype):
     jpacked = jpack(jcfg, jparams)
     tpacked = params_from_numpy(to_numpy(jpacked))
     mine = tpack(tcfg, tparams)
-    for a, b in zip(tpacked["layers"], mine["layers"]):
-        for k in ("q", "k", "v", "o"):
-            torch.testing.assert_close(a["mixer"][k]["w"].packed,
-                                       b["mixer"][k]["w"].packed,
-                                       rtol=0, atol=0)
+    theirs, ours = (dict(quantized_leaves(p["layers"]))
+                    for p in (tpacked, mine))
+    assert list(ours) == list(theirs) and ours
+    for k, qt in ours.items():
+        torch.testing.assert_close(qt.packed, theirs[k].packed, rtol=0,
+                                   atol=0)
     lj, _ = JT.forward(jcfg.model, jpacked, jnp.asarray(toks))
     lt = TT.forward(tcfg.model, tpacked, torch.from_numpy(toks))
     assert rel(lt.numpy(), lj) <= TOL[dtype]

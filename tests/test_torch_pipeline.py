@@ -1,21 +1,25 @@
 """The port's quantize → pack → serve path against the JAX package.
 
-opt-proxy smoke and internlm2 smoke (GQA, gated SiLU, RMSNorm) at model
-dtype float32, the same converted initial weights and the same calibration
-stream (``MarkovLM(vocab, seed=7)``, 3 batches of 4 × 32), against JAX
-with ``quant.jit_capture=false`` (the eager capture the port mirrors).
+opt-proxy smoke, internlm2 smoke (GQA, gated SiLU, RMSNorm) and
+falcon-mamba smoke (Mamba-1; its ``mixer.dt`` projection, in 4 against
+group 8, stays float in both packages) at model dtype float32, the same
+converted initial weights and the same calibration stream
+(``MarkovLM(vocab, seed=7)``, 3 batches of 4 × 32), against JAX with
+``quant.jit_capture=false`` (the eager capture the port mirrors).
 Pins (``PINS``): per-linear record names and modes equal; packed codes
-differ in ≤ 1e-2 of the bytes; for opt-proxy ``iters_run`` equal, Γ
-histories ≤ 1e-3 relative and logits of the packed models ≤ 1e-3
-relative. internlm2 smoke has a stage-1 weight (layer 0, the gate/up
-group) within float rounding of a .5 rounding tie: the two frameworks sum
-the Hessian in different orders and round it to neighbouring codes, GPTQ
-carries the flip along its row, and layer 1 then calibrates on other
-inputs (ROADMAP.md §3). Its pins are those of one such flip: ``iters_run``
-within 1, Γ ≤ 2e-2 relative and packed-model logits ≤ 3e-2 relative.
+differ in ≤ 1e-2 of the bytes; for opt-proxy and falcon-mamba
+``iters_run`` equal, Γ histories ≤ 1e-3 relative and logits of the packed
+models ≤ 1e-3 relative. internlm2 smoke has a stage-1 weight (layer 0,
+the gate/up group) within float rounding of a .5 rounding tie: the two
+frameworks sum the Hessian in different orders and round it to
+neighbouring codes, GPTQ carries the flip along its row, and layer 1 then
+calibrates on other inputs (ROADMAP.md §3). Its pins are those of one
+such flip: ``iters_run`` within 1, Γ ≤ 2e-2 relative and packed-model
+logits ≤ 3e-2 relative.
 Then greedy ``generate`` on the converted JAX-packed
 params gives the JAX engine's tokens exactly: on the bf16 cache for
-opt-proxy, on the int8 cache (``serve.kv_cache=int8``) for internlm2.
+opt-proxy, on the int8 cache (``serve.kv_cache=int8``) for internlm2, on
+the recurrent state for falcon-mamba.
 """
 import jax
 import jax.numpy as jnp
@@ -34,6 +38,7 @@ from repro_torch.configs import get_config as tget_config
 from repro_torch.convert import params_from_numpy
 from repro_torch.core.pipeline import pack_for_serving as tpack
 from repro_torch.core.pipeline import quantize_model as tquantize
+from repro_torch.core.quant import quantized_leaves
 from repro_torch.data import MarkovLM as TMarkovLM
 from repro_torch.data import calibration_batches as tcalib
 from repro_torch.models import transformer as TT
@@ -43,9 +48,13 @@ from test_torch_models import rel, to_numpy
 
 
 # arch → the serve.kv_cache its greedy run uses
-KV_CACHE = {"opt-proxy": "fp16", "internlm2-1.8b": "int8"}
+KV_CACHE = {"opt-proxy": "fp16", "internlm2-1.8b": "int8",
+            "falcon-mamba-7b": "fp16"}
 # arch → (|Δ iters_run| allowed, Γ rtol, packed-model logits rel error)
-PINS = {"opt-proxy": (0, 1e-3, 1e-3), "internlm2-1.8b": (1, 2e-2, 3e-2)}
+PINS = {"opt-proxy": (0, 1e-3, 1e-3), "internlm2-1.8b": (1, 2e-2, 3e-2),
+        "falcon-mamba-7b": (0, 1e-3, 1e-3)}
+# arch → dense linears per layer: q, k, v, o + the MLP's; in, x, dt, out
+PER_LAYER = {"opt-proxy": 6, "internlm2-1.8b": 7, "falcon-mamba-7b": 4}
 
 
 @pytest.fixture(scope="module", params=list(KV_CACHE))
@@ -64,8 +73,8 @@ def runs(request):
     tc = tcalib(TMarkovLM(vocab, seed=7), 3, 4, 32)
     jq, jrep = jquantize(jcfg, jparams, jc)
     tq, trep = tquantize(tcfg, tparams, tc, device="cpu")
-    return dict(jcfg=jcfg, tcfg=tcfg, jc=jc, tc=tc, jq=jq, jrep=jrep,
-                tq=tq, trep=trep, pins=PINS[arch])
+    return dict(arch=arch, jcfg=jcfg, tcfg=tcfg, jc=jc, tc=tc, jq=jq,
+                jrep=jrep, tq=tq, trep=trep, pins=PINS[arch])
 
 
 def test_calibration_streams_identical(runs):
@@ -77,8 +86,10 @@ def test_calibration_streams_identical(runs):
 def test_report_records_match(runs):
     jl, tl = runs["jrep"].linears, runs["trep"].linears
     assert [r.name for r in tl] == [r.name for r in jl]
-    per_layer = 7 if runs["tcfg"].model.gated_mlp else 6
-    assert len(tl) == runs["tcfg"].model.num_layers * per_layer
+    assert len(tl) == runs["tcfg"].model.num_layers * PER_LAYER[runs["arch"]]
+    if runs["arch"] == "falcon-mamba-7b":
+        assert {(r.name, r.mode) for r in tl if r.name == "mixer.dt"} == \
+            {("mixer.dt", "skipped")}
     d_iters, g_rtol, _ = runs["pins"]
     for a, b in zip(tl, jl):
         assert (a.mode, a.shape) == (b.mode, tuple(b.shape)), a.name
@@ -90,13 +101,12 @@ def test_report_records_match(runs):
 def test_packed_codes_and_logits_match(runs):
     jpacked = params_from_numpy(to_numpy(jpack(runs["jcfg"], runs["jq"])))
     tpacked = tpack(runs["tcfg"], runs["tq"])
-    diff = total = 0
-    for a, b in zip(tpacked["layers"], jpacked["layers"]):
-        for sub in ("mixer", "mlp"):
-            for k in a[sub]:
-                pa, pb = a[sub][k]["w"].packed, b[sub][k]["w"].packed
-                diff += int((pa != pb).sum())
-                total += pa.numel()
+    ours, theirs = (dict(quantized_leaves(p["layers"]))
+                    for p in (tpacked, jpacked))
+    assert list(ours) == list(theirs)
+    diff = sum(int((qt.packed != theirs[k].packed).sum())
+               for k, qt in ours.items())
+    total = sum(qt.packed.numel() for qt in ours.values())
     assert diff / total <= 1e-2
     toks = runs["tc"][-1]["tokens"]
     lt = TT.forward(runs["tcfg"].model, tpacked, toks)
