@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time rpiq_block and the w4a16_matmul wrapper of one checkout on the card.
+"""Time the kernels of one checkout on the card, for parent-vs-change runs.
 
     python3 chip_compare.py <checkout root>
 
@@ -8,8 +8,15 @@ change, change, parent; the parent unpacked with ``git archive`` into a
 directory that ``.gitignore`` lists) to compare them. It prints, per
 line: the checkout, the kernel and shape, and
 
-- for ``rpiq_block`` at the main path's three groups (n 512, t_max 5):
-  the mean CUDA-event time of one launch and the sums of its five outputs
+- for ``hessian_accum`` at the six d of the three main paths (n 512): the
+  device time per call from a CUDA graph (as ``chip_smoke.py`` phase 3),
+  ``x.T @ x``'s beside it, the error against the plain version and the
+  sum of H; where the checkout picks a cluster size
+  (``ops.hessian_accum_geometry``), the size and the time of every other
+  one, the sweep that rule rests on;
+- for ``rpiq_block`` at the main paths' eleven groups (opt-proxy's three,
+  internlm2-1.8b's four, falcon-mamba-7b's four; n 512, t_max 5): the
+  mean CUDA-event time of one launch and the sums of its five outputs
   (equal sums across checkouts show equal results);
 - for ``w4a16_matmul`` at decode (m 4): the mean time per call of a loop
   of wrapper calls, which the host's per-call cost sets at this size;
@@ -54,7 +61,38 @@ def main() -> int:
         torch.cuda.synchronize()
         return s.elapsed_time(e) / reps
 
-    for b, o, i in ((4, 768, 768), (1, 3072, 768), (1, 768, 3072)):
+    from chip_smoke import graph_ms
+    from repro_torch.kernels import ref
+
+    for d in (256, 768, 2048, 3072, 4096, 8192):
+        x = torch.randn((n_tok, d), generator=g, device=dev)
+        H0 = torch.randn((d, d), generator=g, device=dev)
+        H0 = H0 + H0.T
+        want = ref.hessian_accum(x, H0)
+        got = ops.hessian_accum_cuda(x, H0.clone())
+        err = float((got - want).abs().max() / want.abs().max())
+        Hk = H0.clone()
+        ms = graph_ms([lambda: ops.hessian_accum_cuda(x, Hk)])
+        lms = graph_ms([lambda: x.T @ x])
+        line = (f"{root} hessian_accum n={n_tok} d={d}: ms={ms:.4f} "
+                f"library_ms(x.T@x)={lms:.4f} rel_err={err:.2e} "
+                f"sum={float(got.double().sum())}")
+        if hasattr(ops, "hessian_accum_geometry"):
+            lib = build.load("hessian_accum")
+            sweep = [(split, graph_ms([
+                lambda: lib.hessian_accum_launch(
+                    x.data_ptr(), Hk.data_ptr(), n_tok, d, split,
+                    torch.cuda.current_stream().cuda_stream)]))
+                for split in (1, 2, 4, 8)]
+            line += (f" split={ops.hessian_accum_geometry(n_tok, d)} "
+                     "sweep (split, ms): "
+                     + " ".join(f"({s_},{m:.4f})" for s_, m in sweep))
+        print(line, flush=True)
+
+    for b, o, i in ((4, 768, 768), (1, 3072, 768), (1, 768, 3072),
+                    (1, 2048, 2048), (2, 1024, 2048), (2, 8192, 2048),
+                    (1, 2048, 8192), (1, 16384, 4096), (1, 288, 8192),
+                    (1, 8192, 256), (1, 4096, 8192)):
         x = torch.randn((b, n_tok, i), generator=g, device=dev)
         w = torch.randn((b, o, i), generator=g, device=dev) * i ** -0.5
         count = torch.full((b,), n_tok, dtype=torch.int32, device=dev)
@@ -85,8 +123,6 @@ def main() -> int:
         print(f"{root} w4a16_matmul m=4 k={k} n={n}: ms per wrapper call "
               f"(host-bound loop) {ms:.5f}", flush=True)
 
-    from chip_smoke import graph_ms
-    from repro_torch.kernels import ref
     if hasattr(ops, "int8_kv_attention_cuda"):
         b, kv, r, hd = 4, 8, 2, 128
         for s, blk in ((545, 128), (4096, 128), (4096, 64)):

@@ -124,7 +124,7 @@ def load(name: str) -> ctypes.CDLL:
 def _declare(name: str, lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     sigs = {
-        "hessian_accum": {"hessian_accum_launch": [p, p, i, i, p]},
+        "hessian_accum": {"hessian_accum_launch": [p, p, i, i, i, p]},
         "w4a16_matmul": {
             "w4a16_matmul_f32_launch": [p, p, p, p, p, i, i, i, i, p],
             "w4a16_matmul_bf16_launch": [p, p, p, p, p, i, i, i, i, p]},
@@ -132,9 +132,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
             "gptq_block_launch": [p, p, p, p, p, i, i, i, i, i, i, i, p],
             "gptq_block_rows_per_block": []},
         "rpiq_block": {
-            "rpiq_block_launch": [p] * 12 + [i] * 6 + [f, i, i, p],
-            "rpiq_block_rows_per_block": [],
-            "rpiq_block_scratch_floats": [i, i]},
+            "rpiq_block_launch": [p] * 12 + [i] * 6 + [f] + [i] * 4 + [p],
+            "rpiq_block_yq_in_smem": [i, i, i, i]},
         "int8_kv_attention": {
             "int8_kv_attention_f32_launch": [p] * 7 + [i] * 6 + [p],
             "int8_kv_attention_bf16_launch": [p] * 7 + [i] * 6 + [p]},
@@ -149,5 +148,4 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     }[name]
     for fn, args in sigs.items():
         getattr(lib, fn).argtypes = args
-        getattr(lib, fn).restype = (ctypes.c_long if fn.endswith("_floats")
-                                    else ctypes.c_int)
+        getattr(lib, fn).restype = ctypes.c_int

@@ -74,6 +74,28 @@ def _is_plain(t: Tensor, op: str) -> bool:
 # H += X^T X
 # ---------------------------------------------------------------------------
 
+# the card's SMs: a launch of fewer blocks leaves some of them idle
+SMS = 132
+# the largest thread-block cluster every Hopper part takes
+MAX_CLUSTER = 8
+
+
+def hessian_accum_geometry(n: int, d: int) -> int:
+    """The cluster size of the hessian_accum launch for x (n, d): each of
+    the 64 x 64 upper tiles of H takes ``split`` blocks that share its
+    tokens, the smallest split (1, 2, 4 or 8) that gives each SM two
+    blocks, keeping at least two 32-token slabs a block. The split trades
+    idle SMs for the cluster's exchange; the H100 sweep of chip_compare.py
+    puts its optimum near two blocks an SM at the main paths' d."""
+    nt = -(-d // 64)
+    tiles = nt * (nt + 1) // 2
+    most = min(MAX_CLUSTER, max(1, -(-n // 32) // 2))
+    split = 1
+    while split * 2 <= most and tiles * split < 2 * SMS:
+        split *= 2
+    return split
+
+
 def hessian_accum_cuda(x: Tensor, H: Tensor) -> Tensor:
     """Kernel wrapper: accumulates XᵀX into ``H`` in place; returns H."""
     op = "hessian_accum"
@@ -84,7 +106,7 @@ def hessian_accum_cuda(x: Tensor, H: Tensor) -> Tensor:
     _require(H.shape == (d, d), op, f"H {tuple(H.shape)} != ({d}, {d})")
     lib = build.load(op)
     _launch(op, lib.hessian_accum_launch, x.data_ptr(), H.data_ptr(), n, d,
-            _stream())
+            hessian_accum_geometry(n, d), _stream())
     return H
 
 
@@ -217,26 +239,71 @@ def gptq_block(w: Tensor, hinv_u: Tensor, *, bits: int = 4,
 # RPIQ closed-loop refinement (stage 2)
 # ---------------------------------------------------------------------------
 
+# output rows per rpiq_block block; ops.rpiq_block pads the row count to a
+# multiple of it
+RPIQ_ROWS = 32
+
+
+def rpiq_block_geometry(b: int, out_dim: int, n: int) -> int:
+    """The cluster size of the rpiq_block launch for B members of
+    ``out_dim`` rows and n tokens: the blocks of a cluster share a row
+    tile's tokens, split only while the row tiles leave more than half the
+    SMs idle (a cluster's barriers and exchanges cost more than the idle
+    half), keeping at least 32 tokens a block."""
+    tiles = b * -(-out_dim // RPIQ_ROWS)
+    split = 1
+    most = min(MAX_CLUSTER, max(1, n // 32))
+    while split * 2 <= most and tiles * split < SMS // 2:
+        split *= 2
+    return split
+
+
+def rpiq_pad_rows(w0: Tensor, y_orig: Tensor, s_full: Tensor,
+                  z_full: Tensor, rows: int
+                  ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Pad the row count (B, out, ·) / y_orig's (B, n, out) to a multiple
+    of ``rows``. Padded rows, w = 0 on an (s = 1, z = 0) grid, project to 0
+    and add nothing to the residuals or the loss partials."""
+    pad = _round_up(w0.shape[1], rows) - w0.shape[1]
+    if not pad:
+        return w0, y_orig, s_full, z_full
+    F = torch.nn.functional
+    return (F.pad(w0, (0, 0, 0, pad)), F.pad(y_orig, (0, pad)),
+            F.pad(s_full, (0, 0, 0, pad), value=1.0),
+            F.pad(z_full, (0, 0, 0, pad)))
+
+
 def rpiq_block_cuda(w0: Tensor, y_orig: Tensor, x: Tensor, hinv_flat: Tensor,
                     s_full: Tensor, z_full: Tensor, *, bits: int,
                     block_size: int, alpha: float, t_max: int,
                     symmetric: bool
                     ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
     """Kernel wrapper: same contract as :func:`ref.rpiq_block`; the row
-    count must be a multiple of the kernel's row tile. The per-row-tile
-    partials are summed here, in tile order."""
+    count must be a multiple of RPIQ_ROWS. The per-row-tile partials are
+    summed here, in tile order."""
     op = "rpiq_block"
     args = (w0, y_orig, x, hinv_flat, s_full, z_full)
     _check_cuda(op, *args)
     _require(all(a.dtype == torch.float32 for a in args), op,
              "all inputs must be float32")
+    _require(all(a.data_ptr() % 16 == 0 for a in args), op,
+             "inputs must be 16-byte aligned (16-byte copies)")
     b, out_dim, in_dim = w0.shape
     n = x.shape[1]
-    lib = build.load(op)
-    rows = lib.rpiq_block_rows_per_block()
+    rows, split = RPIQ_ROWS, rpiq_block_geometry(b, out_dim, n)
     _require(out_dim % rows == 0, op, f"out={out_dim} must be a multiple "
              f"of {rows} (ops.rpiq_block pads)")
     _require(t_max >= 0, op, "t_max must be >= 0")
+    _require(block_size % 4 == 0 and block_size <= 128
+             and in_dim % block_size == 0 and n >= 1, op,
+             f"block_size {block_size} must be a multiple of 4 up to 128 "
+             f"dividing in={in_dim}, and n={n} >= 1")
+    lib = build.load(op)
+    in_smem = lib.rpiq_block_yq_in_smem(n, block_size, rows, split)
+    _require(in_smem >= 0, op, f"rows={rows}, split={split}, "
+             f"block_size={block_size}: "
+             + ("querying the card's shared memory failed" if in_smem == -1
+                else "a launch geometry the kernel does not take"))
     tiles = out_dim // rows
     dev = w0.device
     w_cont = torch.empty_like(w0)
@@ -246,16 +313,14 @@ def rpiq_block_cuda(w0: Tensor, y_orig: Tensor, x: Tensor, hinv_flat: Tensor,
     hist = torch.empty((b, tiles, t_max + 1), dtype=torch.float32,
                        device=dev)
     pls = torch.empty_like(hist)
-    per_block = lib.rpiq_block_scratch_floats(n, block_size)
-    _require(per_block >= 0, op, "querying the card's shared memory failed")
-    # empty when the block's working set fits shared memory
-    scratch = torch.empty((b, tiles, per_block), dtype=torch.float32,
-                          device=dev)
+    # a cluster's blocks share their directed residuals through here
+    dbuf = torch.empty((b, tiles, n, rows) if split > 1 else (0,),
+                       dtype=torch.float32, device=dev)
     _launch(op, lib.rpiq_block_launch, *(a.data_ptr() for a in args),
             w_cont.data_ptr(), wp_all.data_ptr(), y_q.data_ptr(),
-            hist.data_ptr(), pls.data_ptr(), scratch.data_ptr(), b, out_dim,
-            in_dim, n, block_size, t_max, float(alpha), bits, int(symmetric),
-            _stream())
+            hist.data_ptr(), pls.data_ptr(), dbuf.data_ptr(), b, out_dim,
+            in_dim, n, block_size, t_max, float(alpha), bits,
+            int(symmetric), rows, split, _stream())
     return w_cont, wp_all, y_q, hist.sum(dim=1), pls.sum(dim=1)
 
 
@@ -331,16 +396,8 @@ def rpiq_block(w_init: Tensor, w_fp: Tensor, x_last: Tensor,
         w_cont, wp_all, _, hist_raw, pls_raw = ref.rpiq_block(
             w0, y_orig, xf, hinv_flat, s_full, z_full, **kw)
     else:
-        rows = build.load("rpiq_block").rpiq_block_rows_per_block()
-        pad = _round_up(out_dim, rows) - out_dim
-        if pad:
-            # padded rows: w = 0 on an (s = 1, z = 0) grid project to 0 and
-            # add nothing to the residuals or the loss partials
-            w0 = torch.nn.functional.pad(w0, (0, 0, 0, pad))
-            s_full = torch.nn.functional.pad(s_full, (0, 0, 0, pad),
-                                             value=1.0)
-            z_full = torch.nn.functional.pad(z_full, (0, 0, 0, pad))
-            y_orig = torch.nn.functional.pad(y_orig, (0, pad))
+        w0, y_orig, s_full, z_full = rpiq_pad_rows(w0, y_orig, s_full,
+                                                   z_full, RPIQ_ROWS)
         w_cont, wp_all, _, hist_raw, pls_raw = rpiq_block_cuda(
             *(a.contiguous() for a in (w0, y_orig, xf, hinv_flat, s_full,
                                        z_full)), **kw)

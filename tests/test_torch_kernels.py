@@ -243,6 +243,72 @@ def test_cpu_dispatch_takes_plain_version_and_counts_nothing():
     assert len(tops.kernel_launches()) == 7
 
 
+# the phase-3 shapes of the three main paths (opt-proxy, internlm2-1.8b,
+# falcon-mamba-7b): hessian_accum's d at n 512, rpiq_block's groups
+HESSIAN_DS = (256, 768, 2048, 3072, 4096, 8192)
+RPIQ_GROUPS = ((4, 768, 768), (1, 3072, 768), (1, 768, 3072),
+               (1, 2048, 2048), (2, 1024, 2048), (2, 8192, 2048),
+               (1, 2048, 8192), (1, 16384, 4096), (1, 288, 8192),
+               (1, 8192, 256), (1, 4096, 8192))
+
+
+@pytest.mark.parametrize("d", HESSIAN_DS)
+def test_hessian_accum_geometry_fills_the_card(d):
+    """Each 64 x 64 upper tile takes `split` blocks (at least two 32-token
+    slabs a block), enough to give every SM two blocks where 8-block
+    clusters can, and no more."""
+    split = tops.hessian_accum_geometry(512, d)
+    assert split in (1, 2, 4, 8) and 512 // split >= 64
+    nt = -(-d // 64)
+    tiles = nt * (nt + 1) // 2
+    assert tiles * split >= min(2 * tops.SMS, tiles * 8)
+    assert split == 1 or tiles * split // 2 < 2 * tops.SMS
+
+
+@pytest.mark.parametrize("b,out_dim,in_dim", RPIQ_GROUPS)
+def test_rpiq_block_geometry_fills_the_card(b, out_dim, in_dim):
+    """At least half the SMs get a block wherever 8-block clusters could
+    give them one; a group that fills half the card takes no cluster."""
+    split = tops.rpiq_block_geometry(b, out_dim, 512)
+    assert split in (1, 2, 4, 8)
+    tiles = b * -(-out_dim // tops.RPIQ_ROWS)
+    assert tiles * split >= min(tops.SMS // 2, tiles * 8)
+    assert split == 1 or tiles * split // 2 < tops.SMS // 2
+
+
+@pytest.mark.parametrize("out_dim", [48, 40, 72, 64])
+def test_rpiq_pad_rows_adds_nothing(out_dim):
+    """The kernel path's row padding: padded to a multiple of the row tile,
+    the plain version's trajectory sliced back to the input's rows is the
+    unpadded one, and the padded rows add nothing to Γ or the losses."""
+    rng = np.random.RandomState(12)
+    b, in_dim, n, g, bs = 2, 128, 64, 64, 64
+    rows = tops.RPIQ_ROWS
+    x = t(rng.randn(b, n, in_dim).astype(np.float32))
+    w = t((rng.randn(b, out_dim, in_dim) * 0.1).astype(np.float32))
+    s = t((rng.rand(b, out_dim, in_dim // g) * 0.02 + 0.01)
+          .astype(np.float32)).repeat_interleave(g, -1)
+    z = t(rng.randint(0, 16, (b, out_dim, in_dim // g)).astype(np.float32)
+          ).repeat_interleave(g, -1)
+    hinv = torch.eye(bs).repeat(b, in_dim // bs, 1) / n
+    y = x @ w.transpose(1, 2)
+    padded = tops.rpiq_pad_rows(w, y, s, z, rows)
+    out_pad = -(-out_dim // rows) * rows
+    assert padded[0].shape == (b, out_pad, in_dim)
+    assert padded[1].shape == (b, n, out_pad)
+    kw = dict(bits=4, block_size=bs, alpha=0.1, t_max=3, symmetric=False)
+    want = tref.rpiq_block(w, y, x, hinv, s, z, **kw)
+    got = tref.rpiq_block(padded[0], padded[1], x, hinv, padded[2],
+                          padded[3], **kw)
+    torch.testing.assert_close(got[0][:, :out_dim], want[0], rtol=0,
+                               atol=0)
+    torch.testing.assert_close(got[1][:, :, :out_dim], want[1], rtol=0,
+                               atol=0)
+    assert int(torch.count_nonzero(got[0][:, out_dim:])) == 0
+    torch.testing.assert_close(got[3], want[3], rtol=1e-6, atol=0)
+    torch.testing.assert_close(got[4], want[4], rtol=1e-6, atol=0)
+
+
 def scan_case(rng, b, s, d, n, h0_scale=0.1):
     """selective-scan inputs as numpy fp32 (u, dt, B, C, a_log, d_skip,
     h0): dt > 0 as softplus gives it, a_log as the model initializes it."""
@@ -295,6 +361,59 @@ def test_gpu_hessian_accum(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n,d", [(512, 256), (300, 200), (77, 102),
+                                 (512, 2048)])
+def test_gpu_hessian_accum_geometry_and_determinism(cuda, n, d):
+    """d 256 takes 8-block clusters, (300, 200) 4-block ones; a ragged n
+    and d mask the slab and panel edges (d 102 also takes the 4-byte
+    copies of rows that are not 16-byte aligned); d 2048 one block per
+    tile. Two launches on the same inputs give bitwise the same H."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(n * d)
+    x = torch.randn(n, d, device=cuda, generator=gen)
+    H = torch.randn(d, d, device=cuda, generator=gen)
+    H = H + H.T
+    want = tref.hessian_accum(x, H)
+    got = tops.hessian_accum_cuda(x, H.clone())
+    again = tops.hessian_accum_cuda(x, H.clone())
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert torch.equal(got, again)
+    assert torch.equal(got, got.T)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [512, 300])
+def test_gpu_rpiq_narrow_group_takes_the_cluster_split(cuda, n):
+    """A 48-row group: padded to two 32-row tiles (ops.rpiq_pad_rows), the
+    tokens split over an 8-block cluster, held against the plain version
+    on the unpadded rows at the pins of test_gpu_gptq_and_rpiq."""
+    rng = np.random.RandomState(11)
+    b, out_dim, in_dim, g, bs = 1, 48, 256, 128, 128
+    assert tops.rpiq_block_geometry(b, out_dim, n) == 8
+    x_all, hd, u = _hessian_case(rng, b, 512, in_dim)
+    w = (rng.randn(b, out_dim, in_dim) * in_dim ** -0.5).astype(np.float32)
+    wt, ut = t(w).to(cuda), t(u).to(cuda)
+    w0, scales, zeros, _ = tref.gptq_block(wt, ut, bits=4, group_size=g,
+                                           blocksize=bs, symmetric=False)
+    x = t(x_all[:, -n:]).to(cuda)
+    hinv = trpiq._block_curvature_inv(x, t(hd).to(cuda), None, None,
+                                      block_size=bs, exact_gram=True)
+    args = (w0, x @ wt.transpose(1, 2), x, hinv.reshape(b, in_dim, bs),
+            scales.repeat_interleave(g, -1), zeros.repeat_interleave(g, -1))
+    rkw = dict(bits=4, block_size=bs, alpha=0.1, t_max=4, symmetric=False)
+    want_r = tref.rpiq_block(*args, **rkw)
+    w0p, yop, sp, zp = tops.rpiq_pad_rows(args[0], args[1], args[4],
+                                          args[5], tops.RPIQ_ROWS)
+    got_r = tops.rpiq_block_cuda(w0p, yop, args[2], args[3], sp, zp, **rkw)
+    assert_cells_close(got_r[0][:, :out_dim].cpu(), want_r[0].cpu())
+    assert_cells_close(got_r[1][:, :, :out_dim].cpu(), want_r[1].cpu())
+    yq = got_r[2][..., :out_dim]
+    assert float((yq - want_r[2]).norm() / want_r[2].norm()) <= 1e-4
+    assert_rel(got_r[3].cpu(), want_r[3].cpu(), 1e-5)
+    assert_rel(got_r[4].cpu(), want_r[4].cpu(), 1e-5)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("m", [4, 64])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gpu_w4a16(cuda, m, dtype):
@@ -313,15 +432,20 @@ def test_gpu_w4a16(cuda, m, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [256, 2048])
+@pytest.mark.parametrize("n", [256, 2048, 32768])
 def test_gpu_gptq_and_rpiq(cuda, n):
-    """At n = 2048 rpiq_block's working set exceeds shared memory and the
-    kernel keeps it in global scratch."""
+    """rpiq_block splits the tokens over an 8-block cluster here, so each
+    block keeps its share of the running Y_q in shared memory up to n 2048
+    (256 tokens a block) and beyond; at n = 32768 (4096 a block) the share
+    exceeds shared memory and the kernel keeps Y_q in the y_q output."""
     from repro_torch.kernels import build
     rng = np.random.RandomState(7)
     b, out_dim, in_dim, g, bs = 2, 96, 256, 64, 128
-    scratch = build.load("rpiq_block").rpiq_block_scratch_floats(n, bs)
-    assert (scratch > 0) == (n == 2048)
+    split = tops.rpiq_block_geometry(b, out_dim, n)
+    in_smem = build.load("rpiq_block").rpiq_block_yq_in_smem(
+        n, bs, tops.RPIQ_ROWS, split)
+    assert split == 8
+    assert in_smem == (0 if n == 32768 else 1)
     x_all, hd, u = _hessian_case(rng, b, max(n, 512), in_dim)
     w = (rng.randn(b, out_dim, in_dim) * in_dim ** -0.5).astype(np.float32)
     kw = dict(bits=4, group_size=g, blocksize=bs, symmetric=False)
