@@ -14,12 +14,22 @@ line: the checkout, the kernel and shape, and
   sum of H; where the checkout picks a cluster size
   (``ops.hessian_accum_geometry``), the size and the time of every other
   one, the sweep that rule rests on;
-- for ``rpiq_block`` at the main paths' eleven groups (opt-proxy's three,
-  internlm2-1.8b's four, falcon-mamba-7b's four; n 512, t_max 5): the
-  mean CUDA-event time of one launch and the sums of its five outputs
-  (equal sums across checkouts show equal results);
-- for ``w4a16_matmul`` at decode (m 4): the mean time per call of a loop
-  of wrapper calls, which the host's per-call cost sets at this size;
+- for ``gptq_block`` and ``rpiq_block`` at the main paths' eleven groups
+  (opt-proxy's three, internlm2-1.8b's four, falcon-mamba-7b's four; n
+  512, t_max 5): the mean CUDA-event time of one launch; for
+  ``gptq_block`` an exact checksum of each of its four outputs (w_q,
+  scales, zeros, the per-row sum of err^2: the int32 view of the fp32
+  bits summed as int64, equal across checkouts only where the outputs
+  are bitwise equal, barring a coincidence), for ``rpiq_block`` the sums
+  of its five outputs (equal sums across checkouts show equal results);
+- for ``w4a16_matmul`` with bf16 x at every phase-3 (m, k, n) of
+  ``chip_smoke.py``: the device time per call from a CUDA graph over
+  weight copies beyond L2, the error in bf16 ulps against the plain
+  version, the library's ``_weight_int4pack_mm`` beside it
+  (``chip_smoke.int4pack_yardstick``), and, where the checkout splits k,
+  the splits and whether two launches are bitwise equal; then at decode
+  (m 4) the mean time per call of a loop of wrapper calls, which the
+  host's per-call cost sets at this size;
 - where the checkout has them, ``int8_kv_attention`` (bf16 queries at
   internlm2's decode shape, S 545 and 4096) and ``quant_pack`` (fp32,
   internlm2's widest linears): the device time per call from a CUDA graph
@@ -61,8 +71,12 @@ def main() -> int:
         torch.cuda.synchronize()
         return s.elapsed_time(e) / reps
 
-    from chip_smoke import graph_ms
     from repro_torch.kernels import ref
+    from chip_smoke import bf16_ulps, graph_ms, int4pack_yardstick
+
+    def bits(t):
+        """Exact checksum of an fp32 tensor's bits."""
+        return int(t.contiguous().view(torch.int32).to(torch.int64).sum())
 
     for d in (256, 768, 2048, 3072, 4096, 8192):
         x = torch.randn((n_tok, d), generator=g, device=dev)
@@ -99,8 +113,13 @@ def main() -> int:
         hd = hess.damped(hess.HessianState(x.transpose(1, 2) @ x, count),
                          torch.full((b,), 0.01, device=dev))
         u = hess.cholesky_inverse_upper(hd)
-        w0, sc, zr, _ = ops.gptq_block_cuda(w, u, bits=4, group_size=gs,
-                                            blocksize=bs, symmetric=False)
+        gkw = dict(bits=4, group_size=gs, blocksize=bs, symmetric=False)
+        outs = ops.gptq_block_cuda(w, u, **gkw)
+        ms = event_ms(lambda: ops.gptq_block_cuda(w, u, **gkw), 3)
+        print(f"{root} gptq_block {b}x{o}x{i}: ms={ms:.4f} bit checksums "
+              f"(w_q, scales, zeros, err_rows)={[bits(t) for t in outs]}",
+              flush=True)
+        w0, sc, zr, _ = outs
         hinv = _block_curvature_inv(x, hd, count, count, block_size=bs,
                                     exact_gram=False).reshape(b, i, bs)
         args = (w0, x @ w.transpose(1, 2), x, hinv,
@@ -112,6 +131,37 @@ def main() -> int:
         ms = event_ms(lambda: ops.rpiq_block_cuda(*args, **kw), 5)
         print(f"{root} rpiq_block {b}x{o}x{i}: ms={ms:.4f} sums={sums}",
               flush=True)
+
+    cases = [(m, k, n) for m in (4, 64)
+             for k, n in ((768, 768), (768, 3072), (3072, 768))]
+    cases += [(m, k, n) for m in (4, 2048)
+              for k, n in ((2048, 2048), (2048, 1024), (2048, 8192),
+                           (8192, 2048), (4096, 16384), (8192, 288),
+                           (256, 8192), (8192, 4096))]
+    for m, k, n in cases:
+        w = torch.randn((n, k), generator=g, device=dev) * k ** -0.5
+        qp = compute_qparams(w, 4, gs)
+        packed = pack_int4(quantize_codes(w, qp, 4, gs))
+        x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+        args = (packed, qp.scales, qp.zeros)
+        want = ref.w4a16_matmul(x, *args, gs)
+        got = ops.w4a16_matmul_cuda(x, *args, gs)
+        ulps = bf16_ulps(got.float() - want.float(), want)
+        nbytes = n * k / 2 + 2 * n * (k / gs) * 4 + 2 * m * k + 2 * m * n
+        copies = [args] + [tuple(t.clone() for t in args)
+                           for _ in range(min(255, int(100e6 // nbytes)))]
+        ms = graph_ms([(lambda c=c: ops.w4a16_matmul_cuda(x, *c, gs))
+                       for c in copies])
+        del copies
+        lms, _ = int4pack_yardstick(x, *args, gs, want, nbytes)
+        line = (f"{root} w4a16_matmul bf16 m={m} k={k} n={n}: ms={ms:.4f} "
+                f"library_ms(_weight_int4pack_mm)={lms:.4f} "
+                f"bf16_ulps={ulps:.3g}")
+        if hasattr(ops, "w4a16_matmul_geometry"):
+            splits = ops.w4a16_matmul_geometry(m, n, k, gs)[2]
+            line += (f" splits={splits} two launches bitwise equal "
+                     f"{torch.equal(got, ops.w4a16_matmul_cuda(x, *args, gs))}")
+        print(line, flush=True)
 
     for k, n in ((768, 768), (3072, 768)):
         w = torch.randn((n, k), generator=g, device=dev) * k ** -0.5

@@ -13,8 +13,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      (opt-proxy, internlm2-1.8b and falcon-mamba-7b), with the error
      against the stated tolerance and CUDA-event times (kernel, plain,
      library yardstick where one exists, itself held against the plain
-     version) beside the least time the card could take; two launches of
-     ``hessian_accum`` on the same inputs must agree bitwise;
+     version) beside the least time the card could take (bf16
+     ``w4a16_matmul`` at the bf16 tensor-core rate, the rest at fp32 on the
+     CUDA cores); two launches of ``hessian_accum``, and of
+     ``w4a16_matmul`` where it splits k over blocks, on the same inputs
+     must agree bitwise;
   4. small end to end: opt-proxy smoke (bf16 cache), internlm2 smoke (int8
      KV cache) and falcon-mamba smoke (recurrent state) quantized, packed
      and served on the card against the same runs of the plain versions on
@@ -55,6 +58,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 H100_FP32_FLOPS = 67e12      # FP32 on the CUDA cores (no tensor cores)
+H100_BF16_FLOPS = 989e12     # bf16 on the tensor cores, dense
 H100_BYTES = 3.35e12         # HBM3 bytes per second
 KERNEL_SOURCES = {
     "hessian_accum": ("src/repro_torch/kernels/csrc/hessian_accum.cu",
@@ -135,8 +139,11 @@ def graph_ms(calls, min_total_s: float = 0.1, max_reps: int = 200) -> float:
     return start.elapsed_time(end) / (reps * len(calls))
 
 
-def bound(flop: float, nbytes: float):
-    ops_ms = flop / H100_FP32_FLOPS * 1e3
+def bound(flop: float, nbytes: float, peak: float = H100_FP32_FLOPS):
+    """The least time for the work: FLOP at ``peak`` (fp32 on the CUDA
+    cores unless the call site names the bf16 tensor-core rate) or bytes
+    at the HBM rate, whichever is longer; and which of the two."""
+    ops_ms = flop / peak * 1e3
     bytes_ms = nbytes / H100_BYTES * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else \
         (bytes_ms, "bytes")
@@ -151,9 +158,10 @@ class KernelTable:
                          "ops_ms": 0.0, "bytes_ms": 0.0}
                      for k in KERNEL_SOURCES}
 
-    def add(self, name, *, ms, plain_ms, flop, nbytes, err, library_ms=None):
+    def add(self, name, *, ms, plain_ms, flop, nbytes, err, library_ms=None,
+            peak=H100_FP32_FLOPS):
         r = self.rows[name]
-        b_ms, by = bound(flop, nbytes)
+        b_ms, by = bound(flop, nbytes, peak)
         r["ms"] += ms
         r["plain_ms"] += plain_ms
         r["bound_ms"] += b_ms
@@ -272,6 +280,12 @@ def phase_kernels(table: KernelTable) -> None:
             want = ref.w4a16_matmul(x, packed, qp.scales, qp.zeros, gs)
             got = ops.w4a16_matmul_cuda(x, packed, qp.scales, qp.zeros,
                                         gs)
+            # a split-K launch sums its partials in split order: a second
+            # launch on the same inputs is bitwise the same
+            splits = (ops.w4a16_matmul_geometry(m, n, k, gs)[2]
+                      if dt == torch.bfloat16 else 1)
+            same = splits == 1 or torch.equal(got, ops.w4a16_matmul_cuda(
+                x, packed, qp.scales, qp.zeros, gs))
             diff = (got.float() - want.float()).abs()
             err = float(diff.max())
             if dt == torch.float32:
@@ -300,16 +314,19 @@ def phase_kernels(table: KernelTable) -> None:
                 lms, lib_err = int4pack_yardstick(x, packed, qp.scales,
                                                   qp.zeros, gs, want, nbytes)
                 lib_s = f"{lms:.4f} ({lib_err})"
+                # bf16 x runs on the tensor cores: the bf16 rate bounds it
                 b_ms, by = table.add("w4a16_matmul", ms=ms,
                                      plain_ms=pms, flop=2 * m * n * k,
-                                     nbytes=nbytes, err=err, library_ms=lms)
+                                     nbytes=nbytes, err=err, library_ms=lms,
+                                     peak=H100_BF16_FLOPS)
             else:
-                b_ms, by = bound(2 * m * n * k, nbytes)
+                b_ms, by = bound(2 * m * n * k, nbytes, H100_FP32_FLOPS)
             log(f"  w4a16_matmul m={m} k={k} n={n} {dt}: "
                 f"max_abs_err={err:.3e} ({tol_s}) ms={ms:.4f} "
                 f"plain_ms={pms:.4f} library_ms={lib_s} "
-                f"bound_ms={b_ms:.4f} ({by})")
-            check(ok, f"w4a16_matmul m={m} k={k} n={n} {dt}")
+                f"bound_ms={b_ms:.4f} ({by}); k splits {splits}, two "
+                f"launches bitwise equal {same}")
+            check(ok and same, f"w4a16_matmul m={m} k={k} n={n} {dt}")
 
     # -- gptq_block and rpiq_block on realistic Hessians ---------------------
     # opt-proxy's three groups, internlm2's q / o, k+v, gate+up, down, then

@@ -127,10 +127,9 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         "hessian_accum": {"hessian_accum_launch": [p, p, i, i, i, p]},
         "w4a16_matmul": {
             "w4a16_matmul_f32_launch": [p, p, p, p, p, i, i, i, i, p],
-            "w4a16_matmul_bf16_launch": [p, p, p, p, p, i, i, i, i, p]},
+            "w4a16_matmul_bf16_launch": [p] * 6 + [i] * 7 + [p]},
         "gptq_block": {
-            "gptq_block_launch": [p, p, p, p, p, i, i, i, i, i, i, i, p],
-            "gptq_block_rows_per_block": []},
+            "gptq_block_launch": [p] * 6 + [i] * 8 + [p]},
         "rpiq_block": {
             "rpiq_block_launch": [p] * 12 + [i] * 6 + [f] + [i] * 4 + [p],
             "rpiq_block_yq_in_smem": [i, i, i, i]},

@@ -121,9 +121,48 @@ def hessian_accum(x: Tensor, H: Tensor) -> Tensor:
 # y = x @ dequant(W)^T      (W packed int4, grouped scales/zeros)
 # ---------------------------------------------------------------------------
 
+def w4a16_blocks_wanted(tile_m: int) -> int:
+    """Blocks a w4a16_matmul launch should give the card: a decode block
+    streams one 4 KB weight stage at a time, so four an SM keep enough of
+    the weight stream in flight (the H100 sweep in PERF.md: 1.1-1.5x
+    faster than one an SM at the main paths' widest decode shapes); a
+    prefill block has work enough alone, one an SM."""
+    return SMS * (4 if tile_m <= 16 else 1)
+
+
+def w4a16_matmul_geometry(m: int, n: int, k: int, group_size: int = 128
+                          ) -> Tuple[int, int, int, int]:
+    """The bf16 w4a16_matmul launch for x (m, k) and n weight rows:
+    ``(tile_m, tile_n, splits, split_cols)``. Decode (m <= 64) takes
+    blocks of 64 weight rows x 8 or 16 x rows, prefill 128 x 64 (16-row
+    tiles beat 64-row ones at m 64, 64-row ones win at m 2048 on the H100:
+    PERF.md). Where the tiles give the SMs fewer blocks than
+    ``w4a16_blocks_wanted`` the k range is split over blocks, whole quant
+    groups each: the most groups a split that still gives that many
+    blocks, down to one group a split, then spread evenly over the
+    splits."""
+    tile_m = 8 if m <= 8 else 16 if m <= 64 else 64
+    tile_n = 64 if tile_m <= 16 else 128
+    tiles = -(-n // tile_n) * -(-m // tile_m)
+    ng = k // group_size
+    want = w4a16_blocks_wanted(tile_m)
+    per = max(1, min(ng, ng * tiles // want))
+    splits = -(-ng // per)
+    even = -(-ng // splits)
+    if -(-ng // even) == splits:
+        per = even
+    return tile_m, tile_n, splits, per * group_size
+
+
 def w4a16_matmul_cuda(x: Tensor, packed: Tensor, scales: Tensor,
                       zeros: Tensor, group_size: int) -> Tensor:
-    """Kernel wrapper: x (m, k) f32/bf16 → (m, n) in x.dtype."""
+    """Kernel wrapper: x (m, k) f32/bf16 → (m, n) in x.dtype.
+
+    bf16 x runs on the tensor cores with exact products x·(c − z), which
+    rests on the packed artifact's contract that every zero is an integer
+    in [0, 15] (``core.quant``: asym zeros are rounded and clipped, sym
+    zeros stored as 0 + 8); a zero off that grid gives a wrong product,
+    not an error. fp32 x takes the CUDA-core kernel (k ≤ 8192)."""
     op = "w4a16_matmul"
     _check_cuda(op, x, packed, scales, zeros)
     m, k = x.shape
@@ -132,24 +171,38 @@ def w4a16_matmul_cuda(x: Tensor, packed: Tensor, scales: Tensor,
     _require(scales.dtype == torch.float32 and zeros.dtype == torch.float32,
              op, "scales/zeros must be float32")
     _require(kh * 2 == k, op, f"x has k={k}, packed has {2 * kh} columns")
-    _require(k % 32 == 0 and packed.data_ptr() % 16 == 0, op,
-             f"k={k} must be a multiple of 32 and packed 16-byte aligned "
-             "(16-byte packed loads)")
+    _require(k % 32 == 0 and packed.data_ptr() % 16 == 0
+             and x.data_ptr() % 16 == 0, op,
+             f"k={k} must be a multiple of 32 and x and packed 16-byte "
+             "aligned (16-byte loads)")
     _require(group_size % 2 == 0 and k % group_size == 0, op,
              f"group_size {group_size} must be even and divide k={k}")
     _require(scales.shape == (n, k // group_size) == zeros.shape, op,
              "scales/zeros must be (n, k/group_size)")
-    _require(k <= 8192, op, f"k={k}: the x tile must fit shared memory")
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     lib = build.load(op)
     if x.dtype == torch.float32:
-        fn = lib.w4a16_matmul_f32_launch
-    elif x.dtype == torch.bfloat16:
-        fn = lib.w4a16_matmul_bf16_launch
-    else:
-        raise ValueError(f"{op}: x dtype {x.dtype} not supported")
-    _launch(op, fn, x.data_ptr(), packed.data_ptr(), scales.data_ptr(),
-            zeros.data_ptr(), y.data_ptr(), m, n, k, group_size, _stream())
+        _require(k <= 8192, op, f"k={k}: the fp32 x tile must fit shared "
+                 "memory")
+        _launch(op, lib.w4a16_matmul_f32_launch, x.data_ptr(),
+                packed.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
+                y.data_ptr(), m, n, k, group_size, _stream())
+        return y
+    _require(x.dtype == torch.bfloat16, op,
+             f"x dtype {x.dtype} not supported")
+    _require(group_size % 32 == 0
+             and (128 % group_size == 0 or group_size % 128 == 0), op,
+             f"group_size {group_size}: bf16 x takes 32, 64 or a multiple "
+             "of 128 (a 32-column k-block lies in one group, a 128-column "
+             "stage in one group or whole groups)")
+    tile_m, _, splits, split_cols = w4a16_matmul_geometry(m, n, k,
+                                                          group_size)
+    part = torch.empty((splits, m, n) if splits > 1 else (0,),
+                       dtype=torch.float32, device=x.device)
+    _launch(op, lib.w4a16_matmul_bf16_launch, x.data_ptr(),
+            packed.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
+            y.data_ptr(), part.data_ptr(), m, n, k, group_size, tile_m,
+            splits, split_cols, _stream())
     return y
 
 
@@ -173,31 +226,35 @@ def w4a16_matmul(x: Tensor, packed: Tensor, scales: Tensor, zeros: Tensor,
 def gptq_block_cuda(w: Tensor, hinv_u: Tensor, *, bits: int, group_size: int,
                     blocksize: int, symmetric: bool
                     ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
-    """Kernel wrapper: same contract as :func:`ref.gptq_block`; the row
-    count must be a multiple of the kernel's row tile."""
+    """Kernel wrapper: same contract as :func:`ref.gptq_block`. One call
+    enqueues the sweep and the tail update of every lazy block (2 x
+    in/blocksize kernels) and counts as one launch."""
     op = "gptq_block"
     _check_cuda(op, w, hinv_u)
     _require(w.dtype == torch.float32 and hinv_u.dtype == torch.float32, op,
              "w and hinv_u must be float32")
     b, out_dim, in_dim = w.shape
-    lib = build.load(op)
-    rows = lib.gptq_block_rows_per_block()
-    _require(out_dim % rows == 0, op, f"out={out_dim} must be a multiple "
-             f"of {rows} (ops.gptq_block pads)")
-    smem = 4 * (blocksize * blocksize + 2 * rows * blocksize)
-    _require(smem <= 227 * 1024, op, f"blocksize {blocksize} needs {smem} B "
-             "of shared memory (> 227 KB)")
+    _require(blocksize % 4 == 0 and blocksize <= 128, op,
+             f"blocksize {blocksize} must be a multiple of 4 up to 128 (a "
+             "row's block lives in the registers of its lanes)")
     _require(group_size <= blocksize, op, "group_size must be <= blocksize")
+    _require(w.data_ptr() % 16 == 0 and hinv_u.data_ptr() % 16 == 0, op,
+             "w and hinv_u must be 16-byte aligned (16-byte copies)")
+    lib = build.load(op)
     w_q = w.clone()
     scales = torch.empty((b, out_dim, in_dim // group_size),
                          dtype=torch.float32, device=w.device)
     zeros = torch.empty_like(scales)
     err_rows = torch.zeros((b, out_dim), dtype=torch.float32,
                            device=w.device)
+    # the errors of one lazy block, transposed for the tail's vector loads
+    ld_e = _round_up(out_dim, 128)
+    errt = torch.empty((b, blocksize, ld_e), dtype=torch.float32,
+                       device=w.device)
     _launch(op, lib.gptq_block_launch, w_q.data_ptr(), hinv_u.data_ptr(),
-            scales.data_ptr(), zeros.data_ptr(), err_rows.data_ptr(), b,
-            out_dim, in_dim, bits, group_size, blocksize, int(symmetric),
-            _stream())
+            scales.data_ptr(), zeros.data_ptr(), err_rows.data_ptr(),
+            errt.data_ptr(), b, out_dim, in_dim, ld_e, bits, group_size,
+            blocksize, int(symmetric), _stream())
     return w_q, scales, zeros, err_rows
 
 
@@ -210,7 +267,7 @@ def gptq_block(w: Tensor, hinv_u: Tensor, *, bits: int = 4,
     squeeze = w.dim() == 2
     if squeeze:
         w, hinv_u = w[None], hinv_u[None]
-    out_dim, in_dim = w.shape[-2:]
+    in_dim = w.shape[-1]
     _require(in_dim % blocksize == 0 and blocksize % group_size == 0,
              "gptq_block", f"in={in_dim}, blocksize={blocksize}, "
              f"group_size={group_size} are not aligned")
@@ -221,14 +278,8 @@ def gptq_block(w: Tensor, hinv_u: Tensor, *, bits: int = 4,
     if _is_plain(w, "gptq_block"):
         w_q, scales, zeros, err_rows = ref.gptq_block(w, hinv_u, **kw)
     else:
-        rows = build.load("gptq_block").gptq_block_rows_per_block()
-        out_pad = _round_up(out_dim, rows)
-        wp = torch.nn.functional.pad(w, (0, 0, 0, out_pad - out_dim))
         w_q, scales, zeros, err_rows = gptq_block_cuda(
-            wp.contiguous(), hinv_u.contiguous(), **kw)
-        w_q, scales, zeros = (w_q[:, :out_dim], scales[:, :out_dim],
-                              zeros[:, :out_dim])
-        err_rows = err_rows[:, :out_dim]
+            w.contiguous(), hinv_u.contiguous(), **kw)
     out = (w_q, scales, zeros, err_rows.sum(dim=-1))
     if squeeze:
         out = tuple(o[0] for o in out)

@@ -25,7 +25,9 @@ tests/test_torch_kernels.py``); without a card they skip. Pins there:
 ``int8_kv_attention`` ≤ 1e-5 of the largest output in fp32 and one bf16
 ulp (as ``bf16_ulp``) in bf16; ``quant_pack`` bitwise; ``selective_scan``
 y and h_last ≤ 1e-5 of their largest value in fp32, y within one bf16 ulp
-in bf16, and a shape the kernel does not take raises.
+in bf16, and a shape the kernel does not take raises; ``w4a16_matmul``'s
+bf16 tensor-core kernel within one bf16 ulp, and a launch that splits k
+over blocks bitwise repeatable.
 """
 import jax
 import jax.numpy as jnp
@@ -274,6 +276,65 @@ def test_rpiq_block_geometry_fills_the_card(b, out_dim, in_dim):
     tiles = b * -(-out_dim // tops.RPIQ_ROWS)
     assert tiles * split >= min(tops.SMS // 2, tiles * 8)
     assert split == 1 or tiles * split // 2 < tops.SMS // 2
+
+
+# w4a16_matmul's (k, n) on the three main paths: opt-proxy's three,
+# internlm2-1.8b's four, falcon-mamba-7b's in, x, dt and out
+W4A16_KN = ((768, 768), (768, 3072), (3072, 768), (2048, 2048),
+            (2048, 1024), (2048, 8192), (8192, 2048), (4096, 16384),
+            (8192, 288), (256, 8192), (8192, 4096))
+
+
+@pytest.mark.parametrize("k,n", W4A16_KN)
+@pytest.mark.parametrize("m", [4, 64, 2048], ids=["decode", "m64",
+                                               "prefill"])
+def test_w4a16_geometry_fills_the_card(m, k, n):
+    """Every SM gets a block (four at decode), or k is split down to one
+    quant group a block where it cannot; every split covers whole groups,
+    the last one at least one, and a launch that fills the card is not
+    split."""
+    g = 128
+    tile_m, tile_n, splits, cols = tops.w4a16_matmul_geometry(m, n, k, g)
+    assert (tile_m, tile_n) == {4: (8, 64), 64: (16, 64),
+                                2048: (64, 128)}[m]
+    assert cols % g == 0 and (splits - 1) * cols < k <= splits * cols
+    tiles = -(-n // tile_n) * -(-m // tile_m)
+    want = tops.w4a16_blocks_wanted(tile_m)
+    assert want >= tops.SMS
+    assert tiles * splits >= want or cols == g
+    assert splits == 1 or tiles < want
+
+
+@pytest.mark.parametrize("symmetric", [False, True], ids=["asym", "sym"])
+@pytest.mark.parametrize("arch", ["opt-proxy", "internlm2-1.8b",
+                                  "falcon-mamba-7b"])
+def test_packed_zeros_are_integers_on_the_code_grid(arch, symmetric):
+    """The contract bf16 w4a16_matmul's exact tensor-core products rest
+    on: every zero of a packed artifact is an integer in [0, 15], so
+    c - z is an integer in [-15, 15], exact in bf16."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipeline import pack_for_serving, quantize_model
+    from repro_torch.core.quant import quantized_leaves
+    from repro_torch.data import MarkovLM, calibration_batches
+    from repro_torch.models import transformer as TT
+
+    cfg = get_config(arch, smoke=True)
+    cfg.model.dtype = "float32"
+    cfg.quant.symmetric = symmetric
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    params = TT.init_params(cfg.model, gen, "cpu")
+    calib = calibration_batches(MarkovLM(cfg.model.vocab_size, seed=7),
+                                3, 4, 32)
+    params_q, _ = quantize_model(cfg, params, calib, device="cpu")
+    leaves = list(quantized_leaves(pack_for_serving(cfg, params_q)
+                                   ["layers"]))
+    assert leaves
+    for path, qt in leaves:
+        z = qt.zeros
+        assert bool(torch.isfinite(z).all()), path
+        assert torch.equal(z, torch.round(z)), path
+        assert float(z.min()) >= 0.0 and float(z.max()) <= 15.0, path
 
 
 @pytest.mark.parametrize("out_dim", [48, 40, 72, 64])
@@ -544,3 +605,55 @@ def test_gpu_selective_scan_rejects_shapes_it_does_not_take(cuda, d, n):
     with pytest.raises(ValueError, match="selective_scan"):
         tops.selective_scan(*args)
     assert tops.kernel_launches()["selective_scan"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("symmetric", [False, True], ids=["asym", "sym"])
+@pytest.mark.parametrize("g", [64, 128])
+@pytest.mark.parametrize("k", [256, 8192, 12288])
+@pytest.mark.parametrize("n", [288, 8192])
+@pytest.mark.parametrize("m", [4, 77, 2048])
+def test_gpu_w4a16_tensor_cores(cuda, m, n, k, g, symmetric):
+    """bf16 x on the tensor-core kernel: decode, ragged and prefill m, the
+    narrow and wide n, k past the earlier 8192 limit, both group sizes of
+    the paths and both grids, within one bf16 ulp of the plain version;
+    a launch that splits k is bitwise repeatable."""
+    from repro_torch.core.quant import pack_quantized
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(m * n + k + g)
+    w = torch.randn((n, k), generator=gen, device=cuda) * k ** -0.5
+    qt = pack_quantized(w, 4, g, symmetric=symmetric)
+    x = torch.randn((m, k), generator=gen, device=cuda).to(torch.bfloat16)
+    args = (qt.packed, qt.scales, qt.zeros, g)
+    want = tref.w4a16_matmul(x, *args).float()
+    got = tops.w4a16_matmul_cuda(x, *args)
+    diff = (got.float() - want).abs().cpu().numpy()
+    assert np.all(diff <= bf16_ulp(want.cpu().numpy()))
+    if tops.w4a16_matmul_geometry(m, n, k, g)[2] > 1:
+        assert torch.equal(got, tops.w4a16_matmul_cuda(x, *args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_dim,in_dim", [(288, 8192), (203, 512)],
+                         ids=["x-projection", "ragged-rows"])
+def test_gpu_gptq_block_rows(cuda, out_dim, in_dim):
+    """falcon-mamba-7b's 288-row group, and a row count that is a multiple
+    of neither the sweep's rows a block nor the tail's 64-row tile, held
+    against the plain version at the pins of test_gpu_gptq_and_rpiq."""
+    from repro_torch.core import hessian as thess
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(out_dim + in_dim)
+    x = torch.randn((1, 512, in_dim), generator=gen, device=cuda)
+    count = torch.full((1,), 512, dtype=torch.int32, device=cuda)
+    hd = thess.damped(thess.HessianState(x.transpose(1, 2) @ x, count),
+                      torch.full((1,), 0.01, device=cuda))
+    u = thess.cholesky_inverse_upper(hd)
+    w = torch.randn((1, out_dim, in_dim), generator=gen, device=cuda) \
+        * in_dim ** -0.5
+    kw = dict(bits=4, group_size=128, blocksize=128, symmetric=False)
+    want = tref.gptq_block(w, u, **kw)
+    got = tops.gptq_block_cuda(w, u, **kw)
+    for a, b_ in zip(got[:3], want[:3]):
+        assert_cells_close(a.cpu(), b_.cpu())
+    e_got, e_want = float(got[3].sum()), float(want[3].sum())
+    assert abs(e_got - e_want) <= 1e-3 * abs(e_want)
