@@ -23,21 +23,37 @@ line: the checkout, the kernel and shape, and
   are bitwise equal, barring a coincidence), for ``rpiq_block`` the sums
   of its five outputs (equal sums across checkouts show equal results);
 - for ``w4a16_matmul`` with bf16 x at every phase-3 (m, k, n) of
-  ``chip_smoke.py``: the device time per call from a CUDA graph over
-  weight copies beyond L2, the error in bf16 ulps against the plain
-  version, the library's ``_weight_int4pack_mm`` beside it
-  (``chip_smoke.int4pack_yardstick``), and, where the checkout splits k,
-  the splits and whether two launches are bitwise equal; then at decode
-  (m 4) the mean time per call of a loop of wrapper calls, which the
-  host's per-call cost sets at this size;
+  ``chip_smoke.py`` (group 128): the device time per call from a CUDA
+  graph over weight copies beyond L2, the error in bf16 ulps against the
+  plain version, an exact checksum of the output's bits (equal across
+  checkouts where the outputs are bitwise equal), the library's
+  ``_weight_int4pack_mm`` beside it (``chip_smoke.int4pack_yardstick``),
+  and, where the checkout splits k, the splits and whether two launches
+  are bitwise equal; then at decode (m 4) the mean time per call of a loop
+  of wrapper calls, which the host's per-call cost sets at this size, and
+  the host's time to enqueue a call (the median and quartiles of 21
+  rounds of 200 calls on the host clock, the card left to catch up
+  between rounds);
 - where the checkout has them, ``int8_kv_attention`` (bf16 queries at
   internlm2's decode shape, S 545 and 4096) and ``quant_pack`` (fp32,
   internlm2's widest linears): the device time per call from a CUDA graph
   over copies beyond L2 (``chip_smoke.graph_ms``), the error against the
-  plain version and an output sum.
+  plain version and an output sum; for ``int8_kv_attention`` also the
+  checkout's history ranges (``ops.int8_kv_attention_geometry``, 1 where
+  it has none), whether two launches are bitwise equal, at S 545 the mean
+  time per call of a loop of wrapper calls and the host's own time to
+  enqueue a call (as for ``w4a16_matmul`` at m 4), and, where the
+  checkout has the geometry, the time at every range length of 1 to 8
+  tiles, the sweep that rule rests on;
+- ``selective_scan`` at falcon-mamba-7b's shapes (B 4, d 8192, n 16) at
+  S 512, 128 and 77, u in fp32 and bf16: the device time per call from a
+  CUDA graph over input copies beyond L2, an exact checksum of h_last's
+  bits and y's error against the plain version (relative to the largest
+  output in fp32, bf16 ulps in bf16).
 """
 import os
 import sys
+import time
 
 
 def main() -> int:
@@ -71,12 +87,32 @@ def main() -> int:
         torch.cuda.synchronize()
         return s.elapsed_time(e) / reps
 
+    def host_ms(fn, calls=200, rounds=21):
+        """The host's time to enqueue one call, as 'median (quartiles)' in
+        ms: rounds of `calls` calls timed on the host clock without waiting
+        for the card (the queue takes them all), one synchronize between
+        rounds, after 50 calls of warm-up."""
+        for _ in range(50):
+            fn()
+        per = []
+        for _ in range(rounds):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            per.append((time.perf_counter() - t0) / calls * 1e3)
+        torch.cuda.synchronize()
+        per.sort()
+        return (f"{per[rounds // 2]:.5f} ({per[rounds // 4]:.5f}, "
+                f"{per[3 * rounds // 4]:.5f})")
+
     from repro_torch.kernels import ref
     from chip_smoke import bf16_ulps, graph_ms, int4pack_yardstick
 
     def bits(t):
-        """Exact checksum of an fp32 tensor's bits."""
-        return int(t.contiguous().view(torch.int32).to(torch.int64).sum())
+        """Exact checksum of an fp32 or bf16 tensor's bits."""
+        itype = torch.int32 if t.dtype == torch.float32 else torch.int16
+        return int(t.contiguous().view(itype).to(torch.int64).sum())
 
     for d in (256, 768, 2048, 3072, 4096, 8192):
         x = torch.randn((n_tok, d), generator=g, device=dev)
@@ -156,7 +192,7 @@ def main() -> int:
         lms, _ = int4pack_yardstick(x, *args, gs, want, nbytes)
         line = (f"{root} w4a16_matmul bf16 m={m} k={k} n={n}: ms={ms:.4f} "
                 f"library_ms(_weight_int4pack_mm)={lms:.4f} "
-                f"bf16_ulps={ulps:.3g}")
+                f"bf16_ulps={ulps:.3g} bit checksum={bits(got)}")
         if hasattr(ops, "w4a16_matmul_geometry"):
             splits = ops.w4a16_matmul_geometry(m, n, k, gs)[2]
             line += (f" splits={splits} two launches bitwise equal "
@@ -168,10 +204,12 @@ def main() -> int:
         qp = compute_qparams(w, 4, gs)
         packed = pack_int4(quantize_codes(w, qp, 4, gs))
         x = torch.randn((4, k), generator=g, device=dev).to(torch.bfloat16)
-        ms = event_ms(lambda: ops.w4a16_matmul_cuda(
-            x, packed, qp.scales, qp.zeros, gs), 500)
+        call = (lambda: ops.w4a16_matmul_cuda(x, packed, qp.scales,
+                                              qp.zeros, gs))
+        ms = event_ms(call, 500)
         print(f"{root} w4a16_matmul m=4 k={k} n={n}: ms per wrapper call "
-              f"(host-bound loop) {ms:.5f}", flush=True)
+              f"(host-bound loop) {ms:.5f}, host enqueue ms per call "
+              f"{host_ms(call)}", flush=True)
 
     if hasattr(ops, "int8_kv_attention_cuda"):
         b, kv, r, hd = 4, 8, 2, 128
@@ -185,17 +223,56 @@ def main() -> int:
             cache = (codes[0], scales[0], codes[1], scales[1], kpos)
             q = (torch.randn((b, kv, r, hd), generator=g, device=dev)
                  * hd ** -0.5).to(torch.bfloat16)
-            out = ops.int8_kv_attention_cuda(q, *cache, blk).float()
+            out = ops.int8_kv_attention_cuda(q, *cache, blk)
+            same = torch.equal(out, ops.int8_kv_attention_cuda(q, *cache,
+                                                               blk))
+            out = out.float()
             err = float((out - ref.int8_kv_attention(q, *cache, blk).float())
                         .abs().max())
+            splits = (ops.int8_kv_attention_geometry(b, kv, s)[0]
+                      if hasattr(ops, "int8_kv_attention_geometry") else 1)
             nbytes = sum(t.numel() * t.element_size() for t in cache)
             copies = [cache] + [tuple(t.clone() for t in cache)
                                 for _ in range(int(100e6 // nbytes))]
             ms = graph_ms([(lambda c=c: ops.int8_kv_attention_cuda(
                 q, *c, blk)) for c in copies])
+            sweep = ""
+            if hasattr(ops, "int8_kv_attention_geometry") and blk == 128:
+                # every range length, the sweep the geometry rests on
+                lib = build.load("int8_kv_attention")
+                tiles = -(-s // ops.KV_TILE)
+                times = []
+                for per in (1, 2, 3, 4, 6, 8):
+                    if per > tiles:
+                        continue
+                    n_sp = -(-tiles // per)
+                    tk, wk = ops._kv_workspace(
+                        q, b * kv, b * kv * n_sp * (r * hd + 2 * r))
+
+                    def launch(c, n_sp=n_sp, per=per, tk=tk, wk=wk):
+                        o = torch.empty_like(q)
+                        err = lib.int8_kv_attention_bf16_launch(
+                            q.data_ptr(), *(t.data_ptr() for t in c),
+                            o.data_ptr(), b, s, kv, r, hd, blk, n_sp, per,
+                            wk, tk, torch.cuda.current_stream().cuda_stream)
+                        if err:
+                            raise RuntimeError(f"launch failed: {err}")
+                    times.append((per, n_sp, graph_ms(
+                        [(lambda c=c: launch(c)) for c in copies])))
+                sweep = " sweep (tiles a range, ranges, ms): " + " ".join(
+                    f"({p_},{n_},{t_:.4f})" for p_, n_, t_ in times)
+            del copies
+            host = ""
+            if s == 545:
+                call = (lambda: ops.int8_kv_attention_cuda(q, *cache, blk))
+                host = (f" ms per wrapper call (host-bound loop) "
+                        f"{event_ms(call, 500):.5f}, host enqueue ms per "
+                        f"call {host_ms(call)}")
             print(f"{root} int8_kv_attention S={s} kv_block={blk}: "
                   f"ms={ms:.4f} max_abs_err={err:.3e} "
-                  f"sum={float(out.double().sum())}", flush=True)
+                  f"sum={float(out.double().sum())} history ranges={splits} "
+                  f"two launches bitwise equal {same}{host}{sweep}",
+                  flush=True)
     if hasattr(ops, "quant_pack_cuda"):
         for n, k in ((2048, 8192), (8192, 2048)):
             w = torch.randn((n, k), generator=g, device=dev) * k ** -0.5
@@ -208,6 +285,38 @@ def main() -> int:
                            for c in copies])
             print(f"{root} quant_pack n={n} k={k}: ms={ms:.4f} "
                   f"bitwise equal to the plain version {same}", flush=True)
+
+    import torch.nn.functional as F
+    b, d, n = 4, 8192, 16
+    for s in (512, 128, 77):
+        u = torch.randn((b, s, d), generator=g, device=dev)
+        dt = F.softplus(torch.randn((b, s, d), generator=g, device=dev) - 1)
+        bm, cm = (torch.randn((b, s, n), generator=g, device=dev)
+                  for _ in range(2))
+        a_log = torch.log(torch.arange(1, n + 1, dtype=torch.float32,
+                                       device=dev)).repeat(d, 1)
+        d_skip = torch.randn((d,), generator=g, device=dev)
+        h0 = torch.randn((b, d, n), generator=g, device=dev) * 0.1
+        rest = (dt, bm, cm, a_log, d_skip, h0)
+        for udt in (torch.float32, torch.bfloat16):
+            args = (u.to(udt),) + rest
+            y, h_last = ops.selective_scan_cuda(*args)
+            y_want, _ = ref.selective_scan(*args)
+            diff = y.float() - y_want.float()
+            if udt == torch.float32:
+                rel = float(diff.abs().max() / y_want.abs().max())
+                y_err = f"y rel_err={rel:.2e}"
+            else:
+                y_err = f"y bf16_ulps={bf16_ulps(diff, y_want):.3g}"
+            nbytes = sum(t.numel() * t.element_size() for t in args)
+            copies = [args] + [tuple(t.clone() for t in args)
+                               for _ in range(int(100e6 // nbytes))]
+            ms = graph_ms([(lambda c=c: ops.selective_scan_cuda(*c))
+                           for c in copies])
+            del copies
+            print(f"{root} selective_scan B={b} S={s} d={d} n={n} u={udt}: "
+                  f"ms={ms:.4f} h_last bit checksum={bits(h_last)} {y_err}",
+                  flush=True)
     return 0
 
 

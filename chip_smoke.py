@@ -15,13 +15,17 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      library yardstick where one exists, itself held against the plain
      version) beside the least time the card could take (bf16
      ``w4a16_matmul`` at the bf16 tensor-core rate, the rest at fp32 on the
-     CUDA cores); two launches of ``hessian_accum``, and of
-     ``w4a16_matmul`` where it splits k over blocks, on the same inputs
-     must agree bitwise;
+     CUDA cores); two launches of ``hessian_accum`` and
+     ``int8_kv_attention``, and of ``w4a16_matmul`` where it splits k over
+     blocks, on the same inputs must agree bitwise; ``w4a16_matmul`` also
+     at groups 8 and 16 in bf16 and at k 12288 in fp32, and
+     ``int8_kv_attention`` at one history range and with ranges of -1
+     slots only;
   4. small end to end: opt-proxy smoke (bf16 cache), internlm2 smoke (int8
      KV cache) and falcon-mamba smoke (recurrent state) quantized, packed
      and served on the card against the same runs of the plain versions on
-     the CPU;
+     the CPU in fp32; then each at its own bf16 and group size (16, 8, 8)
+     on the card, its first layer's kernel calls held at one bf16 ulp;
   5. main path at full width: opt-proxy (OPT-125M shape) from seeded random
      weights → quantize_model → pack_for_serving → generate, with launch
      counters reset just before and read just after, the packed-vs-float
@@ -327,6 +331,7 @@ def phase_kernels(table: KernelTable) -> None:
                 f"bound_ms={b_ms:.4f} ({by}); k splits {splits}, two "
                 f"launches bitwise equal {same}")
             check(ok and same, f"w4a16_matmul m={m} k={k} n={n} {dt}")
+    kernels_w4a16_other_groups()
 
     # -- gptq_block and rpiq_block on realistic Hessians ---------------------
     # opt-proxy's three groups, internlm2's q / o, k+v, gate+up, down, then
@@ -527,21 +532,90 @@ def int4pack_yardstick(x, packed, scales, zeros, gs, want, nbytes):
                 f"{float((got - wf).abs().max()):.3e}")
 
 
+def kernels_w4a16_other_groups() -> None:
+    """bf16 w4a16_matmul at the smoke configs' group sizes, 8 and 16 (the
+    tensor cores' m16n8k8 steps), at opt-proxy's smoke shapes and its
+    full-width (768, 768) and (3072, 768), m 4 and 64, within one bf16 ulp
+    of the plain version (a split-K launch twice, bitwise equal); and fp32
+    x at k 12288 (x staged in 8192-column chunks) within 1e-5 of the
+    largest output. Checks only: these shapes are off the main paths'.
+    Their inputs come from a generator of their own, so the checks that
+    follow draw the same inputs as before these were added."""
+    import torch
+    from repro_torch.core.quant import compute_qparams, pack_int4, \
+        quantize_codes
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(4321)
+    for gs in (8, 16):
+        for m in (4, 64):
+            for k, n in ((64, 64), (64, 256), (256, 64), (768, 768),
+                         (3072, 768)):
+                w = torch.randn((n, k), generator=g, device=dev) * k ** -0.5
+                qp = compute_qparams(w, 4, gs)
+                args = (pack_int4(quantize_codes(w, qp, 4, gs)), qp.scales,
+                        qp.zeros)
+                x = torch.randn((m, k), generator=g, device=dev).to(
+                    torch.bfloat16)
+                want = ref.w4a16_matmul(x, *args, gs)
+                got = ops.w4a16_matmul_cuda(x, *args, gs)
+                splits = ops.w4a16_matmul_geometry(m, n, k, gs)[2]
+                same = splits == 1 or torch.equal(
+                    got, ops.w4a16_matmul_cuda(x, *args, gs))
+                ulps = bf16_ulps(got.float() - want.float(), want)
+                timing = ""
+                if k >= 768:
+                    ms = graph_ms([lambda: ops.w4a16_matmul_cuda(x, *args,
+                                                                 gs)])
+                    timing = f" ms={ms:.4f} (operands in L2)"
+                log(f"  w4a16_matmul bf16 m={m} k={k} n={n} g={gs}: "
+                    f"{ulps:.3g} bf16 ulps (tol 1); k splits {splits}, two "
+                    f"launches bitwise equal {same}{timing}")
+                check(ulps <= 1.0 and same,
+                      f"w4a16_matmul bf16 m={m} k={k} n={n} g={gs}")
+    for m, k, n in ((4, 12288, 768), (64, 12288, 288)):
+        w = torch.randn((n, k), generator=g, device=dev) * k ** -0.5
+        qp = compute_qparams(w, 4, 128)
+        args = (pack_int4(quantize_codes(w, qp, 4, 128)), qp.scales,
+                qp.zeros)
+        x = torch.randn((m, k), generator=g, device=dev)
+        want = ref.w4a16_matmul(x, *args, 128)
+        got = ops.w4a16_matmul_cuda(x, *args, 128)
+        err = float((got - want).abs().max())
+        tol = 1e-5 * float(want.abs().max())
+        log(f"  w4a16_matmul fp32 m={m} k={k} n={n} g=128: max_abs_err="
+            f"{err:.3e} (tol {tol:.3e})")
+        check(err <= tol, f"w4a16_matmul fp32 m={m} k={k} n={n}")
+
+
 def kernels_int8_kv_attention(table: KernelTable, g) -> None:
     """The decode attention over an int8 cache at internlm2's shape (B 4,
     KV 8, R 2, hd 128): the serving path's S 545 and a long history S 4096
     at kv_block 128 and 64, kpos with -1 holes and a lane with no valid
     slot. Held in fp32 (1e-5 of the largest output) and bf16, the path's
-    dtype (one bf16 ulp), and timed in bf16 from a CUDA graph over cache
-    copies beyond L2, as a decode step's 24 layers read theirs."""
+    dtype (one bf16 ulp), a second launch bitwise the first, and timed in
+    bf16 from a CUDA graph over cache copies beyond L2, as a decode step's
+    24 layers read theirs. Then, checks only: S 77 (one history range) and
+    S 4096 with only its first 600 slots valid (every later range holds
+    -1 slots only, as a long preallocated cache early in decode)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import kv_codec, ops, ref
 
     dev = torch.device("cuda")
     b, kv, r, hd = 4, 8, 2, 128
-    for s, blk in ((545, 128), (4096, 128), (4096, 64)):
+    # the checks-only rows draw from a generator of their own, so the
+    # kernels after this one draw the same inputs as before they were added
+    g_extra = torch.Generator(device=dev)
+    g_extra.manual_seed(4322)
+    for s, blk, valid in ((545, 128, None), (4096, 128, None),
+                          (4096, 64, None), (77, 128, None),
+                          (4096, 128, 600)):
         nb = hd // blk
+        if s == 77:
+            g = g_extra
         x = torch.randn((2, b, s, kv, hd), generator=g, device=dev)
         kc, ks = kv_codec.enc_int8_blocks(x[0], blk)
         vc, vs = kv_codec.enc_int8_blocks(x[1], blk)
@@ -549,6 +623,8 @@ def kernels_int8_kv_attention(table: KernelTable, g) -> None:
         holes = torch.rand((b, s), generator=g, device=dev) < 0.1
         kpos = torch.where(holes, torch.full_like(kpos, -1), kpos)
         kpos[-1] = -1
+        if valid is not None:
+            kpos[:, valid:] = -1
         q32 = torch.randn((b, kv, r, hd), generator=g, device=dev) \
             * hd ** -0.5
         cache = (kc, ks, vc, vs, kpos)
@@ -563,6 +639,20 @@ def kernels_int8_kv_attention(table: KernelTable, g) -> None:
         err = float(diff.max())
         ok = within_bf16_ulp(diff, want)
         zero = float(got[-1].abs().max()) == 0.0
+        # the history ranges combine in range order, no float atomics
+        same = torch.equal(got, ops.int8_kv_attention_cuda(q, *cache, blk))
+        splits, per = ops.int8_kv_attention_geometry(b, kv, s)
+        if valid is not None or s == 77:
+            log(f"  int8_kv_attention B={b} S={s} KV={kv} R={r} hd={hd} "
+                f"kv_block={blk}"
+                + (f", slots {valid}.. invalid" if valid else "")
+                + f": {splits} history ranges of {per} tiles; fp32 "
+                f"max_abs_err={err32:.3e} (tol 1e-5 rel) bf16 max_abs_err="
+                f"{err:.3e} (1 bf16 ulp); lane with no valid slot is 0: "
+                f"{zero}; two launches bitwise equal {same}")
+            check(ok32 and ok and zero and same and (splits == 1) == (
+                s == 77), f"int8_kv_attention S={s} valid={valid}")
+            continue
         # each input read once, each output written once
         nbytes = (2 * b * s * kv * hd + 2 * b * s * kv * nb * 4 + 4 * b * s
                   + 2 * 2 * b * kv * r * hd)
@@ -595,13 +685,16 @@ def kernels_int8_kv_attention(table: KernelTable, g) -> None:
         b_ms, by = table.add("int8_kv_attention", ms=ms, plain_ms=pms,
                              flop=flop, nbytes=nbytes, err=err)
         log(f"  int8_kv_attention B={b} S={s} KV={kv} R={r} hd={hd} "
-            f"kv_block={blk}: fp32 max_abs_err={err32:.3e} (tol 1e-5 rel) "
+            f"kv_block={blk}: {splits} history ranges of {per} tiles; fp32 "
+            f"max_abs_err={err32:.3e} (tol 1e-5 rel) "
             f"bf16 max_abs_err={err:.3e} (1 bf16 ulp); lane with no valid "
-            f"slot is 0: {zero}; ms={ms:.4f} plain_ms={pms:.4f} "
+            f"slot is 0: {zero}; two launches bitwise equal {same}; "
+            f"ms={ms:.4f} plain_ms={pms:.4f} "
             f"library_ms=none bound_ms={b_ms:.4f} ({by}); aside, "
             f"scaled_dot_product_attention on a bf16 cache of the same "
             f"shape ms={sdpa}")
-        check(ok32 and ok and zero, f"int8_kv_attention S={s} block={blk}")
+        check(ok32 and ok and zero and same,
+              f"int8_kv_attention S={s} block={blk}")
 
 
 def kernels_quant_pack(table: KernelTable, g) -> None:
@@ -760,6 +853,53 @@ def phase_small_end_to_end(arch: str, kv_cache: str) -> None:
           and torch.equal(tc, tg),
           f"small end to end {arch} kv_cache={kv_cache}, card against CPU "
           "plain")
+
+
+def phase_small_bf16(arch: str, kv_cache: str) -> None:
+    """A smoke config at its own dtype (bf16) and group size (opt-proxy
+    16, internlm2 and falcon-mamba 8) on the card: quantize → pack →
+    generate runs; the first layer's kernel calls on the packed model are
+    held against their plain versions on the same inputs at phase 3's pin
+    (one bf16 ulp)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipeline import pack_for_serving, quantize_model
+    from repro_torch.data import MarkovLM, calibration_batches
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import generate
+
+    cfg = get_config(arch, smoke=True)
+    cfg.serve.kv_cache = kv_cache
+    mc = cfg.model
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    params = T.init_params(mc, gen, "cpu")
+    calib = calibration_batches(MarkovLM(mc.vocab_size, seed=7), 3, 4, 32)
+    n_req, n_prompt = 2, 8
+    prompt = MarkovLM(mc.vocab_size, seed=3).batch(n_req, n_prompt)
+    pq, rep = quantize_model(cfg, params, calib, device="cuda")
+    pk = pack_for_serving(cfg, pq)
+    toks = generate(cfg, pk, prompt, device="cuda", max_new_tokens=6)
+    n_quant = sum(1 for rec in rep.linears if rec.mode != "skipped")
+    ptoks = prompt["tokens"].cuda()
+    h = T.embed(pk["embed"], ptoks, T.compute_dtype(mc))
+    calls = []
+    with paired_route(calls):
+        h = T.layer_forward(mc, T.layer_specs(mc)[0], pk["layers"][0], h,
+                            T.positions_for(n_req, n_prompt, "cuda"))
+    worst = {op: max(v for o, v in calls if o == op)
+             for op in sorted({o for o, _ in calls})}
+    finite = bool(torch.isfinite(h.float()).all())
+    log(f"  {mc.name} {mc.dtype} group {cfg.quant.group_size} kv_cache="
+        f"{kv_cache} on the card: {n_quant} linears quantized; generate "
+        f"gave tokens {tuple(toks.tokens.shape)}; layer 0: {len(calls)} "
+        f"kernel calls against their plain versions, largest difference in "
+        f"bf16 ulps { {k: f'{v:.3g}' for k, v in worst.items()} } (tol 1); "
+        f"finite {finite}")
+    check(mc.dtype == "bfloat16" and n_quant > 0
+          and "w4a16_matmul" in worst and max(worst.values()) <= 1.0
+          and finite and tuple(toks.tokens.shape) == (n_req, 6),
+          f"small bf16 end to end {arch} kv_cache={kv_cache}")
 
 
 def _nbytes_bf16_vs_int4(pk) -> tuple:
@@ -1301,10 +1441,14 @@ def main() -> int:
     log(f"  launches in this phase (checks and timing): "
         f"{json.dumps(ops.kernel_launches())}")
 
-    log("[4] small end to end: smoke configs, card against CPU plain")
+    log("[4] small end to end: smoke configs, card against CPU plain (fp32),"
+        " then at their own bf16 and group size on the card")
     phase_small_end_to_end("opt-proxy", "fp16")
     phase_small_end_to_end("internlm2-1.8b", "int8")
     phase_small_end_to_end("falcon-mamba-7b", "fp16")
+    phase_small_bf16("opt-proxy", "fp16")
+    phase_small_bf16("internlm2-1.8b", "int8")
+    phase_small_bf16("falcon-mamba-7b", "fp16")
 
     log("[5] main path at full width: opt-proxy")
     launches = phase_main_path()

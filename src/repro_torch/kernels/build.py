@@ -127,6 +127,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         "hessian_accum": {"hessian_accum_launch": [p, p, i, i, i, p]},
         "w4a16_matmul": {
             "w4a16_matmul_f32_launch": [p, p, p, p, p, i, i, i, i, p],
+            "w4a16_matmul_bf16_cc_launch": [p, p, p, p, p, i, i, i, i, p],
             "w4a16_matmul_bf16_launch": [p] * 6 + [i] * 7 + [p]},
         "gptq_block": {
             "gptq_block_launch": [p] * 6 + [i] * 8 + [p]},
@@ -134,8 +135,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
             "rpiq_block_launch": [p] * 12 + [i] * 6 + [f] + [i] * 4 + [p],
             "rpiq_block_yq_in_smem": [i, i, i, i]},
         "int8_kv_attention": {
-            "int8_kv_attention_f32_launch": [p] * 7 + [i] * 6 + [p],
-            "int8_kv_attention_bf16_launch": [p] * 7 + [i] * 6 + [p]},
+            "int8_kv_attention_f32_launch": [p] * 7 + [i] * 8 + [p] * 3,
+            "int8_kv_attention_bf16_launch": [p] * 7 + [i] * 8 + [p] * 3},
         "quant_pack": {
             "quant_pack_f32_launch": [p] * 4 + [i] * 3 + [p],
             "quant_pack_bf16_launch": [p] * 4 + [i] * 3 + [p]},

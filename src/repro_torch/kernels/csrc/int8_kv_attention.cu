@@ -10,48 +10,61 @@
 // ridge, so the cache stream sets the time (B 4, S 4096, KV 8, hd 128:
 // ~35 MB, ~10 us at 3.35 TB/s).
 //
-// Design: one block of 256 threads per (batch, kv-head) cell walks the
-// history in tiles of TS = 128 slots. While a tile is computed, the next
-// tile's codes, scales and kpos are already on their way into registers
-// (16-byte loads; slots past S read as zero codes, zero scales, kpos -1).
-// Per tile:
-//   1. the registers go to shared memory; a K row is padded by 4 bytes so
-//      that the threads reading neighbouring rows hit different banks;
-//   2. scores, two threads per slot (each half a row, combined with one
-//      shuffle), every query row at once so that each code is converted
-//      once; a kv_block segment's sum of q * code is scaled by its block
-//      scale; kpos < 0 is masked to -1e30;
-//   3. the online softmax, one warp per query row: the running max m,
-//      denominator l and rescale factor alpha, with p set back to 0 on
-//      masked slots after the exp (a fully masked tile would otherwise
-//      add exp(0) = 1 per slot);
-//   4. acc = alpha * acc + p @ dequant(V): a thread owns four columns of
-//      every query row over one of G interleaved slot groups, and takes
-//      p * scale once per slot and row.
-// The G partial accumulators are summed in a fixed order at the end and
-// the result is acc / max(l, 1e-30), so a lane with no valid slot returns
-// 0; it is rounded to q's dtype (round-to-nearest-even for bf16). Codes
-// become floats by a byte permute into 2^23 + (code + 128) and one exact
-// subtraction: the int-to-float instruction runs at an eighth of the FMA
-// rate. expf, and sums that differ from the plain version's only in their
-// order and in where the block scale is applied. With B * KV blocks (32 at
-// the serving shape) the kernel fills a quarter of the 132 SMs: splitting
-// the history across blocks (flash-decoding) is later work.
+// Design (flash-decoding): the history of each (batch, kv-head) cell is
+// cut into whole tiles of TS = 128 slots, and the tiles into `splits`
+// ranges over a third grid axis (ops.int8_kv_attention_geometry: about two
+// blocks an SM at the serving shape, no empty range, one range at S <=
+// 128). A block of 8 warps walks its range tile by tile through a
+// two-stage cp.async ring in shared memory, one barrier a tile: while a
+// tile is computed, the next tile's codes, scales and kpos are on their
+// way (slots past the range land as zero codes, zero scales, kpos -1). K
+// rows land padded by 4 bytes (4-byte copies), so that lanes reading
+// neighbouring rows hit different banks; V rows land whole (16-byte
+// copies). Within a tile each warp owns 16 slots and keeps its own online
+// softmax, so the warps never wait for each other inside a tile:
+//   1. scores: two lanes a slot, each over half of the row, every query
+//      row at once so that each code is converted once (q is staged with
+//      its halves 16 bytes apart, so the two halves' reads hit different
+//      banks); a kv_block segment's sum of q * code is scaled by its block
+//      scale; the halves meet by one shuffle; kpos < 0 is masked to -1e30;
+//   2. the warp's running max m, denominator l and rescale factor alpha
+//      per query row, by shuffles over its 16 slots, with p set to 0 on
+//      masked slots after the exp (a fully masked tile would otherwise add
+//      exp(0) = 1 per slot);
+//   3. acc = alpha * acc + p @ dequant(V): a lane owns four columns (eight
+//      at hd 256) of every query row and takes p * scale once per slot and
+//      row; a masked slot is skipped by the whole warp.
+// At the end of its range a block folds its 8 warps in warp order, and the
+// ranges fold in range order, both as M = max m_i, l = sum l_i exp(m_i -
+// M), acc = sum acc_i exp(m_i - M). With one range the result is acc /
+// max(l, 1e-30). With several, each block writes its range's fp32
+// partials (acc, m, l) to a workspace and takes a ticket from the cell's
+// counter; the block that draws the last ticket resets the counter to 0
+// (so the next launch, or a CUDA-graph replay, finds it zeroed) and folds
+// the ranges. No float atomics, so a launch is bitwise repeatable. A warp
+// or a range with no valid slot keeps m = -1e30 and l = 0 and adds
+// nothing; a lane with no valid slot at all ends with l = 0 and returns 0.
+// The result is rounded to q's dtype (round-to-nearest-even for bf16).
+// Codes become floats by a byte permute into 2^23 + (code + 128) and one
+// exact subtraction: the int-to-float instruction runs at an eighth of the
+// FMA rate. expf, and sums that differ from the plain version's only in
+// their order and in where the block scale is applied.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "async_copy.cuh"
 #include "smem.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
 constexpr int TS = 128;                  // history slots per tile
-constexpr int SPLIT = THREADS / TS;      // score phase: threads per slot
+constexpr int WS = TS / WARPS;           // slots a warp owns in a tile
 constexpr int MAX_R = 8;                 // query rows per kv-head
 constexpr int MAX_HD = 256;
-constexpr int MAX_CHUNKS = TS * MAX_HD / 16 / THREADS;  // 16-byte loads
-constexpr int MAX_SCALES = 4;            // per thread and operand
+constexpr int MAX_NB = 8;                // scale blocks per row
 constexpr float NEG = -1e30f;
 
 __device__ __forceinline__ float load_q(const float* p) { return *p; }
@@ -73,281 +86,390 @@ __device__ __forceinline__ void codes4(uint32_t word, float (&f)[4]) {
                - 8388736.f;
 }
 
-// The next tile's codes, scales and kpos, held in registers.
-struct TileRegs {
-    uint4 k[MAX_CHUNKS], v[MAX_CHUNKS];
-    float ks[MAX_SCALES], vs[MAX_SCALES];
-    int kpos;
-};
+// floats of a q row in shared memory: two halves of hd / 2, the second
+// 4 floats further on
+__host__ __device__ inline int q_stride(int hd) { return hd + 8; }
 
-__device__ __forceinline__ void load_tile(
-        TileRegs& t, const int8_t* kc, const float* ks, const int8_t* vc,
-        const float* vs, const int* kpos, int b, int g, int s0, int S,
-        int KV, int hd, int nb) {
-    const int tid = threadIdx.x, chunks = hd / 16;
-    const long base = ((long)b * S + s0) * KV + g;
-#pragma unroll
-    for (int i = 0; i < MAX_CHUNKS; ++i) {
-        const int c = tid + THREADS * i;
-        const int slot = c / chunks, j = c % chunks;
-        t.k[i] = t.v[i] = make_uint4(0, 0, 0, 0);
-        if (slot < TS && s0 + slot < S) {
-            const long off = (base + (long)slot * KV) * hd + 16 * j;
-            t.k[i] = *reinterpret_cast<const uint4*>(kc + off);
-            t.v[i] = *reinterpret_cast<const uint4*>(vc + off);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < MAX_SCALES; ++i) {
-        const int e = tid + THREADS * i;
-        const int slot = e / nb, j = e % nb;
-        t.ks[i] = t.vs[i] = 0.f;
-        if (slot < TS && s0 + slot < S) {
-            const long off = (base + (long)slot * KV) * nb + j;
-            t.ks[i] = ks[off];
-            t.vs[i] = vs[off];
-        }
-    }
-    t.kpos = -1;
-    if (tid < TS && s0 + tid < S) t.kpos = kpos[(long)b * S + s0 + tid];
+// q, then the ticket flag, in front of the ring (16-byte aligned)
+__host__ __device__ inline size_t head_bytes(int R, int hd) {
+    const size_t b = 4 * ((size_t)R * q_stride(hd) + 4);
+    return (b + 15) / 16 * 16;
 }
 
-// R, the query rows per kv-head, is a template parameter: the per-row
-// loops then issue no work for rows that do not exist.
-template <typename T, int R>
-__global__ void __launch_bounds__(THREADS)
+// One stage of the ring: [TS][quads] V words, [TS][quads + 1] K words
+// (rows padded by one word), [TS][nb] K and V scales, [TS] kpos.
+struct Stage {
+    uint32_t* vt;
+    uint32_t* kt;
+    float* kss;
+    float* vss;
+    int* kp;
+};
+
+__device__ __forceinline__ Stage stage_at(unsigned char* base, int quads,
+                                          int nb) {
+    Stage st;
+    st.vt = reinterpret_cast<uint32_t*>(base);
+    st.kt = st.vt + TS * quads;
+    st.kss = reinterpret_cast<float*>(st.kt + TS * (quads + 1));
+    st.vss = st.kss + TS * nb;
+    st.kp = reinterpret_cast<int*>(st.vss + TS * nb);
+    return st;
+}
+
+__host__ __device__ inline size_t stage_bytes(int hd, int nb) {
+    const size_t b = 4 * ((size_t)TS * (hd / 4) + (size_t)TS * (hd / 4 + 1)
+                          + 2 * (size_t)TS * nb + TS);
+    return (b + 15) / 16 * 16;
+}
+
+// A thread's share of a tile's copies of rows of `width` pieces: piece
+// `col` of rows row0, row0 + step, ... (whole rows of `width` threads at a
+// time; the threads past the last whole row copy nothing)
+struct Share {
+    int col, row0, step;
+    __device__ Share(int width) {
+        step = THREADS / width;
+        col = threadIdx.x % width;
+        row0 = threadIdx.x < step * width ? threadIdx.x / width : TS;
+    }
+};
+
+// Issue the copies of the tile at s0 into st: K words (4-byte copies into
+// the padded rows), V 16-byte pieces, the scales, kpos; slots at or past
+// s_end (the block's range) are zero-filled, kpos -1.
+__device__ __forceinline__ void load_tile(
+        const Stage& st, const int8_t* kc, const float* ks, const int8_t* vc,
+        const float* vs, const int* kpos, int b, int g, int s0, int S,
+        int s_end, int KV, int hd, int nb, const Share& kw, const Share& vw,
+        const Share& sw) {
+    const int tid = threadIdx.x, quads = hd / 4;
+    const long base = ((long)b * S + s0) * KV + g;
+    for (int slot = kw.row0; slot < TS; slot += kw.step) {
+        const bool ok = s0 + slot < s_end;
+        const int8_t* src =
+            ok ? kc + (base + (long)slot * KV) * hd + 4 * kw.col : kc;
+        cp_async4(st.kt + slot * (quads + 1) + kw.col, src, ok ? 4 : 0);
+    }
+    for (int slot = vw.row0; slot < TS; slot += vw.step) {
+        const bool ok = s0 + slot < s_end;
+        const int8_t* src =
+            ok ? vc + (base + (long)slot * KV) * hd + 16 * vw.col : vc;
+        cp_async16(st.vt + slot * quads + 4 * vw.col, src, ok ? 16 : 0);
+    }
+    for (int slot = sw.row0; slot < TS; slot += sw.step) {
+        const bool ok = s0 + slot < s_end;
+        const long off = ok ? (base + (long)slot * KV) * nb + sw.col : 0;
+        cp_async4(st.kss + slot * nb + sw.col, ks + off, ok ? 4 : 0);
+        cp_async4(st.vss + slot * nb + sw.col, vs + off, ok ? 4 : 0);
+    }
+    if (tid < TS) {
+        // kpos -1 past the range: a 0 copy writes 0, so write -1 directly
+        if (s0 + tid < s_end)
+            cp_async4(st.kp + tid, kpos + (long)b * S + s0 + tid, 4);
+        else
+            st.kp[tid] = -1;
+    }
+}
+
+// The fold, in order, of n (acc, m, l) partials `stride` floats apart
+// (acc at 0, m at mo, l at mo + R): element e of row r; ld reads a float
+template <int R, typename Ld>
+__device__ __forceinline__ void fold(const float* base, int n, int stride,
+                                     int mo, int e, int r, Ld ld, float& m,
+                                     float& l, float& a) {
+    m = NEG;
+    for (int z = 0; z < n; ++z) m = fmaxf(m, ld(base + z * stride + mo + r));
+    l = 0.f;
+    a = 0.f;
+    for (int z = 0; z < n; ++z) {
+        const float* p = base + z * stride;
+        const float w = expf(ld(p + mo + r) - m);
+        l = fmaf(ld(p + mo + R + r), w, l);
+        a = fmaf(ld(p + e), w, a);
+    }
+}
+
+// R, the query rows per kv-head, and QPL, the 4-column quads a lane owns
+// in the value phase (1 up to hd 128, 2 up to 256), are template
+// parameters: the per-row loops then issue no work for rows that do not
+// exist, and no lane holds accumulators it never uses. Block (g, b, z)
+// takes tiles [z * per, (z + 1) * per) of cell (b, g); with splits > 1,
+// work holds (splits, R * hd + 2 R) fp32 partials a cell and tickets one
+// counter a cell.
+template <typename T, int R, int QPL>
+__global__ void __launch_bounds__(THREADS, 2)
 kv_attn_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
                const float* __restrict__ ks, const int8_t* __restrict__ vc,
                const float* __restrict__ vs, const int* __restrict__ kpos,
-               T* __restrict__ out, int S, int KV, int hd, int kv_block) {
+               T* __restrict__ out, int S, int KV, int hd, int kv_block,
+               int splits, int per, float* __restrict__ work,
+               int* __restrict__ tickets) {
     const int g = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+    const int warp = tid / 32, lane = tid % 32;
+    const int s_begin = blockIdx.z * per * TS;
+    const int s_end = min(S, s_begin + per * TS);
     const int nb = hd / kv_block;
-    const int kwords = hd / 4 + 1;       // words per padded K row
     const int quads = hd / 4;            // 4-column groups of a row
-    const int groups = THREADS / quads;  // value phase: slot groups
+    const int half = quads / 2;          // words of a score lane
+    const int qst = q_stride(hd);
+    const int ps = R * hd + 2 * R;       // floats of one (acc, m, l)
 
     extern __shared__ float4 smem_f4[];
-    float* qs = reinterpret_cast<float*>(smem_f4);      // [R][hd]
-    float* sp = qs + R * hd;                            // [R][TS] s, then p
-    float* kss = sp + R * TS;                           // [TS][nb]
-    float* vss = kss + TS * nb;                         // [TS][nb]
-    float* ml = vss + TS * nb;                          // m, l, alpha [R]
-    int* kp = reinterpret_cast<int*>(ml + 3 * MAX_R);   // [TS]
-    uint32_t* vt = reinterpret_cast<uint32_t*>(kp + TS);  // [TS][quads]
-    uint32_t* kt = vt + TS * quads;                     // [TS][kwords]
-    float* part = reinterpret_cast<float*>(vt);  // [groups][R][hd], at end
+    float* qs = reinterpret_cast<float*>(smem_f4);      // [R][qst]
+    int* flag = reinterpret_cast<int*>(qs + R * qst);   // the last ticket
+    unsigned char* ring = reinterpret_cast<unsigned char*>(smem_f4)
+                          + head_bytes(R, hd);
+    const size_t sb = stage_bytes(hd, nb);
+    float* comb = reinterpret_cast<float*>(ring);  // [WARPS][ps], at end
 
     const long cell = (long)b * KV + g;
-    for (int e = tid; e < R * hd; e += THREADS)
-        qs[e] = load_q(q + cell * R * hd + e);
-    if (tid < R) {
-        ml[tid] = NEG;
-        ml[MAX_R + tid] = 0.f;
+    for (int e = tid; e < R * hd; e += THREADS) {
+        const int r = e / hd, c = e - r * hd;
+        qs[r * qst + c + (c >= hd / 2 ? 4 : 0)] =
+            load_q(q + cell * R * hd + e);
     }
 
-    const int c4 = tid % quads, grp = tid / quads;
-    float acc[R][4];
+    float m[R], l[R], acc[R][4 * QPL];
 #pragma unroll
-    for (int r = 0; r < R; ++r)
+    for (int r = 0; r < R; ++r) {
+        m[r] = NEG;
+        l[r] = 0.f;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[r][i] = 0.f;
+        for (int i = 0; i < 4 * QPL; ++i) acc[r][i] = 0.f;
+    }
 
-    TileRegs regs;
-    load_tile(regs, kc, ks, vc, vs, kpos, b, g, 0, S, KV, hd, nb);
-    const int chunks = hd / 16;
-    for (int s0 = 0; s0 < S; s0 += TS) {
-        // 1. registers to shared memory, then the next tile's loads
+    // this thread's share of the copies: K words, V pieces, scales
+    const Share kw(quads), vw(hd / 16), sw(nb);
+    load_tile(stage_at(ring, quads, nb), kc, ks, vc, vs, kpos, b, g,
+              s_begin, S, s_end, KV, hd, nb, kw, vw, sw);
+    cp_async_commit();
+    const int h = lane & 1;              // the score lane's half of a row
+    const int w0 = h * half;
+    const float* qh = qs + h * (4 * half + 4);
+    const int ws0 = warp * WS;           // the warp's first slot of a tile
+    const int slot = ws0 + lane / 2;     // the score lane's slot
+    // the score lane's first kv_block segment and the word that ends it;
+    // the scale block of each of the lane's value quads
+    const int kvw = kv_block / 4;
+    const int blk0 = w0 / kvw, next0 = (blk0 + 1) * kvw;
+    int vblk[QPL];
 #pragma unroll
-        for (int i = 0; i < MAX_CHUNKS; ++i) {
-            const int c = tid + THREADS * i;
-            const int slot = c / chunks, j = c % chunks;
-            if (slot < TS) {
-                uint32_t* kd = kt + slot * kwords + 4 * j;
-                kd[0] = regs.k[i].x; kd[1] = regs.k[i].y;
-                kd[2] = regs.k[i].z; kd[3] = regs.k[i].w;
-                *reinterpret_cast<uint4*>(vt + slot * quads + 4 * j) =
-                    regs.v[i];
-            }
-        }
-#pragma unroll
-        for (int i = 0; i < MAX_SCALES; ++i) {
-            const int e = tid + THREADS * i;
-            if (e < TS * nb) {
-                kss[e] = regs.ks[i];
-                vss[e] = regs.vs[i];
-            }
-        }
-        if (tid < TS) kp[tid] = regs.kpos;
+    for (int i = 0; i < QPL; ++i) vblk[i] = (lane + 32 * i) / kvw;
+    for (int s0 = s_begin, t = 0; s0 < s_end; s0 += TS, ++t) {
+        // this tile in and visible, every warp done with the last one; then
+        // the next tile's copies into the stage the last one used
+        cp_async_wait<0>();
         __syncthreads();
-        if (s0 + TS < S)
-            load_tile(regs, kc, ks, vc, vs, kpos, b, g, s0 + TS, S, KV, hd,
-                      nb);
+        const Stage st = stage_at(ring + (t & 1) * sb, quads, nb);
+        if (s0 + TS < s_end) {
+            load_tile(stage_at(ring + ((t + 1) & 1) * sb, quads, nb), kc,
+                      ks, vc, vs, kpos, b, g, s0 + TS, S, s_end, KV, hd, nb,
+                      kw, vw, sw);
+            cp_async_commit();
+        }
 
-        // 2. scores: two threads per slot, each over half of the row
-        {
-            const int slot = tid / SPLIT, h = tid % SPLIT;
-            const int w0 = h * (quads / SPLIT), w1 = w0 + quads / SPLIT;
-            const uint32_t* krow = kt + slot * kwords;
-            float sc[R], seg[R];
+        // 1. scores: half h of the slot's row
+        const uint32_t* krow = st.kt + slot * (quads + 1);
+        float sc[R], seg[R];
 #pragma unroll
-            for (int r = 0; r < R; ++r) sc[r] = seg[r] = 0.f;
-            int blk = (4 * w0) / kv_block;
-            for (int w = w0; w < w1; ++w) {
-                if ((4 * w) / kv_block != blk) {
-                    const float scale = kss[slot * nb + blk];
+        for (int r = 0; r < R; ++r) sc[r] = seg[r] = 0.f;
+        int blk = blk0, next = next0;
+#pragma unroll 4
+        for (int w = w0; w < w0 + half; ++w) {
+            if (w == next) {                 // a kv_block segment ends
+                const float scale = st.kss[slot * nb + blk];
+#pragma unroll
+                for (int r = 0; r < R; ++r) {
+                    sc[r] = fmaf(seg[r], scale, sc[r]);
+                    seg[r] = 0.f;
+                }
+                ++blk;
+                next += kvw;
+            }
+            float f[4];
+            codes4(krow[w], f);
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+                const float4 qv = *reinterpret_cast<const float4*>(
+                    qh + r * qst + 4 * (w - w0));
+                float a = seg[r];
+                a = fmaf(qv.x, f[0], a);
+                a = fmaf(qv.y, f[1], a);
+                a = fmaf(qv.z, f[2], a);
+                a = fmaf(qv.w, f[3], a);
+                seg[r] = a;
+            }
+        }
+        const bool valid = st.kp[slot] >= 0;
+        const float kscale = st.kss[slot * nb + blk];
+        float p[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+            float v = fmaf(seg[r], kscale, sc[r]);
+            v += __shfl_xor_sync(0xffffffffu, v, 1);
+            v = valid ? v : NEG;
+            // 2. the warp's online softmax over its 16 slots (each value is
+            //    held by the slot's two lanes)
+            float tmax = v;
+#pragma unroll
+            for (int off = 2; off < 32; off <<= 1)
+                tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
+            const float m_new = fmaxf(m[r], tmax);
+            p[r] = valid ? expf(v - m_new) : 0.f;
+            float psum = p[r];
+#pragma unroll
+            for (int off = 2; off < 32; off <<= 1)
+                psum += __shfl_xor_sync(0xffffffffu, psum, off);
+            const float alpha = expf(m[r] - m_new);
+            m[r] = m_new;
+            l[r] = alpha * l[r] + psum;
+#pragma unroll
+            for (int i = 0; i < 4 * QPL; ++i) acc[r][i] *= alpha;
+        }
+
+        // 3. acc += p @ dequant(V) over the warp's valid slots
+#pragma unroll 4
+        for (int j = 0; j < WS; ++j) {
+            const int sj = ws0 + j;
+            if (st.kp[sj] < 0) continue;             // the same in every lane
+            float pj[R];
+#pragma unroll
+            for (int r = 0; r < R; ++r)
+                pj[r] = __shfl_sync(0xffffffffu, p[r], 2 * j);
+#pragma unroll
+            for (int i = 0; i < QPL; ++i) {
+                const int c4 = lane + 32 * i;
+                if (c4 < quads) {
+                    float f[4];
+                    codes4(st.vt[sj * quads + c4], f);
+                    const float scale = st.vss[sj * nb + vblk[i]];
 #pragma unroll
                     for (int r = 0; r < R; ++r) {
-                        sc[r] = fmaf(seg[r], scale, sc[r]);
-                        seg[r] = 0.f;
+                        const float pv = pj[r] * scale;
+#pragma unroll
+                        for (int k = 0; k < 4; ++k)
+                            acc[r][4 * i + k] = fmaf(pv, f[k],
+                                                     acc[r][4 * i + k]);
                     }
-                    blk = (4 * w) / kv_block;
-                }
-                float f[4];
-                codes4(krow[w], f);
-#pragma unroll
-                for (int r = 0; r < R; ++r) {
-                    const float4 qv = *reinterpret_cast<const float4*>(
-                        qs + r * hd + 4 * w);
-                    float a = seg[r];
-                    a = fmaf(qv.x, f[0], a);
-                    a = fmaf(qv.y, f[1], a);
-                    a = fmaf(qv.z, f[2], a);
-                    a = fmaf(qv.w, f[3], a);
-                    seg[r] = a;
-                }
-            }
-            const float scale = kss[slot * nb + blk];
-            const bool valid = kp[slot] >= 0;
-#pragma unroll
-            for (int r = 0; r < R; ++r) {
-                float v = fmaf(seg[r], scale, sc[r]);
-#pragma unroll
-                for (int off = 1; off < SPLIT; off <<= 1)
-                    v += __shfl_xor_sync(0xffffffffu, v, off);
-                if (h == 0) sp[r * TS + slot] = valid ? v : NEG;
-            }
-        }
-        __syncthreads();
-
-        // 3. online softmax: warp r folds row r's tile
-        {
-            const int r = tid / 32, lane = tid % 32;
-            if (r < R) {
-                float sv[TS / 32];
-                float tmax = NEG;
-#pragma unroll
-                for (int j = 0; j < TS / 32; ++j) {
-                    sv[j] = sp[r * TS + lane + 32 * j];
-                    tmax = fmaxf(tmax, sv[j]);
-                }
-#pragma unroll
-                for (int off = 16; off > 0; off >>= 1)
-                    tmax = fmaxf(tmax,
-                                 __shfl_xor_sync(0xffffffffu, tmax, off));
-                const float m_old = ml[r];
-                const float m_new = fmaxf(m_old, tmax);
-                float psum = 0.f;
-#pragma unroll
-                for (int j = 0; j < TS / 32; ++j) {
-                    const int slot = lane + 32 * j;
-                    const float p =
-                        kp[slot] >= 0 ? expf(sv[j] - m_new) : 0.f;
-                    sp[r * TS + slot] = p;
-                    psum += p;
-                }
-#pragma unroll
-                for (int off = 16; off > 0; off >>= 1)
-                    psum += __shfl_xor_sync(0xffffffffu, psum, off);
-                __syncwarp();
-                if (lane == 0) {
-                    const float alpha = expf(m_old - m_new);
-                    ml[r] = m_new;
-                    ml[MAX_R + r] = alpha * ml[MAX_R + r] + psum;
-                    ml[2 * MAX_R + r] = alpha;
                 }
             }
         }
-        __syncthreads();
-
-        // 4. acc = alpha * acc + p @ dequant(V) over this thread's slots
-        if (grp < groups) {
-#pragma unroll
-            for (int r = 0; r < R; ++r) {
-                const float alpha = ml[2 * MAX_R + r];
-#pragma unroll
-                for (int i = 0; i < 4; ++i) acc[r][i] *= alpha;
-            }
-            const int blk = (4 * c4) / kv_block;
-            for (int j = grp; j < TS; j += groups) {
-                float f[4];
-                codes4(vt[j * quads + c4], f);
-                const float scale = vss[j * nb + blk];
-#pragma unroll
-                for (int r = 0; r < R; ++r) {
-                    const float pv = sp[r * TS + j] * scale;
-#pragma unroll
-                    for (int i = 0; i < 4; ++i)
-                        acc[r][i] = fmaf(pv, f[i], acc[r][i]);
-                }
-            }
-        }
-        __syncthreads();
     }
 
-    // the slot groups' partial sums, added in group order
-    if (grp < groups) {
+    // the warps' (acc, m, l), then their fold in warp order
+    __syncthreads();
+    float* mine = comb + warp * ps;
 #pragma unroll
-        for (int r = 0; r < R; ++r)
+    for (int i = 0; i < QPL; ++i) {
+        const int c4 = lane + 32 * i;
+        if (c4 < quads)
 #pragma unroll
-            for (int i = 0; i < 4; ++i)
-                part[(grp * R + r) * hd + 4 * c4 + i] = acc[r][i];
+            for (int r = 0; r < R; ++r)
+#pragma unroll
+                for (int k = 0; k < 4; ++k)
+                    mine[r * hd + 4 * c4 + k] = acc[r][4 * i + k];
+    }
+    if (lane == 0)
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+            mine[R * hd + r] = m[r];
+            mine[R * hd + R + r] = l[r];
+        }
+    __syncthreads();
+    auto lds = [](const float* x) { return *x; };
+    float* part = splits == 1 ? nullptr
+                              : work + (cell * splits + blockIdx.z) * ps;
+    for (int e = tid; e < R * hd; e += THREADS) {
+        float mf, lf, af;
+        fold<R>(comb, WARPS, ps, R * hd, e, e / hd, lds, mf, lf, af);
+        if (part == nullptr) {
+            store_o(out + cell * R * hd + e, af / fmaxf(lf, 1e-30f));
+            continue;
+        }
+        // this range's partials
+        part[e] = af;
+        if (e % hd == 0) {
+            part[R * hd + e / hd] = mf;
+            part[R * hd + R + e / hd] = lf;
+        }
+    }
+    if (part == nullptr) return;
+
+    // a ticket; the block that draws the last one folds the ranges
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) {
+        const int ticket = atomicAdd(tickets + cell, 1);
+        *flag = ticket == splits - 1;
+        if (*flag) tickets[cell] = 0;
     }
     __syncthreads();
+    if (!*flag) return;
+    __threadfence();
+    const float* all = work + cell * splits * ps;
+    auto ldg = [](const float* x) { return __ldcg(x); };
     for (int e = tid; e < R * hd; e += THREADS) {
-        float a = 0.f;
-        for (int gi = 0; gi < groups; ++gi) a += part[gi * R * hd + e];
-        const int r = e / hd;
-        store_o(out + cell * R * hd + e, a / fmaxf(ml[MAX_R + r], 1e-30f));
+        float mf, lf, af;
+        fold<R>(all, splits, ps, R * hd, e, e / hd, ldg, mf, lf, af);
+        store_o(out + cell * R * hd + e, af / fmaxf(lf, 1e-30f));
     }
 }
 
 size_t smem_bytes(int R, int hd, int nb) {
-    const size_t head = sizeof(float) * ((size_t)R * hd + (size_t)R * TS
-                                         + 2 * (size_t)TS * nb + 3 * MAX_R)
-                        + sizeof(int) * TS;
-    const size_t tiles = (size_t)TS * hd + (size_t)TS * (hd + 4);
-    const size_t part = sizeof(float) * (THREADS / (hd / 4)) * R * hd;
-    return head + (tiles > part ? tiles : part);
+    const size_t ring = 2 * stage_bytes(hd, nb);
+    const size_t comb = sizeof(float) * WARPS * (R * hd + 2 * R);
+    return head_bytes(R, hd) + (ring > comb ? ring : comb);
+}
+
+template <typename T, int R, int QPL>
+int launch_q(const T* q, const int8_t* kc, const float* ks, const int8_t* vc,
+             const float* vs, const int* kpos, T* out, int B, int S, int KV,
+             int hd, int kv_block, int splits, int per, float* work,
+             int* tickets, void* stream) {
+    constexpr auto kernel = &kv_attn_kernel<T, R, QPL>;
+    const size_t smem = smem_bytes(R, hd, hd / kv_block);
+    if (smem > 48 * 1024) {
+        const int lim = grant_max_dynamic_smem<kernel>();
+        if (lim < 0) return smem_grant_error();
+        if (smem > (size_t)lim) return (int)cudaErrorInvalidValue;
+    }
+    dim3 grid(KV, B, splits);
+    kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+        q, kc, ks, vc, vs, kpos, out, S, KV, hd, kv_block, splits, per, work,
+        tickets);
+    return (int)cudaGetLastError();
 }
 
 template <typename T, int R>
 int launch_r(const T* q, const int8_t* kc, const float* ks, const int8_t* vc,
              const float* vs, const int* kpos, T* out, int B, int S, int KV,
-             int hd, int kv_block, void* stream) {
-    const size_t smem = smem_bytes(R, hd, hd / kv_block);
-    if (smem > 48 * 1024) {
-        const int lim = grant_max_dynamic_smem<kv_attn_kernel<T, R>>();
-        if (lim < 0) return smem_grant_error();
-        if (smem > (size_t)lim) return (int)cudaErrorInvalidValue;
-    }
-    dim3 grid(KV, B);
-    kv_attn_kernel<T, R><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-        q, kc, ks, vc, vs, kpos, out, S, KV, hd, kv_block);
-    return (int)cudaGetLastError();
+             int hd, int kv_block, int splits, int per, float* work,
+             int* tickets, void* stream) {
+    return hd > 128
+        ? launch_q<T, R, 2>(q, kc, ks, vc, vs, kpos, out, B, S, KV, hd,
+                            kv_block, splits, per, work, tickets, stream)
+        : launch_q<T, R, 1>(q, kc, ks, vc, vs, kpos, out, B, S, KV, hd,
+                            kv_block, splits, per, work, tickets, stream);
 }
 
 template <typename T>
 int launch(const T* q, const int8_t* kc, const float* ks, const int8_t* vc,
            const float* vs, const int* kpos, T* out, int B, int S, int KV,
-           int R, int hd, int kv_block, void* stream) {
+           int R, int hd, int kv_block, int splits, int per, float* work,
+           int* tickets, void* stream) {
     if (hd % 16 != 0 || hd > MAX_HD || kv_block % 4 != 0
-        || hd % kv_block != 0 || TS * (hd / kv_block) > THREADS * MAX_SCALES)
+        || hd % kv_block != 0 || hd / kv_block > MAX_NB
+        || splits < 1 || per < 1 || splits > 65535
+        || (long)(splits - 1) * per * TS >= S
+        || (splits > 1 && (work == nullptr || tickets == nullptr)))
         return (int)cudaErrorInvalidValue;
     switch (R) {
 #define KV_ATTN_R(n)                                                       \
     case n:                                                                \
         return launch_r<T, n>(q, kc, ks, vc, vs, kpos, out, B, S, KV, hd,  \
-                              kv_block, stream);
+                              kv_block, splits, per, work, tickets,        \
+                              stream);
         KV_ATTN_R(1) KV_ATTN_R(2) KV_ATTN_R(3) KV_ATTN_R(4)
         KV_ATTN_R(5) KV_ATTN_R(6) KV_ATTN_R(7) KV_ATTN_R(8)
 #undef KV_ATTN_R
@@ -358,19 +480,25 @@ int launch(const T* q, const int8_t* kc, const float* ks, const int8_t* vc,
 
 }  // namespace
 
+// splits ranges of per tiles (of TS slots) a cell, none empty; with splits
+// > 1, work holds B * KV * splits * (R * hd + 2 R) floats and tickets B * KV
+// counters, zero before the launch and zero again after it
 extern "C" int int8_kv_attention_f32_launch(
         const float* q, const int8_t* kc, const float* ks, const int8_t* vc,
         const float* vs, const int* kpos, float* out, int B, int S, int KV,
-        int R, int hd, int kv_block, void* stream) {
+        int R, int hd, int kv_block, int splits, int per, float* work,
+        int* tickets, void* stream) {
     return launch<float>(q, kc, ks, vc, vs, kpos, out, B, S, KV, R, hd,
-                         kv_block, stream);
+                         kv_block, splits, per, work, tickets, stream);
 }
 
 extern "C" int int8_kv_attention_bf16_launch(
         const __nv_bfloat16* q, const int8_t* kc, const float* ks,
         const int8_t* vc, const float* vs, const int* kpos,
         __nv_bfloat16* out, int B, int S, int KV, int R, int hd,
-        int kv_block, void* stream) {
+        int kv_block, int splits, int per, float* work, int* tickets,
+        void* stream) {
     return launch<__nv_bfloat16>(q, kc, ks, vc, vs, kpos, out, B, S, KV, R,
-                                 hd, kv_block, stream);
+                                 hd, kv_block, splits, per, work, tickets,
+                                 stream);
 }

@@ -13,6 +13,8 @@ that its main path went through the kernels.
 """
 from __future__ import annotations
 
+import functools
+import math
 from typing import Dict, Tuple
 
 import torch
@@ -47,9 +49,13 @@ def _require(cond: bool, op: str, why: str) -> None:
 
 
 def _check_cuda(op: str, *tensors: Tensor) -> None:
+    # on the decode path every call passes here: no message is formatted
+    # unless a check fails
     for t in tensors:
-        _require(t.is_cuda, op, f"expected CUDA tensors, got {t.device}")
-        _require(t.is_contiguous(), op, "expected contiguous tensors")
+        if not t.is_cuda:
+            raise ValueError(f"{op}: expected CUDA tensors, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{op}: expected contiguous tensors")
 
 
 def _launch(op: str, fn, *args) -> None:
@@ -130,79 +136,93 @@ def w4a16_blocks_wanted(tile_m: int) -> int:
     return SMS * (4 if tile_m <= 16 else 1)
 
 
+def w4a16_tensor_core_group(group_size: int) -> bool:
+    """Whether bf16 x at this group size runs on the tensor-core kernel:
+    groups of 8 and 16 (one m16n8k8 step a group of 8) and of 32, 64 or a
+    multiple of 128 (a 32-column block in one group, a 128-column stage in
+    one group or whole groups). The other even group sizes take the
+    CUDA-core kernel."""
+    return group_size in (8, 16, 32, 64) or (group_size > 0
+                                              and group_size % 128 == 0)
+
+
+@functools.lru_cache(maxsize=1024)
 def w4a16_matmul_geometry(m: int, n: int, k: int, group_size: int = 128
                           ) -> Tuple[int, int, int, int]:
-    """The bf16 w4a16_matmul launch for x (m, k) and n weight rows:
-    ``(tile_m, tile_n, splits, split_cols)``. Decode (m <= 64) takes
+    """The bf16 tensor-core w4a16_matmul launch for x (m, k) and n weight
+    rows: ``(tile_m, tile_n, splits, split_cols)``. Decode (m <= 64) takes
     blocks of 64 weight rows x 8 or 16 x rows, prefill 128 x 64 (16-row
     tiles beat 64-row ones at m 64, 64-row ones win at m 2048 on the H100:
     PERF.md). Where the tiles give the SMs fewer blocks than
-    ``w4a16_blocks_wanted`` the k range is split over blocks, whole quant
-    groups each: the most groups a split that still gives that many
-    blocks, down to one group a split, then spread evenly over the
-    splits."""
+    ``w4a16_blocks_wanted`` the k range is split over blocks in units of
+    whole quant groups and whole 32-column blocks (the group at 32 and
+    above, 32 columns at groups of 8 and 16): the most units a split that
+    still gives that many blocks, down to one unit a split, then spread
+    evenly over the splits."""
     tile_m = 8 if m <= 8 else 16 if m <= 64 else 64
     tile_n = 64 if tile_m <= 16 else 128
     tiles = -(-n // tile_n) * -(-m // tile_m)
-    ng = k // group_size
+    unit = math.lcm(group_size, 32)
+    ng = k // unit
     want = w4a16_blocks_wanted(tile_m)
     per = max(1, min(ng, ng * tiles // want))
     splits = -(-ng // per)
     even = -(-ng // splits)
     if -(-ng // even) == splits:
         per = even
-    return tile_m, tile_n, splits, per * group_size
+    return tile_m, tile_n, splits, per * unit
 
 
 def w4a16_matmul_cuda(x: Tensor, packed: Tensor, scales: Tensor,
                       zeros: Tensor, group_size: int) -> Tensor:
-    """Kernel wrapper: x (m, k) f32/bf16 → (m, n) in x.dtype.
+    """Kernel wrapper: x (m, k) f32/bf16 → (m, n) in x.dtype; k a multiple
+    of 32, any even group size dividing k.
 
-    bf16 x runs on the tensor cores with exact products x·(c − z), which
-    rests on the packed artifact's contract that every zero is an integer
-    in [0, 15] (``core.quant``: asym zeros are rounded and clipped, sym
-    zeros stored as 0 + 8); a zero off that grid gives a wrong product,
-    not an error. fp32 x takes the CUDA-core kernel (k ≤ 8192)."""
+    bf16 x at the groups of :func:`w4a16_tensor_core_group` runs on the
+    tensor cores with exact products x·(c − z), which rests on the packed
+    artifact's contract that every zero is an integer in [0, 15]
+    (``core.quant``: asym zeros are rounded and clipped, sym zeros stored
+    as 0 + 8); a zero off that grid gives a wrong product, not an error.
+    fp32 x, and bf16 x at the other even group sizes, take the CUDA-core
+    kernel, which dequantizes per element as the plain version does."""
     op = "w4a16_matmul"
     _check_cuda(op, x, packed, scales, zeros)
     m, k = x.shape
     n, kh = packed.shape
-    _require(packed.dtype == torch.uint8, op, "packed must be uint8")
-    _require(scales.dtype == torch.float32 and zeros.dtype == torch.float32,
-             op, "scales/zeros must be float32")
-    _require(kh * 2 == k, op, f"x has k={k}, packed has {2 * kh} columns")
-    _require(k % 32 == 0 and packed.data_ptr() % 16 == 0
-             and x.data_ptr() % 16 == 0, op,
-             f"k={k} must be a multiple of 32 and x and packed 16-byte "
-             "aligned (16-byte loads)")
-    _require(group_size % 2 == 0 and k % group_size == 0, op,
-             f"group_size {group_size} must be even and divide k={k}")
-    _require(scales.shape == (n, k // group_size) == zeros.shape, op,
-             "scales/zeros must be (n, k/group_size)")
+    # one test of every condition; the message is built only on a failure
+    if not (packed.dtype == torch.uint8
+            and scales.dtype == zeros.dtype == torch.float32
+            and x.dtype in (torch.float32, torch.bfloat16)
+            and kh * 2 == k and k % 32 == 0 and group_size > 0
+            and group_size % 2 == 0 and k % group_size == 0
+            and scales.shape == zeros.shape == (n, k // group_size)
+            and packed.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0):
+        raise ValueError(
+            f"{op}: x {tuple(x.shape)} {x.dtype}, packed "
+            f"{tuple(packed.shape)} {packed.dtype}, scales "
+            f"{tuple(scales.shape)} {scales.dtype}, zeros "
+            f"{tuple(zeros.shape)} {zeros.dtype}, group_size {group_size}: "
+            "the kernels take x float32 or bfloat16 (m, k) with k a "
+            "multiple of 32, uint8 packed (n, k/2), float32 scales and "
+            "zeros (n, k/group_size), an even group_size dividing k, and x "
+            "and packed 16-byte aligned (16-byte loads)")
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     lib = build.load(op)
-    if x.dtype == torch.float32:
-        _require(k <= 8192, op, f"k={k}: the fp32 x tile must fit shared "
-                 "memory")
-        _launch(op, lib.w4a16_matmul_f32_launch, x.data_ptr(),
-                packed.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
-                y.data_ptr(), m, n, k, group_size, _stream())
+    if x.dtype == torch.float32 or not w4a16_tensor_core_group(group_size):
+        fn = (lib.w4a16_matmul_f32_launch if x.dtype == torch.float32
+              else lib.w4a16_matmul_bf16_cc_launch)
+        _launch(op, fn, x.data_ptr(), packed.data_ptr(), scales.data_ptr(),
+                zeros.data_ptr(), y.data_ptr(), m, n, k, group_size,
+                _stream())
         return y
-    _require(x.dtype == torch.bfloat16, op,
-             f"x dtype {x.dtype} not supported")
-    _require(group_size % 32 == 0
-             and (128 % group_size == 0 or group_size % 128 == 0), op,
-             f"group_size {group_size}: bf16 x takes 32, 64 or a multiple "
-             "of 128 (a 32-column k-block lies in one group, a 128-column "
-             "stage in one group or whole groups)")
     tile_m, _, splits, split_cols = w4a16_matmul_geometry(m, n, k,
                                                           group_size)
-    part = torch.empty((splits, m, n) if splits > 1 else (0,),
-                       dtype=torch.float32, device=x.device)
+    part = (torch.empty((splits, m, n), dtype=torch.float32,
+                        device=x.device) if splits > 1 else None)
     _launch(op, lib.w4a16_matmul_bf16_launch, x.data_ptr(),
             packed.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
-            y.data_ptr(), part.data_ptr(), m, n, k, group_size, tile_m,
-            splits, split_cols, _stream())
+            y.data_ptr(), 0 if part is None else part.data_ptr(), m, n, k,
+            group_size, tile_m, splits, split_cols, _stream())
     return y
 
 
@@ -465,36 +485,82 @@ def rpiq_block(w_init: Tensor, w_fp: Tensor, x_last: Tensor,
 # one-token GQA decode attention against the int8 KV cache
 # ---------------------------------------------------------------------------
 
+# history slots a tile of the int8_kv_attention kernel; its ranges are
+# whole tiles
+KV_TILE = 128
+
+
+@functools.lru_cache(maxsize=1024)
+def int8_kv_attention_geometry(b: int, kv: int, s: int) -> Tuple[int, int]:
+    """The int8_kv_attention launch for B x KV cells over S history slots:
+    ``(splits, tiles_per_split)``. Each cell's ceil(S / KV_TILE) tiles are
+    cut into ranges of whole tiles, one block each: the fewest tiles a
+    range that still keeps to two blocks an SM (shorter ranges, more
+    blocks, were slower on the H100: the sweep of chip_compare.py), then
+    spread evenly, so no range is empty and S <= KV_TILE takes one."""
+    tiles = -(-s // KV_TILE)
+    cells = b * kv
+    per = max(1, -(-(cells * tiles) // (2 * SMS)))
+    splits = -(-tiles // per)
+    per = -(-tiles // splits)
+    return -(-tiles // per), per
+
+
+# per device: the ticket counters (zero between calls) and fp32 partials of
+# the split int8_kv_attention launches, grown on demand and kept; the calls
+# of one device share them, so they must be enqueued on one stream
+_KV_WORK: Dict[int, tuple] = {}
+
+
+def _kv_workspace(q: Tensor, cells: int, floats: int) -> Tuple[int, int]:
+    """Pointers to at least ``cells`` zeroed tickets and ``floats``
+    partials on q's device."""
+    dev = q.get_device()
+    ws = _KV_WORK.get(dev)
+    if ws is None or ws[0] < cells or ws[1] < floats:
+        if ws is not None:
+            cells, floats = max(cells, ws[0]), max(floats, ws[1])
+        tickets = torch.zeros(cells, dtype=torch.int32, device=q.device)
+        work = torch.empty(floats, dtype=torch.float32, device=q.device)
+        ws = (cells, floats, tickets.data_ptr(), work.data_ptr(), tickets,
+              work)
+        _KV_WORK[dev] = ws
+    return ws[2], ws[3]
+
+
 def int8_kv_attention_cuda(q: Tensor, k_codes: Tensor, k_scales: Tensor,
                            v_codes: Tensor, v_scales: Tensor, kpos: Tensor,
                            kv_block: int) -> Tensor:
-    """Kernel wrapper: same contract as :func:`ref.int8_kv_attention`."""
+    """Kernel wrapper: same contract as :func:`ref.int8_kv_attention`. One
+    launch a call: the history is split over blocks
+    (:func:`int8_kv_attention_geometry`) and combined by the kernel."""
     op = "int8_kv_attention"
     _check_cuda(op, q, k_codes, k_scales, v_codes, v_scales, kpos)
     b, kv, r, hd = q.shape
-    s = k_codes.shape[1]
-    _require(hd % kv_block == 0 and kv_block % 4 == 0, op,
-             f"kv_block {kv_block} must be a multiple of 4 dividing "
-             f"hd={hd}")
-    nb = hd // kv_block
-    _require(k_codes.dtype == torch.int8 and v_codes.dtype == torch.int8,
-             op, "codes must be int8")
-    _require(k_scales.dtype == torch.float32 and
-             v_scales.dtype == torch.float32, op, "scales must be float32")
-    _require(kpos.dtype == torch.int32, op, "kpos must be int32")
-    _require(k_codes.shape == (b, s, kv, hd) == v_codes.shape, op,
-             f"codes must be (B, S, KV, hd) = ({b}, S, {kv}, {hd})")
-    _require(k_scales.shape == (b, s, kv, nb) == v_scales.shape, op,
-             f"scales must be (B, S, KV, hd/kv_block) = ({b}, {s}, {kv}, "
-             f"{nb})")
-    _require(kpos.shape == (b, s), op, f"kpos must be ({b}, {s})")
-    _require(1 <= r <= 8 and hd % 16 == 0 and hd <= 256 and nb <= 8, op,
-             f"R={r}, hd={hd}, kv_block={kv_block}: the kernel takes R <= 8 "
-             "query rows per kv-head, hd a multiple of 16 up to 256 and at "
-             "most 8 scale blocks per row")
-    _require(k_codes.data_ptr() % 16 == 0 and v_codes.data_ptr() % 16 == 0,
-             op, "codes must be 16-byte aligned (16-byte loads)")
-    out = torch.empty_like(q)
+    kshape = k_codes.shape
+    s = kshape[1]
+    nb = hd // kv_block if kv_block else 0
+    ok_types = (k_codes.dtype == v_codes.dtype == torch.int8
+                and k_scales.dtype == v_scales.dtype == torch.float32
+                and kpos.dtype == torch.int32)
+    ok_shapes = (kshape == v_codes.shape == (b, s, kv, hd)
+                 and k_scales.shape == v_scales.shape == (b, s, kv, nb)
+                 and kpos.shape == (b, s))
+    if not (ok_types and ok_shapes and kv_block and hd % kv_block == 0
+            and kv_block % 4 == 0 and 1 <= r <= 8 and hd % 16 == 0
+            and hd <= 256 and nb <= 8 and k_codes.data_ptr() % 16 == 0
+            and v_codes.data_ptr() % 16 == 0):
+        raise ValueError(
+            f"{op}: q {tuple(q.shape)}, codes {tuple(k_codes.shape)} / "
+            f"{tuple(v_codes.shape)} {k_codes.dtype} / {v_codes.dtype}, "
+            f"scales {tuple(k_scales.shape)} / {tuple(v_scales.shape)} "
+            f"{k_scales.dtype} / {v_scales.dtype}, kpos "
+            f"{tuple(kpos.shape)} {kpos.dtype}, kv_block {kv_block}: the "
+            "kernel takes int8 codes (B, S, KV, hd), f32 scales (B, S, KV, "
+            "hd/kv_block), int32 kpos (B, S), kv_block a multiple of 4 "
+            "dividing hd, R <= 8 query rows per kv-head, hd a multiple of "
+            "16 up to 256, at most 8 scale blocks per row, and codes "
+            "16-byte aligned (16-byte loads)")
     lib = build.load(op)
     if q.dtype == torch.float32:
         fn = lib.int8_kv_attention_f32_launch
@@ -502,9 +568,16 @@ def int8_kv_attention_cuda(q: Tensor, k_codes: Tensor, k_scales: Tensor,
         fn = lib.int8_kv_attention_bf16_launch
     else:
         raise ValueError(f"{op}: q dtype {q.dtype} not supported")
+    splits, per = int8_kv_attention_geometry(b, kv, s)
+    tickets = work = 0
+    if splits > 1:
+        tickets, work = _kv_workspace(q, b * kv,
+                                      b * kv * splits * (r * hd + 2 * r))
+    out = torch.empty_like(q)
     _launch(op, fn, q.data_ptr(), k_codes.data_ptr(), k_scales.data_ptr(),
             v_codes.data_ptr(), v_scales.data_ptr(), kpos.data_ptr(),
-            out.data_ptr(), b, s, kv, r, hd, kv_block, _stream())
+            out.data_ptr(), b, s, kv, r, hd, kv_block, splits, per, work,
+            tickets, _stream())
     return out
 
 
@@ -570,7 +643,8 @@ def selective_scan_cuda(u: Tensor, dt: Tensor, bm: Tensor, cm: Tensor,
                         a_log: Tensor, d_skip: Tensor, h0: Tensor
                         ) -> Tuple[Tensor, Tensor]:
     """Kernel wrapper: same contract as :func:`ref.selective_scan`, with
-    every input but u in float32; h_last comes back in float32."""
+    every input but u in float32; h_last comes back in float32. Each
+    channel's states are split over two lanes (``selective_scan.cu``)."""
     op = "selective_scan"
     args = (u, dt, bm, cm, a_log, d_skip, h0)
     _check_cuda(op, *args)
@@ -590,6 +664,8 @@ def selective_scan_cuda(u: Tensor, dt: Tensor, bm: Tensor, cm: Tensor,
     _require(b >= 1 and s >= 1 and d % tile == 0 and 1 <= n <= n_max, op,
              f"B={b}, S={s}, d={d}, n={n}: the kernel takes B, S >= 1, d "
              f"a multiple of {tile} and n <= {n_max}")
+    _require(u.data_ptr() % 16 == 0 and dt.data_ptr() % 16 == 0, op,
+             "u and dt must be 16-byte aligned (16-byte copies)")
     if u.dtype == torch.float32:
         fn = lib.selective_scan_f32_launch
     elif u.dtype == torch.bfloat16:

@@ -26,8 +26,10 @@ tests/test_torch_kernels.py``); without a card they skip. Pins there:
 ulp (as ``bf16_ulp``) in bf16; ``quant_pack`` bitwise; ``selective_scan``
 y and h_last ≤ 1e-5 of their largest value in fp32, y within one bf16 ulp
 in bf16, and a shape the kernel does not take raises; ``w4a16_matmul``'s
-bf16 tensor-core kernel within one bf16 ulp, and a launch that splits k
-over blocks bitwise repeatable.
+bf16 tensor-core kernel within one bf16 ulp at groups 8, 16, 64 and 128,
+the CUDA-core kernel within 1e-5 in fp32 (to k 12288) and one bf16 ulp at
+the other even groups, and a launch that splits k over blocks bitwise
+repeatable; ``int8_kv_attention`` launched twice bitwise equal.
 """
 import jax
 import jax.numpy as jnp
@@ -138,6 +140,31 @@ def test_w4a16_matches_jax(dtype, lead):
             assert np.max(np.abs(got - want)) <= 1e-5 * np.max(np.abs(want))
         else:
             assert np.all(np.abs(got - want) <= bf16_ulp(want))
+
+
+@pytest.mark.parametrize("g", [8, 16])
+@pytest.mark.parametrize("lead", [(3, 1), (2, 8)], ids=["decode", "prefill"])
+def test_w4a16_small_groups_match_jax(g, lead):
+    """The group sizes of the smoke configs (opt-proxy 16, internlm2 and
+    falcon-mamba 8) in bf16, the serving dtype: the plain version within
+    one bf16 ulp of the JAX oracle and of its Pallas and XLA paths."""
+    rng = np.random.RandomState(13 + g)
+    packed, scales, zeros, g = _w4a16_case(rng, n=192, k=256, g=g)
+    x = rng.randn(*lead, 256).astype(np.float32)
+    xt = t(x).to(torch.bfloat16)
+    xj = jnp.asarray(x).astype(jnp.bfloat16)
+    got = tops.w4a16_matmul(xt, t(packed), t(scales), t(zeros),
+                            group_size=g)
+    assert got.dtype == torch.bfloat16 and got.shape == (*lead, 192)
+    got = got.float().numpy()
+    args = (jnp.asarray(packed), jnp.asarray(scales), jnp.asarray(zeros))
+    wants = [jref.w4a16_matmul_ref(xj.reshape(-1, 256), *args,
+                                   g).reshape(*lead, -1)]
+    wants += [jops.w4a16_matmul(xj, *args, group_size=g, impl=impl)
+              for impl in ("pallas", "xla")]
+    for want in wants:
+        want = np.asarray(want.astype(jnp.float32))
+        assert np.all(np.abs(got - want) <= bf16_ulp(want))
 
 
 # ---------------------------------------------------------------------------
@@ -303,6 +330,60 @@ def test_w4a16_geometry_fills_the_card(m, k, n):
     assert want >= tops.SMS
     assert tiles * splits >= want or cols == g
     assert splits == 1 or tiles < want
+
+
+@pytest.mark.parametrize("k,n", W4A16_KN + ((64, 192), (128, 64)))
+@pytest.mark.parametrize("g", [8, 16])
+@pytest.mark.parametrize("m", [4, 64, 2048], ids=["decode", "m64",
+                                               "prefill"])
+def test_w4a16_geometry_takes_small_groups(m, g, k, n):
+    """Groups of 8 and 16 take the tensor cores; a split of k covers whole
+    32-column blocks (the 16-byte copies) and so whole groups, the last
+    one at least one block, and fills the card as at group 128."""
+    assert tops.w4a16_tensor_core_group(g)
+    tile_m, tile_n, splits, cols = tops.w4a16_matmul_geometry(m, n, k, g)
+    assert (tile_m, tile_n) == {4: (8, 64), 64: (16, 64),
+                                2048: (64, 128)}[m]
+    assert cols % 32 == 0 and cols % g == 0
+    assert (splits - 1) * cols < k <= splits * cols
+    tiles = -(-n // tile_n) * -(-m // tile_m)
+    want = tops.w4a16_blocks_wanted(tile_m)
+    assert tiles * splits >= want or cols == 32
+    assert splits == 1 or tiles < want
+
+
+@pytest.mark.parametrize("g,tensor_cores", [
+    (2, False), (4, False), (6, False), (8, True), (16, True), (24, False),
+    (32, True), (48, False), (64, True), (96, False), (128, True),
+    (256, True), (384, True)])
+def test_w4a16_group_route(g, tensor_cores):
+    """Which kernel bf16 x takes: the tensor cores at groups of 8, 16, 32,
+    64 and multiples of 128, the CUDA cores at every other even group."""
+    assert tops.w4a16_tensor_core_group(g) == tensor_cores
+
+
+# the (B, KV) cells of internlm2-1.8b's decode (4 requests x 8 kv-heads),
+# one request, and a batch of 16
+KV_CELLS = ((4, 8), (1, 8), (16, 8))
+
+
+@pytest.mark.parametrize("s", [1, 77, 128, 129, 545, 1000, 4096, 4097,
+                               32768])
+@pytest.mark.parametrize("b,kv", KV_CELLS)
+def test_int8_kv_attention_geometry_fills_the_card(b, kv, s):
+    """Ranges of whole 128-slot tiles, none empty, one at S <= 128; the
+    blocks fill every SM wherever the tiles allow it, and a range is as
+    short as two blocks an SM allow."""
+    splits, per = tops.int8_kv_attention_geometry(b, kv, s)
+    tiles = -(-s // tops.KV_TILE)
+    cells = b * kv
+    assert splits >= 1 and per >= 1
+    assert (splits - 1) * per < tiles <= splits * per
+    if s <= tops.KV_TILE:
+        assert splits == 1
+    assert cells * splits >= min(tops.SMS, cells * tiles)
+    if per > 1:
+        assert cells * -(-tiles // (per - 1)) > 2 * tops.SMS
 
 
 @pytest.mark.parametrize("symmetric", [False, True], ids=["asym", "sym"])
@@ -534,16 +615,81 @@ def test_gpu_gptq_and_rpiq(cuda, n):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("s,kv_block,r", [(545, 128, 2), (4096, 64, 2),
-                                          (300, 32, 8), (130, 128, 1)])
+                                          (300, 32, 8), (130, 128, 1),
+                                          (77, 128, 2), (4096, 128, 2)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gpu_int8_kv_attention(cuda, s, kv_block, r, dtype):
+    """One history range (S 77) and many (S 545: 5, S 4096: 8 ranges of
+    whole tiles); the last lane has no valid slot and returns 0; a
+    second launch is bitwise the first (the ranges combine in order)."""
     rng = np.random.RandomState(8)
     args = [t(a).to(cuda) for a in kv_case(rng, b=4, s=s, kv=8, r=r,
                                            hd=128, kv_block=kv_block)]
     args[0] = args[0].to(dtype)
     want = tref.int8_kv_attention(*args, kv_block).float()
-    got = tops.int8_kv_attention_cuda(*args, kv_block).float()
+    got = tops.int8_kv_attention_cuda(*args, kv_block)
+    assert torch.equal(got, tops.int8_kv_attention_cuda(*args, kv_block))
+    got = got.float()
     assert float(got[-1].abs().max()) == 0.0
+    if dtype == torch.float32:
+        assert float((got - want).abs().max()) <= 1e-5 * float(
+            want.abs().max())
+    else:
+        diff = (got - want).abs().cpu().numpy()
+        assert np.all(diff <= bf16_ulp(want.cpu().numpy()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd,kv_block,r,s", [(16, 16, 2, 40), (64, 32, 4, 300),
+                                             (256, 64, 8, 700),
+                                             (48, 16, 3, 129)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_int8_kv_attention_head_dims(cuda, hd, kv_block, r, s, dtype):
+    """Head widths other than the serving 128: the smoke configs' 16, 64,
+    256 (two value quads a lane) and 48 (a row of 12 words), at the pins of
+    test_gpu_int8_kv_attention, bitwise repeatable."""
+    rng = np.random.RandomState(hd + r)
+    args = [t(a).to(cuda) for a in kv_case(rng, b=2, s=s, kv=3, r=r, hd=hd,
+                                           kv_block=kv_block)]
+    args[0] = args[0].to(dtype)
+    want = tref.int8_kv_attention(*args, kv_block).float()
+    got = tops.int8_kv_attention_cuda(*args, kv_block)
+    assert torch.equal(got, tops.int8_kv_attention_cuda(*args, kv_block))
+    got = got.float()
+    assert float(got[-1].abs().max()) == 0.0
+    if dtype == torch.float32:
+        assert float((got - want).abs().max()) <= 1e-5 * float(
+            want.abs().max())
+    else:
+        diff = (got - want).abs().cpu().numpy()
+        assert np.all(diff <= bf16_ulp(want.cpu().numpy()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("valid", [600, 1, 0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_int8_kv_attention_empty_ranges(cuda, valid, dtype):
+    """A 4096-slot cache holding only its first `valid` slots, as a long
+    preallocated cache does early in decode: every range past them holds
+    only -1 slots and must add nothing (m -1e30, l 0), at the pins of
+    test_gpu_int8_kv_attention; with no valid slot every lane returns 0."""
+    rng = np.random.RandomState(14)
+    s, kv_block = 4096, 128
+    assert tops.int8_kv_attention_geometry(4, 8, s)[0] > 1
+    args = [t(a).to(cuda) for a in kv_case(rng, b=4, s=s, kv=8, r=2,
+                                           hd=128, kv_block=kv_block)]
+    args[0] = args[0].to(dtype)
+    args[5][:, valid:] = -1
+    want = tref.int8_kv_attention(*args, kv_block).float()
+    got = tops.int8_kv_attention_cuda(*args, kv_block)
+    assert torch.equal(got, tops.int8_kv_attention_cuda(*args, kv_block))
+    got = got.float()
+    assert bool(torch.isfinite(got).all())
+    empty = ~(args[5] >= 0).any(dim=1)
+    assert bool(empty.any()) and int(torch.count_nonzero(got[empty])) == 0
+    if not valid:
+        assert int(torch.count_nonzero(got)) == 0
+        return
     if dtype == torch.float32:
         assert float((got - want).abs().max()) <= 1e-5 * float(
             want.abs().max())
@@ -576,9 +722,14 @@ def test_gpu_quant_pack(cuda, n, k, g, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,s,d,n", [(4, 512, 8192, 16), (4, 77, 8192, 16),
-                                     (1, 128, 8192, 16), (2, 33, 128, 8)])
+                                     (1, 128, 8192, 16), (2, 33, 128, 8),
+                                     (2, 1, 64, 16), (3, 50, 192, 5),
+                                     (1, 19, 128, 1), (2, 300, 256, 16)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gpu_selective_scan(cuda, b, s, d, n, dtype):
+    """State counts 1, 5, 8 and 16 (a channel's two lanes hold up to eight
+    states each, the second lane none at n <= 8), S ragged against the
+    32-step tile (1, 19, 33, 50, 77, 300) and the serving shapes."""
     rng = np.random.RandomState(9)
     args = [t(a).to(cuda) for a in scan_case(rng, b, s, d, n)]
     args[0] = args[0].to(dtype)
@@ -609,15 +760,16 @@ def test_gpu_selective_scan_rejects_shapes_it_does_not_take(cuda, d, n):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("symmetric", [False, True], ids=["asym", "sym"])
-@pytest.mark.parametrize("g", [64, 128])
+@pytest.mark.parametrize("g", [8, 16, 64, 128])
 @pytest.mark.parametrize("k", [256, 8192, 12288])
 @pytest.mark.parametrize("n", [288, 8192])
 @pytest.mark.parametrize("m", [4, 77, 2048])
 def test_gpu_w4a16_tensor_cores(cuda, m, n, k, g, symmetric):
     """bf16 x on the tensor-core kernel: decode, ragged and prefill m, the
-    narrow and wide n, k past the earlier 8192 limit, both group sizes of
-    the paths and both grids, within one bf16 ulp of the plain version;
-    a launch that splits k is bitwise repeatable."""
+    narrow and wide n, k past the earlier 8192 limit, the group sizes of
+    the full-size paths (64, 128) and of the smoke configs (8, 16: the
+    m16n8k8 steps) and both grids, within one bf16 ulp of the plain
+    version; a launch that splits k is bitwise repeatable."""
     from repro_torch.core.quant import pack_quantized
     gen = torch.Generator(device=cuda)
     gen.manual_seed(m * n + k + g)
@@ -631,6 +783,35 @@ def test_gpu_w4a16_tensor_cores(cuda, m, n, k, g, symmetric):
     assert np.all(diff <= bf16_ulp(want.cpu().numpy()))
     if tops.w4a16_matmul_geometry(m, n, k, g)[2] > 1:
         assert torch.equal(got, tops.w4a16_matmul_cuda(x, *args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,g", [(12288, 128), (12288, 24), (96, 6),
+                                 (768, 4)])
+@pytest.mark.parametrize("m", [4, 77])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_w4a16_cuda_cores(cuda, dtype, m, k, g):
+    """The CUDA-core kernel: fp32 x past 8192 columns (x staged in 8192-
+    column chunks) within 1e-5 of the largest output, and bf16 x at even
+    group sizes the tensor cores do not take (4, 6, 24) within one bf16
+    ulp; k 12288 at group 128 in bf16 takes the tensor cores."""
+    from repro_torch.core.quant import pack_quantized
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(m + k + g)
+    n = 288
+    w = torch.randn((n, k), generator=gen, device=cuda) * k ** -0.5
+    qt = pack_quantized(w, 4, g, symmetric=False)
+    x = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
+    args = (qt.packed, qt.scales, qt.zeros, g)
+    want = tref.w4a16_matmul(x, *args).float()
+    got = tops.w4a16_matmul_cuda(x, *args)
+    assert got.dtype == dtype
+    if dtype == torch.float32:
+        assert float((got - want).abs().max()) <= 1e-5 * float(
+            want.abs().max())
+    else:
+        diff = (got.float() - want).abs().cpu().numpy()
+        assert np.all(diff <= bf16_ulp(want.cpu().numpy()))
 
 
 @pytest.mark.gpu
