@@ -20,8 +20,9 @@ line: the checkout, the kernel and shape, and
   ``gptq_block`` an exact checksum of each of its four outputs (w_q,
   scales, zeros, the per-row sum of err^2: the int32 view of the fp32
   bits summed as int64, equal across checkouts only where the outputs
-  are bitwise equal, barring a coincidence), for ``rpiq_block`` the sums
-  of its five outputs (equal sums across checkouts show equal results);
+  are bitwise equal, barring a coincidence), for ``rpiq_block`` exact
+  checksums of w_cont, the candidates and Y_q and the sums of Gamma and
+  the projected loss;
 - for ``w4a16_matmul`` with bf16 x at every phase-3 (m, k, n) of
   ``chip_smoke.py`` (group 128): the device time per call from a CUDA
   graph over weight copies beyond L2, the error in bf16 ulps against the
@@ -35,10 +36,11 @@ line: the checkout, the kernel and shape, and
   rounds of 200 calls on the host clock, the card left to catch up
   between rounds);
 - where the checkout has them, ``int8_kv_attention`` (bf16 queries at
-  internlm2's decode shape, S 545 and 4096) and ``quant_pack`` (fp32,
-  internlm2's widest linears): the device time per call from a CUDA graph
-  over copies beyond L2 (``chip_smoke.graph_ms``), the error against the
-  plain version and an output sum; for ``int8_kv_attention`` also the
+  internlm2's decode shape, S 545 and 4096) and ``quant_pack`` (the six
+  main-path shapes, weights in fp32 and bf16): the device time per call
+  from a CUDA graph over copies beyond L2 (``chip_smoke.graph_ms``), the
+  error against the plain version (bitwise for ``quant_pack``) and an
+  output sum; for ``int8_kv_attention`` also the
   checkout's history ranges (``ops.int8_kv_attention_geometry``, 1 where
   it has none), whether two launches are bitwise equal, at S 545 the mean
   time per call of a loop of wrapper calls and the host's own time to
@@ -49,7 +51,8 @@ line: the checkout, the kernel and shape, and
   S 512, 128 and 77, u in fp32 and bf16: the device time per call from a
   CUDA graph over input copies beyond L2, an exact checksum of h_last's
   bits and y's error against the plain version (relative to the largest
-  output in fp32, bf16 ulps in bf16).
+  output in fp32, bf16 ulps in bf16);
+- the decode step wall of each main path at full width (``decode_walls``).
 """
 import os
 import sys
@@ -162,11 +165,12 @@ def main() -> int:
                 sc.repeat_interleave(gs, -1), zr.repeat_interleave(gs, -1))
         kw = dict(bits=4, block_size=bs, alpha=0.01, t_max=t_max,
                   symmetric=False)
-        sums = [float(t.double().sum())
-                for t in ops.rpiq_block_cuda(*args, **kw)]
+        outs = ops.rpiq_block_cuda(*args, **kw)
+        sums = [float(t.double().sum()) for t in outs[3:]]
         ms = event_ms(lambda: ops.rpiq_block_cuda(*args, **kw), 5)
-        print(f"{root} rpiq_block {b}x{o}x{i}: ms={ms:.4f} sums={sums}",
-              flush=True)
+        print(f"{root} rpiq_block {b}x{o}x{i}: ms={ms:.4f} bit checksums "
+              f"(w_cont, candidates, Y_q)={[bits(t) for t in outs[:3]]} "
+              f"sums (Gamma, proj-loss)={sums}", flush=True)
 
     cases = [(m, k, n) for m in (4, 64)
              for k, n in ((768, 768), (768, 3072), (3072, 768))]
@@ -274,17 +278,24 @@ def main() -> int:
                   f"two launches bitwise equal {same}{host}{sweep}",
                   flush=True)
     if hasattr(ops, "quant_pack_cuda"):
-        for n, k in ((2048, 8192), (8192, 2048)):
-            w = torch.randn((n, k), generator=g, device=dev) * k ** -0.5
-            qp = compute_qparams(w, 4, gs)
-            args = (w, qp.scales, qp.zeros)
-            same = torch.equal(ops.quant_pack_cuda(*args, gs),
-                               ref.quant_pack(*args, gs))
-            copies = [args] + [tuple(t.clone() for t in args)]
-            ms = graph_ms([(lambda c=c: ops.quant_pack_cuda(*c, gs))
-                           for c in copies])
-            print(f"{root} quant_pack n={n} k={k}: ms={ms:.4f} "
-                  f"bitwise equal to the plain version {same}", flush=True)
+        for n, k in ((2048, 8192), (8192, 2048), (16384, 4096), (288, 8192),
+                     (8192, 256), (4096, 8192)):
+            w32 = torch.randn((n, k), generator=g, device=dev) * k ** -0.5
+            qp = compute_qparams(w32, 4, gs)
+            for wdt in (torch.float32, torch.bfloat16):
+                args = (w32.to(wdt), qp.scales, qp.zeros)
+                out = ops.quant_pack_cuda(*args, gs)
+                same = torch.equal(out, ref.quant_pack(*args, gs))
+                nbytes = sum(t.numel() * t.element_size() for t in args)
+                copies = [args] + [tuple(t.clone() for t in args) for _ in
+                                   range(min(63, int(100e6 // nbytes)))]
+                ms = graph_ms([(lambda c=c: ops.quant_pack_cuda(*c, gs))
+                               for c in copies])
+                del copies
+                print(f"{root} quant_pack n={n} k={k} w={wdt}: ms={ms:.4f} "
+                      f"bitwise equal to the plain version {same} "
+                      f"output sum={int(out.to(torch.int64).sum())}",
+                      flush=True)
 
     import torch.nn.functional as F
     b, d, n = 4, 8192, 16
@@ -317,7 +328,74 @@ def main() -> int:
             print(f"{root} selective_scan B={b} S={s} d={d} n={n} u={udt}: "
                   f"ms={ms:.4f} h_last bit checksum={bits(h_last)} {y_err}",
                   flush=True)
+    decode_walls(root, dev)
     return 0
+
+
+def decode_walls(root: str, dev: str, n_steps: int = 16) -> None:
+    """The decode step wall of each main path at full width (4 requests,
+    random weights packed by the checkout's ``pack_for_serving``, greedy):
+    the eager ``decode_step`` (host clock around each step, synchronised),
+    and where the checkout has ``engine.DecodeLoop`` the capture wall and
+    each replay of the captured step timed the same way; the greedy tokens
+    of the two must agree."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipeline import pack_for_serving
+    from repro_torch.data import MarkovLM
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import engine
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    for arch, kv, n_prompt in (("opt-proxy", "fp16", 16),
+                               ("internlm2-1.8b", "int8", 512),
+                               ("falcon-mamba-7b", "fp16", 512)):
+        cfg = get_config(arch)
+        cfg.serve.kv_cache = kv
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        packed = pack_for_serving(cfg, T.init_params(cfg.model, gen, dev))
+        toks = MarkovLM(cfg.model.vocab_size, seed=3).batch(
+            4, n_prompt)["tokens"].to(dev)
+        max_len = n_prompt + n_steps + 2
+        lg, caches = engine.prefill(cfg, packed, {"tokens": toks}, max_len)
+        tok = lg.argmax(-1)
+        pos = torch.full((4,), n_prompt, dtype=torch.long, device=dev)
+        eager, walls = [tok], []
+        for _ in range(n_steps):
+            (lg, caches), w = timed(lambda: T.decode_step(
+                cfg.model, packed, tok, pos, caches))
+            tok = lg.argmax(-1)
+            eager.append(tok)
+            walls.append(w)
+            pos = pos + 1
+        del caches, lg
+        line = (f"{root} decode step {arch} kv_cache={kv}: eager mean "
+                f"{sum(walls) / n_steps:.5f} s median "
+                f"{sorted(walls)[n_steps // 2]:.5f} s")
+        if hasattr(engine, "DecodeLoop"):
+            lg, caches = engine.prefill(cfg, packed, {"tokens": toks},
+                                        max_len)
+            loop = engine.DecodeLoop(cfg, packed, lg, caches, n_prompt,
+                                     n_steps + 1, -1, 0.0, None)
+            timed(loop.step)
+            graph, cap = timed(loop.capture)
+            walls = [timed(graph.replay)[1] for _ in range(n_steps - 1)]
+            same = torch.equal(loop.tokens, torch.stack(eager, dim=1))
+            line += (f"; capture {cap:.4f} s; replay mean "
+                     f"{sum(walls) / len(walls):.5f} s median "
+                     f"{sorted(walls)[len(walls) // 2]:.5f} s; greedy "
+                     f"tokens equal {same}")
+            del graph, loop, caches, lg
+        print(line, flush=True)
+        del packed
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

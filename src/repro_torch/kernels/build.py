@@ -133,7 +133,10 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
             "gptq_block_launch": [p] * 6 + [i] * 8 + [p]},
         "rpiq_block": {
             "rpiq_block_launch": [p] * 12 + [i] * 6 + [f] + [i] * 4 + [p],
-            "rpiq_block_yq_in_smem": [i, i, i, i]},
+            "rpiq_block_yq_in_smem": [i, i, i, i],
+            "rpiq_block_wide_launch": [p] * 13 + [i] * 6 + [f] + [i] * 2
+            + [p],
+            "rpiq_block_wide_partials": [i, i]},
         "int8_kv_attention": {
             "int8_kv_attention_f32_launch": [p] * 7 + [i] * 8 + [p] * 3,
             "int8_kv_attention_bf16_launch": [p] * 7 + [i] * 8 + [p] * 3},

@@ -27,7 +27,16 @@
 // - the tail: a register-tiled FFMA GEMM over a grid of 128-row x
 //   64-column tiles of W[:, c2:], 8 x 4 elements a thread, filling the
 //   card; Err^T and U's slab stream through cp.async in 32-row k-chunks,
-//   each U value used for 128 rows, each error for 64 columns.
+//   each U value used for 128 rows, each error for 64 columns, in passes
+//   of at most 128 rows of k.
+// Lazy blocks the registers cannot hold (bs > 128), or whose rows are not
+// 16-byte aligned (bs % 4 != 0), take the wide sweep: a warp a row, the
+// row's working values updated in place in W (L1/L2), U's block read
+// through the cache, the same operations in the same order. No 16-byte
+// copies: such a block's tail takes a thread an element (ascending k, one
+// fmaf a step, as the tiled tail). Neither is on a main path (every
+// config's blocksize is 8, 16 or 128); they keep every blocksize the
+// reference takes.
 //
 // Numerics, bitwise the reference order of the plain version and of the
 // earlier block-per-16-rows kernel: quantize as w / scale (a division, not
@@ -44,7 +53,8 @@
 
 namespace {
 
-constexpr int BS_MAX = 128;        // the largest lazy block
+constexpr int BS_MAX = 128;        // the largest lazy block in registers,
+                                   // and the tail's k rows a pass
 constexpr int TC = 64;             // tail tile columns
 constexpr int KC = 32;             // tail k-chunk (rows of U's slab)
 constexpr int TAIL_THREADS = 256;
@@ -196,6 +206,101 @@ gptq_sweep_kernel(float* __restrict__ w, const float* __restrict__ u,
     }
 }
 
+// One lazy block's column sweep, a warp a row, for any bs: the row's
+// working values stay in W (each step's update is read back by the next
+// after __syncwarp), U's diagonal block is read through the cache. Column
+// j: every lane quantizes it (the same division and rintf), err = (w - q)
+// / U[j, j], the lanes update the later columns w - err * u, lane 0 stores
+// q and err. A group's scale and zero come from a warp max/min over its
+// columns at its first column, as in the register sweep.
+__global__ void __launch_bounds__(256)
+gptq_sweep_wide_kernel(float* __restrict__ w, const float* __restrict__ u,
+                       float* __restrict__ scales, float* __restrict__ zeros,
+                       float* __restrict__ err_rows, float* __restrict__ errt,
+                       int out_dim, int in_dim, int ld_e, int bits,
+                       int group_size, int bs, int c1, int symmetric) {
+    const int b = blockIdx.y;
+    const int r = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    if (r >= out_dim) return;                  // the whole warp
+    const float* U = u + (long)b * in_dim * in_dim + (long)c1 * in_dim + c1;
+    float* W = w + ((long)b * out_dim + r) * in_dim + c1;
+    float* E = errt + (long)b * bs * ld_e + r;
+    const int n_groups = in_dim / group_size;
+    const float qmax = exp2f((float)bits) - 1.f;
+    const float half = exp2f((float)(bits - 1));
+    float esum = 0.f, scale = 1.f, zero = 0.f;
+    for (int j = 0; j < bs; ++j) {
+        if (j % group_size == 0) {
+            float mx = -INFINITY, mn = INFINITY, am = 0.f;
+            for (int c = j + lane; c < j + group_size; c += 32) {
+                const float v = W[c];
+                mx = fmaxf(mx, v);
+                mn = fminf(mn, v);
+                am = fmaxf(am, fabsf(v));
+            }
+            for (int off = 16; off > 0; off >>= 1) {
+                mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
+                mn = fminf(mn, __shfl_xor_sync(FULL, mn, off));
+                am = fmaxf(am, __shfl_xor_sync(FULL, am, off));
+            }
+            if (symmetric) {
+                scale = fmaxf(am / (half - 1.f), 1e-8f);
+                zero = 0.f;
+            } else {
+                const float wmax = fmaxf(mx, 0.f);
+                const float wmin = fminf(mn, 0.f);
+                scale = fmaxf((wmax - wmin) / qmax, 1e-8f);
+                zero = clampf(rintf(-wmin / scale), 0.f, qmax);
+            }
+            if (lane == 0) {
+                const long gi = ((long)b * out_dim + r) * n_groups
+                                + (c1 + j) / group_size;
+                scales[gi] = scale;
+                zeros[gi] = zero;
+            }
+        }
+        const float wcol = W[j];
+        float q;
+        if (symmetric) {
+            q = clampf(rintf(wcol / scale), -half, half - 1.f) * scale;
+        } else {
+            q = (clampf(rintf(wcol / scale) + zero, 0.f, qmax) - zero)
+                * scale;
+        }
+        const float* urow = U + (long)j * in_dim;
+        const float err = (wcol - q) / urow[j];
+        esum += err * err;
+        for (int c = j + 1 + lane; c < bs; c += 32)
+            W[c] = W[c] - err * urow[c];
+        __syncwarp();
+        if (lane == 0) {
+            W[j] = q;
+            E[(long)j * ld_e] = err;
+        }
+        __syncwarp();
+    }
+    if (lane == 0) err_rows[(long)b * out_dim + r] += esum;
+}
+
+// W[:, c2:] -= Err @ U[c1:c2, c2:], a thread an element (any bs): the
+// tail of the wide sweep's lazy blocks whose rows are not 16-byte aligned.
+__global__ void __launch_bounds__(128)
+gptq_tail_simple_kernel(float* __restrict__ w, const float* __restrict__ u,
+                        const float* __restrict__ errt, int out_dim,
+                        int in_dim, int ld_e, int bs, int c1) {
+    const int b = blockIdx.z, r = blockIdx.y;
+    const int c = c1 + bs + blockIdx.x * blockDim.x + threadIdx.x;
+    if (c >= in_dim) return;
+    const float* E = errt + (long)b * bs * ld_e + r;
+    const float* U = u + (long)b * in_dim * in_dim + (long)c1 * in_dim + c;
+    float acc = 0.f;
+    for (int k = 0; k < bs; ++k)
+        acc = fmaf(E[(long)k * ld_e], U[(long)k * in_dim], acc);
+    float* p = w + ((long)b * out_dim + r) * in_dim + c;
+    *p = *p - acc;
+}
+
 // W[:, c2:] -= Err @ U[c1:c2, c2:] for one (16 RT) x 64 tile of member b:
 // 16 x 16 threads, RT x 4 elements each.
 template <int RT>
@@ -205,76 +310,85 @@ gptq_tail_kernel(float* __restrict__ w, const float* __restrict__ u,
                  int ld_e, int bs, int c1) {
     constexpr int TR = 16 * RT;                // tile rows
     extern __shared__ __align__(16) float smem[];
-    float* es = smem;                          // [bs][TR] rows of Err^T
-    float* us = smem + bs * TR;                // [bs][TC] U's slab
+    const int kmax = bs < BS_MAX ? bs : BS_MAX;  // k rows a pass
+    float* es = smem;                          // [kmax][TR] rows of Err^T
+    float* us = smem + kmax * TR;              // [kmax][TC] U's slab
     const int b = blockIdx.z;
     const int c2 = c1 + bs;
     const int col0 = c2 + blockIdx.x * TC, r0 = blockIdx.y * TR;
     const int tid = threadIdx.x;
-    const float* E = errt + (long)b * bs * ld_e;
-    const float* U = u + (long)b * in_dim * in_dim;
-    const int n_chunks = (bs + KC - 1) / KC;
-
-    for (int ch = 0; ch < n_chunks; ++ch) {
-        const int k0 = ch * KC, kn = min(KC, bs - k0);
-        for (int e = tid; e < kn * (TR / 4); e += TAIL_THREADS) {
-            const int k = k0 + e / (TR / 4), i = 4 * (e % (TR / 4));
-            // ld_e is a multiple of TR: the whole granule is in the buffer
-            cp_async16(es + k * TR + i, E + (long)k * ld_e + r0 + i,
-                       r0 + i < out_dim ? 16 : 0);
-        }
-        for (int e = tid; e < kn * (TC / 4); e += TAIL_THREADS) {
-            const int k = k0 + e / (TC / 4), i = 4 * (e % (TC / 4));
-            const bool ok = col0 + i < in_dim;
-            cp_async16(us + k * TC + i,
-                       ok ? U + (long)(c1 + k) * in_dim + col0 + i : U,
-                       ok ? 16 : 0);
-        }
-        cp_async_commit();
-    }
-
+    const float* E0 = errt + (long)b * bs * ld_e;
+    const float* U0 = u + (long)b * in_dim * in_dim;
     const int ty = tid / 16, tx = tid % 16;
     float acc[RT][4];
 #pragma unroll
     for (int i = 0; i < RT; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    for (int ch = 0; ch < n_chunks; ++ch) {
-        // chunk ch has landed once at most n_chunks - 1 - ch are in flight
-        switch (n_chunks - 1 - ch) {
-        case 0: cp_async_wait<0>(); break;
-        case 1: cp_async_wait<1>(); break;
-        case 2: cp_async_wait<2>(); break;
-        default: cp_async_wait<3>(); break;
-        }
-        __syncthreads();
-        const int k0 = ch * KC, kn = min(KC, bs - k0);
-        auto step = [&](int k) {
-            float e4[RT];
-#pragma unroll
-            for (int h = 0; h < RT / 4; ++h) {
-                const float4 ev = *reinterpret_cast<const float4*>(
-                    es + k * TR + 4 * ty + 64 * h);
-                e4[4 * h] = ev.x;
-                e4[4 * h + 1] = ev.y;
-                e4[4 * h + 2] = ev.z;
-                e4[4 * h + 3] = ev.w;
+    // k in passes of at most BS_MAX rows (one pass for bs <= 128)
+    for (int kb0 = 0; kb0 < bs; kb0 += BS_MAX) {
+        const int kb = min(BS_MAX, bs - kb0);
+        const float* E = E0 + (long)kb0 * ld_e;
+        const float* U = U0 + (long)kb0 * in_dim;
+        const int n_chunks = (kb + KC - 1) / KC;
+
+        for (int ch = 0; ch < n_chunks; ++ch) {
+            const int k0 = ch * KC, kn = min(KC, kb - k0);
+            for (int e = tid; e < kn * (TR / 4); e += TAIL_THREADS) {
+                const int k = k0 + e / (TR / 4), i = 4 * (e % (TR / 4));
+                // ld_e is a multiple of TR: the whole granule is in the buffer
+                cp_async16(es + k * TR + i, E + (long)k * ld_e + r0 + i,
+                           r0 + i < out_dim ? 16 : 0);
             }
-            const float4 uv = *reinterpret_cast<const float4*>(
-                us + k * TC + 4 * tx);
-            const float u4[4] = {uv.x, uv.y, uv.z, uv.w};
-#pragma unroll
-            for (int i = 0; i < RT; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j)
-                    acc[i][j] = fmaf(e4[i], u4[j], acc[i][j]);
-        };
-        if (kn == KC) {
-#pragma unroll
-            for (int k = k0; k < k0 + KC; ++k) step(k);
-        } else {
-            for (int k = k0; k < k0 + kn; ++k) step(k);
+            for (int e = tid; e < kn * (TC / 4); e += TAIL_THREADS) {
+                const int k = k0 + e / (TC / 4), i = 4 * (e % (TC / 4));
+                const bool ok = col0 + i < in_dim;
+                cp_async16(us + k * TC + i,
+                           ok ? U + (long)(c1 + k) * in_dim + col0 + i : U,
+                           ok ? 16 : 0);
+            }
+            cp_async_commit();
         }
+
+        for (int ch = 0; ch < n_chunks; ++ch) {
+            // chunk ch has landed once at most n_chunks - 1 - ch are in flight
+            switch (n_chunks - 1 - ch) {
+            case 0: cp_async_wait<0>(); break;
+            case 1: cp_async_wait<1>(); break;
+            case 2: cp_async_wait<2>(); break;
+            default: cp_async_wait<3>(); break;
+            }
+            __syncthreads();
+            const int k0 = ch * KC, kn = min(KC, kb - k0);
+            auto step = [&](int k) {
+                float e4[RT];
+#pragma unroll
+                for (int h = 0; h < RT / 4; ++h) {
+                    const float4 ev = *reinterpret_cast<const float4*>(
+                        es + k * TR + 4 * ty + 64 * h);
+                    e4[4 * h] = ev.x;
+                    e4[4 * h + 1] = ev.y;
+                    e4[4 * h + 2] = ev.z;
+                    e4[4 * h + 3] = ev.w;
+                }
+                const float4 uv = *reinterpret_cast<const float4*>(
+                    us + k * TC + 4 * tx);
+                const float u4[4] = {uv.x, uv.y, uv.z, uv.w};
+#pragma unroll
+                for (int i = 0; i < RT; ++i)
+#pragma unroll
+                    for (int j = 0; j < 4; ++j)
+                        acc[i][j] = fmaf(e4[i], u4[j], acc[i][j]);
+            };
+            if (kn == KC) {
+#pragma unroll
+                for (int k = k0; k < k0 + KC; ++k) step(k);
+            } else {
+                for (int k = k0; k < k0 + kn; ++k) step(k);
+            }
+        }
+        // the next pass overwrites the staged rows
+        if (kb0 + BS_MAX < bs) __syncthreads();
     }
 
     // element (i, j) of the thread: row r0 + 4 ty + 64 (i / 4) + i % 4
@@ -333,9 +447,11 @@ constexpr int SMS = 132;
 
 // w: (B, out, in) f32, holding the input weights and overwritten with w_q;
 // err_rows (B, out) must be zeroed; errt (B, bs, ld_e) scratch for the
-// errors, ld_e a multiple of 128 >= out. bs a multiple of 4 up to 128,
-// in a multiple of bs, group_size <= bs dividing it. Enqueues 2 launches
-// per lazy block (the last block has no tail).
+// errors, ld_e a multiple of 128 >= out. bs dividing in, group_size <= bs
+// dividing it. Enqueues 2 launches per lazy block (the last block has no
+// tail): the register sweep and the tiled tail where bs is a multiple of
+// 4 up to 128, else the wide sweep, and the tiled tail (bs a multiple of
+// 4) or the simple one.
 extern "C" int gptq_block_launch(float* w, const float* u, float* scales,
                                  float* zeros, float* err_rows, float* errt,
                                  int B, int out_dim, int in_dim, int ld_e,
@@ -344,12 +460,15 @@ extern "C" int gptq_block_launch(float* w, const float* u, float* scales,
     constexpr auto tail = &gptq_tail_kernel<TAIL_RT>;
     constexpr int tr = 16 * TAIL_RT;
     const cudaStream_t s = (cudaStream_t)stream;
-    if (bs % 4 || bs > BS_MAX || in_dim % bs || group_size > bs ||
+    if (bs < 1 || in_dim % bs || group_size < 1 || group_size > bs ||
         bs % group_size || ld_e % tr || ld_e < out_dim)
         return (int)cudaErrorInvalidValue;
+    const bool in_registers = bs % 4 == 0 && bs <= BS_MAX;
+    const bool tiled_tail = bs % 4 == 0;
     const int tail_lim = grant_max_dynamic_smem<tail>();
     if (tail_lim < 0) return smem_grant_error();
-    const size_t tail_smem = sizeof(float) * (size_t)bs * (tr + TC);
+    const size_t tail_smem =
+        sizeof(float) * (size_t)(bs < BS_MAX ? bs : BS_MAX) * (tr + TC);
     if (tail_smem > (size_t)tail_lim) return (int)cudaErrorInvalidValue;
     // warps a sweep block: 8, or fewer while the blocks would leave SMs idle
     const int rpw = sweep_rows_per_warp((long)B * out_dim);
@@ -362,17 +481,32 @@ extern "C" int gptq_block_launch(float* w, const float* u, float* scales,
     const dim3 sweep_grid((out_dim + rows - 1) / rows, B);
     const auto sweep = rpw == 4 ? sweep_launch<4>
                        : rpw == 2 ? sweep_launch<2> : sweep_launch<1>;
+    const dim3 wide_grid((out_dim + 7) / 8, B);
     for (int c1 = 0; c1 < in_dim; c1 += bs) {
-        int err = sweep(sweep_grid, 32 * warps, sweep_smem, s, w, u, scales,
+        int err;
+        if (in_registers) {
+            err = sweep(sweep_grid, 32 * warps, sweep_smem, s, w, u, scales,
                         zeros, err_rows, errt, out_dim, in_dim, ld_e, bits,
                         group_size, bs, c1, symmetric);
+        } else {
+            gptq_sweep_wide_kernel<<<wide_grid, 256, 0, s>>>(
+                w, u, scales, zeros, err_rows, errt, out_dim, in_dim, ld_e,
+                bits, group_size, bs, c1, symmetric);
+            err = (int)cudaGetLastError();
+        }
         if (err) return err;
         const int rest = in_dim - c1 - bs;
         if (rest == 0) continue;
-        const dim3 tail_grid((rest + TC - 1) / TC, (out_dim + tr - 1) / tr,
-                             B);
-        tail<<<tail_grid, TAIL_THREADS, tail_smem, s>>>(
-            w, u, errt, out_dim, in_dim, ld_e, bs, c1);
+        if (tiled_tail) {
+            const dim3 tail_grid((rest + TC - 1) / TC,
+                                 (out_dim + tr - 1) / tr, B);
+            tail<<<tail_grid, TAIL_THREADS, tail_smem, s>>>(
+                w, u, errt, out_dim, in_dim, ld_e, bs, c1);
+        } else {
+            gptq_tail_simple_kernel<<<dim3((rest + 127) / 128, out_dim, B),
+                                      128, 0, s>>>(
+                w, u, errt, out_dim, in_dim, ld_e, bs, c1);
+        }
         err = (int)cudaGetLastError();
         if (err) return err;
     }

@@ -8,13 +8,17 @@
 // bf16) and leaves as half a byte, with one scale and zero per (row, group);
 // the handful of operations per weight are far under the ridge.
 //
-// Design: one thread per 8 consecutive columns of a row (grid.y walks the
-// rows): one 16-byte load (bf16) or two (fp32), the (row, group) scale and
-// zero (once when the 8 columns share a group), code = clamp(rint(w / s)
-// + z, 0, 15) with IEEE division and round-half-to-even (no fast math: the
-// result is bitwise the plain version's), and one 4-byte store of the four
-// packed bytes, the even column in the low nibble. Neighbouring threads
-// take neighbouring columns, so loads and stores are coalesced.
+// Design: the threads walk the flattened (row, 8-column span) index, so
+// short rows (32 spans at k 256) fill every block as long ones do. A
+// thread takes one span at a time: one 16-byte load (bf16) or two (fp32),
+// the (row, group) scale and zero (once when the 8 columns share a group),
+// code = clamp(rint(w / s) + z, 0, 15) with IEEE division and
+// round-half-to-even (no fast math: the result is bitwise the plain
+// version's), and one 4-byte store of the four packed bytes, the even
+// column in the low nibble. Neighbouring threads take neighbouring spans,
+// so loads and stores are coalesced across row ends. The grid is sized to
+// the card (every SM full), each thread striding over the spans, and no
+// larger than the spans.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -45,16 +49,15 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS)
 quant_pack_kernel(const T* __restrict__ w, const float* __restrict__ scales,
                   const float* __restrict__ zeros, uint32_t* __restrict__ out,
-                  int n, int k, int group_size) {
+                  int spans, int k, int group_size) {
     const int per_row = k / 8;
-    const int c8 = blockIdx.x * THREADS + threadIdx.x;
-    if (c8 >= per_row) return;
-    const int c0 = 8 * c8;
     const int n_groups = k / group_size;
     // one (scale, zero) for all 8 columns unless a group boundary falls
     // inside them
     const bool shared = group_size % 8 == 0;
-    for (int row = blockIdx.y; row < n; row += gridDim.y) {
+    for (int i = blockIdx.x * THREADS + threadIdx.x; i < spans;
+         i += gridDim.x * THREADS) {
+        const int row = i / per_row, c0 = 8 * (i - row * per_row);
         const long gbase = (long)row * n_groups;
         float v[8];
         load8(w + (long)row * k + c0, v);
@@ -74,19 +77,25 @@ quant_pack_kernel(const T* __restrict__ w, const float* __restrict__ scales,
             q = fminf(fmaxf(q, 0.f), 15.f);
             packed |= (uint32_t)q << (4 * j);
         }
-        out[(long)row * per_row + c8] = packed;
+        out[i] = packed;
     }
 }
+
+// resident blocks of THREADS an SM (2048 threads) times the H100's SMs
+constexpr int MAX_BLOCKS = 132 * (2048 / THREADS);
 
 template <typename T>
 int launch(const T* w, const float* scales, const float* zeros,
            uint8_t* out, int n, int k, int group_size, void* stream) {
-    if (k % 8 != 0 || group_size < 1 || k % group_size != 0)
+    if (k % 8 != 0 || group_size < 1 || k % group_size != 0 ||
+        (long)n * (k / 8) > 0x7fffffffL)
         return (int)cudaErrorInvalidValue;
     if (n == 0 || k == 0) return (int)cudaSuccess;
-    dim3 grid((k / 8 + THREADS - 1) / THREADS, n < 65535 ? n : 65535);
-    quant_pack_kernel<T><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-        w, scales, zeros, reinterpret_cast<uint32_t*>(out), n, k,
+    const int spans = n * (k / 8);
+    const int need = (spans + THREADS - 1) / THREADS;
+    const int blocks = need < MAX_BLOCKS ? need : MAX_BLOCKS;
+    quant_pack_kernel<T><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+        w, scales, zeros, reinterpret_cast<uint32_t*>(out), spans, k,
         group_size);
     return (int)cudaGetLastError();
 }

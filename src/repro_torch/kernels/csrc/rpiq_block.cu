@@ -45,12 +45,14 @@
 // Round 0 and each round's projected loss stream (chunk, column block)
 // pairs of X and W through the same ring. Every round runs, keeping the
 // Pallas kernel's deferred-bookkeeping split: Gamma and the projected loss
-// are summed per block (a fixed tree), then over the cluster in rank
-// order, into a (B, tiles, t_max+1) array the host sums in tile order (no
-// atomics), and each round's projected candidate goes to wp_all[b, t]; the
-// host replays the early stop and the strict-improvement choice
-// (ops._rpiq_select). Rows are independent given X and H_i^-1, so the row
-// split is exact, and every product sums in the order of the first
+// are summed in fp64 (each fp32 residual squared exactly, per thread, per
+// block in a fixed tree, then over the cluster in rank order) into a
+// (B, tiles, t_max+1) fp64 array the host sums in tile order (no atomics):
+// fp32 sums of n x out squares carried ~1e-6 of rounding, as much as the
+// pins allow at a 288-row group. Each round's projected candidate goes to
+// wp_all[b, t]; the host replays the early stop and the strict-improvement
+// choice (ops._rpiq_select). Rows are independent given X and H_i^-1, so
+// the row split is exact, and every product sums in the order of the first
 // version (the stale and fresh outputs and Y_q over ascending k, the
 // right-hand side over ascending tokens, the solve over ascending k):
 // w_cont, the candidates and Y_q are bitwise the first version's; only
@@ -78,6 +80,7 @@ constexpr int THREADS = 256;
 constexpr int BO = 32;         // output rows per block
 constexpr int NC = 64;         // tokens per chunk
 constexpr int BS_MAX = 128;    // widest column block
+constexpr int RED = 64;        // fp64 slots of the loss partials
 
 __device__ __forceinline__ float clampf(float v, float lo, float hi) {
     return fminf(fmaxf(v, lo), hi);
@@ -230,7 +233,7 @@ __device__ __forceinline__ void stream2(int cnt, Fetch fetch, Body body) {
 size_t fixed_floats(int split, int bs) {
     const size_t ld = bs + 4;
     return 2 * NC * ld + 2 * BO * ld + NC * BO + 2 * NC * BO +
-           (BO / split) * ld + 64;
+           (BO / split) * ld + 2 * RED;
 }
 
 template <int C>
@@ -242,7 +245,7 @@ rpiq_block_kernel(const float* __restrict__ w0,
                   const float* __restrict__ s_all,
                   const float* __restrict__ z_all, float* __restrict__ wc_all,
                   float* __restrict__ wp_all, float* __restrict__ yq_all,
-                  float* __restrict__ hist, float* __restrict__ pls,
+                  double* __restrict__ hist, double* __restrict__ pls,
                   float* __restrict__ dbuf, int yq_in_smem, int out_dim,
                   int in_dim, int n, int bs, int t_max, float alpha,
                   int bits, int symmetric) {
@@ -269,7 +272,9 @@ rpiq_block_kernel(const float* __restrict__ w0,
     float* Ds = wsb + 2 * BO * ld;             // NC x BO: directed residual
     float* dsl = Ds + NC * BO;                 // 2 x NC x BO: D of a chunk
     float* rT = dsl + 2 * NC * BO;             // NS x ld: rhs^T
-    float* red = rT + NS * ld;                 // 64: loss partials
+    // RED fp64 loss partials (16-byte aligned: every float count above is
+    // a multiple of 4)
+    double* red = reinterpret_cast<double*>(rT + NS * ld);
     const long wofs = ((long)b * out_dim + o0) * in_dim;
     const float* W0 = w0 + wofs;
     const float* S = s_all + wofs;
@@ -280,7 +285,7 @@ rpiq_block_kernel(const float* __restrict__ w0,
     const float* Hv = hinv_all + (long)b * in_dim * bs;
     const long cand = (long)out_dim * in_dim;
     float* WP = wp_all + (long)b * (t_max + 1) * cand + (long)o0 * in_dim;
-    float* Yq = yq_in_smem ? red + 64
+    float* Yq = yq_in_smem ? reinterpret_cast<float*>(red + RED)
                            : yq_all + ((long)b * n + t0) * out_dim + o0;
     const long ldq = yq_in_smem ? BO : out_dim;
     const long hofs = ((long)b * gridDim.y + tile) * (t_max + 1);
@@ -291,7 +296,7 @@ rpiq_block_kernel(const float* __restrict__ w0,
         if constexpr (C == 1) __syncthreads();
         else cluster.sync();
     };
-    auto peer = [&](float* p, int q) -> const float* {
+    auto peer = [&](auto* p, int q) {
         if constexpr (C == 1) return p;
         else return cluster.map_shared_rank(p, q);
     };
@@ -316,22 +321,22 @@ rpiq_block_kernel(const float* __restrict__ w0,
         }
     };
     // this block's sum of v (a fixed tree) into red[slot]
-    auto block_sum = [&](float v, int slot) {
+    auto block_sum = [&](double v, int slot) {
         for (int off = 16; off > 0; off >>= 1)
             v += __shfl_xor_sync(0xffffffffu, v, off);
         if (tid % 32 == 0) red[16 + tid / 32] = v;
         __syncthreads();
         if (tid == 0) {
-            float s = 0.f;
+            double s = 0.0;
             for (int w = 0; w < THREADS / 32; ++w) s += red[16 + w];
             red[slot] = s;
         }
     };
     // the cluster's sum of red[slot], in rank order, into *dst
-    auto cluster_sum = [&](int slot, float* dst) {
+    auto cluster_sum = [&](int slot, double* dst) {
         csync();
         if (rank == 0 && tid == 0) {
-            float s = 0.f;
+            double s = 0.0;
             for (int q = 0; q < C; ++q) s += peer(red, q)[slot];
             *dst = s;
         }
@@ -340,7 +345,7 @@ rpiq_block_kernel(const float* __restrict__ w0,
     // sum over this block's tokens of (y_orig - X Wsrc^T)^2; round 0 also
     // stores X Wsrc^T as the running Y_q
     auto full_product = [&](const float* Wsrc, bool init_yq) {
-        float g = 0.f;
+        double g = 0.0;
         float acc[TA::MI][TA::OJ];
         stream2(
             nch * n_cb,
@@ -367,7 +372,8 @@ rpiq_block_kernel(const float* __restrict__ w0,
                         const int o = ctx + TA::TX * q;
                         if (m >= rows_r) continue;
                         if (init_yq) Yq[m * ldq + o] = acc[i][q];
-                        const float d = Yo[(long)m * out_dim + o] - acc[i][q];
+                        const double d = Yo[(long)m * out_dim + o] -
+                                         acc[i][q];
                         g += d * d;
                     }
             });
@@ -565,10 +571,10 @@ rpiq_block_kernel(const float* __restrict__ w0,
             }
         }
         // Gamma_t over this block's tokens
-        float g = 0.f;
+        double g = 0.0;
         for (int e = tid; e < rows_r * BO; e += THREADS) {
             const int m = e / BO, o = e % BO;
-            const float d = Yo[(long)m * out_dim + o] - Yq[m * ldq + o];
+            const double d = Yo[(long)m * out_dim + o] - Yq[m * ldq + o];
             g += d * d;
         }
         block_sum(g, 0);
@@ -625,15 +631,198 @@ int yq_fits(int n, int bs, int bo, int split, size_t* bytes) {
 }
 
 template <int C>
-int launch(const float* const* p, float* const* o, int B, int out_dim,
-           int in_dim, int n, int bs, int t_max, float alpha, int bits,
-           int symmetric, int in_smem, size_t smem, cudaStream_t stream) {
+int launch(const float* const* p, float* const* o, double* const* sums,
+           int B, int out_dim, int in_dim, int n, int bs, int t_max,
+           float alpha, int bits, int symmetric, int in_smem, size_t smem,
+           cudaStream_t stream) {
     dim3 grid(C, out_dim / BO, B);
     return launch_clustered(rpiq_block_kernel<C>, grid, THREADS, smem,
                             stream, C, p[0], p[1], p[2], p[3], p[4], p[5],
-                            o[0], o[1], o[2], o[3], o[4], o[5], in_smem,
+                            o[0], o[1], o[2], sums[0], sums[1], o[3], in_smem,
                             out_dim, in_dim, n, bs, t_max, alpha, bits,
                             symmetric);
+}
+
+// ---------------------------------------------------------------------------
+// The wide path: column blocks the fused kernel does not take (bs > 128,
+// whose X_i and B tiles overflow shared memory, or bs % 4 != 0, whose rows
+// are not 16-byte aligned). None is on a main path (every config's
+// blocksize is 8, 16 or 128); the path keeps every blocksize the reference
+// takes. The host enqueues the same steps as separate launches of one
+// tiled FFMA product (64 x 64 outputs a block, 4 x 4 a thread, k in
+// 16-deep shared tiles, each sum ascending in k) with the step's
+// elementwise epilogue, in the plain version's order: per round and
+// column block the stale output with Y_q <- Y_q - y_qi and D, the
+// right-hand side X_i^T D, the solve with the projection and damped
+// update of W, the fresh output; per round Gamma, the projected
+// candidate and its loss, summed in fp64 per block into (B, P, t_max+1)
+// partials (P the blocks of one n x out product) that the host sums.
+// ---------------------------------------------------------------------------
+
+constexpr int WT = 64;         // output tile, rows and columns
+constexpr int WK = 16;         // k a shared tile
+constexpr int WTHREADS = 256;
+
+enum WideMode { W_INIT, W_STALE, W_RHS, W_SOLVE, W_FRESH, W_GAMMA, W_PLOSS };
+
+struct WideArgs {
+    // C[i][j] = sum_k A[i sa_i + k sa_k] B[k sb_k + j sb_j] of member b,
+    // whose operands start a_mem / b_mem floats after the previous one's
+    const float* a;
+    long sa_i, sa_k, a_mem;
+    const float* b;
+    long sb_k, sb_j, b_mem;
+    int M, N, K;
+    float* yq;                 // (B, n, out)
+    const float* yo;           // (B, n, out)
+    float* d;                  // (B, n, out) the directed residual
+    float* rhs;                // (B, bs, out)
+    float* w;                  // (B, out, in) the iterate
+    const float* s;            // (B, out, in) the grid
+    const float* z;
+    double* part;              // (B, P, t2) fp64 loss partials
+    double* part2;             // the projected loss's, at round 0
+    int slot, t2, n, out, in, c1, bs, symmetric;
+    float alpha, qmax, half;
+};
+
+template <int MODE>
+__global__ void __launch_bounds__(WTHREADS)
+rpiq_wide_kernel(WideArgs p) {
+    __shared__ float As[WK][WT + 1];
+    __shared__ float Bs[WK][WT + 1];
+    __shared__ double red[WTHREADS / 32];
+    const int b = blockIdx.z;
+    const int i0 = blockIdx.y * WT, j0 = blockIdx.x * WT;
+    const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+    const float* A = p.a + b * p.a_mem;
+    const float* B = p.b + b * p.b_mem;
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int k0 = 0; k0 < p.K; k0 += WK) {
+        // neighbouring threads on the operand's unit stride
+        for (int e = tid; e < WT * WK; e += WTHREADS) {
+            const int i = p.sa_k == 1 ? e / WK : e % WT;
+            const int k = p.sa_k == 1 ? e % WK : e / WT;
+            As[k][i] = i0 + i < p.M && k0 + k < p.K
+                ? A[(i0 + i) * p.sa_i + (k0 + k) * p.sa_k] : 0.f;
+            const int j = p.sb_j == 1 ? e % WT : e / WK;
+            const int kb = p.sb_j == 1 ? e / WT : e % WK;
+            Bs[kb][j] = j0 + j < p.N && k0 + kb < p.K
+                ? B[(k0 + kb) * p.sb_k + (j0 + j) * p.sb_j] : 0.f;
+        }
+        __syncthreads();
+        const int kn = min(WK, p.K - k0);
+        for (int kk = 0; kk < kn; ++kk) {
+            float av[4], bv[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) av[i] = As[kk][ty + 16 * i];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) bv[j] = Bs[kk][tx + 16 * j];
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+                    acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        }
+        __syncthreads();
+    }
+    double g = 0.0;
+    const long nout = (long)b * p.n * p.out;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const int gi = i0 + ty + 16 * i, gj = j0 + tx + 16 * j;
+            if (gi >= p.M || gj >= p.N) continue;
+            const float v = acc[i][j];
+            if constexpr (MODE == W_RHS) {
+                p.rhs[((long)b * p.bs + gi) * p.out + gj] = v;
+            } else if constexpr (MODE == W_SOLVE) {
+                // c = gi, o = gj
+                const long wi = ((long)b * p.out + gj) * p.in + p.c1 + gi;
+                const float bp = project(v, p.s[wi], p.z[wi], p.qmax,
+                                         p.half, p.symmetric);
+                const float bo = p.w[wi];
+                p.w[wi] = bo + p.alpha * (bp - bo);
+            } else {
+                // m = gi, o = gj
+                const long yi = nout + (long)gi * p.out + gj;
+                if constexpr (MODE == W_INIT) {
+                    p.yq[yi] = v;
+                    const double dd = p.yo[yi] - v;
+                    g += dd * dd;
+                } else if constexpr (MODE == W_STALE) {
+                    const float rest = p.yq[yi] - v;
+                    p.yq[yi] = rest;
+                    p.d[yi] = p.yo[yi] - rest;
+                } else if constexpr (MODE == W_FRESH) {
+                    p.yq[yi] = p.yq[yi] + v;
+                } else if constexpr (MODE == W_GAMMA) {
+                    const double dd = p.yo[yi] - p.yq[yi];
+                    g += dd * dd;
+                } else {                            // W_PLOSS
+                    const double dd = p.yo[yi] - v;
+                    g += dd * dd;
+                }
+            }
+        }
+    if constexpr (MODE == W_INIT || MODE == W_GAMMA || MODE == W_PLOSS) {
+        for (int off = 16; off > 0; off >>= 1)
+            g += __shfl_xor_sync(0xffffffffu, g, off);
+        if (tid % 32 == 0) red[tid / 32] = g;
+        __syncthreads();
+        if (tid == 0) {
+            double t = 0.0;
+            for (int w = 0; w < WTHREADS / 32; ++w) t += red[w];
+            const long blk = (long)blockIdx.y * gridDim.x + blockIdx.x;
+            const long pi = ((long)b * gridDim.x * gridDim.y + blk) * p.t2
+                            + p.slot;
+            p.part[pi] = t;
+            if constexpr (MODE == W_INIT) p.part2[pi] = t;
+        }
+    }
+}
+
+// dst[b][e] = src[b][e] (copy) or its projection onto the grid, e < per;
+// member b of dst starts dst_mem floats after the previous one's
+__global__ void rpiq_wide_project_kernel(const float* __restrict__ src,
+                                         const float* __restrict__ s,
+                                         const float* __restrict__ z,
+                                         float* __restrict__ dst,
+                                         long per, long dst_mem, long total,
+                                         int copy, float qmax, float half,
+                                         int symmetric) {
+    for (long e = blockIdx.x * (long)blockDim.x + threadIdx.x; e < total;
+         e += (long)gridDim.x * blockDim.x) {
+        const long b = e / per, i = e - b * per;
+        dst[b * dst_mem + i] = copy ? src[e]
+            : project(src[e], s[e], z[e], qmax, half, symmetric);
+    }
+}
+
+int cdiv(long a, long b) { return (int)((a + b - 1) / b); }
+
+template <int MODE>
+int wide(WideArgs p, int B, cudaStream_t s) {
+    const dim3 grid(cdiv(p.N, WT), cdiv(p.M, WT), B);
+    rpiq_wide_kernel<MODE><<<grid, WTHREADS, 0, s>>>(p);
+    return (int)cudaGetLastError();
+}
+
+int wide_project(const float* src, const float* sg, const float* zg,
+                 float* dst, long per, long dst_mem, int B, int copy,
+                 const WideArgs& p, cudaStream_t s) {
+    const long total = per * B;
+    const int blocks = cdiv(total, 256) < 132 * 8 ? cdiv(total, 256)
+                                                  : 132 * 8;
+    rpiq_wide_project_kernel<<<blocks, 256, 0, s>>>(
+        src, sg, zg, dst, per, dst_mem, total, copy, p.qmax, p.half,
+        p.symmetric);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -645,8 +834,87 @@ extern "C" int rpiq_block_yq_in_smem(int n, int bs, int bo, int split) {
     return yq_fits(n, bs, bo, split, &bytes);
 }
 
+// The loss partials a wide launch writes per member and round.
+extern "C" int rpiq_block_wide_partials(int n, int out_dim) {
+    return cdiv(n, WT) * cdiv(out_dim, WT);
+}
+
+// The wide path (any bs dividing in): shapes as rpiq_block_launch, with
+// hist/pls (B, rpiq_block_wide_partials(n, out), t_max+1) fp64 and the
+// scratch d (B, n, out) and rhs (B, bs, out); any row count.
+extern "C" int rpiq_block_wide_launch(const float* w0, const float* y_orig,
+                                      const float* x, const float* hinv,
+                                      const float* s_full,
+                                      const float* z_full, float* w_cont,
+                                      float* wp_all, float* y_q,
+                                      double* hist, double* pls, float* d,
+                                      float* rhs, int B, int out_dim,
+                                      int in_dim, int n, int bs, int t_max,
+                                      float alpha, int bits, int symmetric,
+                                      void* stream) {
+    if (bs < 1 || in_dim % bs || n < 1 || t_max < 0)
+        return (int)cudaErrorInvalidValue;
+    const cudaStream_t s = (cudaStream_t)stream;
+    const long oi = (long)out_dim * in_dim, no = (long)n * out_dim;
+    const int t2 = t_max + 1;
+    WideArgs p = {};
+    p.yq = y_q; p.yo = y_orig; p.d = d; p.rhs = rhs; p.w = w_cont;
+    p.s = s_full; p.z = z_full; p.t2 = t2; p.n = n; p.out = out_dim;
+    p.in = in_dim; p.bs = bs; p.symmetric = symmetric; p.alpha = alpha;
+    p.qmax = exp2f((float)bits) - 1.f;
+    p.half = exp2f((float)(bits - 1));
+    // an n x out product X Wsrc^T over the columns [c1, c1 + K)
+    auto x_wt = [&](const float* wsrc, long w_mem, int c1, int K) {
+        p.a = x + c1; p.sa_i = in_dim; p.sa_k = 1; p.a_mem = (long)n * in_dim;
+        p.b = wsrc + c1; p.sb_k = 1; p.sb_j = in_dim; p.b_mem = w_mem;
+        p.M = n; p.N = out_dim; p.K = K;
+    };
+    int err;
+    // round 0: W = W0, candidate 0 = W0, Y_q = X W0^T, Gamma_0
+    if ((err = wide_project(w0, nullptr, nullptr, w_cont, oi, oi, B, 1, p,
+                            s)) ||
+        (err = wide_project(w0, nullptr, nullptr, wp_all, oi, t2 * oi, B, 1,
+                            p, s)))
+        return err;
+    x_wt(w0, oi, 0, in_dim);
+    p.part = hist; p.part2 = pls; p.slot = 0;
+    if ((err = wide<W_INIT>(p, B, s))) return err;
+    for (int t = 1; t <= t_max; ++t) {
+        for (int c1 = 0; c1 < in_dim; c1 += bs) {
+            p.c1 = c1;
+            x_wt(w_cont, oi, c1, bs);
+            if ((err = wide<W_STALE>(p, B, s))) return err;
+            // rhs[c][o] = sum_m X[m][c1 + c] D[m][o]
+            p.a = x + c1; p.sa_i = 1; p.sa_k = in_dim;
+            p.a_mem = (long)n * in_dim;
+            p.b = d; p.sb_k = out_dim; p.sb_j = 1; p.b_mem = no;
+            p.M = bs; p.N = out_dim; p.K = n;
+            if ((err = wide<W_RHS>(p, B, s))) return err;
+            // B*[o][c] = sum_k H_i^-1[c][k] rhs[k][o]
+            p.a = hinv + (long)c1 * bs; p.sa_i = bs; p.sa_k = 1;
+            p.a_mem = (long)in_dim * bs;
+            p.b = rhs; p.sb_k = out_dim; p.sb_j = 1;
+            p.b_mem = (long)bs * out_dim;
+            p.M = bs; p.N = out_dim; p.K = bs;
+            if ((err = wide<W_SOLVE>(p, B, s))) return err;
+            x_wt(w_cont, oi, c1, bs);
+            if ((err = wide<W_FRESH>(p, B, s))) return err;
+        }
+        p.part = hist; p.slot = t; p.K = 0;
+        if ((err = wide<W_GAMMA>(p, B, s))) return err;
+        float* wpt = wp_all + (long)t * oi;
+        if ((err = wide_project(w_cont, s_full, z_full, wpt, oi, t2 * oi, B,
+                                0, p, s)))
+            return err;
+        x_wt(wpt, t2 * oi, 0, in_dim);
+        p.part = pls;
+        if ((err = wide<W_PLOSS>(p, B, s))) return err;
+    }
+    return 0;
+}
+
 // Shapes: w0/s/z/w_cont (B, out, in), y_orig/y_q (B, n, out), x (B, n, in),
-// hinv (B, in, bs), wp_all (B, t_max+1, out, in), hist/pls
+// hinv (B, in, bs), wp_all (B, t_max+1, out, in), hist/pls fp64
 // (B, out/bo, t_max+1), dbuf (B, out/bo, n, bo) when split > 1 (the
 // directed residuals; unused otherwise); bo = 32 rows per block with
 // out % bo == 0, split 1, 2, 4 or 8 blocks per cluster sharing the tokens;
@@ -655,7 +923,8 @@ extern "C" int rpiq_block_launch(const float* w0, const float* y_orig,
                                  const float* x, const float* hinv,
                                  const float* s_full, const float* z_full,
                                  float* w_cont, float* wp_all, float* y_q,
-                                 float* hist, float* pls, float* dbuf, int B,
+                                 double* hist, double* pls, float* dbuf,
+                                 int B,
                                  int out_dim, int in_dim, int n, int bs,
                                  int t_max, float alpha, int bits,
                                  int symmetric, int bo, int split,
@@ -666,16 +935,17 @@ extern "C" int rpiq_block_launch(const float* w0, const float* y_orig,
     if (fits < 0 || out_dim % BO || in_dim % bs || n < 1)
         return (int)cudaErrorInvalidValue;
     const float* p[6] = {w0, y_orig, x, hinv, s_full, z_full};
-    float* o[6] = {w_cont, wp_all, y_q, hist, pls, dbuf};
+    float* o[4] = {w_cont, wp_all, y_q, dbuf};
+    double* sums[2] = {hist, pls};
     cudaStream_t s = (cudaStream_t)stream;
     switch (split) {
-        case 1: return launch<1>(p, o, B, out_dim, in_dim, n, bs, t_max,
+        case 1: return launch<1>(p, o, sums, B, out_dim, in_dim, n, bs, t_max,
                                  alpha, bits, symmetric, fits, smem, s);
-        case 2: return launch<2>(p, o, B, out_dim, in_dim, n, bs, t_max,
+        case 2: return launch<2>(p, o, sums, B, out_dim, in_dim, n, bs, t_max,
                                  alpha, bits, symmetric, fits, smem, s);
-        case 4: return launch<4>(p, o, B, out_dim, in_dim, n, bs, t_max,
+        case 4: return launch<4>(p, o, sums, B, out_dim, in_dim, n, bs, t_max,
                                  alpha, bits, symmetric, fits, smem, s);
-        case 8: return launch<8>(p, o, B, out_dim, in_dim, n, bs, t_max,
+        case 8: return launch<8>(p, o, sums, B, out_dim, in_dim, n, bs, t_max,
                                  alpha, bits, symmetric, fits, smem, s);
     }
     return (int)cudaErrorInvalidValue;

@@ -9,7 +9,9 @@ RPIQ stage 2 live here, as in the JAX package's ``repro.kernels.ops``.
 
 Every ``*_cuda`` wrapper adds one to its launch counter where it launches
 its kernel; :func:`kernel_launches` reads the counters, so a run can show
-that its main path went through the kernels.
+that its main path went through the kernels. A :class:`CapturedCall`
+(a CUDA graph of wrapper calls) counts each replay as the launches it
+captured.
 """
 from __future__ import annotations
 
@@ -37,6 +39,52 @@ def kernel_launches() -> Dict[str, int]:
 def reset_kernel_launches() -> None:
     for k in _LAUNCHES:
         _LAUNCHES[k] = 0
+
+
+def _add_launches(counts: Dict[str, int], times: int) -> None:
+    """Add ``times`` x ``counts`` to the counters: a CUDA graph's replays
+    run the launches captured in it without passing the wrappers."""
+    for k, v in counts.items():
+        _LAUNCHES[k] += v * times
+
+
+class CapturedCall:
+    """``fn()`` captured once into a CUDA graph on the current device, then
+    replayed. A capture that fails raises; nothing falls back.
+
+    Capturing runs nothing, so the launches the wrappers counted during the
+    capture are taken back and each replay counts them again. The graph's
+    private memory pool keeps every tensor allocated inside ``fn`` (the
+    outputs, w4a16_matmul's split-K partials) for the graph's life, and
+    the object holds the int8_kv_attention workspaces in use at capture,
+    which a later, larger call may replace. ``fn`` must have run once
+    eagerly on the same shapes (kernel builds, library handles and the
+    workspaces are made there). ``generators``: the torch.Generators ``fn``
+    draws from, registered with the graph so that each replay draws new
+    numbers. ``out`` is what ``fn`` returned: static tensors that each
+    replay overwrites."""
+
+    def __init__(self, fn, generators=()):
+        self.graph = torch.cuda.CUDAGraph()
+        for gen in generators:
+            self.graph.register_generator_state(gen)
+        before = kernel_launches()
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        try:
+            with torch.cuda.graph(self.graph, stream=stream):
+                self.out = fn()
+        finally:
+            after = kernel_launches()
+            self.launches = {k: after[k] - before[k] for k in after}
+            _add_launches(self.launches, -1)
+        torch.cuda.current_stream().wait_stream(stream)
+        self.workspaces = tuple(_KV_WORK.values())
+
+    def replay(self, times: int = 1) -> None:
+        for _ in range(times):
+            self.graph.replay()
+        _add_launches(self.launches, times)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -246,18 +294,20 @@ def w4a16_matmul(x: Tensor, packed: Tensor, scales: Tensor, zeros: Tensor,
 def gptq_block_cuda(w: Tensor, hinv_u: Tensor, *, bits: int, group_size: int,
                     blocksize: int, symmetric: bool
                     ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
-    """Kernel wrapper: same contract as :func:`ref.gptq_block`. One call
-    enqueues the sweep and the tail update of every lazy block (2 x
-    in/blocksize kernels) and counts as one launch."""
+    """Kernel wrapper: same contract as :func:`ref.gptq_block`, any
+    blocksize dividing in that group_size divides. One call enqueues the
+    sweep and the tail update of every lazy block (2 x in/blocksize
+    kernels: ``gptq_block.cu`` keeps a block of up to 128 columns in
+    registers, a wider one in place in w) and counts as one launch."""
     op = "gptq_block"
     _check_cuda(op, w, hinv_u)
     _require(w.dtype == torch.float32 and hinv_u.dtype == torch.float32, op,
              "w and hinv_u must be float32")
     b, out_dim, in_dim = w.shape
-    _require(blocksize % 4 == 0 and blocksize <= 128, op,
-             f"blocksize {blocksize} must be a multiple of 4 up to 128 (a "
-             "row's block lives in the registers of its lanes)")
-    _require(group_size <= blocksize, op, "group_size must be <= blocksize")
+    _require(blocksize >= 1 and in_dim % blocksize == 0
+             and blocksize % group_size == 0, op,
+             f"in={in_dim}, blocksize={blocksize}, group_size={group_size} "
+             "are not aligned")
     _require(w.data_ptr() % 16 == 0 and hinv_u.data_ptr() % 16 == 0, op,
              "w and hinv_u must be 16-byte aligned (16-byte copies)")
     lib = build.load(op)
@@ -349,9 +399,12 @@ def rpiq_block_cuda(w0: Tensor, y_orig: Tensor, x: Tensor, hinv_flat: Tensor,
                     block_size: int, alpha: float, t_max: int,
                     symmetric: bool
                     ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
-    """Kernel wrapper: same contract as :func:`ref.rpiq_block`; the row
-    count must be a multiple of RPIQ_ROWS. The per-row-tile partials are
-    summed here, in tile order."""
+    """Kernel wrapper: same contract as :func:`ref.rpiq_block`, any
+    block_size dividing in; the row count must be a multiple of
+    RPIQ_ROWS. A block of up to 128 columns (a multiple of 4) runs the
+    fused kernel, a wider one the wide path of ``rpiq_block.cu``. The fp64
+    loss partials (per row tile, or per product tile on the wide path) are
+    summed here, in tile order, and rounded once to fp32."""
     op = "rpiq_block"
     args = (w0, y_orig, x, hinv_flat, s_full, z_full)
     _check_cuda(op, *args)
@@ -365,34 +418,49 @@ def rpiq_block_cuda(w0: Tensor, y_orig: Tensor, x: Tensor, hinv_flat: Tensor,
     _require(out_dim % rows == 0, op, f"out={out_dim} must be a multiple "
              f"of {rows} (ops.rpiq_block pads)")
     _require(t_max >= 0, op, "t_max must be >= 0")
-    _require(block_size % 4 == 0 and block_size <= 128
-             and in_dim % block_size == 0 and n >= 1, op,
-             f"block_size {block_size} must be a multiple of 4 up to 128 "
-             f"dividing in={in_dim}, and n={n} >= 1")
+    _require(block_size >= 1 and in_dim % block_size == 0 and n >= 1, op,
+             f"block_size {block_size} must divide in={in_dim}, and n={n} "
+             ">= 1")
     lib = build.load(op)
-    in_smem = lib.rpiq_block_yq_in_smem(n, block_size, rows, split)
-    _require(in_smem >= 0, op, f"rows={rows}, split={split}, "
-             f"block_size={block_size}: "
-             + ("querying the card's shared memory failed" if in_smem == -1
-                else "a launch geometry the kernel does not take"))
-    tiles = out_dim // rows
     dev = w0.device
     w_cont = torch.empty_like(w0)
     wp_all = torch.empty((b, t_max + 1, out_dim, in_dim), dtype=torch.float32,
                          device=dev)
     y_q = torch.empty((b, n, out_dim), dtype=torch.float32, device=dev)
-    hist = torch.empty((b, tiles, t_max + 1), dtype=torch.float32,
+    outs = (w_cont.data_ptr(), wp_all.data_ptr(), y_q.data_ptr())
+    wide = block_size % 4 != 0 or block_size > 128
+    # Γ and the projected loss, summed in fp64 per row tile (per product
+    # tile on the wide path)
+    parts = (lib.rpiq_block_wide_partials(n, out_dim) if wide
+             else out_dim // rows)
+    hist = torch.empty((b, parts, t_max + 1), dtype=torch.float64,
                        device=dev)
     pls = torch.empty_like(hist)
-    # a cluster's blocks share their directed residuals through here
-    dbuf = torch.empty((b, tiles, n, rows) if split > 1 else (0,),
-                       dtype=torch.float32, device=dev)
-    _launch(op, lib.rpiq_block_launch, *(a.data_ptr() for a in args),
-            w_cont.data_ptr(), wp_all.data_ptr(), y_q.data_ptr(),
-            hist.data_ptr(), pls.data_ptr(), dbuf.data_ptr(), b, out_dim,
-            in_dim, n, block_size, t_max, float(alpha), bits,
-            int(symmetric), rows, split, _stream())
-    return w_cont, wp_all, y_q, hist.sum(dim=1), pls.sum(dim=1)
+    if wide:
+        d = torch.empty((b, n, out_dim), dtype=torch.float32, device=dev)
+        rhs = torch.empty((b, block_size, out_dim), dtype=torch.float32,
+                          device=dev)
+        _launch(op, lib.rpiq_block_wide_launch,
+                *(a.data_ptr() for a in args), *outs, hist.data_ptr(),
+                pls.data_ptr(), d.data_ptr(), rhs.data_ptr(), b, out_dim,
+                in_dim, n, block_size, t_max, float(alpha), bits,
+                int(symmetric), _stream())
+    else:
+        in_smem = lib.rpiq_block_yq_in_smem(n, block_size, rows, split)
+        _require(in_smem >= 0, op, f"rows={rows}, split={split}, "
+                 f"block_size={block_size}: "
+                 + ("querying the card's shared memory failed"
+                    if in_smem == -1
+                    else "a launch geometry the kernel does not take"))
+        # a cluster's blocks share their directed residuals through here
+        dbuf = torch.empty((b, parts, n, rows) if split > 1 else (0,),
+                           dtype=torch.float32, device=dev)
+        _launch(op, lib.rpiq_block_launch, *(a.data_ptr() for a in args),
+                *outs, hist.data_ptr(), pls.data_ptr(), dbuf.data_ptr(), b,
+                out_dim, in_dim, n, block_size, t_max, float(alpha), bits,
+                int(symmetric), rows, split, _stream())
+    return (w_cont, wp_all, y_q, hist.sum(dim=1).float(),
+            pls.sum(dim=1).float())
 
 
 def _rpiq_select(hist_raw: Tensor, pls_raw: Tensor, wp_all: Tensor,
@@ -507,8 +575,9 @@ def int8_kv_attention_geometry(b: int, kv: int, s: int) -> Tuple[int, int]:
 
 
 # per device: the ticket counters (zero between calls) and fp32 partials of
-# the split int8_kv_attention launches, grown on demand and kept; the calls
-# of one device share them, so they must be enqueued on one stream
+# the split int8_kv_attention launches, grown on demand and kept (a
+# CapturedCall holds the ones it captured); the calls of one device share
+# them, so they must be enqueued on one stream
 _KV_WORK: Dict[int, tuple] = {}
 
 
@@ -606,6 +675,8 @@ def quant_pack_cuda(w: Tensor, scales: Tensor, zeros: Tensor,
     _require(k % 8 == 0 and w.data_ptr() % 16 == 0, op,
              f"k={k} must be a multiple of 8 and w 16-byte aligned "
              "(16-byte loads of 8 columns)")
+    _require(n * (k // 8) < 2 ** 31, op, "the kernel indexes n * k / 8 "
+             "spans with 32-bit integers")
     _require(group_size >= 1 and k % group_size == 0, op,
              f"group_size {group_size} must divide k={k}")
     _require(scales.dtype == torch.float32 and zeros.dtype == torch.float32,

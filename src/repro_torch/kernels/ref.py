@@ -44,15 +44,21 @@ def w4a16_matmul(x: Tensor, packed: Tensor, scales: Tensor, zeros: Tensor,
 
 
 def _group_qparams(wg: Tensor, bits: int, symmetric: bool):
-    """Per-row (scale, zero) of one group slab wg (..., rows, g)."""
+    """Per-row (scale, zero) of one group slab wg (..., rows, g). The
+    divisors are tensors: on CUDA torch divides by a Python scalar through
+    its reciprocal, one ulp off the true division that the reference and
+    the kernels take (the same on the CPU)."""
     qmax = 2.0 ** bits - 1.0
     if symmetric:
         absmax = wg.abs().amax(dim=-1)
-        scale = torch.clamp(absmax / (2.0 ** (bits - 1) - 1), min=1e-8)
+        scale = torch.clamp(
+            absmax / torch.full_like(absmax, 2.0 ** (bits - 1) - 1),
+            min=1e-8)
         return scale, torch.zeros_like(scale)
     wmax = torch.clamp(wg.amax(dim=-1), min=0.0)
     wmin = torch.clamp(wg.amin(dim=-1), max=0.0)
-    scale = torch.clamp((wmax - wmin) / qmax, min=1e-8)
+    scale = torch.clamp((wmax - wmin) / torch.full_like(wmax, qmax),
+                        min=1e-8)
     zero = torch.clamp(torch.round(-wmin / scale), 0.0, qmax)
     return scale, zero
 

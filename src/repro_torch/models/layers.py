@@ -107,7 +107,8 @@ def causal_conv1d(p: Dict, x: Tensor, state: Optional[Tensor] = None
     trailing inputs of the previous call, or None (zeros). The taps are
     cast to x's dtype, the K products summed in fp32 in tap order, then
     the bias added. Returns (y (B, S, C) in x's dtype, the last K-1 inputs
-    (B, K-1, C) in x's dtype).
+    (B, K-1, C) in x's dtype): a view of the padded input, which the caller
+    copies (a new state) or copies into the state it passed (decode).
     """
     w = p["w"].to(x.dtype)
     k = w.shape[0]
@@ -120,9 +121,7 @@ def causal_conv1d(p: Dict, x: Tensor, state: Optional[Tensor] = None
         y = y + xp[:, j:j + s].float() * w[j].float()
     if "b" in p:
         y = y + p["b"].float()
-    # a copy: a view would keep the whole padded input alive in the cache
-    new_state = xp[:, s:].clone() if k > 1 else state
-    return y.to(x.dtype), new_state
+    return y.to(x.dtype), xp[:, s:]
 
 
 def init_conv1d(gen: torch.Generator, width: int, channels: int, device,

@@ -8,9 +8,12 @@ names ``{name}.in``, ``.x``, ``.dt`` and ``.out``, so calibration taps and
 report names match the JAX package's. The RG-LRU half of the JAX module
 waits in ROADMAP.md's port queue.
 
-State (per layer): ``{"conv": (B, K-1, d_inner), "h": (B, d_inner, n)}``.
-Both come back from the block and from every decode step in the compute
-dtype, as in the JAX package; each call returns a new state.
+State (per layer): ``{"conv": (B, K-1, d_inner), "h": (B, d_inner, n)}``,
+both in the compute dtype after the block, as in the JAX package. The
+block returns a new state; a decode step writes its state into the tensors
+it was given (rounded to the compute dtype first, as the JAX step rounds),
+so a captured decode step reads and writes the same buffers on every
+replay.
 """
 from __future__ import annotations
 
@@ -89,6 +92,8 @@ def mamba_block(cfg: ModelConfig, p: Dict, x: Tensor,
     u, z = _split_in(cfg, p, x, name)
     u, conv_state = causal_conv1d(p["conv"], u,
                                   None if state is None else state["conv"])
+    # a copy: the view would keep the whole padded input alive in the state
+    conv_state = conv_state.clone()
     u = F.silu(u)
     dt, bm, cm = _x_projection(cfg, p, u, name)
     h0 = (torch.zeros((x.shape[0], d_inner, s.d_state), device=x.device)
@@ -102,10 +107,11 @@ def mamba_block(cfg: ModelConfig, p: Dict, x: Tensor,
 
 def mamba_decode(cfg: ModelConfig, p: Dict, x: Tensor, state: Dict,
                  name: str = "mamba") -> Tuple[Tensor, Dict]:
-    """Single-token step. x (B, 1, D). Returns (y (B, 1, D), the new
-    state, h in the compute dtype)."""
+    """Single-token step. x (B, 1, D). Writes the new state into
+    ``state``'s tensors and returns (y (B, 1, D), ``state``)."""
     u, z = _split_in(cfg, p, x, name)
     u, conv_state = causal_conv1d(p["conv"], u, state["conv"])
+    state["conv"].copy_(conv_state)
     u = F.silu(u)
     a, b, cm = _mamba_ssm_inputs(cfg, p, u, name)          # (B, 1, d, n)
     h = a[:, 0] * state["h"].float() + b[:, 0]             # (B, d, n)
@@ -116,7 +122,8 @@ def mamba_decode(cfg: ModelConfig, p: Dict, x: Tensor, state: Dict,
     y = y.to(x.dtype).float()
     y = (y * F.silu(z[:, 0].float())).to(x.dtype)
     out = dense(p["out"], y[:, None, :], f"{name}.out")
-    return out, {"conv": conv_state, "h": h.to(x.dtype)}
+    state["h"].copy_(h.to(x.dtype))
+    return out, state
 
 
 def init_mamba_state(cfg: ModelConfig, batch: int, device,

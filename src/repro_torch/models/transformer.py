@@ -142,19 +142,16 @@ def prefill(cfg: ModelConfig, params: Dict, tokens: Tensor, max_len: int,
 def decode_step(cfg: ModelConfig, params: Dict, token: Tensor, pos: Tensor,
                 caches: List[Dict]) -> Tuple[Tensor, List[Dict]]:
     """One decode step: token (B,) at positions pos (B,) → logits (B, V)
-    and the caches: attention caches are updated in place, a Mamba layer's
-    state is replaced by the new one in the returned list."""
+    and ``caches``, every layer's cache or state updated in place (a
+    captured step replays on the same buffers)."""
     h = embed(params["embed"], token[:, None], compute_dtype(cfg))
-    out = []
     for spec, p, cache in zip(layer_specs(cfg), params["layers"], caches):
         hn = norm(cfg, p["norm1"], h)
         if spec[0] == "mamba":
-            y, cache = rec.mamba_decode(cfg, p["mixer"], hn, cache,
-                                        name="mixer")
+            y, _ = rec.mamba_decode(cfg, p["mixer"], hn, cache, name="mixer")
         else:
-            y, cache = attn.attention_decode(cfg, p["mixer"], hn, pos,
-                                             cache, name="mixer")
+            y, _ = attn.attention_decode(cfg, p["mixer"], hn, pos, cache,
+                                         name="mixer")
         h = _mlp_residual(cfg, spec, p, h + y)
-        out.append(cache)
     h = norm(cfg, params["final_norm"], h)
-    return unembed(cfg, params, h)[:, 0], out
+    return unembed(cfg, params, h)[:, 0], caches

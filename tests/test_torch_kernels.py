@@ -244,6 +244,61 @@ def test_rpiq_block_matches_jax(exact_gram, alpha, early_stop):
         assert_cells_close(got[1], np.asarray(xla.w_cont))
 
 
+@pytest.mark.parametrize("bs", [256, 512], ids=["bs256", "bs-in"])
+def test_gptq_block_wide_blocksize_matches_jax(bs):
+    """Lazy blocks wider than 128 columns (the reference takes any
+    blocksize dividing in that the group size divides): 256, and the
+    whole row, at the pins of test_gptq_block_matches_jax."""
+    rng = np.random.RandomState(12)
+    b, out_dim, in_dim, g = 2, 40, 512, 64
+    _, _, u = _hessian_case(rng, b, 600, in_dim)
+    w = (rng.randn(b, out_dim, in_dim) * in_dim ** -0.5).astype(np.float32)
+    kw = dict(bits=4, group_size=g, blocksize=bs, symmetric=False)
+    got = [o.numpy() for o in tops.gptq_block(t(w), t(u), **kw)]
+    wants = [jref.gptq_block_ref(w, u, **kw)]
+    wants += [jops.gptq_block(jnp.asarray(w), jnp.asarray(u), impl=impl,
+                              **kw) for impl in ("pallas", "xla")]
+    for want in wants:
+        w_q, scales, zeros, err = (np.asarray(a) for a in want)
+        assert_cells_close(got[0], w_q)
+        assert_cells_close(got[1], scales)
+        assert_cells_close(got[2], zeros)
+        assert_rel(got[3], err, 1e-5)
+
+
+@pytest.mark.parametrize("bs", [256, 512], ids=["bs256", "bs-in"])
+def test_rpiq_block_wide_blocksize_matches_jax(bs):
+    """Column blocks wider than 128 columns, at the pins of
+    test_rpiq_block_matches_jax (its problem, 512 columns wide)."""
+    rng = np.random.RandomState(13)
+    b, out_dim, in_dim, n, g, t_max, alpha = 2, 40, 512, 256, 64, 4, 0.1
+    x_all, hd, u = _hessian_case(rng, b, 1024, in_dim)
+    x_last = x_all[:, -n:]
+    w_fp = (rng.randn(b, out_dim, in_dim) * 0.1).astype(np.float32)
+    w0, scales, zeros, _ = (np.asarray(a) for a in jref.gptq_block_ref(
+        w_fp, u, bits=4, group_size=g, blocksize=bs))
+    h_count = np.full((b,), 1024, np.int32)
+    x_count = np.full((b,), n, np.int32)
+    kw = dict(bits=4, group_size=g, block_size=bs, alpha=alpha, t_max=t_max,
+              early_stop=True, exact_gram=False)
+    got = [a.numpy() for a in trpiq.rpiq_refine_batched(
+        t(w0), t(w_fp), t(x_last), t(hd), t(scales), t(zeros),
+        h_count=t(h_count), x_count=t(x_count), **kw)]
+    jargs = [jnp.asarray(a) for a in (w0, w_fp, x_last, hd, scales, zeros)]
+    jkw = dict(h_count=jnp.asarray(h_count), x_count=jnp.asarray(x_count),
+               **kw)
+    for impl in ("pallas", "xla"):
+        w_q, w_cont, hist, ploss, iters = (np.asarray(a) for a in
+                                           jrpiq.rpiq_refine_batched(
+                                               *jargs, impl=impl, **jkw))
+        assert_cells_close(got[0], w_q)
+        assert_rel(got[2], hist, 1e-5)
+        assert_rel(got[3], ploss, 1e-5)
+        np.testing.assert_array_equal(got[4], iters)
+        if impl == "pallas":
+            assert_cells_close(got[1], w_cont)
+
+
 def test_cpu_dispatch_takes_plain_version_and_counts_nothing():
     tops.reset_kernel_launches()
     rng = np.random.RandomState(5)
@@ -700,7 +755,9 @@ def test_gpu_int8_kv_attention_empty_ranges(cuda, valid, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,k,g", [(2048, 8192, 128), (8192, 2048, 128),
-                                   (96, 64, 8)])
+                                   (96, 64, 8), (8192, 256, 128),
+                                   (288, 8192, 128), (16384, 4096, 128),
+                                   (37, 8200, 8)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gpu_quant_pack(cuda, n, k, g, dtype):
     gen = torch.Generator(device=cuda)
@@ -838,3 +895,118 @@ def test_gpu_gptq_block_rows(cuda, out_dim, in_dim):
         assert_cells_close(a.cpu(), b_.cpu())
     e_got, e_want = float(got[3].sum()), float(want[3].sum())
     assert abs(e_got - e_want) <= 1e-3 * abs(e_want)
+
+
+def _group_on_card(gen, b, out_dim, in_dim, n, gs, bs):
+    """A stacked group on n tokens drawn from gen, as chip_smoke.py phase 3
+    builds it: the plain version's stage-1 result and rpiq_block's
+    inputs."""
+    from repro_torch.core import hessian as thess
+    dev = torch.device("cuda")
+    x = torch.randn((b, n, in_dim), generator=gen, device=dev)
+    w = torch.randn((b, out_dim, in_dim), generator=gen, device=dev) \
+        * in_dim ** -0.5
+    count = torch.full((b,), n, dtype=torch.int32, device=dev)
+    hd = thess.damped(thess.HessianState(x.transpose(1, 2) @ x, count),
+                      torch.full((b,), 0.01, device=dev))
+    u = thess.cholesky_inverse_upper(hd)
+    kw = dict(bits=4, group_size=gs, blocksize=bs, symmetric=False)
+    w0, scales, zeros, _ = tref.gptq_block(w, u, **kw)
+    hinv = trpiq._block_curvature_inv(x, hd, count, count, block_size=bs,
+                                      exact_gram=False)
+    rargs = (w0, x @ w.transpose(1, 2), x,
+             hinv.reshape(b, in_dim, bs).contiguous(),
+             scales.repeat_interleave(gs, -1),
+             zeros.repeat_interleave(gs, -1))
+    return w, u, kw, rargs
+
+
+def _assert_rpiq_pins(rargs, bs, t_max=5, alpha=0.01, cross_gamma=True,
+                      cross_yq=True):
+    """rpiq_block against its plain version at chip_smoke.py phase 3's
+    pins: selected weights, candidates and w_cont cells differing > 1e-6
+    at most 1e-3; final Y_q 1e-4 rel; Gamma within 1e-5 rel (times
+    sqrt(768 x 512 / (out x n)) below that many cells); the projected
+    loss 1e-5 rel; iterations equal; each side's last-round Gamma within
+    1e-6 of the fp64 Gamma of its own w_cont. ``cross_gamma`` /
+    ``cross_yq`` False: Gamma / Y_q against the plain version's not held
+    (they follow the two iterates; see test_gpu_rpiq_over_seeds and
+    test_gpu_gptq_and_rpiq_wide_blocksizes)."""
+    w0, y_orig, x = rargs[:3]
+    _, out_dim, _ = w0.shape
+    n = x.shape[1]
+    rkw = dict(bits=4, block_size=bs, alpha=alpha, t_max=t_max,
+               symmetric=False)
+    want = tref.rpiq_block(*rargs, **rkw)
+    got = tops.rpiq_block_cuda(*rargs, **rkw)
+    sel = [tops._rpiq_select(r[3], r[4], r[1], t_max, True)
+           for r in (got, want)]
+    assert_cells_close(sel[0][0].cpu(), sel[1][0].cpu())
+    assert_cells_close(got[1].cpu(), want[1].cpu())
+    assert_cells_close(got[0].cpu(), want[0].cpu())
+    if cross_yq:
+        assert float((got[2] - want[2]).norm() / want[2].norm()) <= 1e-4
+    g_tol = 1e-5 * max(1.0, (768 * 512 / (out_dim * n)) ** 0.5)
+    if cross_gamma:
+        assert_rel(got[3].cpu(), want[3].cpu(), g_tol)
+    assert_rel(got[4].cpu(), want[4].cpu(), 1e-5)
+    assert torch.equal(sel[0][3], sel[1][3])
+    x64, y64 = x.double(), y_orig.double()
+    for side in (got, want):
+        g64 = ((y64 - x64 @ side[0].double().transpose(1, 2)) ** 2).sum(
+            (1, 2))
+        assert float(((side[3][:, t_max].double() - g64).abs()
+                      / g64).max()) <= 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", range(8))
+@pytest.mark.parametrize("b,out_dim,in_dim", [(1, 288, 8192), (4, 768, 768)],
+                         ids=["falcon-x", "opt-proxy"])
+def test_gpu_rpiq_over_seeds(cuda, b, out_dim, in_dim, seed):
+    """The two narrowest phase-3 groups on eight instances, each from a
+    generator of its own: the kernel sums Gamma and the projected loss in
+    fp64, so its Gamma sits within 1e-6 of its own iterate's exact value
+    on every instance. At the 288-row group the kernel's Gamma is not held
+    to the plain version's: the two iterates (fp32 sums in different
+    orders; the kernel's is bitwise the earlier kernel's) have exact
+    Gammas up to 2.9e-5 apart there on these seeds, past that pin's
+    1.63e-5 (chip_smoke.py kernels_rpiq_seeds)."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(seed)
+    _, _, _, rargs = _group_on_card(gen, b, out_dim, in_dim, 512, 128, 128)
+    _assert_rpiq_pins(rargs, 128, cross_gamma=out_dim != 288)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,out_dim,in_dim,gs,bs", [
+    (4, 768, 768, 128, 256), (4, 768, 768, 128, 768),
+    (1, 3072, 768, 128, 256), (1, 3072, 768, 128, 768),
+    (1, 768, 3072, 128, 256), (1, 768, 3072, 128, 3072),
+    (2, 96, 384, 6, 6), (2, 96, 408, 8, 136)],
+    ids=["opt-qkv-256", "opt-qkv-in", "opt-up-256", "opt-up-in",
+         "opt-down-256", "opt-down-in", "bs6", "bs136"])
+def test_gpu_gptq_and_rpiq_wide_blocksizes(cuda, b, out_dim, in_dim, gs,
+                                           bs):
+    """Every blocksize the reference takes: lazy blocks wider than 128
+    columns (256 and the whole row on opt-proxy's groups; 136) and ones
+    whose rows are not 16-byte aligned (6), gptq_block at
+    test_gpu_gptq_and_rpiq's pins and rpiq_block at phase 3's, but for Y_q
+    and Gamma against the plain version's at blocksize = in: one solve
+    over a whole row of 768 or 3072 columns rounds differently in the two
+    orders, and the intermediate projections that flip by a grid step
+    (within the w_cont pin) move Y_q by up to 3.4e-4 rel and Gamma by up
+    to 8e-5 rel on these groups (chip_smoke.py kernels_blocksizes); each
+    side's Gamma is still held to 1e-6 of its own iterate's exact
+    Gamma."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(out_dim + in_dim + bs)
+    w, u, kw, rargs = _group_on_card(gen, b, out_dim, in_dim, 512, gs, bs)
+    want = tref.gptq_block(w, u, **kw)
+    got = tops.gptq_block_cuda(w, u, **kw)
+    for a, b_ in zip(got[:3], want[:3]):
+        assert_cells_close(a.cpu(), b_.cpu())
+    assert_rel(got[3].sum(-1).cpu(), want[3].sum(-1).cpu(), 1e-3)
+    _assert_rpiq_pins(rargs, bs, cross_gamma=bs != in_dim,
+                      cross_yq=bs != in_dim)
+
