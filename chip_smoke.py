@@ -49,10 +49,37 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      pack_for_serving → generate (4 requests x 512 prompt + 32 new
      tokens), counters reset and read around it (``selective_scan`` at
      prefill, capture and propagate); the packed-vs-float logits and the
-     prefill → decode state hand-off, both in fp32 compute.
+     prefill → decode state hand-off, both in fp32 compute;
+  8. the entry points at full width, each launcher's ``main(argv)`` in
+     this process with the launch counters reset and read around it,
+     artifacts and checkpoints in fresh directories under build/phase8
+     (removed at the end), ``train.ckpt_dir`` an empty one:
+     8a. ``launch.quantize --arch opt-proxy`` at the launcher's own
+         calibration (8 x 16 x 512 tokens: stage 2 sees n 8192), then
+         ``launch.serve --params`` on its artifact: the artifact (sha256)
+         and the served tokens bitwise those of quantize_model →
+         pack_for_serving → generate called directly on the same seeded
+         weights and batches; layer 0's ``rpiq_block`` calls at n 8192 and
+         ``hessian_accum`` at n 8192 against their plain versions at phase
+         3's pins; a copy of the artifact with one flipped byte refused
+         with ``ArtifactIntegrityError``;
+     8b. the same quantize run with ``quant.ckpt_dir`` and
+         ``quant.resume=auto``, interrupted after step 6 of 12 (a wrapper
+         of the plan executor raises), then resumed: its artifact's sha256
+         equal to 8a's (else the leaves that differ are printed);
+     8c. ``launch.serve --arch internlm2-1.8b --pack-rtn
+         serve.kv_cache=int8`` at full width and depth, 8d. ``launch.serve
+         --arch falcon-mamba-7b --pack-rtn model.num_layers=8`` (4 requests
+         x 512 prompt + 32 new tokens each): tokens equal to
+         pack_for_serving → generate called directly;
+     8e. ``examples/torch_quickstart.py`` and
+         ``examples/torch_quantize_and_serve.py`` on the card;
+     with the walls (quantize total and stages, checkpoint save per step,
+     artifact bytes and save / load, prefill, capture, replayed step and
+     serve total) beside the card's name and power limit.
 
 The line before the last is a JSON object with one entry per kernel
-(``launches`` sums phases 5, 6 and 7); the last line is ``{"ok": true,
+(``launches`` sums phases 5 to 8); the last line is ``{"ok": true,
 "device": {...}}``.
 """
 from __future__ import annotations
@@ -243,31 +270,7 @@ def phase_kernels(table: KernelTable) -> None:
     # -- hessian_accum: H += X^T X (opt-proxy d, internlm2 d, falcon-mamba
     # d: 256 for dt, 4096 for in, 8192 for x and out) -----------------------
     for d in (768, 3072, 2048, 8192, 256, 4096):
-        x = torch.randn((n_tok, d), generator=g, device=dev)
-        H0 = torch.randn((d, d), generator=g, device=dev)
-        H0 = H0 + H0.T
-        want = ref.hessian_accum(x, H0)
-        got = ops.hessian_accum_cuda(x, H0.clone())
-        # no atomics: a second launch on the same inputs, bitwise the same
-        same = torch.equal(got, ops.hessian_accum_cuda(x, H0.clone()))
-        err = float((got - want).abs().max())
-        tol = 1e-5 * float(want.abs().max())
-        Hk = H0.clone()
-        ms = graph_ms([lambda: ops.hessian_accum_cuda(x, Hk)])
-        pms = graph_ms([lambda: ref.hessian_accum(x, H0)])
-        lms = graph_ms([lambda: x.T @ x])
-        # the symmetric product needs d(d+1)/2 sums of n products; H is
-        # read and written
-        b_ms, by = table.add("hessian_accum", ms=ms, plain_ms=pms,
-                             flop=n_tok * d * (d + 1),
-                             nbytes=(n_tok * d + 2 * d * d) * 4, err=err,
-                             library_ms=lms)
-        log(f"  hessian_accum n={n_tok} d={d} split "
-            f"{ops.hessian_accum_geometry(n_tok, d)}: max_abs_err={err:.3e} "
-            f"(tol {tol:.3e}); two launches bitwise equal {same}; "
-            f"ms={ms:.4f} plain_ms={pms:.4f} library_ms(x.T@x)={lms:.4f} "
-            f"bound_ms={b_ms:.4f} ({by})")
-        check(err <= tol and same, f"hessian_accum d={d}")
+        check_hessian_accum(table, g, n_tok, d)
 
     # -- w4a16_matmul: y = x @ dequant(W)^T ----------------------------------
     # opt-proxy (k, n) at decode m 4 and m 64; internlm2's q/o, k/v,
@@ -356,6 +359,40 @@ def phase_kernels(table: KernelTable) -> None:
     kernels_int8_kv_attention(table, g)
     kernels_quant_pack(table, g)
     kernels_selective_scan(table, g)
+
+
+def check_hessian_accum(table: KernelTable, g, n_tok: int, d: int) -> None:
+    """hessian_accum against its plain version on x (n_tok, d) and a
+    symmetric H drawn from generator g: 1e-5 of max |H|, two launches
+    bitwise equal; timed from CUDA graphs beside ``x.T @ x``."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    dev = torch.device("cuda")
+    x = torch.randn((n_tok, d), generator=g, device=dev)
+    H0 = torch.randn((d, d), generator=g, device=dev)
+    H0 = H0 + H0.T
+    want = ref.hessian_accum(x, H0)
+    got = ops.hessian_accum_cuda(x, H0.clone())
+    # no atomics: a second launch on the same inputs, bitwise the same
+    same = torch.equal(got, ops.hessian_accum_cuda(x, H0.clone()))
+    err = float((got - want).abs().max())
+    tol = 1e-5 * float(want.abs().max())
+    Hk = H0.clone()
+    ms = graph_ms([lambda: ops.hessian_accum_cuda(x, Hk)])
+    pms = graph_ms([lambda: ref.hessian_accum(x, H0)])
+    lms = graph_ms([lambda: x.T @ x])
+    # the symmetric product needs d(d+1)/2 sums of n products; H is
+    # read and written
+    b_ms, by = table.add("hessian_accum", ms=ms, plain_ms=pms,
+                         flop=n_tok * d * (d + 1),
+                         nbytes=(n_tok * d + 2 * d * d) * 4, err=err,
+                         library_ms=lms)
+    log(f"  hessian_accum n={n_tok} d={d} split "
+        f"{ops.hessian_accum_geometry(n_tok, d)}: max_abs_err={err:.3e} "
+        f"(tol {tol:.3e}); two launches bitwise equal {same}; "
+        f"ms={ms:.4f} plain_ms={pms:.4f} library_ms(x.T@x)={lms:.4f} "
+        f"bound_ms={b_ms:.4f} ({by})")
+    check(err <= tol and same, f"hessian_accum n={n_tok} d={d}")
 
 
 def group_case(g, b: int, out_dim: int, in_dim: int, n_tok: int) -> dict:
@@ -466,10 +503,8 @@ def check_rpiq(case: dict, w0, scales, zeros, gs: int, bs: int, t_max: int,
     held to the exact Gamma of its own iterate (so its Y_q to its own
     w_cont). Returns whether the Gamma pin held."""
     from repro_torch.core.rpiq import _block_curvature_inv
-    from repro_torch.kernels import ops, ref
     x, w, hd, count = case["x"], case["w"], case["hd"], case["count"]
     b, out_dim, in_dim = w.shape
-    n_tok = x.shape[1]
     hinv = _block_curvature_inv(x, hd, count, count, block_size=bs,
                                 exact_gram=False)
     y_orig = x @ w.transpose(1, 2)
@@ -479,6 +514,25 @@ def check_rpiq(case: dict, w0, scales, zeros, gs: int, bs: int, t_max: int,
     rargs = (w0, y_orig, x, hinv_flat, s_full, z_full)
     rkw = dict(bits=4, block_size=bs, alpha=alpha, t_max=t_max,
                symmetric=False)
+    return check_rpiq_call(
+        rargs, rkw, table, label, cross_gamma, cross_yq,
+        curvature=lambda: _block_curvature_inv(
+            x, hd, count, count, block_size=bs, exact_gram=False))
+
+
+def check_rpiq_call(rargs: tuple, rkw: dict, table=None, label: str = "",
+                    cross_gamma: bool = True, cross_yq: bool = True,
+                    curvature=None) -> bool:
+    """``check_rpiq`` on the kernel's own inputs ``rargs`` = (w0, y_orig,
+    x, hinv_flat, s_full, z_full) and keywords ``rkw``: the kernel
+    against its plain version at phase 3's pins; timed (and added to
+    ``table``) where a table is given, with the stage-2 block curvature
+    where ``curvature`` computes it. Returns whether the Gamma pin held."""
+    from repro_torch.kernels import ops, ref
+    w0, y_orig, x = rargs[:3]
+    b, out_dim, in_dim = w0.shape
+    n_tok = x.shape[1]
+    bs, t_max = rkw["block_size"], rkw["t_max"]
     want_r = ref.rpiq_block(*rargs, **rkw)
     got_r = ops.rpiq_block_cuda(*rargs, **rkw)
     sel_w = ops._rpiq_select(want_r[3], want_r[4], want_r[1], t_max,
@@ -504,15 +558,15 @@ def check_rpiq(case: dict, w0, scales, zeros, gs: int, bs: int, t_max: int,
                       + n_tok * out_dim)
     timing = ""
     if table is not None:
-        curv_ms = time_ms(lambda: _block_curvature_inv(
-            x, hd, count, count, block_size=bs, exact_gram=False), 0.1, 5)
         ms = time_ms(lambda: ops.rpiq_block_cuda(*rargs, **rkw), 0.1, 5)
         pms = time_ms(lambda: ref.rpiq_block(*rargs, **rkw), 0.1, 5)
         b_ms, by = table.add("rpiq_block", ms=ms, plain_ms=pms, flop=flop,
                              nbytes=nbytes, err=err)
         timing = (f" ms={ms:.4f} plain_ms={pms:.4f} library_ms=none "
-                  f"bound_ms={b_ms:.4f} ({by}); stage-2 block curvature "
-                  f"(library) ms={curv_ms:.4f}")
+                  f"bound_ms={b_ms:.4f} ({by})")
+        if curvature is not None:
+            timing += (f"; stage-2 block curvature (library) "
+                       f"ms={time_ms(curvature, 0.1, 5):.4f}")
     # Gamma = |y_orig - Y_q|^2 sees a difference d in Y_q (the final
     # Y_q rel above) through the residual r: 2<r, d>/|r|^2, where a
     # random d meets r at a cosine ~ 1/sqrt(n x out). The 1e-5 pin was
@@ -1614,6 +1668,357 @@ def phase_mamba_path() -> dict:
     return launches
 
 
+@contextlib.contextmanager
+def patched(obj, name: str, make):
+    """Replace ``obj.name`` by ``make(original)`` inside the block."""
+    orig = getattr(obj, name)
+    setattr(obj, name, make(orig))
+    try:
+        yield
+    finally:
+        setattr(obj, name, orig)
+
+
+def timed(walls: list, sync: bool = True):
+    """A wrapper maker for ``patched``: each call's wall (the device
+    synchronised after it where ``sync``) is appended to ``walls``."""
+    import torch
+
+    def make(fn):
+        def wrapper(*args, **kwargs):
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            if sync:
+                torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+            return out
+        return wrapper
+    return make
+
+
+def run_launcher(mod, argv: list, launches: dict):
+    """``mod.main(argv)`` in this process with the launch counters reset
+    just before and read just after (added to ``launches``, also when
+    main raises); returns (main's result, its wall, its counts)."""
+    import torch
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    ops.reset_kernel_launches()
+    t = time.perf_counter()
+    try:
+        out = mod.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        wall = time.perf_counter() - t
+        counts = ops.kernel_launches()
+        for k, n in counts.items():
+            launches[k] += n
+        log(f"  launches: {json.dumps(counts)}")
+    return out, wall, counts
+
+
+def serve_walls(mod, argv: list, launches: dict, label: str, smi: str):
+    """``launch.serve`` through ``run_launcher``, with the prefill and the
+    replays of the captured decode step timed (device synchronised);
+    prints serve total, prefill, capture and replayed step beside the
+    card."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import engine
+    pre, rep = [], []
+    with patched(engine, "prefill", timed(pre)), \
+            patched(ops.CapturedCall, "replay", timed(rep)):
+        res, wall, counts = run_launcher(mod, argv, launches)
+    steps = res.tokens.shape[1] - 2
+    log(f"  walls (s) [{smi}]: {label} serve total {wall:.3f}, prefill "
+        f"{pre[0]:.4f}, capture {res.capture_s:.4f}, replayed step "
+        f"{rep[0] / steps:.5f} (mean of {steps})")
+    return res, counts
+
+
+def diff_artifacts(got_path: str, want_path: str) -> bool:
+    """Whether two artifacts hold the same leaves bitwise; where they do
+    not, prints the leaves that differ (in layer order), the share of
+    their cells that differ and the first leaf where a difference
+    enters."""
+    import numpy as np
+    from repro_torch.distributed.checkpoint import load_artifact, tree_paths
+    got = dict(tree_paths(load_artifact(got_path)))
+    want = dict(tree_paths(load_artifact(want_path)))
+    if list(got) != list(want):
+        log(f"  leaves differ in name: {sorted(set(got) ^ set(want))[:8]}")
+        return False
+
+    def order(name):
+        parts = name.split("/")
+        return [int(p) if p.isdigit() else -1 for p in parts[:2]], name
+
+    bad = []
+    for name in sorted(got, key=order):
+        a, b = np.asarray(got[name]), np.asarray(want[name])
+        if a.dtype != b.dtype or a.shape != b.shape:
+            bad.append((name, 1.0))
+        elif not np.array_equal(a.view(np.uint8) if a.ndim else a,
+                                b.view(np.uint8) if b.ndim else b):
+            bad.append((name, float((a != b).mean())))
+    for name, share in bad[:12]:
+        log(f"  differs: {name}: share of cells {share:.3e}")
+    if bad:
+        log(f"  {len(bad)} of {len(got)} leaves differ; the first "
+            f"difference enters at {bad[0][0]}")
+    return not bad
+
+
+def phase_entry_points(table: KernelTable, smi: str) -> dict:
+    """The launchers' ``main(argv)`` in this process on the card, each
+    with the launch counters reset and read around it (8a-8e in the module
+    docstring); artifacts and checkpoints under build/phase8, removed at
+    the end. Returns the launches summed over the launcher runs."""
+    import hashlib
+    import io
+    import pickle
+    import runpy
+    import shutil
+    import torch
+    from repro_torch.config import apply_overrides, parse_overrides
+    from repro_torch.configs import get_config
+    from repro_torch.convert import tree_to_numpy
+    from repro_torch.core import plan as qplan
+    from repro_torch.core.pipeline import pack_for_serving, quantize_model
+    from repro_torch.data import MarkovLM, calibration_batches
+    from repro_torch.distributed import checkpoint as C
+    from repro_torch.kernels import ops
+    from repro_torch.launch import quantize as LQ
+    from repro_torch.launch import serve as LS
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import generate
+
+    launches = {k: 0 for k in KERNEL_SOURCES}
+    root = os.path.join(ROOT, "build", "phase8")
+    shutil.rmtree(root, ignore_errors=True)
+    no_train = os.path.join(root, "no_train_ckpt")
+    os.makedirs(no_train)
+
+    def sha(path):
+        with open(path, "rb") as f:
+            return hashlib.sha256(f.read()).hexdigest()
+
+    try:
+        # -- 8a: launch.quantize at the launcher's calibration, then serve
+        log("  8a: launch.quantize --arch opt-proxy (full width, "
+            "calibration 8 x 16 x 512), then launch.serve --params")
+        cfg = get_config("opt-proxy")
+        mc, qc = cfg.model, cfg.quant
+        n_cal = qc.calib_batch_size * min(qc.calib_seq_len,
+                                          mc.max_seq_len - 8)
+        qargs = ["--arch", "opt-proxy", "--out", os.path.join(root, "a"),
+                 f"train.ckpt_dir={no_train}"]
+        saves = []
+        with patched(LQ, "save_artifact", timed(saves)):
+            (path, report), q_wall, _ = run_launcher(LQ, qargs, launches)
+        rest = report.seconds_total - report.seconds_stage1 \
+            - report.seconds_stage2
+        art_bytes = os.path.getsize(path)
+        log(f"  walls (s) [{smi}]: launch.quantize total {q_wall:.3f}; "
+            f"quantize_model {report.seconds_total:.3f} (stage1 "
+            f"{report.seconds_stage1:.3f} stage2 {report.seconds_stage2:.3f}"
+            f" capture+propagate+rest {rest:.3f}; stage 2 at n={n_cal}); "
+            f"artifact {art_bytes} bytes, save_artifact {saves[0]:.3f}")
+        loads = []
+        with patched(LS, "load_artifact", timed(loads, sync=False)):
+            res_a, _ = serve_walls(LS, ["--arch", "opt-proxy", "--params",
+                                        path], launches, "opt-proxy --params",
+                                   smi)
+        log(f"  walls (s) [{smi}]: load_artifact {loads[0]:.3f} "
+            f"({art_bytes} bytes, sha256 checked)")
+
+        # the same walk called directly on the same seeded weights and
+        # batches (not counted); layer 0's stage-2 calls at the launcher's
+        # n held against the plain version at phase 3's pins
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        params = T.init_params(mc, gen, "cuda")
+        calib = calibration_batches(MarkovLM(mc.vocab_size, seed=7),
+                                    qc.calib_batches, qc.calib_batch_size,
+                                    min(qc.calib_seq_len,
+                                        mc.max_seq_len - 8))
+        layer0 = []
+
+        def keep_layer0(fn):
+            def wrapper(*args, **kwargs):
+                if len(layer0) < 3:     # opt-proxy's three groups a layer
+                    layer0.append((tuple(a.clone() for a in args),
+                                   dict(kwargs)))
+                return fn(*args, **kwargs)
+            return wrapper
+
+        with patched(ops, "rpiq_block_cuda", keep_layer0):
+            params_q, _ = quantize_model(cfg, params, calib)
+        del params
+        packed = pack_for_serving(cfg, params_q)
+        del params_q
+        direct = hashlib.sha256(pickle.dumps(
+            tree_to_numpy(packed),
+            protocol=pickle.HIGHEST_PROTOCOL)).hexdigest()
+        with open(C.artifact_manifest_path(path)) as f:
+            side = json.load(f)["sha256"]
+        prompt = MarkovLM(mc.vocab_size, seed=3).batch(4, 16)
+        res_d = generate(cfg, packed, prompt)
+        same_art = direct == side == sha(path)
+        same_tok = bool(torch.equal(res_a.tokens, res_d.tokens))
+        log(f"  artifact bitwise that of quantize_model -> "
+            f"pack_for_serving called directly (sha256 of the payload, the "
+            f"sidecar's and the file's): {same_art}; launch.serve's tokens "
+            f"equal generate's on it: {same_tok}")
+        log(f"  decoded tokens (request 0): {res_a.tokens[0].tolist()}")
+        del packed
+        for rargs, rkw in layer0:
+            check_rpiq_call(rargs, rkw, table, label=" (launcher, layer 0)")
+        del layer0
+        g8 = torch.Generator(device="cuda")
+        g8.manual_seed(8192)
+        for d in (768, 3072):
+            check_hessian_accum(table, g8, n_cal, d)
+
+        bad = os.path.join(root, "flipped.params.pkl")
+        shutil.copy(path, bad)
+        shutil.copy(C.artifact_manifest_path(path),
+                    C.artifact_manifest_path(bad))
+        with open(bad, "r+b") as f:
+            f.seek(art_bytes // 2)
+            byte = f.read(1)[0]
+            f.seek(art_bytes // 2)
+            f.write(bytes([byte ^ 0x01]))
+        try:
+            LS.main(["--arch", "opt-proxy", "--params", bad])
+            refused = "nothing"
+        except C.ArtifactIntegrityError as e:
+            refused = f"ArtifactIntegrityError ({str(e)[-60:]})"
+        log(f"  launch.serve --params on a copy with one flipped byte "
+            f"raised: {refused}")
+        check(same_art and same_tok
+              and refused.startswith("ArtifactIntegrityError"),
+              "8a: launcher artifact and tokens bitwise the direct calls', "
+              "a flipped byte refused")
+
+        # -- 8b: the same run checkpointed, interrupted after step 6 of
+        # 12, then resumed with quant.resume=auto
+        log("  8b: the same launch.quantize with quant.ckpt_dir and "
+            "quant.resume=auto, interrupted after step 6 of 12, resumed")
+        ck = [f"quant.ckpt_dir={os.path.join(root, 'ck')}",
+              "quant.resume=auto"]
+        bargs = ["--arch", "opt-proxy", "--out", os.path.join(root, "b"),
+                 f"train.ckpt_dir={no_train}"] + ck
+
+        class Interrupted(Exception):
+            pass
+
+        def stop_at_step_7(fn):
+            calls = []
+
+            def wrapper(*args, **kwargs):
+                calls.append(1)
+                if len(calls) == 7:
+                    raise Interrupted("interrupted at step 7")
+                return fn(*args, **kwargs)
+            return wrapper
+
+        ckpt_walls = []
+        t = time.perf_counter()
+        with patched(C.Checkpointer, "save", timed(ckpt_walls, sync=False)):
+            with patched(qplan, "execute_plan", stop_at_step_7):
+                try:
+                    run_launcher(LQ, bargs, launches)
+                    interrupted = False
+                except Interrupted:
+                    interrupted = True
+            latest = C.Checkpointer(os.path.join(root, "ck")).latest_step()
+            (path_b, report_b), resumed_wall, _ = run_launcher(
+                LQ, bargs, launches)
+        first_wall = time.perf_counter() - t - resumed_wall
+        same_b = sha(path_b) == sha(path)
+        log(f"  interrupted {interrupted}; latest checkpoint step {latest} "
+            f"(0-based); resumed at walk item "
+            f"{report_b.pipeline_stats.get('resumed_at')}; resumed "
+            f"artifact's sha256 equal to 8a's: {same_b}")
+        log(f"  walls (s) [{smi}]: interrupted run {first_wall:.3f}, "
+            f"resumed run {resumed_wall:.3f}; checkpoint save per step "
+            f"(host copy + crc32 + joining the previous write) mean "
+            f"{sum(ckpt_walls) / len(ckpt_walls):.3f} max "
+            f"{max(ckpt_walls):.3f} over {len(ckpt_walls)} steps")
+        if not same_b:
+            diff_artifacts(path_b, path)
+        shutil.rmtree(os.path.join(root, "ck"), ignore_errors=True)
+        check(interrupted and latest == 5
+              and report_b.pipeline_stats.get("resumed_at") == 6 and same_b,
+              "8b: the resumed artifact bitwise the uninterrupted one")
+
+        # -- 8c / 8d: launch.serve --pack-rtn at full width
+        for label, arch, extra, kv_calls in (
+                ("8c", "internlm2-1.8b", ["serve.kv_cache=int8"], True),
+                ("8d", "falcon-mamba-7b", ["model.num_layers=8"], False)):
+            log(f"  {label}: launch.serve --arch {arch} --pack-rtn "
+                f"{' '.join(extra)} (4 requests x 512 prompt + 32 new)")
+            argv = ["--arch", arch, "--pack-rtn", "--batch", "4",
+                    "--prompt-len", "512"] + extra
+            res, counts = serve_walls(LS, argv, launches, arch, smi)
+            cfg = get_config(arch)
+            apply_overrides(cfg, parse_overrides(extra))
+            mc = cfg.model
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(0)
+            packed = pack_for_serving(cfg, T.init_params(mc, gen, "cuda"))
+            res_d = generate(cfg, packed, MarkovLM(mc.vocab_size, seed=3)
+                             .batch(4, 512))
+            del packed
+            same = bool(torch.equal(res.tokens, res_d.tokens))
+            finite = bool(torch.isfinite(res.logprobs).all())
+            want = {"quant_pack": counts["quant_pack"] > 0,
+                    "w4a16_matmul": counts["w4a16_matmul"] > 0}
+            if kv_calls:
+                want["int8_kv_attention"] = (counts["int8_kv_attention"]
+                                             == mc.num_layers * 31)
+            else:
+                want["selective_scan"] = (counts["selective_scan"]
+                                          == mc.num_layers)
+            log(f"  tokens equal pack_for_serving -> generate called "
+                f"directly: {same}; logprobs finite {finite}; launch "
+                f"checks {want}; decoded tokens (request 0): "
+                f"{res.tokens[0].tolist()}")
+            check(same and finite and all(want.values())
+                  and tuple(res.tokens.shape) == (4, 32),
+                  f"{label}: launch.serve --arch {arch}")
+
+        # -- 8e: the two example twins on the card
+        for script, pattern in (
+                ("torch_quickstart.py",
+                 "packed int4 vs refined-grid float: rel err"),
+                ("torch_quantize_and_serve.py", "request 3: prompt=")):
+            log(f"  8e: examples/{script}")
+            out = io.StringIO()
+            argv = sys.argv
+            sys.argv = [script]
+            ops.reset_kernel_launches()
+            try:
+                with contextlib.redirect_stdout(out):
+                    runpy.run_path(os.path.join(ROOT, "examples", script),
+                                   run_name="__main__")
+            finally:
+                sys.argv = argv
+            counts = ops.kernel_launches()
+            for k, n in counts.items():
+                launches[k] += n
+            text = out.getvalue()
+            for ln in text.splitlines():
+                log(f"    {ln}")
+            log(f"  launches: {json.dumps(counts)}")
+            ok = pattern in text and "MISMATCH" not in text and (
+                "(OK)" in text if script == "torch_quickstart.py" else True)
+            check(ok and counts["w4a16_matmul"] > 0, f"8e: {script}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1677,6 +2082,11 @@ def main() -> int:
 
     log("[7] main path at full width: falcon-mamba-7b (Mamba-1)")
     for name, n in phase_mamba_path().items():
+        launches[name] += n
+
+    log("[8] the entry points at full width: launch.quantize, "
+        "launch.serve, the example twins")
+    for name, n in phase_entry_points(table, smi).items():
         launches[name] += n
 
     log(f"  total {time.perf_counter() - t_start:.1f}s")

@@ -1,12 +1,16 @@
 """Configuration dataclasses for the PyTorch port.
 
 The port's own copy of the fields its decoder-only quantize → pack → serve
-path reads, with the same names and defaults as the JAX package's
-configuration, plus the dotted ``key=value`` override helpers.
+path and its two launchers read, with the same names and defaults as the
+JAX package's configuration, plus the dotted ``key=value`` override
+helpers. A value the port does not run (``quant.pipeline=overlap``,
+``quant.mesh``, ``serve.scheduler=continuous``, ``serve.supervise``) is
+accepted here and raises where it would be used, naming its ROADMAP.md
+item.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, fields, is_dataclass
 from typing import Any, Dict, List, Tuple
 
 # the layer kinds the port runs; the JAX package's others (swa, local,
@@ -33,6 +37,7 @@ class ModelConfig:
     head_dim: int = 0               # 0 => d_model // num_heads
     d_ff: int = 512
     vocab_size: int = 512
+    max_seq_len: int = 8192
     # block kinds ("attn" | "mamba"), cycled over the layer stack
     block_pattern: Tuple[str, ...] = ("attn",)
     norm: str = "rmsnorm"           # rmsnorm | layernorm
@@ -71,6 +76,29 @@ class QuantConfig:
     rpiq_alpha: float = 0.01
     rpiq_early_stop: bool = True
     rpiq_use_global_hessian: bool = True   # eq. 12-14: block-diag of damped H
+    calib_batches: int = 8
+    calib_batch_size: int = 16
+    calib_seq_len: int = 512
+    mesh: str = "off"               # sharded group execution: not ported
+    #                                 (ROADMAP.md queue 1 item 17)
+    resume: str = "off"             # off | auto: with "auto" and a ckpt_dir,
+    #                                 quantize_model restarts a killed walk
+    #                                 at the first incomplete LayerStep;
+    #                                 the artifacts are bitwise those of an
+    #                                 uninterrupted run
+    ckpt_dir: str = ""              # "" = no step checkpoints; else the
+    #                                 walk's streams and stored layers are
+    #                                 saved there at every step boundary
+    ckpt_keep: int = 2              # retained step checkpoints in ckpt_dir
+    pipeline: str = "serial"        # layer-walk schedule; "overlap" is not
+    #                                 ported (ROADMAP.md queue 1 item 15)
+
+
+@dataclass
+class TrainConfig:
+    ckpt_dir: str = "/tmp/repro_ckpt"   # a trainer's step checkpoints; the
+    #                                     quantize launcher starts from the
+    #                                     parameters of the latest one
 
 
 @dataclass
@@ -82,13 +110,25 @@ class ServeConfig:
     #                                 per-block absmax codes + f32 scales
     #                                 (kernels/kv_codec.py) with per-lane
     #                                 error feedback on decode appends
+    scheduler: str = "static"       # static = engine.generate; continuous
+    #                                 is not ported (ROADMAP.md item 14)
+    supervise: bool = False         # the crash-recovering supervisor: not
+    #                                 ported (ROADMAP.md queue 1 item 14)
 
 
 @dataclass
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     quant: QuantConfig = field(default_factory=QuantConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
     serve: ServeConfig = field(default_factory=ServeConfig)
+
+
+def not_ported(what: str, item: int) -> NotImplementedError:
+    """The error for a configuration value the port does not run yet."""
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet; see ROADMAP.md, queue 1 "
+        f"item {item}")
 
 
 def _coerce(value: str, current: Any) -> Any:
@@ -124,3 +164,11 @@ def parse_overrides(argv: List[str]) -> Dict[str, str]:
         k, v = a.split("=", 1)
         out[k] = v
     return out
+
+
+def to_dict(cfg: Any) -> Any:
+    if is_dataclass(cfg):
+        return {f.name: to_dict(getattr(cfg, f.name)) for f in fields(cfg)}
+    if isinstance(cfg, (list, tuple)):
+        return [to_dict(x) for x in cfg]
+    return cfg

@@ -19,6 +19,7 @@ def full() -> Config:
         block_pattern=("mamba",),
         norm="rmsnorm",
         ssm=SSMConfig(d_state=16, d_conv=4, expand=2),
+        max_seq_len=524288 + 8,
     )
     return cfg
 
@@ -32,6 +33,7 @@ def smoke() -> Config:
         block_pattern=("mamba",),
         norm="rmsnorm",
         ssm=SSMConfig(d_state=8, d_conv=4, expand=2),
+        max_seq_len=64,
     )
     cfg.quant.group_size = 8
     cfg.quant.blocksize = 8

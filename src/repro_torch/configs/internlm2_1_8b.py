@@ -15,6 +15,7 @@ def full() -> Config:
         num_layers=24, d_model=2048, num_heads=16, num_kv_heads=8,
         d_ff=8192, vocab_size=92544,
         norm="rmsnorm", act="silu", gated_mlp=True,
+        max_seq_len=32768 + 8,
     )
     return cfg
 
@@ -26,6 +27,7 @@ def smoke() -> Config:
         num_layers=2, d_model=64, num_heads=4, num_kv_heads=2,
         d_ff=192, vocab_size=128,
         norm="rmsnorm", act="silu", gated_mlp=True,
+        max_seq_len=64,
     )
     cfg.quant.group_size = 8
     cfg.quant.blocksize = 8

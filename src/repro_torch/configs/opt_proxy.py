@@ -14,6 +14,7 @@ def full() -> Config:
         num_layers=12, d_model=768, num_heads=12, num_kv_heads=12,
         d_ff=3072, vocab_size=50304,
         norm="layernorm", act="gelu", gated_mlp=False,
+        max_seq_len=4096,
     )
     return cfg
 
@@ -25,6 +26,7 @@ def smoke() -> Config:
         num_layers=2, d_model=64, num_heads=4, num_kv_heads=4,
         d_ff=256, vocab_size=256,
         norm="layernorm", act="gelu", gated_mlp=False,
+        max_seq_len=64,
     )
     cfg.quant.group_size = 16
     cfg.quant.blocksize = 16

@@ -1,12 +1,21 @@
-"""Carry the JAX package's parameters across to the port.
+"""Carry parameter trees between torch and plain host containers.
 
 ``jax.random`` bits cannot be reproduced in torch, so the tests give both
 packages the same weights by converting the JAX tree. The caller turns the
 tree's leaves into numpy arrays first (``np.asarray(jax.device_get(a))``);
-this module imports nothing from JAX.
+this module imports nothing from JAX. A JAX trainer checkpoint read through
+``distributed.checkpoint`` comes in the same way, its leaves as CPU
+tensors.
+
+:func:`tree_to_numpy` is the other direction, the payload of a packed
+serving artifact: plain dicts and lists, numpy arrays and Python scalars,
+a ``QuantizedTensor`` as the dict of its six fields and a bfloat16 tensor
+as ``{"bfloat16": <int16 view>}`` (numpy has no bfloat16), so it loads
+with numpy alone and :func:`params_from_numpy` reads it back.
 """
 from __future__ import annotations
 
+import sys
 from typing import Any, Dict, List
 
 import numpy as np
@@ -15,6 +24,7 @@ import torch
 from repro_torch.core.quant import QuantizedTensor
 
 _QT_FIELDS = ("packed", "scales", "zeros", "shape", "bits", "group_size")
+BF16_TAG = "bfloat16"
 
 
 def _is_quantized(v: Any) -> bool:
@@ -29,13 +39,30 @@ def _qt_fields(v: Any) -> Dict[str, Any]:
     return {k: getattr(v, k) for k in _QT_FIELDS}
 
 
+def _is_bf16_tagged(v: Any) -> bool:
+    return isinstance(v, dict) and list(v) == [BF16_TAG]
+
+
 def tensor_from_numpy(a: Any, device="cpu") -> torch.Tensor:
-    """numpy → torch; bfloat16 arrays go through a 16-bit integer view."""
+    """numpy → torch; bfloat16 arrays go through a 16-bit integer view.
+    A torch tensor (a checkpoint's leaf) is moved to ``device`` as is."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
+    if _is_bf16_tagged(a):
+        bits = np.ascontiguousarray(a[BF16_TAG]).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
         return t.view(torch.bfloat16).to(device)
     return torch.from_numpy(np.array(a)).to(device)
+
+
+def _take(a: Any, take) -> Any:
+    """Index ``take`` of a leaf's leading axis (numpy or tensor)."""
+    if take is None:
+        return a
+    return (a if isinstance(a, torch.Tensor) else np.asarray(a))[take]
 
 
 def _convert(v: Any, device, take=None) -> Any:
@@ -45,25 +72,25 @@ def _convert(v: Any, device, take=None) -> Any:
         parts = [f["packed"], f["scales"], f["zeros"]]
         shape = tuple(int(s) for s in f["shape"])
         if take is not None:
-            parts = [np.asarray(p)[take] for p in parts]
+            parts = [_take(p, take) for p in parts]
             shape = shape[1:]
         packed, scales, zeros = (tensor_from_numpy(p, device) for p in parts)
         return QuantizedTensor(packed, scales, zeros, shape, f["bits"],
                                f["group_size"])
-    if isinstance(v, dict):
+    if isinstance(v, dict) and not _is_bf16_tagged(v):
         return {k: _convert(x, device, take) for k, x in v.items()}
     if isinstance(v, (list, tuple)):
         return [_convert(x, device, take) for x in v]
-    a = np.asarray(v)
-    return tensor_from_numpy(a if take is None else a[take], device)
+    return tensor_from_numpy(_take(v, take), device)
 
 
 def _layer_count(seg: Dict) -> int:
     v = seg
     while isinstance(v, dict) and not _is_quantized(v):
         v = next(iter(v.values()))
-    return int(np.shape(_qt_fields(v)["packed"] if _is_quantized(v)
-                        else v)[0])
+    if _is_quantized(v):
+        v = _qt_fields(v)["packed"]
+    return int(v.shape[0] if isinstance(v, torch.Tensor) else np.shape(v)[0])
 
 
 def params_from_numpy(tree: Dict, device="cpu") -> Dict:
@@ -74,7 +101,9 @@ def params_from_numpy(tree: Dict, device="cpu") -> Dict:
     port's flat ``"layers"`` list in layer order (element-major, then
     sub-layer). ``qscales``/``qzeros`` leaves are kept. Packed
     ``QuantizedTensor`` leaves (objects or dicts with packed / scales /
-    zeros / shape / bits / group_size) split their layer axis too.
+    zeros / shape / bits / group_size) split their layer axis too. A tree
+    already in the port's layout (a ``"layers"`` list, as
+    :func:`tree_to_numpy` writes it) converts leaf for leaf.
     """
     out: Dict[str, Any] = {}
     layers: List[Dict] = []
@@ -87,5 +116,28 @@ def params_from_numpy(tree: Dict, device="cpu") -> Dict:
             for c in range(_layer_count(seg)):
                 for s in subs:
                     layers.append(_convert(seg[s], device, take=c))
-    out["layers"] = layers
+    if "blocks" in tree:
+        out["layers"] = layers
     return out
+
+
+def tree_to_numpy(tree: Any) -> Any:
+    """A torch tree → plain containers with numpy leaves (module
+    docstring): the inverse of :func:`params_from_numpy` on the port's
+    layout, bit for bit, up to the order of dict keys."""
+    if isinstance(tree, QuantizedTensor):
+        return {k: tree_to_numpy(getattr(tree, k)) for k in _QT_FIELDS}
+    if isinstance(tree, torch.Tensor):
+        # C order always: a transposed view pickles in another layout
+        t = tree.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            return {BF16_TAG: t.view(torch.int16).numpy()}
+        return t.numpy()
+    if isinstance(tree, dict):
+        # sorted, interned keys (pickle memoizes a key by identity): the
+        # payload's bytes depend on the values only, not on the order a
+        # dict was filled in or where its key strings came from
+        return {sys.intern(k): tree_to_numpy(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return [tree_to_numpy(v) for v in tree]
+    return tree

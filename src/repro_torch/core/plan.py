@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -46,6 +46,9 @@ class QuantReport:
     seconds_stage1: float = 0.0
     seconds_stage2: float = 0.0
     layer_step_seconds: List[float] = dataclasses.field(default_factory=list)
+    # the layer walk's counters (core/stream.py): mode, steps and, after a
+    # resume, resumed_at (the first step this run executed)
+    pipeline_stats: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     def summary(self) -> str:
         n = len(self.linears)

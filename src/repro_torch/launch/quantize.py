@@ -1,0 +1,123 @@
+"""Quantization launcher: calibrate → GPTQ → RPIQ → packed artifact.
+
+    PYTHONPATH=src python -m repro_torch.launch.quantize --arch opt-proxy \
+        --smoke quant.rpiq_iters=5 quant.rpiq_alpha=0.01 [--device cpu]
+
+The twin of the JAX package's ``launch/quantize.py``, with the same
+command line. When ``train.ckpt_dir`` holds a step checkpoint (a JAX
+trainer's, say) the parameters of its latest step are quantized (a
+*trained* model); otherwise a fresh init from seed 0. Calibration is
+``MarkovLM(vocab, seed=7)``: ``quant.calib_batches`` batches of
+``quant.calib_batch_size`` × ``quant.calib_seq_len`` tokens. Writes
+``<out>/<name>.report.json`` (one record per linear) and the packed int4
+params ``<out>/<name>.params.pkl`` beside its sha256 sidecar, which
+``launch.serve --params`` verifies at load.
+
+``quant.ckpt_dir=<dir> quant.resume=auto`` checkpoints the layer walk at
+every step, so a killed run restarts at the first incomplete layer with
+an artifact bitwise that of an uninterrupted run (core/stream.py).
+``quant.pipeline=overlap`` and ``quant.mesh`` are not ported and raise.
+
+Runs on the CUDA card; ``--device cpu`` runs the kernels' plain versions.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.config import apply_overrides, not_ported, parse_overrides
+from repro_torch.configs import get_config
+from repro_torch.convert import params_from_numpy
+from repro_torch.core.pipeline import pack_for_serving, quantize_model
+from repro_torch.data import MarkovLM, calibration_batches
+from repro_torch.device import resolve_device
+from repro_torch.distributed.checkpoint import (Checkpointer, restore_like,
+                                                save_artifact,
+                                                tree_from_paths, tree_paths)
+from repro_torch.models import transformer as T
+
+# a JAX TrainState's parameters: its NamedTuple field ``params``
+_PARAMS = ".params/"
+
+
+def trained_params(ckpt_dir: str, like: Dict,
+                   device: torch.device) -> Optional[Dict]:
+    """The parameters of the latest step checkpoint in ``ckpt_dir``, in the
+    port's layout and in ``like``'s shapes and dtypes; None if there is no
+    checkpoint. A leaf missing or of another shape than ``like``'s raises."""
+    if not os.path.isdir(ckpt_dir):
+        return None
+    ckpt = Checkpointer(ckpt_dir)
+    if ckpt.latest_step() is None:
+        return None
+    arrays, _ = ckpt.load_arrays()
+    flat = {k[len(_PARAMS):]: v for k, v in arrays.items()
+            if k.startswith(_PARAMS)}
+    if not flat:
+        raise KeyError(f"{ckpt_dir}: checkpoint holds no {_PARAMS!r} "
+                       "leaves (a trainer's TrainState)")
+    tree = params_from_numpy(tree_from_paths(flat))
+    return restore_like(dict(tree_paths(tree)), like, device)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--out", default="artifacts/quantized")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card; 'cpu' runs "
+                         "the kernels' plain versions)")
+    ap.add_argument("overrides", nargs="*")
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch, smoke=args.smoke)
+    apply_overrides(cfg, parse_overrides(args.overrides))
+    mc, qc = cfg.model, cfg.quant
+    dev = resolve_device(args.device)
+    if qc.ckpt_dir:
+        print(f"[quantize] step checkpoints → {qc.ckpt_dir} "
+              f"(quant.resume={qc.resume})")
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = T.init_params(mc, gen, dev)
+    trained = trained_params(cfg.train.ckpt_dir, params, dev)
+    if trained is not None:
+        params = trained
+        print(f"[quantize] loaded checkpoint step "
+              f"{Checkpointer(cfg.train.ckpt_dir).latest_step()}")
+
+    data = MarkovLM(mc.vocab_size, seed=7)
+    calib = calibration_batches(data, qc.calib_batches, qc.calib_batch_size,
+                                min(qc.calib_seq_len, mc.max_seq_len - 8))
+    if qc.mesh != "off":
+        raise not_ported(f"quant.mesh={qc.mesh}", 17)
+    params_q, report = quantize_model(cfg, params, calib, device=dev,
+                                      verbose=True)
+    del params
+    print(f"[quantize] {report.summary()}")
+    if report.pipeline_stats.get("resumed_at") is not None:
+        print(f"[quantize] resumed from checkpoint at walk item "
+              f"{report.pipeline_stats['resumed_at']}")
+    packed = pack_for_serving(cfg, params_q)
+
+    os.makedirs(args.out, exist_ok=True)
+    tag = mc.name
+    with open(os.path.join(args.out, f"{tag}.report.json"), "w") as f:
+        json.dump([{**vars(r)} for r in report.linears], f, indent=1)
+    # atomic write + sha256 sidecar: launch.serve verifies the digest at
+    # load, so a flipped byte in the artifact is a typed error
+    path = os.path.join(args.out, f"{tag}.params.pkl")
+    save_artifact(path, packed, extra={"arch": tag})
+    print(f"[quantize] wrote {args.out}/{tag}.params.pkl (+ integrity "
+          "manifest)")
+    return path, report
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,98 @@
+"""Serving launcher: batched greedy generation with (optionally int4) weights.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch opt-proxy \
+        --smoke --prompt-len 32 --batch 4 serve.max_new_tokens=16 \
+        [--device cpu]
+
+The twin of the JAX package's ``launch/serve.py``, with the same command
+line. ``--params`` loads a ``launch.quantize`` artifact through the
+integrity-checked ``distributed.checkpoint.load_artifact`` (a corrupt
+artifact is a typed ``ArtifactIntegrityError``, never a silent load);
+``--pack-rtn`` packs float weights (a fresh init from seed 0, or the
+loaded ones) to int4 on a fresh grid, so the quantized decode runs
+without a quantize run. Prompts are ``MarkovLM(vocab, seed=3)``; the
+static batch runs through ``serving.engine.generate``, whose decode
+replays one captured CUDA graph on the card.
+
+Not ported (they raise and name their ROADMAP.md item):
+``serve.scheduler=continuous`` and ``serve.supervise=true`` (item 14). The
+JAX launcher's encoder-decoder and frontend branches have no arch in the
+port yet (``configs.get_config`` refuses them, items 10 and 11).
+
+Runs on the CUDA card; ``--device cpu`` runs the kernels' plain versions.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.config import apply_overrides, not_ported, parse_overrides
+from repro_torch.configs import get_config
+from repro_torch.convert import params_from_numpy
+from repro_torch.core.pipeline import pack_for_serving
+from repro_torch.data import MarkovLM
+from repro_torch.device import resolve_device
+from repro_torch.distributed.checkpoint import load_artifact
+from repro_torch.models import transformer as T
+from repro_torch.serving.engine import generate
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--params", default=None,
+                    help="packed params artifact from launch.quantize")
+    ap.add_argument("--pack-rtn", action="store_true",
+                    help="RTN-pack weights to int4 QuantizedTensor before "
+                         "serving (no quantize run needed)")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card; 'cpu' runs "
+                         "the kernels' plain versions)")
+    ap.add_argument("overrides", nargs="*")
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch, smoke=args.smoke)
+    apply_overrides(cfg, parse_overrides(args.overrides))
+    mc, sc = cfg.model, cfg.serve
+    if sc.scheduler == "continuous":
+        raise not_ported("serve.scheduler=continuous", 14)
+    if sc.scheduler != "static":
+        raise ValueError(f"serve.scheduler must be 'static' (or the "
+                         f"unported 'continuous'), got {sc.scheduler!r}")
+    if sc.supervise:
+        raise not_ported("serve.supervise=true", 14)
+    dev = resolve_device(args.device)
+
+    if args.params:
+        params = params_from_numpy(load_artifact(args.params), dev)
+        print(f"[serve] loaded int4 params from {args.params} "
+              "(integrity-checked)")
+    else:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        params = T.init_params(mc, gen, dev)
+    if args.pack_rtn:
+        params = pack_for_serving(cfg, params)
+        print("[serve] RTN-packed weights to int4")
+
+    batch = MarkovLM(mc.vocab_size, seed=3).batch(args.batch,
+                                                  args.prompt_len)
+    t0 = time.perf_counter()
+    res = generate(cfg, params, batch, device=dev)
+    seqs = res.tokens.cpu()
+    dt = time.perf_counter() - t0
+    toks = int(seqs.numel())
+    print(f"[serve] scheduler={sc.scheduler}: {toks} tokens in {dt:.2f}s "
+          f"({toks / dt:.1f} tok/s incl. kernel build and graph capture)")
+    for i in range(min(args.batch, 4)):
+        print(f"  seq{i}: {list(map(int, seqs[i]))}")
+    return res
+
+
+if __name__ == "__main__":
+    main()

@@ -1,11 +1,13 @@
 """The port stands alone: no JAX, nothing of the JAX package, and no
 silent run on the CPU.
 
-(1) A fresh interpreter imports every ``repro_torch`` module and finds no
-``jax*`` and no ``repro``/``repro.*`` module loaded; an AST scan of the
-port's sources, ``chip_smoke.py`` and ``chip_compare.py`` finds no such
-import. (2) Without a CUDA device the entry points raise unless the caller
-passes ``device="cpu"``.
+(1) A fresh interpreter imports every ``repro_torch`` module (the
+launchers too) and finds no ``jax*`` and no ``repro``/``repro.*`` module
+loaded; an AST scan of the port's sources, ``chip_smoke.py``,
+``chip_compare.py`` and the example twins ``examples/torch_*.py`` finds no
+such import. (2) Without a CUDA device the entry points raise unless the
+caller passes ``device="cpu"`` (``--device cpu`` on the launchers and the
+examples).
 """
 import ast
 import os
@@ -18,8 +20,9 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                        ROOT / "chip_compare.py"]
+                                        ROOT / "chip_compare.py"] + EXAMPLES
 
 
 def _modules():
@@ -76,6 +79,29 @@ def test_entry_points_raise_without_a_card():
     # asked for explicitly, the CPU runs the plain versions
     res = generate(cfg, params, calib[0], device="cpu", max_new_tokens=2)
     assert res.tokens.shape == (2, 2)
+
+
+def test_launchers_raise_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is to use it")
+    from repro_torch.launch import quantize, serve
+    with pytest.raises(RuntimeError, match="CUDA"):
+        quantize.main(["--arch", "opt-proxy", "--smoke", "--out",
+                       str(tmp_path), f"train.ckpt_dir={tmp_path / 'n'}"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "opt-proxy", "--smoke"])
+    assert not os.listdir(tmp_path)
+
+
+@pytest.mark.parametrize("path", EXAMPLES, ids=lambda p: p.name)
+def test_example_twins_raise_without_a_card(path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is to use it")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, str(path)], capture_output=True,
+                         text=True, env=env, cwd=str(ROOT), timeout=120)
+    assert out.returncode != 0
+    assert "CUDA device" in out.stderr and not out.stdout
 
 
 def test_unported_arch_names_the_roadmap():

@@ -1,0 +1,279 @@
+"""The port's launchers and example twins against the JAX package's.
+
+Quantize: the port's and the JAX package's ``launch.quantize.main`` start
+from one JAX trainer checkpoint (``train.ckpt_dir``, a smoke TrainState
+from ``PRNGKey(0)``), on opt-proxy smoke and internlm2 smoke, at model
+dtype float32 and ``MarkovLM(vocab, seed=7)`` 3 × 4 × 32 calibration (JAX
+with ``quant.jit_capture=false``): the inputs of
+``tests/test_torch_pipeline.py``, so its pins hold here (``PINS``): record
+names, shapes and modes equal, ``iters`` within the pin, Γ histories to
+its rtol, packed codes differing in ≤ 1e-2 of the bytes and the packed
+models' logits within the pin. The port's fresh init (torch seed 0) is
+not JAX's, so the agreement also shows the checkpoint was read.
+
+Serve: the JAX artifact goes through the JAX ``load_artifact`` →
+``params_from_numpy`` → the port's ``save_artifact``; the port's
+``launch.serve --params`` then prints JAX ``launch.serve``'s greedy
+tokens, on opt-proxy (bf16 cache) and internlm2 (``serve.kv_cache=int8``).
+``--pack-rtn`` on the JAX init gives JAX ``--pack-rtn``'s tokens.
+
+Resume: a quantize run interrupted at step k (a wrapper of the plan
+executor raises) and resumed with ``quant.resume=auto`` writes an artifact
+bitwise (sha256) an uninterrupted run's; a checkpoint of another config,
+or a corrupt one, warns and the run starts fresh with the same artifact.
+The options not ported raise and name their ROADMAP item, and the two
+example twins run with ``--device cpu`` and print their checks as OK.
+"""
+import hashlib
+import json
+import os
+import re
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jget_config
+from repro.distributed.checkpoint import Checkpointer as JCheckpointer
+from repro.distributed.checkpoint import load_artifact as jload_artifact
+from repro.launch import quantize as jlaunch_quantize
+from repro.launch import serve as jlaunch_serve
+from repro.models import transformer as JT
+from repro.training.train_step import init_train_state
+from repro_torch.configs import get_config as tget_config
+from repro_torch.convert import params_from_numpy
+from repro_torch.core import plan as tplan
+from repro_torch.core.quant import quantized_leaves
+from repro_torch.distributed import checkpoint as C
+from repro_torch.launch import quantize as tlaunch_quantize
+from repro_torch.launch import serve as tlaunch_serve
+from repro_torch.models import transformer as TT
+
+from test_torch_models import rel, to_numpy
+from test_torch_pipeline import PINS
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CALIB = ["quant.calib_batches=3", "quant.calib_batch_size=4",
+         "quant.calib_seq_len=32"]
+F32 = ["model.dtype=float32"]
+NAMES = {"opt-proxy": "opt-proxy-smoke", "internlm2-1.8b": "internlm2-smoke"}
+KV = {"opt-proxy": "fp16", "internlm2-1.8b": "int8"}
+
+
+def _sha(path):
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def _seqs(out: str):
+    """The ``seq<i>: [...]`` lines a serve launcher prints."""
+    return [json.loads(m) for m in re.findall(r"^  seq\d+: (\[.*\])$", out,
+                                              re.M)]
+
+
+@pytest.fixture(scope="module", params=list(NAMES))
+def quantized(request, tmp_path_factory):
+    arch = request.param
+    tmp = tmp_path_factory.mktemp(arch)
+    ck = str(tmp / "train_ckpt")
+    jcfg = jget_config(arch, smoke=True)
+    state = init_train_state(jcfg, jax.random.PRNGKey(0))
+    JCheckpointer(ck, async_write=False).save(5, state)
+    common = ["--arch", arch, "--smoke"]
+    over = [f"train.ckpt_dir={ck}"] + CALIB + F32
+    jlaunch_quantize.main(common + ["--out", str(tmp / "jax")] + over
+                          + ["quant.jit_capture=false"])
+    path, report = tlaunch_quantize.main(
+        common + ["--out", str(tmp / "torch"), "--device", "cpu"] + over)
+    return dict(arch=arch, tmp=tmp, path=path, report=report,
+                jdir=str(tmp / "jax"), tdir=str(tmp / "torch"))
+
+
+def test_quantize_reports_match_jax(quantized):
+    name = NAMES[quantized["arch"]]
+    with open(os.path.join(quantized["jdir"], f"{name}.report.json")) as f:
+        jl = json.load(f)
+    with open(os.path.join(quantized["tdir"], f"{name}.report.json")) as f:
+        tl = json.load(f)
+    d_iters, g_rtol, _ = PINS[quantized["arch"]]
+    assert [r["name"] for r in tl] == [r["name"] for r in jl]
+    assert all(r["mode"] == "rpiq" for r in tl)
+    for a, b in zip(tl, jl):
+        assert (a["mode"], a["shape"]) == (b["mode"], b["shape"]), a["name"]
+        assert abs(a["iters"] - b["iters"]) <= d_iters, a["name"]
+        n = min(len(a["gamma"]), len(b["gamma"]))
+        np.testing.assert_allclose(a["gamma"][:n], b["gamma"][:n],
+                                   rtol=g_rtol)
+
+
+def test_quantize_artifacts_match_jax(quantized):
+    arch, name = quantized["arch"], NAMES[quantized["arch"]]
+    jpacked_raw = jload_artifact(os.path.join(quantized["jdir"],
+                                              f"{name}.params.pkl"))
+    jpacked = params_from_numpy(to_numpy(jpacked_raw))
+    tpacked = params_from_numpy(C.load_artifact(quantized["path"]))
+    ours, theirs = (dict(quantized_leaves(p["layers"]))
+                    for p in (tpacked, jpacked))
+    assert list(ours) == list(theirs)
+    diff = sum(int((qt.packed != theirs[k].packed).sum())
+               for k, qt in ours.items())
+    total = sum(qt.packed.numel() for qt in ours.values())
+    assert diff / total <= 1e-2
+    cfg = tget_config(arch, smoke=True)
+    cfg.model.dtype = "float32"
+    jcfg = jget_config(arch, smoke=True)
+    jcfg.model.dtype = "float32"
+    toks = np.random.RandomState(0).randint(0, cfg.model.vocab_size,
+                                            (2, 16))
+    lt = TT.forward(cfg.model, tpacked, torch.from_numpy(toks))
+    lj, _ = JT.forward(jcfg.model, jpacked_raw, toks)
+    assert rel(lt.numpy(), lj) <= PINS[arch][2]
+
+
+def _jax_load_to_device(path):
+    """The JAX ``load_artifact`` with its numpy leaves put on the device:
+    the JAX ``launch.serve --params`` hands the numpy tree to the static
+    ``generate``, whose scanned decode step then indexes a numpy
+    embedding with a traced token and raises (TracerArrayConversionError,
+    a fault of the reference, ROADMAP.md §3)."""
+    return jax.tree_util.tree_map(jnp.asarray, jload_artifact(path))
+
+
+def test_serve_gives_jax_serve_tokens(quantized, capsys, monkeypatch):
+    arch, name = quantized["arch"], NAMES[quantized["arch"]]
+    monkeypatch.setattr(jlaunch_serve, "load_artifact", _jax_load_to_device)
+    jart = os.path.join(quantized["jdir"], f"{name}.params.pkl")
+    tart = str(quantized["tmp"] / "from_jax.params.pkl")
+    C.save_artifact(tart, params_from_numpy(to_numpy(jload_artifact(jart))))
+    common = ["--arch", arch, "--smoke", "--batch", "2", "--prompt-len",
+              "8"]
+    over = F32 + ["serve.max_new_tokens=6", f"serve.kv_cache={KV[arch]}"]
+    capsys.readouterr()
+    jlaunch_serve.main(common + ["--params", jart] + over)
+    want = _seqs(capsys.readouterr().out)
+    res = tlaunch_serve.main(common + ["--params", tart, "--device", "cpu"]
+                             + over)
+    out = capsys.readouterr().out
+    assert "(integrity-checked)" in out
+    assert len(want) == 2 and _seqs(out) == want
+    assert res.tokens.tolist() == want
+
+
+def test_serve_pack_rtn_gives_jax_tokens(tmp_path, capsys):
+    """--pack-rtn on float weights: JAX's PRNGKey(0) init, carried to the
+    port as a float artifact."""
+    jcfg = jget_config("opt-proxy", smoke=True)
+    art = str(tmp_path / "float.params.pkl")
+    C.save_artifact(art, params_from_numpy(to_numpy(JT.init_params(
+        jcfg.model, jax.random.PRNGKey(0)))))
+    common = ["--arch", "opt-proxy", "--smoke", "--pack-rtn", "--batch",
+              "2", "--prompt-len", "8"]
+    over = F32 + ["serve.max_new_tokens=6"]
+    capsys.readouterr()
+    jlaunch_serve.main(common + over)
+    want = _seqs(capsys.readouterr().out)
+    tlaunch_serve.main(common + ["--params", art, "--device", "cpu"] + over)
+    out = capsys.readouterr().out
+    assert "RTN-packed" in out
+    assert len(want) == 2 and _seqs(out) == want
+
+
+def _quantize(tmp, arch, out, extra=()):
+    return tlaunch_quantize.main(
+        ["--arch", arch, "--smoke", "--device", "cpu", "--out",
+         str(tmp / out), f"train.ckpt_dir={tmp / 'none'}",
+         "quant.calib_batches=2", "quant.calib_batch_size=2",
+         "quant.calib_seq_len=16"] + list(extra))
+
+
+class _Interrupt(Exception):
+    pass
+
+
+@pytest.mark.parametrize("arch,k", [("opt-proxy", 2),
+                                    ("falcon-mamba-7b", 2),
+                                    ("falcon-mamba-7b", 3)])
+def test_interrupted_then_resumed_is_bitwise_uninterrupted(arch, k, tmp_path,
+                                                           monkeypatch):
+    ref, _ = _quantize(tmp_path, arch, "ref")
+    ck = [f"quant.ckpt_dir={tmp_path / 'ck'}", "quant.resume=auto"]
+    real, calls = tplan.execute_plan, []
+
+    def interrupt_at_step_k(*args, **kwargs):
+        calls.append(1)
+        if len(calls) == k:
+            raise _Interrupt(f"step {k}")
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(tplan, "execute_plan", interrupt_at_step_k)
+    with pytest.raises(_Interrupt):
+        _quantize(tmp_path, arch, "run", ck)
+    monkeypatch.setattr(tplan, "execute_plan", real)
+    assert C.Checkpointer(str(tmp_path / "ck")).latest_step() == k - 2
+    path, report = _quantize(tmp_path, arch, "run", ck)
+    assert report.pipeline_stats["resumed_at"] == k - 1
+    assert report.pipeline_stats["steps"] == len(report.layer_step_seconds)
+    assert _sha(path) == _sha(ref)
+    with open(str(ref).replace(".params.pkl", ".report.json")) as f:
+        want = [(r["name"], r["mode"], r["iters"], r["gamma"])
+                for r in json.load(f)]
+    with open(path.replace(".params.pkl", ".report.json")) as f:
+        got = [(r["name"], r["mode"], r["iters"], r["gamma"])
+               for r in json.load(f)]
+    assert got == want
+
+
+@pytest.mark.parametrize("damage", ["other_config", "corrupt"])
+def test_unusable_checkpoint_warns_and_starts_fresh(damage, tmp_path):
+    arch = "opt-proxy"
+    ck = [f"quant.ckpt_dir={tmp_path / 'ck'}", "quant.resume=auto"]
+    first = ["quant.rpiq_alpha=0.02"] if damage == "other_config" else []
+    _quantize(tmp_path, arch, "first", ck + first)
+    ckpt = C.Checkpointer(str(tmp_path / "ck"))
+    if damage == "corrupt":
+        npz = os.path.join(str(tmp_path / "ck"),
+                           f"step_{ckpt.latest_step():09d}", "arrays.npz")
+        with open(npz, "r+b") as f:
+            f.truncate(os.path.getsize(npz) // 2)
+    ref, _ = _quantize(tmp_path, arch, "ref")
+    match = "fingerprint mismatch" if damage == "other_config" else "corrupt"
+    with pytest.warns(RuntimeWarning, match=match):
+        path, report = _quantize(tmp_path, arch, "again", ck)
+    assert "resumed_at" not in report.pipeline_stats
+    assert _sha(path) == _sha(ref)
+
+
+@pytest.mark.parametrize("launcher,override,item", [
+    ("quantize", "quant.pipeline=overlap", 15),
+    ("quantize", "quant.mesh=auto", 17),
+    ("serve", "serve.scheduler=continuous", 14),
+    ("serve", "serve.supervise=true", 14),
+])
+def test_options_not_ported_raise(launcher, override, item, tmp_path):
+    mod = tlaunch_quantize if launcher == "quantize" else tlaunch_serve
+    argv = ["--arch", "opt-proxy", "--smoke", "--device", "cpu"]
+    if launcher == "quantize":
+        argv += ["--out", str(tmp_path), f"train.ckpt_dir={tmp_path / 'n'}"]
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP.md, queue 1 item {item}"):
+        mod.main(argv + CALIB + [override])
+
+
+@pytest.mark.parametrize("script,check", [
+    ("torch_quickstart.py",
+     r"packed int4 vs refined-grid float: rel err \S+ \(OK\)"),
+    ("torch_quantize_and_serve.py", r"request 3: prompt=\[.*\] -> \[.*\]"),
+])
+def test_example_twins_run_on_the_cpu(script, check):
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, os.path.join(ROOT, "examples",
+                                                       script),
+                          "--device", "cpu"], capture_output=True,
+                         text=True, env=env, cwd=ROOT, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert re.search(check, out.stdout), out.stdout
+    assert "MISMATCH" not in out.stdout
