@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Time the kernels of one checkout on the card, for parent-vs-change runs.
 
-    python3 chip_compare.py <checkout root>
+    python3 chip_compare.py <checkout root> [section ...]
 
-Run it on two checkouts in turns inside one call on one card (parent,
+Sections (all by default): hessian_accum, gptq_block (with rpiq_block),
+w4a16_matmul, int8_kv_attention, quant_pack, selective_scan,
+decode_walls. Run it on two checkouts in turns inside one call on one card (parent,
 change, change, parent; the parent unpacked with ``git archive`` into a
 directory that ``.gitignore`` lists) to compare them. It prints, per
 line: the checkout, the kernel and shape, and
@@ -36,11 +38,15 @@ line: the checkout, the kernel and shape, and
   rounds of 200 calls on the host clock, the card left to catch up
   between rounds);
 - where the checkout has them, ``int8_kv_attention`` (bf16 queries at
-  internlm2's decode shape, S 545 and 4096) and ``quant_pack`` (the six
+  internlm2's decode shape, S 545 and 4096, and at h2o-danube-1.8b's, B 2,
+  R 4, hd 80, one scale block a row, on a 4096-slot ring just past its
+  wrap; where the checkout takes ``softcap``, also with softcap 30 at S
+  4096) and ``quant_pack`` (the six
   main-path shapes, weights in fp32 and bf16): the device time per call
   from a CUDA graph over copies beyond L2 (``chip_smoke.graph_ms``), the
   error against the plain version (bitwise for ``quant_pack``) and an
-  output sum; for ``int8_kv_attention`` also the
+  output sum; for ``int8_kv_attention`` also an exact checksum of the
+  output's bits, the
   checkout's history ranges (``ops.int8_kv_attention_geometry``, 1 where
   it has none), whether two launches are bitwise equal, at S 545 the mean
   time per call of a loop of wrapper calls and the host's own time to
@@ -54,6 +60,7 @@ line: the checkout, the kernel and shape, and
   output in fp32, bf16 ulps in bf16);
 - the decode step wall of each main path at full width (``decode_walls``).
 """
+import inspect
 import os
 import sys
 import time
@@ -61,6 +68,9 @@ import time
 
 def main() -> int:
     root = os.path.abspath(sys.argv[1])
+    sections = set(sys.argv[2:]) or {
+        "hessian_accum", "gptq_block", "w4a16_matmul", "int8_kv_attention",
+        "quant_pack", "selective_scan", "decode_walls"}
     sys.path.insert(0, os.path.join(root, "src"))
     import torch
     if not torch.cuda.is_available():
@@ -118,6 +128,8 @@ def main() -> int:
         return int(t.contiguous().view(itype).to(torch.int64).sum())
 
     for d in (256, 768, 2048, 3072, 4096, 8192):
+        if "hessian_accum" not in sections:
+            break
         x = torch.randn((n_tok, d), generator=g, device=dev)
         H0 = torch.randn((d, d), generator=g, device=dev)
         H0 = H0 + H0.T
@@ -146,6 +158,8 @@ def main() -> int:
                     (1, 2048, 2048), (2, 1024, 2048), (2, 8192, 2048),
                     (1, 2048, 8192), (1, 16384, 4096), (1, 288, 8192),
                     (1, 8192, 256), (1, 4096, 8192)):
+        if "gptq_block" not in sections:
+            break
         x = torch.randn((b, n_tok, i), generator=g, device=dev)
         w = torch.randn((b, o, i), generator=g, device=dev) * i ** -0.5
         count = torch.full((b,), n_tok, dtype=torch.int32, device=dev)
@@ -178,6 +192,8 @@ def main() -> int:
               for k, n in ((2048, 2048), (2048, 1024), (2048, 8192),
                            (8192, 2048), (4096, 16384), (8192, 288),
                            (256, 8192), (8192, 4096))]
+    if "w4a16_matmul" not in sections:
+        cases = []
     for m, k, n in cases:
         w = torch.randn((n, k), generator=g, device=dev) * k ** -0.5
         qp = compute_qparams(w, 4, gs)
@@ -204,6 +220,8 @@ def main() -> int:
         print(line, flush=True)
 
     for k, n in ((768, 768), (3072, 768)):
+        if "w4a16_matmul" not in sections:
+            break
         w = torch.randn((n, k), generator=g, device=dev) * k ** -0.5
         qp = compute_qparams(w, 4, gs)
         packed = pack_int4(quantize_codes(w, qp, 4, gs))
@@ -215,33 +233,41 @@ def main() -> int:
               f"(host-bound loop) {ms:.5f}, host enqueue ms per call "
               f"{host_ms(call)}", flush=True)
 
-    if hasattr(ops, "int8_kv_attention_cuda"):
-        b, kv, r, hd = 4, 8, 2, 128
-        for s, blk in ((545, 128), (4096, 128), (4096, 64)):
-            codes = torch.randint(-127, 128, (2, b, s, kv, hd), generator=g,
-                                  device=dev).to(torch.int8)
-            scales = torch.rand((2, b, s, kv, hd // blk), generator=g,
-                                device=dev) * 0.02 + 1e-3
-            kpos = torch.arange(s, device=dev, dtype=torch.int32).repeat(
-                b, 1)
-            cache = (codes[0], scales[0], codes[1], scales[1], kpos)
-            q = (torch.randn((b, kv, r, hd), generator=g, device=dev)
-                 * hd ** -0.5).to(torch.bfloat16)
-            out = ops.int8_kv_attention_cuda(q, *cache, blk)
-            same = torch.equal(out, ops.int8_kv_attention_cuda(q, *cache,
-                                                               blk))
+    def kv_row(b, kv, r, hd, s, blk, capped, g):
+        """int8_kv_attention at one shape: its timing line(s)."""
+        codes = torch.randint(-127, 128, (2, b, s, kv, hd), generator=g,
+                              device=dev).to(torch.int8)
+        scales = torch.rand((2, b, s, kv, hd // blk), generator=g,
+                            device=dev) * 0.02 + 1e-3
+        kpos = torch.arange(s, device=dev, dtype=torch.int32).repeat(b, 1)
+        if hd == 80:                # a ring after position 4100
+            kpos = 4100 - (4100 - kpos) % s
+        cache = (codes[0], scales[0], codes[1], scales[1], kpos)
+        q = (torch.randn((b, kv, r, hd), generator=g, device=dev)
+             * hd ** -0.5).to(torch.bfloat16)
+        caps = (0.0, 30.0) if capped and s == 4096 and blk != 64 else (0.0,)
+        for cap in caps:
+            kw = {"softcap": cap} if capped else {}
+            q_in = q * 40.0 if cap else q       # scores the cap bends
+
+            def kern(c, q_in=q_in, kw=kw):
+                return ops.int8_kv_attention_cuda(q_in, *c, blk, **kw)
+
+            out = kern(cache)
+            same = torch.equal(out, kern(cache))
+            out_bits = bits(out)
             out = out.float()
-            err = float((out - ref.int8_kv_attention(q, *cache, blk).float())
-                        .abs().max())
+            err = float((out - ref.int8_kv_attention(
+                q_in, *cache, blk, **kw).float()).abs().max())
             splits = (ops.int8_kv_attention_geometry(b, kv, s)[0]
                       if hasattr(ops, "int8_kv_attention_geometry") else 1)
             nbytes = sum(t.numel() * t.element_size() for t in cache)
             copies = [cache] + [tuple(t.clone() for t in cache)
                                 for _ in range(int(100e6 // nbytes))]
-            ms = graph_ms([(lambda c=c: ops.int8_kv_attention_cuda(
-                q, *c, blk)) for c in copies])
+            ms = graph_ms([(lambda c=c: kern(c)) for c in copies])
             sweep = ""
-            if hasattr(ops, "int8_kv_attention_geometry") and blk == 128:
+            if (hasattr(ops, "int8_kv_attention_geometry") and blk == 128
+                    and not cap):
                 # every range length, the sweep the geometry rests on
                 lib = build.load("int8_kv_attention")
                 tiles = -(-s // ops.KV_TILE)
@@ -258,7 +284,8 @@ def main() -> int:
                         err = lib.int8_kv_attention_bf16_launch(
                             q.data_ptr(), *(t.data_ptr() for t in c),
                             o.data_ptr(), b, s, kv, r, hd, blk, n_sp, per,
-                            wk, tk, torch.cuda.current_stream().cuda_stream)
+                            wk, tk, *([0.0] if capped else []),
+                            torch.cuda.current_stream().cuda_stream)
                         if err:
                             raise RuntimeError(f"launch failed: {err}")
                     times.append((per, n_sp, graph_ms(
@@ -268,16 +295,28 @@ def main() -> int:
             del copies
             host = ""
             if s == 545:
-                call = (lambda: ops.int8_kv_attention_cuda(q, *cache, blk))
+                call = (lambda: kern(cache))
                 host = (f" ms per wrapper call (host-bound loop) "
                         f"{event_ms(call, 500):.5f}, host enqueue ms per "
                         f"call {host_ms(call)}")
-            print(f"{root} int8_kv_attention S={s} kv_block={blk}: "
-                  f"ms={ms:.4f} max_abs_err={err:.3e} "
-                  f"sum={float(out.double().sum())} history ranges={splits} "
+            print(f"{root} int8_kv_attention B={b} R={r} hd={hd} S={s} "
+                  f"kv_block={blk}{' ring' if hd == 80 else ''} "
+                  f"softcap={cap}: ms={ms:.4f} max_abs_err={err:.3e} "
+                  f"sum={float(out.double().sum())} bit checksum="
+                  f"{out_bits} history ranges={splits} "
                   f"two launches bitwise equal {same}{host}{sweep}",
                   flush=True)
-    if hasattr(ops, "quant_pack_cuda"):
+
+    if ("int8_kv_attention" in sections
+            and hasattr(ops, "int8_kv_attention_cuda")):
+        capped = "softcap" in inspect.signature(
+            ops.int8_kv_attention_cuda).parameters
+        # internlm2's decode shape, then h2o-danube's (hd 80, block 80)
+        for shape in ((4, 8, 2, 128, 545, 128), (4, 8, 2, 128, 4096, 128),
+                      (4, 8, 2, 128, 4096, 64), (2, 8, 4, 80, 4096, 80)):
+            kv_row(*shape, capped, g)
+
+    if "quant_pack" in sections and hasattr(ops, "quant_pack_cuda"):
         for n, k in ((2048, 8192), (8192, 2048), (16384, 4096), (288, 8192),
                      (8192, 256), (4096, 8192)):
             w32 = torch.randn((n, k), generator=g, device=dev) * k ** -0.5
@@ -300,6 +339,8 @@ def main() -> int:
     import torch.nn.functional as F
     b, d, n = 4, 8192, 16
     for s in (512, 128, 77):
+        if "selective_scan" not in sections:
+            break
         u = torch.randn((b, s, d), generator=g, device=dev)
         dt = F.softplus(torch.randn((b, s, d), generator=g, device=dev) - 1)
         bm, cm = (torch.randn((b, s, n), generator=g, device=dev)
@@ -328,7 +369,8 @@ def main() -> int:
             print(f"{root} selective_scan B={b} S={s} d={d} n={n} u={udt}: "
                   f"ms={ms:.4f} h_last bit checksum={bits(h_last)} {y_err}",
                   flush=True)
-    decode_walls(root, dev)
+    if "decode_walls" in sections:
+        decode_walls(root, dev)
     return 0
 
 

@@ -10,7 +10,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      memory and spills;
   3. kernels: each of the seven kernels' wrappers against its plain
      PyTorch version on the card, at the shapes the main paths give it
-     (opt-proxy, internlm2-1.8b and falcon-mamba-7b), with the error
+     (opt-proxy, internlm2-1.8b, falcon-mamba-7b, and phase 9's
+     h2o-danube-1.8b and pixtral-12b), with the error
      against the stated tolerance and CUDA-event times (kernel, plain,
      library yardstick where one exists, itself held against the plain
      version) beside the least time the card could take (bf16
@@ -20,14 +21,20 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      blocks, on the same inputs must agree bitwise; ``w4a16_matmul`` also
      at groups 8 and 16 in bf16 and at k 12288 in fp32,
      ``int8_kv_attention`` at one history range and with ranges of -1
-     slots only, ``rpiq_block`` on 8 seeded instances of its two narrowest
-     groups, ``gptq_block`` and ``rpiq_block`` at blocksizes 256 and in
-     (the wide paths), and ``quant_pack`` in fp32 and bf16;
+     slots only, at h2o-danube-1.8b's ring shape (hd 80, one scale block a
+     row, slots past the wrap) and with the soft cap (there and at
+     internlm2's shape), ``rpiq_block`` on 8 seeded instances of its two
+     narrowest groups, ``gptq_block`` and ``rpiq_block`` at blocksizes
+     256 and in (the wide paths), and ``quant_pack`` in fp32 and bf16;
   4. small end to end: opt-proxy smoke (bf16 cache), internlm2 smoke (int8
      KV cache) and falcon-mamba smoke (recurrent state) quantized, packed
      and served on the card against the same runs of the plain versions on
      the CPU in fp32; then each at its own bf16 and group size (16, 8, 8)
      on the card, its first layer's kernel calls held at one bf16 ulp;
+     then the same two runs for h2o-danube smoke (an int8 ring of 8
+     slots), minicpm smoke (tied embeddings; k 72 padded for
+     ``w4a16_matmul``), stablelm smoke (LayerNorm) and pixtral smoke (8
+     patch embeddings in every calibration batch and request);
   5. main path at full width: opt-proxy (OPT-125M shape) from seeded random
      weights → quantize_model → pack_for_serving → generate, with launch
      counters reset just before and read just after, the packed-vs-float
@@ -76,10 +83,30 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
          ``examples/torch_quantize_and_serve.py`` on the card;
      with the walls (quantize total and stages, checkpoint save per step,
      artifact bytes and save / load, prefill, capture, replayed step and
-     serve total) beside the card's name and power limit.
+     serve total) beside the card's name and power limit;
+  9. the other dense architectures at full width:
+     9a. h2o-danube-1.8b at full depth (24 sliding-window layers, window
+         4096, head_dim 80) → quantize_model → pack_for_serving →
+         generate on the int8 ring (2 requests x 4608 prompt tokens + 32
+         new: the prefill keeps the last 4096 positions), then generate
+         again on 4080-token prompts with the int8 and the bf16 ring, whose
+         decode crosses the wrap at 4096 inside the replayed graph; each
+         serve's replay bitwise the eager loop; each leg's first decode
+         steps (20 across the wrap) in fp32 compute against full-length
+         caches that the window masks (1e-4); the ring's rows and bytes
+         against a full-length cache; the int8-vs-bf16 drift rule of
+         phase 6 across the wrap;
+     9b. pixtral-12b at full width, cut to 26 of 40 layers (quantization
+         holds the float layers before and after), 1024 seeded patch
+         embeddings in every calibration batch (4 x 2 x 128 tokens) and
+         request (2 x 64 + 32 new): the replay bitwise eager, decode from
+         position 64 + 1024, packed int4 against refined float logits in
+         fp32 compute (1e-3; bf16 printed); then ``launch.serve --arch
+         pixtral-12b --pack-rtn`` at all 40 layers, its tokens those of
+         pack_for_serving → generate called directly.
 
 The line before the last is a JSON object with one entry per kernel
-(``launches`` sums phases 5 to 8); the last line is ``{"ok": true,
+(``launches`` sums phases 5 to 9); the last line is ``{"ok": true,
 "device": {...}}``.
 """
 from __future__ import annotations
@@ -114,6 +141,14 @@ KERNEL_SOURCES = {
     "selective_scan": ("src/repro_torch/kernels/csrc/selective_scan.cu",
                        "src/repro/kernels/selective_scan.py:71"),
 }
+
+
+# phase 4's other dense smoke configs and the cache each serves with:
+# h2o-danube's int8 ring of 8 slots wraps within its 8 + 6 positions;
+# minicpm smoke's head width 12 is under the int8 kernel's 16 (its full
+# config has 64), so it serves with the bf16 cache
+SMALL_DENSE = (("h2o-danube-1.8b", "int8"), ("minicpm-2b", "fp16"),
+               ("stablelm-1.6b", "fp16"), ("pixtral-12b", "fp16"))
 
 
 def log(msg: str = "") -> None:
@@ -258,9 +293,6 @@ def frac_differing(a, b, tol_abs: float = 0.0, tol_rel: float = 0.0):
 
 def phase_kernels(table: KernelTable) -> None:
     import torch
-    from repro_torch.core.quant import compute_qparams, pack_int4, \
-        quantize_codes
-    from repro_torch.kernels import ops, ref
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
@@ -285,60 +317,7 @@ def phase_kernels(table: KernelTable) -> None:
     for m, k, n in cases:
         for dt in ((torch.bfloat16, torch.float32) if (m, k, n) ==
                    (4, 768, 768) else (torch.bfloat16,)):
-            w = torch.randn((n, k), generator=g, device=dev) * k ** -0.5
-            qp = compute_qparams(w, 4, gs)
-            packed = pack_int4(quantize_codes(w, qp, 4, gs))
-            x = torch.randn((m, k), generator=g, device=dev).to(dt)
-            want = ref.w4a16_matmul(x, packed, qp.scales, qp.zeros, gs)
-            got = ops.w4a16_matmul_cuda(x, packed, qp.scales, qp.zeros,
-                                        gs)
-            # a split-K launch sums its partials in split order: a second
-            # launch on the same inputs is bitwise the same
-            splits = (ops.w4a16_matmul_geometry(m, n, k, gs)[2]
-                      if dt == torch.bfloat16 else 1)
-            same = splits == 1 or torch.equal(got, ops.w4a16_matmul_cuda(
-                x, packed, qp.scales, qp.zeros, gs))
-            diff = (got.float() - want.float()).abs()
-            err = float(diff.max())
-            if dt == torch.float32:
-                ok = err <= 1e-5 * float(want.abs().max())
-                tol_s = "1e-5 rel"
-            else:
-                ok = within_bf16_ulp(diff, want)
-                tol_s = "1 bf16 ulp"
-            esz = 2 if dt == torch.bfloat16 else 4
-            nbytes = (n * k / 2 + 2 * n * (k / gs) * 4 + m * k * esz
-                      + m * n * esz)
-            # distinct weight copies, 100 MB in all: each call reads
-            # its weights from device memory, not from L2
-            copies = [(packed, qp.scales, qp.zeros)] + [
-                (packed.clone(), qp.scales.clone(), qp.zeros.clone())
-                for _ in range(min(255, int(100e6 // nbytes)))]
-            ms = graph_ms([
-                (lambda c=c: ops.w4a16_matmul_cuda(x, *c, gs))
-                for c in copies])
-            pms = graph_ms([
-                (lambda c=c: ref.w4a16_matmul(x, *c, gs))
-                for c in copies])
-            del copies
-            lib_s = "none"
-            if dt == torch.bfloat16:
-                lms, lib_err = int4pack_yardstick(x, packed, qp.scales,
-                                                  qp.zeros, gs, want, nbytes)
-                lib_s = f"{lms:.4f} ({lib_err})"
-                # bf16 x runs on the tensor cores: the bf16 rate bounds it
-                b_ms, by = table.add("w4a16_matmul", ms=ms,
-                                     plain_ms=pms, flop=2 * m * n * k,
-                                     nbytes=nbytes, err=err, library_ms=lms,
-                                     peak=H100_BF16_FLOPS)
-            else:
-                b_ms, by = bound(2 * m * n * k, nbytes, H100_FP32_FLOPS)
-            log(f"  w4a16_matmul m={m} k={k} n={n} {dt}: "
-                f"max_abs_err={err:.3e} ({tol_s}) ms={ms:.4f} "
-                f"plain_ms={pms:.4f} library_ms={lib_s} "
-                f"bound_ms={b_ms:.4f} ({by}); k splits {splits}, two "
-                f"launches bitwise equal {same}")
-            check(ok and same, f"w4a16_matmul m={m} k={k} n={n} {dt}")
+            check_w4a16(table, g, m, k, n, dt, gs)
     kernels_w4a16_other_groups()
 
     # -- gptq_block and rpiq_block on realistic Hessians ---------------------
@@ -357,8 +336,73 @@ def phase_kernels(table: KernelTable) -> None:
     kernels_blocksizes(n_tok, gs, t_max, alpha)
 
     kernels_int8_kv_attention(table, g)
+    kernels_int8_kv_attention_ring(table)
     kernels_quant_pack(table, g)
     kernels_selective_scan(table, g)
+    kernels_dense_shapes(table)
+
+
+def check_w4a16(table: KernelTable, g, m: int, k: int, n: int, dt,
+                gs: int) -> None:
+    """w4a16_matmul against its plain version on seeded weights (n, k) and
+    x (m, k) in ``dt``: fp32 at 1e-5 of the largest output, bf16 at one
+    bf16 ulp, a split-k launch bitwise repeatable; timed from a CUDA graph
+    over weight copies beyond L2, bf16 beside the library's
+    ``_weight_int4pack_mm`` and added to ``table``."""
+    import torch
+    from repro_torch.core.quant import compute_qparams, pack_int4, \
+        quantize_codes
+    from repro_torch.kernels import ops, ref
+    dev = torch.device("cuda")
+    w = torch.randn((n, k), generator=g, device=dev) * k ** -0.5
+    qp = compute_qparams(w, 4, gs)
+    packed = pack_int4(quantize_codes(w, qp, 4, gs))
+    x = torch.randn((m, k), generator=g, device=dev).to(dt)
+    want = ref.w4a16_matmul(x, packed, qp.scales, qp.zeros, gs)
+    got = ops.w4a16_matmul_cuda(x, packed, qp.scales, qp.zeros, gs)
+    # a split-K launch sums its partials in split order: a second launch on
+    # the same inputs is bitwise the same
+    splits = (ops.w4a16_matmul_geometry(m, n, k, gs)[2]
+              if dt == torch.bfloat16 else 1)
+    same = splits == 1 or torch.equal(got, ops.w4a16_matmul_cuda(
+        x, packed, qp.scales, qp.zeros, gs))
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    if dt == torch.float32:
+        ok = err <= 1e-5 * float(want.abs().max())
+        tol_s = "1e-5 rel"
+    else:
+        ok = within_bf16_ulp(diff, want)
+        tol_s = "1 bf16 ulp"
+    esz = 2 if dt == torch.bfloat16 else 4
+    nbytes = (n * k / 2 + 2 * n * (k / gs) * 4 + m * k * esz
+              + m * n * esz)
+    # distinct weight copies, 100 MB in all: each call reads its weights
+    # from device memory, not from L2
+    copies = [(packed, qp.scales, qp.zeros)] + [
+        (packed.clone(), qp.scales.clone(), qp.zeros.clone())
+        for _ in range(min(255, int(100e6 // nbytes)))]
+    ms = graph_ms([(lambda c=c: ops.w4a16_matmul_cuda(x, *c, gs))
+                   for c in copies])
+    pms = graph_ms([(lambda c=c: ref.w4a16_matmul(x, *c, gs))
+                    for c in copies])
+    del copies
+    lib_s = "none"
+    if dt == torch.bfloat16:
+        lms, lib_err = int4pack_yardstick(x, packed, qp.scales, qp.zeros,
+                                          gs, want, nbytes)
+        lib_s = f"{lms:.4f} ({lib_err})"
+        # bf16 x runs on the tensor cores: the bf16 rate bounds it
+        b_ms, by = table.add("w4a16_matmul", ms=ms, plain_ms=pms,
+                             flop=2 * m * n * k, nbytes=nbytes, err=err,
+                             library_ms=lms, peak=H100_BF16_FLOPS)
+    else:
+        b_ms, by = bound(2 * m * n * k, nbytes, H100_FP32_FLOPS)
+    log(f"  w4a16_matmul m={m} k={k} n={n} {dt}: max_abs_err={err:.3e} "
+        f"({tol_s}) ms={ms:.4f} plain_ms={pms:.4f} library_ms={lib_s} "
+        f"bound_ms={b_ms:.4f} ({by}); k splits {splits}, two launches "
+        f"bitwise equal {same}")
+    check(ok and same, f"w4a16_matmul m={m} k={k} n={n} {dt}")
 
 
 def check_hessian_accum(table: KernelTable, g, n_tok: int, d: int) -> None:
@@ -882,59 +926,189 @@ def kernels_int8_kv_attention(table: KernelTable, g) -> None:
               f"int8_kv_attention S={s} block={blk}")
 
 
+def kernels_int8_kv_attention_ring(table: KernelTable) -> None:
+    """The decode attention at h2o-danube-1.8b's serving shape (phase 9a:
+    B 2, KV 8, R 4, hd 80, so kv_block 80, one scale block a row) on a
+    4096-slot ring just past its wrap (position 4100 written, so the
+    slots' positions are not in slot order), the last lane empty; then
+    with the soft cap (30, queries scaled so the cap bends the scores) at
+    that shape and at internlm2's (S 4096, hd 128). At phase 3's pins,
+    a second launch bitwise the first; at softcap 0 the call is bitwise
+    the call without the argument. Timed in bf16 from a CUDA graph over
+    cache copies beyond L2; the uncapped ring row joins the kernel table
+    (it is phase 9a's shape), the capped rows are printed beside it. Its
+    inputs come from a generator of its own."""
+    import torch
+    from repro_torch.kernels import kv_codec, ops, ref
+    from repro_torch.models.attention import cache_key_positions
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(4323)
+    for b, r, hd, cap in ((2, 4, 80, 0.0), (2, 4, 80, 30.0),
+                          (4, 2, 128, 30.0)):
+        kv, s = 8, 4096
+        blk = kv_codec.default_kv_block(hd)
+        nb = hd // blk
+        x = torch.randn((2, b, s, kv, hd), generator=g, device=dev)
+        kc, ks = kv_codec.enc_int8_blocks(x[0], blk)
+        vc, vs = kv_codec.enc_int8_blocks(x[1], blk)
+        pos = torch.full((b,), s + 4, device=dev)
+        kpos = cache_key_positions(pos, s, s).to(torch.int32)
+        kpos[-1] = -1
+        q32 = torch.randn((b, kv, r, hd), generator=g, device=dev) \
+            * hd ** -0.5 * (12.0 if cap else 1.0)
+        cache = (kc, ks, vc, vs, kpos)
+        want = ref.int8_kv_attention(q32, *cache, blk, cap)
+        got = ops.int8_kv_attention_cuda(q32, *cache, blk, cap)
+        err32 = float((got - want).abs().max())
+        ok32 = err32 <= 1e-5 * float(want.abs().max())
+        q = q32.to(torch.bfloat16)
+        want = ref.int8_kv_attention(q, *cache, blk, cap)
+        got = ops.int8_kv_attention_cuda(q, *cache, blk, cap)
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        ok = within_bf16_ulp(diff, want)
+        zero = float(got[-1].abs().max()) == 0.0
+        same = torch.equal(got, ops.int8_kv_attention_cuda(q, *cache, blk,
+                                                            cap))
+        if not cap:
+            same = same and torch.equal(got, ops.int8_kv_attention_cuda(
+                q, *cache, blk))
+        # what the cap moves: the uncapped result on the same inputs
+        moved = float((ref.int8_kv_attention(q32, *cache, blk)
+                       - ref.int8_kv_attention(q32, *cache, blk, cap))
+                      .abs().max()) if cap else 0.0
+        splits, per = ops.int8_kv_attention_geometry(b, kv, s)
+        nbytes = (2 * b * s * kv * hd + 2 * b * s * kv * nb * 4 + 4 * b * s
+                  + 2 * 2 * b * kv * r * hd)
+        flop = 4 * b * kv * r * s * hd
+        copies = [cache] + [tuple(t.clone() for t in cache)
+                            for _ in range(int(100e6 // nbytes))]
+        ms = graph_ms([(lambda c=c: ops.int8_kv_attention_cuda(
+            q, *c, blk, cap)) for c in copies])
+        pms = graph_ms([(lambda c=c: ref.int8_kv_attention(q, *c, blk, cap))
+                        for c in copies])
+        del copies
+        if cap:
+            b_ms, by = bound(flop, nbytes)
+        else:
+            b_ms, by = table.add("int8_kv_attention", ms=ms, plain_ms=pms,
+                                 flop=flop, nbytes=nbytes, err=err)
+        log(f"  int8_kv_attention B={b} S={s} KV={kv} R={r} hd={hd} "
+            f"kv_block={blk}, ring after position {s + 4}, softcap {cap}: "
+            f"{splits} history ranges of {per} tiles; fp32 max_abs_err="
+            f"{err32:.3e} (tol 1e-5 rel) bf16 max_abs_err={err:.3e} (1 bf16 "
+            f"ulp); the cap moves the result by {moved:.3e}; lane with no "
+            f"valid slot is 0: {zero}; two launches bitwise equal {same}; "
+            f"ms={ms:.4f} plain_ms={pms:.4f} library_ms=none bound_ms="
+            f"{b_ms:.4f} ({by})")
+        check(ok32 and ok and zero and same and (moved > 0) == (cap > 0),
+              f"int8_kv_attention ring hd={hd} softcap={cap}")
+
+
 def kernels_quant_pack(table: KernelTable, g) -> None:
     """The int4 packer at internlm2's widest shapes and falcon-mamba's four
     (in, x, dt, out), fp32 weights as pack_for_serving gives them, half the
     cells exactly on a .5 tie of w / s; bitwise against the plain version
     and the older packer, and the same weights in bf16 bitwise against the
     plain version."""
+    for n, k in ((2048, 8192), (8192, 2048), (16384, 4096), (288, 8192),
+                 (8192, 256), (4096, 8192)):
+        check_quant_pack(table, g, n, k)
+
+
+def check_quant_pack(table: KernelTable, g, n: int, k: int,
+                     gs: int = 128) -> None:
+    """quant_pack against its plain version on (n, k) fp32 weights drawn
+    from g, half the cells exactly on a .5 tie of w / s: bitwise, the plain
+    version bitwise the older packer, bf16 weights bitwise; timed from a
+    CUDA graph over copies beyond L2 and added to ``table``."""
     import torch
     from repro_torch.core.quant import QuantParams, pack_int4, \
         quantize_codes
     from repro_torch.kernels import ops, ref
 
     dev = torch.device("cuda")
-    gs = 128
-    for n, k in ((2048, 8192), (8192, 2048), (16384, 4096), (288, 8192),
-                 (8192, 256), (4096, 8192)):
-        scales = torch.exp2(torch.randint(-8, -4, (n, k // gs), generator=g,
-                                          device=dev).float())
-        zeros = torch.randint(0, 16, (n, k // gs), generator=g,
-                              device=dev).float()
-        s_full = scales.repeat_interleave(gs, dim=1)
-        ties = (torch.randint(-12, 12, (n, k), generator=g, device=dev)
-                + 0.5) * s_full
-        free = torch.randn((n, k), generator=g, device=dev) * 8 * s_full
-        w = torch.where(torch.rand((n, k), generator=g, device=dev) < 0.5,
-                        ties, free)
-        want = ref.quant_pack(w, scales, zeros, gs)
-        got = ops.quant_pack_cuda(w, scales, zeros, gs)
-        older = pack_int4(quantize_codes(w, QuantParams(scales, zeros), 4,
-                                         gs))
-        n_diff = int((got != want).sum())
-        err = float((got.int() - want.int()).abs().max())
-        same = n_diff == 0 and torch.equal(want, older)
-        nbytes = 4 * n * k + 8 * n * k / gs + n * k / 2
-        args = (w, scales, zeros)
-        copies = [args] + [tuple(t.clone() for t in args)
-                           for _ in range(int(100e6 // nbytes))]
-        ms = graph_ms([(lambda c=c: ops.quant_pack_cuda(*c, gs))
-                       for c in copies])
-        pms = graph_ms([(lambda c=c: ref.quant_pack(*c, gs))
-                        for c in copies])
-        del copies
-        b_ms, by = table.add("quant_pack", ms=ms, plain_ms=pms,
-                             flop=4 * n * k, nbytes=nbytes, err=err)
-        w16 = w.to(torch.bfloat16)
-        same16 = torch.equal(ops.quant_pack_cuda(w16, scales, zeros, gs),
-                             ref.quant_pack(w16, scales, zeros, gs))
-        log(f"  quant_pack n={n} k={k} fp32 g={gs}: bytes differing from "
-            f"the plain version {n_diff} (tol 0; plain equals the older "
-            f"packer: {torch.equal(want, older)}) ms={ms:.4f} "
-            f"plain_ms={pms:.4f} library_ms=none bound_ms={b_ms:.4f} "
-            f"({by}, {b_ms / ms:.2f} of it); bf16 weights bitwise equal to "
-            f"the plain version {same16}")
-        check(same and same16, f"quant_pack {n}x{k}")
+    scales = torch.exp2(torch.randint(-8, -4, (n, k // gs), generator=g,
+                                      device=dev).float())
+    zeros = torch.randint(0, 16, (n, k // gs), generator=g,
+                          device=dev).float()
+    s_full = scales.repeat_interleave(gs, dim=1)
+    ties = (torch.randint(-12, 12, (n, k), generator=g, device=dev)
+            + 0.5) * s_full
+    free = torch.randn((n, k), generator=g, device=dev) * 8 * s_full
+    w = torch.where(torch.rand((n, k), generator=g, device=dev) < 0.5,
+                    ties, free)
+    want = ref.quant_pack(w, scales, zeros, gs)
+    got = ops.quant_pack_cuda(w, scales, zeros, gs)
+    older = pack_int4(quantize_codes(w, QuantParams(scales, zeros), 4, gs))
+    n_diff = int((got != want).sum())
+    err = float((got.int() - want.int()).abs().max())
+    same = n_diff == 0 and torch.equal(want, older)
+    nbytes = 4 * n * k + 8 * n * k / gs + n * k / 2
+    args = (w, scales, zeros)
+    copies = [args] + [tuple(t.clone() for t in args)
+                       for _ in range(int(100e6 // nbytes))]
+    ms = graph_ms([(lambda c=c: ops.quant_pack_cuda(*c, gs))
+                   for c in copies])
+    pms = graph_ms([(lambda c=c: ref.quant_pack(*c, gs)) for c in copies])
+    del copies
+    b_ms, by = table.add("quant_pack", ms=ms, plain_ms=pms,
+                         flop=4 * n * k, nbytes=nbytes, err=err)
+    w16 = w.to(torch.bfloat16)
+    same16 = torch.equal(ops.quant_pack_cuda(w16, scales, zeros, gs),
+                         ref.quant_pack(w16, scales, zeros, gs))
+    log(f"  quant_pack n={n} k={k} fp32 g={gs}: bytes differing from "
+        f"the plain version {n_diff} (tol 0; plain equals the older "
+        f"packer: {torch.equal(want, older)}) ms={ms:.4f} "
+        f"plain_ms={pms:.4f} library_ms=none bound_ms={b_ms:.4f} "
+        f"({by}, {b_ms / ms:.2f} of it); bf16 weights bitwise equal to "
+        f"the plain version {same16}")
+    check(same and same16, f"quant_pack {n}x{k}")
+
+
+def kernels_dense_shapes(table: KernelTable) -> None:
+    """Phase 9's shapes, each kernel against its plain version at phase
+    3's pins and timed into the kernel table, from a generator of its
+    own: h2o-danube-1.8b (d 2560, q/o 2560 x 2560, k/v 640 x 2560, d_ff
+    6912) and pixtral-12b (d 5120, q 4096 x 5120, k/v 1024 x 5120, o 5120
+    x 4096, d_ff 14336). ``hessian_accum`` at d 2560, 6912, 5120 and
+    14336 (n 512); bf16 ``w4a16_matmul`` at every new (k, n) at decode m 2
+    (two requests) and prefill m 2048; ``gptq_block`` and ``rpiq_block``
+    at the nine groups the planner forms (n 512); ``quant_pack`` at the
+    nine weight shapes. At these groups ``rpiq_block``'s Gamma against the
+    plain version's is reported, not held, as at 288 rows in
+    ``kernels_rpiq_seeds``: at (1, 2560, 6912) the two sides' iterates,
+    which the cell and Y_q pins hold, drift apart in an intermediate round
+    by about the width of that pin, while each side's Gamma is held to
+    1e-6 of its own iterate's exact Gamma."""
+    import torch
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(4324)
+    for d in (2560, 6912, 5120, 14336):
+        check_hessian_accum(table, g, 512, d)
+    kn = ((2560, 2560), (2560, 640), (2560, 6912), (6912, 2560),
+          (5120, 4096), (5120, 1024), (4096, 5120), (5120, 14336),
+          (14336, 5120))
+    for m in (2, 2048):
+        for k, n in kn:
+            check_w4a16(table, g, m, k, n, torch.bfloat16, 128)
+    groups = ((2, 2560, 2560), (2, 640, 2560), (2, 6912, 2560),
+              (1, 2560, 6912), (1, 4096, 5120), (2, 1024, 5120),
+              (1, 5120, 4096), (2, 14336, 5120), (1, 5120, 14336))
+    held = 0
+    for b, out_dim, in_dim in groups:
+        case = group_case(g, b, out_dim, in_dim, 512)
+        w0, scales, zeros = check_gptq(case, 128, 128, table)
+        held += check_rpiq(case, w0, scales, zeros, 128, 128, 5, 0.01, table,
+                           cross_gamma=False)
+        del case
+    log(f"  rpiq_block at phase 9's groups: the kernel's Gamma within its "
+        f"pin of the plain version's at {held} of {len(groups)}")
+    for k, n in kn:
+        check_quant_pack(table, g, n, k)
 
 
 def kernels_selective_scan(table: KernelTable, g) -> None:
@@ -999,8 +1173,23 @@ def kernels_selective_scan(table: KernelTable, g) -> None:
         check(ok, f"selective_scan S={s}")
 
 
+def with_frontend(mc, batch: dict, seed: int, device="cpu") -> dict:
+    """``batch`` with ``mc.frontend_tokens`` seeded standard-normal patch
+    embeddings (B, F, d_model) added, for a model with a frontend."""
+    import torch
+    if mc.frontend_tokens:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        batch["embeds"] = torch.randn(
+            (batch["tokens"].shape[0], mc.frontend_tokens, mc.d_model),
+            generator=gen, device=device)
+    return batch
+
+
 def phase_small_end_to_end(arch: str, kv_cache: str) -> None:
-    """A smoke config in fp32: the card's run against the CPU plain run."""
+    """A smoke config in fp32: the card's run against the CPU plain run
+    (pixtral's calibration batches and requests with their patch
+    embeddings)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.pipeline import pack_for_serving, quantize_model
@@ -1012,17 +1201,20 @@ def phase_small_end_to_end(arch: str, kv_cache: str) -> None:
     cfg = get_config(arch, smoke=True)
     cfg.model.dtype = "float32"
     cfg.serve.kv_cache = kv_cache
+    mc = cfg.model
     gen = torch.Generator()
     gen.manual_seed(0)
-    params = T.init_params(cfg.model, gen, "cpu")
-    calib = calibration_batches(MarkovLM(cfg.model.vocab_size, seed=7),
-                                3, 4, 32)
-    prompt = MarkovLM(cfg.model.vocab_size, seed=3).batch(2, 8)
+    params = T.init_params(mc, gen, "cpu")
+    calib = [with_frontend(mc, b, 20 + i) for i, b in enumerate(
+        calibration_batches(MarkovLM(mc.vocab_size, seed=7), 3, 4, 32))]
+    prompt = with_frontend(mc, MarkovLM(mc.vocab_size, seed=3).batch(2, 8),
+                           30)
     runs = {}
     for dev in ("cpu", "cuda"):
         pq, rep = quantize_model(cfg, params, calib, device=dev)
         pk = pack_for_serving(cfg, pq)
-        logits = T.forward(cfg.model, pk, calib[-1]["tokens"].to(dev))
+        logits = T.forward(mc, pk, calib[-1]["tokens"].to(dev),
+                           calib[-1].get("embeds"))
         toks = generate(cfg, pk, prompt, device=dev, max_new_tokens=6)
         runs[dev] = (rep, pk, logits.cpu(), toks.tokens.cpu())
     (rc, pc, lc, tc), (rg, pg, lg, tg) = runs["cpu"], runs["cuda"]
@@ -1047,7 +1239,7 @@ def phase_small_end_to_end(arch: str, kv_cache: str) -> None:
 
 def phase_small_bf16(arch: str, kv_cache: str) -> None:
     """A smoke config at its own dtype (bf16) and group size (opt-proxy
-    16, internlm2 and falcon-mamba 8) on the card: quantize → pack →
+    16, the others 8) on the card: quantize → pack →
     generate runs; the first layer's kernel calls on the packed model are
     held against their plain versions on the same inputs at phase 3's pin
     (one bf16 ulp)."""
@@ -1064,19 +1256,20 @@ def phase_small_bf16(arch: str, kv_cache: str) -> None:
     gen = torch.Generator()
     gen.manual_seed(0)
     params = T.init_params(mc, gen, "cpu")
-    calib = calibration_batches(MarkovLM(mc.vocab_size, seed=7), 3, 4, 32)
+    calib = [with_frontend(mc, b, 20 + i) for i, b in enumerate(
+        calibration_batches(MarkovLM(mc.vocab_size, seed=7), 3, 4, 32))]
     n_req, n_prompt = 2, 8
-    prompt = MarkovLM(mc.vocab_size, seed=3).batch(n_req, n_prompt)
+    prompt = with_frontend(mc, MarkovLM(mc.vocab_size, seed=3).batch(
+        n_req, n_prompt), 30)
     pq, rep = quantize_model(cfg, params, calib, device="cuda")
     pk = pack_for_serving(cfg, pq)
     toks = generate(cfg, pk, prompt, device="cuda", max_new_tokens=6)
     n_quant = sum(1 for rec in rep.linears if rec.mode != "skipped")
-    ptoks = prompt["tokens"].cuda()
-    h = T.embed(pk["embed"], ptoks, T.compute_dtype(mc))
+    h = T.embed_inputs(mc, pk, prompt["tokens"].cuda(), prompt.get("embeds"))
     calls = []
     with paired_route(calls):
         h = T.layer_forward(mc, T.layer_specs(mc)[0], pk["layers"][0], h,
-                            T.positions_for(n_req, n_prompt, "cuda"))
+                            T.positions_for(n_req, h.shape[1], "cuda"))
     worst = {op: max(v for o, v in calls if o == op)
              for op in sorted({o for o, _ in calls})}
     finite = bool(torch.isfinite(h.float()).all())
@@ -1103,22 +1296,32 @@ def _nbytes_bf16_vs_int4(pk) -> tuple:
 
 
 def drive_main_path(arch: str, kv_cache: str, n_req: int, n_prompt: int,
-                    n_new: int) -> dict:
-    """A config at full width and depth from seeded random weights:
-    quantize_model → pack_for_serving → generate, with the launch counters
-    reset just before and read just after; prints the counters, walls,
-    bytes and peak memory and returns what the checks need."""
+                    n_new: int, layers: int = 0,
+                    calib_shape: tuple = (4, 4, 128)) -> dict:
+    """A config at full width from seeded random weights, at full depth
+    unless ``layers`` cuts it: quantize_model → pack_for_serving →
+    generate, with the launch counters reset just before and read just
+    after; calibration ``MarkovLM(vocab, seed=7)`` batches x rows x tokens
+    (``calib_shape``), a model with a frontend getting its patch
+    embeddings (seeded ``torch.randn`` on the card) in every calibration
+    batch and request. Prints the counters, walls, bytes and peak memory
+    and returns what the checks need, with ``starts`` the first decode
+    position of generate's lanes."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.pipeline import pack_for_serving, quantize_model
     from repro_torch.data import MarkovLM, calibration_batches
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
+    from repro_torch.serving import engine
     from repro_torch.serving.engine import generate
 
     cfg = get_config(arch)
     cfg.serve.kv_cache = kv_cache
     mc, qc = cfg.model, cfg.quant
+    full_depth = mc.num_layers
+    if layers:
+        mc.num_layers = layers
     if "mamba" in mc.layer_kinds:
         widths = (f"kinds={mc.block_pattern} d_inner="
                   f"{mc.ssm.expand * mc.d_model} d_state={mc.ssm.d_state} "
@@ -1126,18 +1329,29 @@ def drive_main_path(arch: str, kv_cache: str, n_req: int, n_prompt: int,
     else:
         widths = (f"heads={mc.num_heads} kv_heads={mc.num_kv_heads} "
                   f"head_dim={mc.head_dim} d_ff={mc.d_ff}")
+        if mc.window_size:
+            widths += f" window={mc.window_size} kinds={mc.block_pattern}"
+        if mc.frontend_tokens:
+            widths += (f" frontend={mc.frontend} "
+                       f"x {mc.frontend_tokens} patch embeddings")
+    depth = (f"depth cut to {mc.num_layers} of {full_depth}" if layers
+             else "depth not cut")
     log(f"  config: {mc.name} layers={mc.num_layers} d_model={mc.d_model} "
         f"{widths} vocab={mc.vocab_size} "
         f"dtype={mc.dtype}; quant group={qc.group_size} "
         f"blocksize={qc.blocksize} rpiq_iters={qc.rpiq_iters}; serve "
-        f"kv_cache={kv_cache} (depth not cut)")
+        f"kv_cache={kv_cache} ({depth}); calibration {calib_shape[0]} "
+        f"batches x {calib_shape[1]} x {calib_shape[2]} tokens; "
+        f"{n_req} requests x {n_prompt} prompt tokens + {n_new} new")
     torch.cuda.synchronize()
     held_before = torch.cuda.memory_allocated()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     params = T.init_params(mc, gen, "cuda")
-    calib = calibration_batches(MarkovLM(mc.vocab_size, seed=7), 4, 4, 128)
-    prompt = MarkovLM(mc.vocab_size, seed=3).batch(n_req, n_prompt)
+    calib = [with_frontend(mc, b, 20 + i, "cuda") for i, b in enumerate(
+        calibration_batches(MarkovLM(mc.vocab_size, seed=7), *calib_shape))]
+    prompt = with_frontend(mc, MarkovLM(mc.vocab_size, seed=3).batch(
+        n_req, n_prompt), 30, "cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -1150,7 +1364,10 @@ def drive_main_path(arch: str, kv_cache: str, n_req: int, n_prompt: int,
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     before_gen = ops.kernel_launches()
-    res = generate(cfg, packed, prompt, max_new_tokens=n_new)
+    starts, pre = [], []
+    with patched(engine, "DecodeLoop", recording_starts(starts)), \
+            patched(engine, "prefill", timed(pre)):
+        res = generate(cfg, packed, prompt, max_new_tokens=n_new)
     torch.cuda.synchronize()
     t3 = time.perf_counter()
     launches = ops.kernel_launches()
@@ -1165,8 +1382,9 @@ def drive_main_path(arch: str, kv_cache: str, n_req: int, n_prompt: int,
         f"{report.seconds_stage1:.3f} stage2={report.seconds_stage2:.3f} "
         f"capture+propagate+rest={rest:.3f}) pack_for_serving="
         f"{t2 - t1:.3f} generate={t3 - t2:.3f} ({n_req} requests x "
-        f"{n_prompt} prompt + {n_new} new tokens; its decode step's graph "
-        f"capture {res.capture_s:.4f})")
+        f"{n_prompt} prompt + {n_new} new tokens; its prefill "
+        f"{pre[0]:.4f}, its decode step's graph capture "
+        f"{res.capture_s:.4f}); decode started at positions {starts[0]}")
     log(f"  layer step walls (s): "
         f"{[round(x, 3) for x in report.layer_step_seconds]}")
     bf16, int4 = _nbytes_bf16_vs_int4(packed)
@@ -1177,7 +1395,8 @@ def drive_main_path(arch: str, kv_cache: str, n_req: int, n_prompt: int,
         f"path {peak - held_before} bytes")
     decode_graph_checks(cfg, packed, prompt, res, gen_launches, n_new)
     return dict(cfg=cfg, params_q=params_q, packed=packed, calib=calib,
-                prompt=prompt, res=res, launches=launches, report=report)
+                prompt=prompt, res=res, launches=launches, report=report,
+                starts=starts)
 
 
 def decode_graph_checks(cfg, packed, prompt, res, gen_launches: dict,
@@ -1193,8 +1412,8 @@ def decode_graph_checks(cfg, packed, prompt, res, gen_launches: dict,
     from repro_torch.kernels import ops
     from repro_torch.serving import engine
 
-    toks = prompt["tokens"].cuda()
-    s0 = toks.shape[1]
+    inputs = {k: v.cuda() for k, v in prompt.items()}
+    s0 = sum(v.shape[1] for v in inputs.values())   # tokens + embeds
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -1204,8 +1423,7 @@ def decode_graph_checks(cfg, packed, prompt, res, gen_launches: dict,
         return out, time.perf_counter() - t
 
     def fresh_loop():
-        lg, caches = engine.prefill(cfg, packed, {"tokens": toks},
-                                    s0 + n_new + 1)
+        lg, caches = engine.prefill(cfg, packed, inputs, s0 + n_new + 1)
         return engine.DecodeLoop(cfg, packed, lg, caches, s0, n_new, -1,
                                  0.0, None)
 
@@ -1668,6 +1886,264 @@ def phase_mamba_path() -> dict:
     return launches
 
 
+def ring_against_full(cfg, packed, prompt, tokens, n_steps: int) -> tuple:
+    """In fp32 compute, prefill and ``n_steps`` decode steps fed
+    ``tokens`` (B, n_steps) on the model's ring caches and on full-length
+    caches that the window masks (``init_layer_cache`` patched: same
+    codes, scales and values, other slots, so the two differ only in the
+    order the attention sums its slots); returns (the largest relative
+    error of a step's logits, the ring caches' bytes, the full-length
+    caches' bytes, the ring's rows, the full-length rows)."""
+    import torch
+    from repro_torch.models import attention as A
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import cache_dtype
+
+    mc = dataclasses.replace(cfg.model, dtype="float32")
+    toks = prompt["tokens"].cuda()
+    b, s0 = toks.shape
+    max_len = s0 + n_steps + 1
+    cdt = cache_dtype(cfg)
+
+    def run():
+        lg, caches = T.prefill(mc, packed, toks, max_len, cache_dtype=cdt)
+        out = []
+        pos = torch.full((b,), s0, dtype=torch.long, device="cuda")
+        for i in range(n_steps):
+            lg, caches = T.decode_step(mc, packed, tokens[:, i], pos, caches)
+            out.append(lg)
+            pos = pos + 1
+        return out, caches
+
+    def nbytes(caches):
+        return sum(t.numel() * t.element_size() for c in caches
+                   for t in c.values())
+
+    ring, caches = run()
+    rows, ring_bytes = {c["k"].shape[1] for c in caches}, nbytes(caches)
+    del caches
+    with patched(T, "init_layer_cache", lambda orig: (
+            lambda c, spec, b_, n, dev, dt: A.init_kv_cache(c, b_, n, dev,
+                                                            dt))):
+        full, caches = run()
+    full_rows, full_bytes = {c["k"].shape[1] for c in caches}, nbytes(caches)
+    del caches
+    worst = max(float((a - f).norm() / f.norm()) for a, f in zip(ring, full))
+    return worst, ring_bytes, full_bytes, rows, full_rows
+
+
+def phase_ring_path(smi: str) -> dict:
+    """9a: h2o-danube-1.8b at full width and depth (24 "swa" layers,
+    window 4096, head_dim 80) → quantize_model → pack_for_serving →
+    generate on the int8 ring with a 4608-token prompt (the prefill keeps
+    the last 4096 positions), then two more serves of 4080-token prompts
+    (int8 and bf16 cache) whose decode crosses the wrap at position 4096
+    inside the replayed graph. Checks: each generate's replay bitwise the
+    eager loop's; each leg's first decode steps, in fp32 compute, against
+    full-length caches that the window masks (every step across the
+    wrap); the int8-vs-bf16 drift rule of phase 6 across the wrap; the
+    ring's bytes those of min(window, max_len) rows."""
+    import torch
+    from repro_torch.data import MarkovLM
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import engine
+    from repro_torch.serving.engine import generate
+
+    n_req, n_new = 2, 32
+    r = drive_main_path("h2o-danube-1.8b", "int8", n_req, 4608, n_new)
+    cfg, packed, launches = r["cfg"], r["packed"], r["launches"]
+    del r["params_q"]
+    mc = cfg.model
+    w = mc.window_size
+    check(r["starts"] == [[4608] * n_req], "9a: decode starts after the "
+          "prompt")
+    legs = [("int8", r["prompt"], r["res"])]
+    for kv in ("int8", "fp16"):
+        cfg.serve.kv_cache = kv
+        prompt = MarkovLM(mc.vocab_size, seed=3).batch(n_req, 4080)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        before = ops.kernel_launches()
+        pre = []
+        with patched(engine, "prefill", timed(pre)):
+            res = generate(cfg, packed, prompt, max_new_tokens=n_new)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        after = ops.kernel_launches()
+        counts = {k: after[k] - before[k] for k in after}
+        for k, n in counts.items():
+            launches[k] += n
+        log(f"  leg {kv} cache, {n_req} x 4080 prompt + {n_new} new "
+            f"(decode crosses the wrap at 4096): generate {wall:.3f} s, "
+            f"prefill {pre[0]:.4f}, capture {res.capture_s:.4f} [{smi}]; "
+            f"launches "
+            f"{json.dumps(counts)}")
+        decode_graph_checks(cfg, packed, prompt, res, counts, n_new)
+        legs.append((kv, prompt, res))
+    for name, n in launches.items():
+        if name == "selective_scan":
+            check(n == 0, "selective_scan launched on the ring path")
+        else:
+            check(n > 0, f"kernel {name} was not launched on the ring path")
+    # the two int8 legs' decode steps after the first eager one
+    kv_calls = 2 * mc.num_layers * (n_new - 1)
+    check(launches["int8_kv_attention"] == kv_calls,
+          f"int8_kv_attention launched {launches['int8_kv_attention']} "
+          f"times, expected {kv_calls} (2 int8 legs x layers x decode steps)")
+
+    for kv, prompt, res in legs:
+        cfg.serve.kv_cache = kv
+        s0 = prompt["tokens"].shape[1]
+        steps = 2 if s0 > w else 20
+        worst, nbytes, full_bytes, rows, full_rows = ring_against_full(
+            cfg, packed, prompt, res.tokens[:, :steps].cuda(), steps)
+        max_len = s0 + steps + 1
+        log(f"  {kv} cache, prompt {s0}: {steps} decode steps in fp32 "
+            f"compute, ring against full-length caches masked by the "
+            f"window: largest rel err of a step's logits {worst:.3e} (tol "
+            f"1e-4); rows a layer {sorted(rows)} (full-length "
+            f"{sorted(full_rows)}); cache bytes ({mc.num_layers} layers, "
+            f"{n_req} lanes) {nbytes} against {full_bytes} full-length "
+            f"({full_bytes / nbytes:.3f}x)")
+        check(worst <= 1e-4 and rows == {min(w, max_len)}
+              and full_rows == {max_len} and nbytes < full_bytes,
+              f"9a: ring against full-length caches, {kv} cache, prompt "
+              f"{s0}")
+
+    # drift across the wrap: the int8 and the bf16 ring fed the same
+    # (bf16-chosen) stream from the 4080-token prompt, 32 steps
+    ptoks = legs[1][1]["tokens"].cuda()
+    caches = {}
+    lg, caches["bf16"] = T.prefill(mc, packed, ptoks, 4080 + 33,
+                                   cache_dtype=torch.bfloat16)
+    _, caches["int8"] = T.prefill(mc, packed, ptoks, 4080 + 33,
+                                  cache_dtype="int8")
+    tok = torch.argmax(lg, -1)
+    pos = torch.full((n_req,), 4080, dtype=torch.long, device="cuda")
+    deltas, scale = [], 0.0
+    for _ in range(32):
+        out = {}
+        for kind in ("bf16", "int8"):
+            out[kind], caches[kind] = T.decode_step(mc, packed, tok, pos,
+                                                    caches[kind])
+        deltas.append(float((out["bf16"] - out["int8"]).abs().max()))
+        scale = max(scale, float(out["bf16"].abs().max()))
+        tok = torch.argmax(out["bf16"], -1)
+        pos = pos + 1
+    del caches
+    early, late = max(deltas[:16]), max(deltas[16:])
+    log(f"  drift int8 vs bf16 ring over 32 steps from position 4080 (the "
+        f"wrap at step 16): max |dlogit| per step "
+        f"{[round(d, 4) for d in deltas]}; max {max(deltas):.4f} = "
+        f"{max(deltas) / scale:.3e} of max |logit| {scale:.3f}; late "
+        f"{late:.4f} <= 3 x early {early:.4f} + 0.05: "
+        f"{late <= 3 * early + 0.05}")
+    check(late <= 3 * early + 0.05, "9a: int8 ring drift does not "
+          "accumulate across the wrap")
+    log(f"  decoded tokens (int8, prompt 4608, request 0): "
+        f"{legs[0][2].tokens[0].tolist()}")
+    del r, legs, packed
+    return launches
+
+
+def phase_vlm_path(smi: str) -> dict:
+    """9b: pixtral-12b at full width (d 5120, 32 heads over 8 KV heads,
+    head_dim 128, d_ff 14336, vocab 131072), its depth cut to 26 of 40
+    layers so that quantization (the float layers before and after, ~2.3
+    GB a layer beside ~15 GB of embedding, head and work: ~75 GB) fits the
+    card, every calibration batch (4 x 2 x 128 tokens) and request (2 x 64
+    tokens + 32 new) with the config's 1024 patch embeddings:
+    quantize_model → pack_for_serving → generate, the replay bitwise the
+    eager loop, decode starting at 64 + 1024, the packed int4 logits
+    against the refined float logits in fp32 compute (1e-3; in bf16 the
+    float model rounds its weights to bf16 before each product, which the
+    packed one does not, so that reading is printed, not held); then
+    ``launch.serve --arch pixtral-12b --pack-rtn`` at all 40 layers (49 GB
+    of float weights, then int4) with its 8 patch embeddings a request,
+    its tokens equal to pack_for_serving → generate called directly."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipeline import pack_for_serving
+    from repro_torch.data import MarkovLM
+    from repro_torch.launch import serve as LS
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import engine
+    from repro_torch.serving.engine import generate
+
+    n_req, n_prompt, n_new, layers = 2, 64, 32, 26
+    r = drive_main_path("pixtral-12b", "fp16", n_req, n_prompt, n_new,
+                        layers=layers, calib_shape=(4, 2, 128))
+    cfg, launches = r["cfg"], r["launches"]
+    mc = cfg.model
+    for name, n in launches.items():
+        if name in ("selective_scan", "int8_kv_attention"):
+            check(n == 0, f"{name} launched on the pixtral path")
+        else:
+            check(n > 0, f"kernel {name} was not launched on the pixtral "
+                  "path")
+    start = n_prompt + mc.frontend_tokens
+    last = r["calib"][-1]
+    rel = {}
+    for dt in ("float32", "bfloat16"):
+        mdt = dataclasses.replace(mc, dtype=dt)
+        lq = T.forward(mdt, r["packed"], last["tokens"].cuda(),
+                       last["embeds"])
+        lf = T.forward(mdt, r["params_q"], last["tokens"].cuda(),
+                       last["embeds"])
+        rel[dt] = float((lq - lf).norm() / (lf.norm() + 1e-9))
+        finite = bool(torch.isfinite(lq).all())
+        del lq, lf
+    log(f"  decode started at positions {r['starts'][0]} (64 prompt tokens "
+        f"after 1024 patch embeddings: {start})")
+    log(f"  packed int4 vs refined-grid float logits on the last "
+        f"calibration batch (1024 + 128 positions): fp32 compute rel err "
+        f"{rel['float32']:.3e} (tol 1e-3); bf16 compute "
+        f"{rel['bfloat16']:.5f} (not pinned: the float model's bf16 weight "
+        f"rounding, as phase 6); finite {finite}")
+    log(f"  decoded tokens (request 0): {r['res'].tokens[0].tolist()}")
+    check(r["starts"] == [[start] * n_req] and rel["float32"] < 1e-3
+          and finite
+          and tuple(r["res"].tokens.shape) == (n_req, n_new),
+          "9b: pixtral path output check")
+    del r
+    torch.cuda.empty_cache()
+
+    log(f"  launch.serve --arch pixtral-12b --pack-rtn at all "
+        f"{get_config('pixtral-12b').model.num_layers} layers ({n_req} "
+        f"requests x {n_prompt} prompt + 8 patch embeddings + {n_new} new)")
+    argv = ["--arch", "pixtral-12b", "--pack-rtn", "--batch", str(n_req),
+            "--prompt-len", str(n_prompt), f"serve.max_new_tokens={n_new}"]
+    torch.cuda.reset_peak_memory_stats()
+    starts = []
+    with patched(engine, "DecodeLoop", recording_starts(starts)):
+        res, counts = serve_walls(LS, argv, launches, "pixtral-12b", smi)
+    peak = torch.cuda.max_memory_allocated()
+    cfg = get_config("pixtral-12b")
+    cfg.serve.max_new_tokens = n_new
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    packed = pack_for_serving(cfg, T.init_params(cfg.model, gen, "cuda"))
+    batch = MarkovLM(cfg.model.vocab_size, seed=3).batch(n_req, n_prompt)
+    gen = torch.Generator()
+    gen.manual_seed(3)
+    batch["embeds"] = torch.randn((n_req, 8, cfg.model.d_model),
+                                  generator=gen)
+    res_d = generate(cfg, packed, batch)
+    del packed
+    torch.cuda.empty_cache()
+    same = bool(torch.equal(res.tokens, res_d.tokens))
+    log(f"  tokens equal pack_for_serving -> generate called directly: "
+        f"{same}; decode started at {starts} ({n_prompt} + 8); peak device "
+        f"memory {peak} bytes [{smi}]; decoded tokens (request 0): "
+        f"{res.tokens[0].tolist()}")
+    check(same and starts == [[n_prompt + 8] * n_req]
+          and counts["quant_pack"] > 0 and counts["w4a16_matmul"] > 0
+          and tuple(res.tokens.shape) == (n_req, n_new),
+          "9b: launch.serve --arch pixtral-12b --pack-rtn")
+    return launches
+
+
 @contextlib.contextmanager
 def patched(obj, name: str, make):
     """Replace ``obj.name`` by ``make(original)`` inside the block."""
@@ -1677,6 +2153,18 @@ def patched(obj, name: str, make):
         yield
     finally:
         setattr(obj, name, orig)
+
+
+def recording_starts(starts: list):
+    """A wrapper maker for ``patched`` on ``engine.DecodeLoop``: each loop
+    built appends its lanes' first decode positions to ``starts``."""
+    def make(loop_cls):
+        class Loop(loop_cls):
+            def __init__(self, *args, **kwargs):
+                super().__init__(*args, **kwargs)
+                starts.append(self.pos.tolist())
+        return Loop
+    return make
 
 
 def timed(walls: list, sync: bool = True):
@@ -2072,6 +2560,9 @@ def main() -> int:
     phase_small_bf16("opt-proxy", "fp16")
     phase_small_bf16("internlm2-1.8b", "int8")
     phase_small_bf16("falcon-mamba-7b", "fp16")
+    for arch, kv_cache in SMALL_DENSE:
+        phase_small_end_to_end(arch, kv_cache)
+        phase_small_bf16(arch, kv_cache)
 
     log("[5] main path at full width: opt-proxy")
     launches = phase_main_path()
@@ -2087,6 +2578,17 @@ def main() -> int:
     log("[8] the entry points at full width: launch.quantize, "
         "launch.serve, the example twins")
     for name, n in phase_entry_points(table, smi).items():
+        launches[name] += n
+
+    torch.cuda.empty_cache()
+    log("[9a] the ring path at full width and depth: h2o-danube-1.8b "
+        "(sliding window 4096, head_dim 80)")
+    for name, n in phase_ring_path(smi).items():
+        launches[name] += n
+    torch.cuda.empty_cache()
+    log("[9b] the vision-language path at full width: pixtral-12b with "
+        "1024 patch embeddings")
+    for name, n in phase_vlm_path(smi).items():
         launches[name] += n
 
     log(f"  total {time.perf_counter() - t_start:.1f}s")

@@ -13,9 +13,11 @@ from __future__ import annotations
 from dataclasses import dataclass, field, fields, is_dataclass
 from typing import Any, Dict, List, Tuple
 
-# the layer kinds the port runs; the JAX package's others (swa, local,
-# rglru, mla) wait in ROADMAP.md's port queue
-PORTED_KINDS = ("attn", "mamba")
+# the layer kinds the port runs ("swa" and "local" are windowed attention
+# on a ring cache); the JAX package's others wait in ROADMAP.md's port
+# queue, under the item named here
+PORTED_KINDS = ("attn", "swa", "local", "mamba")
+UNPORTED_KINDS = {"rglru": 16, "mla": 16}
 
 
 @dataclass
@@ -38,14 +40,23 @@ class ModelConfig:
     d_ff: int = 512
     vocab_size: int = 512
     max_seq_len: int = 8192
-    # block kinds ("attn" | "mamba"), cycled over the layer stack
+    # block kinds ("attn" | "swa" | "local" | "mamba"), cycled over the
+    # layer stack
     block_pattern: Tuple[str, ...] = ("attn",)
+    window_size: int = 0            # swa/local attention window (0 = full)
     norm: str = "rmsnorm"           # rmsnorm | layernorm
     act: str = "silu"               # silu (gated) | gelu (ungated)
     gated_mlp: bool = True
     rope_theta: float = 10000.0
+    tie_embeddings: bool = False    # the head is embedding.T (no lm_head)
+    logits_softcap: float = 0.0     # tanh(logits / c) * c when > 0
+    attn_logits_softcap: float = 0.0    # the same on attention scores
     dtype: str = "bfloat16"         # compute dtype
     ssm: SSMConfig = field(default_factory=SSMConfig)
+    # modality frontend stub: "none" | "vision" | "audio"; its
+    # frontend_tokens precomputed embeddings are prepended at prefill
+    frontend: str = "none"
+    frontend_tokens: int = 0
 
     def __post_init__(self):
         if self.head_dim == 0:
@@ -54,10 +65,14 @@ class ModelConfig:
             self.ssm.dt_rank = max(1, -(-self.d_model // 16))
         bad = sorted(set(self.block_pattern) - set(PORTED_KINDS))
         if bad:
+            items = sorted({UNPORTED_KINDS[k] for k in bad
+                            if k in UNPORTED_KINDS})
+            where = (f"item {', '.join(map(str, items))}" if items
+                     else "'Modules to port'")
             raise ValueError(
                 f"block kinds {bad} are not ported to repro_torch yet "
                 f"(ported: {list(PORTED_KINDS)}); see ROADMAP.md, queue 1 "
-                "'Modules to port'")
+                f"{where}")
 
     @property
     def layer_kinds(self) -> Tuple[str, ...]:

@@ -1,3 +1,3 @@
-"""Architecture registry of the port (opt-proxy, internlm2-1.8b,
-falcon-mamba-7b)."""
+"""Architecture registry of the port (``ARCH_IDS`` lists the ported
+architectures)."""
 from repro_torch.configs.registry import ARCH_IDS, get_config  # noqa: F401

@@ -39,7 +39,6 @@ from repro_torch.core.stream import LayerStep, LayerWalker
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
-from repro_torch.models.layers import embed
 from repro_torch.models.linear import Tap
 
 Tensor = torch.Tensor
@@ -156,8 +155,10 @@ def propagate_layer(step: LayerStep, new_params: Dict, hs: List[Tensor]
 def _walker_decoder_only(cfg: Config, params: Dict, calib: List[Dict],
                          device: torch.device) -> LayerWalker:
     mc = cfg.model
-    dtype = T.compute_dtype(mc)
-    hs = [embed(params["embed"], b["tokens"].to(device), dtype)
+    # a batch's frontend embeds (pixtral's patches) go in front of its
+    # tokens, as at prefill
+    hs = [T.embed_inputs(mc, params, b["tokens"].to(device),
+                         b.get("embeds"))
           for b in calib]
     if len({h.shape[1] for h in hs}) != 1:
         raise ValueError("calibration batches must share seq_len")
@@ -188,7 +189,8 @@ def quantize_model(cfg: Config, params: Dict, calib: List[Dict[str, Tensor]],
                    verbose: bool = False) -> Tuple[Dict, QuantReport]:
     """Quantize every layer of a decoder-only model (GPTQ + RPIQ).
 
-    ``calib``: batch dicts ``{"tokens": (B, S)}``; the last batch is the
+    ``calib``: batch dicts ``{"tokens": (B, S), "embeds"?: (B, F, D)}``
+    (frontend embeddings, prepended to the tokens); the last batch is the
     single instance of stage 2. Runs on the CUDA card unless
     ``device="cpu"``; params and tokens are moved there. Returns float
     params whose quantized linears hold on-grid values (with their

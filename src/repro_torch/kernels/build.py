@@ -138,8 +138,10 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
             + [p],
             "rpiq_block_wide_partials": [i, i]},
         "int8_kv_attention": {
-            "int8_kv_attention_f32_launch": [p] * 7 + [i] * 8 + [p] * 3,
-            "int8_kv_attention_bf16_launch": [p] * 7 + [i] * 8 + [p] * 3},
+            "int8_kv_attention_f32_launch": [p] * 7 + [i] * 8 + [p] * 2
+            + [f, p],
+            "int8_kv_attention_bf16_launch": [p] * 7 + [i] * 8 + [p] * 2
+            + [f, p]},
         "quant_pack": {
             "quant_pack_f32_launch": [p] * 4 + [i] * 3 + [p],
             "quant_pack_bf16_launch": [p] * 4 + [i] * 3 + [p]},

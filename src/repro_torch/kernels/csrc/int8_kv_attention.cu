@@ -26,7 +26,8 @@
 //      row at once so that each code is converted once (q is staged with
 //      its halves 16 bytes apart, so the two halves' reads hit different
 //      banks); a kv_block segment's sum of q * code is scaled by its block
-//      scale; the halves meet by one shuffle; kpos < 0 is masked to -1e30;
+//      scale; the halves meet by one shuffle; with a soft cap c the score
+//      becomes tanhf(s / c) * c; kpos < 0 is masked to -1e30;
 //   2. the warp's running max m, denominator l and rescale factor alpha
 //      per query row, by shuffles over its 16 slots, with p set to 0 on
 //      masked slots after the exp (a fully masked tile would otherwise add
@@ -49,6 +50,15 @@
 // exact subtraction: the int-to-float instruction runs at an eighth of the
 // FMA rate. expf, and sums that differ from the plain version's only in
 // their order and in where the block scale is applied.
+//
+// The soft cap (the score of models with attn_logits_softcap, applied
+// before the mask as the TPU kernel does) is a template flag: the uncapped
+// instantiation is the code of the kernel before the cap existed, so a
+// call with softcap 0 keeps its results bit for bit; c is a launch
+// argument, so a captured graph replays it. It uses tanhf and a true
+// division, not tanh.approx.f32 (about 2^-11 relative error): near the cap
+// that error times c would exceed the fp32 pin of 1e-5 of the largest
+// output, and the plain version's tanh is accurate to an ulp or two.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -196,15 +206,15 @@ __device__ __forceinline__ void fold(const float* base, int n, int stride,
 // exist, and no lane holds accumulators it never uses. Block (g, b, z)
 // takes tiles [z * per, (z + 1) * per) of cell (b, g); with splits > 1,
 // work holds (splits, R * hd + 2 R) fp32 partials a cell and tickets one
-// counter a cell.
-template <typename T, int R, int QPL>
+// counter a cell. CAP: scores are soft-capped at softcap.
+template <typename T, int R, int QPL, bool CAP>
 __global__ void __launch_bounds__(THREADS, 2)
 kv_attn_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
                const float* __restrict__ ks, const int8_t* __restrict__ vc,
                const float* __restrict__ vs, const int* __restrict__ kpos,
                T* __restrict__ out, int S, int KV, int hd, int kv_block,
                int splits, int per, float* __restrict__ work,
-               int* __restrict__ tickets) {
+               int* __restrict__ tickets, float softcap) {
     const int g = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
     const int warp = tid / 32, lane = tid % 32;
     const int s_begin = blockIdx.z * per * TS;
@@ -308,6 +318,7 @@ kv_attn_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
         for (int r = 0; r < R; ++r) {
             float v = fmaf(seg[r], kscale, sc[r]);
             v += __shfl_xor_sync(0xffffffffu, v, 1);
+            if (CAP) v = tanhf(v / softcap) * softcap;
             v = valid ? v : NEG;
             // 2. the warp's online softmax over its 16 slots (each value is
             //    held by the slot's two lanes)
@@ -422,12 +433,12 @@ size_t smem_bytes(int R, int hd, int nb) {
     return head_bytes(R, hd) + (ring > comb ? ring : comb);
 }
 
-template <typename T, int R, int QPL>
+template <typename T, int R, int QPL, bool CAP>
 int launch_q(const T* q, const int8_t* kc, const float* ks, const int8_t* vc,
              const float* vs, const int* kpos, T* out, int B, int S, int KV,
              int hd, int kv_block, int splits, int per, float* work,
-             int* tickets, void* stream) {
-    constexpr auto kernel = &kv_attn_kernel<T, R, QPL>;
+             int* tickets, float softcap, void* stream) {
+    constexpr auto kernel = &kv_attn_kernel<T, R, QPL, CAP>;
     const size_t smem = smem_bytes(R, hd, hd / kv_block);
     if (smem > 48 * 1024) {
         const int lim = grant_max_dynamic_smem<kernel>();
@@ -437,39 +448,56 @@ int launch_q(const T* q, const int8_t* kc, const float* ks, const int8_t* vc,
     dim3 grid(KV, B, splits);
     kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
         q, kc, ks, vc, vs, kpos, out, S, KV, hd, kv_block, splits, per, work,
-        tickets);
+        tickets, softcap);
     return (int)cudaGetLastError();
+}
+
+template <typename T, int R, bool CAP>
+int launch_c(const T* q, const int8_t* kc, const float* ks, const int8_t* vc,
+             const float* vs, const int* kpos, T* out, int B, int S, int KV,
+             int hd, int kv_block, int splits, int per, float* work,
+             int* tickets, float softcap, void* stream) {
+    return hd > 128
+        ? launch_q<T, R, 2, CAP>(q, kc, ks, vc, vs, kpos, out, B, S, KV, hd,
+                                 kv_block, splits, per, work, tickets,
+                                 softcap, stream)
+        : launch_q<T, R, 1, CAP>(q, kc, ks, vc, vs, kpos, out, B, S, KV, hd,
+                                 kv_block, splits, per, work, tickets,
+                                 softcap, stream);
 }
 
 template <typename T, int R>
 int launch_r(const T* q, const int8_t* kc, const float* ks, const int8_t* vc,
              const float* vs, const int* kpos, T* out, int B, int S, int KV,
              int hd, int kv_block, int splits, int per, float* work,
-             int* tickets, void* stream) {
-    return hd > 128
-        ? launch_q<T, R, 2>(q, kc, ks, vc, vs, kpos, out, B, S, KV, hd,
-                            kv_block, splits, per, work, tickets, stream)
-        : launch_q<T, R, 1>(q, kc, ks, vc, vs, kpos, out, B, S, KV, hd,
-                            kv_block, splits, per, work, tickets, stream);
+             int* tickets, float softcap, void* stream) {
+    return softcap > 0.f
+        ? launch_c<T, R, true>(q, kc, ks, vc, vs, kpos, out, B, S, KV, hd,
+                               kv_block, splits, per, work, tickets, softcap,
+                               stream)
+        : launch_c<T, R, false>(q, kc, ks, vc, vs, kpos, out, B, S, KV, hd,
+                                kv_block, splits, per, work, tickets,
+                                softcap, stream);
 }
 
 template <typename T>
 int launch(const T* q, const int8_t* kc, const float* ks, const int8_t* vc,
            const float* vs, const int* kpos, T* out, int B, int S, int KV,
            int R, int hd, int kv_block, int splits, int per, float* work,
-           int* tickets, void* stream) {
+           int* tickets, float softcap, void* stream) {
     if (hd % 16 != 0 || hd > MAX_HD || kv_block % 4 != 0
         || hd % kv_block != 0 || hd / kv_block > MAX_NB
         || splits < 1 || per < 1 || splits > 65535
         || (long)(splits - 1) * per * TS >= S
-        || (splits > 1 && (work == nullptr || tickets == nullptr)))
+        || (splits > 1 && (work == nullptr || tickets == nullptr))
+        || !(softcap >= 0.f))
         return (int)cudaErrorInvalidValue;
     switch (R) {
 #define KV_ATTN_R(n)                                                       \
     case n:                                                                \
         return launch_r<T, n>(q, kc, ks, vc, vs, kpos, out, B, S, KV, hd,  \
                               kv_block, splits, per, work, tickets,        \
-                              stream);
+                              softcap, stream);
         KV_ATTN_R(1) KV_ATTN_R(2) KV_ATTN_R(3) KV_ATTN_R(4)
         KV_ATTN_R(5) KV_ATTN_R(6) KV_ATTN_R(7) KV_ATTN_R(8)
 #undef KV_ATTN_R
@@ -482,14 +510,16 @@ int launch(const T* q, const int8_t* kc, const float* ks, const int8_t* vc,
 
 // splits ranges of per tiles (of TS slots) a cell, none empty; with splits
 // > 1, work holds B * KV * splits * (R * hd + 2 R) floats and tickets B * KV
-// counters, zero before the launch and zero again after it
+// counters, zero before the launch and zero again after it; softcap >= 0
+// (0: no cap)
 extern "C" int int8_kv_attention_f32_launch(
         const float* q, const int8_t* kc, const float* ks, const int8_t* vc,
         const float* vs, const int* kpos, float* out, int B, int S, int KV,
         int R, int hd, int kv_block, int splits, int per, float* work,
-        int* tickets, void* stream) {
+        int* tickets, float softcap, void* stream) {
     return launch<float>(q, kc, ks, vc, vs, kpos, out, B, S, KV, R, hd,
-                         kv_block, splits, per, work, tickets, stream);
+                         kv_block, splits, per, work, tickets, softcap,
+                         stream);
 }
 
 extern "C" int int8_kv_attention_bf16_launch(
@@ -497,8 +527,8 @@ extern "C" int int8_kv_attention_bf16_launch(
         const int8_t* vc, const float* vs, const int* kpos,
         __nv_bfloat16* out, int B, int S, int KV, int R, int hd,
         int kv_block, int splits, int per, float* work, int* tickets,
-        void* stream) {
+        float softcap, void* stream) {
     return launch<__nv_bfloat16>(q, kc, ks, vc, vs, kpos, out, B, S, KV, R,
                                  hd, kv_block, splits, per, work, tickets,
-                                 stream);
+                                 softcap, stream);
 }

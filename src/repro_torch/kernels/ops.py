@@ -274,16 +274,34 @@ def w4a16_matmul_cuda(x: Tensor, packed: Tensor, scales: Tensor,
     return y
 
 
+def w4a16_pad_k(x: Tensor, packed: Tensor, scales: Tensor, zeros: Tensor,
+                group_size: int):
+    """The operands with k padded by zero columns to a multiple of 32 and
+    of the group, as the kernels' 16-byte rows need (minicpm smoke's k 72):
+    zero x columns, zero codes, and zero scales and zeros for the padded
+    groups, so every added product is an exact zero. Unchanged where k is
+    already such a multiple."""
+    pad = -x.shape[-1] % math.lcm(32, group_size)
+    if not pad:
+        return x, packed, scales, zeros
+    F = torch.nn.functional
+    return (F.pad(x, (0, pad)), F.pad(packed, (0, pad // 2)),
+            F.pad(scales, (0, pad // group_size)),
+            F.pad(zeros, (0, pad // group_size)))
+
+
 def w4a16_matmul(x: Tensor, packed: Tensor, scales: Tensor, zeros: Tensor,
                  *, group_size: int = 128) -> Tensor:
-    """x: (..., k); packed: (n, k//2) u8; scales/zeros: (n, k//group_size)."""
+    """x: (..., k); packed: (n, k//2) u8; scales/zeros: (n, k//group_size).
+    On the card a k that is no multiple of 32 is padded
+    (:func:`w4a16_pad_k`)."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if _is_plain(x, "w4a16_matmul"):
         y = ref.w4a16_matmul(x2, packed, scales, zeros, group_size)
     else:
-        y = w4a16_matmul_cuda(x2.contiguous(), packed, scales, zeros,
-                              group_size)
+        y = w4a16_matmul_cuda(*w4a16_pad_k(x2.contiguous(), packed, scales,
+                                           zeros, group_size), group_size)
     return y.reshape(*lead, -1)
 
 
@@ -599,10 +617,13 @@ def _kv_workspace(q: Tensor, cells: int, floats: int) -> Tuple[int, int]:
 
 def int8_kv_attention_cuda(q: Tensor, k_codes: Tensor, k_scales: Tensor,
                            v_codes: Tensor, v_scales: Tensor, kpos: Tensor,
-                           kv_block: int) -> Tensor:
+                           kv_block: int, softcap: float = 0.0) -> Tensor:
     """Kernel wrapper: same contract as :func:`ref.int8_kv_attention`. One
     launch a call: the history is split over blocks
-    (:func:`int8_kv_attention_geometry`) and combined by the kernel."""
+    (:func:`int8_kv_attention_geometry`) and combined by the kernel.
+    ``softcap`` is a launch argument (a captured graph replays the value
+    it was captured with); at 0 the kernel's uncapped instantiation runs,
+    the code of the kernel before the cap existed."""
     op = "int8_kv_attention"
     _check_cuda(op, q, k_codes, k_scales, v_codes, v_scales, kpos)
     b, kv, r, hd = q.shape
@@ -618,18 +639,19 @@ def int8_kv_attention_cuda(q: Tensor, k_codes: Tensor, k_scales: Tensor,
     if not (ok_types and ok_shapes and kv_block and hd % kv_block == 0
             and kv_block % 4 == 0 and 1 <= r <= 8 and hd % 16 == 0
             and hd <= 256 and nb <= 8 and k_codes.data_ptr() % 16 == 0
-            and v_codes.data_ptr() % 16 == 0):
+            and v_codes.data_ptr() % 16 == 0 and softcap >= 0):
         raise ValueError(
             f"{op}: q {tuple(q.shape)}, codes {tuple(k_codes.shape)} / "
             f"{tuple(v_codes.shape)} {k_codes.dtype} / {v_codes.dtype}, "
             f"scales {tuple(k_scales.shape)} / {tuple(v_scales.shape)} "
             f"{k_scales.dtype} / {v_scales.dtype}, kpos "
-            f"{tuple(kpos.shape)} {kpos.dtype}, kv_block {kv_block}: the "
+            f"{tuple(kpos.shape)} {kpos.dtype}, kv_block {kv_block}, "
+            f"softcap {softcap}: the "
             "kernel takes int8 codes (B, S, KV, hd), f32 scales (B, S, KV, "
             "hd/kv_block), int32 kpos (B, S), kv_block a multiple of 4 "
             "dividing hd, R <= 8 query rows per kv-head, hd a multiple of "
-            "16 up to 256, at most 8 scale blocks per row, and codes "
-            "16-byte aligned (16-byte loads)")
+            "16 up to 256, at most 8 scale blocks per row, codes "
+            "16-byte aligned (16-byte loads) and softcap >= 0")
     lib = build.load(op)
     if q.dtype == torch.float32:
         fn = lib.int8_kv_attention_f32_launch
@@ -646,20 +668,23 @@ def int8_kv_attention_cuda(q: Tensor, k_codes: Tensor, k_scales: Tensor,
     _launch(op, fn, q.data_ptr(), k_codes.data_ptr(), k_scales.data_ptr(),
             v_codes.data_ptr(), v_scales.data_ptr(), kpos.data_ptr(),
             out.data_ptr(), b, s, kv, r, hd, kv_block, splits, per, work,
-            tickets, _stream())
+            tickets, softcap, _stream())
     return out
 
 
 def int8_kv_attention(q: Tensor, k_codes: Tensor, k_scales: Tensor,
                       v_codes: Tensor, v_scales: Tensor, kpos: Tensor, *,
-                      kv_block: int) -> Tensor:
+                      kv_block: int, softcap: float = 0.0) -> Tensor:
     """q (B, KV, R, hd) pre-scaled; k/v codes (B, S, KV, hd) int8; k/v
-    scales (B, S, KV, hd // kv_block) f32; kpos (B, S) int32, -1 = an
-    invalid slot. Returns (B, KV, R, hd) in q.dtype."""
+    scales (B, S, KV, hd // kv_block) f32; kpos (B, S) int32, a negative
+    entry = an invalid slot; ``softcap`` (a Python float) > 0 caps the
+    scores as ``tanh(s / softcap) * softcap`` before the mask. Returns
+    (B, KV, R, hd) in q.dtype."""
     args = (q, k_codes, k_scales, v_codes, v_scales, kpos)
     if _is_plain(q, "int8_kv_attention"):
-        return ref.int8_kv_attention(*args, kv_block)
-    return int8_kv_attention_cuda(*(a.contiguous() for a in args), kv_block)
+        return ref.int8_kv_attention(*args, kv_block, softcap)
+    return int8_kv_attention_cuda(*(a.contiguous() for a in args), kv_block,
+                                  softcap)
 
 
 # ---------------------------------------------------------------------------

@@ -168,19 +168,23 @@ def rpiq_block(w0: Tensor, y_orig: Tensor, x: Tensor, hinv_flat: Tensor,
 
 def int8_kv_attention(q: Tensor, k_codes: Tensor, k_scales: Tensor,
                       v_codes: Tensor, v_scales: Tensor, kpos: Tensor,
-                      kv_block: int) -> Tensor:
+                      kv_block: int, softcap: float = 0.0) -> Tensor:
     """One-token GQA decode against an int8 KV cache, full dequant.
 
     q (B, KV, R, hd) pre-scaled (hd^-0.5 folded in by the caller); k/v
     codes (B, S, KV, hd) int8; k/v scales (B, S, KV, hd // kv_block) f32;
-    kpos (B, S) int32, -1 marks an invalid slot. Returns (B, KV, R, hd) in
-    q.dtype with fp32 scores, softmax and values. Invalid slots get weight
-    0, so a lane with no valid slot returns 0, as the fused kernel does
-    (the JAX oracle's plain softmax would spread such a lane uniformly).
+    kpos (B, S) int32, a negative entry marks an invalid slot; ``softcap``
+    > 0 caps the scores as ``tanh(s / softcap) * softcap`` before the
+    mask. Returns (B, KV, R, hd) in q.dtype with fp32 scores, softmax and
+    values. Invalid slots get weight 0, so a lane with no valid slot
+    returns 0, as the fused kernel does (the JAX oracle's plain softmax
+    would spread such a lane uniformly).
     """
     k = kv_codec.dec_int8_blocks(k_codes, k_scales, kv_block)
     v = kv_codec.dec_int8_blocks(v_codes, v_scales, kv_block)
     s = torch.einsum("bgrd,bsgd->bgrs", q.float(), k)
+    if softcap > 0:
+        s = torch.tanh(s / softcap) * softcap
     valid = (kpos >= 0)[:, None, None, :]
     s = torch.where(valid, s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1) * valid

@@ -10,14 +10,17 @@ integrity-checked ``distributed.checkpoint.load_artifact`` (a corrupt
 artifact is a typed ``ArtifactIntegrityError``, never a silent load);
 ``--pack-rtn`` packs float weights (a fresh init from seed 0, or the
 loaded ones) to int4 on a fresh grid, so the quantized decode runs
-without a quantize run. Prompts are ``MarkovLM(vocab, seed=3)``; the
+without a quantize run. Prompts are ``MarkovLM(vocab, seed=3)``; a model
+with a frontend (``pixtral-12b``) also gets ``min(frontend_tokens, 8)``
+standard-normal patch embeddings a request, drawn from a
+``torch.Generator`` seeded 3 like the prompt and prepended to it. The
 static batch runs through ``serving.engine.generate``, whose decode
 replays one captured CUDA graph on the card.
 
 Not ported (they raise and name their ROADMAP.md item):
 ``serve.scheduler=continuous`` and ``serve.supervise=true`` (item 14). The
-JAX launcher's encoder-decoder and frontend branches have no arch in the
-port yet (``configs.get_config`` refuses them, items 10 and 11).
+JAX launcher's encoder-decoder branch has no arch in the port yet
+(``configs.get_config`` refuses whisper, item 11).
 
 Runs on the CUDA card; ``--device cpu`` runs the kernels' plain versions.
 """
@@ -82,6 +85,12 @@ def main(argv=None):
 
     batch = MarkovLM(mc.vocab_size, seed=3).batch(args.batch,
                                                   args.prompt_len)
+    if mc.frontend in ("vision", "audio") and mc.frontend_tokens:
+        gen = torch.Generator()
+        gen.manual_seed(3)
+        batch["embeds"] = torch.randn(
+            (args.batch, min(mc.frontend_tokens, 8), mc.d_model),
+            generator=gen)
     t0 = time.perf_counter()
     res = generate(cfg, params, batch, device=dev)
     seqs = res.tokens.cpu()

@@ -8,17 +8,25 @@ softmax (no fused attention operator). Query head h reads kv-head
 ``h // n_rep`` (``n_rep = num_heads // num_kv_heads``), the order of
 ``repeat_kv``.
 
-Caches (per layer, full length; a slot's key position is -1 until it is
-written) are written in place:
+Caches (per layer; a slot's key position is -1 until it is written) are
+written in place. A full-attention layer's cache holds ``max_len`` slots,
+position p in slot p. A windowed layer ("swa"/"local", ``window`` > 0)
+holds a ring of ``W = min(window, max_len)`` slots, position p in slot
+``p % W``: the prefill keeps the last W positions of a longer prompt, and
+decode overwrites the oldest slot, so its memory stays bounded however
+long the session. The layouts:
 
-  - bf16: ``{"k", "v"}`` (B, S_max, KV, hd);
+  - bf16: ``{"k", "v"}`` (B, S_cache, KV, hd);
   - int8 (``serve.kv_cache=int8``): ``"k"``/``"v"`` int8 codes at the same
     shapes, per-(slot, kv-head, block) f32 scales ``"k_scale"``/
-    ``"v_scale"`` (B, S_max, KV, hd // block) with block
+    ``"v_scale"`` (B, S_cache, KV, hd // block) with block
     ``kv_codec.default_kv_block(hd)``, and per-lane f32 error-feedback
     accumulators ``"k_err"``/``"v_err"`` (B, KV, hd) that decode appends
     fold in (``e <- x - dec(enc(x + e))``). Decode reads the history
     through ``ops.int8_kv_attention``.
+
+``cfg.attn_logits_softcap`` > 0 caps every score as ``tanh(s / c) * c``
+before the mask, in prefill and decode.
 """
 from __future__ import annotations
 
@@ -28,7 +36,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import kv_codec, ops
-from repro_torch.models.layers import apply_rope
+from repro_torch.models.layers import apply_rope, tanh_softcap
 from repro_torch.models.linear import dense, init_dense
 
 Tensor = torch.Tensor
@@ -50,10 +58,13 @@ def _mm(a: Tensor, b: Tensor) -> Tensor:
 
 
 def _attend_chunked(q: Tensor, k: Tensor, v: Tensor, q_positions: Tensor,
-                    kv_positions: Tensor, chunk: int = 512) -> Tensor:
+                    kv_positions: Tensor, *, window: int = 0,
+                    softcap: float = 0.0, chunk: int = 512) -> Tensor:
     """Causal attention. q/k/v (B, S, H, hd); positions (B, Sq) / (B, Sk).
-    Queries go in chunks of ``chunk``; each chunk takes a full softmax over
-    the keys. Returns (B, Sq, H, hd) in q's dtype."""
+    A key is seen when ``kpos <= qpos``, and with ``window`` > 0 also
+    ``kpos > qpos - window``; scores are soft-capped (``softcap`` > 0)
+    before the mask. Queries go in chunks of ``chunk``; each chunk takes a
+    full softmax over the keys. Returns (B, Sq, H, hd) in q's dtype."""
     b, sq, h, hd = q.shape
     scale = hd ** -0.5
     kT = k.permute(0, 2, 3, 1)                      # (B, H, hd, Sk)
@@ -64,9 +75,11 @@ def _attend_chunked(q: Tensor, k: Tensor, v: Tensor, q_positions: Tensor,
         qi = q[:, c0:c0 + chunk]
         pi = q_positions[:, c0:c0 + chunk]
         qs = (qi.float() * scale).to(qi.dtype).permute(0, 2, 1, 3)
-        s = _mm(qs, kT)                             # (B, H, c, Sk)
+        s = tanh_softcap(_mm(qs, kT), softcap)     # (B, H, c, Sk)
         dq = pi[:, None, :, None]
         mask = (dq >= 0) & (dk >= 0) & (dq >= dk)
+        if window > 0:
+            mask = mask & (dk > dq - window)
         s = torch.where(mask, s, torch.full_like(s, NEG_INF))
         p = torch.softmax(s, dim=-1)
         o = _mm(p.to(vT.dtype), vT)                 # (B, H, c, hd)
@@ -98,14 +111,17 @@ def _n_rep(cfg: ModelConfig) -> int:
 
 
 def attention_forward(cfg: ModelConfig, p: Dict, x: Tensor,
-                      positions: Tensor, *, name: str = "attn") -> Tensor:
-    """Causal self-attention over a full sequence. x (B, S, D)."""
+                      positions: Tensor, *, window: int = 0,
+                      name: str = "attn") -> Tensor:
+    """Causal self-attention over a full sequence (windowed when
+    ``window`` > 0). x (B, S, D)."""
     q, k, v = _project_qkv(cfg, p, x, name)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     n_rep = _n_rep(cfg)
     o = _attend_chunked(q, repeat_kv(k, n_rep), repeat_kv(v, n_rep),
-                        positions, positions)
+                        positions, positions, window=window,
+                        softcap=cfg.attn_logits_softcap)
     b, s = x.shape[:2]
     return dense(p["o"], o.reshape(b, s, -1), f"{name}.o")
 
@@ -140,38 +156,59 @@ def kv_cache_block(cache: Dict) -> int:
 
 
 def attention_prefill(cfg: ModelConfig, p: Dict, x: Tensor,
-                      positions: Tensor, cache: Dict, *, name: str = "attn"
-                      ) -> Tuple[Tensor, Dict]:
-    """Causal attention over the prompt and the cache write at [0, S).
-    Queries attend to the fresh float K/V, not to the cache, so the cache
-    layout does not move the prefill output. The cache is written in
-    place; the int8 layout's error accumulators stay untouched (error
-    feedback is a decode-append recurrence)."""
+                      positions: Tensor, cache: Dict, *, window: int = 0,
+                      name: str = "attn") -> Tuple[Tensor, Dict]:
+    """Causal attention over the prompt and the cache write: at [0, S),
+    or, for a ring (``window`` > 0) shorter than the prompt, the last W
+    positions at slots ``pos % W``. Queries attend to the fresh float K/V,
+    not to the cache, so the cache layout does not move the prefill
+    output. The cache is written in place; the int8 layout's error
+    accumulators stay untouched (error feedback is a decode-append
+    recurrence)."""
     q, k, v = _project_qkv(cfg, p, x, name)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     n_rep = _n_rep(cfg)
     o = _attend_chunked(q, repeat_kv(k, n_rep), repeat_kv(v, n_rep),
-                        positions, positions)
+                        positions, positions, window=window,
+                        softcap=cfg.attn_logits_softcap)
     b, s = x.shape[:2]
     y = dense(p["o"], o.reshape(b, s, -1), f"{name}.o")
+    w_cache = cache["k"].shape[1]
+    if window > 0 and w_cache < s:
+        k, v = k[:, -w_cache:], v[:, -w_cache:]
+        idx = (torch.arange(b, device=x.device)[:, None],
+               positions[:, -w_cache:] % w_cache)                 # (B, W)
+    else:
+        idx = (slice(None), slice(0, s))
     if kv_cache_quantized(cache):
         blk = kv_cache_block(cache)
-        cache["k"][:, :s], cache["k_scale"][:, :s] = \
+        cache["k"][idx], cache["k_scale"][idx] = \
             kv_codec.enc_int8_blocks(k, blk)
-        cache["v"][:, :s], cache["v_scale"][:, :s] = \
+        cache["v"][idx], cache["v_scale"][idx] = \
             kv_codec.enc_int8_blocks(v, blk)
     else:
-        cache["k"][:, :s] = k.to(cache["k"].dtype)
-        cache["v"][:, :s] = v.to(cache["v"].dtype)
+        cache["k"][idx] = k.to(cache["k"].dtype)
+        cache["v"][idx] = v.to(cache["v"].dtype)
     return y, cache
 
 
-def cache_key_positions(pos: Tensor, cache_len: int) -> Tensor:
-    """(B, cache_len) position held by each full-cache slot once ``pos``
-    was written: the slot index while <= pos, else -1."""
+def cache_key_positions(pos: Tensor, cache_len: int, window: int = 0
+                        ) -> Tensor:
+    """(B, cache_len) position held by each slot once ``pos`` (B,) was
+    written, -1 for a slot that holds none. Full cache (``window`` 0):
+    slot i holds position i while i <= pos. Ring (``window`` > 0): slot i
+    holds the largest p <= pos with p % cache_len == i, valid while p >= 0
+    and p > pos - min(window, cache_len). Computed on pos's device, so a
+    captured decode step replays it across the wrap point."""
     idx = torch.arange(cache_len, device=pos.device)[None, :]
-    return torch.where(idx <= pos[:, None], idx, torch.full_like(idx, -1))
+    last = pos[:, None]
+    if window > 0:
+        kpos = last - (last - idx) % cache_len
+        ok = (kpos >= 0) & (kpos > last - min(window, cache_len))
+    else:
+        kpos, ok = idx.expand(pos.shape[0], cache_len), idx <= last
+    return torch.where(ok, kpos, torch.full_like(kpos, -1))
 
 
 def _prescaled_groups(q: Tensor, kv: int) -> Tensor:
@@ -184,38 +221,41 @@ def _prescaled_groups(q: Tensor, kv: int) -> Tensor:
 
 
 def attention_decode(cfg: ModelConfig, p: Dict, x: Tensor, pos: Tensor,
-                     cache: Dict, *, name: str = "attn"
+                     cache: Dict, *, window: int = 0, name: str = "attn"
                      ) -> Tuple[Tensor, Dict]:
-    """One-token decode against the full cache. x (B, 1, D); pos (B,).
-    The new K/V row is written into the cache in place; on the int8
-    layout it is appended with error feedback and the history is read by
-    ``ops.int8_kv_attention``."""
+    """One-token decode against the cache. x (B, 1, D); pos (B,). The new
+    K/V row is written in place at slot ``pos`` (a ring: ``pos % W``); on
+    the int8 layout it is appended with error feedback and the history is
+    read by ``ops.int8_kv_attention``."""
     b = x.shape[0]
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q, k, v = _project_qkv(cfg, p, x, name)
     q = apply_rope(q, pos[:, None], cfg.rope_theta)
     k = apply_rope(k, pos[:, None], cfg.rope_theta)
     ck, cv = cache["k"], cache["v"]
+    cache_len = ck.shape[1]
+    slot = pos % cache_len if window > 0 else pos
     bidx = torch.arange(b, device=x.device)
-    kpos = cache_key_positions(pos, ck.shape[1])
+    kpos = cache_key_positions(pos, cache_len, window)
     qg = _prescaled_groups(q[:, 0], kv)
+    cap = cfg.attn_logits_softcap
     if kv_cache_quantized(cache):
         blk = kv_cache_block(cache)
         for leaf, new in (("k", k), ("v", v)):
             xf = new[:, 0].float() + cache[f"{leaf}_err"]
             codes, scales = kv_codec.enc_int8_blocks(xf, blk)
-            cache[leaf][bidx, pos] = codes
-            cache[f"{leaf}_scale"][bidx, pos] = scales
+            cache[leaf][bidx, slot] = codes
+            cache[f"{leaf}_scale"][bidx, slot] = scales
             cache[f"{leaf}_err"].copy_(
                 xf - kv_codec.dec_int8_blocks(codes, scales, blk))
         o = ops.int8_kv_attention(qg, ck, cache["k_scale"], cv,
                                   cache["v_scale"], kpos.to(torch.int32),
-                                  kv_block=blk).to(x.dtype)
+                                  kv_block=blk, softcap=cap).to(x.dtype)
     else:
-        ck[bidx, pos] = k[:, 0].to(ck.dtype)
-        cv[bidx, pos] = v[:, 0].to(cv.dtype)
+        ck[bidx, slot] = k[:, 0].to(ck.dtype)
+        cv[bidx, slot] = v[:, 0].to(cv.dtype)
         s = _mm(qg.to(ck.dtype), ck.permute(0, 2, 3, 1))  # (B, KV, R, S)
-        s = torch.where(kpos[:, None, None, :] >= 0, s,
+        s = torch.where(kpos[:, None, None, :] >= 0, tanh_softcap(s, cap),
                         torch.full_like(s, NEG_INF))
         pw = torch.softmax(s, dim=-1)
         o = _mm(pw.to(cv.dtype), cv.permute(0, 2, 1, 3)).to(x.dtype)

@@ -75,9 +75,22 @@ def embed(p: Dict, tokens: Tensor, dtype: torch.dtype) -> Tensor:
 
 
 def unembed(cfg: ModelConfig, params: Dict, h: Tensor) -> Tensor:
-    """Final projection to fp32 vocab logits (a plain matmul: lm_head is
-    not quantized)."""
-    return dense(params["lm_head"], h).float()
+    """Final projection to fp32 vocab logits, then the logits soft cap
+    ``tanh(l / c) * c`` when ``logits_softcap`` > 0. Untied: the
+    ``lm_head`` dense; tied: ``h @ embedding.T`` with the embedding in h's
+    dtype and fp32 accumulation. Both are plain matmuls (the head is not
+    quantized)."""
+    if cfg.tie_embeddings:
+        w = params["embed"]["embedding"].to(h.dtype)         # (V, D)
+        logits = h.float() @ w.float().T
+    else:
+        logits = dense(params["lm_head"], h).float()
+    return tanh_softcap(logits, cfg.logits_softcap)
+
+
+def tanh_softcap(x: Tensor, cap: float) -> Tensor:
+    """``tanh(x / cap) * cap`` when ``cap`` > 0, else x."""
+    return torch.tanh(x / cap) * cap if cap > 0 else x
 
 
 def init_embed(gen: torch.Generator, vocab: int, d: int, device) -> Dict:

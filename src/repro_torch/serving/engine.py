@@ -53,10 +53,12 @@ def cache_dtype(cfg: Config) -> Union[torch.dtype, str]:
 
 def prefill(cfg: Config, params: Any, batch: Dict[str, Tensor],
             max_len: int) -> Tuple[Tensor, List[Dict]]:
-    """Prefill from ``{"tokens": (B, S)}`` into caches of max_len, in the
+    """Prefill from ``{"tokens": (B, S), "embeds"?: (B, F, D)}`` (frontend
+    embeddings in front of the tokens) into caches of max_len, in the
     precision ``serve.kv_cache`` names."""
     return T.prefill(cfg.model, params, batch["tokens"], max_len,
-                     cache_dtype=cache_dtype(cfg))
+                     cache_dtype=cache_dtype(cfg),
+                     embeds=batch.get("embeds"))
 
 
 def serve_step(cfg: Config, params: Any, token: Tensor, pos: Tensor,
@@ -152,7 +154,8 @@ def generate(cfg: Config, params: Any, batch: Dict[str, Tensor],
     Runs on the CUDA card unless ``device="cpu"``; params must already be
     on that device. On the card the decode steps after the first replay
     one captured CUDA graph (module docstring). Sampling draws from a
-    ``torch.Generator`` seeded with ``seed``."""
+    ``torch.Generator`` seeded with ``seed``. A batch's ``embeds`` (B, F,
+    D) go in front of its tokens, so decode starts at position S + F."""
     dev = resolve_device(device)
     if _params_device(params).type != dev.type:
         raise ValueError(f"params live on {_params_device(params)}, "
@@ -164,11 +167,13 @@ def generate(cfg: Config, params: Any, batch: Dict[str, Tensor],
     if temp > 0:
         gen = torch.Generator(device=_params_device(params))
         gen.manual_seed(seed)
-    tokens = batch["tokens"].to(_params_device(params))
-    s0 = tokens.shape[1]
-    logits, caches = prefill(cfg, params, {"tokens": tokens}, s0 + mnt + 1)
-    loop = DecodeLoop(cfg, params, logits, caches, s0, mnt, eos_id, temp,
-                      gen)
+    inputs = {k: batch[k].to(_params_device(params))
+              for k in ("tokens", "embeds") if batch.get(k) is not None}
+    s0 = inputs["tokens"].shape[1]
+    n_front = inputs["embeds"].shape[1] if "embeds" in inputs else 0
+    logits, caches = prefill(cfg, params, inputs, s0 + n_front + mnt + 1)
+    loop = DecodeLoop(cfg, params, logits, caches, s0 + n_front, mnt,
+                      eos_id, temp, gen)
     if mnt > 1:
         loop.step()
     if dev.type != "cuda" or mnt <= 2:

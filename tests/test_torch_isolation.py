@@ -106,5 +106,5 @@ def test_example_twins_raise_without_a_card(path):
 
 def test_unported_arch_names_the_roadmap():
     from repro_torch.configs import get_config
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("minicpm-2b")
+    with pytest.raises(KeyError, match="ROADMAP.md, queue 1 item 12"):
+        get_config("olmoe-1b-7b")

@@ -182,6 +182,44 @@ def test_serve_pack_rtn_gives_jax_tokens(tmp_path, capsys):
     assert len(want) == 2 and _seqs(out) == want
 
 
+def test_serve_frontend_prepends_patch_embeddings(capsys, monkeypatch):
+    """pixtral smoke: each request carries min(frontend_tokens, 8) = 8
+    seeded patch embeddings in front of its 8 prompt tokens, so decode
+    starts at position 16; the tokens are generate's on the same batch."""
+    from repro_torch.core.pipeline import pack_for_serving
+    from repro_torch.data import MarkovLM
+    from repro_torch.serving import engine
+    starts = []
+    loop = engine.DecodeLoop
+
+    class Loop(loop):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            starts.append(self.pos.tolist())
+
+    monkeypatch.setattr(engine, "DecodeLoop", Loop)
+    res = tlaunch_serve.main(["--arch", "pixtral-12b", "--smoke",
+                              "--pack-rtn", "--batch", "2", "--prompt-len",
+                              "8", "--device", "cpu",
+                              "serve.max_new_tokens=4"])
+    assert starts == [[16, 16]]
+    assert _seqs(capsys.readouterr().out) == res.tokens.tolist()
+    cfg = tget_config("pixtral-12b", smoke=True)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    params = pack_for_serving(cfg, TT.init_params(cfg.model, gen, "cpu"))
+    gen.manual_seed(3)
+    batch = MarkovLM(cfg.model.vocab_size, seed=3).batch(2, 8)
+    batch["embeds"] = torch.randn((2, 8, cfg.model.d_model), generator=gen)
+    want = engine.generate(cfg, params, batch, device="cpu",
+                           max_new_tokens=4)
+    assert torch.equal(res.tokens, want.tokens)
+    del batch["embeds"]
+    assert not torch.equal(engine.generate(cfg, params, batch, device="cpu",
+                                           max_new_tokens=4).tokens,
+                           want.tokens)
+
+
 def _quantize(tmp, arch, out, extra=()):
     return tlaunch_quantize.main(
         ["--arch", arch, "--smoke", "--device", "cpu", "--out",

@@ -232,8 +232,8 @@ def test_config_matches_jax():
 def test_unported_layer_kind_names_the_roadmap():
     with pytest.raises(ValueError, match="ROADMAP"):
         ModelConfig(block_pattern=("rglru",))
-    with pytest.raises(ValueError, match="ROADMAP"):
-        ModelConfig(block_pattern=("attn", "swa"))
+    with pytest.raises(ValueError, match="ROADMAP.md, queue 1 item 16"):
+        ModelConfig(block_pattern=("attn", "mla"))
 
 
 def test_convert_unstacks_the_mamba_segment():
