@@ -41,7 +41,8 @@ line: the checkout, the kernel and shape, and
   internlm2's decode shape, S 545 and 4096, and at h2o-danube-1.8b's, B 2,
   R 4, hd 80, one scale block a row, on a 4096-slot ring just past its
   wrap; where the checkout takes ``softcap``, also with softcap 30 at S
-  4096) and ``quant_pack`` (the six
+  4096; whisper-large-v3's, B 4, KV 20, R 1, hd 64, S 97; minicpm smoke's
+  hd 12, a line saying "refused" on a checkout that takes no such width) and ``quant_pack`` (the six
   main-path shapes, weights in fp32 and bf16): the device time per call
   from a CUDA graph over copies beyond L2 (``chip_smoke.graph_ms``), the
   error against the plain version (bitwise for ``quant_pack``) and an
@@ -311,10 +312,18 @@ def main() -> int:
             and hasattr(ops, "int8_kv_attention_cuda")):
         capped = "softcap" in inspect.signature(
             ops.int8_kv_attention_cuda).parameters
-        # internlm2's decode shape, then h2o-danube's (hd 80, block 80)
+        # internlm2's decode shape, then h2o-danube's (hd 80, block 80),
+        # whisper-large-v3's decoder self-cache (R 1, hd 64, 64 + 32 + 1
+        # slots), then minicpm smoke's hd 12, which a checkout taking only
+        # multiples of 16 refuses
         for shape in ((4, 8, 2, 128, 545, 128), (4, 8, 2, 128, 4096, 128),
-                      (4, 8, 2, 128, 4096, 64), (2, 8, 4, 80, 4096, 80)):
-            kv_row(*shape, capped, g)
+                      (4, 8, 2, 128, 4096, 64), (2, 8, 4, 80, 4096, 80),
+                      (4, 20, 1, 64, 97, 64), (2, 2, 2, 12, 40, 12)):
+            try:
+                kv_row(*shape, capped, g)
+            except ValueError as e:
+                print(f"{root} int8_kv_attention {shape}: refused ({e})"[:200],
+                      flush=True)
 
     if "quant_pack" in sections and hasattr(ops, "quant_pack_cuda"):
         for n, k in ((2048, 8192), (8192, 2048), (16384, 4096), (288, 8192),

@@ -10,8 +10,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      memory and spills;
   3. kernels: each of the seven kernels' wrappers against its plain
      PyTorch version on the card, at the shapes the main paths give it
-     (opt-proxy, internlm2-1.8b, falcon-mamba-7b, and phase 9's
-     h2o-danube-1.8b and pixtral-12b), with the error
+     (opt-proxy, internlm2-1.8b, falcon-mamba-7b, phase 9's
+     h2o-danube-1.8b and pixtral-12b, and phase 10's whisper-large-v3;
+     ``int8_kv_attention`` also at minicpm smoke's head width 12), with
+     the error
      against the stated tolerance and CUDA-event times (kernel, plain,
      library yardstick where one exists, itself held against the plain
      version) beside the least time the card could take (bf16
@@ -33,7 +35,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      on the card, its first layer's kernel calls held at one bf16 ulp;
      then the same two runs for h2o-danube smoke (an int8 ring of 8
      slots), minicpm smoke (tied embeddings; k 72 padded for
-     ``w4a16_matmul``), stablelm smoke (LayerNorm) and pixtral smoke (8
+     ``w4a16_matmul``; the int8 cache at head width 12), stablelm smoke (LayerNorm) and pixtral smoke (8
      patch embeddings in every calibration batch and request);
   5. main path at full width: opt-proxy (OPT-125M shape) from seeded random
      weights → quantize_model → pack_for_serving → generate, with launch
@@ -103,10 +105,23 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
          position 64 + 1024, packed int4 against refined float logits in
          fp32 compute (1e-3; bf16 printed); then ``launch.serve --arch
          pixtral-12b --pack-rtn`` at all 40 layers, its tokens those of
-         pack_for_serving → generate called directly.
+         pack_for_serving → generate called directly;
+  10. the encoder-decoder path at full width and depth: whisper-large-v3
+     (32 encoder + 32 decoder layers, d 1280, 20 heads of 64, no RoPE)
+     from seeded random weights, 1500 seeded frames in every calibration
+     clip (4 batches x 2 x 256 tokens) and request (4 x 64 tokens + 32
+     new) → quantize_model (the encoder walk, the enc→dec switch, the
+     decoder walk) → pack_for_serving → generate with the bf16 and the
+     int8 self-cache (the cross-attention cache in bf16), each replay
+     bitwise its eager loop; 320 calibrated and 192 RTN-packed linears;
+     the cache bytes, the int8 drift rule, the packed logits against the
+     refined float logits and the prefill → decode hand-off against the
+     full forward in fp32 compute; then ``launch.serve --arch
+     whisper-large-v3 --pack-rtn``, its tokens those of
+     pack_for_serving → generate called directly.
 
 The line before the last is a JSON object with one entry per kernel
-(``launches`` sums phases 5 to 9); the last line is ``{"ok": true,
+(``launches`` sums phases 5 to 10); the last line is ``{"ok": true,
 "device": {...}}``.
 """
 from __future__ import annotations
@@ -145,9 +160,8 @@ KERNEL_SOURCES = {
 
 # phase 4's other dense smoke configs and the cache each serves with:
 # h2o-danube's int8 ring of 8 slots wraps within its 8 + 6 positions;
-# minicpm smoke's head width 12 is under the int8 kernel's 16 (its full
-# config has 64), so it serves with the bf16 cache
-SMALL_DENSE = (("h2o-danube-1.8b", "int8"), ("minicpm-2b", "fp16"),
+# minicpm smoke's head width 12 takes int8_kv_attention's 4-byte rows
+SMALL_DENSE = (("h2o-danube-1.8b", "int8"), ("minicpm-2b", "int8"),
                ("stablelm-1.6b", "fp16"), ("pixtral-12b", "fp16"))
 
 
@@ -340,6 +354,7 @@ def phase_kernels(table: KernelTable) -> None:
     kernels_quant_pack(table, g)
     kernels_selective_scan(table, g)
     kernels_dense_shapes(table)
+    kernels_encdec_shapes(table)
 
 
 def check_w4a16(table: KernelTable, g, m: int, k: int, n: int, dt,
@@ -1111,6 +1126,108 @@ def kernels_dense_shapes(table: KernelTable) -> None:
         check_quant_pack(table, g, n, k)
 
 
+def kv_attention_row(table, g, b: int, kv: int, r: int, hd: int, s: int,
+                     cap: float = 0.0, label: str = "") -> None:
+    """int8_kv_attention at one decode shape (kv_block the codec's
+    default for hd, a decode cache of s slots all written but for the
+    last lane, which holds none), inputs from generator g: fp32 at 1e-5 of
+    the largest output, bf16 at one bf16 ulp, a second launch bitwise the
+    first; timed in bf16 from a CUDA graph over cache copies beyond L2,
+    added to ``table`` where one is given."""
+    import torch
+    from repro_torch.kernels import kv_codec, ops, ref
+
+    dev = torch.device("cuda")
+    blk = kv_codec.default_kv_block(hd)
+    nb = hd // blk
+    x = torch.randn((2, b, s, kv, hd), generator=g, device=dev)
+    kc, ks = kv_codec.enc_int8_blocks(x[0], blk)
+    vc, vs = kv_codec.enc_int8_blocks(x[1], blk)
+    kpos = torch.arange(s, device=dev, dtype=torch.int32).repeat(b, 1)
+    kpos[-1] = -1
+    q32 = torch.randn((b, kv, r, hd), generator=g, device=dev) \
+        * hd ** -0.5 * (12.0 if cap else 1.0)
+    cache = (kc, ks, vc, vs, kpos)
+    want = ref.int8_kv_attention(q32, *cache, blk, cap)
+    got = ops.int8_kv_attention_cuda(q32, *cache, blk, cap)
+    err32 = float((got - want).abs().max())
+    ok32 = err32 <= 1e-5 * float(want.abs().max())
+    q = q32.to(torch.bfloat16)
+    want = ref.int8_kv_attention(q, *cache, blk, cap)
+    got = ops.int8_kv_attention_cuda(q, *cache, blk, cap)
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    ok = within_bf16_ulp(diff, want)
+    zero = float(got[-1].abs().max()) == 0.0
+    same = torch.equal(got, ops.int8_kv_attention_cuda(q, *cache, blk, cap))
+    splits, per = ops.int8_kv_attention_geometry(b, kv, s)
+    nbytes = (2 * b * s * kv * hd + 2 * b * s * kv * nb * 4 + 4 * b * s
+              + 2 * 2 * b * kv * r * hd)
+    flop = 4 * b * kv * r * s * hd
+    copies = [cache] + [tuple(t.clone() for t in cache)
+                        for _ in range(int(100e6 // nbytes))]
+    ms = graph_ms([(lambda c=c: ops.int8_kv_attention_cuda(q, *c, blk, cap))
+                   for c in copies])
+    pms = graph_ms([(lambda c=c: ref.int8_kv_attention(q, *c, blk, cap))
+                    for c in copies])
+    del copies
+    if table is not None:
+        b_ms, by = table.add("int8_kv_attention", ms=ms, plain_ms=pms,
+                             flop=flop, nbytes=nbytes, err=err)
+    else:
+        b_ms, by = bound(flop, nbytes)
+    log(f"  int8_kv_attention{label} B={b} S={s} KV={kv} R={r} hd={hd} "
+        f"kv_block={blk} softcap {cap}: {splits} history ranges of {per} "
+        f"tiles; fp32 max_abs_err={err32:.3e} (tol 1e-5 rel) bf16 "
+        f"max_abs_err={err:.3e} (1 bf16 ulp); lane with no valid slot is "
+        f"0: {zero}; two launches bitwise equal {same}; ms={ms:.4f} "
+        f"plain_ms={pms:.4f} library_ms=none bound_ms={b_ms:.4f} ({by})")
+    check(ok32 and ok and zero and same,
+          f"int8_kv_attention{label} hd={hd} S={s} softcap={cap}")
+
+
+def kernels_encdec_shapes(table: KernelTable) -> None:
+    """Phase 10's shapes (whisper-large-v3: d 1280, d_ff 5120, 20 heads of
+    64) and phase 4's minicpm smoke decode, each kernel against its plain
+    version at phase 3's pins and timed into the kernel table, from a
+    generator of its own. ``hessian_accum`` at d 1280 and 5120 over the
+    encoder's n 3000 (2 clips x 1500 frames) and d 1280 over the
+    decoder's n 512; bf16 ``w4a16_matmul`` at (k, n) (1280, 1280), (1280,
+    5120) and (5120, 1280), at decode m 4, decoder prefill m 256 (4 x 64)
+    and encoder prefill m 6000 (4 x 1500); ``gptq_block`` and
+    ``rpiq_block`` at the encoder's groups (4, 1280, 1280), (1, 5120,
+    1280) and (1, 1280, 5120) and the cross-attention's k / v group (2,
+    1280, 1280), all at n 3000, and its q / o group (2, 1280, 1280) at n
+    512 (the group key holds n); ``quant_pack`` at the three weight
+    shapes; ``int8_kv_attention`` at the decoder's self-cache (B 4, KV
+    20, R 1, hd 64, 64 + 32 + 1 slots) and at minicpm smoke's (B 2, KV 6,
+    R 1, hd 12, 8 + 6 + 1 slots: a head width that is no multiple of 16),
+    there with and without the soft cap."""
+    import torch
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(4326)
+    for n_tok, d in ((3000, 1280), (3000, 5120), (512, 1280)):
+        check_hessian_accum(table, g, n_tok, d)
+    kn = ((1280, 1280), (1280, 5120), (5120, 1280))
+    for m in (4, 256, 6000):
+        for k, n in kn:
+            check_w4a16(table, g, m, k, n, torch.bfloat16, 128)
+    groups = ((4, 1280, 1280, 3000), (1, 5120, 1280, 3000),
+              (1, 1280, 5120, 3000), (2, 1280, 1280, 3000),
+              (2, 1280, 1280, 512))
+    for b, out_dim, in_dim, n_tok in groups:
+        case = group_case(g, b, out_dim, in_dim, n_tok)
+        w0, scales, zeros = check_gptq(case, 128, 128, table)
+        check_rpiq(case, w0, scales, zeros, 128, 128, 5, 0.01, table)
+        del case
+    for k, n in kn:
+        check_quant_pack(table, g, n, k)
+    kv_attention_row(table, g, 4, 20, 1, 64, 97)
+    for cap in (0.0, 30.0):
+        kv_attention_row(None, g, 2, 6, 1, 12, 15, cap, " (minicpm smoke)")
+
+
 def kernels_selective_scan(table: KernelTable, g) -> None:
     """The Mamba-1 scan at falcon-mamba-7b's prefill (S 512) and
     calibration (S 128) shapes and a ragged S 77: B 4, d 8192, n 16,
@@ -1413,7 +1530,9 @@ def decode_graph_checks(cfg, packed, prompt, res, gen_launches: dict,
     from repro_torch.serving import engine
 
     inputs = {k: v.cuda() for k, v in prompt.items()}
-    s0 = sum(v.shape[1] for v in inputs.values())   # tokens + embeds
+    # decode starts after the tokens and any embeds in front of them (an
+    # encoder-decoder's frames feed its encoder)
+    s0 = sum(inputs[k].shape[1] for k in ("tokens", "embeds") if k in inputs)
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -2144,6 +2263,305 @@ def phase_vlm_path(smi: str) -> dict:
     return launches
 
 
+def phase_encdec_path(smi: str) -> dict:
+    """10: whisper-large-v3 at full width and depth (32 encoder + 32
+    decoder layers, d 1280, 20 heads of 64, d_ff 5120, vocab 51866, 1500
+    frames), seeded random weights, calibration 4 batches x 2 clips x
+    (1500 seeded frames + 256 tokens): quantize_model → pack_for_serving →
+    generate (4 requests x (1500 frames + 64 prompt tokens) + 32 new) with
+    the bf16 and then the int8 self-cache, each replay bitwise its eager
+    loop; the calibrated and RTN-packed linears (320 and 192: a decoder
+    layer's self-attention and MLP sit under its ``layer`` key, which the
+    calibration does not pick, as in the JAX package); the cache bytes;
+    the int8-vs-bf16 drift rule of phase 6; the packed int4 logits
+    against the refined float logits in fp32 compute (1e-3; the RTN-packed
+    linears' float weights taken as their dequantized grid, the gap to the
+    raw float weights printed; bf16 printed); ``encdec_prefill`` →
+    ``encdec_decode_step`` against ``encdec_forward`` in fp32 compute on
+    fp32 caches (1e-4, as phase 7's hand-off); then ``launch.serve --arch
+    whisper-large-v3 --pack-rtn``, its tokens those of pack_for_serving →
+    generate called directly."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipeline import pack_for_serving, quantize_model
+    from repro_torch.core.quant import dequantize_packed, quantized_leaves
+    from repro_torch.data import MarkovLM, calibration_batches
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as LS
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import engine
+    from repro_torch.serving.engine import generate
+
+    n_req, n_prompt, n_new = 4, 64, 32
+    n_batches, clips, n_tok = 4, 2, 256
+    cfg = get_config("whisper-large-v3")
+    mc, qc = cfg.model, cfg.quant
+    se = mc.encoder_seq_len
+    log(f"  config: {mc.name} encoder layers={mc.encoder_layers} decoder "
+        f"layers={mc.num_layers} d_model={mc.d_model} heads={mc.num_heads} "
+        f"kv_heads={mc.num_kv_heads} head_dim={mc.head_dim} d_ff={mc.d_ff} "
+        f"vocab={mc.vocab_size} norm={mc.norm} act={mc.act} use_rope="
+        f"{mc.use_rope} dtype={mc.dtype}; quant group={qc.group_size} "
+        f"blocksize={qc.blocksize} rpiq_iters={qc.rpiq_iters}; calibration "
+        f"{n_batches} batches x {clips} clips x ({se} frames + {n_tok} "
+        f"tokens); {n_req} requests x ({se} frames + {n_prompt} prompt "
+        f"tokens) + {n_new} new (depth not cut)")
+
+    def frames(b: int, seed: int):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        return torch.randn((b, se, mc.d_model), generator=gen,
+                           device="cuda")
+
+    def tensors(tree):
+        if isinstance(tree, dict):
+            tree = list(tree.values())
+        if isinstance(tree, list):
+            for v in tree:
+                yield from tensors(v)
+        elif isinstance(tree, torch.Tensor):
+            yield tree
+
+    def nbytes(tree) -> int:
+        return sum(t.numel() * t.element_size() for t in tensors(tree))
+
+    torch.cuda.synchronize()
+    held_before = torch.cuda.memory_allocated()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = T.init_encdec_params(mc, gen, "cuda")
+    n_params = sum(t.numel() for t in tensors(params))
+    calib = calibration_batches(MarkovLM(mc.vocab_size, seed=7), n_batches,
+                                clips, n_tok)
+    for i, b in enumerate(calib):
+        b["frames"] = frames(clips, 20 + i)
+    prompt = MarkovLM(mc.vocab_size, seed=3).batch(n_req, n_prompt)
+    prompt["frames"] = frames(n_req, 30)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    ops.reset_kernel_launches()
+    t0 = time.perf_counter()
+    params_q, report = quantize_model(cfg, params, calib)
+    t1 = time.perf_counter()
+    del params
+    packed = pack_for_serving(cfg, params_q)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    before = ops.kernel_launches()
+    starts, pre = [], []
+    with patched(engine, "DecodeLoop", recording_starts(starts)), \
+            patched(engine, "prefill", timed(pre)):
+        res = generate(cfg, packed, prompt, max_new_tokens=n_new)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    launches = ops.kernel_launches()
+    peak = torch.cuda.max_memory_allocated()
+    gen_launches = {k: launches[k] - before[k] for k in launches}
+
+    n_cal = sum(1 for r in report.linears if r.mode != "skipped")
+    names = [k for k, _ in quantized_leaves(packed)]
+    n_rtn = len(names) - n_cal
+    rtn_under_layer = sum(1 for k in names if ".layer." in k)
+    xattn = sum(1 for r in report.linears if r.name.startswith("xattn."))
+    rest = report.seconds_total - report.seconds_stage1 \
+        - report.seconds_stage2
+    steps = report.layer_step_seconds
+    n_enc = mc.encoder_layers
+    log(f"  parameters: {n_params} ({2 * n_params} bytes in bf16)")
+    log(f"  kernels: {json.dumps(launches)}")
+    log(f"  report: {report.summary()}")
+    log(f"  linears: {n_cal} calibrated ({xattn} of them the decoder's "
+        f"xattn.*), {len(names)} packed: {n_rtn} on a fresh (RTN) grid, "
+        f"{rtn_under_layer} of them under a decoder layer's 'layer' key "
+        f"(its self-attention and MLP)")
+    log(f"  walls (s) [{smi}]: quantize_model={t1 - t0:.3f} (stage1="
+        f"{report.seconds_stage1:.3f} stage2={report.seconds_stage2:.3f} "
+        f"capture+propagate+rest={rest:.3f}) pack_for_serving="
+        f"{t2 - t1:.3f} generate={t3 - t2:.3f} (its prefill, encoder "
+        f"included, {pre[0]:.4f}; its decode step's graph capture "
+        f"{res.capture_s:.4f}); decode started at positions {starts[0]}")
+    enc_mean = sum(steps[:n_enc]) / n_enc
+    dec_mean = sum(steps[n_enc:]) / max(1, len(steps) - n_enc)
+    log(f"  layer step walls (s): encoder mean {enc_mean:.3f} max "
+        f"{max(steps[:n_enc]):.3f}; decoder mean {dec_mean:.3f} max "
+        f"{max(steps[n_enc:]):.3f}")
+    log(f"  peak device memory (the decode graph's pool in it): {peak} "
+        f"bytes, of which {held_before} were held by earlier phases: this "
+        f"path {peak - held_before} bytes")
+    check(n_cal == 320 and xattn == 128 and n_rtn == 192
+          and rtn_under_layer == 192 and len(steps) == 64,
+          "10: 320 calibrated and 192 RTN-packed linears")
+    check(starts == [[n_prompt] * n_req], "10: decode starts at the prompt")
+    decode_graph_checks(cfg, packed, prompt, res, gen_launches, n_new)
+    for name, n in launches.items():
+        if name in ("selective_scan", "int8_kv_attention"):
+            check(n == 0, f"{name} launched on the bf16-cache whisper leg")
+        else:
+            check(n > 0, f"kernel {name} was not launched on the whisper "
+                  "path")
+
+    log("  the int8 self-cache leg")
+    cfg8 = get_config("whisper-large-v3")
+    cfg8.serve.kv_cache = "int8"
+    before = ops.kernel_launches()
+    pre8 = []
+    with patched(engine, "prefill", timed(pre8)):
+        res8 = generate(cfg8, packed, prompt, max_new_tokens=n_new)
+    torch.cuda.synchronize()
+    after = ops.kernel_launches()
+    gen8 = {k: after[k] - before[k] for k in after}
+    for k, n in gen8.items():
+        launches[k] += n
+    log(f"  int8 leg: prefill {pre8[0]:.4f} s, capture {res8.capture_s:.4f}"
+        f" s; launches {json.dumps(gen8)}")
+    check(gen8["int8_kv_attention"] == mc.num_layers * (n_new - 1),
+          f"10: int8_kv_attention launched {gen8['int8_kv_attention']} "
+          f"times, expected {mc.num_layers * (n_new - 1)}")
+    decode_graph_checks(cfg8, packed, prompt, res8, gen8, n_new)
+
+    inputs = {k: v.cuda() for k, v in prompt.items()}
+    max_len = n_prompt + n_new + 1
+    cache_b = {}
+    for kind, c in (("bf16", cfg), ("int8", cfg8)):
+        _, caches = engine.prefill(c, packed, inputs, max_len)
+        cache_b[kind] = (nbytes([x["self"] for x in caches]),
+                         nbytes([x["cross"] for x in caches]))
+        del caches
+    log(f"  caches at {n_req} x {max_len} self slots, {n_req} x {se} cross "
+        f"slots: cross {cache_b['bf16'][1]} bytes (bf16, also beside the "
+        f"int8 self-cache: {cache_b['int8'][1]}); self bf16 "
+        f"{cache_b['bf16'][0]} vs int8 {cache_b['int8'][0]} "
+        f"({cache_b['bf16'][0] / cache_b['int8'][0]:.2f}x)")
+    check(cache_b["int8"][1] == cache_b["bf16"][1]
+          == 2 * mc.num_layers * n_req * se * mc.d_model * 2,
+          "10: the cross-cache stays bf16 beside the int8 self-cache")
+
+    # drift: the int8 and the bf16 self-cache fed the same (bf16-chosen)
+    # stream, 16 steps
+    fr, ptoks = inputs["frames"], inputs["tokens"]
+    lg, c16 = T.encdec_prefill(mc, packed, fr, ptoks, n_prompt + 17)
+    _, c8 = T.encdec_prefill(mc, packed, fr, ptoks, n_prompt + 17, "int8")
+    tok = torch.argmax(lg, -1)
+    pos = torch.full((n_req,), n_prompt, dtype=torch.long, device="cuda")
+    deltas, scale = [], 0.0
+    for _ in range(16):
+        out16, c16 = T.encdec_decode_step(mc, packed, tok, pos, c16)
+        out8, c8 = T.encdec_decode_step(mc, packed, tok, pos, c8)
+        deltas.append(float((out16 - out8).abs().max()))
+        scale = max(scale, float(out16.abs().max()))
+        tok = torch.argmax(out16, -1)
+        pos = pos + 1
+    del c16, c8
+    early, late = max(deltas[:8]), max(deltas[8:])
+    log(f"  drift int8 vs bf16 self-cache over 16 steps: max |dlogit| per "
+        f"step {[round(d, 4) for d in deltas]}; max {max(deltas):.4f} = "
+        f"{max(deltas) / scale:.3e} of max |logit| {scale:.3f}; late "
+        f"{late:.4f} <= 3 x early {early:.4f} + 0.05: "
+        f"{late <= 3 * early + 0.05}")
+    check(late <= 3 * early + 0.05, "10: int8 self-cache drift does not "
+          "accumulate")
+
+    # packed int4 against the refined grid: the RTN-packed linears' float
+    # weights become their dequantized grid, so in fp32 compute the two
+    # models differ in summation order only
+    def restructured(tree):
+        if isinstance(tree, dict):
+            return {k: restructured(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [restructured(v) for v in tree]
+        return tree
+
+    refined = restructured(params_q)
+    for name, qt in quantized_leaves(packed):
+        node = resolve(refined, name.rsplit(".", 1)[0])
+        if "qscales" not in node:           # packed on a fresh grid
+            node["w"] = dequantize_packed(qt).T.contiguous()
+    last = calib[-1]
+    rel = {}
+    for dt in ("float32", "bfloat16"):
+        mdt = dataclasses.replace(mc, dtype=dt)
+        lq = T.encdec_forward(mdt, packed, last["frames"],
+                              last["tokens"].cuda())
+        lf = T.encdec_forward(mdt, refined, last["frames"],
+                              last["tokens"].cuda())
+        rel[dt] = float((lq - lf).norm() / (lf.norm() + 1e-9))
+        if dt == "float32":
+            lraw = T.encdec_forward(mdt, params_q, last["frames"],
+                                    last["tokens"].cuda())
+            rel["raw"] = float((lq - lraw).norm() / (lraw.norm() + 1e-9))
+            del lraw
+        finite = bool(torch.isfinite(lq).all())
+        del lq, lf
+    log(f"  packed int4 vs refined-grid float logits on the last "
+        f"calibration batch: fp32 compute rel err {rel['float32']:.3e} "
+        f"(tol 1e-3); bf16 compute {rel['bfloat16']:.5f} (not pinned: the "
+        f"float model's bf16 weight rounding, as phase 6); against the raw "
+        f"float decoder self-attention and MLP weights (their RTN error) "
+        f"fp32 {rel['raw']:.5f}; finite {finite}")
+    check(rel["float32"] < 1e-3 and finite, "10: packed vs refined logits")
+    del refined
+
+    # the prefill -> decode hand-off against the full-sequence forward, in
+    # fp32 compute on fp32 caches
+    m32 = dataclasses.replace(mc, dtype="float32")
+    toks = torch.cat([ptoks, res.tokens[:, :8].to(ptoks.dtype)], dim=1)
+    full = T.encdec_forward(m32, packed, fr, toks)
+    lg, caches = T.encdec_prefill(m32, packed, fr, ptoks, n_prompt + 9,
+                                  cache_dtype=torch.float32)
+
+    def rel_to(a, b):
+        return float((a - b).norm() / b.norm())
+
+    errs = [rel_to(lg, full[:, n_prompt - 1])]
+    pos = torch.full((n_req,), n_prompt, dtype=torch.long, device="cuda")
+    for i in range(8):
+        lg, caches = T.encdec_decode_step(m32, packed, toks[:, n_prompt + i],
+                                          pos, caches)
+        errs.append(rel_to(lg, full[:, n_prompt + i]))
+        pos = pos + 1
+    del full, caches
+    log(f"  encdec_prefill + 8 encdec_decode_steps against encdec_forward "
+        f"(fp32 compute, fp32 caches): rel err per position "
+        f"{[f'{e:.2e}' for e in errs]} (tol 1e-4)")
+    check(max(errs) < 1e-4, "10: prefill -> decode hand-off")
+    log(f"  decoded tokens (request 0, bf16 / int8 self-cache): "
+        f"{res.tokens[0].tolist()} / {res8.tokens[0].tolist()}")
+    check(tuple(res.tokens.shape) == tuple(res8.tokens.shape)
+          == (n_req, n_new), "10: whisper path output shapes")
+    del packed, params_q, res, res8
+    torch.cuda.empty_cache()
+
+    log(f"  launch.serve --arch whisper-large-v3 --pack-rtn ({n_req} "
+        f"requests x ({se} frames + {n_prompt} prompt tokens) + {n_new} "
+        f"new)")
+    argv = ["--arch", "whisper-large-v3", "--pack-rtn", "--batch",
+            str(n_req), "--prompt-len", str(n_prompt),
+            f"serve.max_new_tokens={n_new}"]
+    starts = []
+    with patched(engine, "DecodeLoop", recording_starts(starts)):
+        res_l, counts = serve_walls(LS, argv, launches, "whisper-large-v3",
+                                    smi)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    packed = pack_for_serving(cfg, T.init_encdec_params(mc, gen, "cuda"))
+    batch = MarkovLM(mc.vocab_size, seed=3).batch(n_req, n_prompt)
+    gen = torch.Generator()
+    gen.manual_seed(3)
+    batch["frames"] = torch.randn((n_req, se, mc.d_model), generator=gen)
+    res_d = generate(cfg, packed, batch, max_new_tokens=n_new)
+    del packed
+    torch.cuda.empty_cache()
+    same = bool(torch.equal(res_l.tokens, res_d.tokens))
+    log(f"  tokens equal pack_for_serving -> generate called directly: "
+        f"{same}; decode started at {starts}; decoded tokens (request 0): "
+        f"{res_l.tokens[0].tolist()}")
+    check(same and starts == [[n_prompt] * n_req]
+          and counts["quant_pack"] > 0 and counts["w4a16_matmul"] > 0,
+          "10: launch.serve --arch whisper-large-v3 --pack-rtn")
+    return launches
+
+
 @contextlib.contextmanager
 def patched(obj, name: str, make):
     """Replace ``obj.name`` by ``make(original)`` inside the block."""
@@ -2589,6 +3007,11 @@ def main() -> int:
     log("[9b] the vision-language path at full width: pixtral-12b with "
         "1024 patch embeddings")
     for name, n in phase_vlm_path(smi).items():
+        launches[name] += n
+    torch.cuda.empty_cache()
+    log("[10] the encoder-decoder path at full width and depth: "
+        "whisper-large-v3 (32 + 32 layers, 1500 frames)")
+    for name, n in phase_encdec_path(smi).items():
         launches[name] += n
 
     log(f"  total {time.perf_counter() - t_start:.1f}s")

@@ -1,12 +1,13 @@
 """Configuration dataclasses for the PyTorch port.
 
-The port's own copy of the fields its decoder-only quantize → pack → serve
-path and its two launchers read, with the same names and defaults as the
-JAX package's configuration, plus the dotted ``key=value`` override
-helpers. A value the port does not run (``quant.pipeline=overlap``,
-``quant.mesh``, ``serve.scheduler=continuous``, ``serve.supervise``) is
-accepted here and raises where it would be used, naming its ROADMAP.md
-item.
+The port's own copy of the fields its quantize → pack → serve paths
+(decoder-only and encoder-decoder) and its two launchers read, with the
+same names and defaults as the JAX package's configuration, plus the
+dotted ``key=value`` override helpers. A value the port does not run
+(``quant.pipeline=overlap``, ``quant.mesh``,
+``serve.scheduler=continuous``, ``serve.supervise``,
+``serve.prefill_chunk > 0``) is accepted here and raises where it would
+be used, naming its ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -48,11 +49,19 @@ class ModelConfig:
     act: str = "silu"               # silu (gated) | gelu (ungated)
     gated_mlp: bool = True
     rope_theta: float = 10000.0
+    use_rope: bool = True           # False: no rotary embedding (whisper's
+    #                                 fixed sinusoidal positions instead)
     tie_embeddings: bool = False    # the head is embedding.T (no lm_head)
     logits_softcap: float = 0.0     # tanh(logits / c) * c when > 0
     attn_logits_softcap: float = 0.0    # the same on attention scores
     dtype: str = "bfloat16"         # compute dtype
     ssm: SSMConfig = field(default_factory=SSMConfig)
+    # encoder-decoder (whisper): a bidirectional encoder of encoder_layers
+    # over encoder_seq_len precomputed frames, read by the decoder's
+    # cross-attention
+    is_encoder_decoder: bool = False
+    encoder_layers: int = 0
+    encoder_seq_len: int = 1500     # frames after the (stubbed) conv frontend
     # modality frontend stub: "none" | "vision" | "audio"; its
     # frontend_tokens precomputed embeddings are prepended at prefill
     frontend: str = "none"
@@ -125,6 +134,9 @@ class ServeConfig:
     #                                 per-block absmax codes + f32 scales
     #                                 (kernels/kv_codec.py) with per-lane
     #                                 error feedback on decode appends
+    prefill_chunk: int = 0          # 0 = single-shot prefill; > 0, the
+    #                                 chunked prefill, is not ported
+    #                                 (ROADMAP.md queue 1 item 14)
     scheduler: str = "static"       # static = engine.generate; continuous
     #                                 is not ported (ROADMAP.md item 14)
     supervise: bool = False         # the crash-recovering supervisor: not

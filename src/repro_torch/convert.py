@@ -59,9 +59,12 @@ def tensor_from_numpy(a: Any, device="cpu") -> torch.Tensor:
 
 
 def _take(a: Any, take) -> Any:
-    """Index ``take`` of a leaf's leading axis (numpy or tensor)."""
+    """Index ``take`` of a leaf's leading axis (numpy, tensor, or a
+    bfloat16-tagged int16 view)."""
     if take is None:
         return a
+    if _is_bf16_tagged(a):
+        return {BF16_TAG: np.asarray(a[BF16_TAG])[take]}
     return (a if isinstance(a, torch.Tensor) else np.asarray(a))[take]
 
 
@@ -93,21 +96,35 @@ def _layer_count(seg: Dict) -> int:
     return int(v.shape[0] if isinstance(v, torch.Tensor) else np.shape(v)[0])
 
 
-def params_from_numpy(tree: Dict, device="cpu") -> Dict:
-    """The JAX decoder-only param tree (numpy leaves) → the port's tree.
+def _unstack(stacked: Any, device) -> List[Any]:
+    """A subtree whose leaves carry a leading (count,) layer axis → the
+    list of its layers."""
+    return [_convert(stacked, device, take=c)
+            for c in range(_layer_count(stacked))]
 
-    ``tree["blocks"]`` holds segments ``{"sub0": ..., "sub1": ...}`` whose
-    leaves carry a leading (count,) layer axis; they unstack into the
-    port's flat ``"layers"`` list in layer order (element-major, then
-    sub-layer). ``qscales``/``qzeros`` leaves are kept. Packed
+
+def params_from_numpy(tree: Dict, device="cpu") -> Dict:
+    """A JAX param tree (numpy leaves) → the port's tree.
+
+    Decoder-only: ``tree["blocks"]`` holds segments ``{"sub0": ...,
+    "sub1": ...}`` whose leaves carry a leading (count,) layer axis; they
+    unstack into the port's flat ``"layers"`` list in layer order
+    (element-major, then sub-layer). Encoder-decoder: ``encoder.layers``
+    and ``decoder.layers`` carry that axis and unstack into per-layer
+    lists. ``qscales``/``qzeros`` leaves are kept. Packed
     ``QuantizedTensor`` leaves (objects or dicts with packed / scales /
     zeros / shape / bits / group_size) split their layer axis too. A tree
-    already in the port's layout (a ``"layers"`` list, as
-    :func:`tree_to_numpy` writes it) converts leaf for leaf.
+    already in the port's layout (a ``"layers"`` list) converts leaf for
+    leaf.
     """
     out: Dict[str, Any] = {}
     layers: List[Dict] = []
     for k, v in tree.items():
+        if k in ("encoder", "decoder") and isinstance(v.get("layers"), dict):
+            out[k] = {kk: (_unstack(vv, device) if kk == "layers"
+                           else _convert(vv, device))
+                      for kk, vv in v.items()}
+            continue
         if k != "blocks":
             out[k] = _convert(v, device)
             continue
@@ -121,10 +138,46 @@ def params_from_numpy(tree: Dict, device="cpu") -> Dict:
     return out
 
 
+def _stack(trees: List[Any]) -> Any:
+    """Per-layer plain trees of one structure → one tree whose leaves
+    carry a leading (count,) layer axis (a packed leaf's ``shape`` gains
+    it too)."""
+    first = trees[0]
+    if isinstance(first, dict):
+        if any(sorted(t) != sorted(first) for t in trees):
+            raise ValueError("layers of different structure do not stack")
+        out = {k: _stack([t[k] for t in trees]) for k in first}
+        if _is_quantized(first):
+            out["shape"] = [len(trees), *first["shape"]]
+        return out
+    if isinstance(first, np.ndarray):
+        return np.stack(trees)
+    if any(t != first for t in trees):
+        raise ValueError(f"layers differ in a scalar leaf: {trees}")
+    return first
+
+
 def tree_to_numpy(tree: Any) -> Any:
     """A torch tree → plain containers with numpy leaves (module
-    docstring): the inverse of :func:`params_from_numpy` on the port's
-    layout, bit for bit, up to the order of dict keys."""
+    docstring): the inverse of :func:`params_from_numpy`, bit for bit, up
+    to the order of dict keys. An encoder-decoder's ``encoder.layers`` and
+    ``decoder.layers`` lists are stacked along a leading layer axis, as
+    the JAX package holds them (so an artifact and a JAX trainer
+    checkpoint share the layout); a decoder-only tree keeps the port's
+    ``"layers"`` list."""
+    if (isinstance(tree, dict) and "encoder" in tree and "decoder" in tree
+            and isinstance(tree["decoder"].get("layers"), list)):
+        out = {}
+        for k in sorted(tree):
+            v = tree[k]
+            if k in ("encoder", "decoder"):
+                out[sys.intern(k)] = {sys.intern(kk): (
+                    _stack([tree_to_numpy(x) for x in vv])
+                    if kk == "layers" else tree_to_numpy(vv))
+                    for kk, vv in sorted(v.items())}
+            else:
+                out[sys.intern(k)] = tree_to_numpy(v)
+        return out
     if isinstance(tree, QuantizedTensor):
         return {k: tree_to_numpy(getattr(tree, k)) for k in _QT_FIELDS}
     if isinstance(tree, torch.Tensor):

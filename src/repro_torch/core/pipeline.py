@@ -16,6 +16,10 @@ do it:
         the layer, then **propagate** the quantized layer's outputs to the
         next layer, so later Hessians see the quantized network.
 
+An encoder-decoder walks its encoder layers on the encoder stream, then,
+behind a :class:`~repro_torch.core.stream.StreamSwitch` fence, its decoder
+layers on the decoder stream (:func:`_walker_encdec`).
+
 :func:`pack_for_serving` then turns every quantized linear into an int4
 :class:`~repro_torch.core.quant.QuantizedTensor` on its stage-1 grid,
 through the ``quant_pack`` kernel on the card.
@@ -35,15 +39,18 @@ from repro_torch.core import stream as qstream
 from repro_torch.core.plan import MemberResult, PlanMember, QuantReport
 from repro_torch.core.quant import (QuantizedTensor, QuantParams,
                                     compute_qparams)
-from repro_torch.core.stream import LayerStep, LayerWalker
+from repro_torch.core.stream import LayerStep, LayerWalker, StreamSwitch
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
+from repro_torch.models.layers import norm
 from repro_torch.models.linear import Tap
 
 Tensor = torch.Tensor
 
-_QUANT_SUBTREES = ("mixer", "mlp")      # norms / embeddings / lm_head stay fp
+# a layer's subtrees whose linears are calibrated (a layer's top-level keys,
+# as the JAX package picks them); norms / embeddings / lm_head stay fp
+_QUANT_SUBTREES = ("mixer", "mlp", "xattn")
 
 
 def _resolve(tree: Dict, dotted: str):
@@ -184,14 +191,76 @@ def _walker_decoder_only(cfg: Config, params: Dict, calib: List[Dict],
     return LayerWalker(streams={"h": hs}, items=items, finalize=finalize)
 
 
+def _walker_encdec(cfg: Config, params: Dict, calib: List[Dict],
+                   device: torch.device) -> LayerWalker:
+    """The encoder-decoder's walk: the encoder steps on the ``enc`` stream
+    (frames plus their sinusoidal positions), the ``enc→dec`` switch (the
+    quantized encoder's final norm becomes each batch's cross-attention
+    memory, and the ``dec`` stream of token embeddings plus positions
+    opens), then the decoder steps. A decoder step calibrates its
+    ``xattn`` linears only: its self-attention and MLP sit under its
+    ``layer`` key, which the JAX package's capture does not pick (they
+    are packed on a fresh grid)."""
+    mc = cfg.model
+    dtype = T.compute_dtype(mc)
+    hs = [T.with_positions(mc, b["frames"].to(device=device, dtype=dtype))
+          for b in calib]
+    dhs = [T.decoder_inputs(mc, params, b["tokens"].to(device))
+           for b in calib]
+    if len({h.shape[1] for h in hs}) != 1 or \
+            len({h.shape[1] for h in dhs}) != 1:
+        raise ValueError("calibration batches must share their frame and "
+                         "token lengths")
+    b0 = hs[0].shape[0]
+    enc_pos = T.positions_for(b0, hs[0].shape[1], device)
+    dec_pos = T.positions_for(b0, dhs[0].shape[1], device)
+    enc, dec = params["encoder"], params["decoder"]
+    enc_out: List[Tensor] = []
+
+    def switch(streams: Dict[str, List[Tensor]]) -> None:
+        enc_out[:] = [norm(mc, enc["final_norm"], h) for h in streams["enc"]]
+        streams["dec"] = list(dhs)
+
+    def steps(prefix, layers, slot, apply_fn, collected):
+        return [LayerStep(name=f"{prefix} {i + 1}",
+                          params=(lambda _i=i: layers[_i]),
+                          apply_fn=apply_fn, hs_slot=slot,
+                          store=(lambda p, _i=i:
+                                 collected.__setitem__(_i, p)))
+                for i in range(len(layers))]
+
+    enc_done: List[Optional[Dict]] = [None] * len(enc["layers"])
+    dec_done: List[Optional[Dict]] = [None] * len(dec["layers"])
+    items = steps("enc", enc["layers"], "enc",
+                  lambda p, h, bi: T.encoder_layer(mc, p, h, enc_pos),
+                  enc_done)
+    items.append(StreamSwitch(name="enc→dec", run=switch))
+    items += steps("dec", dec["layers"], "dec",
+                   lambda p, h, bi: T.decoder_layer(mc, p, h, dec_pos,
+                                                    enc_out[bi]),
+                   dec_done)
+
+    def finalize() -> Dict:
+        out = dict(params)
+        out["encoder"] = {"layers": enc_done,
+                          "final_norm": enc["final_norm"]}
+        out["decoder"] = {"layers": dec_done,
+                          "final_norm": dec["final_norm"]}
+        return out
+
+    return LayerWalker(streams={"enc": hs}, items=items, finalize=finalize)
+
+
 def quantize_model(cfg: Config, params: Dict, calib: List[Dict[str, Tensor]],
                    device: Union[str, torch.device, None] = None,
                    verbose: bool = False) -> Tuple[Dict, QuantReport]:
-    """Quantize every layer of a decoder-only model (GPTQ + RPIQ).
+    """Quantize every layer of a decoder-only or encoder-decoder model
+    (GPTQ + RPIQ).
 
     ``calib``: batch dicts ``{"tokens": (B, S), "embeds"?: (B, F, D)}``
-    (frontend embeddings, prepended to the tokens); the last batch is the
-    single instance of stage 2. Runs on the CUDA card unless
+    (frontend embeddings, prepended to the tokens), or for an
+    encoder-decoder ``{"tokens": (B, S), "frames": (B, Se, D)}``; the last
+    batch is the single instance of stage 2. Runs on the CUDA card unless
     ``device="cpu"``; params and tokens are moved there. Returns float
     params whose quantized linears hold on-grid values (with their
     ``qscales``/``qzeros``), and the :class:`QuantReport`.
@@ -200,7 +269,9 @@ def quantize_model(cfg: Config, params: Dict, calib: List[Dict[str, Tensor]],
     t_start = time.perf_counter()
     report = QuantReport()
     params = _to_device(params, dev)
-    walker = _walker_decoder_only(cfg, params, calib, dev)
+    build = (_walker_encdec if cfg.model.is_encoder_decoder
+             else _walker_decoder_only)
+    walker = build(cfg, params, calib, dev)
     out = qstream.run_walker(cfg, walker, report, verbose=verbose)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -213,7 +284,9 @@ def pack_for_serving(cfg: Config, params_q: Dict) -> Dict:
 
     Packing reuses the stage-1 grid each quantized linear carries
     (``qscales``/``qzeros``), so the refined on-grid weights round-trip
-    exactly; a weight without a grid gets a fresh one. The codes are
+    exactly; a weight without a grid gets a fresh one (an encoder-decoder's
+    decoder self-attention and MLP, which calibration does not pick, as in
+    the JAX package). The codes are
     rounded and packed by ``ops.quant_pack`` (asymmetric 4-bit grid, the
     layout of ``core.quant.pack_int4``). Norms, embeddings and lm_head stay
     float.

@@ -1,17 +1,21 @@
 """The layer walk of the quantizer, serial schedule, with step checkpoints.
 
 An architecture describes itself as a :class:`LayerWalker` — residual
-streams plus a flat list of :class:`LayerStep` items — and
-:func:`run_walker` drains it: per step capture → plan → execute → scatter
-→ propagate, then store the quantized layer. (The JAX package's overlap
+streams plus a flat list of :class:`LayerStep` items, with
+:class:`StreamSwitch` fences where the steps move from one stream to
+another (the encoder-decoder's ``enc→dec``) — and :func:`run_walker`
+drains it: per step capture → plan → execute → scatter → propagate, then
+store the quantized layer; a switch runs at its place in the walk. (The JAX package's overlap
 schedule is not ported: ``quant.pipeline=overlap`` raises.)
 
 Layer-checkpointed resume (``quant.ckpt_dir`` / ``quant.resume``): at every
 step boundary the walker saves the residual streams (the state every later
 capture derives from) and the stored quantized subtrees of all completed
 steps through ``distributed/checkpoint.py`` (atomic, async writer). A run
-restarted with ``quant.resume=auto`` re-stores the checkpointed subtrees
-and continues from the first incomplete step on the checkpointed streams,
+restarted with ``quant.resume=auto`` replays the completed switches (which
+rebuild what their closures publish, such as the cross-attention memory),
+re-stores the checkpointed subtrees and continues from the first
+incomplete step on the checkpointed streams,
 so its artifacts are bitwise those of an uninterrupted run. A corrupt
 checkpoint, or one written under another configuration, warns and the
 walk starts fresh.
@@ -56,9 +60,26 @@ class LayerStep:
 
 
 @dataclasses.dataclass
+class StreamSwitch:
+    """A fence between stream slots (the encoder → decoder hand-off):
+    ``run(streams)`` changes the walker's stream dict, finalizing one
+    slot and opening the next, from the fully propagated (quantized)
+    upstream state."""
+    name: str
+    run: Callable[[Dict[str, List[torch.Tensor]]], None]
+
+
+WalkItem = Union[LayerStep, StreamSwitch]
+
+
+@dataclasses.dataclass
 class LayerWalker:
+    """``streams``: slot → per-calibration-batch residual tensors (the
+    slots live at walk start; switches add more); ``items`` in walk
+    order; ``finalize()`` reassembles the quantized tree from what the
+    steps stored."""
     streams: Dict[str, List[torch.Tensor]]
-    items: List[LayerStep]
+    items: List[WalkItem]
     finalize: Callable[[], Dict]
 
 
@@ -145,9 +166,18 @@ def _resume(cfg: Config, ckpt: Checkpointer, fp: str, walker: LayerWalker,
     start = int(extra["item_idx"]) + 1
     device = next(iter(walker.streams.values()))[0].device
     streams, stored = _restore_from_arrays(arrays, device)
+    # replay the completed items: a switch rebuilds what its closure
+    # publishes from the checkpointed streams, a step re-stores its
+    # subtree; then the checkpointed streams overwrite the slots a
+    # replayed switch opened at their walk-start values
+    walker.streams.clear()
+    walker.streams.update(streams)
     for item in walker.items[:start]:
-        item.store(stored[item.name])
-        item.release_params()
+        if isinstance(item, StreamSwitch):
+            item.run(walker.streams)
+        else:
+            item.store(stored[item.name])
+            item.release_params()
     walker.streams.update(streams)
     _restore_report(report, extra.get("report", {}), stats)
     stats["resumed_at"] = start
@@ -174,8 +204,24 @@ def run_walker(cfg: Config, walker: LayerWalker, report: QuantReport,
         if qc.resume == "auto" and ckpt.latest_step() is not None:
             start, stored_snap = _resume(cfg, ckpt, fp, walker, report,
                                          stats, verbose)
+
+    def save(idx: int) -> None:
+        ckpt.save(idx, _walk_ckpt_tree(walker.streams, stored_snap),
+                  extra={"item_idx": idx, "walk_fingerprint": fp,
+                         "report": _report_state(report, stats)})
+
     try:
         for idx, item in enumerate(walker.items[start:], start):
+            if isinstance(item, StreamSwitch):
+                item.run(walker.streams)
+                if ckpt is not None:
+                    # a fence: its checkpoint is written before the walk
+                    # goes on
+                    save(idx)
+                    ckpt.wait()
+                if verbose:
+                    print(f"  {item.name}: switched streams")
+                continue
             t_step = time.perf_counter()
             hs = walker.streams[item.hs_slot]
             cap = qpipe.capture_layer(cfg, item, hs)
@@ -192,9 +238,7 @@ def run_walker(cfg: Config, walker: LayerWalker, report: QuantReport,
                 # the step's layer and the propagated streams become
                 # durable (the save copies them to the host first)
                 stored_snap[item.name] = new_params
-                ckpt.save(idx, _walk_ckpt_tree(walker.streams, stored_snap),
-                          extra={"item_idx": idx, "walk_fingerprint": fp,
-                                 "report": _report_state(report, stats)})
+                save(idx)
             if verbose:
                 print(f"  {item.name}: {report.summary()}")
     finally:

@@ -20,7 +20,11 @@
 // way (slots past the range land as zero codes, zero scales, kpos -1). K
 // rows land padded by 4 bytes (4-byte copies), so that lanes reading
 // neighbouring rows hit different banks; V rows land whole (16-byte
-// copies). Within a tile each warp owns 16 slots and keeps its own online
+// copies). A head width that is no multiple of 16 (hd / 4 words that are
+// not whole 16-byte pieces: minicpm smoke's 12) takes the NARROW
+// instantiation, whose V rows land 4 bytes at a time and whose first score
+// lane of a slot takes the larger half of an odd count of words; every
+// other width runs the code it ran before. Within a tile each warp owns 16 slots and keeps its own online
 // softmax, so the warps never wait for each other inside a tile:
 //   1. scores: two lanes a slot, each over half of the row, every query
 //      row at once so that each code is converted once (q is staged with
@@ -146,8 +150,9 @@ struct Share {
 };
 
 // Issue the copies of the tile at s0 into st: K words (4-byte copies into
-// the padded rows), V 16-byte pieces, the scales, kpos; slots at or past
-// s_end (the block's range) are zero-filled, kpos -1.
+// the padded rows), V 16-byte pieces (NARROW: V words), the scales, kpos;
+// slots at or past s_end (the block's range) are zero-filled, kpos -1.
+template <bool NARROW>
 __device__ __forceinline__ void load_tile(
         const Stage& st, const int8_t* kc, const float* ks, const int8_t* vc,
         const float* vs, const int* kpos, int b, int g, int s0, int S,
@@ -163,9 +168,15 @@ __device__ __forceinline__ void load_tile(
     }
     for (int slot = vw.row0; slot < TS; slot += vw.step) {
         const bool ok = s0 + slot < s_end;
-        const int8_t* src =
-            ok ? vc + (base + (long)slot * KV) * hd + 16 * vw.col : vc;
-        cp_async16(st.vt + slot * quads + 4 * vw.col, src, ok ? 16 : 0);
+        if (NARROW) {
+            const int8_t* src =
+                ok ? vc + (base + (long)slot * KV) * hd + 4 * vw.col : vc;
+            cp_async4(st.vt + slot * quads + vw.col, src, ok ? 4 : 0);
+        } else {
+            const int8_t* src =
+                ok ? vc + (base + (long)slot * KV) * hd + 16 * vw.col : vc;
+            cp_async16(st.vt + slot * quads + 4 * vw.col, src, ok ? 16 : 0);
+        }
     }
     for (int slot = sw.row0; slot < TS; slot += sw.step) {
         const bool ok = s0 + slot < s_end;
@@ -207,7 +218,7 @@ __device__ __forceinline__ void fold(const float* base, int n, int stride,
 // takes tiles [z * per, (z + 1) * per) of cell (b, g); with splits > 1,
 // work holds (splits, R * hd + 2 R) fp32 partials a cell and tickets one
 // counter a cell. CAP: scores are soft-capped at softcap.
-template <typename T, int R, int QPL, bool CAP>
+template <typename T, int R, int QPL, bool CAP, bool NARROW>
 __global__ void __launch_bounds__(THREADS, 2)
 kv_attn_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
                const float* __restrict__ ks, const int8_t* __restrict__ vc,
@@ -221,7 +232,9 @@ kv_attn_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
     const int s_end = min(S, s_begin + per * TS);
     const int nb = hd / kv_block;
     const int quads = hd / 4;            // 4-column groups of a row
-    const int half = quads / 2;          // words of a score lane
+    // words of a score lane (NARROW, an odd count of words: the first
+    // lane takes the larger half)
+    const int half = NARROW ? (quads + 1) / 2 : quads / 2;
     const int qst = q_stride(hd);
     const int ps = R * hd + 2 * R;       // floats of one (acc, m, l)
 
@@ -236,7 +249,7 @@ kv_attn_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
     const long cell = (long)b * KV + g;
     for (int e = tid; e < R * hd; e += THREADS) {
         const int r = e / hd, c = e - r * hd;
-        qs[r * qst + c + (c >= hd / 2 ? 4 : 0)] =
+        qs[r * qst + c + (c >= (NARROW ? 4 * half : hd / 2) ? 4 : 0)] =
             load_q(q + cell * R * hd + e);
     }
 
@@ -250,12 +263,13 @@ kv_attn_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
     }
 
     // this thread's share of the copies: K words, V pieces, scales
-    const Share kw(quads), vw(hd / 16), sw(nb);
-    load_tile(stage_at(ring, quads, nb), kc, ks, vc, vs, kpos, b, g,
+    const Share kw(quads), vw(NARROW ? quads : hd / 16), sw(nb);
+    load_tile<NARROW>(stage_at(ring, quads, nb), kc, ks, vc, vs, kpos, b, g,
               s_begin, S, s_end, KV, hd, nb, kw, vw, sw);
     cp_async_commit();
     const int h = lane & 1;              // the score lane's half of a row
     const int w0 = h * half;
+    const int w_end = NARROW && h ? quads : w0 + half;
     const float* qh = qs + h * (4 * half + 4);
     const int ws0 = warp * WS;           // the warp's first slot of a tile
     const int slot = ws0 + lane / 2;     // the score lane's slot
@@ -273,7 +287,7 @@ kv_attn_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
         __syncthreads();
         const Stage st = stage_at(ring + (t & 1) * sb, quads, nb);
         if (s0 + TS < s_end) {
-            load_tile(stage_at(ring + ((t + 1) & 1) * sb, quads, nb), kc,
+            load_tile<NARROW>(stage_at(ring + ((t + 1) & 1) * sb, quads, nb), kc,
                       ks, vc, vs, kpos, b, g, s0 + TS, S, s_end, KV, hd, nb,
                       kw, vw, sw);
             cp_async_commit();
@@ -286,7 +300,7 @@ kv_attn_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
         for (int r = 0; r < R; ++r) sc[r] = seg[r] = 0.f;
         int blk = blk0, next = next0;
 #pragma unroll 4
-        for (int w = w0; w < w0 + half; ++w) {
+        for (int w = w0; w < w_end; ++w) {
             if (w == next) {                 // a kv_block segment ends
                 const float scale = st.kss[slot * nb + blk];
 #pragma unroll
@@ -433,12 +447,12 @@ size_t smem_bytes(int R, int hd, int nb) {
     return head_bytes(R, hd) + (ring > comb ? ring : comb);
 }
 
-template <typename T, int R, int QPL, bool CAP>
+template <typename T, int R, int QPL, bool CAP, bool NARROW>
 int launch_q(const T* q, const int8_t* kc, const float* ks, const int8_t* vc,
              const float* vs, const int* kpos, T* out, int B, int S, int KV,
              int hd, int kv_block, int splits, int per, float* work,
              int* tickets, float softcap, void* stream) {
-    constexpr auto kernel = &kv_attn_kernel<T, R, QPL, CAP>;
+    constexpr auto kernel = &kv_attn_kernel<T, R, QPL, CAP, NARROW>;
     const size_t smem = smem_bytes(R, hd, hd / kv_block);
     if (smem > 48 * 1024) {
         const int lim = grant_max_dynamic_smem<kernel>();
@@ -452,18 +466,34 @@ int launch_q(const T* q, const int8_t* kc, const float* ks, const int8_t* vc,
     return (int)cudaGetLastError();
 }
 
+template <typename T, int R, bool CAP, bool NARROW>
+int launch_n(const T* q, const int8_t* kc, const float* ks, const int8_t* vc,
+             const float* vs, const int* kpos, T* out, int B, int S, int KV,
+             int hd, int kv_block, int splits, int per, float* work,
+             int* tickets, float softcap, void* stream) {
+    return hd > 128
+        ? launch_q<T, R, 2, CAP, NARROW>(q, kc, ks, vc, vs, kpos, out, B, S,
+                                         KV, hd, kv_block, splits, per, work,
+                                         tickets, softcap, stream)
+        : launch_q<T, R, 1, CAP, NARROW>(q, kc, ks, vc, vs, kpos, out, B, S,
+                                         KV, hd, kv_block, splits, per, work,
+                                         tickets, softcap, stream);
+}
+
+// rows of whole 16-byte pieces take the kernel as it was before other head
+// widths were taken (bit for bit); the others copy V 4 bytes at a time
 template <typename T, int R, bool CAP>
 int launch_c(const T* q, const int8_t* kc, const float* ks, const int8_t* vc,
              const float* vs, const int* kpos, T* out, int B, int S, int KV,
              int hd, int kv_block, int splits, int per, float* work,
              int* tickets, float softcap, void* stream) {
-    return hd > 128
-        ? launch_q<T, R, 2, CAP>(q, kc, ks, vc, vs, kpos, out, B, S, KV, hd,
-                                 kv_block, splits, per, work, tickets,
-                                 softcap, stream)
-        : launch_q<T, R, 1, CAP>(q, kc, ks, vc, vs, kpos, out, B, S, KV, hd,
-                                 kv_block, splits, per, work, tickets,
-                                 softcap, stream);
+    return hd % 16 != 0
+        ? launch_n<T, R, CAP, true>(q, kc, ks, vc, vs, kpos, out, B, S, KV,
+                                    hd, kv_block, splits, per, work, tickets,
+                                    softcap, stream)
+        : launch_n<T, R, CAP, false>(q, kc, ks, vc, vs, kpos, out, B, S, KV,
+                                     hd, kv_block, splits, per, work,
+                                     tickets, softcap, stream);
 }
 
 template <typename T, int R>
@@ -485,7 +515,7 @@ int launch(const T* q, const int8_t* kc, const float* ks, const int8_t* vc,
            const float* vs, const int* kpos, T* out, int B, int S, int KV,
            int R, int hd, int kv_block, int splits, int per, float* work,
            int* tickets, float softcap, void* stream) {
-    if (hd % 16 != 0 || hd > MAX_HD || kv_block % 4 != 0
+    if (hd % 4 != 0 || hd > MAX_HD || kv_block % 4 != 0
         || hd % kv_block != 0 || hd / kv_block > MAX_NB
         || splits < 1 || per < 1 || splits > 65535
         || (long)(splits - 1) * per * TS >= S

@@ -630,6 +630,8 @@ def int8_kv_attention_cuda(q: Tensor, k_codes: Tensor, k_scales: Tensor,
     kshape = k_codes.shape
     s = kshape[1]
     nb = hd // kv_block if kv_block else 0
+    # V rows of whole 16-byte pieces load 16 bytes at a time, others 4
+    align = 16 if hd % 16 == 0 else 4
     ok_types = (k_codes.dtype == v_codes.dtype == torch.int8
                 and k_scales.dtype == v_scales.dtype == torch.float32
                 and kpos.dtype == torch.int32)
@@ -637,9 +639,9 @@ def int8_kv_attention_cuda(q: Tensor, k_codes: Tensor, k_scales: Tensor,
                  and k_scales.shape == v_scales.shape == (b, s, kv, nb)
                  and kpos.shape == (b, s))
     if not (ok_types and ok_shapes and kv_block and hd % kv_block == 0
-            and kv_block % 4 == 0 and 1 <= r <= 8 and hd % 16 == 0
-            and hd <= 256 and nb <= 8 and k_codes.data_ptr() % 16 == 0
-            and v_codes.data_ptr() % 16 == 0 and softcap >= 0):
+            and kv_block % 4 == 0 and 1 <= r <= 8 and hd % 4 == 0
+            and hd <= 256 and nb <= 8 and k_codes.data_ptr() % align == 0
+            and v_codes.data_ptr() % align == 0 and softcap >= 0):
         raise ValueError(
             f"{op}: q {tuple(q.shape)}, codes {tuple(k_codes.shape)} / "
             f"{tuple(v_codes.shape)} {k_codes.dtype} / {v_codes.dtype}, "
@@ -650,8 +652,9 @@ def int8_kv_attention_cuda(q: Tensor, k_codes: Tensor, k_scales: Tensor,
             "kernel takes int8 codes (B, S, KV, hd), f32 scales (B, S, KV, "
             "hd/kv_block), int32 kpos (B, S), kv_block a multiple of 4 "
             "dividing hd, R <= 8 query rows per kv-head, hd a multiple of "
-            "16 up to 256, at most 8 scale blocks per row, codes "
-            "16-byte aligned (16-byte loads) and softcap >= 0")
+            "4 up to 256, at most 8 scale blocks per row, codes aligned to "
+            "their loads (16 bytes where hd is a multiple of 16, else 4) "
+            "and softcap >= 0")
     lib = build.load(op)
     if q.dtype == torch.float32:
         fn = lib.int8_kv_attention_f32_launch

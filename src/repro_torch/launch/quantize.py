@@ -8,7 +8,12 @@ command line. When ``train.ckpt_dir`` holds a step checkpoint (a JAX
 trainer's, say) the parameters of its latest step are quantized (a
 *trained* model); otherwise a fresh init from seed 0. Calibration is
 ``MarkovLM(vocab, seed=7)``: ``quant.calib_batches`` batches of
-``quant.calib_batch_size`` × ``quant.calib_seq_len`` tokens. Writes
+``quant.calib_batch_size`` × ``quant.calib_seq_len`` tokens; an
+encoder-decoder (whisper) also gets ``encoder_seq_len`` standard-normal
+frames a row in every batch, batch i drawn from a ``torch.Generator``
+seeded i (the JAX launcher draws them from ``PRNGKey(i)``: torch cannot
+reproduce ``jax.random`` bits, so the two launchers calibrate on other
+frames). Writes
 ``<out>/<name>.report.json`` (one record per linear) and the packed int4
 params ``<out>/<name>.params.pkl`` beside its sha256 sidecar, which
 ``launch.serve --params`` verifies at load.
@@ -85,7 +90,8 @@ def main(argv=None):
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    params = T.init_params(mc, gen, dev)
+    params = (T.init_encdec_params(mc, gen, dev) if mc.is_encoder_decoder
+              else T.init_params(mc, gen, dev))
     trained = trained_params(cfg.train.ckpt_dir, params, dev)
     if trained is not None:
         params = trained
@@ -95,6 +101,13 @@ def main(argv=None):
     data = MarkovLM(mc.vocab_size, seed=7)
     calib = calibration_batches(data, qc.calib_batches, qc.calib_batch_size,
                                 min(qc.calib_seq_len, mc.max_seq_len - 8))
+    if mc.is_encoder_decoder:
+        for i, b in enumerate(calib):
+            frames_gen = torch.Generator()
+            frames_gen.manual_seed(i)
+            b["frames"] = torch.randn(
+                (qc.calib_batch_size, mc.encoder_seq_len, mc.d_model),
+                generator=frames_gen)
     if qc.mesh != "off":
         raise not_ported(f"quant.mesh={qc.mesh}", 17)
     params_q, report = quantize_model(cfg, params, calib, device=dev,

@@ -10,17 +10,19 @@ integrity-checked ``distributed.checkpoint.load_artifact`` (a corrupt
 artifact is a typed ``ArtifactIntegrityError``, never a silent load);
 ``--pack-rtn`` packs float weights (a fresh init from seed 0, or the
 loaded ones) to int4 on a fresh grid, so the quantized decode runs
-without a quantize run. Prompts are ``MarkovLM(vocab, seed=3)``; a model
-with a frontend (``pixtral-12b``) also gets ``min(frontend_tokens, 8)``
-standard-normal patch embeddings a request, drawn from a
-``torch.Generator`` seeded 3 like the prompt and prepended to it. The
-static batch runs through ``serving.engine.generate``, whose decode
-replays one captured CUDA graph on the card.
+without a quantize run. Prompts are ``MarkovLM(vocab, seed=3)``; an
+encoder-decoder (``whisper-large-v3``) also gets ``encoder_seq_len``
+standard-normal frames a request for its encoder, and another model with
+a frontend (``pixtral-12b``) ``min(frontend_tokens, 8)`` standard-normal
+patch embeddings a request, prepended to the prompt; both are drawn from
+a ``torch.Generator`` seeded 3 like the prompt (the JAX launcher draws
+them from ``jax.random``, whose bits torch cannot reproduce). The static
+batch runs through ``serving.engine.generate``, whose decode replays one
+captured CUDA graph on the card.
 
 Not ported (they raise and name their ROADMAP.md item):
-``serve.scheduler=continuous`` and ``serve.supervise=true`` (item 14). The
-JAX launcher's encoder-decoder branch has no arch in the port yet
-(``configs.get_config`` refuses whisper, item 11).
+``serve.scheduler=continuous``, ``serve.supervise=true`` and
+``serve.prefill_chunk > 0`` (item 14).
 
 Runs on the CUDA card; ``--device cpu`` runs the kernels' plain versions.
 """
@@ -78,16 +80,22 @@ def main(argv=None):
     else:
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
-        params = T.init_params(mc, gen, dev)
+        params = (T.init_encdec_params(mc, gen, dev)
+                  if mc.is_encoder_decoder else T.init_params(mc, gen, dev))
     if args.pack_rtn:
         params = pack_for_serving(cfg, params)
         print("[serve] RTN-packed weights to int4")
 
     batch = MarkovLM(mc.vocab_size, seed=3).batch(args.batch,
                                                   args.prompt_len)
-    if mc.frontend in ("vision", "audio") and mc.frontend_tokens:
-        gen = torch.Generator()
-        gen.manual_seed(3)
+    gen = torch.Generator()
+    gen.manual_seed(3)
+    # an encoder-decoder's frontend (whisper's audio) feeds its encoder,
+    # not the front of the prompt
+    if mc.is_encoder_decoder:
+        batch["frames"] = torch.randn(
+            (args.batch, mc.encoder_seq_len, mc.d_model), generator=gen)
+    elif mc.frontend in ("vision", "audio") and mc.frontend_tokens:
         batch["embeds"] = torch.randn(
             (args.batch, min(mc.frontend_tokens, 8), mc.d_model),
             generator=gen)

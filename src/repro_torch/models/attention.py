@@ -1,4 +1,5 @@
-"""Grouped-query self-attention: forward, prefill, decode.
+"""Grouped-query attention: self-attention forward, prefill and decode,
+and the encoder-decoder's cross-attention.
 
 The math mirrors the JAX package's ``opt_attention`` path: queries are
 pre-scaled in fp32 and cast to the compute dtype, scores and values are
@@ -26,11 +27,14 @@ long the session. The layouts:
     through ``ops.int8_kv_attention``.
 
 ``cfg.attn_logits_softcap`` > 0 caps every score as ``tanh(s / c) * c``
-before the mask, in prefill and decode.
+before the mask, in prefill and decode. RoPE rotates q and k only when
+``cfg.use_rope`` (whisper adds fixed sinusoidal positions to its inputs
+instead). The cross-attention's encoder K/V (``cross_attention_kv``) are
+computed once a request; every decoder query attends to all of them.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -58,12 +62,14 @@ def _mm(a: Tensor, b: Tensor) -> Tensor:
 
 
 def _attend_chunked(q: Tensor, k: Tensor, v: Tensor, q_positions: Tensor,
-                    kv_positions: Tensor, *, window: int = 0,
-                    softcap: float = 0.0, chunk: int = 512) -> Tensor:
-    """Causal attention. q/k/v (B, S, H, hd); positions (B, Sq) / (B, Sk).
-    A key is seen when ``kpos <= qpos``, and with ``window`` > 0 also
-    ``kpos > qpos - window``; scores are soft-capped (``softcap`` > 0)
-    before the mask. Queries go in chunks of ``chunk``; each chunk takes a
+                    kv_positions: Tensor, *, causal: bool = True,
+                    window: int = 0, softcap: float = 0.0,
+                    chunk: int = 512) -> Tensor:
+    """Attention. q/k/v (B, S, H, hd); positions (B, Sq) / (B, Sk), a
+    negative one a padding slot. A key is seen when ``causal`` and
+    ``kpos <= qpos`` (every key when not ``causal``), and with ``window``
+    > 0 also ``kpos > qpos - window``; scores are soft-capped
+    (``softcap`` > 0) before the mask. Queries go in chunks of ``chunk``; each chunk takes a
     full softmax over the keys. Returns (B, Sq, H, hd) in q's dtype."""
     b, sq, h, hd = q.shape
     scale = hd ** -0.5
@@ -77,7 +83,9 @@ def _attend_chunked(q: Tensor, k: Tensor, v: Tensor, q_positions: Tensor,
         qs = (qi.float() * scale).to(qi.dtype).permute(0, 2, 1, 3)
         s = tanh_softcap(_mm(qs, kT), softcap)     # (B, H, c, Sk)
         dq = pi[:, None, :, None]
-        mask = (dq >= 0) & (dk >= 0) & (dq >= dk)
+        mask = (dq >= 0) & (dk >= 0)
+        if causal:
+            mask = mask & (dq >= dk)
         if window > 0:
             mask = mask & (dk > dq - window)
         s = torch.where(mask, s, torch.full_like(s, NEG_INF))
@@ -111,16 +119,20 @@ def _n_rep(cfg: ModelConfig) -> int:
 
 
 def attention_forward(cfg: ModelConfig, p: Dict, x: Tensor,
-                      positions: Tensor, *, window: int = 0,
-                      name: str = "attn") -> Tensor:
-    """Causal self-attention over a full sequence (windowed when
-    ``window`` > 0). x (B, S, D)."""
+                      positions: Tensor, *, causal: bool = True,
+                      window: int = 0, name: str = "attn",
+                      use_rope: Optional[bool] = None) -> Tensor:
+    """Self-attention over a full sequence: causal (windowed when
+    ``window`` > 0) or, with ``causal=False``, bidirectional (whisper's
+    encoder). RoPE is applied when ``use_rope`` says so (None: when
+    ``cfg.use_rope``). x (B, S, D)."""
     q, k, v = _project_qkv(cfg, p, x, name)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.use_rope if use_rope is None else use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     n_rep = _n_rep(cfg)
     o = _attend_chunked(q, repeat_kv(k, n_rep), repeat_kv(v, n_rep),
-                        positions, positions, window=window,
+                        positions, positions, causal=causal, window=window,
                         softcap=cfg.attn_logits_softcap)
     b, s = x.shape[:2]
     return dense(p["o"], o.reshape(b, s, -1), f"{name}.o")
@@ -166,8 +178,9 @@ def attention_prefill(cfg: ModelConfig, p: Dict, x: Tensor,
     accumulators stay untouched (error feedback is a decode-append
     recurrence)."""
     q, k, v = _project_qkv(cfg, p, x, name)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     n_rep = _n_rep(cfg)
     o = _attend_chunked(q, repeat_kv(k, n_rep), repeat_kv(v, n_rep),
                         positions, positions, window=window,
@@ -230,8 +243,9 @@ def attention_decode(cfg: ModelConfig, p: Dict, x: Tensor, pos: Tensor,
     b = x.shape[0]
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q, k, v = _project_qkv(cfg, p, x, name)
-    q = apply_rope(q, pos[:, None], cfg.rope_theta)
-    k = apply_rope(k, pos[:, None], cfg.rope_theta)
+    if cfg.use_rope:
+        q = apply_rope(q, pos[:, None], cfg.rope_theta)
+        k = apply_rope(k, pos[:, None], cfg.rope_theta)
     ck, cv = cache["k"], cache["v"]
     cache_len = ck.shape[1]
     slot = pos % cache_len if window > 0 else pos
@@ -261,3 +275,36 @@ def attention_decode(cfg: ModelConfig, p: Dict, x: Tensor, pos: Tensor,
         o = _mm(pw.to(cv.dtype), cv.permute(0, 2, 1, 3)).to(x.dtype)
     y = dense(p["o"], o.reshape(b, 1, h * hd), f"{name}.o")
     return y, cache
+
+
+def init_cross_attention(cfg: ModelConfig, gen: torch.Generator, device,
+                         bias: bool = True) -> Dict:
+    """The decoder's cross-attention: q, k, v, o as a self-attention's."""
+    return init_attention(cfg, gen, bias, device)
+
+
+def cross_attention_kv(cfg: ModelConfig, p: Dict, enc: Tensor,
+                       name: str = "xattn") -> Dict:
+    """The encoder-side K/V, computed once a request: enc (B, Se, D) →
+    ``{"k", "v"}`` (B, Se, KV, hd)."""
+    b, se, _ = enc.shape
+    kv, hd = cfg.num_kv_heads, cfg.head_dim
+    return {"k": dense(p["k"], enc, f"{name}.k").reshape(b, se, kv, hd),
+            "v": dense(p["v"], enc, f"{name}.v").reshape(b, se, kv, hd)}
+
+
+def cross_attention(cfg: ModelConfig, p: Dict, x: Tensor, kv_cache: Dict,
+                    name: str = "xattn") -> Tensor:
+    """Decoder queries x (B, S, D) against the fixed encoder K/V: no
+    positions, no mask. Plain products, as the JAX package computes them
+    outside any Pallas kernel."""
+    b, s, _ = x.shape
+    h, hd = cfg.num_heads, cfg.head_dim
+    q = dense(p["q"], x, f"{name}.q").reshape(b, s, h, hd)
+    n_rep = _n_rep(cfg)
+    k = repeat_kv(kv_cache["k"], n_rep)
+    v = repeat_kv(kv_cache["v"], n_rep)
+    zeros = torch.zeros((b, 1), dtype=torch.long, device=x.device)
+    o = _attend_chunked(q, k, v, zeros.expand(b, s),
+                        zeros.expand(b, k.shape[1]), causal=False)
+    return dense(p["o"], o.reshape(b, s, -1), f"{name}.o")

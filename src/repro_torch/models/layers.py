@@ -1,5 +1,6 @@
-"""Shared model layers: norms, MLP, embeddings, rotary embeddings, the
-depthwise causal conv of the Mamba block.
+"""Shared model layers: norms, MLP, embeddings, rotary embeddings,
+whisper's sinusoidal positions, the depthwise causal conv of the Mamba
+block.
 
 Plain functions over param dicts. Compute dtype follows the input; norm
 statistics and RoPE run in float32, as in the JAX package.
@@ -110,6 +111,18 @@ def apply_rope(x: Tensor, positions: Tensor, theta: float = 10000.0
     x1, x2 = x.float().chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      dim=-1).to(x.dtype)
+
+
+def sinusoidal_positions(seq_len: int, d_model: int, device="cpu"
+                         ) -> Tensor:
+    """Whisper's fixed sinusoidal table: (seq_len, d_model) f32, the
+    ``[sin | cos]`` halves of ``pos / 10000^(2i / d_model)``, as the JAX
+    package builds it; the caller casts it to the compute dtype."""
+    pos = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d_model, 2, dtype=torch.float32,
+                       device=device)[None, :]
+    ang = pos / (10000.0 ** (dim / d_model))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def causal_conv1d(p: Dict, x: Tensor, state: Optional[Tensor] = None

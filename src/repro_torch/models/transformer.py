@@ -1,6 +1,7 @@
-"""Decoder-only LM assembly: attention + dense-MLP layers (opt-proxy,
-internlm2, minicpm, stablelm, pixtral; windowed attention on a ring cache
-for h2o-danube) and Mamba-1 layers (falcon-mamba).
+"""Model assembly: decoder-only LMs of attention + dense-MLP layers
+(opt-proxy, internlm2, minicpm, stablelm, pixtral; windowed attention on a
+ring cache for h2o-danube) and Mamba-1 layers (falcon-mamba), and the
+encoder-decoder (whisper).
 
 ``layer_specs(cfg)`` expands the block pattern into one ``(mixer, mlp)``
 spec per layer, as the JAX package does: ``("attn", "dense")``,
@@ -19,9 +20,22 @@ An attention layer is ``{"norm1", "mixer": {q, k, v, o}, "norm2", "mlp":
 {up, down (, gate)}}``; a Mamba layer is ``{"norm1", "mixer": {in, conv,
 x, dt, a_log, d_skip, out}}`` with no ``norm2`` and no ``mlp``. Dense
 weights are stored (in, out).
+
+Encoder-decoder layout (whisper), the JAX package's nesting with per-layer
+lists where it stacks along a scan axis: ``{"encoder": {"layers":
+[layer, ...], "final_norm"}, "decoder": {"layers": [{"layer": {norm1,
+mixer, norm2, mlp}, "xnorm", "xattn": {q, k, v, o}}, ...], "final_norm"},
+"embed", "lm_head"}``. The encoder is bidirectional over ``frames`` (B,
+Se, D), precomputed conv-frontend outputs; encoder and decoder inputs add
+fixed sinusoidal positions and no layer applies RoPE. A decoder layer's
+cache is ``{"self": <a self-attention cache, bf16 or int8>, "cross":
+{"k", "v"}}``: the encoder K/V, computed once at prefill and kept in
+float (bf16 when the self-cache is int8, as the JAX package's
+``_float_cache_dtype``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Tuple, Union
 
 import torch
@@ -30,7 +44,8 @@ from repro_torch.config import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import recurrent as rec
 from repro_torch.models.layers import (embed, init_embed, init_mlp,
-                                       init_norm, mlp, norm, unembed)
+                                       init_norm, mlp, norm,
+                                       sinusoidal_positions, unembed)
 from repro_torch.models.linear import init_dense
 
 Tensor = torch.Tensor
@@ -129,6 +144,12 @@ def forward(cfg: ModelConfig, params: Dict, tokens: Tensor,
     return unembed(cfg, params, norm(cfg, params["final_norm"], h))
 
 
+def _float_cache_dtype(dtype: CacheDtype) -> torch.dtype:
+    """A cache that stays in float (a Mamba state, an enc-dec cross cache)
+    takes bf16 where the attention caches are int8."""
+    return torch.bfloat16 if dtype == "int8" else dtype
+
+
 def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
                      max_len: int, device,
                      dtype: CacheDtype = torch.bfloat16) -> Dict:
@@ -138,8 +159,8 @@ def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
     stays in float and takes bf16 for it, as the JAX package's
     ``_float_cache_dtype`` does."""
     if spec[0] == "mamba":
-        return rec.init_mamba_state(
-            cfg, batch, device, torch.bfloat16 if dtype == "int8" else dtype)
+        return rec.init_mamba_state(cfg, batch, device,
+                                    _float_cache_dtype(dtype))
     if _window_of(cfg, spec[0]) > 0:
         max_len = min(cfg.window_size, max_len)
     return attn.init_kv_cache(cfg, batch, max_len, device, dtype)
@@ -188,4 +209,160 @@ def decode_step(cfg: ModelConfig, params: Dict, token: Tensor, pos: Tensor,
                                          name="mixer")
         h = _mlp_residual(cfg, spec, p, h + y)
     h = norm(cfg, params["final_norm"], h)
+    return unembed(cfg, params, h)[:, 0], caches
+
+
+# ---------------------------------------------------------------------------
+# encoder-decoder (whisper)
+# ---------------------------------------------------------------------------
+
+def init_encdec_params(cfg: ModelConfig, gen: torch.Generator, device
+                       ) -> Dict:
+    """Random weights of the encoder-decoder with the JAX package's
+    shapes and scales, drawn from ``gen`` (which must live on
+    ``device``)."""
+    spec = ("attn", "dense")
+    return {
+        "encoder": {"layers": [init_layer(cfg, spec, gen, device)
+                               for _ in range(cfg.encoder_layers)],
+                    "final_norm": init_norm(cfg, cfg.d_model, device)},
+        "decoder": {"layers": [
+            {"layer": init_layer(cfg, spec, gen, device),
+             "xnorm": init_norm(cfg, cfg.d_model, device),
+             "xattn": attn.init_cross_attention(cfg, gen, device)}
+            for _ in range(cfg.num_layers)],
+            "final_norm": init_norm(cfg, cfg.d_model, device)},
+        "embed": init_embed(gen, cfg.vocab_size, cfg.d_model, device),
+        "lm_head": init_dense(gen, cfg.d_model, cfg.vocab_size,
+                              device=device),
+    }
+
+
+def with_positions(cfg: ModelConfig, h: Tensor) -> Tensor:
+    """h (B, S, D) in the compute dtype plus the sinusoidal table of its
+    S positions, cast to that dtype."""
+    table = sinusoidal_positions(h.shape[1], cfg.d_model, h.device)
+    return h + table.to(h.dtype)[None]
+
+
+def encoder_layer(cfg: ModelConfig, p: Dict, h: Tensor, positions: Tensor
+                  ) -> Tensor:
+    """One bidirectional encoder layer (no RoPE)."""
+    hn = norm(cfg, p["norm1"], h)
+    h = h + attn.attention_forward(cfg, p["mixer"], hn, positions,
+                                   causal=False, use_rope=False,
+                                   name="mixer")
+    return h + mlp(cfg, p["mlp"], norm(cfg, p["norm2"], h), name="mlp")
+
+
+def encode(cfg: ModelConfig, params: Dict, frames: Tensor) -> Tensor:
+    """frames (B, Se, D), the conv frontend's outputs (a stub: they are
+    given) → the encoder's final-normed states (B, Se, D) in the compute
+    dtype."""
+    h = with_positions(cfg, frames.to(compute_dtype(cfg)))
+    positions = positions_for(h.shape[0], h.shape[1], h.device)
+    for p in params["encoder"]["layers"]:
+        h = encoder_layer(cfg, p, h, positions)
+    return norm(cfg, params["encoder"]["final_norm"], h)
+
+
+def decoder_inputs(cfg: ModelConfig, params: Dict, tokens: Tensor
+                   ) -> Tensor:
+    """Token embeddings plus their sinusoidal positions [0, S)."""
+    return with_positions(cfg, embed(params["embed"], tokens,
+                                     compute_dtype(cfg)))
+
+
+def _cross_residual(cfg: ModelConfig, p: Dict, h: Tensor, kv: Dict
+                    ) -> Tensor:
+    """h plus the cross-attention to ``kv``, then the MLP residual."""
+    h = h + attn.cross_attention(cfg, p["xattn"], norm(cfg, p["xnorm"], h),
+                                 kv, "xattn")
+    lp = p["layer"]
+    return h + mlp(cfg, lp["mlp"], norm(cfg, lp["norm2"], h),
+                   name="layer.mlp")
+
+
+def decoder_layer(cfg: ModelConfig, p: Dict, h: Tensor, positions: Tensor,
+                  enc: Tensor) -> Tensor:
+    """One decoder layer over a full sequence: causal self-attention, the
+    cross-attention to the encoder states ``enc`` (its K/V computed
+    here), the MLP."""
+    lp = p["layer"]
+    hn = norm(cfg, lp["norm1"], h)
+    h = h + attn.attention_forward(cfg, lp["mixer"], hn, positions,
+                                   use_rope=False, name="layer.mixer")
+    kv = attn.cross_attention_kv(cfg, p["xattn"], enc, "xattn")
+    return _cross_residual(cfg, p, h, kv)
+
+
+def encdec_forward(cfg: ModelConfig, params: Dict, frames: Tensor,
+                   tokens: Tensor) -> Tensor:
+    """Teacher-forced forward → logits (B, S, V) f32 (the JAX package's
+    ``encdec_forward`` without its zero aux loss, which training reads)."""
+    enc = encode(cfg, params, frames)
+    h = decoder_inputs(cfg, params, tokens)
+    positions = positions_for(h.shape[0], h.shape[1], h.device)
+    for p in params["decoder"]["layers"]:
+        h = decoder_layer(cfg, p, h, positions, enc)
+    return unembed(cfg, params, norm(cfg, params["decoder"]["final_norm"],
+                                     h))
+
+
+def encdec_prefill(cfg: ModelConfig, params: Dict, frames: Tensor,
+                   tokens: Tensor, max_len: int,
+                   cache_dtype: CacheDtype = torch.bfloat16
+                   ) -> Tuple[Tensor, List[Dict]]:
+    """The encoder pass and the decoder prefill: returns (last-position
+    logits (B, V), caches), each decoder layer's ``{"self", "cross"}``
+    (module docstring); the self-caches hold ``max_len`` slots in
+    ``cache_dtype`` (a torch dtype or ``"int8"``)."""
+    enc = encode(cfg, params, frames)
+    h = decoder_inputs(cfg, params, tokens)
+    b, s, _ = h.shape
+    positions = positions_for(b, s, h.device)
+    cross_dtype = _float_cache_dtype(cache_dtype)
+    caches = []
+    for p in params["decoder"]["layers"]:
+        lp = p["layer"]
+        cache = attn.init_kv_cache(cfg, b, max_len, h.device, cache_dtype)
+        y, cache = attn.attention_prefill(cfg, lp["mixer"],
+                                          norm(cfg, lp["norm1"], h),
+                                          positions, cache,
+                                          name="layer.mixer")
+        kv = attn.cross_attention_kv(cfg, p["xattn"], enc, "xattn")
+        h = _cross_residual(cfg, p, h + y, kv)
+        caches.append({"self": cache, "cross": {
+            k: v.to(cross_dtype) for k, v in kv.items()}})
+    h = norm(cfg, params["decoder"]["final_norm"], h[:, -1:])
+    return unembed(cfg, params, h)[:, 0], caches
+
+
+@functools.lru_cache(maxsize=4)
+def _position_table(seq_len: int, d_model: int, dtype: torch.dtype,
+                    device: torch.device) -> Tensor:
+    return sinusoidal_positions(seq_len, d_model, device).to(dtype)
+
+
+def encdec_decode_step(cfg: ModelConfig, params: Dict, token: Tensor,
+                       pos: Tensor, caches: List[Dict]
+                       ) -> Tuple[Tensor, List[Dict]]:
+    """One decoder step: token (B,) at positions pos (B,) → logits (B, V)
+    and ``caches``, each self-cache written in place (a captured step
+    replays on the same buffers). The position row is gathered by the
+    device ``pos`` from a table of ``max_seq_len`` rows built once per
+    (config width, dtype, device), so a captured step reads it from the
+    device."""
+    dtype = compute_dtype(cfg)
+    h = embed(params["embed"], token[:, None], dtype)
+    table = _position_table(cfg.max_seq_len, cfg.d_model, dtype, h.device)
+    h = h + table[pos][:, None, :]
+    for p, cache in zip(params["decoder"]["layers"], caches):
+        lp = p["layer"]
+        y, _ = attn.attention_decode(cfg, lp["mixer"],
+                                     norm(cfg, lp["norm1"], h), pos,
+                                     cache["self"], name="layer.mixer")
+        kv = {k: v.to(dtype) for k, v in cache["cross"].items()}
+        h = _cross_residual(cfg, p, h + y, kv)
+    h = norm(cfg, params["decoder"]["final_norm"], h)
     return unembed(cfg, params, h)[:, 0], caches

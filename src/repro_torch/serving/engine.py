@@ -6,8 +6,11 @@ packed denses run the W4A16 kernel on the card. ``serve.kv_cache=int8``
 keeps the decode history as int8 codes read by the int8 KV attention
 kernel. A Mamba layer carries a recurrent state instead of a KV cache: the
 prefill runs the selective-scan kernel and hands its last state and conv
-inputs to the plain single-step recurrence of decode. Finished lanes keep
-decoding but their outputs are frozen.
+inputs to the plain single-step recurrence of decode. An encoder-decoder
+(whisper) takes a batch's ``frames``: its prefill runs the encoder and
+fills each decoder layer's cross-attention cache once, and every decode
+step reads those caches (a captured step holds the ones it captured).
+Finished lanes keep decoding but their outputs are frozen.
 
 The decode loop is the twin of the JAX engine's ``lax.scan`` over
 ``serve_step``: :class:`DecodeLoop` keeps the token, position, done and
@@ -30,7 +33,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 
-from repro_torch.config import Config
+from repro_torch.config import Config, not_ported
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
@@ -54,8 +57,15 @@ def cache_dtype(cfg: Config) -> Union[torch.dtype, str]:
 def prefill(cfg: Config, params: Any, batch: Dict[str, Tensor],
             max_len: int) -> Tuple[Tensor, List[Dict]]:
     """Prefill from ``{"tokens": (B, S), "embeds"?: (B, F, D)}`` (frontend
-    embeddings in front of the tokens) into caches of max_len, in the
-    precision ``serve.kv_cache`` names."""
+    embeddings in front of the tokens), or for an encoder-decoder
+    ``{"tokens": (B, S), "frames": (B, Se, D)}``, into caches of max_len,
+    in the precision ``serve.kv_cache`` names."""
+    if cfg.serve.prefill_chunk > 0:
+        raise not_ported("serve.prefill_chunk > 0 (the chunked prefill)", 14)
+    if cfg.model.is_encoder_decoder:
+        return T.encdec_prefill(cfg.model, params, batch["frames"],
+                                batch["tokens"], max_len,
+                                cache_dtype=cache_dtype(cfg))
     return T.prefill(cfg.model, params, batch["tokens"], max_len,
                      cache_dtype=cache_dtype(cfg),
                      embeds=batch.get("embeds"))
@@ -64,6 +74,8 @@ def prefill(cfg: Config, params: Any, batch: Dict[str, Tensor],
 def serve_step(cfg: Config, params: Any, token: Tensor, pos: Tensor,
                caches: List[Dict]) -> Tuple[Tensor, List[Dict]]:
     """One decode step. token/pos: (B,)."""
+    if cfg.model.is_encoder_decoder:
+        return T.encdec_decode_step(cfg.model, params, token, pos, caches)
     return T.decode_step(cfg.model, params, token, pos, caches)
 
 
@@ -155,7 +167,9 @@ def generate(cfg: Config, params: Any, batch: Dict[str, Tensor],
     on that device. On the card the decode steps after the first replay
     one captured CUDA graph (module docstring). Sampling draws from a
     ``torch.Generator`` seeded with ``seed``. A batch's ``embeds`` (B, F,
-    D) go in front of its tokens, so decode starts at position S + F."""
+    D) go in front of its tokens, so decode starts at position S + F; an
+    encoder-decoder's ``frames`` (B, Se, D) feed its encoder, and its
+    decoder starts at S."""
     dev = resolve_device(device)
     if _params_device(params).type != dev.type:
         raise ValueError(f"params live on {_params_device(params)}, "
@@ -168,7 +182,8 @@ def generate(cfg: Config, params: Any, batch: Dict[str, Tensor],
         gen = torch.Generator(device=_params_device(params))
         gen.manual_seed(seed)
     inputs = {k: batch[k].to(_params_device(params))
-              for k in ("tokens", "embeds") if batch.get(k) is not None}
+              for k in ("tokens", "embeds", "frames")
+              if batch.get(k) is not None}
     s0 = inputs["tokens"].shape[1]
     n_front = inputs["embeds"].shape[1] if "embeds" in inputs else 0
     logits, caches = prefill(cfg, params, inputs, s0 + n_front + mnt + 1)

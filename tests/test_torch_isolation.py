@@ -81,6 +81,40 @@ def test_entry_points_raise_without_a_card():
     assert res.tokens.shape == (2, 2)
 
 
+def test_the_scans_cover_the_encoder_decoder_modules():
+    """whisper's config and the modules its path adds to are among the
+    modules the two tests above import and scan."""
+    for mod in ("repro_torch.configs.whisper_large_v3",
+                "repro_torch.models.transformer",
+                "repro_torch.core.stream"):
+        assert mod in _modules()
+    assert PORT / "configs" / "whisper_large_v3.py" in SOURCES
+
+
+def test_encoder_decoder_entry_points_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is to use it")
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipeline import quantize_model
+    from repro_torch.data import MarkovLM, calibration_batches
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import generate
+
+    cfg = get_config("whisper-large-v3", smoke=True)
+    mc = cfg.model
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    params = T.init_encdec_params(mc, gen, "cpu")
+    calib = calibration_batches(MarkovLM(mc.vocab_size, seed=7), 1, 2, 8)
+    calib[0]["frames"] = torch.zeros((2, mc.encoder_seq_len, mc.d_model))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        quantize_model(cfg, params, calib)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        generate(cfg, params, calib[0], max_new_tokens=2)
+    res = generate(cfg, params, calib[0], device="cpu", max_new_tokens=2)
+    assert res.tokens.shape == (2, 2)
+
+
 def test_launchers_raise_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is to use it")

@@ -720,6 +720,65 @@ def test_gpu_int8_kv_attention_head_dims(cuda, hd, kv_block, r, s, dtype):
         assert np.all(diff <= bf16_ulp(want.cpu().numpy()))
 
 
+# head widths that are no multiple of 16 (minicpm smoke's 12 and two more),
+# each at its default_kv_block (one scale block a row)
+NARROW_HD = [12, 20, 36]
+
+
+@pytest.mark.parametrize("hd", NARROW_HD)
+def test_int8_kv_attention_guard_takes_any_multiple_of_4(hd, monkeypatch):
+    """The card's wrapper takes a head width that is a multiple of 4 but not
+    of 16: its guard lets hd 12 / 20 / 36 through to the kernel build (the
+    CUDA checks and the build are stubbed here), and its message for a
+    refused input names 4, not 16, as the multiple hd must be."""
+    class Built(Exception):
+        pass
+
+    def no_build(op):
+        raise Built(op)
+
+    monkeypatch.setattr(tops, "_check_cuda", lambda op, *ts: None)
+    monkeypatch.setattr(tops.build, "load", no_build)
+    rng = np.random.RandomState(hd)
+    args = [t(a) for a in kv_case(rng, b=2, s=20, kv=2, r=1, hd=hd,
+                                  kv_block=hd)]
+    with pytest.raises(Built):
+        tops.int8_kv_attention_cuda(*args, hd)
+    with pytest.raises(ValueError) as err:
+        tops.int8_kv_attention_cuda(*args[:5], args[5][:, :-1], hd)
+    assert "hd a multiple of 4 up to 256" in str(err.value)
+    assert "hd a multiple of 16" not in str(err.value)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", NARROW_HD)
+@pytest.mark.parametrize("r,s", [(1, 300), (3, 40)])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_int8_kv_attention_narrow_head_dims(cuda, hd, r, s, softcap,
+                                                dtype):
+    """Head widths whose rows are not whole 16-byte pieces (the NARROW
+    instantiation: V rows land 4 bytes at a time, an odd count of words
+    split unevenly between a slot's two score lanes), with and without
+    the soft cap, one range (S 40) and several (S 300 over 3 x 2 cells),
+    at the pins of test_gpu_int8_kv_attention, bitwise repeatable."""
+    rng = np.random.RandomState(hd + 10 * r)
+    args = [t(a).to(cuda) for a in kv_case(rng, b=3, s=s, kv=2, r=r, hd=hd,
+                                           kv_block=hd)]
+    args[0] = (args[0] * (40.0 if softcap else 1.0)).to(dtype)
+    want = tref.int8_kv_attention(*args, hd, softcap).float()
+    got = tops.int8_kv_attention_cuda(*args, hd, softcap)
+    assert torch.equal(got, tops.int8_kv_attention_cuda(*args, hd, softcap))
+    got = got.float()
+    assert float(got[-1].abs().max()) == 0.0
+    if dtype == torch.float32:
+        assert float((got - want).abs().max()) <= 1e-5 * float(
+            want.abs().max())
+    else:
+        diff = (got - want).abs().cpu().numpy()
+        assert np.all(diff <= bf16_ulp(want.cpu().numpy()))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("valid", [600, 1, 0])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
