@@ -5,9 +5,10 @@
 
 Sections (all by default): hessian_accum, gptq_block (with rpiq_block),
 w4a16_matmul, int8_kv_attention, quant_pack, selective_scan,
-decode_walls. Run it on two checkouts in turns inside one call on one card (parent,
-change, change, parent; the parent unpacked with ``git archive`` into a
-directory that ``.gitignore`` lists) to compare them. It prints, per
+decode_walls, quantize_walls. Run it on two checkouts in turns inside one
+call on one card (parent, change, change, parent; the parent unpacked
+with ``git archive`` into a directory that ``.gitignore`` lists) to
+compare them. It prints, per
 line: the checkout, the kernel and shape, and
 
 - for ``hessian_accum`` at the six d of the three main paths (n 512): the
@@ -59,7 +60,13 @@ line: the checkout, the kernel and shape, and
   CUDA graph over input copies beyond L2, an exact checksum of h_last's
   bits and y's error against the plain version (relative to the largest
   output in fp32, bf16 ulps in bf16);
-- the decode step wall of each main path at full width (``decode_walls``).
+- the decode step wall of each main path at full width (``decode_walls``);
+- ``quantize_walls``: ``quantize_model`` → ``pack_for_serving`` of
+  internlm2-1.8b at full width and depth on ``chip_smoke.py`` phase 6's
+  calibration (4 x 4 x 128), its wall and stage walls, and a sha256 over
+  the packed artifact's tensors (equal across checkouts where the
+  artifacts are bitwise equal): the layer walk and plan code every path
+  shares.
 """
 import inspect
 import os
@@ -71,7 +78,7 @@ def main() -> int:
     root = os.path.abspath(sys.argv[1])
     sections = set(sys.argv[2:]) or {
         "hessian_accum", "gptq_block", "w4a16_matmul", "int8_kv_attention",
-        "quant_pack", "selective_scan", "decode_walls"}
+        "quant_pack", "selective_scan", "decode_walls", "quantize_walls"}
     sys.path.insert(0, os.path.join(root, "src"))
     import torch
     if not torch.cuda.is_available():
@@ -380,6 +387,8 @@ def main() -> int:
                   flush=True)
     if "decode_walls" in sections:
         decode_walls(root, dev)
+    if "quantize_walls" in sections:
+        quantize_walls(root, dev)
     return 0
 
 
@@ -447,6 +456,46 @@ def decode_walls(root: str, dev: str, n_steps: int = 16) -> None:
         print(line, flush=True)
         del packed
         torch.cuda.empty_cache()
+
+
+def quantize_walls(root: str, dev: str) -> None:
+    """quantize_model → pack_for_serving of internlm2-1.8b at full width
+    and depth from seeded random weights on 4 x 4 x 128 calibration tokens
+    (chip_smoke.py phase 6): the walls, and a sha256 over every tensor of
+    the packed tree in path order."""
+    import hashlib
+    import torch
+    from chip_smoke import tensors_of
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipeline import pack_for_serving, quantize_model
+    from repro_torch.data import MarkovLM, calibration_batches
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("internlm2-1.8b")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = T.init_params(cfg.model, gen, dev)
+    calib = calibration_batches(MarkovLM(cfg.model.vocab_size, seed=7), 4,
+                                4, 128)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params_q, report = quantize_model(cfg, params, calib)
+    packed = pack_for_serving(cfg, params_q)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    h = hashlib.sha256()
+    for t in tensors_of(packed):
+        h.update(t.detach().cpu().contiguous().view(torch.uint8).numpy()
+                 .tobytes())
+    rest = report.seconds_total - report.seconds_stage1 \
+        - report.seconds_stage2
+    print(f"{root} quantize internlm2-1.8b: quantize+pack {wall:.3f} s, "
+          f"quantize_model {report.seconds_total:.3f} s (stage1 "
+          f"{report.seconds_stage1:.3f} stage2 {report.seconds_stage2:.3f} "
+          f"rest {rest:.3f}); packed sha256 {h.hexdigest()[:16]}",
+          flush=True)
+    del params, params_q, packed
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -6,8 +6,12 @@ same names and defaults as the JAX package's configuration, plus the
 dotted ``key=value`` override helpers. A value the port does not run
 (``quant.pipeline=overlap``, ``quant.mesh``,
 ``serve.scheduler=continuous``, ``serve.supervise``,
-``serve.prefill_chunk > 0``) is accepted here and raises where it would
-be used, naming its ROADMAP.md item.
+``serve.prefill_chunk > 0``, ``model.opt_attention=false``) is accepted
+here and raises where it would be used, naming its ROADMAP.md item.
+``quant.act_order``, ``quant.keep_best_projection``,
+``quant.moe_flip_budget`` and ``serve.quantized`` are taken with the JAX
+package's defaults and read nowhere, as there (the flip budget's reader,
+the overlap schedule, is ROADMAP.md item 15).
 """
 from __future__ import annotations
 
@@ -31,8 +35,23 @@ class SSMConfig:
 
 
 @dataclass
+class MoEConfig:
+    """Routed mixture of experts (the "moe" MLP of every layer from
+    ``first_dense_layers`` on; ``num_experts`` 0 = dense)."""
+    num_experts: int = 0            # 0 => dense
+    top_k: int = 0
+    d_ff_expert: int = 0            # per-expert hidden dim
+    num_shared_experts: int = 0     # deepseek-style always-on experts
+    first_dense_layers: int = 0     # leading layers that stay dense
+    capacity_factor: float = 1.25
+    aux_loss_weight: float = 0.001
+    router_dtype: str = "float32"
+
+
+@dataclass
 class ModelConfig:
     name: str = "tiny"
+    family: str = "dense"           # dense | moe | ssm | vlm | audio
     num_layers: int = 2
     d_model: int = 128
     num_heads: int = 4
@@ -56,6 +75,7 @@ class ModelConfig:
     attn_logits_softcap: float = 0.0    # the same on attention scores
     dtype: str = "bfloat16"         # compute dtype
     ssm: SSMConfig = field(default_factory=SSMConfig)
+    moe: MoEConfig = field(default_factory=MoEConfig)
     # encoder-decoder (whisper): a bidirectional encoder of encoder_layers
     # over encoder_seq_len precomputed frames, read by the decoder's
     # cross-attention
@@ -66,6 +86,9 @@ class ModelConfig:
     # frontend_tokens precomputed embeddings are prepended at prefill
     frontend: str = "none"
     frontend_tokens: int = 0
+    # False selects the JAX package's naive fp32 attention baseline, which
+    # is not ported (ROADMAP.md queue 1 item 22): attention raises on it
+    opt_attention: bool = True
 
     def __post_init__(self):
         if self.head_dim == 0:
@@ -100,9 +123,11 @@ class QuantConfig:
     rpiq_alpha: float = 0.01
     rpiq_early_stop: bool = True
     rpiq_use_global_hessian: bool = True   # eq. 12-14: block-diag of damped H
+    keep_best_projection: bool = True   # read nowhere (nor in JAX)
     calib_batches: int = 8
     calib_batch_size: int = 16
     calib_seq_len: int = 512
+    act_order: bool = False         # read nowhere (nor in JAX)
     mesh: str = "off"               # sharded group execution: not ported
     #                                 (ROADMAP.md queue 1 item 17)
     resume: str = "off"             # off | auto: with "auto" and a ckpt_dir,
@@ -116,6 +141,8 @@ class QuantConfig:
     ckpt_keep: int = 2              # retained step checkpoints in ckpt_dir
     pipeline: str = "serial"        # layer-walk schedule; "overlap" is not
     #                                 ported (ROADMAP.md queue 1 item 15)
+    moe_flip_budget: float = 0.5    # the overlap schedule's MoE flip
+    #                                 repair budget: no reader until item 15
 
 
 @dataclass
@@ -129,6 +156,7 @@ class TrainConfig:
 class ServeConfig:
     max_new_tokens: int = 32
     temperature: float = 0.0        # 0 = greedy
+    quantized: bool = True          # read nowhere (nor in JAX)
     kv_cache: str = "fp16"          # fp16 (the bf16 cache) | int8: decode
     #                                 KV-cache precision; "int8" stores
     #                                 per-block absmax codes + f32 scales

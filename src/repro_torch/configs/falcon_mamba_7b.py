@@ -13,7 +13,7 @@ from repro_torch.config import Config, ModelConfig, SSMConfig
 def full() -> Config:
     cfg = Config()
     cfg.model = ModelConfig(
-        name="falcon-mamba-7b",
+        name="falcon-mamba-7b", family="ssm",
         num_layers=64, d_model=4096, num_heads=1, num_kv_heads=1,
         d_ff=0, vocab_size=65024,
         block_pattern=("mamba",),
@@ -27,7 +27,7 @@ def full() -> Config:
 def smoke() -> Config:
     cfg = Config()
     cfg.model = ModelConfig(
-        name="falcon-mamba-smoke",
+        name="falcon-mamba-smoke", family="ssm",
         num_layers=3, d_model=64, num_heads=1, num_kv_heads=1,
         d_ff=0, vocab_size=128,
         block_pattern=("mamba",),

@@ -15,7 +15,7 @@ from repro_torch.config import Config, ModelConfig
 def full() -> Config:
     cfg = Config()
     cfg.model = ModelConfig(
-        name="pixtral-12b",
+        name="pixtral-12b", family="vlm",
         num_layers=40, d_model=5120, num_heads=32, num_kv_heads=8,
         head_dim=128, d_ff=14336, vocab_size=131072,
         norm="rmsnorm", act="silu", gated_mlp=True,
@@ -28,7 +28,7 @@ def full() -> Config:
 def smoke() -> Config:
     cfg = Config()
     cfg.model = ModelConfig(
-        name="pixtral-smoke",
+        name="pixtral-smoke", family="vlm",
         num_layers=2, d_model=64, num_heads=4, num_kv_heads=2,
         head_dim=16, d_ff=160, vocab_size=128,
         norm="rmsnorm", act="silu", gated_mlp=True,

@@ -16,7 +16,7 @@ from repro_torch.config import Config, ModelConfig
 def full() -> Config:
     cfg = Config()
     cfg.model = ModelConfig(
-        name="whisper-large-v3",
+        name="whisper-large-v3", family="audio",
         num_layers=32, d_model=1280, num_heads=20, num_kv_heads=20,
         d_ff=5120, vocab_size=51866,
         norm="layernorm", act="gelu", gated_mlp=False, use_rope=False,
@@ -30,7 +30,7 @@ def full() -> Config:
 def smoke() -> Config:
     cfg = Config()
     cfg.model = ModelConfig(
-        name="whisper-smoke",
+        name="whisper-smoke", family="audio",
         num_layers=2, d_model=64, num_heads=4, num_kv_heads=4,
         d_ff=128, vocab_size=128,
         norm="layernorm", act="gelu", gated_mlp=False, use_rope=False,

@@ -4,8 +4,11 @@ The layer Hessian is the Gram matrix of the layer inputs summed over all
 calibration batches, ``H ≈ Σ_b X_bᵀX_b`` (eq. 9), damped by
 ``λ = percdamp · mean(diag H)`` (eq. 10). The Gram of each batch goes
 through ``ops.hessian_accum`` (the CUDA kernel on the card, which adds into
-``H`` in place). Damping and the Cholesky factorizations are library linear
-algebra in fp32, as in the JAX package.
+``H`` in place). A stacked state (a routed-MoE layer's experts, one lane
+each) adds each lane's Gram in one batched fp32 product, as the JAX
+package computes it outside any Pallas kernel (an einsum at HIGHEST
+precision; TF32 stays off on the card). Damping and the Cholesky
+factorizations are library linear algebra in fp32, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -36,14 +39,20 @@ def init_hessian(in_dim: int, batch: Optional[int] = None,
 
 
 def accumulate(state: HessianState, x: Tensor) -> HessianState:
-    """Add one calibration batch to a singleton state; x (..., in).
+    """Add one calibration batch.
 
-    On the card the state's H is updated in place."""
-    if state.H.dim() != 2:
-        raise ValueError("accumulate takes a singleton (in, in) state")
-    x2 = x.reshape(-1, x.shape[-1]).float()
-    H = ops.hessian_accum(x2, state.H)
-    return HessianState(H, state.count + x2.shape[0])
+    Singleton state: x (..., in), leading dims flattened; on the card the
+    state's H is updated in place by the kernel. Stacked state (B, in,
+    in): x (B, ..., in), each lane's rows into its own Gram,
+    ``H += x3ᵀx3`` per lane."""
+    if state.H.dim() == 2:
+        x2 = x.reshape(-1, x.shape[-1]).float()
+        H = ops.hessian_accum(x2, state.H)
+        return HessianState(H, state.count + x2.shape[0])
+    b = state.H.shape[0]
+    x3 = x.reshape(b, -1, x.shape[-1]).float()
+    H = torch.baddbmm(state.H, x3.transpose(1, 2), x3)
+    return HessianState(H, state.count + x3.shape[1])
 
 
 def damped(state: HessianState, percdamp) -> Tensor:

@@ -10,11 +10,22 @@ do it:
         (eq. 9, ``H += X_bᵀX_b`` through the ``hessian_accum`` kernel) and
         keeps only the **last** batch's inputs (the single instance,
         eq. 11);
-     b. **plan** — group the captured linears by shape class;
+     b. **plan** — group the captured linears by shape class; a routed-MoE
+        layer's experts join as stacked members (below);
      c. **execute** — stage 1 (GPTQ) and stage 2 (RPIQ) per group;
      d. **scatter** the on-grid weights and their stage-1 grid back into
         the layer, then **propagate** the quantized layer's outputs to the
         next layer, so later Hessians see the quantized network.
+
+A routed-MoE layer's router stays float: its tap only collects the MoE
+block inputs. From them, :func:`_moe_members` dispatches each batch as the
+forward does and accumulates one stacked (E, ·, ·) Hessian per input kind
+(the experts' gate/up inputs, and their fp32 mid activations for
+``w_down``); each of ``w_gate``, ``w_up`` and ``w_down`` joins the plan as
+one stacked member of E lanes (gate and up share a group of 2E), and an
+expert that saw fewer routed tokens than one quant group is RTN-quantized
+(a mask inside its group, core/plan.py). Capacity-dropped assignments
+reach no Hessian; the report counts them per layer.
 
 An encoder-decoder walks its encoder layers on the encoder stream, then,
 behind a :class:`~repro_torch.core.stream.StreamSwitch` fence, its decoder
@@ -22,7 +33,8 @@ layers on the decoder stream (:func:`_walker_encdec`).
 
 :func:`pack_for_serving` then turns every quantized linear into an int4
 :class:`~repro_torch.core.quant.QuantizedTensor` on its stage-1 grid,
-through the ``quant_pack`` kernel on the card.
+through the ``quant_pack`` kernel on the card (a stacked expert weight as
+one (E·out, in) matrix).
 """
 from __future__ import annotations
 
@@ -42,8 +54,9 @@ from repro_torch.core.quant import (QuantizedTensor, QuantParams,
 from repro_torch.core.stream import LayerStep, LayerWalker, StreamSwitch
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer as T
-from repro_torch.models.layers import norm
+from repro_torch.models.layers import _act, norm
 from repro_torch.models.linear import Tap
 
 Tensor = torch.Tensor
@@ -51,6 +64,7 @@ Tensor = torch.Tensor
 # a layer's subtrees whose linears are calibrated (a layer's top-level keys,
 # as the JAX package picks them); norms / embeddings / lm_head stay fp
 _QUANT_SUBTREES = ("mixer", "mlp", "xattn")
+_MOE_WNAMES = ("w_gate", "w_up", "w_down")
 
 
 def _resolve(tree: Dict, dotted: str):
@@ -91,26 +105,42 @@ def _to_device(tree, device):
     return tree.to(device)
 
 
+def _is_moe_layer(layer_params: Dict) -> bool:
+    mlp = layer_params.get("mlp")
+    return isinstance(mlp, dict) and "w_gate" in mlp
+
+
 @dataclasses.dataclass
 class CaptureResult:
-    """One layer's calibration state: Hessians and last-batch inputs."""
+    """One layer's calibration state: Hessians and last-batch inputs of
+    its dense linears, and for a routed-MoE layer each batch's flat MoE
+    block inputs (T, d) from the router's tap."""
     hessians: Dict[str, hess.HessianState]
     last_x: Dict[str, Tensor]
+    moe_xs: List[Tensor]
+    is_moe: bool
 
 
 def capture_layer(cfg: Config, step: LayerStep, hs: List[Tensor]
                   ) -> CaptureResult:
     """Stage (a): stream Hessians over all batches, keep the last inputs."""
     layer_params = step.resolve_params()
+    is_moe = _is_moe_layer(layer_params)
     targets = set()
     for sub in _QUANT_SUBTREES:
         if sub in layer_params:
             targets.update(f"{sub}.{n}"
                            for n in _linear_names_in(layer_params[sub]))
+    # the router stays float; its tap collects the MoE block inputs
+    targets.discard("mlp.router")
     hessians: Dict[str, hess.HessianState] = {}
     last_x: Dict[str, Tensor] = {}
+    moe_xs: List[Tensor] = []
 
     def on_record(name: str, x: Tensor) -> None:
+        if name == "mlp.router":
+            moe_xs.append(x.reshape(-1, x.shape[-1]))
+            return
         if name not in targets:
             return
         x2 = x.reshape(-1, x.shape[-1])
@@ -122,22 +152,104 @@ def capture_layer(cfg: Config, step: LayerStep, hs: List[Tensor]
     with torch.no_grad(), Tap(on_record=on_record):
         for bi, h in enumerate(hs):
             step.apply_fn(layer_params, h, bi)
-    return CaptureResult(hessians, last_x)
+    if is_moe and len(moe_xs) != len(hs):
+        raise RuntimeError(f"{step.name}: the router's tap saw "
+                           f"{len(moe_xs)} of {len(hs)} batches")
+    return CaptureResult(hessians, last_x, moe_xs, is_moe)
 
 
-def plan_layer(cfg: Config, step: LayerStep, cap: CaptureResult
+@torch.no_grad()
+def _moe_members(cfg: Config, p_moe: Dict, xs: List[Tensor], name: str,
+                 report: Optional[QuantReport] = None,
+                 layer_name: str = "layer") -> List[PlanMember]:
+    """The routed experts' plan members (the paper's method per expert).
+
+    ``xs``: each calibration batch's flat MoE block inputs (T, d). Every
+    batch is routed and dispatched as the forward does; the (E, C, d)
+    buffer's rows (capacity padding is zero rows, which add nothing to
+    XᵀX) feed one stacked (E, d, d) Hessian for ``w_gate`` and ``w_up``,
+    and the experts' fp32 mid activations ``act(x W_gate) · x W_up`` one
+    (E, f, f) Hessian for ``w_down``. The routed counts and capacity drops
+    come to the host in one sync. Each lane's Hessian count is its routed
+    tokens over all batches, its stage-2 ``x_count`` the last batch's
+    pre-capacity count, and a lane with fewer routed tokens than one
+    quant group is starved, as in the JAX package."""
+    qc, mc = cfg.quant, cfg.model
+    e = mc.moe.num_experts
+    d, f = p_moe["w_gate"].shape[1:]
+    dev = xs[0].device
+    dtype = T.compute_dtype(mc)
+    xs_c = [xt.to(dtype) for xt in xs]
+    plans = [moe_mod.route(mc, p_moe, xt) for xt in xs_c]
+    w_gate, w_up = p_moe["w_gate"].float(), p_moe["w_up"].float()
+    H_in = hess.init_hessian(d, batch=e, device=dev)
+    H_mid = hess.init_hessian(f, batch=e, device=dev)
+    x_last_in = x_last_mid = None
+    for plan, xt in zip(plans, xs_c):
+        buf = moe_mod.apply_route(plan, xt)                 # (E, C, d)
+        bf = buf.float()
+        mid = _act(mc.act, torch.bmm(bf, w_gate)) * torch.bmm(bf, w_up)
+        H_in = hess.accumulate(H_in, buf)
+        H_mid = hess.accumulate(H_mid, mid)
+        x_last_in, x_last_mid = buf, mid
+    del w_gate, w_up
+    counts = torch.stack([p.counts for p in plans]).sum(dim=0)
+    dropped = sum((~p.keep).sum() for p in plans)
+    tallies = torch.cat([counts.to(torch.int64),
+                         dropped.to(torch.int64)[None]]).cpu().numpy()
+    real_counts, n_dropped = tallies[:e], int(tallies[e])
+    if report is not None:
+        report.moe_capacity_dropped[layer_name] = \
+            report.moe_capacity_dropped.get(layer_name, 0) + n_dropped
+    count_t = torch.as_tensor(real_counts, dtype=torch.int32, device=dev)
+    last_counts = plans[-1].counts.to(torch.int32)
+    starved = real_counts < qc.group_size
+    return [PlanMember(f"{name}.{wname}",
+                       p_moe[wname].float().transpose(-1, -2),
+                       hess.HessianState(Hst.H, count_t), xl,
+                       x_count=last_counts, starved=starved,
+                       names=[f"{name}.{wname}[{ei}]" for ei in range(e)])
+            for wname, Hst, xl in (("w_gate", H_in, x_last_in),
+                                   ("w_up", H_in, x_last_in),
+                                   ("w_down", H_mid, x_last_mid))]
+
+
+def plan_layer(cfg: Config, step: LayerStep, cap: CaptureResult,
+               report: Optional[QuantReport] = None
                ) -> Tuple[Dict, List[str], qplan.QuantPlan]:
-    """Stage (b): the captured dense linears → a QuantPlan. Returns (a
-    fresh copy of the layer subtree, the sorted linear names, the plan)."""
+    """Stage (b): the captured dense linears and a routed-MoE layer's
+    stacked experts → a QuantPlan (``report`` receives the layer's
+    capacity drops). Returns (a fresh copy of the layer subtree, the
+    sorted dense names, the plan)."""
     new_params = _copy_tree(step.resolve_params())
     dense_names = sorted(cap.hessians)
     members = [PlanMember(name, _resolve(new_params, name)["w"].float().T,
                           cap.hessians[name], cap.last_x[name])
                for name in dense_names]
+    if cap.is_moe:
+        members += _moe_members(cfg, new_params["mlp"], cap.moe_xs, "mlp",
+                                report, layer_name=step.name)
     return new_params, dense_names, qplan.build_plan(cfg.quant, members)
 
 
+def _scatter_moe(p_moe: Dict, results: Dict[str, MemberResult],
+                 name: str) -> Dict:
+    """The stacked expert weights (and their grids) from their members'
+    results; a skipped member keeps its float weights."""
+    new = dict(p_moe)
+    for wname in _MOE_WNAMES:
+        res = results[f"{name}.{wname}"]
+        if res.w_q is None:
+            continue
+        new[wname] = res.w_q.transpose(-1, -2).to(
+            p_moe[wname].dtype).contiguous()
+        if res.grid is not None:
+            new[f"{wname}_qscales"], new[f"{wname}_qzeros"] = res.grid
+    return new
+
+
 def scatter_layer(new_params: Dict, dense_names: List[str],
+                  cap: CaptureResult,
                   results: Dict[str, MemberResult]) -> Dict:
     """Stage (d, first half): write on-grid weights (+ the stage-1 grid,
     for exact int4 packing) back into the subtree."""
@@ -149,6 +261,8 @@ def scatter_layer(new_params: Dict, dense_names: List[str],
         node["w"] = res.w_q.T.to(node["w"].dtype).contiguous()
         if res.grid is not None:
             node["qscales"], node["qzeros"] = res.grid
+    if cap.is_moe:
+        new_params["mlp"] = _scatter_moe(new_params["mlp"], results, "mlp")
     return new_params
 
 
@@ -288,22 +402,31 @@ def pack_for_serving(cfg: Config, params_q: Dict) -> Dict:
     decoder self-attention and MLP, which calibration does not pick, as in
     the JAX package). The codes are
     rounded and packed by ``ops.quant_pack`` (asymmetric 4-bit grid, the
-    layout of ``core.quant.pack_int4``). Norms, embeddings and lm_head stay
-    float.
+    layout of ``core.quant.pack_int4``). A stacked expert weight (E, in,
+    out) packs as one (E·out, in) matrix on its ``{name}_qscales`` /
+    ``{name}_qzeros`` grid into a ``QuantizedTensor`` with a leading
+    expert axis. Norms, embeddings, lm_head and a MoE router stay float.
     """
     qc = cfg.quant
 
     def pack(w: Tensor, scales=None, zeros=None) -> QuantizedTensor:
-        w_oi = w.float().T
-        o, i = w_oi.shape
+        """(..., in, out) float → (..., out, in/2) packed; the leading
+        dims (an expert axis) fold into the rows."""
+        w_oi = w.float().transpose(-1, -2)
+        lead, (o, i) = w_oi.shape[:-2], w_oi.shape[-2:]
+        w2 = w_oi.reshape(-1, i)
         if scales is not None:
-            qp = QuantParams(scales.float(), zeros.float())
+            qp = QuantParams(scales.float().reshape(w2.shape[0], -1),
+                             zeros.float().reshape(w2.shape[0], -1))
         else:
-            qp = compute_qparams(w_oi, qc.bits, qc.group_size)
-        packed = ops.quant_pack(w_oi, qp.scales, qp.zeros,
+            qp = compute_qparams(w2, qc.bits, qc.group_size)
+        packed = ops.quant_pack(w2, qp.scales, qp.zeros,
                                 group_size=qc.group_size)
-        return QuantizedTensor(packed, qp.scales, qp.zeros, (o, i), qc.bits,
-                               qc.group_size)
+        g = qp.scales.shape[-1]
+        return QuantizedTensor(packed.reshape(*lead, o, i // 2),
+                               qp.scales.reshape(*lead, o, g),
+                               qp.zeros.reshape(*lead, o, g),
+                               (*lead, o, i), qc.bits, qc.group_size)
 
     def walk(tree, path=""):
         if isinstance(tree, list):
@@ -312,12 +435,18 @@ def pack_for_serving(cfg: Config, params_q: Dict) -> Dict:
             return tree
         out = {}
         for k, v in tree.items():
-            if k in ("qscales", "qzeros"):
+            if k in ("qscales", "qzeros") or k.endswith(("_qscales",
+                                                          "_qzeros")):
                 continue                      # consumed by the packer
             if (k == "w" and isinstance(v, Tensor) and v.dim() == 2
                     and any(s in path for s in _QUANT_SUBTREES)
-                    and v.shape[0] % qc.group_size == 0):
+                    and v.shape[0] % qc.group_size == 0
+                    and "router" not in path):
                 out[k] = pack(v, tree.get("qscales"), tree.get("qzeros"))
+            elif (k in _MOE_WNAMES and isinstance(v, Tensor)
+                  and v.dim() >= 3 and v.shape[-2] % qc.group_size == 0):
+                out[k] = pack(v, tree.get(f"{k}_qscales"),
+                              tree.get(f"{k}_qzeros"))
             else:
                 out[k] = walk(v, f"{path}.{k}")
         return out

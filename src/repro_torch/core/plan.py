@@ -5,10 +5,18 @@ The capture pass yields one :class:`PlanMember` per dense linear;
 blocksize, bits, symmetric)`` and :func:`execute_plan` runs each group as
 one stacked dispatch per stage: stage 1 = damp → Cholesky → GPTQ sweep
 (``ops.gptq_block``), stage 2 = the RPIQ closed loop
-(``rpiq_refine_batched`` → ``ops.rpiq_block``). Members whose input dim
-does not align with the grid are skipped (kept in float), as in the JAX
-package. A stage-1 lane with non-finite output raises and names its
-linear: the JAX package's guardrail ladder is not ported.
+(``rpiq_refine_batched`` → ``ops.rpiq_block``). A member is one linear or
+a stacked slab of S same-shape linears (a routed-MoE layer's experts, one
+lane each), and a group's lanes are its members' lanes end to end. An
+expert that saw fewer routed tokens than one quant group is *starved*: it
+stays in its group as a mask, runs the stages on identity curvature (so
+it converges at once and cannot hold the group's closed loop at
+``t_max``) and takes the group's batched RTN lane instead (weights and
+grid), recorded as ``"rtn-fallback"``. Members whose input dim does not
+align with the grid are skipped (kept in float), or RTN-packed where
+starved, as in the JAX package. A stage-1 lane with non-finite output
+raises and names its linear: the JAX package's guardrail ladder is not
+ported.
 """
 from __future__ import annotations
 
@@ -21,7 +29,8 @@ import torch
 
 from repro_torch.config import QuantConfig
 from repro_torch.core import hessian as hess
-from repro_torch.core.gptq import gptq_quantize_batched
+from repro_torch.core.gptq import (gptq_quantize_batched, rtn_quantize,
+                                   rtn_quantize_batched)
 from repro_torch.core.rpiq import rpiq_refine_batched
 
 Tensor = torch.Tensor
@@ -35,7 +44,8 @@ class LinearRecord:
     gamma: List[float]               # Γ trajectory (Γ[0] = post-stage-1)
     gamma_final: float
     iters: int
-    mode: str                        # "rpiq" | "gptq" | "skipped"
+    mode: str                        # "rpiq" | "gptq" | "rtn-fallback" |
+    #                                  "skipped"
     seconds: float
 
 
@@ -49,6 +59,10 @@ class QuantReport:
     # the layer walk's counters (core/stream.py): mode, steps and, after a
     # resume, resumed_at (the first step this run executed)
     pipeline_stats: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    # per routed-MoE layer, the (token, k) assignments that expert capacity
+    # dropped during Hessian capture: they reach no expert's Hessian
+    moe_capacity_dropped: Dict[str, int] = dataclasses.field(
+        default_factory=dict)
 
     def summary(self) -> str:
         n = len(self.linears)
@@ -64,16 +78,40 @@ GroupKey = Tuple[int, int, int, int, int, int, bool]
 
 @dataclasses.dataclass
 class PlanMember:
-    """One dense linear: w_oi (out, in), its Hessian, the last batch's
-    inputs x_last (n, in)."""
+    """One linear, or a stacked slab of S same-shape linears.
+
+    Singleton (``names`` None): w_oi (out, in), hessian (in, in), x_last
+    (n, in), x_count a scalar, starved a bool. Stacked (``names`` lists
+    the S lanes' report names, one per expert): w_oi (S, out, in),
+    hessian (S, in, in) / (S,), x_last (S, n, in), x_count (S,), starved a
+    bool or an (S,) mask. ``x_count`` None means all n rows are real."""
     name: str
     w_oi: Tensor
     hessian: hess.HessianState
     x_last: Tensor
+    x_count: Optional[Tensor] = None
+    starved: Any = False
+    names: Optional[List[str]] = None
+
+    @property
+    def stacked(self) -> bool:
+        return self.names is not None
+
+    @property
+    def lanes(self) -> int:
+        return len(self.names) if self.stacked else 1
+
+    @property
+    def lane_names(self) -> List[str]:
+        return self.names if self.stacked else [self.name]
 
     @property
     def wshape(self) -> Tuple[int, int]:
         return tuple(self.w_oi.shape[-2:])
+
+    def starved_mask(self) -> np.ndarray:
+        s = np.asarray(self.starved, bool).reshape(-1)
+        return np.full(self.lanes, bool(s[0])) if s.size == 1 else s
 
 
 @dataclasses.dataclass
@@ -90,8 +128,9 @@ class QuantPlan:
 
 @dataclasses.dataclass
 class MemberResult:
+    """A member's outcome; a stacked member's arrays keep its lane axis."""
     name: str
-    w_q: Optional[Tensor]            # (out, in); None = skipped
+    w_q: Optional[Tensor]            # (out, in) | (S, out, in); None = skipped
     grid: Optional[Tuple[Tensor, Tensor]]   # stage-1 (scales, zeros)
 
 
@@ -121,25 +160,70 @@ def _gamma_list(hist_row: np.ndarray) -> List[float]:
     return [float(g) for g in hist_row if np.isfinite(g)]
 
 
+def _as3d(t: Tensor) -> Tensor:
+    return t if t.dim() == 3 else t[None]
+
+
+def _lane_x_counts(m: PlanMember) -> Tensor:
+    """(S,) int32 real-row counts of x_last; a starved lane reports n, so
+    that with its identity curvature the eq.-13 rescale stays 1."""
+    n = m.x_last.shape[-2]
+    dev = m.x_last.device
+    if m.x_count is None:
+        xc = torch.full((m.lanes,), n, dtype=torch.int32, device=dev)
+    else:
+        xc = m.x_count.to(torch.int32).reshape(-1).expand(m.lanes)
+    sv = torch.as_tensor(m.starved_mask(), device=dev)
+    return torch.where(sv, torch.full_like(xc, n), xc)
+
+
+def _lane_hessians(m: PlanMember) -> hess.HessianState:
+    """The (S, in, in) curvature fed to the lanes. A starved lane is
+    discarded for its RTN lane afterwards but still runs the stages; with
+    H = 0 and no tokens its Cholesky is NaN, and a NaN Γ never meets the
+    early stop, holding the whole group's closed loop at ``t_max``: it
+    runs on the identity (count n) instead and converges at once."""
+    H = _as3d(m.hessian.H)
+    count = m.hessian.count.to(torch.int32).reshape(-1).expand(m.lanes)
+    sv = m.starved_mask()
+    if sv.any():
+        svt = torch.as_tensor(sv, device=H.device)
+        eye = torch.eye(H.shape[-1], dtype=H.dtype, device=H.device)
+        H = torch.where(svt[:, None, None], eye, H)
+        count = torch.where(svt, torch.full_like(count, m.x_last.shape[-2]),
+                            count)
+    return hess.HessianState(H, count)
+
+
 def _execute_group(qc: QuantConfig, group: QuantGroup, report: QuantReport,
                    rpiq_enabled: bool) -> List[MemberResult]:
-    """One stacked dispatch per stage for the whole group."""
+    """One stacked dispatch per stage for the whole group: the members'
+    lanes concatenated, a stacked member's slab wholesale."""
     ms = group.members
     t0 = time.perf_counter()
-    w = torch.stack([m.w_oi.float() for m in ms])
-    H = torch.stack([m.hessian.H for m in ms])
-    count = torch.stack([m.hessian.count.reshape(()) for m in ms])
-    damp = torch.full((len(ms),), qc.percdamp, device=w.device)
+    w = torch.cat([_as3d(m.w_oi.float()) for m in ms])
+    lane_h = [_lane_hessians(m) for m in ms]
+    count = torch.cat([h.count for h in lane_h])
+    H = torch.cat([h.H for h in lane_h])
+    del lane_h
+    starved = np.concatenate([m.starved_mask() for m in ms])
+    damp = torch.full((w.shape[0],), qc.percdamp, device=w.device)
     hd = hess.damped(hess.HessianState(H, count), damp)
+    del H
     u = hess.cholesky_inverse_upper(hd)
     res1 = gptq_quantize_batched(w, u, bits=qc.bits,
                                  group_size=qc.group_size,
                                  blocksize=qc.blocksize,
                                  symmetric=qc.symmetric)
+    del u
+    rtn = (rtn_quantize_batched(w, bits=qc.bits, group_size=qc.group_size,
+                                symmetric=qc.symmetric)
+           if starved.any() else None)
     finite = torch.isfinite(res1.w_q.sum(dim=(1, 2)) + res1.scales.sum(
         dim=(1, 2)) + res1.zeros.sum(dim=(1, 2)) + res1.err).cpu()
     if not bool(finite.all()):
-        bad = [m.name for m, ok in zip(ms, finite.tolist()) if not ok]
+        names = [n for m in ms for n in m.lane_names]
+        bad = [n for n, ok in zip(names, finite.tolist()) if not ok]
         raise FloatingPointError(
             f"stage 1 produced non-finite output for {bad} (non-PSD or "
             "NaN Hessian; the guardrail ladder is not ported)")
@@ -150,9 +234,8 @@ def _execute_group(qc: QuantConfig, group: QuantGroup, report: QuantReport,
     do_rpiq = rpiq_enabled and qc.rpiq_iters > 0
     res2 = None
     if do_rpiq:
-        x = torch.stack([m.x_last.float() for m in ms])
-        xc = torch.full((len(ms),), x.shape[1], dtype=torch.int32,
-                        device=w.device)
+        x = torch.cat([_as3d(m.x_last.float()) for m in ms])
+        xc = torch.cat([_lane_x_counts(m) for m in ms])
         res2 = rpiq_refine_batched(
             res1.w_q, w, x, hd, res1.scales, res1.zeros, h_count=count,
             x_count=xc, bits=qc.bits, group_size=qc.group_size,
@@ -160,40 +243,91 @@ def _execute_group(qc: QuantConfig, group: QuantGroup, report: QuantReport,
             t_max=qc.rpiq_iters, early_stop=qc.rpiq_early_stop,
             exact_gram=not qc.rpiq_use_global_hessian,
             symmetric=qc.symmetric)
+        del x
         _sync(res2.w_q)
         report.seconds_stage2 += time.perf_counter() - t1
+    del hd
 
+    # the starved lanes take the RTN lane: weights and grid
     w_final = res2.w_q if do_rpiq else res1.w_q
-    seconds = (time.perf_counter() - t0) / len(ms)
+    scales, zeros = res1.scales, res1.zeros
+    if rtn is not None:
+        sel = torch.as_tensor(starved, device=w.device)[:, None, None]
+        w_final = torch.where(sel, rtn.w_q, w_final)
+        scales = torch.where(sel, rtn.scales, scales)
+        zeros = torch.where(sel, rtn.zeros, zeros)
+
+    seconds = (time.perf_counter() - t0) / max(1, int((~starved).sum()))
     err1 = res1.err.cpu().numpy()
     if do_rpiq:
         hist = res2.loss_history.cpu().numpy()
         ploss = res2.proj_loss.cpu().numpy()
         iters = res2.iters_run.cpu().numpy()
-    for i, m in enumerate(ms):
-        if do_rpiq:
-            report.linears.append(LinearRecord(
-                m.name, m.wshape, float(err1[i]), _gamma_list(hist[i]),
-                float(ploss[i]), int(iters[i]), "rpiq", seconds))
-        else:
-            report.linears.append(LinearRecord(
-                m.name, m.wshape, float(err1[i]), [], 0.0, 0, "gptq",
-                seconds))
-    return [MemberResult(m.name, w_final[i],
-                         (res1.scales[i], res1.zeros[i]))
-            for i, m in enumerate(ms)]
+    off = 0
+    for m in ms:
+        for li, lname in enumerate(m.lane_names):
+            i = off + li
+            if starved[i]:
+                report.linears.append(LinearRecord(
+                    lname, m.wshape, 0.0, [], 0.0, 0, "rtn-fallback", 0.0))
+            elif do_rpiq:
+                report.linears.append(LinearRecord(
+                    lname, m.wshape, float(err1[i]), _gamma_list(hist[i]),
+                    float(ploss[i]), int(iters[i]), "rpiq", seconds))
+            else:
+                report.linears.append(LinearRecord(
+                    lname, m.wshape, float(err1[i]), [], 0.0, 0, "gptq",
+                    seconds))
+        off += m.lanes
+    results = []
+    off = 0
+    for m in ms:
+        lanes = slice(off, off + m.lanes) if m.stacked else off
+        results.append(MemberResult(m.name, w_final[lanes],
+                                    (scales[lanes], zeros[lanes])))
+        off += m.lanes
+    return results
+
+
+def _execute_fallback(qc: QuantConfig, m: PlanMember, report: QuantReport
+                      ) -> MemberResult:
+    """A member whose input dim does not align with the grid: RTN for its
+    starved lanes, skipped (kept in float) otherwise. A starved lane gets
+    the per-group grid where in aligns with ``group_size`` (only the
+    stages need ``blocksize``), else one whole-row group and no stored
+    grid; a stacked member stores a grid only when every lane has one."""
+    shape = m.wshape
+    aligned = shape[1] % qc.group_size == 0
+    gsz = qc.group_size if aligned else shape[1]
+    sv = m.starved_mask()
+    for li, lname in enumerate(m.lane_names):
+        report.linears.append(LinearRecord(
+            lname, shape, 0.0, [], 0.0, 0,
+            "rtn-fallback" if sv[li] else "skipped", 0.0))
+    if not sv.any():
+        return MemberResult(m.name, None, None)
+    w = m.w_oi.float()
+    if not m.stacked:
+        res = rtn_quantize(w, bits=qc.bits, group_size=gsz,
+                           symmetric=qc.symmetric)
+        return MemberResult(m.name, res.w_q,
+                            (res.scales, res.zeros) if aligned else None)
+    res = rtn_quantize_batched(w, bits=qc.bits, group_size=gsz,
+                               symmetric=qc.symmetric)
+    sel = torch.as_tensor(sv, device=w.device)[:, None, None]
+    w_q = torch.where(sel, res.w_q, w)          # skipped lanes keep float
+    grid = (res.scales, res.zeros) if aligned and bool(sv.all()) else None
+    return MemberResult(m.name, w_q, grid)
 
 
 def execute_plan(qc: QuantConfig, plan: QuantPlan, report: QuantReport,
                  rpiq_enabled: bool = True) -> Dict[str, MemberResult]:
-    """Run every group, then record the skipped members; returns
-    {member name → MemberResult}."""
+    """Run every group, then the grid-unaligned members; returns {member
+    name → MemberResult}."""
     out: Dict[str, MemberResult] = {}
     for group in plan.groups:
         for r in _execute_group(qc, group, report, rpiq_enabled):
             out[r.name] = r
     for m in plan.fallbacks:
-        report.linears.append(LinearRecord(m.name, m.wshape, 0.0, [], 0.0, 0,
-                                           "skipped", 0.0))
-        out[m.name] = MemberResult(m.name, None, None)
+        out[m.name] = _execute_fallback(qc, m, report)
     return out

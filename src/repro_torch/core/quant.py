@@ -27,13 +27,15 @@ class QuantParams(NamedTuple):
 
 class QuantizedTensor:
     """A packed quantized weight matrix (the serving artifact), stored
-    (out, in)-major like GPTQ."""
+    (out, in)-major like GPTQ. Leading dims stack matrices: a routed-MoE
+    layer's experts are one tensor of (E, out, in//2) codes with (E, out,
+    n_groups) scales and zeros, ``shape`` (E, out, in)."""
 
     def __init__(self, packed: Tensor, scales: Tensor, zeros: Tensor,
-                 shape: Tuple[int, int], bits: int, group_size: int):
-        self.packed = packed        # (out, in//2) uint8
-        self.scales = scales        # (out, n_groups) f32
-        self.zeros = zeros          # (out, n_groups) f32
+                 shape: Tuple[int, ...], bits: int, group_size: int):
+        self.packed = packed        # (..., out, in//2) uint8
+        self.scales = scales        # (..., out, n_groups) f32
+        self.zeros = zeros          # (..., out, n_groups) f32
         self.shape = tuple(int(s) for s in shape)
         self.bits = int(bits)
         self.group_size = int(group_size)
@@ -59,6 +61,9 @@ def quantized_leaves(tree, path: str = ""):
 
 def compute_qparams(w: Tensor, bits: int, group_size: int,
                     symmetric: bool = False) -> QuantParams:
+    """The RTN grid. The divisors are tensors: on CUDA torch divides by a
+    Python scalar through its reciprocal, one ulp off the true division
+    of the CPU and the reference."""
     out_dim, in_dim = w.shape
     if in_dim % group_size:
         raise ValueError(f"in={in_dim} is not a multiple of {group_size}")
@@ -66,11 +71,14 @@ def compute_qparams(w: Tensor, bits: int, group_size: int,
     qmax = 2.0 ** bits - 1.0
     if symmetric:
         absmax = g.abs().amax(dim=-1)
-        scale = torch.clamp(absmax / (2.0 ** (bits - 1) - 1), min=1e-8)
+        scale = torch.clamp(
+            absmax / torch.full_like(absmax, 2.0 ** (bits - 1) - 1),
+            min=1e-8)
         return QuantParams(scale, torch.zeros_like(scale))
     wmax = torch.clamp(g.amax(dim=-1), min=0.0)
     wmin = torch.clamp(g.amin(dim=-1), max=0.0)
-    scale = torch.clamp((wmax - wmin) / qmax, min=1e-8)
+    scale = torch.clamp((wmax - wmin) / torch.full_like(wmax, qmax),
+                        min=1e-8)
     zero = torch.clamp(torch.round(-wmin / scale), 0.0, qmax)
     return QuantParams(scale, zero)
 

@@ -127,6 +127,7 @@ def _report_state(report: QuantReport, stats: Dict[str, Any]) -> Dict:
             "seconds_stage1": report.seconds_stage1,
             "seconds_stage2": report.seconds_stage2,
             "layer_step_seconds": list(report.layer_step_seconds),
+            "moe_capacity_dropped": dict(report.moe_capacity_dropped),
             "pipeline_counters": {k: v for k, v in stats.items()
                                   if isinstance(v, int)}}
 
@@ -138,6 +139,7 @@ def _restore_report(report: QuantReport, state: Dict,
     report.seconds_stage1 = float(state.get("seconds_stage1", 0.0))
     report.seconds_stage2 = float(state.get("seconds_stage2", 0.0))
     report.layer_step_seconds[:] = state.get("layer_step_seconds", [])
+    report.moe_capacity_dropped.update(state.get("moe_capacity_dropped", {}))
     for k, v in state.get("pipeline_counters", {}).items():
         if isinstance(stats.get(k), int):
             stats[k] += v
@@ -225,9 +227,10 @@ def run_walker(cfg: Config, walker: LayerWalker, report: QuantReport,
             t_step = time.perf_counter()
             hs = walker.streams[item.hs_slot]
             cap = qpipe.capture_layer(cfg, item, hs)
-            new_params, dense_names, plan = qpipe.plan_layer(cfg, item, cap)
+            new_params, dense_names, plan = qpipe.plan_layer(cfg, item, cap,
+                                                             report)
             results = qplan.execute_plan(qc, plan, report)
-            qpipe.scatter_layer(new_params, dense_names, results)
+            qpipe.scatter_layer(new_params, dense_names, cap, results)
             walker.streams[item.hs_slot] = qpipe.propagate_layer(
                 item, new_params, hs)
             item.store(new_params)

@@ -19,7 +19,10 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             raise RuntimeError(
                 "repro_torch runs on a CUDA device by default and none is "
                 "available; pass device='cpu' to run the plain versions")
-        # the reference pins its fp32 products at full precision
+        # the reference pins its fp32 products at full precision, and its
+        # bf16 products (the MoE experts') accumulate in fp32
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction \
+            = False
     return dev

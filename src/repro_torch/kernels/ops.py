@@ -513,11 +513,16 @@ def _rpiq_select(hist_raw: Tensor, pls_raw: Tensor, wp_all: Tensor,
 
 
 def _first_argmin(a: Tensor) -> Tensor:
-    """Index of the first minimum along dim 1 (ties → lowest index)."""
+    """Index of the first minimum along dim 1 (ties → lowest index); a row
+    holding NaN gives its first NaN, as ``jnp.argmin`` does (a lane whose
+    last batch routed no token to its expert has a NaN curvature in the
+    reference too, and keeps its stage-1 candidate, slot 0)."""
     cols = torch.arange(a.shape[1], device=a.device).expand_as(a)
     big = torch.full_like(cols, a.shape[1])
-    return torch.where(a == a.min(dim=1, keepdim=True).values, cols,
-                       big).min(dim=1).values
+    nan = torch.isnan(a)
+    hit = torch.where(nan.any(dim=1, keepdim=True), nan,
+                      a == a.min(dim=1, keepdim=True).values)
+    return torch.where(hit, cols, big).min(dim=1).values
 
 
 def rpiq_block(w_init: Tensor, w_fp: Tensor, x_last: Tensor,

@@ -38,7 +38,7 @@ from typing import Dict, Optional, Tuple, Union
 
 import torch
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import ModelConfig, not_ported
 from repro_torch.kernels import kv_codec, ops
 from repro_torch.models.layers import apply_rope, tanh_softcap
 from repro_torch.models.linear import dense, init_dense
@@ -105,7 +105,16 @@ def init_attention(cfg: ModelConfig, gen: torch.Generator, bias: bool,
                             scale=(h * hd) ** -0.5, device=device)}
 
 
+def _refuse_naive_baseline(cfg: ModelConfig) -> None:
+    """``model.opt_attention=false`` is the JAX package's naive fp32
+    attention baseline; only the default path is ported."""
+    if not cfg.opt_attention:
+        raise not_ported("model.opt_attention=false (the naive attention "
+                         "baseline)", 22)
+
+
 def _project_qkv(cfg: ModelConfig, p: Dict, x: Tensor, name: str):
+    _refuse_naive_baseline(cfg)
     b, s, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = dense(p["q"], x, f"{name}.q").reshape(b, s, h, hd)
@@ -298,6 +307,7 @@ def cross_attention(cfg: ModelConfig, p: Dict, x: Tensor, kv_cache: Dict,
     """Decoder queries x (B, S, D) against the fixed encoder K/V: no
     positions, no mask. Plain products, as the JAX package computes them
     outside any Pallas kernel."""
+    _refuse_naive_baseline(cfg)
     b, s, _ = x.shape
     h, hd = cfg.num_heads, cfg.head_dim
     q = dense(p["q"], x, f"{name}.q").reshape(b, s, h, hd)

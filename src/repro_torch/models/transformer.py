@@ -1,13 +1,14 @@
 """Model assembly: decoder-only LMs of attention + dense-MLP layers
 (opt-proxy, internlm2, minicpm, stablelm, pixtral; windowed attention on a
-ring cache for h2o-danube) and Mamba-1 layers (falcon-mamba), and the
-encoder-decoder (whisper).
+ring cache for h2o-danube), attention + routed-MoE layers (olmoe) and
+Mamba-1 layers (falcon-mamba), and the encoder-decoder (whisper).
 
 ``layer_specs(cfg)`` expands the block pattern into one ``(mixer, mlp)``
 spec per layer, as the JAX package does: ``("attn", "dense")``,
 ``("swa", "dense")`` / ``("local", "dense")`` (attention over the last
-``window_size`` positions) or ``("mamba", "none")``; every per-layer
-function branches on it.
+``window_size`` positions), ``("attn", "moe")`` (a config with
+``moe.num_experts`` > 0, from layer ``moe.first_dense_layers`` on) or
+``("mamba", "none")``; every per-layer function branches on it.
 
 Param layout: ``{"embed": {...}, "layers": [layer, ...], "final_norm":
 {...}, "lm_head": {...}}`` — a plain per-layer list where the JAX package
@@ -17,7 +18,9 @@ a model with tied embeddings has no ``lm_head``. ``forward`` and
 token embeddings in the compute dtype (pixtral's patch embeddings), so the
 text starts at position F.
 An attention layer is ``{"norm1", "mixer": {q, k, v, o}, "norm2", "mlp":
-{up, down (, gate)}}``; a Mamba layer is ``{"norm1", "mixer": {in, conv,
+{up, down (, gate)}}``; a routed-MoE layer's ``"mlp"`` is ``{router: {w},
+w_gate, w_up: (E, d, f), w_down: (E, f, d) (, shared)}`` (models/moe.py); a
+Mamba layer is ``{"norm1", "mixer": {in, conv,
 x, dt, a_log, d_skip, out}}`` with no ``norm2`` and no ``mlp``. Dense
 weights are stored (in, out).
 
@@ -42,6 +45,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import recurrent as rec
 from repro_torch.models.layers import (embed, init_embed, init_mlp,
                                        init_norm, mlp, norm,
@@ -62,8 +66,13 @@ def _window_of(cfg: ModelConfig, mixer: str) -> int:
 
 
 def layer_specs(cfg: ModelConfig) -> Tuple[LayerSpec, ...]:
-    return tuple(("mamba", "none") if kind == "mamba" else (kind, "dense")
-                 for kind in cfg.layer_kinds)
+    def spec(i: int, kind: str) -> LayerSpec:
+        if kind == "mamba":
+            return ("mamba", "none")
+        routed = (cfg.moe.num_experts > 0
+                  and i >= cfg.moe.first_dense_layers)
+        return (kind, "moe" if routed else "dense")
+    return tuple(spec(i, kind) for i, kind in enumerate(cfg.layer_kinds))
 
 
 def init_layer(cfg: ModelConfig, spec: LayerSpec, gen: torch.Generator,
@@ -77,7 +86,9 @@ def init_layer(cfg: ModelConfig, spec: LayerSpec, gen: torch.Generator,
         p["mixer"] = attn.init_attention(cfg, gen, bias, device)
     if mlp_kind != "none":
         p["norm2"] = init_norm(cfg, cfg.d_model, device)
-        p["mlp"] = init_mlp(cfg, gen, cfg.d_model, cfg.d_ff, bias, device)
+        p["mlp"] = (moe_mod.init_moe(cfg, gen, device) if mlp_kind == "moe"
+                    else init_mlp(cfg, gen, cfg.d_model, cfg.d_ff, bias,
+                                  device))
     return p
 
 
@@ -101,7 +112,10 @@ def _mlp_residual(cfg: ModelConfig, spec: LayerSpec, p: Dict, h: Tensor
                   ) -> Tensor:
     if spec[1] == "none":
         return h
-    return h + mlp(cfg, p["mlp"], norm(cfg, p["norm2"], h), name="mlp")
+    hn = norm(cfg, p["norm2"], h)
+    if spec[1] == "moe":
+        return h + moe_mod.moe_ffn(cfg, p["mlp"], hn, name="mlp").y
+    return h + mlp(cfg, p["mlp"], hn, name="mlp")
 
 
 def layer_forward(cfg: ModelConfig, spec: LayerSpec, p: Dict, h: Tensor,

@@ -12,6 +12,7 @@ leaves too) as plain containers; a flipped byte or a newer schema raises
 ``ArtifactIntegrityError``, a missing sidecar warns, and no ``.tmp`` is
 left behind.
 """
+import _torch_threads  # noqa: F401  (caps torch's CPU threads)
 import json
 import os
 import pickle

@@ -42,6 +42,7 @@ sizes, with the JAX package's initial weights carried across by
   (one scale block a row) on a wrapped ring's ``kpos``, with and without
   the soft cap, against its plain version.
 """
+import _torch_threads  # noqa: F401  (caps torch's CPU threads)
 import dataclasses
 
 import jax
@@ -84,7 +85,7 @@ TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 CASES = [(a, d) for a in ARCHS for d in ("float32", "bfloat16")]
 # the fields of the port's ModelConfig, all of them also JAX's
 FIELDS = [f.name for f in dataclasses.fields(
-    tget_config("opt-proxy").model) if f.name != "ssm"]
+    tget_config("opt-proxy").model) if f.name not in ("ssm", "moe")]
 
 
 def t(a):
@@ -122,6 +123,7 @@ def test_config_matches_jax(arch, smoke):
     j, tc = jget_config(arch, smoke=smoke), tget_config(arch, smoke=smoke)
     for f in FIELDS + ["layer_kinds"]:
         assert getattr(tc.model, f) == getattr(j.model, f), f
+    assert dataclasses.asdict(tc.model.moe) == dataclasses.asdict(j.model.moe)
     for f in ("bits", "group_size", "blocksize", "rpiq_iters", "rpiq_alpha"):
         assert getattr(tc.quant, f) == getattr(j.quant, f), f
 

@@ -31,6 +31,7 @@ subtrees changes nothing for the decoder-only architectures. Tests marked
 ``gpu`` (skip without a card) hold the card's run against the CPU's and
 the replayed decode graph against the eager loop.
 """
+import _torch_threads  # noqa: F401  (caps torch's CPU threads)
 import hashlib
 import json
 import re

@@ -22,6 +22,7 @@ workspace; a step that cannot be captured makes ``generate`` raise; and
 sampled ``generate`` repeats under one seed while successive replays draw
 new tokens.
 """
+import _torch_threads  # noqa: F401  (caps torch's CPU threads)
 import copy
 
 import jax

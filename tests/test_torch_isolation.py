@@ -9,6 +9,7 @@ such import. (2) Without a CUDA device the entry points raise unless the
 caller passes ``device="cpu"`` (``--device cpu`` on the launchers and the
 examples).
 """
+import _torch_threads  # noqa: F401  (caps torch's CPU threads)
 import ast
 import os
 import pathlib
@@ -91,6 +92,16 @@ def test_the_scans_cover_the_encoder_decoder_modules():
     assert PORT / "configs" / "whisper_large_v3.py" in SOURCES
 
 
+def test_the_scans_cover_the_moe_modules():
+    """olmoe's config and the routed-MoE module are among the modules the
+    import and the AST scans cover."""
+    for mod in ("repro_torch.configs.olmoe_1b_7b", "repro_torch.models.moe"):
+        assert mod in _modules()
+    for path in (PORT / "configs" / "olmoe_1b_7b.py",
+                 PORT / "models" / "moe.py"):
+        assert path in SOURCES
+
+
 def test_encoder_decoder_entry_points_raise_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is to use it")
@@ -140,5 +151,5 @@ def test_example_twins_raise_without_a_card(path):
 
 def test_unported_arch_names_the_roadmap():
     from repro_torch.configs import get_config
-    with pytest.raises(KeyError, match="ROADMAP.md, queue 1 item 12"):
-        get_config("olmoe-1b-7b")
+    with pytest.raises(KeyError, match="ROADMAP.md, queue 1 item 16"):
+        get_config("deepseek-v3-671b")

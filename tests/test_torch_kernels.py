@@ -31,6 +31,7 @@ the CUDA-core kernel within 1e-5 in fp32 (to k 12288) and one bf16 ulp at
 the other even groups, and a launch that splits k over blocks bitwise
 repeatable; ``int8_kv_attention`` launched twice bitwise equal.
 """
+import _torch_threads  # noqa: F401  (caps torch's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

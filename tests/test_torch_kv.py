@@ -25,6 +25,7 @@ Same seeded numpy inputs through the JAX function and the port's:
   per-step |Δlogit| <= 0.25, late half <= 3 x early half + 0.05), for
   opt-proxy and internlm2 smoke.
 """
+import _torch_threads  # noqa: F401  (caps torch's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -24,6 +24,7 @@ or a corrupt one, warns and the run starts fresh with the same artifact.
 The options not ported raise and name their ROADMAP item, and the two
 example twins run with ``--device cpu`` and print their checks as OK.
 """
+import _torch_threads  # noqa: F401  (caps torch's CPU threads)
 import hashlib
 import json
 import os
@@ -299,6 +300,37 @@ def test_options_not_ported_raise(launcher, override, item, tmp_path):
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP.md, queue 1 item {item}"):
         mod.main(argv + CALIB + [override])
+
+
+@pytest.mark.parametrize("launcher", ["quantize", "serve"])
+@pytest.mark.parametrize("override", [
+    "quant.act_order=true", "quant.keep_best_projection=false",
+    "serve.quantized=false", "quant.moe_flip_budget=0.25",
+    "model.opt_attention=false"])
+def test_jax_override_keys_are_taken(launcher, override, tmp_path):
+    """Keys the JAX ``Config`` takes are taken by both launchers: the ones
+    the reference reads nowhere (and the flip budget, whose reader is the
+    unported overlap schedule) run to the end; the naive attention
+    baseline raises and names its ROADMAP item."""
+    argv = ["--arch", "opt-proxy", "--smoke", "--device", "cpu"]
+    if launcher == "quantize":
+        argv += ["--out", str(tmp_path), f"train.ckpt_dir={tmp_path / 'n'}",
+                 "quant.calib_batches=1", "quant.calib_batch_size=2",
+                 "quant.calib_seq_len=16"]
+    else:
+        argv += ["--batch", "2", "--prompt-len", "8",
+                 "serve.max_new_tokens=2"]
+    mod = tlaunch_quantize if launcher == "quantize" else tlaunch_serve
+    if override == "model.opt_attention=false":
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md, queue 1 item 22"):
+            mod.main(argv + [override])
+        return
+    out = mod.main(argv + [override])
+    if launcher == "quantize":
+        assert os.path.exists(out[0])
+    else:
+        assert tuple(out.tokens.shape) == (2, 2)
 
 
 @pytest.mark.parametrize("script,check", [

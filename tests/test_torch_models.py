@@ -8,6 +8,7 @@ steps (bf16 cache), and the packed (int4 ``QuantizedTensor``) forward.
 Pins (relative Frobenius error): model dtype float32 ≤ 1e-5; the default
 bf16 ≤ 2e-2 (the frameworks round bf16 intermediates at different places).
 """
+import _torch_threads  # noqa: F401  (caps torch's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -21,6 +21,7 @@ params gives the JAX engine's tokens exactly: on the bf16 cache for
 opt-proxy, on the int8 cache (``serve.kv_cache=int8``) for internlm2, on
 the recurrent state for falcon-mamba.
 """
+import _torch_threads  # noqa: F401  (caps torch's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

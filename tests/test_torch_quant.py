@@ -5,6 +5,7 @@ GPTQ factor and the RPIQ block curvature ≤ 1e-5 of the largest entry (the
 two frameworks' LAPACK calls round differently); GPTQ from a Hessian end
 to end at the kernel tests' cell pin.
 """
+import _torch_threads  # noqa: F401  (caps torch's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -20,6 +20,7 @@ Same seeded numpy inputs through the JAX function and the port's:
 The CPU dispatch of ``ops.selective_scan`` is checked with the other
 kernels' in ``tests/test_torch_kernels.py``.
 """
+import _torch_threads  # noqa: F401  (caps torch's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np
