@@ -31,7 +31,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      phase 11's shapes (``kernels_moe_shapes``): the stacked expert groups
      of 128 and 64 lanes on zero-padded capacity buffers (n 320, per-lane
      ``x_count``, starved lanes) and ``quant_pack`` at (65536, 2048) and
-     (131072, 1024);
+     (131072, 1024); phase 12's (``kernels_continuous_shapes``):
+     ``int8_kv_attention`` at B 8 over a 1024-slot slotted cache of mixed
+     lane lengths (empty lanes among them) and bf16 ``w4a16_matmul`` at
+     m 8 (the tick) and m 128 (a prefill chunk) at internlm2's (k, n);
   4. small end to end: opt-proxy smoke (bf16 cache), internlm2 smoke (int8
      KV cache) and falcon-mamba smoke (recurrent state) quantized, packed
      and served on the card against the same runs of the plain versions on
@@ -43,7 +46,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      patch embeddings in every calibration batch and request) and olmoe
      smoke (routed experts, the int8 cache); then olmoe smoke on a
      calibration short enough to starve experts, its RTN lanes bitwise
-     the CPU's;
+     the CPU's; then every smoke family (whisper's too), card against
+     CPU in fp32: the chunked prefill, a short continuous run (2 lanes,
+     prefill chunk 3; the card's ticks replay a graph) and the
+     guardrail ladder with ``hessian.cholesky@1:nonpsd`` and ``@1:nan``
+     armed (the same ``guardrail_stats`` and record modes);
   5. main path at full width: opt-proxy (OPT-125M shape) from seeded random
      weights → quantize_model → pack_for_serving → generate, with launch
      counters reset just before and read just after, the packed-vs-float
@@ -136,10 +143,24 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      drops and starved lanes, the packed experts bitwise the refined ones
      in bf16, the packed logits against the refined float logits in fp32
      compute on the same routing (1e-2: the experts compute in bf16), the
-     int8 drift rule, the artifact bytes.
+     int8 drift rule, the artifact bytes;
+  12. the continuous path at full width and depth: internlm2-1.8b
+     (RTN-packed seeded weights, the int8 cache) behind
+     ``ContinuousEngine`` (8 lanes, prefill chunks of 128, max_len
+     1024), 24 seeded requests (prompts 32-512 tokens, budgets 16-64)
+     drained with the counters reset just before and read just after:
+     ticks, eager and replayed tick walls, prefill-chunk walls, per-request
+     time to first token and total, tokens/s, capture wall, a replayed
+     tick's idle share, peak memory; held: chunked against single-shot
+     prefill (fp32 compute and cache, 1e-4), the replayed tick bitwise
+     the eager tick, row independence, a ``serve.decode_step`` quarantine
+     that leaves every other request's tokens bitwise the fault-free
+     run's, and a ``serve.engine_step`` kill under ``SupervisedEngine``
+     that completes every request within its budget (how many come out
+     token-identical is reported).
 
 The line before the last is a JSON object with one entry per kernel
-(``launches`` sums phases 5 to 11); the last line is ``{"ok": true,
+(``launches`` sums phases 5 to 12); the last line is ``{"ok": true,
 "device": {...}}``.
 """
 from __future__ import annotations
@@ -183,6 +204,13 @@ KERNEL_SOURCES = {
 SMALL_DENSE = (("h2o-danube-1.8b", "int8"), ("minicpm-2b", "int8"),
                ("stablelm-1.6b", "fp16"), ("pixtral-12b", "fp16"),
                ("olmoe-1b-7b", "int8"))
+
+
+# phase 4's chunked prefill, continuous run and guardrail ladder: every
+# smoke family, the encoder-decoder among them
+SMALL_SERVING = (("opt-proxy", "fp16"), ("internlm2-1.8b", "int8"),
+                 ("falcon-mamba-7b", "fp16")) + SMALL_DENSE + (
+                     ("whisper-large-v3", "int8"),)
 
 
 def log(msg: str = "") -> None:
@@ -376,6 +404,7 @@ def phase_kernels(table: KernelTable) -> None:
     kernels_dense_shapes(table)
     kernels_encdec_shapes(table)
     kernels_moe_shapes(table)
+    kernels_continuous_shapes(table)
 
 
 def check_w4a16(table: KernelTable, g, m: int, k: int, n: int, dt,
@@ -1150,13 +1179,16 @@ def kernels_dense_shapes(table: KernelTable) -> None:
 
 
 def kv_attention_row(table, g, b: int, kv: int, r: int, hd: int, s: int,
-                     cap: float = 0.0, label: str = "") -> None:
+                     cap: float = 0.0, label: str = "",
+                     lengths=None) -> None:
     """int8_kv_attention at one decode shape (kv_block the codec's
     default for hd, a decode cache of s slots all written but for the
-    last lane, which holds none), inputs from generator g: fp32 at 1e-5 of
-    the largest output, bf16 at one bf16 ulp, a second launch bitwise the
-    first; timed in bf16 from a CUDA graph over cache copies beyond L2,
-    added to ``table`` where one is given."""
+    last lane, which holds none; with ``lengths``, lane i holds its first
+    lengths[i] slots, as the continuous engine's slotted cache does),
+    inputs from generator g: fp32 at 1e-5 of the largest output, bf16 at
+    one bf16 ulp, a second launch bitwise the first; timed in bf16 from a
+    CUDA graph over cache copies beyond L2, added to ``table`` where one
+    is given. The bound counts the valid slots' bytes and products."""
     import torch
     from repro_torch.kernels import kv_codec, ops, ref
 
@@ -1167,7 +1199,11 @@ def kv_attention_row(table, g, b: int, kv: int, r: int, hd: int, s: int,
     kc, ks = kv_codec.enc_int8_blocks(x[0], blk)
     vc, vs = kv_codec.enc_int8_blocks(x[1], blk)
     kpos = torch.arange(s, device=dev, dtype=torch.int32).repeat(b, 1)
-    kpos[-1] = -1
+    if lengths is None:
+        lengths = [s] * (b - 1) + [0]
+    for i, n in enumerate(lengths):
+        kpos[i, n:] = -1
+    valid = sum(lengths)
     q32 = torch.randn((b, kv, r, hd), generator=g, device=dev) \
         * hd ** -0.5 * (12.0 if cap else 1.0)
     cache = (kc, ks, vc, vs, kpos)
@@ -1181,12 +1217,13 @@ def kv_attention_row(table, g, b: int, kv: int, r: int, hd: int, s: int,
     diff = (got.float() - want.float()).abs()
     err = float(diff.max())
     ok = within_bf16_ulp(diff, want)
-    zero = float(got[-1].abs().max()) == 0.0
+    zero = all(float(got[i].abs().max()) == 0.0
+               for i, n in enumerate(lengths) if n == 0)
     same = torch.equal(got, ops.int8_kv_attention_cuda(q, *cache, blk, cap))
     splits, per = ops.int8_kv_attention_geometry(b, kv, s)
-    nbytes = (2 * b * s * kv * hd + 2 * b * s * kv * nb * 4 + 4 * b * s
+    nbytes = (2 * valid * kv * hd + 2 * valid * kv * nb * 4 + 4 * b * s
               + 2 * 2 * b * kv * r * hd)
-    flop = 4 * b * kv * r * s * hd
+    flop = 4 * kv * r * valid * hd
     copies = [cache] + [tuple(t.clone() for t in cache)
                         for _ in range(int(100e6 // nbytes))]
     ms = graph_ms([(lambda c=c: ops.int8_kv_attention_cuda(q, *c, blk, cap))
@@ -1200,13 +1237,33 @@ def kv_attention_row(table, g, b: int, kv: int, r: int, hd: int, s: int,
     else:
         b_ms, by = bound(flop, nbytes)
     log(f"  int8_kv_attention{label} B={b} S={s} KV={kv} R={r} hd={hd} "
-        f"kv_block={blk} softcap {cap}: {splits} history ranges of {per} "
+        f"kv_block={blk} softcap {cap}: valid slots per lane {lengths}; "
+        f"{splits} history ranges of {per} "
         f"tiles; fp32 max_abs_err={err32:.3e} (tol 1e-5 rel) bf16 "
-        f"max_abs_err={err:.3e} (1 bf16 ulp); lane with no valid slot is "
+        f"max_abs_err={err:.3e} (1 bf16 ulp); lanes with no valid slot are "
         f"0: {zero}; two launches bitwise equal {same}; ms={ms:.4f} "
         f"plain_ms={pms:.4f} library_ms=none bound_ms={b_ms:.4f} ({by})")
     check(ok32 and ok and zero and same,
           f"int8_kv_attention{label} hd={hd} S={s} softcap={cap}")
+
+
+def kernels_continuous_shapes(table: KernelTable) -> None:
+    """Phase 12's shapes (internlm2-1.8b under the continuous engine, 8
+    lanes, prefill chunks of 128, a 1024-slot int8 cache):
+    ``int8_kv_attention`` at B 8 over a slotted cache whose lanes hold
+    mixed lengths, two of them one slot (an empty lane decodes at position
+    0) and one none; bf16 ``w4a16_matmul`` at each internlm2 (k, n) at m 8
+    (the tick) and m 128 (a prefill chunk)."""
+    import torch
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(4412)
+    kv_attention_row(table, g, 8, 8, 2, 128, 1024, label=" (slotted)",
+                     lengths=[977, 40, 512, 1, 300, 1, 129, 0])
+    for m in (8, 128):
+        for k, n in ((2048, 2048), (2048, 1024), (2048, 8192),
+                     (8192, 2048)):
+            check_w4a16(table, g, m, k, n, torch.bfloat16, 128)
 
 
 def kernels_encdec_shapes(table: KernelTable) -> None:
@@ -1509,6 +1566,100 @@ def phase_small_bf16(arch: str, kv_cache: str) -> None:
           and "w4a16_matmul" in worst and max(worst.values()) <= 1.0
           and finite and tuple(toks.tokens.shape) == (n_req, 6),
           f"small bf16 end to end {arch} kv_cache={kv_cache}")
+
+
+def small_requests(mc, shapes, seed: int) -> list:
+    """Batch-1 requests of the given (prompt length, budget) shapes from
+    ``MarkovLM(vocab, seed)``, with seeded frames for an encoder-decoder
+    and patch embeddings for a model with a frontend."""
+    import torch
+    from repro_torch.data import MarkovLM
+    data = MarkovLM(mc.vocab_size, seed=seed)
+    out = []
+    for i, (n, m) in enumerate(shapes):
+        b = data.batch(1, n)
+        if mc.is_encoder_decoder:
+            gen = torch.Generator()
+            gen.manual_seed(seed + i)
+            b["frames"] = torch.randn((1, mc.encoder_seq_len, mc.d_model),
+                                      generator=gen)
+        else:
+            b = with_frontend(mc, b, seed + i)
+        out.append((b, m))
+    return out
+
+
+def phase_small_serving(arch: str, kv_cache: str) -> None:
+    """A smoke config in fp32, card against the CPU plain run: the
+    chunked prefill (chunks of 3) of two prompts of 9; a continuous run
+    (2 lanes, chunk 3, 3 requests, the card's ticks replaying its graph)
+    on the RTN-packed weights; the guardrail ladder with
+    ``hessian.cholesky@1:nonpsd`` and ``@1:nan`` armed (calibration 2 x 2
+    x 16): the same ``guardrail_stats`` and record modes."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_numpy, tree_to_numpy
+    from repro_torch.core import faults
+    from repro_torch.core.pipeline import pack_for_serving, quantize_model
+    from repro_torch.data import MarkovLM, calibration_batches
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import engine
+    from repro_torch.serving.scheduler import ContinuousEngine
+
+    cfg = get_config(arch, smoke=True)
+    cfg.model.dtype = "float32"
+    cfg.serve.kv_cache = kv_cache
+    cfg.serve.max_batch, cfg.serve.prefill_chunk = 2, 3
+    mc = cfg.model
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    params = (T.init_encdec_params if mc.is_encoder_decoder
+              else T.init_params)(mc, gen, "cpu")
+    batch = dict(small_requests(mc, [(9, 0)], 40)[0][0])
+    batch = {k: torch.cat([v, v.flip(1)]) for k, v in batch.items()}
+    reqs = small_requests(mc, [(5, 4), (9, 6), (7, 3)], 50)
+    calib = calibration_batches(MarkovLM(mc.vocab_size, seed=7), 2, 2, 16)
+    for i, b in enumerate(calib):
+        if mc.is_encoder_decoder:
+            gen.manual_seed(60 + i)
+            b["frames"] = torch.randn((2, mc.encoder_seq_len, mc.d_model),
+                                      generator=gen)
+        else:
+            with_frontend(mc, b, 60 + i)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        p = params_from_numpy(tree_to_numpy(params), dev)
+        pk = pack_for_serving(cfg, p)
+        inputs = {k: v.to(dev) for k, v in batch.items()}
+        n_front = inputs["embeds"].shape[1] if "embeds" in inputs else 0
+        logits, _ = engine.prefill(cfg, pk, inputs, 9 + n_front + 8)
+        eng = ContinuousEngine(cfg, pk, max_len=32, device=dev)
+        rids = [eng.submit(b, max_new_tokens=m) for b, m in reqs]
+        done = eng.run()
+        ladder = []
+        for spec in ("hessian.cholesky@1:nonpsd", "hessian.cholesky@1:nan"):
+            with faults.inject(spec):
+                _, rep = quantize_model(cfg, p, calib, device=dev)
+            ladder.append((dict(rep.guardrail_stats),
+                           [r.mode for r in rep.linears]))
+        runs[dev] = (logits.cpu(), [(done[r].tokens.tolist(), done[r].status)
+                                    for r in rids], ladder,
+                     eng._graph is not None)
+    (lc, tc, gc, _), (lg, tg, gg, replayed) = runs["cpu"], runs["cuda"]
+    rel = float((lg - lc).norm() / lc.norm())
+    tol = 1e-2 if mc.moe.num_experts else 1e-3
+    stats = [g[0] for g in gg]
+    log(f"  {mc.name} fp32 kv_cache={kv_cache}, card vs CPU plain: chunked "
+        f"prefill logits rel {rel:.2e} (tol {tol:.0e}); continuous run "
+        f"tokens and statuses equal {tc == tg} (card ticks replayed a "
+        f"graph: {replayed}); ladder stats and modes equal {gc == gg} "
+        f"({stats})")
+    check(rel <= tol and tc == tg and replayed and gc == gg
+          and all(st == "ok" for _, st in tg)
+          and stats[0]["lanes_damp_recovered"] == 1
+          and stats[1]["lanes_rtn_forced"] == 1,
+          f"small serving and ladder {arch} kv_cache={kv_cache}, card "
+          "against CPU plain")
 
 
 def phase_small_starved() -> None:
@@ -2871,6 +3022,270 @@ def phase_moe_path(smi: str) -> dict:
     return launches
 
 
+def drive_continuous(eng, requests, spec=None) -> dict:
+    """Submit every (batch, budget) request at once to ``eng`` (a
+    ContinuousEngine or SupervisedEngine), with ``spec`` armed, and tick
+    until it drains; per request the host-clock time to the first token
+    and to the finish (each tick ends in the host's read of its tokens,
+    so the clock sees the device's work), and the tick count."""
+    import torch
+    from repro_torch.core import faults
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [eng.submit(b, max_new_tokens=m) for b, m in requests]
+    first, end, done, ticks = {}, {}, {}, 0
+    with faults.inject(*([spec] if spec else [])):
+        while not eng.idle:
+            rep = eng.step()
+            ticks += 1
+            now = time.perf_counter() - t0
+            for rid, _ in rep.first_tokens:
+                first.setdefault(rid, now)
+            for f in rep.finished:
+                done[f.rid] = f
+                end[f.rid] = now
+    torch.cuda.synchronize()
+    return dict(rids=rids, done=done, first=first, end=end, ticks=ticks,
+                wall=time.perf_counter() - t0)
+
+
+def phase_continuous_path(smi: str) -> dict:
+    """internlm2-1.8b at full width and depth (24 layers, d 2048, GQA
+    16 / 8) behind the continuous engine: RTN-packed seeded weights, the
+    int8 cache, ``serve.max_batch`` 8, ``prefill_chunk`` 128, ``max_len``
+    1024; 24 seeded requests (prompts 32-512 tokens, budgets 16-64)
+    submitted at once and drained with the launch counters reset just
+    before and read just after. Prints the ticks, the eager and the
+    replayed tick walls, the prefill-chunk walls, each request's time to
+    first token and total, generated tokens per second, the capture wall,
+    a replayed tick's idle share, peak memory and the launches. Holds: the
+    chunked prefill against the single-shot one (fp32 compute on a fp32
+    cache, 1e-4); the replayed tick bitwise the eager tick; row
+    independence (lane 0's cache and token changed, every other lane's
+    tick output bitwise the same); a ``serve.decode_step`` quarantine
+    leaving every other request's tokens bitwise the fault-free run's; a
+    ``serve.engine_step`` kill under ``SupervisedEngine`` completing every
+    request within its budget (how many come out token-identical is
+    reported: the replay prefills what the dead engine decoded). Reports,
+    for two requests, their tokens against the static engine at batch 1
+    (another m than the tick's): the first divergent token and the top-2
+    logit gap there."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipeline import pack_for_serving
+    from repro_torch.data import MarkovLM
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import engine
+    from repro_torch.serving.scheduler import ContinuousEngine
+    from repro_torch.serving.supervisor import SupervisedEngine
+
+    cfg = get_config("internlm2-1.8b")
+    cfg.serve.kv_cache = "int8"
+    cfg.serve.max_batch, cfg.serve.prefill_chunk = 8, 128
+    mc, cap, n_req = cfg.model, 1024, 24
+    rs = np.random.RandomState(12)
+    lens = rs.randint(32, 513, n_req).tolist()
+    budgets = rs.randint(16, 65, n_req).tolist()
+    data = MarkovLM(mc.vocab_size, seed=3)
+    requests = [(data.batch(1, n), m) for n, m in zip(lens, budgets)]
+    log(f"  config: {mc.name} layers={mc.num_layers} d_model={mc.d_model} "
+        f"heads={mc.num_heads} kv_heads={mc.num_kv_heads} head_dim="
+        f"{mc.head_dim} d_ff={mc.d_ff} vocab={mc.vocab_size} dtype="
+        f"{mc.dtype} (depth not cut); RTN-packed seeded weights, group "
+        f"{cfg.quant.group_size}; serve kv_cache=int8 max_batch="
+        f"{cfg.serve.max_batch} prefill_chunk={cfg.serve.prefill_chunk} "
+        f"max_len={cap}; {n_req} requests, prompts {lens}, budgets "
+        f"{budgets}")
+    torch.cuda.synchronize()
+    held_before = torch.cuda.memory_allocated()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = T.init_params(mc, gen, "cuda")
+    t = time.perf_counter()
+    packed = pack_for_serving(cfg, params)
+    torch.cuda.synchronize()
+    log(f"  pack_for_serving (RTN) {time.perf_counter() - t:.3f}s")
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the fault-free run, instrumented: each prefill chunk and each tick
+    # timed with the device synchronised after it
+    eng = ContinuousEngine(cfg, packed, max_len=cap)
+    chunk_w, tick_w = [], []
+    real_tick = eng._greedy_tick
+
+    def timed_tick():
+        kind = "replay" if eng._graph is not None else (
+            "eager" if not eng._warm else "capture+replay")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_tick()
+        torch.cuda.synchronize()
+        tick_w.append((kind, time.perf_counter() - t))
+        return out
+
+    eng._greedy_tick = timed_tick
+    ops.reset_kernel_launches()
+    with patched(engine, "prefill_step", timed(chunk_w)):
+        run = drive_continuous(eng, requests)
+    launches = ops.kernel_launches()
+    peak = torch.cuda.max_memory_allocated()
+    done, rids = run["done"], run["rids"]
+    ok = all(done[r].status == "ok" and done[r].steps == m
+             for r, (_, m) in zip(rids, requests))
+    n_tok = sum(done[r].steps for r in rids)
+    replays = [w for k, w in tick_w if k == "replay"]
+    eager = [w for k, w in tick_w if k == "eager"]
+    ttft = [round(run["first"][r], 4) for r in rids]
+    total = [round(run["end"][r], 4) for r in rids]
+    log(f"  kernels: {json.dumps(launches)}")
+    log(f"  ({smi}) {run['ticks']} ticks in {run['wall']:.3f}s: "
+        f"{n_tok} generated tokens, {n_tok / run['wall']:.1f} tokens/s; "
+        f"all {n_req} requests ok at their budgets {ok}")
+    log(f"  tick walls (s, device synchronised): eager {eager[0]:.5f}; "
+        f"replayed mean {sum(replays) / len(replays):.5f} min "
+        f"{min(replays):.5f} max {max(replays):.5f} (of {len(replays)}); "
+        f"capture {eng.capture_s:.4f}")
+    log(f"  prefill chunk walls (s): {len(chunk_w)} chunks, mean "
+        f"{sum(chunk_w) / len(chunk_w):.5f} min {min(chunk_w):.5f} max "
+        f"{max(chunk_w):.5f}; sum {sum(chunk_w):.3f}")
+    log(f"  time to first token (s) per request: {ttft}")
+    log(f"  time to finish (s) per request: {total}")
+    log(f"  peak device memory of the run: {peak} bytes, of which "
+        f"{held_before} were held by earlier phases")
+    busy = device_breakdown(eng._graph.replay, "replayed tick")
+    if busy is not None:
+        r_ms = sum(replays) / len(replays) * 1e3
+        log(f"  replayed tick: device busy {busy:.2f} ms of the "
+            f"unprofiled {r_ms:.2f} ms, idle share {1 - busy / r_ms:.3f}")
+    check(ok and launches["w4a16_matmul"] > 0
+          and launches["int8_kv_attention"] > 0 and replays,
+          "the continuous path at full width")
+    # where a prefill chunk's time goes: the last chunk of the longest
+    # prompt (from position 384, 384 positions of history in the cache)
+    inputs = {"tokens": requests[int(np.argmax(lens))][0]["tokens"].cuda()}
+    with torch.no_grad():
+        h, pcaches = engine.prefill_begin(cfg, packed, inputs, cap)
+        for c0 in range(0, 384, 128):
+            engine.prefill_step(cfg, packed, h[:, c0:c0 + 128], c0, pcaches)
+        device_breakdown(lambda: engine.prefill_step(
+            cfg, packed, h[:, 384:512], 384, pcaches),
+            f"prefill chunk [384, {h.shape[1]})", top=8)
+    del h, pcaches
+
+    # against the static engine at batch 1 (m 1, where the tick runs m 8:
+    # w4a16_matmul's tiles and k splits differ), eager steps of its loop
+    for i in (0, 1):
+        b, m = requests[i]
+        inputs = {"tokens": b["tokens"].cuda()}
+        n0 = inputs["tokens"].shape[1]
+        lg, caches = engine.prefill(cfg, packed, inputs, n0 + m + 1)
+        loop = engine.DecodeLoop(cfg, packed, lg, caches, n0, m, -1, 0.0,
+                                 None)
+        gaps = [lg]
+        for _ in range(m - 1):
+            gaps.append(loop.step().clone())
+        static = loop.tokens[0].tolist()
+        cont = done[rids[i]].tokens.tolist()
+        j = next((k for k, (a, c) in enumerate(zip(static, cont)) if a != c),
+                 None)
+        if j is None:
+            log(f"  request {i} against the static engine at batch 1: all "
+                f"{m} tokens equal")
+        else:
+            top2 = torch.topk(gaps[j][0].float(), 2).values
+            log(f"  request {i} against the static engine at batch 1: first "
+                f"divergent token at step {j} of {m} (static {static[j]}, "
+                f"continuous {cont[j]}); the static logits' top-2 gap there "
+                f"{float(top2[0] - top2[1]):.4g}")
+        del loop, caches, gaps
+
+    # chunked against single-shot prefill: fp32 compute on a fp32 cache
+    mdt = dataclasses.replace(mc, dtype="float32")
+    toks = requests[int(np.argmax(lens))][0]["tokens"].cuda()
+    l1, c1 = T.prefill(mdt, packed, toks, cap, torch.float32)
+    l2, c2 = T.prefill_chunked(mdt, packed, toks, cap, 128, torch.float32)
+    rel = float((l2 - l1).norm() / l1.norm())
+    del c1, c2
+    log(f"  chunked (128) against single-shot prefill of {toks.shape[1]} "
+        f"tokens, fp32 compute and cache: logits rel {rel:.3e} (tol 1e-4)")
+    check(rel <= 1e-4, "chunked against single-shot prefill")
+
+    # the replayed tick against the eager tick, and row independence, on
+    # a fresh engine with every lane busy
+    eng2 = ContinuousEngine(cfg, packed, max_len=cap)
+    for b, m in requests[:8]:
+        eng2.submit(b, max_new_tokens=64)
+    while eng2.active < eng2.lanes or eng2._graph is None:
+        eng2.step()
+    leaves = list(T.cache_leaves(eng2._caches))
+    base = [a.clone() for a in leaves]
+    eng2._graph.replay()
+    replayed = [x.clone() for x in eng2._graph.out]
+    after = [a.clone() for a in leaves]
+    for dst, src in zip(leaves, base):
+        dst.copy_(src)
+    eager_out = eng2._guarded_step()
+    bitwise = all(torch.equal(a, b) for a, b in zip(eager_out, replayed)) \
+        and all(torch.equal(a, b) for a, b in zip(leaves, after))
+    tok = eng2._tok_dev.clone()
+
+    def replay_with(lane0_from: int, tok0: int):
+        for dst, src in zip(leaves, base):
+            dst.copy_(src)
+            dst[0].copy_(src[lane0_from])
+        eng2._tok_dev.copy_(tok)
+        eng2._tok_dev[0] = tok0
+        eng2._graph.replay()
+        return [x.clone() for x in eng2._graph.out]
+
+    want = replay_with(0, int(tok[0]))
+    got = replay_with(3, (int(tok[0]) + 7) % mc.vocab_size)
+    independent = all(torch.equal(a[1:], b[1:]) for a, b in zip(got, want))
+    changed = not torch.equal(got[0][:1], want[0][:1])
+    log(f"  the replayed tick bitwise the eager tick (tokens, flags, "
+        f"caches): {bitwise}; lane 0 given lane 3's history and another "
+        f"token: lanes 1-7 bitwise unchanged {independent} (lane 0's "
+        f"token changed {changed})")
+    del eng2, leaves, base, after
+    check(bitwise and independent, "the tick's graph and row independence")
+
+    # quarantine: the poisoned lane only
+    eng3 = ContinuousEngine(cfg, packed, max_len=cap)
+    q = drive_continuous(eng3, requests, "serve.decode_step@40")
+    hit = [r for r in q["rids"] if q["done"][r].status == "quarantined"]
+    others = [i for i, r in enumerate(q["rids"]) if r not in hit]
+    same = all(q["done"][q["rids"][i]].tokens.tolist()
+               == done[rids[i]].tokens.tolist() for i in others)
+    log(f"  serve.decode_step@40: quarantined {len(hit)} request(s) "
+        f"{hit}; the other {len(others)} requests' tokens bitwise the "
+        f"fault-free run's: {same}; stats {eng3.engine_stats()}")
+    del eng3
+    check(len(hit) == 1 and same and all(
+        q["done"][q["rids"][i]].status == "ok" for i in others),
+        "quarantine isolation")
+
+    # a crash under the supervisor
+    sup = SupervisedEngine(cfg, packed, max_len=cap)
+    k = drive_continuous(sup, requests, "serve.engine_step@60")
+    fin = [k["done"][r] for r in k["rids"]]
+    complete = all(f.status == "ok" and f.steps == m
+                   for f, (_, m) in zip(fin, requests))
+    identical = sum(f.tokens.tolist() == done[r].tokens.tolist()
+                    for f, r in zip(fin, rids))
+    log(f"  serve.engine_step@60 under SupervisedEngine: every request ok "
+        f"at its budget {complete}; token-identical to the fault-free run "
+        f"{identical} of {n_req} (reported, not held); {k['ticks']} ticks "
+        f"in {k['wall']:.3f}s; stats {sup.engine_stats()}")
+    check(complete and sup.engine_stats()["restarts"] == 1,
+          "supervisor recovery at full width")
+    del sup, eng, packed
+    return launches
+
+
 def recording_plans(plans: list):
     """A wrapper maker for ``patched`` on ``moe.route``: each routing plan
     made is appended to ``plans``."""
@@ -3319,7 +3734,8 @@ def main() -> int:
         f"{json.dumps(ops.kernel_launches())}")
 
     log("[4] small end to end: smoke configs, card against CPU plain (fp32),"
-        " then at their own bf16 and group size on the card")
+        " then at their own bf16 and group size on the card; then the "
+        "chunked prefill, a continuous run and the guardrail ladder")
     phase_small_end_to_end("opt-proxy", "fp16")
     phase_small_end_to_end("internlm2-1.8b", "int8")
     phase_small_end_to_end("falcon-mamba-7b", "fp16")
@@ -3330,6 +3746,8 @@ def main() -> int:
         phase_small_end_to_end(arch, kv_cache)
         phase_small_bf16(arch, kv_cache)
     phase_small_starved()
+    for arch, kv_cache in SMALL_SERVING:
+        phase_small_serving(arch, kv_cache)
 
     log("[5] main path at full width: opt-proxy")
     launches = phase_main_path()
@@ -3368,6 +3786,14 @@ def main() -> int:
         "(64 experts, top 8)")
     for name, n in phase_moe_path(smi).items():
         launches[name] += n
+
+    torch.cuda.empty_cache()
+    log("[12] the continuous path at full width and depth: internlm2-1.8b "
+        "behind ContinuousEngine (8 lanes, chunked prefill, int8 cache)")
+    t = time.perf_counter()
+    for name, n in phase_continuous_path(smi).items():
+        launches[name] += n
+    log(f"  phase 12 took {time.perf_counter() - t:.1f}s")
 
     log(f"  total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(table.json(launches)), flush=True)

@@ -4,14 +4,15 @@ The port's own copy of the fields its quantize → pack → serve paths
 (decoder-only and encoder-decoder) and its two launchers read, with the
 same names and defaults as the JAX package's configuration, plus the
 dotted ``key=value`` override helpers. A value the port does not run
-(``quant.pipeline=overlap``, ``quant.mesh``,
-``serve.scheduler=continuous``, ``serve.supervise``,
-``serve.prefill_chunk > 0``, ``model.opt_attention=false``) is accepted
-here and raises where it would be used, naming its ROADMAP.md item.
-``quant.act_order``, ``quant.keep_best_projection``,
+(``quant.pipeline=overlap``, ``quant.mesh``, ``model.opt_attention=false``)
+is accepted here and raises where it would be used, naming its ROADMAP.md
+item. ``quant.act_order``, ``quant.keep_best_projection``,
 ``quant.moe_flip_budget`` and ``serve.quantized`` are taken with the JAX
 package's defaults and read nowhere, as there (the flip budget's reader,
-the overlap schedule, is ROADMAP.md item 15).
+the overlap schedule, is ROADMAP.md item 15); so are
+``serve.w4a16_impl`` and ``serve.kv_impl``: the port has one route per
+device and no kernel backend to choose (a kernel fault raises, it does
+not degrade).
 """
 from __future__ import annotations
 
@@ -143,6 +144,13 @@ class QuantConfig:
     #                                 ported (ROADMAP.md queue 1 item 15)
     moe_flip_budget: float = 0.5    # the overlap schedule's MoE flip
     #                                 repair budget: no reader until item 15
+    guardrail: bool = True          # the stage-1 guardrail ladder
+    #                                 (core/plan.py): lanes with non-finite
+    #                                 stage-1 output get damping retries, then
+    #                                 the group's RTN lane; counted in
+    #                                 QuantReport.guardrail_stats
+    guardrail_retries: int = 2      # damping-escalation rungs before RTN
+    guardrail_damp_factor: float = 10.0  # percdamp multiplier per rung
 
 
 @dataclass
@@ -154,21 +162,41 @@ class TrainConfig:
 
 @dataclass
 class ServeConfig:
+    max_batch: int = 8              # decode lanes of the continuous engine
     max_new_tokens: int = 32
     temperature: float = 0.0        # 0 = greedy
     quantized: bool = True          # read nowhere (nor in JAX)
+    prefill_chunk: int = 0          # 0 = single-shot prefill; > 0 = prefill
+    #                                 in chunks of this many positions
+    #                                 (logits and caches those of the
+    #                                 single-shot prefill)
+    scheduler: str = "static"       # static = engine.generate; continuous =
+    #                                 serving/scheduler.ContinuousEngine
+    w4a16_impl: str = "auto"        # read nowhere: the port has no kernel
+    kv_impl: str = "auto"           # backend to choose (module docstring)
     kv_cache: str = "fp16"          # fp16 (the bf16 cache) | int8: decode
     #                                 KV-cache precision; "int8" stores
     #                                 per-block absmax codes + f32 scales
     #                                 (kernels/kv_codec.py) with per-lane
     #                                 error feedback on decode appends
-    prefill_chunk: int = 0          # 0 = single-shot prefill; > 0, the
-    #                                 chunked prefill, is not ported
-    #                                 (ROADMAP.md queue 1 item 14)
-    scheduler: str = "static"       # static = engine.generate; continuous
-    #                                 is not ported (ROADMAP.md item 14)
-    supervise: bool = False         # the crash-recovering supervisor: not
-    #                                 ported (ROADMAP.md queue 1 item 14)
+    request_timeout_s: float = 0.0  # per-request deadline (0 = none)
+    max_queue: int = 0              # admission queue bound (0 = unbounded):
+    #                                 a submit beyond it raises QueueFullError
+    decode_nan_guard: bool = True   # quarantine a lane whose decode logits
+    #                                 go non-finite (evict that lane only)
+    supervise: bool = False         # wrap the continuous engine in
+    #                                 serving/supervisor.SupervisedEngine
+    step_timeout_s: float = 0.0     # the supervisor's watchdog (0 = off)
+    max_restarts: int = 3           # engine rebuilds before
+    #                                 EngineRestartExhausted
+
+
+@dataclass
+class FaultsConfig:
+    """The fault-injection plane's arming (core/faults.py)."""
+    arm: str = ""                   # comma-separated "site@trigger[:mode]"
+    #                                 specs, e.g. "hessian.cholesky@1:nan"
+    seed: int = 0                   # seed of the probabilistic (@pX) specs
 
 
 @dataclass
@@ -177,6 +205,7 @@ class Config:
     quant: QuantConfig = field(default_factory=QuantConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     serve: ServeConfig = field(default_factory=ServeConfig)
+    faults: FaultsConfig = field(default_factory=FaultsConfig)
 
 
 def not_ported(what: str, item: int) -> NotImplementedError:

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional, Union
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ops
@@ -70,6 +71,31 @@ def damped(state: HessianState, percdamp) -> Tensor:
     eye = torch.eye(H.shape[-1], dtype=H.dtype, device=H.device)
     H = H + torch.where(dead, 1.0, 0.0)[..., None, :] * eye
     return H + lam[..., None, None] * eye
+
+
+def corrupt_stacked(H: Tensor, mode: str, percdamp: float, lane: int = 0
+                    ) -> Tensor:
+    """The ``hessian.cholesky`` fault site's payload: one lane of a
+    stacked (B, in, in) Gram matrix broken so that the guardrail ladder's
+    rungs run (core/plan.py); returns a new tensor, the other lanes
+    bitwise as they were.
+
+    - ``"nonpsd"``: the lane's spectrum shifted by ``-(λmin + 2·lam)·I``
+      (``lam = percdamp · mean(diag)``, λmin in fp64 on the host): the
+      base damping leaves a negative eigenvalue (Cholesky → NaN), one
+      damping escalation makes it positive again;
+    - ``"nan"``: the lane NaN, which no damping rescues (the RTN rung)."""
+    H = H[None] if H.dim() == 2 else H
+    out = H.clone()
+    if mode == "nan":
+        out[lane] = float("nan")
+        return out
+    hl = H[lane].detach().cpu().numpy().astype(np.float64)
+    lam = float(np.mean(np.diag(hl))) * percdamp
+    ev_min = float(np.linalg.eigvalsh(hl)[0])
+    eye = torch.eye(H.shape[-1], dtype=H.dtype, device=H.device)
+    out[lane] = H[lane] + (-(ev_min + 2.0 * lam)) * eye
+    return out
 
 
 def cholesky_inverse_upper(Hd: Tensor) -> Tensor:

@@ -45,6 +45,7 @@ from typing import Dict, List, Optional, Tuple, Union
 import torch
 
 from repro_torch.config import Config
+from repro_torch.core import faults
 from repro_torch.core import hessian as hess
 from repro_torch.core import plan as qplan
 from repro_torch.core import stream as qstream
@@ -123,7 +124,9 @@ class CaptureResult:
 
 def capture_layer(cfg: Config, step: LayerStep, hs: List[Tensor]
                   ) -> CaptureResult:
-    """Stage (a): stream Hessians over all batches, keep the last inputs."""
+    """Stage (a): stream Hessians over all batches, keep the last inputs.
+    The ``stream.capture_forward`` fault site fires first."""
+    faults.fire("stream.capture_forward")
     layer_params = step.resolve_params()
     is_moe = _is_moe_layer(layer_params)
     targets = set()

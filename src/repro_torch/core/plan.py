@@ -14,9 +14,22 @@ it converges at once and cannot hold the group's closed loop at
 ``t_max``) and takes the group's batched RTN lane instead (weights and
 grid), recorded as ``"rtn-fallback"``. Members whose input dim does not
 align with the grid are skipped (kept in float), or RTN-packed where
-starved, as in the JAX package. A stage-1 lane with non-finite output
-raises and names its linear: the JAX package's guardrail ladder is not
-ported.
+starved, as in the JAX package.
+
+The stage-1 guardrail ladder (``quant.guardrail``, as in the JAX
+package): a lane whose stage-1 output is non-finite (a non-PSD or NaN
+Hessian makes its Cholesky NaN) runs stage 1 again with its damping
+multiplied by ``guardrail_damp_factor``, up to ``guardrail_retries``
+times; every stage-1 op is lane-independent, so the other lanes come out
+bitwise as before. A lane still bad after the last rung takes the
+group's RTN lane (``"rtn-guardrail"``) and runs stage 2 on sanitized
+inputs (its RTN weights and grid, identity curvature), so that its NaN
+cannot hold the group's closed loop at ``t_max``. The outcomes are
+counted in ``QuantReport.guardrail_stats``. With ``quant.guardrail``
+off, a NaN lane passes through to the artifact, as in the JAX package.
+The fault sites ``hessian.cholesky`` (a corruption of lane 0's Gram,
+``core/hessian.corrupt_stacked``), ``plan.stage1_executor`` and
+``plan.stage2_executor`` sit where the JAX package has them.
 """
 from __future__ import annotations
 
@@ -28,9 +41,10 @@ import numpy as np
 import torch
 
 from repro_torch.config import QuantConfig
+from repro_torch.core import faults
 from repro_torch.core import hessian as hess
-from repro_torch.core.gptq import (gptq_quantize_batched, rtn_quantize,
-                                   rtn_quantize_batched)
+from repro_torch.core.gptq import (GPTQResult, gptq_quantize_batched,
+                                   rtn_quantize, rtn_quantize_batched)
 from repro_torch.core.rpiq import rpiq_refine_batched
 
 Tensor = torch.Tensor
@@ -45,7 +59,7 @@ class LinearRecord:
     gamma_final: float
     iters: int
     mode: str                        # "rpiq" | "gptq" | "rtn-fallback" |
-    #                                  "skipped"
+    #                                  "rtn-guardrail" | "skipped"
     seconds: float
 
 
@@ -63,6 +77,9 @@ class QuantReport:
     # dropped during Hessian capture: they reach no expert's Hessian
     moe_capacity_dropped: Dict[str, int] = dataclasses.field(
         default_factory=dict)
+    # the guardrail ladder's outcomes ({damp_retries, lanes_flagged,
+    # lanes_damp_recovered, lanes_rtn_forced}); empty when it never ran
+    guardrail_stats: Dict[str, int] = dataclasses.field(default_factory=dict)
 
     def summary(self) -> str:
         n = len(self.linears)
@@ -195,10 +212,30 @@ def _lane_hessians(m: PlanMember) -> hess.HessianState:
     return hess.HessianState(H, count)
 
 
+_GUARDRAIL_KEYS = ("damp_retries", "lanes_flagged", "lanes_damp_recovered",
+                   "lanes_rtn_forced")
+
+
+def _guardrail_stats(report: QuantReport) -> Dict[str, int]:
+    for k in _GUARDRAIL_KEYS:
+        report.guardrail_stats.setdefault(k, 0)
+    return report.guardrail_stats
+
+
+def _finite_lanes(res1: GPTQResult) -> np.ndarray:
+    """(B,) host mask of the lanes whose stage-1 outputs are all finite:
+    one sum a lane over each output, which any NaN or Inf poisons (the
+    ladder's detector; it waits for stage 1)."""
+    tot = (res1.w_q.sum(dim=(-2, -1)) + res1.scales.sum(dim=(-2, -1))
+           + res1.zeros.sum(dim=(-2, -1)))
+    return torch.isfinite(tot + res1.err).cpu().numpy()
+
+
 def _execute_group(qc: QuantConfig, group: QuantGroup, report: QuantReport,
                    rpiq_enabled: bool) -> List[MemberResult]:
     """One stacked dispatch per stage for the whole group: the members'
-    lanes concatenated, a stacked member's slab wholesale."""
+    lanes concatenated, a stacked member's slab wholesale; stage 1 again
+    on the ladder's rungs (module docstring)."""
     ms = group.members
     t0 = time.perf_counter()
     w = torch.cat([_as3d(m.w_oi.float()) for m in ms])
@@ -206,27 +243,67 @@ def _execute_group(qc: QuantConfig, group: QuantGroup, report: QuantReport,
     count = torch.cat([h.count for h in lane_h])
     H = torch.cat([h.H for h in lane_h])
     del lane_h
+    fspec = faults.poll("hessian.cholesky")
+    if fspec is not None:
+        H = hess.corrupt_stacked(H, fspec.mode, qc.percdamp)
     starved = np.concatenate([m.starved_mask() for m in ms])
+
+    def stage1(hd: Tensor) -> GPTQResult:
+        u = hess.cholesky_inverse_upper(hd)
+        return gptq_quantize_batched(w, u, bits=qc.bits,
+                                     group_size=qc.group_size,
+                                     blocksize=qc.blocksize,
+                                     symmetric=qc.symmetric)
+
+    def rtn_lanes() -> GPTQResult:
+        return rtn_quantize_batched(w, bits=qc.bits, group_size=qc.group_size,
+                                    symmetric=qc.symmetric)
+
+    faults.fire("plan.stage1_executor")
     damp = torch.full((w.shape[0],), qc.percdamp, device=w.device)
     hd = hess.damped(hess.HessianState(H, count), damp)
+    # the Gram is freed before the factorizations; a rung damps it anew
+    # from hd, whose off-diagonal entries are the Gram's exactly, and its
+    # diagonal, kept here
+    diag = torch.diagonal(H, dim1=-2, dim2=-1).clone()
     del H
-    u = hess.cholesky_inverse_upper(hd)
-    res1 = gptq_quantize_batched(w, u, bits=qc.bits,
-                                 group_size=qc.group_size,
-                                 blocksize=qc.blocksize,
-                                 symmetric=qc.symmetric)
-    del u
-    rtn = (rtn_quantize_batched(w, bits=qc.bits, group_size=qc.group_size,
-                                symmetric=qc.symmetric)
-           if starved.any() else None)
-    finite = torch.isfinite(res1.w_q.sum(dim=(1, 2)) + res1.scales.sum(
-        dim=(1, 2)) + res1.zeros.sum(dim=(1, 2)) + res1.err).cpu()
-    if not bool(finite.all()):
-        names = [n for m in ms for n in m.lane_names]
-        bad = [n for n, ok in zip(names, finite.tolist()) if not ok]
-        raise FloatingPointError(
-            f"stage 1 produced non-finite output for {bad} (non-PSD or "
-            "NaN Hessian; the guardrail ladder is not ported)")
+    res1 = stage1(hd)
+    rtn = rtn_lanes() if starved.any() else None
+    guarded = np.zeros(w.shape[0], bool)
+    bad0 = bad = ~_finite_lanes(res1) if qc.guardrail else guarded
+    rung = 0
+    while bad.any() and rung < qc.guardrail_retries:
+        rung += 1
+        _guardrail_stats(report)["damp_retries"] += 1
+        damp = torch.where(torch.as_tensor(bad, device=w.device),
+                           damp * qc.guardrail_damp_factor, damp)
+        gram = hd.clone()
+        torch.diagonal(gram, dim1=-2, dim2=-1).copy_(diag)
+        hd = hess.damped(hess.HessianState(gram, count), damp)
+        del gram
+        res1 = stage1(hd)
+        bad = ~_finite_lanes(res1)
+    if bad0.any():
+        gs = _guardrail_stats(report)
+        gs["lanes_flagged"] += int(bad0.sum())
+        gs["lanes_damp_recovered"] += int((bad0 & ~bad).sum())
+        gs["lanes_rtn_forced"] += int(bad.sum())
+    if bad.any():
+        # the per-group RTN rung: stage 2 still runs these lanes, on their
+        # RTN weights and grid and identity curvature (the mask below
+        # discards their stage-2 output)
+        guarded = bad
+        if rtn is None:
+            rtn = rtn_lanes()
+        gl = torch.as_tensor(guarded, device=w.device)
+        sel = gl[:, None, None]
+        hd = torch.where(sel, torch.eye(hd.shape[-1], dtype=hd.dtype,
+                                        device=hd.device), hd)
+        res1 = GPTQResult(torch.where(sel, rtn.w_q, res1.w_q),
+                          torch.where(sel, rtn.scales, res1.scales),
+                          torch.where(sel, rtn.zeros, res1.zeros),
+                          torch.where(gl, torch.zeros_like(res1.err),
+                                      res1.err))
     _sync(res1.w_q)
     t1 = time.perf_counter()
     report.seconds_stage1 += t1 - t0
@@ -236,6 +313,7 @@ def _execute_group(qc: QuantConfig, group: QuantGroup, report: QuantReport,
     if do_rpiq:
         x = torch.cat([_as3d(m.x_last.float()) for m in ms])
         xc = torch.cat([_lane_x_counts(m) for m in ms])
+        faults.fire("plan.stage2_executor")
         res2 = rpiq_refine_batched(
             res1.w_q, w, x, hd, res1.scales, res1.zeros, h_count=count,
             x_count=xc, bits=qc.bits, group_size=qc.group_size,
@@ -248,11 +326,12 @@ def _execute_group(qc: QuantConfig, group: QuantGroup, report: QuantReport,
         report.seconds_stage2 += time.perf_counter() - t1
     del hd
 
-    # the starved lanes take the RTN lane: weights and grid
+    # the starved and the guarded lanes take the RTN lane: weights and grid
     w_final = res2.w_q if do_rpiq else res1.w_q
     scales, zeros = res1.scales, res1.zeros
     if rtn is not None:
-        sel = torch.as_tensor(starved, device=w.device)[:, None, None]
+        sel = torch.as_tensor(starved | guarded,
+                              device=w.device)[:, None, None]
         w_final = torch.where(sel, rtn.w_q, w_final)
         scales = torch.where(sel, rtn.scales, scales)
         zeros = torch.where(sel, rtn.zeros, zeros)
@@ -270,6 +349,9 @@ def _execute_group(qc: QuantConfig, group: QuantGroup, report: QuantReport,
             if starved[i]:
                 report.linears.append(LinearRecord(
                     lname, m.wshape, 0.0, [], 0.0, 0, "rtn-fallback", 0.0))
+            elif guarded[i]:
+                report.linears.append(LinearRecord(
+                    lname, m.wshape, 0.0, [], 0.0, 0, "rtn-guardrail", 0.0))
             elif do_rpiq:
                 report.linears.append(LinearRecord(
                     lname, m.wshape, float(err1[i]), _gamma_list(hist[i]),

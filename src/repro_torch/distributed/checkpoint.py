@@ -35,9 +35,11 @@ hand-off) get the same guarantee through :func:`save_artifact` /
 class of this package, plus a ``<path>.manifest.json`` sidecar holding the
 payload's sha256.
 
-Not ported: the ``checkpoint.load`` fault site, which waits for the fault
-plane, and ``SignalCheckpointer``, which waits for training (ROADMAP.md
-queue 1 items 13 and 18).
+Every load passes the ``checkpoint.load`` fault site first: armed with
+mode ``corrupt`` it raises the typed integrity error that real damage
+gives, with any other mode a ``FaultError``. Not ported:
+``SignalCheckpointer``, which waits for training (ROADMAP.md queue 1 item
+18).
 """
 from __future__ import annotations
 
@@ -56,6 +58,7 @@ import numpy as np
 import torch
 
 from repro_torch.convert import tree_to_numpy
+from repro_torch.core import faults
 
 #: manifest schema written by Checkpointer.save; schema 1 (no crc fields)
 #: loads unverified, anything newer is refused
@@ -73,6 +76,18 @@ class CheckpointIntegrityError(RuntimeError):
 
 class ArtifactIntegrityError(CheckpointIntegrityError):
     """A packed serving artifact failed its sha256 sidecar check."""
+
+
+def _fire_load_fault(what: str) -> None:
+    """The ``checkpoint.load`` site: mode ``corrupt`` raises the typed
+    integrity error, any other mode a ``FaultError``."""
+    spec = faults.poll("checkpoint.load")
+    if spec is not None:
+        if spec.mode == "corrupt":
+            raise CheckpointIntegrityError(
+                f"{what}: injected corruption (checkpoint.load:corrupt)")
+        raise faults.FaultError("checkpoint.load", spec.mode,
+                                faults.PLANE.hits["checkpoint.load"])
 
 
 # npz cannot hold bfloat16: such leaves are stored as a same-width integer
@@ -283,6 +298,7 @@ class Checkpointer:
         npz member materialised, each crc32 (schema ≥ 2). Anything
         unreadable or mismatched raises :class:`CheckpointIntegrityError`."""
         d = os.path.join(self.dir, f"step_{step:09d}")
+        _fire_load_fault(d)
         try:
             with open(os.path.join(d, "manifest.json")) as f:
                 manifest = json.load(f)
@@ -385,6 +401,7 @@ def load_artifact(path: str) -> Any:
     unreadable sidecar, a newer schema or an unloadable payload raises
     :class:`ArtifactIntegrityError`. A missing sidecar (an artifact from
     before the sidecar) loads with a warning."""
+    _fire_load_fault(path)
     with open(path, "rb") as f:
         payload = f.read()
     mpath = artifact_manifest_path(path)

@@ -12,6 +12,14 @@ its kernel; :func:`kernel_launches` reads the counters, so a run can show
 that its main path went through the kernels. A :class:`CapturedCall`
 (a CUDA graph of wrapper calls) counts each replay as the launches it
 captured.
+
+The serving kernels' dispatchers, :func:`w4a16_matmul` and
+:func:`int8_kv_attention`, pass the ``kernels.pallas_dispatch`` fault site
+(the JAX package's name) before they choose a route, so an armed fault
+raises on either device (on the CPU the plain version stands in for the
+kernel) and reaches the caller: there is no degraded route to retry on.
+The site is host code, so it fires at an eager or a capturing call and
+never inside a graph replay.
 """
 from __future__ import annotations
 
@@ -21,6 +29,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.core import faults
 from repro_torch.kernels import build, ref
 
 Tensor = torch.Tensor
@@ -295,6 +304,7 @@ def w4a16_matmul(x: Tensor, packed: Tensor, scales: Tensor, zeros: Tensor,
     """x: (..., k); packed: (n, k//2) u8; scales/zeros: (n, k//group_size).
     On the card a k that is no multiple of 32 is padded
     (:func:`w4a16_pad_k`)."""
+    faults.fire("kernels.pallas_dispatch")
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if _is_plain(x, "w4a16_matmul"):
@@ -688,6 +698,7 @@ def int8_kv_attention(q: Tensor, k_codes: Tensor, k_scales: Tensor,
     entry = an invalid slot; ``softcap`` (a Python float) > 0 caps the
     scores as ``tanh(s / softcap) * softcap`` before the mask. Returns
     (B, KV, R, hd) in q.dtype."""
+    faults.fire("kernels.pallas_dispatch")
     args = (q, k_codes, k_scales, v_codes, v_scales, kpos)
     if _is_plain(q, "int8_kv_attention"):
         return ref.int8_kv_attention(*args, kv_block, softcap)

@@ -21,6 +21,10 @@ params ``<out>/<name>.params.pkl`` beside its sha256 sidecar, which
 ``quant.ckpt_dir=<dir> quant.resume=auto`` checkpoints the layer walk at
 every step, so a killed run restarts at the first incomplete layer with
 an artifact bitwise that of an uninterrupted run (core/stream.py).
+``faults.arm=<site@trigger[:mode],...>`` (and ``faults.seed``) arms the
+fault plane (core/faults.py) for the run, e.g.
+``faults.arm=hessian.cholesky@1:nan`` drives the guardrail ladder
+(``quant.guardrail``, ``guardrail_retries``, ``guardrail_damp_factor``).
 ``quant.pipeline=overlap`` and ``quant.mesh`` are not ported and raise.
 
 Runs on the CUDA card; ``--device cpu`` runs the kernels' plain versions.
@@ -37,6 +41,7 @@ import torch
 from repro_torch.config import apply_overrides, not_ported, parse_overrides
 from repro_torch.configs import get_config
 from repro_torch.convert import params_from_numpy
+from repro_torch.core import faults
 from repro_torch.core.pipeline import pack_for_serving, quantize_model
 from repro_torch.data import MarkovLM, calibration_batches
 from repro_torch.device import resolve_device
@@ -84,6 +89,9 @@ def main(argv=None):
     apply_overrides(cfg, parse_overrides(args.overrides))
     mc, qc = cfg.model, cfg.quant
     dev = resolve_device(args.device)
+    faults.install_from_config(cfg)
+    if cfg.faults.arm:
+        print(f"[quantize] fault plane armed: {cfg.faults.arm}")
     if qc.ckpt_dir:
         print(f"[quantize] step checkpoints → {qc.ckpt_dir} "
               f"(quant.resume={qc.resume})")
@@ -117,6 +125,8 @@ def main(argv=None):
     if report.pipeline_stats.get("resumed_at") is not None:
         print(f"[quantize] resumed from checkpoint at walk item "
               f"{report.pipeline_stats['resumed_at']}")
+    if report.guardrail_stats:
+        print(f"[quantize] guardrail: {report.guardrail_stats}")
     packed = pack_for_serving(cfg, params_q)
 
     os.makedirs(args.out, exist_ok=True)

@@ -18,11 +18,18 @@ patch embeddings a request, prepended to the prompt; both are drawn from
 a ``torch.Generator`` seeded 3 like the prompt (the JAX launcher draws
 them from ``jax.random``, whose bits torch cannot reproduce). The static
 batch runs through ``serving.engine.generate``, whose decode replays one
-captured CUDA graph on the card.
+captured CUDA graph on the card; ``serve.prefill_chunk=<n>`` prefills
+``n`` positions at a time.
 
-Not ported (they raise and name their ROADMAP.md item):
-``serve.scheduler=continuous``, ``serve.supervise=true`` and
-``serve.prefill_chunk > 0`` (item 14).
+``serve.scheduler=continuous`` submits the same prompts one by one to the
+continuous engine (``serving/scheduler.ContinuousEngine``: ``serve.
+max_batch`` decode lanes, chunked prefill, deadlines, NaN quarantine) and
+drains it; ``serve.supervise=true`` wraps it in the crash-recovering
+``serving/supervisor.SupervisedEngine`` (``serve.max_restarts``,
+``serve.step_timeout_s``), which re-reads a ``--params`` artifact through
+the integrity check at each rebuild. ``faults.arm=<site@trigger[:mode],
+...>`` arms the fault plane (core/faults.py) for the run, e.g.
+``faults.arm=serve.engine_step@3``.
 
 Runs on the CUDA card; ``--device cpu`` runs the kernels' plain versions.
 """
@@ -33,15 +40,18 @@ import time
 
 import torch
 
-from repro_torch.config import apply_overrides, not_ported, parse_overrides
+from repro_torch.config import apply_overrides, parse_overrides
 from repro_torch.configs import get_config
 from repro_torch.convert import params_from_numpy
+from repro_torch.core import faults
 from repro_torch.core.pipeline import pack_for_serving
 from repro_torch.data import MarkovLM
 from repro_torch.device import resolve_device
 from repro_torch.distributed.checkpoint import load_artifact
 from repro_torch.models import transformer as T
 from repro_torch.serving.engine import generate
+from repro_torch.serving.scheduler import ContinuousEngine
+from repro_torch.serving.supervisor import SupervisedEngine
 
 
 def main(argv=None):
@@ -64,14 +74,13 @@ def main(argv=None):
     cfg = get_config(args.arch, smoke=args.smoke)
     apply_overrides(cfg, parse_overrides(args.overrides))
     mc, sc = cfg.model, cfg.serve
-    if sc.scheduler == "continuous":
-        raise not_ported("serve.scheduler=continuous", 14)
-    if sc.scheduler != "static":
-        raise ValueError(f"serve.scheduler must be 'static' (or the "
-                         f"unported 'continuous'), got {sc.scheduler!r}")
-    if sc.supervise:
-        raise not_ported("serve.supervise=true", 14)
+    if sc.scheduler not in ("static", "continuous"):
+        raise ValueError(f"serve.scheduler must be 'static' or "
+                         f"'continuous', got {sc.scheduler!r}")
     dev = resolve_device(args.device)
+    faults.install_from_config(cfg)
+    if cfg.faults.arm:
+        print(f"[serve] fault plane armed: {cfg.faults.arm}")
 
     if args.params:
         params = params_from_numpy(load_artifact(args.params), dev)
@@ -100,16 +109,43 @@ def main(argv=None):
             (args.batch, min(mc.frontend_tokens, 8), mc.d_model),
             generator=gen)
     t0 = time.perf_counter()
-    res = generate(cfg, params, batch, device=dev)
-    seqs = res.tokens.cpu()
+    if sc.scheduler == "continuous":
+        n_front = batch["embeds"].shape[1] if "embeds" in batch else 0
+        cap = args.prompt_len + n_front + sc.max_new_tokens + 1
+        if sc.supervise:
+            # a --params path of packed weights goes down to the
+            # supervisor, so a rebuild re-reads the artifact through the
+            # integrity check (with --pack-rtn the artifact holds the float
+            # weights, which a rebuild must not serve)
+            path = args.params if args.params and not args.pack_rtn else None
+            eng = SupervisedEngine(cfg, params, max_len=cap,
+                                   params_path=path, device=dev)
+            print(f"[serve] supervised engine (max_restarts="
+                  f"{sc.max_restarts}, step_timeout_s={sc.step_timeout_s})")
+        else:
+            eng = ContinuousEngine(cfg, params, max_len=cap, device=dev)
+        rids = [eng.submit({k: v[i:i + 1] for k, v in batch.items()})
+                for i in range(args.batch)]
+        done = eng.run()
+        seqs = [done[r].tokens for r in rids]
+        toks = int(sum(len(q) for q in seqs))
+        bad = {r: done[r].status for r in rids if done[r].status != "ok"}
+        if bad:
+            print(f"[serve] non-ok requests: {bad}")
+        stats = eng.engine_stats()
+        if bad or any(stats.values()):
+            print(f"[serve] engine stats: {stats}")
+        res = done
+    else:
+        res = generate(cfg, params, batch, device=dev)
+        seqs = res.tokens.cpu()
+        toks = int(seqs.numel())
     dt = time.perf_counter() - t0
-    toks = int(seqs.numel())
     print(f"[serve] scheduler={sc.scheduler}: {toks} tokens in {dt:.2f}s "
           f"({toks / dt:.1f} tok/s incl. kernel build and graph capture)")
     for i in range(min(args.batch, 4)):
         print(f"  seq{i}: {list(map(int, seqs[i]))}")
     return res
-
 
 if __name__ == "__main__":
     main()

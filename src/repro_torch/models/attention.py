@@ -178,32 +178,61 @@ def kv_cache_block(cache: Dict) -> int:
 
 def attention_prefill(cfg: ModelConfig, p: Dict, x: Tensor,
                       positions: Tensor, cache: Dict, *, window: int = 0,
-                      name: str = "attn") -> Tuple[Tensor, Dict]:
+                      name: str = "attn", start: Optional[int] = None
+                      ) -> Tuple[Tensor, Dict]:
     """Causal attention over the prompt and the cache write: at [0, S),
     or, for a ring (``window`` > 0) shorter than the prompt, the last W
     positions at slots ``pos % W``. Queries attend to the fresh float K/V,
     not to the cache, so the cache layout does not move the prefill
     output. The cache is written in place; the int8 layout's error
     accumulators stay untouched (error feedback is a decode-append
-    recurrence)."""
+    recurrence).
+
+    ``start`` is the chunked prefill's continuation: ``x`` holds positions
+    ``[start, start + S)`` and the cache the positions before ``start``.
+    The queries attend to that history, read from the cache before the
+    chunk writes (an int8 history dequantized, a ring's slots by
+    :func:`cache_key_positions` at ``start - 1``), and to the chunk's own
+    K/V; the chunk is then written at ``[start, start + S)``, on a ring by
+    slot (``pos % W``), so a chunk may straddle the wrap."""
     q, k, v = _project_qkv(cfg, p, x, name)
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     n_rep = _n_rep(cfg)
-    o = _attend_chunked(q, repeat_kv(k, n_rep), repeat_kv(v, n_rep),
-                        positions, positions, window=window,
-                        softcap=cfg.attn_logits_softcap)
     b, s = x.shape[:2]
-    y = dense(p["o"], o.reshape(b, s, -1), f"{name}.o")
     w_cache = cache["k"].shape[1]
+    quantized = kv_cache_quantized(cache)
+    if start is None:
+        k_att, v_att, kv_pos = k, v, positions
+    else:
+        last = torch.full((b,), start - 1, dtype=torch.long, device=x.device)
+        old = cache_key_positions(last, w_cache, window)
+        if quantized:
+            blk = kv_cache_block(cache)
+            k_hist = kv_codec.dec_int8_blocks(cache["k"], cache["k_scale"],
+                                              blk).to(k.dtype)
+            v_hist = kv_codec.dec_int8_blocks(cache["v"], cache["v_scale"],
+                                              blk).to(v.dtype)
+        else:
+            k_hist, v_hist = cache["k"].to(k.dtype), cache["v"].to(v.dtype)
+        k_att = torch.cat([k_hist, k], dim=1)
+        v_att = torch.cat([v_hist, v], dim=1)
+        kv_pos = torch.cat([old, positions], dim=1)
+    o = _attend_chunked(q, repeat_kv(k_att, n_rep), repeat_kv(v_att, n_rep),
+                        positions, kv_pos, window=window,
+                        softcap=cfg.attn_logits_softcap)
+    y = dense(p["o"], o.reshape(b, s, -1), f"{name}.o")
+    bidx = torch.arange(b, device=x.device)[:, None]
     if window > 0 and w_cache < s:
         k, v = k[:, -w_cache:], v[:, -w_cache:]
-        idx = (torch.arange(b, device=x.device)[:, None],
-               positions[:, -w_cache:] % w_cache)                 # (B, W)
+        idx = (bidx, positions[:, -w_cache:] % w_cache)           # (B, W)
+    elif window > 0 and start is not None:
+        idx = (bidx, positions % w_cache)                         # (B, S)
     else:
-        idx = (slice(None), slice(0, s))
-    if kv_cache_quantized(cache):
+        off = start or 0
+        idx = (slice(None), slice(off, off + s))
+    if quantized:
         blk = kv_cache_block(cache)
         cache["k"][idx], cache["k_scale"][idx] = \
             kv_codec.enc_int8_blocks(k, blk)

@@ -28,6 +28,8 @@ captured into a CUDA graph.
 """
 from __future__ import annotations
 
+import math
+
 from typing import Dict, NamedTuple
 
 import torch
@@ -133,6 +135,14 @@ def route_head(cfg: ModelConfig, p: Dict, xt: Tensor,
     logits = dense(p["router"], xt.float(), f"{name}.router")   # (T, E)
     probs = torch.softmax(logits, dim=-1)
     gates, experts = torch.topk(probs, k, dim=-1)
+    # a row with a NaN (a poisoned decode lane's) takes the experts that
+    # jax.lax.top_k gives it: NaN first, ties in index order, so it claims
+    # the same capacity slots as in the reference
+    nan_row = torch.isnan(probs).any(dim=-1, keepdim=True)
+    key = torch.where(torch.isnan(probs), torch.full_like(probs, math.inf),
+                      probs)
+    nan_order = torch.sort(key, dim=-1, descending=True, stable=True)[1]
+    experts = torch.where(nan_row, nan_order[:, :k], experts)
     gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
     # Switch-style load balance: E · Σ_e f_e · P_e
     me = probs.mean(dim=0)

@@ -35,6 +35,16 @@ cache is ``{"self": <a self-attention cache, bf16 or int8>, "cross":
 {"k", "v"}}``: the encoder K/V, computed once at prefill and kept in
 float (bf16 when the self-cache is int8, as the JAX package's
 ``_float_cache_dtype``).
+
+The chunked prefill (``prefill_begin`` / ``prefill_step`` /
+``prefill_finish``, ``prefill_chunked`` and the ``encdec_*`` twins) runs
+a prompt some positions at a time: each chunk's attention reads the
+history from the cache (attention.attention_prefill's ``start``), a
+Mamba layer carries its state on, and a routed-MoE layer dispatches the
+chunk at the chunk's own expert capacity, as the JAX package does. The
+slotted cache of the continuous engine (``cache_slots_like`` /
+``cache_slot_insert`` / ``cache_slot_evict``) keeps every cache leaf's
+lane axis first and is written in place.
 """
 from __future__ import annotations
 
@@ -180,31 +190,101 @@ def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
     return attn.init_kv_cache(cfg, batch, max_len, device, dtype)
 
 
+def init_caches(cfg: ModelConfig, batch: int, max_len: int, device,
+                dtype: CacheDtype = torch.bfloat16) -> List[Dict]:
+    """Every layer's empty cache or state (:func:`init_layer_cache`)."""
+    return [init_layer_cache(cfg, spec, batch, max_len, device, dtype)
+            for spec in layer_specs(cfg)]
+
+
+def layer_prefill(cfg: ModelConfig, spec: LayerSpec, p: Dict, h: Tensor,
+                  positions: Tensor, cache: Dict,
+                  start: Optional[int] = None) -> Tuple[Tensor, Dict]:
+    """One layer over prompt positions, writing its cache (``start``: the
+    chunked prefill's continuation, attention.attention_prefill); a Mamba
+    layer carries its state on from ``cache``."""
+    hn = norm(cfg, p["norm1"], h)
+    if spec[0] == "mamba":
+        y, cache = rec.mamba_block(cfg, p["mixer"], hn, cache, name="mixer")
+    else:
+        y, cache = attn.attention_prefill(
+            cfg, p["mixer"], hn, positions, cache,
+            window=_window_of(cfg, spec[0]), name="mixer", start=start)
+    return _mlp_residual(cfg, spec, p, h + y), cache
+
+
+def _positions_from(start: int, b: int, s: int, device) -> Tensor:
+    return (start + torch.arange(s, device=device))[None, :].expand(b, s)
+
+
 def prefill(cfg: ModelConfig, params: Dict, tokens: Tensor, max_len: int,
             cache_dtype: CacheDtype = torch.bfloat16,
             embeds: Optional[Tensor] = None) -> Tuple[Tensor, List[Dict]]:
     """Prefill the caches; returns (last-position logits (B, V), caches).
     ``cache_dtype`` is a torch dtype or ``"int8"``; ``embeds`` (B, F, D)
     are prepended to the prompt (positions [0, F))."""
-    h = embed_inputs(cfg, params, tokens, embeds)
+    h, caches = prefill_begin(cfg, params, tokens, max_len, cache_dtype,
+                              embeds)
     b, s, _ = h.shape
     positions = positions_for(b, s, h.device)
-    caches = []
-    for spec, p in zip(layer_specs(cfg), params["layers"]):
-        cache = init_layer_cache(cfg, spec, b, max_len, h.device,
-                                 cache_dtype)
-        hn = norm(cfg, p["norm1"], h)
-        if spec[0] == "mamba":
-            y, cache = rec.mamba_block(cfg, p["mixer"], hn, cache,
-                                       name="mixer")
-        else:
-            y, cache = attn.attention_prefill(
-                cfg, p["mixer"], hn, positions, cache,
-                window=_window_of(cfg, spec[0]), name="mixer")
-        h = _mlp_residual(cfg, spec, p, h + y)
-        caches.append(cache)
-    h = norm(cfg, params["final_norm"], h[:, -1:])
-    return unembed(cfg, params, h)[:, 0], caches
+    for i, (spec, p) in enumerate(zip(layer_specs(cfg), params["layers"])):
+        h, caches[i] = layer_prefill(cfg, spec, p, h, positions, caches[i])
+    return prefill_finish(cfg, params, h), caches
+
+
+def prefill_begin(cfg: ModelConfig, params: Dict, tokens: Tensor,
+                  max_len: int, cache_dtype: CacheDtype = torch.bfloat16,
+                  embeds: Optional[Tensor] = None
+                  ) -> Tuple[Tensor, List[Dict]]:
+    """The incremental prefill's start: the embedded inputs ``h`` (B, F +
+    S, D) and empty caches of ``max_len``; slices of ``h`` go through
+    :func:`prefill_step` one chunk at a time."""
+    h = embed_inputs(cfg, params, tokens, embeds)
+    return h, init_caches(cfg, h.shape[0], max_len, h.device, cache_dtype)
+
+
+def prefill_step(cfg: ModelConfig, params: Dict, h_chunk: Tensor,
+                 start: int, caches: List[Dict]
+                 ) -> Tuple[Tensor, List[Dict]]:
+    """One prefill chunk at positions [start, start + C): each attention
+    layer attends to its cached history and the chunk, each Mamba layer
+    carries its state on, and a routed-MoE layer dispatches the chunk's
+    tokens at the chunk's own expert capacity. Returns the chunk's block
+    output and ``caches`` (attention caches written in place, Mamba states
+    replaced)."""
+    b, c, _ = h_chunk.shape
+    positions = _positions_from(start, b, c, h_chunk.device)
+    h = h_chunk
+    for i, (spec, p) in enumerate(zip(layer_specs(cfg), params["layers"])):
+        h, caches[i] = layer_prefill(cfg, spec, p, h, positions, caches[i],
+                                     start=start)
+    return h, caches
+
+
+def prefill_finish(cfg: ModelConfig, params: Dict, h_last: Tensor
+                   ) -> Tensor:
+    """Next-token logits (B, V) from the last chunk's block output."""
+    h = norm(cfg, params["final_norm"], h_last[:, -1:])
+    return unembed(cfg, params, h)[:, 0]
+
+
+def prefill_chunked(cfg: ModelConfig, params: Dict, tokens: Tensor,
+                    max_len: int, chunk: int,
+                    cache_dtype: CacheDtype = torch.bfloat16,
+                    embeds: Optional[Tensor] = None
+                    ) -> Tuple[Tensor, List[Dict]]:
+    """The prefill ``chunk`` positions at a time (``serve.prefill_chunk``),
+    each chunk attending to the cached history and itself; the logits and
+    caches are the single-shot :func:`prefill`'s up to rounding."""
+    if chunk <= 0:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    h, caches = prefill_begin(cfg, params, tokens, max_len, cache_dtype,
+                              embeds)
+    s = h.shape[1]
+    for c0 in range(0, s, chunk):
+        hc, caches = prefill_step(cfg, params, h[:, c0:c0 + chunk], c0,
+                                  caches)
+    return prefill_finish(cfg, params, hc), caches
 
 
 def decode_step(cfg: ModelConfig, params: Dict, token: Tensor, pos: Tensor,
@@ -224,6 +304,59 @@ def decode_step(cfg: ModelConfig, params: Dict, token: Tensor, pos: Tensor,
         h = _mlp_residual(cfg, spec, p, h + y)
     h = norm(cfg, params["final_norm"], h)
     return unembed(cfg, params, h)[:, 0], caches
+
+
+# ---------------------------------------------------------------------------
+# the slotted cache of the continuous engine (serving/scheduler.py)
+# ---------------------------------------------------------------------------
+
+def cache_leaves(caches):
+    """Every tensor of a cache tree, in its order (dicts of tensors in
+    per-layer lists: KV codes, scales and error accumulators, a Mamba
+    state, an enc-dec layer's self and cross caches)."""
+    if isinstance(caches, dict):
+        for v in caches.values():
+            yield from cache_leaves(v)
+    elif isinstance(caches, (list, tuple)):
+        for v in caches:
+            yield from cache_leaves(v)
+    else:
+        yield caches
+
+
+def _map_cache(fn, caches):
+    if isinstance(caches, dict):
+        return {k: _map_cache(fn, v) for k, v in caches.items()}
+    if isinstance(caches, (list, tuple)):
+        return [_map_cache(fn, v) for v in caches]
+    return fn(caches)
+
+
+def cache_slots_like(caches: List[Dict], lanes: int) -> List[Dict]:
+    """A zeroed slotted decode cache of ``lanes`` lanes shaped like a
+    batch-1 prefill cache: every leaf keeps the batch (lane) axis first."""
+    return _map_cache(lambda a: torch.zeros((lanes,) + tuple(a.shape[1:]),
+                                            dtype=a.dtype, device=a.device),
+                      caches)
+
+
+def cache_slot_insert(caches: List[Dict], src: List[Dict], lane: int
+                      ) -> List[Dict]:
+    """Write the batch-1 cache ``src`` into lane ``lane`` of the slotted
+    ``caches``, every leaf in place (a captured decode step keeps reading
+    the same tensors). The whole lane is overwritten, so a lane freed by
+    an eviction needs no zeroing before it is reused."""
+    for big, small in zip(cache_leaves(caches), cache_leaves(src)):
+        big[lane].copy_(small[0])
+    return caches
+
+
+def cache_slot_evict(caches: List[Dict], lane: int) -> List[Dict]:
+    """Zero lane ``lane`` in place (hygiene only: an insert overwrites the
+    whole lane)."""
+    for leaf in cache_leaves(caches):
+        leaf[lane].zero_()
+    return caches
 
 
 # ---------------------------------------------------------------------------
@@ -350,6 +483,74 @@ def encdec_prefill(cfg: ModelConfig, params: Dict, frames: Tensor,
             k: v.to(cross_dtype) for k, v in kv.items()}})
     h = norm(cfg, params["decoder"]["final_norm"], h[:, -1:])
     return unembed(cfg, params, h)[:, 0], caches
+
+
+def encdec_prefill_begin(cfg: ModelConfig, params: Dict, frames: Tensor,
+                         tokens: Tensor, max_len: int,
+                         cache_dtype: CacheDtype = torch.bfloat16
+                         ) -> Tuple[Tensor, List[Dict]]:
+    """The incremental enc-dec prefill's start: one encoder pass, each
+    decoder layer's cross K/V built from it and cached (in the float
+    dtype :func:`encdec_prefill` keeps them in), empty self-caches of
+    ``max_len``, and the decoder inputs ``h`` (B, S, D) with their
+    positions."""
+    enc = encode(cfg, params, frames)
+    h = decoder_inputs(cfg, params, tokens)
+    cross_dtype = _float_cache_dtype(cache_dtype)
+    caches = []
+    for p in params["decoder"]["layers"]:
+        kv = attn.cross_attention_kv(cfg, p["xattn"], enc, "xattn")
+        caches.append({
+            "self": attn.init_kv_cache(cfg, h.shape[0], max_len, h.device,
+                                       cache_dtype),
+            "cross": {k: v.to(cross_dtype) for k, v in kv.items()}})
+    return h, caches
+
+
+def encdec_prefill_step(cfg: ModelConfig, params: Dict, h_chunk: Tensor,
+                        start: int, caches: List[Dict]
+                        ) -> Tuple[Tensor, List[Dict]]:
+    """One decoder prefill chunk at positions [start, start + C): the
+    self-attention continues from its cache, the cross-attention reads the
+    cached encoder K/V (cast to the compute dtype, as decode reads
+    them)."""
+    dtype = compute_dtype(cfg)
+    b, c, _ = h_chunk.shape
+    positions = _positions_from(start, b, c, h_chunk.device)
+    h = h_chunk
+    for p, cache in zip(params["decoder"]["layers"], caches):
+        lp = p["layer"]
+        y, _ = attn.attention_prefill(cfg, lp["mixer"],
+                                      norm(cfg, lp["norm1"], h), positions,
+                                      cache["self"], name="layer.mixer",
+                                      start=start)
+        kv = {k: v.to(dtype) for k, v in cache["cross"].items()}
+        h = _cross_residual(cfg, p, h + y, kv)
+    return h, caches
+
+
+def encdec_prefill_finish(cfg: ModelConfig, params: Dict, h_last: Tensor
+                          ) -> Tensor:
+    """Next-token logits (B, V) from the last chunk's decoder output."""
+    h = norm(cfg, params["decoder"]["final_norm"], h_last[:, -1:])
+    return unembed(cfg, params, h)[:, 0]
+
+
+def encdec_prefill_chunked(cfg: ModelConfig, params: Dict, frames: Tensor,
+                           tokens: Tensor, max_len: int, chunk: int,
+                           cache_dtype: CacheDtype = torch.bfloat16
+                           ) -> Tuple[Tensor, List[Dict]]:
+    """:func:`encdec_prefill` with the decoder prompt ``chunk`` positions
+    at a time: the encoder runs once and the cross K/V are built once."""
+    if chunk <= 0:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    h, caches = encdec_prefill_begin(cfg, params, frames, tokens, max_len,
+                                     cache_dtype)
+    s = h.shape[1]
+    for c0 in range(0, s, chunk):
+        hc, caches = encdec_prefill_step(cfg, params, h[:, c0:c0 + chunk],
+                                         c0, caches)
+    return encdec_prefill_finish(cfg, params, hc), caches
 
 
 @functools.lru_cache(maxsize=4)

@@ -22,6 +22,13 @@ until the end; a capture that fails raises. The graph is captured anew for
 each call (its buffers are the call's own caches). On the CPU the same
 step runs as a plain call.
 
+``serve.prefill_chunk > 0`` prefills the prompt that many positions at a
+time (logits and caches those of the single-shot prefill); the
+incremental pieces :func:`prefill_begin`, :func:`prefill_step` and
+:func:`prefill_finish`, and :func:`decode_step_guarded` (the greedy pick
+fused with a finite-logits flag), serve the continuous engine
+(serving/scheduler.py).
+
 EOS convention (as in the JAX engine): the eos token itself is never
 emitted. The step that samples eos writes token 0 / logprob 0.0 and marks
 the lane done, so ``tokens[b, :steps[b]]`` is the usable output.
@@ -33,7 +40,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 
-from repro_torch.config import Config, not_ported
+from repro_torch.config import Config
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
@@ -59,16 +66,51 @@ def prefill(cfg: Config, params: Any, batch: Dict[str, Tensor],
     """Prefill from ``{"tokens": (B, S), "embeds"?: (B, F, D)}`` (frontend
     embeddings in front of the tokens), or for an encoder-decoder
     ``{"tokens": (B, S), "frames": (B, Se, D)}``, into caches of max_len,
-    in the precision ``serve.kv_cache`` names."""
-    if cfg.serve.prefill_chunk > 0:
-        raise not_ported("serve.prefill_chunk > 0 (the chunked prefill)", 14)
+    in the precision ``serve.kv_cache`` names; in chunks of
+    ``serve.prefill_chunk`` positions when that is > 0."""
+    chunk, cdt = cfg.serve.prefill_chunk, cache_dtype(cfg)
     if cfg.model.is_encoder_decoder:
+        if chunk > 0:
+            return T.encdec_prefill_chunked(cfg.model, params,
+                                            batch["frames"], batch["tokens"],
+                                            max_len, chunk, cache_dtype=cdt)
         return T.encdec_prefill(cfg.model, params, batch["frames"],
-                                batch["tokens"], max_len,
-                                cache_dtype=cache_dtype(cfg))
+                                batch["tokens"], max_len, cache_dtype=cdt)
+    if chunk > 0:
+        return T.prefill_chunked(cfg.model, params, batch["tokens"], max_len,
+                                 chunk, cache_dtype=cdt,
+                                 embeds=batch.get("embeds"))
     return T.prefill(cfg.model, params, batch["tokens"], max_len,
-                     cache_dtype=cache_dtype(cfg),
-                     embeds=batch.get("embeds"))
+                     cache_dtype=cdt, embeds=batch.get("embeds"))
+
+
+def prefill_begin(cfg: Config, params: Any, batch: Dict[str, Tensor],
+                  max_len: int) -> Tuple[Tensor, List[Dict]]:
+    """The incremental prefill's start: the embedded inputs ``h`` and
+    empty caches (an encoder-decoder's encoder runs here, once)."""
+    cdt = cache_dtype(cfg)
+    if cfg.model.is_encoder_decoder:
+        return T.encdec_prefill_begin(cfg.model, params, batch["frames"],
+                                      batch["tokens"], max_len,
+                                      cache_dtype=cdt)
+    return T.prefill_begin(cfg.model, params, batch["tokens"], max_len,
+                           cache_dtype=cdt, embeds=batch.get("embeds"))
+
+
+def prefill_step(cfg: Config, params: Any, h_chunk: Tensor, start: int,
+                 caches: List[Dict]) -> Tuple[Tensor, List[Dict]]:
+    """One prefill chunk at positions [start, start + C)."""
+    if cfg.model.is_encoder_decoder:
+        return T.encdec_prefill_step(cfg.model, params, h_chunk, start,
+                                     caches)
+    return T.prefill_step(cfg.model, params, h_chunk, start, caches)
+
+
+def prefill_finish(cfg: Config, params: Any, h_last: Tensor) -> Tensor:
+    """Next-token logits from the last chunk's output."""
+    if cfg.model.is_encoder_decoder:
+        return T.encdec_prefill_finish(cfg.model, params, h_last)
+    return T.prefill_finish(cfg.model, params, h_last)
 
 
 def serve_step(cfg: Config, params: Any, token: Tensor, pos: Tensor,
@@ -77,6 +119,19 @@ def serve_step(cfg: Config, params: Any, token: Tensor, pos: Tensor,
     if cfg.model.is_encoder_decoder:
         return T.encdec_decode_step(cfg.model, params, token, pos, caches)
     return T.decode_step(cfg.model, params, token, pos, caches)
+
+
+def decode_step_guarded(cfg: Config, params: Any, token: Tensor,
+                        pos: Tensor, caches: List[Dict]
+                        ) -> Tuple[Tensor, Tensor, List[Dict]]:
+    """The greedy decode step with a fused finite-logits flag: returns
+    (next token (B,), ok (B,) bool, caches); ``ok`` is False on a lane
+    whose logits went non-finite (a poisoned cache lane), which the
+    continuous engine quarantines. No host sync, so a CUDA graph holds
+    it."""
+    lg, caches = serve_step(cfg, params, token, pos, caches)
+    ok = torch.isfinite(lg).all(dim=-1)
+    return torch.argmax(lg, dim=-1), ok, caches
 
 
 def _sample(logits: Tensor, temperature: float,

@@ -418,15 +418,27 @@ def test_serve_feeds_frames_to_the_encoder_not_the_prompt(capsys,
     assert seen == [(["frames", "tokens"], 8 + 4 + 1)]
 
 
-def test_chunked_prefill_names_its_roadmap_item(model):
-    cfg = tget_config(ARCH, smoke=True)
-    cfg.serve.prefill_chunk = 4
-    batch = {"tokens": torch.from_numpy(model["toks"]),
-             "frames": torch.from_numpy(model["frames"])}
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md, queue 1 item 14"):
-        tengine.generate(cfg, model["tparams"], batch, device="cpu",
-                         max_new_tokens=2)
+def test_chunked_prefill_generate_matches_jax(model):
+    """``serve.prefill_chunk`` > 0 on the enc-dec: the decoder prompt in
+    chunks of 4 after one encoder pass gives the JAX engine's greedy
+    tokens with the same chunk (int8 self-cache)."""
+    jcfg, tcfg = model["jcfg"], model["tcfg"]
+    for cfg in (jcfg, tcfg):
+        cfg.serve.prefill_chunk, cfg.serve.kv_cache = 4, "int8"
+    try:
+        jr = jengine.generate(jcfg, model["jparams"],
+                              {"tokens": jnp.asarray(model["toks"]),
+                               "frames": jnp.asarray(model["frames"])},
+                              max_new_tokens=4)
+        tr = tengine.generate(tcfg, model["tparams"],
+                              {"tokens": torch.from_numpy(model["toks"]),
+                               "frames": torch.from_numpy(model["frames"])},
+                              device="cpu", max_new_tokens=4)
+    finally:
+        for cfg in (jcfg, tcfg):
+            cfg.serve.prefill_chunk, cfg.serve.kv_cache = 0, "fp16"
+    np.testing.assert_array_equal(tr.tokens.numpy(), np.asarray(jr.tokens))
+    np.testing.assert_array_equal(tr.steps.numpy(), np.asarray(jr.steps))
 
 
 def test_artifact_tree_round_trips(runs):

@@ -102,6 +102,36 @@ def test_the_scans_cover_the_moe_modules():
         assert path in SOURCES
 
 
+def test_the_scans_cover_the_serving_stack_modules():
+    """The fault plane, the continuous engine and the supervisor are among
+    the modules the import and the AST scans cover."""
+    for mod in ("repro_torch.core.faults", "repro_torch.serving.scheduler",
+                "repro_torch.serving.supervisor"):
+        assert mod in _modules()
+    for path in (PORT / "core" / "faults.py",
+                 PORT / "serving" / "scheduler.py",
+                 PORT / "serving" / "supervisor.py"):
+        assert path in SOURCES
+
+
+def test_serving_stack_entry_points_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is to use it")
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.scheduler import ContinuousEngine
+    from repro_torch.serving.supervisor import SupervisedEngine
+
+    cfg = get_config("opt-proxy", smoke=True)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    params = T.init_params(cfg.model, gen, "cpu")
+    for cls in (ContinuousEngine, SupervisedEngine):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cls(cfg, params, max_len=32)
+        assert cls(cfg, params, max_len=32, device="cpu").idle
+
+
 def test_encoder_decoder_entry_points_raise_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is to use it")

@@ -21,7 +21,9 @@ Resume: a quantize run interrupted at step k (a wrapper of the plan
 executor raises) and resumed with ``quant.resume=auto`` writes an artifact
 bitwise (sha256) an uninterrupted run's; a checkpoint of another config,
 or a corrupt one, warns and the run starts fresh with the same artifact.
-The options not ported raise and name their ROADMAP item, and the two
+``serve.scheduler=continuous`` and ``serve.supervise=true`` (under an
+armed ``serve.engine_step`` kill) give JAX ``launch.serve``'s tokens. The
+options not ported raise and name their ROADMAP item, and the two
 example twins run with ``--device cpu`` and print their checks as OK.
 """
 import _torch_threads  # noqa: F401  (caps torch's CPU threads)
@@ -221,6 +223,43 @@ def test_serve_frontend_prepends_patch_embeddings(capsys, monkeypatch):
                            want.tokens)
 
 
+@pytest.mark.parametrize("override", ["serve.scheduler=continuous",
+                                      "serve.supervise=true"])
+def test_serve_scheduler_options_give_jax_tokens(override, tmp_path, capsys):
+    """``serve.scheduler=continuous`` (2 lanes, 3 requests, prefill chunk
+    3) gives JAX ``launch.serve``'s tokens on the ``--pack-rtn`` JAX init;
+    so does ``serve.supervise=true`` with ``faults.arm=
+    serve.engine_step@3`` armed in both launchers: one restart, every
+    request replayed to the same tokens."""
+    from repro.core import faults as jfaults
+    from repro_torch.core import faults as tfaults
+    jcfg = jget_config("opt-proxy", smoke=True)
+    art = str(tmp_path / "float.params.pkl")
+    C.save_artifact(art, params_from_numpy(to_numpy(JT.init_params(
+        jcfg.model, jax.random.PRNGKey(0)))))
+    common = ["--arch", "opt-proxy", "--smoke", "--pack-rtn", "--batch",
+              "3", "--prompt-len", "8"]
+    over = F32 + ["serve.max_new_tokens=5", "serve.scheduler=continuous",
+                  "serve.max_batch=2", "serve.prefill_chunk=3"]
+    if override == "serve.supervise=true":
+        over += [override, "faults.arm=serve.engine_step@3"]
+    capsys.readouterr()
+    try:
+        jlaunch_serve.main(common + over)
+        want = _seqs(capsys.readouterr().out)
+        done = tlaunch_serve.main(common + ["--params", art, "--device",
+                                            "cpu"] + over)
+    finally:
+        jfaults.PLANE.disarm()
+        tfaults.PLANE.disarm()
+    out = capsys.readouterr().out
+    assert len(want) == 3 and _seqs(out) == want
+    assert [f.tokens.tolist() for f in done.values()] == want
+    assert all(f.status == "ok" for f in done.values())
+    if "supervise" in override:
+        assert "'restarts': 1" in out and "fault plane armed" in out
+
+
 def _quantize(tmp, arch, out, extra=()):
     return tlaunch_quantize.main(
         ["--arch", arch, "--smoke", "--device", "cpu", "--out",
@@ -289,8 +328,6 @@ def test_unusable_checkpoint_warns_and_starts_fresh(damage, tmp_path):
 @pytest.mark.parametrize("launcher,override,item", [
     ("quantize", "quant.pipeline=overlap", 15),
     ("quantize", "quant.mesh=auto", 17),
-    ("serve", "serve.scheduler=continuous", 14),
-    ("serve", "serve.supervise=true", 14),
 ])
 def test_options_not_ported_raise(launcher, override, item, tmp_path):
     mod = tlaunch_quantize if launcher == "quantize" else tlaunch_serve
