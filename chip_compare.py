@@ -8,8 +8,9 @@ w4a16_matmul, int8_kv_attention, quant_pack, selective_scan,
 decode_walls, quantize_walls. Run it on two checkouts in turns inside one
 call on one card (parent, change, change, parent; the parent unpacked
 with ``git archive`` into a directory that ``.gitignore`` lists) to
-compare them. It prints, per
-line: the checkout, the kernel and shape, and
+compare them. It prints the checkout's build wall (every kernel from
+its sources; near 0 where its build directory already holds them), then,
+per line: the checkout, the kernel and shape, and
 
 - for ``hessian_accum`` at the six d of the three main paths (n 512): the
   device time per call from a CUDA graph (as ``chip_smoke.py`` phase 3),
@@ -43,7 +44,11 @@ line: the checkout, the kernel and shape, and
   R 4, hd 80, one scale block a row, on a 4096-slot ring just past its
   wrap; where the checkout takes ``softcap``, also with softcap 30 at S
   4096; whisper-large-v3's, B 4, KV 20, R 1, hd 64, S 97; minicpm smoke's
-  hd 12, a line saying "refused" on a checkout that takes no such width) and ``quant_pack`` (the six
+  hd 12, a line saying "refused" on a checkout that takes no such width;
+  R 8 at hd 256, S 545; recurrentgemma-9b's local layers, B 4, KV 1, R 16,
+  hd 256 on a 2048-slot ring, with the fp32 error against the plain
+  version beside its pin, "refused" on a checkout taking R <= 8) and
+  ``quant_pack`` (the six
   main-path shapes, weights in fp32 and bf16): the device time per call
   from a CUDA graph over copies beyond L2 (``chip_smoke.graph_ms``), the
   error against the plain version (bitwise for ``quant_pack``) and an
@@ -91,7 +96,11 @@ def main() -> int:
     from repro_torch.core.rpiq import _block_curvature_inv
     from repro_torch.kernels import build, ops
 
+    t_build = time.perf_counter()
     build.build_all()
+    print(f"{root} build: {time.perf_counter() - t_build:.1f} s (every "
+          f"kernel, one nvcc a source in parallel; 0 when the build "
+          f"directory already holds them)", flush=True)
     dev = "cuda"
     g = torch.Generator(device=dev)
     g.manual_seed(1234)
@@ -248,11 +257,20 @@ def main() -> int:
         scales = torch.rand((2, b, s, kv, hd // blk), generator=g,
                             device=dev) * 0.02 + 1e-3
         kpos = torch.arange(s, device=dev, dtype=torch.int32).repeat(b, 1)
-        if hd == 80:                # a ring after position 4100
+        ring = hd in (80, 256)
+        if ring:                    # a ring after position 4100
             kpos = 4100 - (4100 - kpos) % s
         cache = (codes[0], scales[0], codes[1], scales[1], kpos)
-        q = (torch.randn((b, kv, r, hd), generator=g, device=dev)
-             * hd ** -0.5).to(torch.bfloat16)
+        q32 = (torch.randn((b, kv, r, hd), generator=g, device=dev)
+               * hd ** -0.5)
+        q = q32.to(torch.bfloat16)
+        fp32 = ""
+        if r > 8:
+            # the fp32 pin of chip_smoke.py phase 3: 1e-5 of the largest
+            got32 = ops.int8_kv_attention_cuda(q32, *cache, blk)
+            want32 = ref.int8_kv_attention(q32, *cache, blk)
+            fp32 = (f" fp32 max_abs_err={float((got32 - want32).abs().max()):.3e}"
+                    f" (tol {1e-5 * float(want32.abs().max()):.3e})")
         caps = (0.0, 30.0) if capped and s == 4096 and blk != 64 else (0.0,)
         for cap in caps:
             kw = {"softcap": cap} if capped else {}
@@ -277,7 +295,12 @@ def main() -> int:
             if (hasattr(ops, "int8_kv_attention_geometry") and blk == 128
                     and not cap):
                 # every range length, the sweep the geometry rests on
-                lib = build.load("int8_kv_attention")
+                # R 16 has a source of its own, whose launch takes no R
+                r16 = r > 8
+                lib = build.load("int8_kv_attention_r16" if r16
+                                 else "int8_kv_attention")
+                fn = (lib.int8_kv_attention_r16_bf16_launch if r16
+                      else lib.int8_kv_attention_bf16_launch)
                 tiles = -(-s // ops.KV_TILE)
                 times = []
                 for per in (1, 2, 3, 4, 6, 8):
@@ -289,9 +312,10 @@ def main() -> int:
 
                     def launch(c, n_sp=n_sp, per=per, tk=tk, wk=wk):
                         o = torch.empty_like(q)
-                        err = lib.int8_kv_attention_bf16_launch(
+                        err = fn(
                             q.data_ptr(), *(t.data_ptr() for t in c),
-                            o.data_ptr(), b, s, kv, r, hd, blk, n_sp, per,
+                            o.data_ptr(), b, s, kv, *([] if r16 else [r]),
+                            hd, blk, n_sp, per,
                             wk, tk, *([0.0] if capped else []),
                             torch.cuda.current_stream().cuda_stream)
                         if err:
@@ -308,8 +332,8 @@ def main() -> int:
                         f"{event_ms(call, 500):.5f}, host enqueue ms per "
                         f"call {host_ms(call)}")
             print(f"{root} int8_kv_attention B={b} R={r} hd={hd} S={s} "
-                  f"kv_block={blk}{' ring' if hd == 80 else ''} "
-                  f"softcap={cap}: ms={ms:.4f} max_abs_err={err:.3e} "
+                  f"kv_block={blk}{' ring' if ring else ''} "
+                  f"softcap={cap}: ms={ms:.4f} max_abs_err={err:.3e}{fp32} "
                   f"sum={float(out.double().sum())} bit checksum="
                   f"{out_bits} history ranges={splits} "
                   f"two launches bitwise equal {same}{host}{sweep}",
@@ -322,10 +346,13 @@ def main() -> int:
         # internlm2's decode shape, then h2o-danube's (hd 80, block 80),
         # whisper-large-v3's decoder self-cache (R 1, hd 64, 64 + 32 + 1
         # slots), then minicpm smoke's hd 12, which a checkout taking only
-        # multiples of 16 refuses
+        # multiples of 16 refuses; R 8 at hd 256 (the widest instantiation
+        # a checkout taking R <= 8 has); recurrentgemma-9b's local layers
+        # (R 16, hd 256, a 2048-slot ring), which such a checkout refuses
         for shape in ((4, 8, 2, 128, 545, 128), (4, 8, 2, 128, 4096, 128),
                       (4, 8, 2, 128, 4096, 64), (2, 8, 4, 80, 4096, 80),
-                      (4, 20, 1, 64, 97, 64), (2, 2, 2, 12, 40, 12)):
+                      (4, 20, 1, 64, 97, 64), (2, 2, 2, 12, 40, 12),
+                      (2, 2, 8, 256, 545, 128), (4, 1, 16, 256, 2048, 128)):
             try:
                 kv_row(*shape, capped, g)
             except ValueError as e:

@@ -35,6 +35,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      ``int8_kv_attention`` at B 8 over a 1024-slot slotted cache of mixed
      lane lengths (empty lanes among them) and bf16 ``w4a16_matmul`` at
      m 8 (the tick) and m 128 (a prefill chunk) at internlm2's (k, n);
+     phase 13's (``kernels_hybrid_shapes``): recurrentgemma-9b's groups
+     at n 2048, its (k, n) at m 4 and ``int8_kv_attention`` at R 16, hd
+     256 on a 2048-slot ring; phase 14's (``kernels_mla_shapes``):
+     deepseek-v3-671b's dense-layer groups at n 2048, its (k, n) at m 4
+     and k_up / v_up's (512, 16384) at m 2180 (4 x 545 latents);
   4. small end to end: opt-proxy smoke (bf16 cache), internlm2 smoke (int8
      KV cache) and falcon-mamba smoke (recurrent state) quantized, packed
      and served on the card against the same runs of the plain versions on
@@ -43,8 +48,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      then the same two runs for h2o-danube smoke (an int8 ring of 8
      slots), minicpm smoke (tied embeddings; k 72 padded for
      ``w4a16_matmul``; the int8 cache at head width 12), stablelm smoke (LayerNorm), pixtral smoke (8
-     patch embeddings in every calibration batch and request) and olmoe
-     smoke (routed experts, the int8 cache); then olmoe smoke on a
+     patch embeddings in every calibration batch and request), olmoe
+     smoke (routed experts, the int8 cache), recurrentgemma smoke (RG-LRU
+     and a local int8 ring) and deepseek smoke (MLA over a bf16 latent
+     cache under the int8 setting, its ``mtp_logits`` held too); then
+     olmoe smoke on a
      calibration short enough to starve experts, its RTN lanes bitwise
      the CPU's; then every smoke family (whisper's too), card against
      CPU in fp32: the chunked prefill, a short continuous run (2 lanes,
@@ -112,8 +120,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
          caches that the window masks (1e-4); the ring's rows and bytes
          against a full-length cache; the int8-vs-bf16 drift rule of
          phase 6 across the wrap;
-     9b. pixtral-12b at full width, cut to 26 of 40 layers (quantization
-         holds the float layers before and after), 1024 seeded patch
+     9b. pixtral-12b at full width, cut to 13 of 40 layers (26 fit
+         quantization, which holds the float layers before and after;
+         13 keep the whole run near 1000 s since phases 13 and 14
+         came in), 1024 seeded patch
          embeddings in every calibration batch (4 x 2 x 128 tokens) and
          request (2 x 64 + 32 new): the replay bitwise eager, decode from
          position 64 + 1024, packed int4 against refined float logits in
@@ -157,10 +167,26 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      that leaves every other request's tokens bitwise the fault-free
      run's, and a ``serve.engine_step`` kill under ``SupervisedEngine``
      that completes every request within its budget (how many come out
-     token-identical is reported).
+     token-identical is reported);
+  13. the RG-LRU hybrid at full width: recurrentgemma-9b (d 4096, 16
+     heads over one kv-head of 256, d_ff 12288, vocab 256000 tied) cut to
+     33 of 38 layers (11 whole periods: 38 do not fit quantization),
+     calibration 4 x 4 x 512 → quantize_model → pack_for_serving →
+     generate on the bf16 ring and the int8 ring (4 x 512 + 32), then 1 x
+     2040 + 32 on the int8 ring across its wrap, each replay bitwise its
+     eager loop; packed against refined logits in fp32 compute, chunked
+     against single-shot prefill, the decode state's bytes; then
+     ``launch.serve --arch recurrentgemma-9b --pack-rtn`` at 38 layers;
+  14. multi-head latent attention at full width: deepseek-v3-671b cut to
+     its 3 dense layers with the MTP head (a routed layer's 256 experts do
+     not fit one card), calibration 4 x 4 x 512 → quantize_model →
+     pack_for_serving (the MTP layer RTN-packed) → generate on the bf16
+     latent cache (4 x 512 + 32), the replay bitwise eager; packed against
+     refined logits and MTP logits in fp32, chunked against single-shot
+     prefill, the latent cache's bytes against the expanded K/V's.
 
 The line before the last is a JSON object with one entry per kernel
-(``launches`` sums phases 5 to 12); the last line is ``{"ok": true,
+(``launches`` sums phases 5 to 14); the last line is ``{"ok": true,
 "device": {...}}``.
 """
 from __future__ import annotations
@@ -203,7 +229,8 @@ KERNEL_SOURCES = {
 # minicpm smoke's head width 12 takes int8_kv_attention's 4-byte rows
 SMALL_DENSE = (("h2o-danube-1.8b", "int8"), ("minicpm-2b", "int8"),
                ("stablelm-1.6b", "fp16"), ("pixtral-12b", "fp16"),
-               ("olmoe-1b-7b", "int8"))
+               ("olmoe-1b-7b", "int8"), ("recurrentgemma-9b", "int8"),
+               ("deepseek-v3-671b", "int8"))
 
 
 # phase 4's chunked prefill, continuous run and guardrail ladder: every
@@ -405,6 +432,8 @@ def phase_kernels(table: KernelTable) -> None:
     kernels_encdec_shapes(table)
     kernels_moe_shapes(table)
     kernels_continuous_shapes(table)
+    kernels_hybrid_shapes(table)
+    kernels_mla_shapes(table)
 
 
 def check_w4a16(table: KernelTable, g, m: int, k: int, n: int, dt,
@@ -1180,15 +1209,17 @@ def kernels_dense_shapes(table: KernelTable) -> None:
 
 def kv_attention_row(table, g, b: int, kv: int, r: int, hd: int, s: int,
                      cap: float = 0.0, label: str = "",
-                     lengths=None) -> None:
+                     lengths=None, ring: bool = False) -> None:
     """int8_kv_attention at one decode shape (kv_block the codec's
     default for hd, a decode cache of s slots all written but for the
     last lane, which holds none; with ``lengths``, lane i holds its first
-    lengths[i] slots, as the continuous engine's slotted cache does),
-    inputs from generator g: fp32 at 1e-5 of the largest output, bf16 at
-    one bf16 ulp, a second launch bitwise the first; timed in bf16 from a
-    CUDA graph over cache copies beyond L2, added to ``table`` where one
-    is given. The bound counts the valid slots' bytes and products."""
+    lengths[i] slots, as the continuous engine's slotted cache does; with
+    ``ring``, lane i is a ring of s slots past its wrap, position s + 37 i
+    written last, about a tenth of its slots invalid), inputs from
+    generator g: fp32 at 1e-5 of the largest output, bf16 at one bf16
+    ulp, a second launch bitwise the first; timed in bf16 from a CUDA
+    graph over cache copies beyond L2, added to ``table`` where one is
+    given. The bound counts the valid slots' bytes and products."""
     import torch
     from repro_torch.kernels import kv_codec, ops, ref
 
@@ -1199,10 +1230,18 @@ def kv_attention_row(table, g, b: int, kv: int, r: int, hd: int, s: int,
     kc, ks = kv_codec.enc_int8_blocks(x[0], blk)
     vc, vs = kv_codec.enc_int8_blocks(x[1], blk)
     kpos = torch.arange(s, device=dev, dtype=torch.int32).repeat(b, 1)
+    if ring:
+        last = s + 37 * torch.arange(b, device=dev)[:, None]
+        kpos = (last - (last - kpos) % s).to(torch.int32)
+        holes = torch.rand((b, s), generator=g, device=dev) < 0.1
+        kpos[holes] = -1
+        kpos[-1] = -1
+        lengths = [int(v) for v in (kpos >= 0).sum(dim=1).tolist()]
     if lengths is None:
         lengths = [s] * (b - 1) + [0]
-    for i, n in enumerate(lengths):
-        kpos[i, n:] = -1
+    if not ring:
+        for i, n in enumerate(lengths):
+            kpos[i, n:] = -1
     valid = sum(lengths)
     q32 = torch.randn((b, kv, r, hd), generator=g, device=dev) \
         * hd ** -0.5 * (12.0 if cap else 1.0)
@@ -1306,6 +1345,93 @@ def kernels_encdec_shapes(table: KernelTable) -> None:
     kv_attention_row(table, g, 4, 20, 1, 64, 97)
     for cap in (0.0, 30.0):
         kv_attention_row(None, g, 2, 6, 1, 12, 15, cap, " (minicpm smoke)")
+
+
+def kernels_hybrid_shapes(table: KernelTable) -> None:
+    """Phase 13's shapes (recurrentgemma-9b: d 4096, lru_width 4096, d_ff
+    12288, 16 heads of 256 over one kv-head; calibration batches of 4 x
+    512 tokens), each kernel against its plain version at phase 3's pins
+    and timed into the kernel table, from a generator of its own:
+    ``hessian_accum`` at d 4096 and 12288 (n 2048); bf16 ``w4a16_matmul``
+    at (k, n) (4096, 4096) (the RG-LRU's in / gate / rg / ig / out and the
+    local layers' q / o), (4096, 256) (their k / v: a narrow output),
+    (4096, 12288) and (12288, 4096) at decode m 4; ``gptq_block`` and
+    ``rpiq_block`` at the groups the planner forms, (5, 4096, 4096) (an
+    RG-LRU layer's five), (2, 4096, 4096) (q / o), (2, 256, 4096) (k / v),
+    (2, 12288, 4096) and (1, 4096, 12288) (the MLP), n 2048 (their Gamma
+    reported, not held, as at phase 9's groups); ``quant_pack`` at the
+    four weight shapes; ``int8_kv_attention`` at the local layers' decode
+    (B 4, KV 1, R 16, hd 256, kv_block 128: the R-16 instantiation) on a
+    2048-slot ring past its wrap with invalid slots."""
+    import torch
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(4328)
+    for d in (4096, 12288):
+        check_hessian_accum(table, g, 2048, d)
+    kn = ((4096, 4096), (4096, 256), (4096, 12288), (12288, 4096))
+    for k, n in kn:
+        check_w4a16(table, g, 4, k, n, torch.bfloat16, 128)
+    groups = ((5, 4096, 4096), (2, 4096, 4096), (2, 256, 4096),
+              (2, 12288, 4096), (1, 4096, 12288))
+    held = 0
+    for b, out_dim, in_dim in groups:
+        case = group_case(g, b, out_dim, in_dim, 2048)
+        w0, scales, zeros = check_gptq(case, 128, 128, table)
+        held += check_rpiq(case, w0, scales, zeros, 128, 128, 5, 0.01, table,
+                           cross_gamma=False)
+        del case, w0, scales, zeros
+        torch.cuda.empty_cache()
+    log(f"  rpiq_block at phase 13's groups: the kernel's Gamma within its "
+        f"pin of the plain version's at {held} of {len(groups)}")
+    for k, n in kn:
+        check_quant_pack(table, g, n, k)
+    kv_attention_row(table, g, 4, 1, 16, 256, 2048, label=" (ring, R 16)",
+                     ring=True)
+
+
+def kernels_mla_shapes(table: KernelTable) -> None:
+    """Phase 14's shapes (deepseek-v3-671b's dense layers: d 7168, 128
+    heads, q / kv ranks 1536 / 512, nope / rope / v 128 / 64 / 128, d_ff
+    18432; calibration batches of 4 x 512 tokens; decode over a latent
+    cache of 4 x 545 slots), from a generator of its own:
+    ``hessian_accum`` at d 512, 1536, 7168, 16384 and 18432 (n 2048);
+    bf16 ``w4a16_matmul`` at (k, n) (7168, 1536) / (7168, 512) / (7168,
+    64) (q_down, kv_down, k_rope: n 64 a narrow output), (1536, 24576)
+    (q_up), (512, 16384) (k_up / v_up), (16384, 7168) (o), (7168, 18432)
+    and (18432, 7168) (the MLP) at decode m 4, and (512, 16384) again at
+    m 2180: each decode step expands the whole latent cache, B x max_len
+    rows; ``gptq_block`` and ``rpiq_block`` at the groups the planner
+    forms, (1, 1536, 7168), (1, 512, 7168), (1, 64, 7168), (1, 24576,
+    1536), (2, 16384, 512), (1, 7168, 16384), (2, 18432, 7168) and (1,
+    7168, 18432), n 2048 (Gamma reported, not held); ``quant_pack`` at the
+    eight weight shapes."""
+    import torch
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(4329)
+    for d in (512, 1536, 7168, 16384, 18432):
+        check_hessian_accum(table, g, 2048, d)
+    kn = ((7168, 1536), (7168, 512), (7168, 64), (1536, 24576),
+          (512, 16384), (16384, 7168), (7168, 18432), (18432, 7168))
+    for k, n in kn:
+        check_w4a16(table, g, 4, k, n, torch.bfloat16, 128)
+    check_w4a16(table, g, 4 * 545, 512, 16384, torch.bfloat16, 128)
+    groups = ((1, 1536, 7168), (1, 512, 7168), (1, 64, 7168),
+              (1, 24576, 1536), (2, 16384, 512), (1, 7168, 16384),
+              (2, 18432, 7168), (1, 7168, 18432))
+    held = 0
+    for b, out_dim, in_dim in groups:
+        case = group_case(g, b, out_dim, in_dim, 2048)
+        w0, scales, zeros = check_gptq(case, 128, 128, table)
+        held += check_rpiq(case, w0, scales, zeros, 128, 128, 5, 0.01, table,
+                           cross_gamma=False)
+        del case, w0, scales, zeros
+        torch.cuda.empty_cache()
+    log(f"  rpiq_block at phase 14's groups: the kernel's Gamma within its "
+        f"pin of the plain version's at {held} of {len(groups)}")
+    for k, n in kn:
+        check_quant_pack(table, g, n, k)
 
 
 def moe_group_case(g, lanes: int, out_dim: int, in_dim: int, n_tok: int,
@@ -1492,11 +1618,14 @@ def phase_small_end_to_end(arch: str, kv_cache: str) -> None:
     for dev in ("cpu", "cuda"):
         pq, rep = quantize_model(cfg, params, calib, device=dev)
         pk = pack_for_serving(cfg, pq)
-        logits = T.forward(mc, pk, calib[-1]["tokens"].to(dev),
-                           calib[-1].get("embeds"))
+        last = calib[-1]["tokens"].to(dev)
+        logits, hid = T.forward_hidden(mc, pk, last, calib[-1].get("embeds"))
+        # deepseek's MTP head on the packed model (its layer RTN-packed)
+        mtp = (T.mtp_logits(mc, pk, hid, last).cpu() if mc.mtp_depth
+               else None)
         toks = generate(cfg, pk, prompt, device=dev, max_new_tokens=6)
-        runs[dev] = (rep, pk, logits.cpu(), toks.tokens.cpu())
-    (rc, pc, lc, tc), (rg, pg, lg, tg) = runs["cpu"], runs["cuda"]
+        runs[dev] = (rep, pk, logits.cpu(), toks.tokens.cpu(), mtp)
+    (rc, pc, lc, tc, mc_), (rg, pg, lg, tg, mg) = runs["cpu"], runs["cuda"]
     modes = all(a.mode == b.mode and a.iters == b.iters
                 for a, b in zip(rc.linears, rg.linears))
     lin_c, lin_g = (dict(quantized_leaves(p["layers"])) for p in (pc, pg))
@@ -1509,13 +1638,17 @@ def phase_small_end_to_end(arch: str, kv_cache: str) -> None:
     # reference): an expert product one fp32 rounding apart may round to
     # the neighbouring bf16 value, 3.9e-3 of it
     tol = 1e-2 if mc.moe.num_experts else 1e-3
+    rel_mtp = (float((mg - mc_).norm() / mc_.norm()) if mc.mtp_depth
+               else 0.0)
     log(f"  {cfg.model.name} fp32 kv_cache={kv_cache}, card vs CPU plain: "
         f"modes/iters equal {modes}; the same {len(codes)} packed linears "
         f"{same_set}; packed-byte mismatch {mism:.2e} (tol "
         f"1e-2); packed logits rel {rel:.2e} (tol {tol:.0e}); greedy tokens "
-        f"equal {bool(torch.equal(tc, tg))}")
+        f"equal {bool(torch.equal(tc, tg))}"
+        + (f"; mtp_logits rel {rel_mtp:.2e} (tol {tol:.0e})"
+           if mc.mtp_depth else ""))
     check(modes and same_set and mism <= 1e-2 and rel <= tol
-          and torch.equal(tc, tg),
+          and rel_mtp <= tol and torch.equal(tc, tg),
           f"small end to end {arch} kv_cache={kv_cache}, card against CPU "
           "plain")
 
@@ -1762,7 +1895,18 @@ def drive_main_path(arch: str, kv_cache: str, n_req: int, n_prompt: int,
         if mc.moe.num_experts:
             widths += (f" experts={mc.moe.num_experts} top_k="
                        f"{mc.moe.top_k} d_ff_expert={mc.moe.d_ff_expert} "
-                       f"capacity_factor={mc.moe.capacity_factor}")
+                       f"capacity_factor={mc.moe.capacity_factor} "
+                       f"first_dense_layers={mc.moe.first_dense_layers}")
+        if mc.rglru.enabled:
+            widths += (f" lru_width={mc.rglru.lru_width} conv1d_width="
+                       f"{mc.rglru.conv1d_width} logits_softcap="
+                       f"{mc.logits_softcap} tied={mc.tie_embeddings}")
+        if mc.mla.enabled:
+            m = mc.mla
+            widths += (f" mla q/kv ranks {m.q_lora_rank}/{m.kv_lora_rank} "
+                       f"nope/rope/v {m.qk_nope_head_dim}/"
+                       f"{m.qk_rope_head_dim}/{m.v_head_dim} "
+                       f"mtp_depth={mc.mtp_depth}")
     depth = (f"depth cut to {mc.num_layers} of {full_depth}" if layers
              else "depth not cut")
     log(f"  config: {mc.name} layers={mc.num_layers} d_model={mc.d_model} "
@@ -2388,10 +2532,7 @@ def phase_ring_path(smi: str) -> dict:
     ring's bytes those of min(window, max_len) rows."""
     import torch
     from repro_torch.data import MarkovLM
-    from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
-    from repro_torch.serving import engine
-    from repro_torch.serving.engine import generate
 
     n_req, n_new = 2, 32
     r = drive_main_path("h2o-danube-1.8b", "int8", n_req, 4608, n_new)
@@ -2405,24 +2546,12 @@ def phase_ring_path(smi: str) -> dict:
     for kv in ("int8", "fp16"):
         cfg.serve.kv_cache = kv
         prompt = MarkovLM(mc.vocab_size, seed=3).batch(n_req, 4080)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        before = ops.kernel_launches()
-        pre = []
-        with patched(engine, "prefill", timed(pre)):
-            res = generate(cfg, packed, prompt, max_new_tokens=n_new)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        after = ops.kernel_launches()
-        counts = {k: after[k] - before[k] for k in after}
+        counts, res = serve_leg(cfg, packed, prompt, n_new,
+                                f"{kv} cache, {n_req} x 4080 prompt + "
+                                f"{n_new} new (decode crosses the wrap at "
+                                f"4096)", smi)
         for k, n in counts.items():
             launches[k] += n
-        log(f"  leg {kv} cache, {n_req} x 4080 prompt + {n_new} new "
-            f"(decode crosses the wrap at 4096): generate {wall:.3f} s, "
-            f"prefill {pre[0]:.4f}, capture {res.capture_s:.4f} [{smi}]; "
-            f"launches "
-            f"{json.dumps(counts)}")
-        decode_graph_checks(cfg, packed, prompt, res, counts, n_new)
         legs.append((kv, prompt, res))
     for name, n in launches.items():
         if name == "selective_scan":
@@ -2492,10 +2621,12 @@ def phase_ring_path(smi: str) -> dict:
 
 def phase_vlm_path(smi: str) -> dict:
     """9b: pixtral-12b at full width (d 5120, 32 heads over 8 KV heads,
-    head_dim 128, d_ff 14336, vocab 131072), its depth cut to 26 of 40
-    layers so that quantization (the float layers before and after, ~2.3
-    GB a layer beside ~15 GB of embedding, head and work: ~75 GB) fits the
-    card, every calibration batch (4 x 2 x 128 tokens) and request (2 x 64
+    head_dim 128, d_ff 14336, vocab 131072), its depth cut to 13 of 40
+    layers: 26 is the most that quantization (the float layers before and
+    after, ~2.3 GB a layer beside ~15 GB of embedding, head and work: ~75
+    GB at 26) fits on the card, and 13 halve the phase's ~100 s of
+    quantization, which keeps the whole run near 1000 s of its 1200 s
+    since phases 13 and 14 came in; every calibration batch (4 x 2 x 128 tokens) and request (2 x 64
     tokens + 32 new) with the config's 1024 patch embeddings:
     quantize_model → pack_for_serving → generate, the replay bitwise the
     eager loop, decode starting at 64 + 1024, the packed int4 logits
@@ -2514,7 +2645,7 @@ def phase_vlm_path(smi: str) -> dict:
     from repro_torch.serving import engine
     from repro_torch.serving.engine import generate
 
-    n_req, n_prompt, n_new, layers = 2, 64, 32, 26
+    n_req, n_prompt, n_new, layers = 2, 64, 32, 13
     r = drive_main_path("pixtral-12b", "fp16", n_req, n_prompt, n_new,
                         layers=layers, calib_shape=(4, 2, 128))
     cfg, launches = r["cfg"], r["launches"]
@@ -2883,6 +3014,269 @@ def phase_encdec_path(smi: str) -> dict:
     check(same and starts == [[n_prompt] * n_req]
           and counts["quant_pack"] > 0 and counts["w4a16_matmul"] > 0,
           "10: launch.serve --arch whisper-large-v3 --pack-rtn")
+    return launches
+
+
+def serve_leg(cfg, packed, prompt, n_new: int, label: str, smi: str
+              ) -> tuple:
+    """One more ``generate`` on the packed model (its walls and launches
+    printed), then ``decode_graph_checks``; returns its launch counts and
+    its result."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serving import engine
+    from repro_torch.serving.engine import generate
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    before = ops.kernel_launches()
+    pre = []
+    with patched(engine, "prefill", timed(pre)):
+        res = generate(cfg, packed, prompt, max_new_tokens=n_new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    after = ops.kernel_launches()
+    counts = {k: after[k] - before[k] for k in after}
+    log(f"  leg {label}: generate {wall:.3f} s, prefill {pre[0]:.4f}, "
+        f"capture {res.capture_s:.4f} [{smi}]; launches "
+        f"{json.dumps(counts)}")
+    decode_graph_checks(cfg, packed, prompt, res, counts, n_new)
+    return counts, res
+
+
+def chunked_against_single(cfg, packed, toks, chunk: int) -> float:
+    """The relative error of the chunked prefill's logits (chunks of
+    ``chunk``) against the single-shot prefill's, in fp32 compute on fp32
+    caches."""
+    import torch
+    from repro_torch.models import transformer as T
+    m32 = dataclasses.replace(cfg.model, dtype="float32")
+    max_len = toks.shape[1] + 2
+    one, _ = T.prefill(m32, packed, toks, max_len, cache_dtype=torch.float32)
+    chunked, _ = T.prefill_chunked(m32, packed, toks, max_len, chunk,
+                                   cache_dtype=torch.float32)
+    return float((chunked - one).norm() / one.norm())
+
+
+def packed_against_refined(mc, packed, params_q, toks) -> dict:
+    """Packed int4 against refined float logits on ``toks``, fp32 and bf16
+    compute (the relative errors), and the MTP head's where the model has
+    one. A linear packed on a fresh grid (the MTP layer's, RTN) enters the
+    refined model dequantized, so the two differ by the packing alone."""
+    import torch
+    from repro_torch.core.quant import dequantize_packed, quantized_leaves
+    from repro_torch.models import transformer as T
+
+    def restructured(tree):
+        if isinstance(tree, dict):
+            return {k: restructured(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [restructured(v) for v in tree]
+        return tree
+
+    refined = restructured(params_q)
+    for name, qt in quantized_leaves(packed):
+        node = resolve(refined, name.rsplit(".", 1)[0])
+        if "qscales" not in node:           # packed on a fresh grid
+            node["w"] = dequantize_packed(qt).T.contiguous()
+    rel = {}
+    for dt in ("float32", "bfloat16"):
+        mdt = dataclasses.replace(mc, dtype=dt)
+        lq, hq = T.forward_hidden(mdt, packed, toks)
+        lf, hf = T.forward_hidden(mdt, refined, toks)
+        rel[dt] = float((lq - lf).norm() / (lf.norm() + 1e-9))
+        rel["finite"] = bool(torch.isfinite(lq).all())
+        del lq, lf
+        if mc.mtp_depth:
+            mq = T.mtp_logits(mdt, packed, hq, toks)
+            mf = T.mtp_logits(mdt, refined, hf, toks)
+            rel[f"mtp {dt}"] = float((mq - mf).norm() / (mf.norm() + 1e-9))
+            rel["mtp shape"] = tuple(mq.shape)
+            del mq, mf
+        del hq, hf
+    return rel
+
+
+def phase_hybrid_path(smi: str) -> dict:
+    """13: recurrentgemma-9b at full width (d 4096, 16 heads over one
+    kv-head of 256, lru_width 4096, d_ff 12288, vocab 256000 tied, window
+    2048, logits soft-capped at 30), its depth cut to 33 of 38 layers (11
+    whole (rglru, rglru, local) periods: quantization holds the float
+    layers before and after, ~2.2x the parameter bytes, and 38 layers
+    reckon at ~82 GB), calibration 4 x 4 x 512 → quantize_model →
+    pack_for_serving → generate on the bf16 ring (4 x 512 + 32), then on
+    the int8 ring (the R-16 ``int8_kv_attention``) and 1 x 2040 + 32 on
+    the int8 ring, whose decode crosses the 2048-slot window inside the
+    replay; each replay bitwise its eager loop. Held: the packed int4
+    against the refined float logits in fp32 compute (1e-3), the chunked
+    (128) against the single-shot prefill in fp32 (1e-4, the RG-LRU state
+    carried across chunks); then ``launch.serve --arch recurrentgemma-9b
+    --pack-rtn`` at all 38 layers, its tokens those of pack_for_serving →
+    generate called directly."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipeline import pack_for_serving
+    from repro_torch.data import MarkovLM
+    from repro_torch.launch import serve as LS
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import generate
+
+    n_req, n_prompt, n_new, layers = 4, 512, 32, 33
+    r = drive_main_path("recurrentgemma-9b", "fp16", n_req, n_prompt, n_new,
+                        layers=layers, calib_shape=(4, 4, 512))
+    cfg, packed, launches = r["cfg"], r["packed"], r["launches"]
+    mc = cfg.model
+    check(r["starts"] == [[n_prompt] * n_req], "13: decode starts after the "
+          "prompt")
+    rel = packed_against_refined(mc, packed, r["params_q"],
+                                 r["calib"][-1]["tokens"].cuda())
+    log(f"  packed int4 vs refined-grid float logits on the last "
+        f"calibration batch: fp32 compute rel err {rel['float32']:.3e} "
+        f"(tol 1e-3); bf16 compute {rel['bfloat16']:.5f} (not pinned: the "
+        f"float model's bf16 weight rounding, as phase 6); finite "
+        f"{rel['finite']}")
+    check(rel["float32"] < 1e-3 and rel["finite"], "13: packed vs refined "
+          "logits")
+    del r["params_q"]
+    torch.cuda.empty_cache()
+    crel = chunked_against_single(cfg, packed, r["prompt"]["tokens"].cuda(),
+                                  128)
+    log(f"  chunked (128) against single-shot prefill, {n_req} x {n_prompt}"
+        f", fp32 compute and caches: logits rel err {crel:.3e} (tol 1e-4)")
+    check(crel <= 1e-4, "13: chunked against single-shot prefill")
+
+    cfg.serve.kv_cache = "int8"
+    legs = [("int8 ring", r["prompt"]),
+            ("int8 ring across the wrap", MarkovLM(mc.vocab_size, seed=3)
+             .batch(1, 2040))]
+    for label, prompt in legs:
+        n = prompt["tokens"].shape[1]
+        counts, _ = serve_leg(cfg, packed, prompt, n_new,
+                              f"{label}, {prompt['tokens'].shape[0]} x {n} "
+                              f"prompt + {n_new} new", smi)
+        for k, v in counts.items():
+            launches[k] += v
+    caches = T.init_caches(mc, 1, 2040 + n_new + 1, "cuda", "int8")
+    state = sum(t.numel() * t.element_size()
+                for spec, c in zip(T.layer_specs(mc), caches)
+                if spec[0] == "rglru" for t in c.values())
+    ring = sum(t.numel() * t.element_size()
+               for spec, c in zip(T.layer_specs(mc), caches)
+               if spec[0] != "rglru" for t in c.values())
+    del caches
+    log(f"  decode state of one request at 2040 + {n_new} positions "
+        f"({layers} layers): RG-LRU states {state} bytes, int8 rings of "
+        f"{min(mc.window_size, 2040 + n_new + 1)} slots {ring} bytes; "
+        f"bounded whatever the session's length")
+    for name, n in launches.items():
+        if name == "selective_scan":
+            check(n == 0, "selective_scan launched on the hybrid path")
+        else:
+            check(n > 0, f"kernel {name} was not launched on the hybrid "
+                  "path")
+    del r, packed
+    torch.cuda.empty_cache()
+
+    full = get_config("recurrentgemma-9b").model.num_layers
+    n_req, n_prompt = 2, 64
+    log(f"  launch.serve --arch recurrentgemma-9b --pack-rtn at all {full} "
+        f"layers ({n_req} requests x {n_prompt} prompt + {n_new} new)")
+    argv = ["--arch", "recurrentgemma-9b", "--pack-rtn", "--batch",
+            str(n_req), "--prompt-len", str(n_prompt),
+            f"serve.max_new_tokens={n_new}"]
+    torch.cuda.reset_peak_memory_stats()
+    res, counts = serve_walls(LS, argv, launches, "recurrentgemma-9b", smi)
+    peak = torch.cuda.max_memory_allocated()
+    cfg = get_config("recurrentgemma-9b")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    packed = pack_for_serving(cfg, T.init_params(cfg.model, gen, "cuda"))
+    batch = MarkovLM(cfg.model.vocab_size, seed=3).batch(n_req, n_prompt)
+    res_d = generate(cfg, packed, batch, max_new_tokens=n_new)
+    del packed
+    torch.cuda.empty_cache()
+    same = bool(torch.equal(res.tokens, res_d.tokens))
+    log(f"  tokens equal pack_for_serving -> generate called directly: "
+        f"{same}; peak device memory {peak} bytes [{smi}]; decoded tokens "
+        f"(request 0): {res.tokens[0].tolist()}")
+    check(same and counts["quant_pack"] > 0 and counts["w4a16_matmul"] > 0
+          and tuple(res.tokens.shape) == (n_req, n_new),
+          "13: launch.serve --arch recurrentgemma-9b --pack-rtn")
+    return launches
+
+
+def phase_mla_path(smi: str) -> dict:
+    """14: deepseek-v3-671b at full width (d 7168, 128 heads, q / kv ranks
+    1536 / 512, nope / rope / v 128 / 64 / 128, d_ff 18432, vocab 129280)
+    cut to its 3 dense layers (``first_dense_layers``) with the MTP head
+    (whose layer, of the last layer's spec, is then dense too): a routed
+    layer's 256 experts alone hold ~11.3 B parameters, and their stacked
+    Hessians ~52.6 GB. Calibration 4 x 4 x 512 → quantize_model →
+    pack_for_serving (the MTP layer RTN-packed, its projection float) →
+    generate on the bf16 latent cache (4 x 512 + 32; every decode step
+    expands the whole latent cache through k_up / v_up), the replay bitwise
+    its eager loop. Held: the packed int4 against the refined float logits
+    and MTP logits in fp32 compute (1e-3), the chunked (128) against the
+    single-shot prefill in fp32 (1e-4); printed: the latent cache's bytes
+    against a full K/V cache of the same shape."""
+    import torch
+    from repro_torch.core.quant import quantized_leaves
+    from repro_torch.models import transformer as T
+
+    n_req, n_prompt, n_new, layers = 4, 512, 32, 3
+    r = drive_main_path("deepseek-v3-671b", "fp16", n_req, n_prompt, n_new,
+                        layers=layers, calib_shape=(4, 4, 512))
+    cfg, packed, launches = r["cfg"], r["packed"], r["launches"]
+    mc, m = cfg.model, cfg.model.mla
+    check(r["starts"] == [[n_prompt] * n_req] and all(
+        s == ("mla", "dense") for s in T.layer_specs(mc)),
+        "14: three dense MLA layers, decode after the prompt")
+    mtp_packed = [n for n, _ in quantized_leaves(packed["mtp"])]
+    log(f"  MTP head: {len(mtp_packed)} RTN-packed linears "
+        f"({', '.join(mtp_packed)}); proj float "
+        f"{tuple(packed['mtp']['proj']['w'].shape)}")
+    check(len(mtp_packed) == 10
+          and isinstance(packed["mtp"]["proj"]["w"], torch.Tensor),
+          "14: the MTP layer packed, its projection float")
+    rel = packed_against_refined(mc, packed, r["params_q"],
+                                 r["calib"][-1]["tokens"].cuda())
+    log(f"  packed int4 vs refined-grid float logits on the last "
+        f"calibration batch: fp32 compute rel err {rel['float32']:.3e} "
+        f"(tol 1e-3), bf16 {rel['bfloat16']:.5f} (not pinned); mtp_logits "
+        f"{rel['mtp shape']} fp32 {rel['mtp float32']:.3e} (tol 1e-3), bf16 "
+        f"{rel['mtp bfloat16']:.5f}; finite {rel['finite']}")
+    check(rel["float32"] < 1e-3 and rel["mtp float32"] < 1e-3
+          and rel["finite"], "14: packed vs refined logits")
+    del r["params_q"]
+    torch.cuda.empty_cache()
+    crel = chunked_against_single(cfg, packed, r["prompt"]["tokens"].cuda(),
+                                  128)
+    log(f"  chunked (128) against single-shot prefill, {n_req} x {n_prompt}"
+        f", fp32 compute and caches (continuations over the cached "
+        f"latents): logits rel err {crel:.3e} (tol 1e-4)")
+    check(crel <= 1e-4, "14: chunked against single-shot prefill")
+    max_len = n_prompt + n_new + 1
+    caches = T.init_caches(mc, n_req, max_len, "cuda")
+    latent = sum(t.numel() * t.element_size() for c in caches
+                 for t in c.values())
+    del caches
+    expanded = (layers * n_req * max_len * mc.num_heads * 2
+                * (m.qk_nope_head_dim + m.qk_rope_head_dim + m.v_head_dim))
+    log(f"  bf16 latent cache ({layers} layers, {n_req} lanes x {max_len} "
+        f"slots, {m.kv_lora_rank} + {m.qk_rope_head_dim} a token): "
+        f"{latent} bytes against {expanded} for the expanded K/V "
+        f"({mc.num_heads} heads x ({m.qk_nope_head_dim + m.qk_rope_head_dim}"
+        f" + {m.v_head_dim})): {expanded / latent:.1f}x smaller")
+    for name, n in launches.items():
+        if name in ("selective_scan", "int8_kv_attention"):
+            check(n == 0, f"{name} launched on the MLA path")
+        else:
+            check(n > 0, f"kernel {name} was not launched on the MLA path")
+    log(f"  decoded tokens (request 0): {r['res'].tokens[0].tolist()}")
+    check(tuple(r["res"].tokens.shape) == (n_req, n_new) and latent
+          < expanded, "14: MLA path output check")
+    del r, packed
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -3794,6 +4188,22 @@ def main() -> int:
     for name, n in phase_continuous_path(smi).items():
         launches[name] += n
     log(f"  phase 12 took {time.perf_counter() - t:.1f}s")
+
+    torch.cuda.empty_cache()
+    log("[13] the RG-LRU hybrid at full width: recurrentgemma-9b (33 of 38 "
+        "layers; bf16 and int8 rings, the wrap inside the replay)")
+    t = time.perf_counter()
+    for name, n in phase_hybrid_path(smi).items():
+        launches[name] += n
+    log(f"  phase 13 took {time.perf_counter() - t:.1f}s")
+
+    torch.cuda.empty_cache()
+    log("[14] multi-head latent attention at full width: deepseek-v3-671b "
+        "(its 3 dense layers and the MTP head)")
+    t = time.perf_counter()
+    for name, n in phase_mla_path(smi).items():
+        launches[name] += n
+    log(f"  phase 14 took {time.perf_counter() - t:.1f}s")
 
     log(f"  total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(table.json(launches)), flush=True)

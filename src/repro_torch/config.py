@@ -20,10 +20,20 @@ from dataclasses import dataclass, field, fields, is_dataclass
 from typing import Any, Dict, List, Tuple
 
 # the layer kinds the port runs ("swa" and "local" are windowed attention
-# on a ring cache); the JAX package's others wait in ROADMAP.md's port
-# queue, under the item named here
-PORTED_KINDS = ("attn", "swa", "local", "mamba")
-UNPORTED_KINDS = {"rglru": 16, "mla": 16}
+# on a ring cache; an attention kind runs MLA when ``mla.enabled``)
+PORTED_KINDS = ("attn", "swa", "local", "rglru", "mamba")
+
+
+@dataclass
+class MLAConfig:
+    """Multi-head latent attention (deepseek-v3), read by the attention
+    layers when ``enabled``."""
+    enabled: bool = False
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
 
 
 @dataclass
@@ -33,6 +43,15 @@ class SSMConfig:
     d_conv: int = 4
     expand: int = 2
     dt_rank: int = 0                # 0 => ceil(d_model/16)
+
+
+@dataclass
+class RGLRUConfig:
+    """RG-LRU recurrent block (recurrentgemma), read by the "rglru"
+    layers."""
+    enabled: bool = False
+    lru_width: int = 0              # 0 => d_model
+    conv1d_width: int = 4
 
 
 @dataclass
@@ -52,7 +71,7 @@ class MoEConfig:
 @dataclass
 class ModelConfig:
     name: str = "tiny"
-    family: str = "dense"           # dense | moe | ssm | vlm | audio
+    family: str = "dense"           # dense | moe | ssm | hybrid | vlm | audio
     num_layers: int = 2
     d_model: int = 128
     num_heads: int = 4
@@ -61,8 +80,8 @@ class ModelConfig:
     d_ff: int = 512
     vocab_size: int = 512
     max_seq_len: int = 8192
-    # block kinds ("attn" | "swa" | "local" | "mamba"), cycled over the
-    # layer stack
+    # block kinds ("attn" | "swa" | "local" | "rglru" | "mamba"), cycled
+    # over the layer stack
     block_pattern: Tuple[str, ...] = ("attn",)
     window_size: int = 0            # swa/local attention window (0 = full)
     norm: str = "rmsnorm"           # rmsnorm | layernorm
@@ -75,8 +94,10 @@ class ModelConfig:
     logits_softcap: float = 0.0     # tanh(logits / c) * c when > 0
     attn_logits_softcap: float = 0.0    # the same on attention scores
     dtype: str = "bfloat16"         # compute dtype
-    ssm: SSMConfig = field(default_factory=SSMConfig)
     moe: MoEConfig = field(default_factory=MoEConfig)
+    mla: MLAConfig = field(default_factory=MLAConfig)
+    ssm: SSMConfig = field(default_factory=SSMConfig)
+    rglru: RGLRUConfig = field(default_factory=RGLRUConfig)
     # encoder-decoder (whisper): a bidirectional encoder of encoder_layers
     # over encoder_seq_len precomputed frames, read by the decoder's
     # cross-attention
@@ -87,6 +108,9 @@ class ModelConfig:
     # frontend_tokens precomputed embeddings are prepended at prefill
     frontend: str = "none"
     frontend_tokens: int = 0
+    # multi-token prediction (deepseek): an "mtp" subtree when > 0
+    # (transformer.mtp_logits)
+    mtp_depth: int = 0
     # False selects the JAX package's naive fp32 attention baseline, which
     # is not ported (ROADMAP.md queue 1 item 22): attention raises on it
     opt_attention: bool = True
@@ -96,16 +120,12 @@ class ModelConfig:
             self.head_dim = self.d_model // self.num_heads
         if "mamba" in self.layer_kinds and self.ssm.dt_rank == 0:
             self.ssm.dt_rank = max(1, -(-self.d_model // 16))
+        if self.rglru.enabled and self.rglru.lru_width == 0:
+            self.rglru.lru_width = self.d_model
         bad = sorted(set(self.block_pattern) - set(PORTED_KINDS))
         if bad:
-            items = sorted({UNPORTED_KINDS[k] for k in bad
-                            if k in UNPORTED_KINDS})
-            where = (f"item {', '.join(map(str, items))}" if items
-                     else "'Modules to port'")
-            raise ValueError(
-                f"block kinds {bad} are not ported to repro_torch yet "
-                f"(ported: {list(PORTED_KINDS)}); see ROADMAP.md, queue 1 "
-                f"{where}")
+            raise ValueError(f"unknown block kinds {bad} (the port runs "
+                             f"{list(PORTED_KINDS)})")
 
     @property
     def layer_kinds(self) -> Tuple[str, ...]:

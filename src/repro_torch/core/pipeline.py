@@ -27,6 +27,12 @@ expert that saw fewer routed tokens than one quant group is RTN-quantized
 (a mask inside its group, core/plan.py). Capacity-dropped assignments
 reach no Hessian; the report counts them per layer.
 
+Every layer kind goes through the same capture: an MLA mixer's seven
+linears (``q_down, q_up, kv_down, k_rope, k_up, v_up, o``) and an RG-LRU
+mixer's five (``in, gate, rg, ig, out``) are named denses; the RG-LRU's
+conv taps are no dense, so they get no Hessian and stay float, as in the
+JAX package.
+
 An encoder-decoder walks its encoder layers on the encoder stream, then,
 behind a :class:`~repro_torch.core.stream.StreamSwitch` fence, its decoder
 layers on the decoder stream (:func:`_walker_encdec`).
@@ -408,7 +414,10 @@ def pack_for_serving(cfg: Config, params_q: Dict) -> Dict:
     layout of ``core.quant.pack_int4``). A stacked expert weight (E, in,
     out) packs as one (E·out, in) matrix on its ``{name}_qscales`` /
     ``{name}_qzeros`` grid into a ``QuantizedTensor`` with a leading
-    expert axis. Norms, embeddings, lm_head and a MoE router stay float.
+    expert axis. Norms, embeddings, lm_head and a MoE router stay float;
+    so does an MTP head's ``mtp.proj``, while its ``mtp.layer`` linears,
+    under a ``mixer`` / ``mlp`` key but never calibrated, are packed on a
+    fresh grid (the reference's walk).
     """
     qc = cfg.quant
 

@@ -23,7 +23,8 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("hessian_accum", "gptq_block", "rpiq_block", "w4a16_matmul",
-           "int8_kv_attention", "quant_pack", "selective_scan")
+           "int8_kv_attention", "int8_kv_attention_r16", "quant_pack",
+           "selective_scan")
 BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # the sweep kernels and the scan's state update must round `a - b*c` and
@@ -142,6 +143,11 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
             + [f, p],
             "int8_kv_attention_bf16_launch": [p] * 7 + [i] * 8 + [p] * 2
             + [f, p]},
+        "int8_kv_attention_r16": {
+            "int8_kv_attention_r16_f32_launch": [p] * 7 + [i] * 7
+            + [p] * 2 + [f, p],
+            "int8_kv_attention_r16_bf16_launch": [p] * 7 + [i] * 7
+            + [p] * 2 + [f, p]},
         "quant_pack": {
             "quant_pack_f32_launch": [p] * 4 + [i] * 3 + [p],
             "quant_pack_bf16_launch": [p] * 4 + [i] * 3 + [p]},

@@ -589,6 +589,8 @@ def rpiq_block(w_init: Tensor, w_fp: Tensor, x_last: Tensor,
 # history slots a tile of the int8_kv_attention kernel; its ranges are
 # whole tiles
 KV_TILE = 128
+# the most query rows a kv-head the kernel takes
+KV_MAX_R = 16
 
 
 @functools.lru_cache(maxsize=1024)
@@ -654,7 +656,7 @@ def int8_kv_attention_cuda(q: Tensor, k_codes: Tensor, k_scales: Tensor,
                  and k_scales.shape == v_scales.shape == (b, s, kv, nb)
                  and kpos.shape == (b, s))
     if not (ok_types and ok_shapes and kv_block and hd % kv_block == 0
-            and kv_block % 4 == 0 and 1 <= r <= 8 and hd % 4 == 0
+            and kv_block % 4 == 0 and 1 <= r <= KV_MAX_R and hd % 4 == 0
             and hd <= 256 and nb <= 8 and k_codes.data_ptr() % align == 0
             and v_codes.data_ptr() % align == 0 and softcap >= 0):
         raise ValueError(
@@ -666,28 +668,36 @@ def int8_kv_attention_cuda(q: Tensor, k_codes: Tensor, k_scales: Tensor,
             f"softcap {softcap}: the "
             "kernel takes int8 codes (B, S, KV, hd), f32 scales (B, S, KV, "
             "hd/kv_block), int32 kpos (B, S), kv_block a multiple of 4 "
-            "dividing hd, R <= 8 query rows per kv-head, hd a multiple of "
+            "dividing hd, R <= 16 query rows per kv-head, hd a multiple of "
             "4 up to 256, at most 8 scale blocks per row, codes aligned to "
             "their loads (16 bytes where hd is a multiple of 16, else 4) "
             "and softcap >= 0")
-    lib = build.load(op)
-    if q.dtype == torch.float32:
-        fn = lib.int8_kv_attention_f32_launch
-    elif q.dtype == torch.bfloat16:
-        fn = lib.int8_kv_attention_bf16_launch
-    else:
+    if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{op}: q dtype {q.dtype} not supported")
+    suffix = "f32" if q.dtype == torch.float32 else "bf16"
+    # R 1 to 8 has an instantiation each; 9 to 16 runs the R-16 one (its
+    # own source, whose launch takes no R), a group under 16 padded with
+    # zero rows whose outputs are dropped
+    rk = r if r <= 8 else KV_MAX_R
+    if rk == KV_MAX_R:
+        fn = getattr(build.load("int8_kv_attention_r16"),
+                     f"int8_kv_attention_r16_{suffix}_launch")
+        r_arg = ()
+        q = torch.nn.functional.pad(q, (0, 0, 0, rk - r))
+    else:
+        fn = getattr(build.load(op), f"int8_kv_attention_{suffix}_launch")
+        r_arg = (rk,)
     splits, per = int8_kv_attention_geometry(b, kv, s)
     tickets = work = 0
     if splits > 1:
         tickets, work = _kv_workspace(q, b * kv,
-                                      b * kv * splits * (r * hd + 2 * r))
+                                      b * kv * splits * (rk * hd + 2 * rk))
     out = torch.empty_like(q)
     _launch(op, fn, q.data_ptr(), k_codes.data_ptr(), k_scales.data_ptr(),
             v_codes.data_ptr(), v_scales.data_ptr(), kpos.data_ptr(),
-            out.data_ptr(), b, s, kv, r, hd, kv_block, splits, per, work,
-            tickets, softcap, _stream())
-    return out
+            out.data_ptr(), b, s, kv, *r_arg, hd, kv_block, splits, per,
+            work, tickets, softcap, _stream())
+    return out[:, :, :r] if rk != r else out
 
 
 def int8_kv_attention(q: Tensor, k_codes: Tensor, k_scales: Tensor,

@@ -1,5 +1,6 @@
 """Grouped-query attention: self-attention forward, prefill and decode,
-and the encoder-decoder's cross-attention.
+the encoder-decoder's cross-attention, and deepseek's multi-head latent
+attention (MLA, at the end of the module).
 
 The math mirrors the JAX package's ``opt_attention`` path: queries are
 pre-scaled in fp32 and cast to the compute dtype, scores and values are
@@ -347,3 +348,138 @@ def cross_attention(cfg: ModelConfig, p: Dict, x: Tensor, kv_cache: Dict,
     o = _attend_chunked(q, k, v, zeros.expand(b, s),
                         zeros.expand(b, k.shape[1]), causal=False)
     return dense(p["o"], o.reshape(b, s, -1), f"{name}.o")
+
+
+# ---------------------------------------------------------------------------
+# MLA: multi-head latent attention (deepseek-v3)
+# ---------------------------------------------------------------------------
+#
+# A token's keys and values come from its latent ckv = x W_kv_down (rank
+# kv_lora_rank) and one RoPE'd key k_rope = x W_k_rope shared by all heads;
+# queries from x W_q_down W_q_up. The cache holds only the latents:
+# ``{"ckv": (B, S, kv_lora_rank), "krope": (B, S, qk_rope_head_dim)}`` in
+# a float dtype (bf16 where the attention caches are int8, as the JAX
+# package's ``_float_cache_dtype``). Every attention re-expands the
+# latents through k_up / v_up: at decode the whole cache each step, as the
+# reference computes it (the absorbed-weight form is another arithmetic).
+# q and k are the nope ‖ rope concatenation (width nope + rope), v is
+# zero-padded to that width for the shared attention and sliced after it.
+
+def init_mla(cfg: ModelConfig, gen: torch.Generator, device) -> Dict:
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.num_heads
+    qk_hd = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "q_down": init_dense(gen, d, m.q_lora_rank, device=device),
+        "q_up": init_dense(gen, m.q_lora_rank, h * qk_hd, device=device),
+        "kv_down": init_dense(gen, d, m.kv_lora_rank, device=device),
+        "k_rope": init_dense(gen, d, m.qk_rope_head_dim, device=device),
+        "k_up": init_dense(gen, m.kv_lora_rank, h * m.qk_nope_head_dim,
+                           device=device),
+        "v_up": init_dense(gen, m.kv_lora_rank, h * m.v_head_dim,
+                           device=device),
+        "o": init_dense(gen, h * m.v_head_dim, d,
+                        scale=(h * m.v_head_dim) ** -0.5, device=device),
+    }
+
+
+def _mla_qkv(cfg: ModelConfig, p: Dict, x: Tensor, positions: Tensor,
+             name: str):
+    """x (B, S, D) → (q_nope, q_rope (B, S, H, ·), ckv (B, S, rank),
+    k_rope (B, S, rope)), the rope halves rotated."""
+    _refuse_naive_baseline(cfg)
+    m = cfg.mla
+    b, s, _ = x.shape
+    ql = dense(p["q_down"], x, f"{name}.q_down")
+    q = dense(p["q_up"], ql, f"{name}.q_up").reshape(
+        b, s, cfg.num_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    ckv = dense(p["kv_down"], x, f"{name}.kv_down")
+    k_rope = dense(p["k_rope"], x, f"{name}.k_rope")
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0, :]
+    return q_nope, q_rope, ckv, k_rope
+
+
+def _mla_attend(cfg: ModelConfig, p: Dict, q_nope: Tensor, q_rope: Tensor,
+                ckv: Tensor, k_rope: Tensor, q_positions: Tensor,
+                kv_positions: Tensor, name: str) -> Tensor:
+    """Expand the latents ckv (B, Sk, rank) to per-head K/V, attend
+    causally, project out: (B, Sq, D)."""
+    m = cfg.mla
+    b, sk = ckv.shape[:2]
+    h = cfg.num_heads
+    k_nope = dense(p["k_up"], ckv, f"{name}.k_up").reshape(
+        b, sk, h, m.qk_nope_head_dim)
+    v = dense(p["v_up"], ckv, f"{name}.v_up").reshape(b, sk, h,
+                                                      m.v_head_dim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    kr = k_rope[:, :, None, :].expand(b, sk, h, m.qk_rope_head_dim)
+    k = torch.cat([k_nope, kr], dim=-1)
+    qk_hd = m.qk_nope_head_dim + m.qk_rope_head_dim
+    if m.v_head_dim < qk_hd:
+        v = torch.nn.functional.pad(v, (0, qk_hd - m.v_head_dim))
+    o = _attend_chunked(q, k, v, q_positions, kv_positions,
+                        softcap=cfg.attn_logits_softcap)[..., :m.v_head_dim]
+    return dense(p["o"], o.reshape(b, o.shape[1], -1), f"{name}.o")
+
+
+def mla_forward(cfg: ModelConfig, p: Dict, x: Tensor, positions: Tensor,
+                name: str = "attn") -> Tensor:
+    """Causal MLA over a full sequence (no cache). x (B, S, D)."""
+    q_nope, q_rope, ckv, k_rope = _mla_qkv(cfg, p, x, positions, name)
+    return _mla_attend(cfg, p, q_nope, q_rope, ckv, k_rope, positions,
+                       positions, name)
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, device,
+                   dtype: torch.dtype = torch.bfloat16) -> Dict:
+    m = cfg.mla
+    return {"ckv": torch.zeros((batch, max_len, m.kv_lora_rank),
+                               dtype=dtype, device=device),
+            "krope": torch.zeros((batch, max_len, m.qk_rope_head_dim),
+                                 dtype=dtype, device=device)}
+
+
+def mla_prefill(cfg: ModelConfig, p: Dict, x: Tensor, positions: Tensor,
+                cache: Dict, name: str = "attn",
+                start: Optional[int] = None) -> Tuple[Tensor, Dict]:
+    """MLA over the prompt and the latent cache write at [0, S), in place.
+    ``start``: the chunked prefill's continuation, ``x`` at positions
+    ``[start, start + S)``: the queries attend to the cached latents of
+    the positions before ``start`` (read before the chunk writes) and the
+    chunk's own, and the chunk is written at ``[start, start + S)``."""
+    q_nope, q_rope, ckv, k_rope = _mla_qkv(cfg, p, x, positions, name)
+    if start is None:
+        y = _mla_attend(cfg, p, q_nope, q_rope, ckv, k_rope, positions,
+                        positions, name)
+    else:
+        b = x.shape[0]
+        last = torch.full((b,), start - 1, dtype=torch.long, device=x.device)
+        old = cache_key_positions(last, cache["ckv"].shape[1])
+        y = _mla_attend(cfg, p, q_nope, q_rope,
+                        torch.cat([cache["ckv"].to(x.dtype), ckv], dim=1),
+                        torch.cat([cache["krope"].to(x.dtype), k_rope],
+                                  dim=1),
+                        positions, torch.cat([old, positions], dim=1), name)
+    off, s = start or 0, x.shape[1]
+    cache["ckv"][:, off:off + s] = ckv.to(cache["ckv"].dtype)
+    cache["krope"][:, off:off + s] = k_rope.to(cache["krope"].dtype)
+    return y, cache
+
+
+def mla_decode(cfg: ModelConfig, p: Dict, x: Tensor, pos: Tensor,
+               cache: Dict, name: str = "attn") -> Tuple[Tensor, Dict]:
+    """One-token MLA decode against the latent cache. x (B, 1, D); pos
+    (B,). The token's latents are written in place at slot ``pos``; then
+    the whole cache is expanded and attended (slots past ``pos`` masked)."""
+    b = x.shape[0]
+    q_nope, q_rope, ckv, k_rope = _mla_qkv(cfg, p, x, pos[:, None], name)
+    bidx = torch.arange(b, device=x.device)
+    cache["ckv"][bidx, pos] = ckv[:, 0].to(cache["ckv"].dtype)
+    cache["krope"][bidx, pos] = k_rope[:, 0].to(cache["krope"].dtype)
+    kpos = cache_key_positions(pos, cache["ckv"].shape[1])
+    y = _mla_attend(cfg, p, q_nope, q_rope, cache["ckv"].to(x.dtype),
+                    cache["krope"].to(x.dtype), pos[:, None], kpos, name)
+    return y, cache

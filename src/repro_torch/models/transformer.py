@@ -1,19 +1,24 @@
 """Model assembly: decoder-only LMs of attention + dense-MLP layers
 (opt-proxy, internlm2, minicpm, stablelm, pixtral; windowed attention on a
-ring cache for h2o-danube), attention + routed-MoE layers (olmoe) and
-Mamba-1 layers (falcon-mamba), and the encoder-decoder (whisper).
+ring cache for h2o-danube), attention + routed-MoE layers (olmoe), MLA +
+dense / routed-MoE layers with an MTP head (deepseek), RG-LRU and local
+attention layers (recurrentgemma), Mamba-1 layers (falcon-mamba), and the
+encoder-decoder (whisper).
 
 ``layer_specs(cfg)`` expands the block pattern into one ``(mixer, mlp)``
 spec per layer, as the JAX package does: ``("attn", "dense")``,
 ``("swa", "dense")`` / ``("local", "dense")`` (attention over the last
-``window_size`` positions), ``("attn", "moe")`` (a config with
+``window_size`` positions), ``("mla", ·)`` (an attention kind when
+``mla.enabled``), ``("rglru", "dense")``, ``(·, "moe")`` (a config with
 ``moe.num_experts`` > 0, from layer ``moe.first_dense_layers`` on) or
 ``("mamba", "none")``; every per-layer function branches on it.
 
 Param layout: ``{"embed": {...}, "layers": [layer, ...], "final_norm":
 {...}, "lm_head": {...}}`` — a plain per-layer list where the JAX package
 stacks layers along a scan axis (``convert.params_from_numpy`` unstacks);
-a model with tied embeddings has no ``lm_head``. ``forward`` and
+a model with tied embeddings has no ``lm_head``; a config with
+``mtp_depth`` > 0 adds ``"mtp": {"proj": (2d → d), "norm", "layer"}``, a
+layer of the last layer's spec (:func:`mtp_logits`). ``forward`` and
 ``prefill`` take optional frontend ``embeds`` (B, F, D), prepended to the
 token embeddings in the compute dtype (pixtral's patch embeddings), so the
 text starts at position F.
@@ -21,8 +26,10 @@ An attention layer is ``{"norm1", "mixer": {q, k, v, o}, "norm2", "mlp":
 {up, down (, gate)}}``; a routed-MoE layer's ``"mlp"`` is ``{router: {w},
 w_gate, w_up: (E, d, f), w_down: (E, f, d) (, shared)}`` (models/moe.py); a
 Mamba layer is ``{"norm1", "mixer": {in, conv,
-x, dt, a_log, d_skip, out}}`` with no ``norm2`` and no ``mlp``. Dense
-weights are stored (in, out).
+x, dt, a_log, d_skip, out}}`` with no ``norm2`` and no ``mlp``; an MLA
+mixer is ``{q_down, q_up, kv_down, k_rope, k_up, v_up, o}``, an RG-LRU
+mixer ``{in, gate, conv, rg, ig, lambda, out}``. Dense weights are stored
+(in, out).
 
 Encoder-decoder layout (whisper), the JAX package's nesting with per-layer
 lists where it stacks along a scan axis: ``{"encoder": {"layers":
@@ -39,8 +46,9 @@ float (bf16 when the self-cache is int8, as the JAX package's
 The chunked prefill (``prefill_begin`` / ``prefill_step`` /
 ``prefill_finish``, ``prefill_chunked`` and the ``encdec_*`` twins) runs
 a prompt some positions at a time: each chunk's attention reads the
-history from the cache (attention.attention_prefill's ``start``), a
-Mamba layer carries its state on, and a routed-MoE layer dispatches the
+history from the cache (attention.attention_prefill's and mla_prefill's
+``start``), a Mamba or RG-LRU layer carries its state on, and a routed-MoE
+layer dispatches the
 chunk at the chunk's own expert capacity, as the JAX package does. The
 slotted cache of the continuous engine (``cache_slots_like`` /
 ``cache_slot_insert`` / ``cache_slot_evict``) keeps every cache leaf's
@@ -60,7 +68,7 @@ from repro_torch.models import recurrent as rec
 from repro_torch.models.layers import (embed, init_embed, init_mlp,
                                        init_norm, mlp, norm,
                                        sinusoidal_positions, unembed)
-from repro_torch.models.linear import init_dense
+from repro_torch.models.linear import dense, init_dense
 
 Tensor = torch.Tensor
 LayerSpec = Tuple[str, str]     # (mixer, mlp)
@@ -79,9 +87,10 @@ def layer_specs(cfg: ModelConfig) -> Tuple[LayerSpec, ...]:
     def spec(i: int, kind: str) -> LayerSpec:
         if kind == "mamba":
             return ("mamba", "none")
+        mixer = "mla" if cfg.mla.enabled and kind != "rglru" else kind
         routed = (cfg.moe.num_experts > 0
                   and i >= cfg.moe.first_dense_layers)
-        return (kind, "moe" if routed else "dense")
+        return (mixer, "moe" if routed else "dense")
     return tuple(spec(i, kind) for i, kind in enumerate(cfg.layer_kinds))
 
 
@@ -92,6 +101,10 @@ def init_layer(cfg: ModelConfig, spec: LayerSpec, gen: torch.Generator,
     p = {"norm1": init_norm(cfg, cfg.d_model, device)}
     if mixer == "mamba":
         p["mixer"] = rec.init_mamba_block(cfg, gen, device)
+    elif mixer == "rglru":
+        p["mixer"] = rec.init_rglru_block(cfg, gen, device)
+    elif mixer == "mla":
+        p["mixer"] = attn.init_mla(cfg, gen, device)
     else:
         p["mixer"] = attn.init_attention(cfg, gen, bias, device)
     if mlp_kind != "none":
@@ -115,30 +128,42 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device) -> Dict:
     if not cfg.tie_embeddings:
         params["lm_head"] = init_dense(gen, cfg.d_model, cfg.vocab_size,
                                        device=device)
+    if cfg.mtp_depth > 0:
+        params["mtp"] = {
+            "proj": init_dense(gen, 2 * cfg.d_model, cfg.d_model,
+                               device=device),
+            "norm": init_norm(cfg, cfg.d_model, device),
+            "layer": init_layer(cfg, layer_specs(cfg)[-1], gen, device)}
     return params
 
 
-def _mlp_residual(cfg: ModelConfig, spec: LayerSpec, p: Dict, h: Tensor
-                  ) -> Tensor:
+def _mlp_residual(cfg: ModelConfig, spec: LayerSpec, p: Dict, h: Tensor,
+                  name: str = "") -> Tensor:
     if spec[1] == "none":
         return h
     hn = norm(cfg, p["norm2"], h)
     if spec[1] == "moe":
-        return h + moe_mod.moe_ffn(cfg, p["mlp"], hn, name="mlp").y
-    return h + mlp(cfg, p["mlp"], hn, name="mlp")
+        return h + moe_mod.moe_ffn(cfg, p["mlp"], hn, name=f"{name}mlp").y
+    return h + mlp(cfg, p["mlp"], hn, name=f"{name}mlp")
 
 
 def layer_forward(cfg: ModelConfig, spec: LayerSpec, p: Dict, h: Tensor,
-                  positions: Tensor) -> Tensor:
-    """One layer over a full sequence (no cache)."""
+                  positions: Tensor, name: str = "") -> Tensor:
+    """One layer over a full sequence (no cache); its linears are tapped
+    as ``{name}mixer.*`` / ``{name}mlp.*``."""
     hn = norm(cfg, p["norm1"], h)
+    mixer = f"{name}mixer"
     if spec[0] == "mamba":
-        y, _ = rec.mamba_block(cfg, p["mixer"], hn, None, name="mixer")
+        y, _ = rec.mamba_block(cfg, p["mixer"], hn, None, name=mixer)
+    elif spec[0] == "rglru":
+        y, _ = rec.rglru_block(cfg, p["mixer"], hn, None, name=mixer)
+    elif spec[0] == "mla":
+        y = attn.mla_forward(cfg, p["mixer"], hn, positions, name=mixer)
     else:
         y = attn.attention_forward(cfg, p["mixer"], hn, positions,
                                    window=_window_of(cfg, spec[0]),
-                                   name="mixer")
-    return _mlp_residual(cfg, spec, p, h + y)
+                                   name=mixer)
+    return _mlp_residual(cfg, spec, p, h + y, name)
 
 
 def positions_for(b: int, s: int, device) -> Tensor:
@@ -160,17 +185,43 @@ def forward(cfg: ModelConfig, params: Dict, tokens: Tensor,
             embeds: Optional[Tensor] = None) -> Tensor:
     """Full-sequence forward → logits (B, F + S, V) f32 (F frontend
     positions first)."""
+    return forward_hidden(cfg, params, tokens, embeds)[0]
+
+
+def forward_hidden(cfg: ModelConfig, params: Dict, tokens: Tensor,
+                   embeds: Optional[Tensor] = None
+                   ) -> Tuple[Tensor, Tensor]:
+    """:func:`forward` that also returns the final-normed hidden states
+    (B, F + S, D), the input of the MTP head (:func:`mtp_logits`)."""
     h = embed_inputs(cfg, params, tokens, embeds)
     b, s, _ = h.shape
     positions = positions_for(b, s, h.device)
     for spec, p in zip(layer_specs(cfg), params["layers"]):
         h = layer_forward(cfg, spec, p, h, positions)
-    return unembed(cfg, params, norm(cfg, params["final_norm"], h))
+    h = norm(cfg, params["final_norm"], h)
+    return unembed(cfg, params, h), h
+
+
+def mtp_logits(cfg: ModelConfig, params: Dict, h_final: Tensor,
+               tokens: Tensor) -> Tensor:
+    """deepseek's multi-token prediction head: position t predicts token
+    t + 2 from (h_t, e_{t+1}). h_final (B, S, D) the final-normed hidden
+    states, tokens (B, S) → logits (B, S - 1, V) f32. Training reads it
+    (the JAX package's train step); serving does not."""
+    p = params["mtp"]
+    e_next = embed(params["embed"], tokens[:, 1:], h_final.dtype)
+    h0 = dense(p["proj"], torch.cat([h_final[:, :-1], e_next], dim=-1),
+               "mtp.proj")
+    b, s, _ = h0.shape
+    h1 = layer_forward(cfg, layer_specs(cfg)[-1], p["layer"], h0,
+                       positions_for(b, s, h0.device), name="mtp.")
+    return unembed(cfg, params, norm(cfg, p["norm"], h1))
 
 
 def _float_cache_dtype(dtype: CacheDtype) -> torch.dtype:
-    """A cache that stays in float (a Mamba state, an enc-dec cross cache)
-    takes bf16 where the attention caches are int8."""
+    """A cache that stays in float (an MLA latent cache, a recurrent
+    state, an enc-dec cross cache) takes bf16 where the attention caches
+    are int8."""
     return torch.bfloat16 if dtype == "int8" else dtype
 
 
@@ -179,12 +230,18 @@ def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
                      dtype: CacheDtype = torch.bfloat16) -> Dict:
     """``dtype`` may be ``"int8"``: the quantized KV-cache layout
     (attention.init_kv_cache); a windowed layer's cache is a ring of
-    ``min(window_size, max_len)`` slots; a Mamba layer's recurrent state
-    stays in float and takes bf16 for it, as the JAX package's
-    ``_float_cache_dtype`` does."""
+    ``min(window_size, max_len)`` slots; an MLA latent cache and a Mamba
+    or RG-LRU layer's recurrent state stay in float and take bf16 for it,
+    as the JAX package's ``_float_cache_dtype`` does."""
     if spec[0] == "mamba":
         return rec.init_mamba_state(cfg, batch, device,
                                     _float_cache_dtype(dtype))
+    if spec[0] == "rglru":
+        return rec.init_rglru_state(cfg, batch, device,
+                                    _float_cache_dtype(dtype))
+    if spec[0] == "mla":
+        return attn.init_mla_cache(cfg, batch, max_len, device,
+                                   _float_cache_dtype(dtype))
     if _window_of(cfg, spec[0]) > 0:
         max_len = min(cfg.window_size, max_len)
     return attn.init_kv_cache(cfg, batch, max_len, device, dtype)
@@ -201,11 +258,17 @@ def layer_prefill(cfg: ModelConfig, spec: LayerSpec, p: Dict, h: Tensor,
                   positions: Tensor, cache: Dict,
                   start: Optional[int] = None) -> Tuple[Tensor, Dict]:
     """One layer over prompt positions, writing its cache (``start``: the
-    chunked prefill's continuation, attention.attention_prefill); a Mamba
-    layer carries its state on from ``cache``."""
+    chunked prefill's continuation, attention.attention_prefill and
+    mla_prefill); a Mamba or RG-LRU layer carries its state on from
+    ``cache`` and returns a new one."""
     hn = norm(cfg, p["norm1"], h)
     if spec[0] == "mamba":
         y, cache = rec.mamba_block(cfg, p["mixer"], hn, cache, name="mixer")
+    elif spec[0] == "rglru":
+        y, cache = rec.rglru_block(cfg, p["mixer"], hn, cache, name="mixer")
+    elif spec[0] == "mla":
+        y, cache = attn.mla_prefill(cfg, p["mixer"], hn, positions, cache,
+                                    name="mixer", start=start)
     else:
         y, cache = attn.attention_prefill(
             cfg, p["mixer"], hn, positions, cache,
@@ -247,11 +310,11 @@ def prefill_step(cfg: ModelConfig, params: Dict, h_chunk: Tensor,
                  start: int, caches: List[Dict]
                  ) -> Tuple[Tensor, List[Dict]]:
     """One prefill chunk at positions [start, start + C): each attention
-    layer attends to its cached history and the chunk, each Mamba layer
-    carries its state on, and a routed-MoE layer dispatches the chunk's
-    tokens at the chunk's own expert capacity. Returns the chunk's block
-    output and ``caches`` (attention caches written in place, Mamba states
-    replaced)."""
+    layer attends to its cached history and the chunk, each Mamba or
+    RG-LRU layer carries its state on, and a routed-MoE layer dispatches
+    the chunk's tokens at the chunk's own expert capacity. Returns the
+    chunk's block output and ``caches`` (attention and latent caches
+    written in place, recurrent states replaced)."""
     b, c, _ = h_chunk.shape
     positions = _positions_from(start, b, c, h_chunk.device)
     h = h_chunk
@@ -294,16 +357,27 @@ def decode_step(cfg: ModelConfig, params: Dict, token: Tensor, pos: Tensor,
     captured step replays on the same buffers)."""
     h = embed(params["embed"], token[:, None], compute_dtype(cfg))
     for spec, p, cache in zip(layer_specs(cfg), params["layers"], caches):
-        hn = norm(cfg, p["norm1"], h)
-        if spec[0] == "mamba":
-            y, _ = rec.mamba_decode(cfg, p["mixer"], hn, cache, name="mixer")
-        else:
-            y, _ = attn.attention_decode(cfg, p["mixer"], hn, pos, cache,
-                                         window=_window_of(cfg, spec[0]),
-                                         name="mixer")
-        h = _mlp_residual(cfg, spec, p, h + y)
+        h = layer_decode(cfg, spec, p, h, pos, cache)
     h = norm(cfg, params["final_norm"], h)
     return unembed(cfg, params, h)[:, 0], caches
+
+
+def layer_decode(cfg: ModelConfig, spec: LayerSpec, p: Dict, h: Tensor,
+                 pos: Tensor, cache: Dict) -> Tensor:
+    """One layer's decode step at positions pos (B,), its cache or state
+    written in place."""
+    hn = norm(cfg, p["norm1"], h)
+    if spec[0] == "mamba":
+        y, _ = rec.mamba_decode(cfg, p["mixer"], hn, cache, name="mixer")
+    elif spec[0] == "rglru":
+        y, _ = rec.rglru_decode(cfg, p["mixer"], hn, cache, name="mixer")
+    elif spec[0] == "mla":
+        y, _ = attn.mla_decode(cfg, p["mixer"], hn, pos, cache, name="mixer")
+    else:
+        y, _ = attn.attention_decode(cfg, p["mixer"], hn, pos, cache,
+                                     window=_window_of(cfg, spec[0]),
+                                     name="mixer")
+    return _mlp_residual(cfg, spec, p, h + y)
 
 
 # ---------------------------------------------------------------------------

@@ -85,7 +85,8 @@ TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 CASES = [(a, d) for a in ARCHS for d in ("float32", "bfloat16")]
 # the fields of the port's ModelConfig, all of them also JAX's
 FIELDS = [f.name for f in dataclasses.fields(
-    tget_config("opt-proxy").model) if f.name not in ("ssm", "moe")]
+    tget_config("opt-proxy").model)
+    if f.name not in ("ssm", "moe", "mla", "rglru")]
 
 
 def t(a):
@@ -123,7 +124,9 @@ def test_config_matches_jax(arch, smoke):
     j, tc = jget_config(arch, smoke=smoke), tget_config(arch, smoke=smoke)
     for f in FIELDS + ["layer_kinds"]:
         assert getattr(tc.model, f) == getattr(j.model, f), f
-    assert dataclasses.asdict(tc.model.moe) == dataclasses.asdict(j.model.moe)
+    for sub in ("moe", "mla", "rglru"):
+        assert dataclasses.asdict(getattr(tc.model, sub)) == \
+            dataclasses.asdict(getattr(j.model, sub)), sub
     for f in ("bits", "group_size", "blocksize", "rpiq_iters", "rpiq_alpha"):
         assert getattr(tc.quant, f) == getattr(j.quant, f), f
 

@@ -179,7 +179,50 @@ def test_example_twins_raise_without_a_card(path):
     assert "CUDA device" in out.stderr and not out.stdout
 
 
-def test_unported_arch_names_the_roadmap():
+# the JAX registry's eleven architectures (its ARCH_IDS), then an id that
+# neither package knows
+JAX_ARCH_IDS = ["whisper-large-v3", "minicpm-2b", "h2o-danube-1.8b",
+                "stablelm-1.6b", "internlm2-1.8b", "recurrentgemma-9b",
+                "olmoe-1b-7b", "deepseek-v3-671b", "pixtral-12b",
+                "falcon-mamba-7b", "opt-proxy"]
+
+
+def _shared_fields(got, want, path="model"):
+    """(path, port value, JAX value) of every field the port's config
+    shares with the JAX config's, nested configs field by field."""
+    import dataclasses
+    names = {f.name for f in dataclasses.fields(want)}
+    for f in dataclasses.fields(got):
+        if f.name not in names:
+            continue
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        if dataclasses.is_dataclass(a):
+            yield from _shared_fields(a, b, f"{path}.{f.name}")
+        else:
+            yield f"{path}.{f.name}", a, b
+
+
+@pytest.mark.parametrize("arch", JAX_ARCH_IDS + ["no-such-arch"])
+def test_unported_arch_names_the_roadmap(arch):
+    """Every architecture of the JAX package resolves in the port, full and
+    smoke, to the JAX config's model fields (and quant group and
+    blocksize); an unknown id raises KeyError in both."""
+    from repro.configs import ARCH_IDS
+    from repro.configs import get_config as jget_config
     from repro_torch.configs import get_config
-    with pytest.raises(KeyError, match="ROADMAP.md, queue 1 item 16"):
-        get_config("deepseek-v3-671b")
+    assert sorted(ARCH_IDS) == sorted(JAX_ARCH_IDS)
+    if arch not in ARCH_IDS:
+        for fn in (get_config, jget_config):
+            with pytest.raises(KeyError):
+                fn(arch)
+        return
+    for smoke in (False, True):
+        got, want = get_config(arch, smoke=smoke), jget_config(arch,
+                                                              smoke=smoke)
+        shared = list(_shared_fields(got.model, want.model))
+        assert len(shared) >= 40
+        for path, a, b in shared:
+            assert a == b, (smoke, path, a, b)
+        assert got.model.layer_kinds == want.model.layer_kinds
+        assert (got.quant.group_size, got.quant.blocksize) == \
+            (want.quant.group_size, want.quant.blocksize)

@@ -340,6 +340,33 @@ def test_options_not_ported_raise(launcher, override, item, tmp_path):
 
 
 @pytest.mark.parametrize("launcher", ["quantize", "serve"])
+@pytest.mark.parametrize("arch,override", [
+    ("deepseek-v3-671b", "model.mla.qk_rope_head_dim=16"),
+    ("deepseek-v3-671b", "model.mtp_depth=0"),
+    ("recurrentgemma-9b", "model.rglru.conv1d_width=2"),
+    ("recurrentgemma-9b", "model.rglru.lru_width=32")])
+def test_new_arch_override_keys_are_taken(launcher, arch, override,
+                                          tmp_path):
+    """The JAX keys of the MLA, MTP and RG-LRU configs are taken by both
+    launchers on the two architectures that read them, and the run goes
+    to its end at the overridden width."""
+    argv = ["--arch", arch, "--smoke", "--device", "cpu"]
+    if launcher == "quantize":
+        argv += ["--out", str(tmp_path), f"train.ckpt_dir={tmp_path / 'n'}",
+                 "quant.calib_batches=1", "quant.calib_batch_size=2",
+                 "quant.calib_seq_len=16"]
+    else:
+        argv += ["--batch", "2", "--prompt-len", "8",
+                 "serve.max_new_tokens=2"]
+    mod = tlaunch_quantize if launcher == "quantize" else tlaunch_serve
+    out = mod.main(argv + [override])
+    if launcher == "quantize":
+        assert os.path.exists(out[0])
+    else:
+        assert tuple(out.tokens.shape) == (2, 2)
+
+
+@pytest.mark.parametrize("launcher", ["quantize", "serve"])
 @pytest.mark.parametrize("override", [
     "quant.act_order=true", "quant.keep_best_projection=false",
     "serve.quantized=false", "quant.moe_flip_budget=0.25",

@@ -231,10 +231,12 @@ def test_config_matches_jax():
 
 
 def test_unported_layer_kind_names_the_roadmap():
-    with pytest.raises(ValueError, match="ROADMAP"):
-        ModelConfig(block_pattern=("rglru",))
-    with pytest.raises(ValueError, match="ROADMAP.md, queue 1 item 16"):
-        ModelConfig(block_pattern=("attn", "mla"))
+    """Every layer kind of the JAX package is taken ("rglru" now too, and
+    MLA through ``mla.enabled``, not a kind); an unknown kind raises."""
+    assert ModelConfig(block_pattern=("rglru",)).layer_kinds == ("rglru",) * 2
+    for bad in (("attn", "mla"), ("conv",)):
+        with pytest.raises(ValueError, match="unknown block kinds"):
+            ModelConfig(block_pattern=bad)
 
 
 def test_convert_unstacks_the_mamba_segment():
