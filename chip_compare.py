@@ -3,9 +3,10 @@
 
     python3 chip_compare.py <checkout root> [section ...]
 
-Sections (all by default): hessian_accum, gptq_block (with rpiq_block),
-w4a16_matmul, int8_kv_attention, quant_pack, selective_scan,
-decode_walls, quantize_walls. Run it on two checkouts in turns inside one
+Sections (all but quantize_schedules by default): hessian_accum,
+gptq_block (with rpiq_block), w4a16_matmul, int8_kv_attention,
+quant_pack, selective_scan, decode_walls, quantize_walls,
+quantize_schedules. Run it on two checkouts in turns inside one
 call on one card (parent, change, change, parent; the parent unpacked
 with ``git archive`` into a directory that ``.gitignore`` lists) to
 compare them. It prints the checkout's build wall (every kernel from
@@ -71,8 +72,21 @@ per line: the checkout, the kernel and shape, and
   calibration (4 x 4 x 128), its wall and stage walls, and a sha256 over
   the packed artifact's tensors (equal across checkouts where the
   artifacts are bitwise equal): the layer walk and plan code every path
-  shares.
+  shares;
+- ``quantize_schedules`` (not in the default set): the layer walk's two
+  schedules (``quant.pipeline`` serial and overlap) in one process, on
+  internlm2-1.8b (4 x 4 x 128, phase 6's calibration) and olmoe-1b-7b
+  (4 x 4 x 512, phase 11's) at full width and depth, after a warm-up of
+  each schedule on a 2-layer cut: ``quantize_model`` in five pairs, the
+  pairs taking turns at which schedule runs first, each run's wall,
+  summed layer-step walls, quantization peak above the float params and
+  a sha256 over its packed tensors, then each schedule's median and
+  quartiles and the pairs overlap won; then one run
+  of each schedule under ``torch.profiler``: kernel time by CUDA stream,
+  the device's busy time (the union of the kernels' intervals) and the
+  idle share against the profiled wall.
 """
+import contextlib
 import inspect
 import os
 import sys
@@ -416,6 +430,8 @@ def main() -> int:
         decode_walls(root, dev)
     if "quantize_walls" in sections:
         quantize_walls(root, dev)
+    if "quantize_schedules" in sections:
+        quantize_schedules(root, dev)
     return 0
 
 
@@ -523,6 +539,106 @@ def quantize_walls(root: str, dev: str) -> None:
           flush=True)
     del params, params_q, packed
     torch.cuda.empty_cache()
+
+
+def quantize_schedules(root: str, dev: str) -> None:
+    """The two schedules of the layer walk, timed and hashed in one
+    process (module docstring)."""
+    import hashlib
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from chip_smoke import tensors_of
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipeline import pack_for_serving, quantize_model
+    from repro_torch.data import MarkovLM, calibration_batches
+    from repro_torch.models import transformer as T
+
+    def run(arch, calib_shape, pipeline, layers=0, prof=False):
+        cfg = get_config(arch)
+        cfg.quant.pipeline = pipeline
+        if layers:
+            cfg.model.num_layers = layers
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        params = T.init_params(cfg.model, gen, dev)
+        calib = calibration_batches(MarkovLM(cfg.model.vocab_size, seed=7),
+                                    *calib_shape)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ctx = (profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) if prof
+               else contextlib.nullcontext())
+        with ctx as p:
+            t0 = time.perf_counter()
+            params_q, report = quantize_model(cfg, params, calib)
+            wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - held
+        del params
+        packed = pack_for_serving(cfg, params_q)
+        del params_q
+        h = hashlib.sha256()
+        for t in tensors_of(packed):
+            h.update(t.detach().cpu().contiguous().reshape(-1)
+                     .view(torch.uint8).numpy().tobytes())
+        del packed
+        torch.cuda.empty_cache()
+        steps = sum(report.layer_step_seconds)
+        line = (f"{root} quantize_schedules {arch} {pipeline}"
+                f"{f' ({layers}-layer warm-up)' if layers else ''}"
+                f"{' (profiled)' if prof else ''}: quantize_model "
+                f"{wall:.3f} s, summed layer steps {steps:.3f} s, stage "
+                f"seconds s1={report.seconds_stage1:.3f} "
+                f"s2={report.seconds_stage2:.3f}, peak {peak} bytes "
+                f"above the float params, packed sha256 "
+                f"{h.hexdigest()[:16]}")
+        if prof:
+            spans, by_stream = [], {}
+            for e in p.events():
+                if e.device_type == torch.autograd.DeviceType.CUDA and \
+                        e.time_range.elapsed_us() > 0:
+                    spans.append((e.time_range.start, e.time_range.end))
+                    sid = getattr(e, "device_resource_id", None)
+                    by_stream[sid] = by_stream.get(sid, 0.0) + \
+                        e.time_range.elapsed_us() / 1e6
+            busy, end = 0.0, None
+            for a, b in sorted(spans):
+                if end is None or a > end:
+                    busy += b - a
+                    end = b
+                elif b > end:
+                    busy += b - end
+                    end = b
+            busy /= 1e6
+            line += (f"; kernel seconds by stream "
+                     f"{ {k: round(v, 3) for k, v in by_stream.items()} }, "
+                     f"device busy {busy:.3f} s, idle share "
+                     f"{1 - busy / wall:.3f}")
+        if report.pipeline_stats.get("spec_captures"):
+            line += f"; pipeline {report.pipeline_stats}"
+        print(line, flush=True)
+        return wall
+
+    for arch, calib_shape in (("internlm2-1.8b", (4, 4, 128)),
+                              ("olmoe-1b-7b", (4, 4, 512))):
+        for pipeline in ("serial", "overlap"):
+            run(arch, calib_shape, pipeline, layers=2)      # warm-up
+        walls = {"serial": [], "overlap": []}
+        for i in range(5):
+            order = ("serial", "overlap") if i % 2 == 0 \
+                else ("overlap", "serial")
+            for pipeline in order:
+                walls[pipeline].append(run(arch, calib_shape, pipeline))
+        q = {k: np.percentile(v, [25, 50, 75]) for k, v in walls.items()}
+        wins = sum(o < s for s, o in zip(walls["serial"], walls["overlap"]))
+        print(f"{root} quantize_schedules {arch}: quantize_model wall "
+              f"quartiles (s) serial {q['serial'].round(3).tolist()}, "
+              f"overlap {q['overlap'].round(3).tolist()}; overlap / serial "
+              f"medians {q['overlap'][1] / q['serial'][1]:.4f}; overlap "
+              f"faster in {wins} of 5 pairs", flush=True)
+        for pipeline in ("serial", "overlap"):
+            run(arch, calib_shape, pipeline, prof=True)
 
 
 if __name__ == "__main__":

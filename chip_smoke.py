@@ -105,6 +105,13 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
          pack_for_serving → generate called directly;
      8e. ``examples/torch_quickstart.py`` and
          ``examples/torch_quantize_and_serve.py`` on the card;
+     8f. 8a's ``launch.quantize`` with ``quant.pipeline=overlap``: its
+         artifact's sha256 equal to 8a's;
+     8g. the overlap run checkpointed and killed by the fault plane
+         (``faults.arm=plan.stage1_executor@19``, in layer 7 of 12), then
+         resumed without ``faults.arm``: the checkpoint's fingerprint
+         ignores the arming, the run resumes at walk item 6 and its
+         sha256 equals 8a's;
      with the walls (quantize total and stages, checkpoint save per step,
      artifact bytes and save / load, prefill, capture, replayed step and
      serve total) beside the card's name and power limit;
@@ -170,7 +177,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      token-identical is reported);
   13. the RG-LRU hybrid at full width: recurrentgemma-9b (d 4096, 16
      heads over one kv-head of 256, d_ff 12288, vocab 256000 tied) cut to
-     33 of 38 layers (11 whole periods: 38 do not fit quantization),
+     12 of 38 layers (4 whole periods: 38 do not fit quantization, and
+     12 keep the run inside its time limit since phase 15 came in),
      calibration 4 x 4 x 512 → quantize_model → pack_for_serving →
      generate on the bf16 ring and the int8 ring (4 x 512 + 32), then 1 x
      2040 + 32 on the int8 ring across its wrap, each replay bitwise its
@@ -183,11 +191,33 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      pack_for_serving (the MTP layer RTN-packed) → generate on the bf16
      latent cache (4 x 512 + 32), the replay bitwise eager; packed against
      refined logits and MTP logits in fp32, chunked against single-shot
-     prefill, the latent cache's bytes against the expanded K/V's.
+     prefill, the latent cache's bytes against the expanded K/V's;
+  15. the overlap schedule at full width and depth: olmoe-1b-7b on phase
+     11's weights and calibration (4 x 4 x 512) and internlm2-1.8b on
+     phase 6's (4 x 4 x 128), each ``quantize_model`` under
+     ``quant.pipeline=overlap`` (the next layer's capture ahead on a side
+     CUDA stream), its packed artifact held leaf by leaf by sha256 against
+     that phase's serial run, its report (modes, iterations, Γ
+     histories, capacity drops) equal to it; the whole ``pipeline_stats``,
+     the serial (phases 6 and 11) and overlap walls, summed layer-step
+     walls and quantization peaks beside the card; then each model cut to
+     2 layers, quantized under overlap inside ``torch.profiler``: the
+     ``hessian_accum`` kernels of the speculative capture on a second
+     stream.
 
 The line before the last is a JSON object with one entry per kernel
-(``launches`` sums phases 5 to 14); the last line is ``{"ok": true,
+(``launches`` sums phases 5 to 15); the last line is ``{"ok": true,
 "device": {...}}``.
+
+The process's CUDA allocator grows its segments in place
+(``PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True`` unless the caller
+sets the variable): phases 11 and 15 quantize olmoe-1b-7b within ~8 GiB
+of the card, and under the overlap schedule blocks freed on one stream
+are cached for that stream alone, so fixed-size segments could strand
+more than that margin (``launch.quantize`` sets the same default).
+Between phases the host's garbage is collected before the allocator's
+cache is emptied: an engine whose tick a phase wrapped in a closure is a
+reference cycle that would keep its weights and cache on the card.
 """
 from __future__ import annotations
 
@@ -202,6 +232,8 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+# read when the CUDA allocator starts, so set before torch touches the card
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 H100_FP32_FLOPS = 67e12      # FP32 on the CUDA cores (no tensor cores)
 H100_BF16_FLOPS = 989e12     # bf16 on the tensor cores, dense
@@ -351,6 +383,15 @@ class KernelTable:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SystemExit(f"FAILED: {what}")
+
+
+def release_device() -> None:
+    """Free what the phases before left unreferenced: collect reference
+    cycles first, then return the allocator's cached blocks."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def bf16_ulps(diff, want) -> float:
@@ -1853,6 +1894,41 @@ def _nbytes_bf16_vs_int4(pk) -> tuple:
     return bf16, int4
 
 
+# phase 15 holds the overlap schedule against the serial runs of phases 6
+# and 11: each one's leaf digests, report, walls and quantization peak
+SERIAL_RUNS: dict = {}
+
+
+def leaf_digests(tree) -> list:
+    """The sha256 of every tensor of a (packed) tree, with its dtype and
+    shape, in ``tensors_of``'s order, read on the host."""
+    import hashlib
+    import torch
+    out = []
+    for t in tensors_of(tree):
+        a = t.detach().contiguous().cpu().reshape(-1).view(torch.uint8)
+        h = hashlib.sha256(f"{t.dtype}{tuple(t.shape)}".encode())
+        h.update(memoryview(a.numpy()))
+        out.append(h.hexdigest())
+    return out
+
+
+def report_digest(report) -> tuple:
+    """What two schedules' reports must share: each record's name, mode,
+    iterations and Γ history, and the capacity drops."""
+    return ([(r.name, r.mode, r.iters, r.gamma, r.gamma_final)
+             for r in report.linears], dict(report.moe_capacity_dropped))
+
+
+def keep_serial(arch: str, r: dict) -> None:
+    """Keep what phase 15 compares of a serial ``drive_main_path`` run."""
+    rep = r["report"]
+    SERIAL_RUNS[arch] = dict(leaves=leaf_digests(r["packed"]),
+                             report=report_digest(rep), wall=r["quantize_s"],
+                             steps=sum(rep.layer_step_seconds),
+                             peak=r["quantize_peak"])
+
+
 def drive_main_path(arch: str, kv_cache: str, n_req: int, n_prompt: int,
                     n_new: int, layers: int = 0,
                     calib_shape: tuple = (4, 4, 128)) -> dict:
@@ -1932,6 +2008,7 @@ def drive_main_path(arch: str, kv_cache: str, n_req: int, n_prompt: int,
     t0 = time.perf_counter()
     params_q, report = quantize_model(cfg, params, calib)
     t1 = time.perf_counter()
+    quantize_peak = torch.cuda.max_memory_allocated() - held_before
     del params          # the original float layers: no longer needed
     packed = pack_for_serving(cfg, params_q)
     torch.cuda.synchronize()
@@ -1969,7 +2046,8 @@ def drive_main_path(arch: str, kv_cache: str, n_req: int, n_prompt: int,
     decode_graph_checks(cfg, packed, prompt, res, gen_launches, n_new)
     return dict(cfg=cfg, params_q=params_q, packed=packed, calib=calib,
                 prompt=prompt, res=res, launches=launches, report=report,
-                starts=starts)
+                starts=starts, quantize_s=t1 - t0,
+                quantize_peak=quantize_peak)
 
 
 def decode_graph_checks(cfg, packed, prompt, res, gen_launches: dict,
@@ -2086,6 +2164,7 @@ def phase_int8_kv_path() -> dict:
 
     n_req, n_prompt, n_new = 4, 512, 32
     r = drive_main_path("internlm2-1.8b", "int8", n_req, n_prompt, n_new)
+    keep_serial("internlm2-1.8b", r)
     cfg, params_q, packed = r["cfg"], r["params_q"], r["packed"]
     launches, res, prompt = r["launches"], r["res"], r["prompt"]
     mc, qc = cfg.model, cfg.quant
@@ -3100,10 +3179,11 @@ def packed_against_refined(mc, packed, params_q, toks) -> dict:
 def phase_hybrid_path(smi: str) -> dict:
     """13: recurrentgemma-9b at full width (d 4096, 16 heads over one
     kv-head of 256, lru_width 4096, d_ff 12288, vocab 256000 tied, window
-    2048, logits soft-capped at 30), its depth cut to 33 of 38 layers (11
+    2048, logits soft-capped at 30), its depth cut to 12 of 38 layers (4
     whole (rglru, rglru, local) periods: quantization holds the float
     layers before and after, ~2.2x the parameter bytes, and 38 layers
-    reckon at ~82 GB), calibration 4 x 4 x 512 → quantize_model →
+    reckon at ~82 GB; 33 fit, and 12 take ~55 s off the run, which keeps
+    it inside its 1200 s since phase 15 came in), calibration 4 x 4 x 512 → quantize_model →
     pack_for_serving → generate on the bf16 ring (4 x 512 + 32), then on
     the int8 ring (the R-16 ``int8_kv_attention``) and 1 x 2040 + 32 on
     the int8 ring, whose decode crosses the 2048-slot window inside the
@@ -3121,7 +3201,7 @@ def phase_hybrid_path(smi: str) -> dict:
     from repro_torch.models import transformer as T
     from repro_torch.serving.engine import generate
 
-    n_req, n_prompt, n_new, layers = 4, 512, 32, 33
+    n_req, n_prompt, n_new, layers = 4, 512, 32, 12
     r = drive_main_path("recurrentgemma-9b", "fp16", n_req, n_prompt, n_new,
                         layers=layers, calib_shape=(4, 4, 512))
     cfg, packed, launches = r["cfg"], r["packed"], r["launches"]
@@ -3332,6 +3412,7 @@ def phase_moe_path(smi: str) -> dict:
                                                         "rpiq_block")):
         r = drive_main_path("olmoe-1b-7b", "int8", n_req, n_prompt, n_new,
                             calib_shape=(4, 4, 512))
+    keep_serial("olmoe-1b-7b", r)
     cfg, params_q, packed = r["cfg"], r["params_q"], r["packed"]
     launches, res, report = r["launches"], r["res"], r["report"]
     mc = cfg.model
@@ -4077,8 +4158,166 @@ def phase_entry_points(table: KernelTable, smi: str) -> dict:
             ok = pattern in text and "MISMATCH" not in text and (
                 "(OK)" in text if script == "torch_quickstart.py" else True)
             check(ok and counts["w4a16_matmul"] > 0, f"8e: {script}")
+
+        # -- 8f: 8a's command under the overlap schedule
+        log("  8f: 8a's launch.quantize with quant.pipeline=overlap")
+        fargs = ["--arch", "opt-proxy", "--out", os.path.join(root, "f"),
+                 f"train.ckpt_dir={no_train}", "quant.pipeline=overlap"]
+        (path_f, report_f), f_wall, _ = run_launcher(LQ, fargs, launches)
+        same_f = sha(path_f) == sha(path)
+        log(f"  walls (s) [{smi}]: launch.quantize overlap {f_wall:.3f} "
+            f"(8a serial {q_wall:.3f}); pipeline "
+            f"{json.dumps(report_f.pipeline_stats)}; artifact's sha256 "
+            f"equal to 8a's: {same_f}")
+        if not same_f:
+            diff_artifacts(path_f, path)
+        check(same_f and report_f.pipeline_stats["spec_captures"] == 11,
+              "8f: the overlap artifact bitwise the serial one")
+
+        # -- 8g: killed by the fault plane under overlap, resumed without
+        # the arming (the fingerprint ignores faults.*)
+        log("  8g: the overlap run with quant.ckpt_dir, killed by "
+            "faults.arm=plan.stage1_executor@19, resumed without it")
+        from repro_torch.core import faults
+        gck = [f"quant.ckpt_dir={os.path.join(root, 'gck')}",
+               "quant.resume=auto"]
+        gargs = ["--arch", "opt-proxy", "--out", os.path.join(root, "g"),
+                 f"train.ckpt_dir={no_train}",
+                 "quant.pipeline=overlap"] + gck
+        try:
+            run_launcher(LQ, gargs + ["faults.arm=plan.stage1_executor@19"],
+                         launches)
+            killed = "nothing"
+        except faults.FaultError as e:
+            killed = str(e)
+        finally:
+            faults.PLANE.disarm()   # the launcher leaves the plane armed
+        (path_g, report_g), g_wall, _ = run_launcher(LQ, gargs, launches)
+        same_g = sha(path_g) == sha(path)
+        log(f"  killed: {killed}; resumed at walk item "
+            f"{report_g.pipeline_stats.get('resumed_at')}; resumed run "
+            f"{g_wall:.3f} s [{smi}]; artifact's sha256 equal to 8a's: "
+            f"{same_g}")
+        if not same_g:
+            diff_artifacts(path_g, path)
+        check(killed.startswith("injected fault at 'plan.stage1_executor'")
+              and report_g.pipeline_stats.get("resumed_at") == 6 and same_g,
+              "8g: the fault-killed overlap run resumed to 8a's artifact")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def streams_of_kernel(prof, name: str) -> dict:
+    """{CUDA stream id: launches} of the kernels whose name holds ``name``
+    in a finished ``torch.profiler`` run (the events' device resource is
+    their stream)."""
+    import torch
+    out: dict = {}
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and name in e.name):
+            sid = getattr(e, "device_resource_id", None)
+            out[sid] = out.get(sid, 0) + 1
+    return out
+
+
+def phase_overlap_path(smi: str) -> dict:
+    """15: the overlap schedule at full width and depth (module
+    docstring): olmoe-1b-7b and internlm2-1.8b on the weights and
+    calibration of phases 11 and 6, held against their serial runs there;
+    then a 2-layer cut of each under ``torch.profiler``. Returns the
+    launches of the two full-depth overlap runs."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipeline import pack_for_serving, quantize_model
+    from repro_torch.data import MarkovLM, calibration_batches
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+
+    launches = {k: 0 for k in KERNEL_SOURCES}
+
+    def setup(arch, calib_shape, layers=0):
+        cfg = get_config(arch)
+        cfg.quant.pipeline = "overlap"
+        mc = cfg.model
+        if layers:
+            mc.num_layers = layers
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        params = T.init_params(mc, gen, "cuda")
+        calib = [with_frontend(mc, b, 20 + i, "cuda") for i, b in enumerate(
+            calibration_batches(MarkovLM(mc.vocab_size, seed=7),
+                                *calib_shape))]
+        return cfg, params, calib
+
+    for arch, calib_shape, phase in (("olmoe-1b-7b", (4, 4, 512), 11),
+                                     ("internlm2-1.8b", (4, 4, 128), 6)):
+        serial = SERIAL_RUNS[arch]
+        torch.cuda.synchronize()
+        release_device()
+        held_before = torch.cuda.memory_allocated()
+        cfg, params, calib = setup(arch, calib_shape)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_kernel_launches()
+        t0 = time.perf_counter()
+        params_q, report = quantize_model(cfg, params, calib)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - held_before
+        del params
+        packed = pack_for_serving(cfg, params_q)
+        del params_q
+        counts = ops.kernel_launches()
+        for k, n in counts.items():
+            launches[k] += n
+        digests = leaf_digests(packed)
+        del packed
+        n_same = sum(a == b for a, b in zip(digests, serial["leaves"]))
+        same_report = report_digest(report) == serial["report"]
+        st = report.pipeline_stats
+        steps = sum(report.layer_step_seconds)
+        log(f"  {arch} (calibration {calib_shape}): launches "
+            f"{json.dumps(counts)}")
+        log(f"  pipeline_stats: {json.dumps(st)}")
+        log(f"  walls (s) [{smi}]: quantize_model serial (phase {phase}) "
+            f"{serial['wall']:.3f}, overlap {wall:.3f} "
+            f"({wall / serial['wall']:.4f}x); summed layer steps serial "
+            f"{serial['steps']:.3f}, overlap {steps:.3f}; overlap stage "
+            f"seconds (dispatch) s1={report.seconds_stage1:.3f} "
+            f"s2={report.seconds_stage2:.3f}")
+        log(f"  quantization peak (bytes, this path): serial {serial['peak']}"
+            f", overlap {peak} ({peak - serial['peak']:+d}); held by earlier "
+            f"phases {held_before}")
+        log(f"  packed leaves whose sha256 equals phase {phase}'s serial "
+            f"run: {n_same} of {len(serial['leaves'])} (overlap has "
+            f"{len(digests)}); report equal (modes, iterations, Γ "
+            f"histories, capacity drops): {same_report}")
+        check(len(digests) == len(serial["leaves"]) == n_same > 0
+              and same_report and st["mode"] == "overlap"
+              and st["spec_captures"] == st["repairs"] == st["steps"] - 1
+              and st["serial_fallbacks"] == st["fallback_flip_budget"]
+              and counts["hessian_accum"] > 0,
+              f"15: {arch} under overlap bitwise its serial run")
+
+        # a 2-layer cut under the profiler: the first step captures the
+        # second ahead, its hessian_accum launches on the side stream
+        cfg, params, calib = setup(arch, calib_shape, layers=2)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, rep2 = quantize_model(cfg, params, calib)
+            torch.cuda.synchronize()
+        del params, calib
+        by_stream = streams_of_kernel(prof, "hessian_accum")
+        log(f"  2-layer cut under torch.profiler: hessian_accum kernels by "
+            f"CUDA stream {by_stream}; spec_captures "
+            f"{rep2.pipeline_stats['spec_captures']}")
+        check(len([k for k in by_stream if k is not None]) == 2
+              and rep2.pipeline_stats["spec_captures"] == 1,
+              f"15: {arch}'s speculative hessian_accum on a second stream")
+        release_device()
     return launches
 
 
@@ -4159,29 +4398,29 @@ def main() -> int:
     for name, n in phase_entry_points(table, smi).items():
         launches[name] += n
 
-    torch.cuda.empty_cache()
+    release_device()
     log("[9a] the ring path at full width and depth: h2o-danube-1.8b "
         "(sliding window 4096, head_dim 80)")
     for name, n in phase_ring_path(smi).items():
         launches[name] += n
-    torch.cuda.empty_cache()
+    release_device()
     log("[9b] the vision-language path at full width: pixtral-12b with "
         "1024 patch embeddings")
     for name, n in phase_vlm_path(smi).items():
         launches[name] += n
-    torch.cuda.empty_cache()
+    release_device()
     log("[10] the encoder-decoder path at full width and depth: "
         "whisper-large-v3 (32 + 32 layers, 1500 frames)")
     for name, n in phase_encdec_path(smi).items():
         launches[name] += n
 
-    torch.cuda.empty_cache()
+    release_device()
     log("[11] the routed-MoE path at full width and depth: olmoe-1b-7b "
         "(64 experts, top 8)")
     for name, n in phase_moe_path(smi).items():
         launches[name] += n
 
-    torch.cuda.empty_cache()
+    release_device()
     log("[12] the continuous path at full width and depth: internlm2-1.8b "
         "behind ContinuousEngine (8 lanes, chunked prefill, int8 cache)")
     t = time.perf_counter()
@@ -4189,21 +4428,29 @@ def main() -> int:
         launches[name] += n
     log(f"  phase 12 took {time.perf_counter() - t:.1f}s")
 
-    torch.cuda.empty_cache()
-    log("[13] the RG-LRU hybrid at full width: recurrentgemma-9b (33 of 38 "
+    release_device()
+    log("[13] the RG-LRU hybrid at full width: recurrentgemma-9b (12 of 38 "
         "layers; bf16 and int8 rings, the wrap inside the replay)")
     t = time.perf_counter()
     for name, n in phase_hybrid_path(smi).items():
         launches[name] += n
     log(f"  phase 13 took {time.perf_counter() - t:.1f}s")
 
-    torch.cuda.empty_cache()
+    release_device()
     log("[14] multi-head latent attention at full width: deepseek-v3-671b "
         "(its 3 dense layers and the MTP head)")
     t = time.perf_counter()
     for name, n in phase_mla_path(smi).items():
         launches[name] += n
     log(f"  phase 14 took {time.perf_counter() - t:.1f}s")
+
+    release_device()
+    log("[15] the overlap schedule at full width and depth: olmoe-1b-7b and "
+        "internlm2-1.8b, the next layer's capture ahead on a side stream")
+    t = time.perf_counter()
+    for name, n in phase_overlap_path(smi).items():
+        launches[name] += n
+    log(f"  phase 15 took {time.perf_counter() - t:.1f}s")
 
     log(f"  total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(table.json(launches)), flush=True)

@@ -4,15 +4,17 @@ The port's own copy of the fields its quantize → pack → serve paths
 (decoder-only and encoder-decoder) and its two launchers read, with the
 same names and defaults as the JAX package's configuration, plus the
 dotted ``key=value`` override helpers. A value the port does not run
-(``quant.pipeline=overlap``, ``quant.mesh``, ``model.opt_attention=false``)
-is accepted here and raises where it would be used, naming its ROADMAP.md
-item. ``quant.act_order``, ``quant.keep_best_projection``,
-``quant.moe_flip_budget`` and ``serve.quantized`` are taken with the JAX
-package's defaults and read nowhere, as there (the flip budget's reader,
-the overlap schedule, is ROADMAP.md item 15); so are
-``serve.w4a16_impl`` and ``serve.kv_impl``: the port has one route per
-device and no kernel backend to choose (a kernel fault raises, it does
-not degrade).
+(``quant.mesh``, ``quant.batched_executor=false``,
+``quant.gptq_impl=xla`` / ``quant.rpiq_impl=xla``,
+``model.opt_attention=false``) is accepted here and raises where it would
+be used, naming its ROADMAP.md item. ``quant.pipeline`` takes both of the
+JAX package's schedules, ``serial`` and ``overlap`` (core/stream.py);
+``quant.jit_capture`` and ``quant.moe_flip_budget`` are read by the
+overlap schedule alone. ``quant.act_order``, ``quant.keep_best_projection``
+and ``serve.quantized`` are taken with the JAX package's defaults and read
+nowhere, as there; so are ``serve.w4a16_impl`` and ``serve.kv_impl``:
+the port has one route per device and no kernel backend to choose (a
+kernel fault raises, it does not degrade).
 """
 from __future__ import annotations
 
@@ -149,6 +151,18 @@ class QuantConfig:
     calib_batch_size: int = 16
     calib_seq_len: int = 512
     act_order: bool = False         # read nowhere (nor in JAX)
+    gptq_impl: str = "auto"         # auto | pallas: the stages' one route
+    rpiq_impl: str = "auto"         # (the kernel on the card); xla, the
+    #                                 JAX package's plain route, is not
+    #                                 ported (ROADMAP.md queue 1 item 9)
+    jit_capture: bool = True        # the port compiles no capture forward;
+    #                                 the key only governs speculation:
+    #                                 false blocks the overlap schedule's
+    #                                 capture-ahead (fallback_eager_capture),
+    #                                 as eager capture does in JAX
+    batched_executor: bool = True   # false selects the JAX package's
+    #                                 per-linear baseline: not ported
+    #                                 (ROADMAP.md queue 1 item 9)
     mesh: str = "off"               # sharded group execution: not ported
     #                                 (ROADMAP.md queue 1 item 17)
     resume: str = "off"             # off | auto: with "auto" and a ckpt_dir,
@@ -160,10 +174,16 @@ class QuantConfig:
     #                                 walk's streams and stored layers are
     #                                 saved there at every step boundary
     ckpt_keep: int = 2              # retained step checkpoints in ckpt_dir
-    pipeline: str = "serial"        # layer-walk schedule; "overlap" is not
-    #                                 ported (ROADMAP.md queue 1 item 15)
-    moe_flip_budget: float = 0.5    # the overlap schedule's MoE flip
-    #                                 repair budget: no reader until item 15
+    pipeline: str = "serial"        # layer-walk schedule (core/stream.py):
+    #                                 serial | overlap (the next layer's
+    #                                 capture runs ahead on a side CUDA
+    #                                 stream); bitwise the same artifacts
+    moe_flip_budget: float = 0.5    # overlap + routed MoE: the largest
+    #                                 share of (token, k) assignments that
+    #                                 may flip between the speculative and
+    #                                 the true stream before the layer's
+    #                                 speculative plans are all discarded
+    #                                 (fallback_flip_budget)
     guardrail: bool = True          # the stage-1 guardrail ladder
     #                                 (core/plan.py): lanes with non-finite
     #                                 stage-1 output get damping retries, then

@@ -37,6 +37,19 @@ An encoder-decoder walks its encoder layers on the encoder stream, then,
 behind a :class:`~repro_torch.core.stream.StreamSwitch` fence, its decoder
 layers on the decoder stream (:func:`_walker_encdec`).
 
+``quant.pipeline=overlap`` (core/stream.py) runs the next layer's capture
+ahead, speculatively, on this layer's pre-quantization outputs
+(``capture_layer(speculative=True)`` on the outputs a
+``collect_h_out=True`` capture kept). A dense speculation is discarded:
+the true capture after the scatter repeats it on the quantized stream.
+A routed-MoE layer's speculation also routes each batch; at the layer's
+own turn :func:`_moe_members` recomputes only the routing head on the
+true stream, reuses a batch's speculative plan where no expert id
+flipped, re-plans it where one did, and discards every speculative plan
+of the layer when the flipped share exceeds ``quant.moe_flip_budget``
+(the plan-level flip repair). The per-expert Hessians always accumulate
+true-stream values, so overlap stays bitwise serial.
+
 :func:`pack_for_serving` then turns every quantized linear into an int4
 :class:`~repro_torch.core.quant.QuantizedTensor` on its stage-1 grid,
 through the ``quant_pack`` kernel on the card (a stacked expert weight as
@@ -117,21 +130,41 @@ def _is_moe_layer(layer_params: Dict) -> bool:
     return isinstance(mlp, dict) and "w_gate" in mlp
 
 
+def _layer_repair_sound(layer_params: Dict) -> bool:
+    """Whether the overlap schedule may capture this layer ahead. Every
+    layer is: a dense capture is repeated on the true stream, a routed-MoE
+    layer repairs at the plan level (:func:`_moe_members`). A predicate,
+    as in the JAX package, so that tests can force the serial
+    re-capture."""
+    del layer_params
+    return True
+
+
 @dataclasses.dataclass
 class CaptureResult:
     """One layer's calibration state: Hessians and last-batch inputs of
     its dense linears, and for a routed-MoE layer each batch's flat MoE
-    block inputs (T, d) from the router's tap."""
+    block inputs (T, d) from the router's tap. ``h_out``: the layer's
+    per-batch outputs, the pre-quantization stream the overlap schedule
+    speculates on (kept only on request). ``spec_routes``: a speculative
+    capture's per-batch routing plans of a routed-MoE layer."""
     hessians: Dict[str, hess.HessianState]
     last_x: Dict[str, Tensor]
     moe_xs: List[Tensor]
     is_moe: bool
+    h_out: Optional[List[Tensor]] = None
+    spec_routes: Optional[List[moe_mod.RoutePlan]] = None
 
 
-def capture_layer(cfg: Config, step: LayerStep, hs: List[Tensor]
+def capture_layer(cfg: Config, step: LayerStep, hs: List[Tensor],
+                  speculative: bool = False, collect_h_out: bool = False
                   ) -> CaptureResult:
     """Stage (a): stream Hessians over all batches, keep the last inputs.
-    The ``stream.capture_forward`` fault site fires first."""
+    The ``stream.capture_forward`` fault site fires first, for a
+    speculative capture too (so a ``site@N`` schedule lands where it does
+    in the JAX package). ``speculative``: the overlap schedule's capture
+    ahead, which for a routed-MoE layer also routes each batch
+    (``spec_routes``); ``collect_h_out`` keeps the layer's outputs."""
     faults.fire("stream.capture_forward")
     layer_params = step.resolve_params()
     is_moe = _is_moe_layer(layer_params)
@@ -158,19 +191,31 @@ def capture_layer(cfg: Config, step: LayerStep, hs: List[Tensor]
         hessians[name] = hess.accumulate(hessians[name], x2)
         last_x[name] = x2            # overwritten per batch: the last stays
 
+    h_out: Optional[List[Tensor]] = [] if collect_h_out else None
     with torch.no_grad(), Tap(on_record=on_record):
         for bi, h in enumerate(hs):
-            step.apply_fn(layer_params, h, bi)
+            out = step.apply_fn(layer_params, h, bi)
+            if collect_h_out:
+                h_out.append(out)
     if is_moe and len(moe_xs) != len(hs):
         raise RuntimeError(f"{step.name}: the router's tap saw "
                            f"{len(moe_xs)} of {len(hs)} batches")
-    return CaptureResult(hessians, last_x, moe_xs, is_moe)
+    spec_routes = None
+    if speculative and is_moe:
+        dtype = T.compute_dtype(cfg.model)
+        with torch.no_grad():
+            spec_routes = [moe_mod.route(cfg.model, layer_params["mlp"],
+                                         xt.to(dtype)) for xt in moe_xs]
+    return CaptureResult(hessians, last_x, moe_xs, is_moe, h_out,
+                         spec_routes)
 
 
 @torch.no_grad()
 def _moe_members(cfg: Config, p_moe: Dict, xs: List[Tensor], name: str,
                  report: Optional[QuantReport] = None,
-                 layer_name: str = "layer") -> List[PlanMember]:
+                 layer_name: str = "layer", stats: Optional[Dict] = None,
+                 spec_routes: Optional[List[moe_mod.RoutePlan]] = None
+                 ) -> List[PlanMember]:
     """The routed experts' plan members (the paper's method per expert).
 
     ``xs``: each calibration batch's flat MoE block inputs (T, d). Every
@@ -182,14 +227,53 @@ def _moe_members(cfg: Config, p_moe: Dict, xs: List[Tensor], name: str,
     come to the host in one sync. Each lane's Hessian count is its routed
     tokens over all batches, its stage-2 ``x_count`` the last batch's
     pre-capacity count, and a lane with fewer routed tokens than one
-    quant group is starved, as in the JAX package."""
+    quant group is starved, as in the JAX package.
+
+    ``spec_routes`` (the overlap schedule): the plans a speculative capture
+    made on the pre-quantization stream. The routing head is recomputed
+    here on the true stream and the expert ids that flipped are counted in
+    one host read; a batch with none reuses its speculative plan
+    (``moe.reuse_plan``), a batch with some is planned anew, and past
+    ``quant.moe_flip_budget`` every speculative plan of the layer is
+    discarded. ``stats`` takes the flip repair's counters and
+    ``moe_dropped_tokens``."""
     qc, mc = cfg.quant, cfg.model
     e = mc.moe.num_experts
     d, f = p_moe["w_gate"].shape[1:]
     dev = xs[0].device
     dtype = T.compute_dtype(mc)
     xs_c = [xt.to(dtype) for xt in xs]
-    plans = [moe_mod.route(mc, p_moe, xt) for xt in xs_c]
+
+    def bump(key: str, n: int = 1) -> None:
+        if stats is not None:
+            stats[key] = stats.get(key, 0) + int(n)
+
+    plans = None
+    if spec_routes is not None and len(spec_routes) == len(xs_c):
+        heads = [moe_mod.route_head(mc, p_moe, xt) for xt in xs_c]
+        flips = torch.stack([(h.experts != sp.experts).sum()
+                             for h, sp in zip(heads, spec_routes)]
+                            ).cpu().numpy()               # one host read
+        n_assign = sum(h.experts.numel() for h in heads)
+        n_flips = int(flips.sum())
+        bump("moe_spec_layers")
+        bump("moe_flipped_assignments", n_flips)
+        bump("moe_assignments", n_assign)
+        if n_assign and n_flips / n_assign > qc.moe_flip_budget:
+            # too much of the routing moved: re-plan the layer serially
+            bump("fallback_flip_budget")
+            bump("serial_fallbacks")
+        else:
+            plans = []
+            for h, sp, nf in zip(heads, spec_routes, flips):
+                if nf == 0:
+                    plans.append(moe_mod.reuse_plan(sp, h))
+                    bump("moe_plan_reuses")
+                else:
+                    plans.append(moe_mod.plan_from_head(mc, h))
+                    bump("moe_flip_repairs")
+    if plans is None:
+        plans = [moe_mod.route(mc, p_moe, xt) for xt in xs_c]
     w_gate, w_up = p_moe["w_gate"].float(), p_moe["w_up"].float()
     H_in = hess.init_hessian(d, batch=e, device=dev)
     H_mid = hess.init_hessian(f, batch=e, device=dev)
@@ -207,6 +291,7 @@ def _moe_members(cfg: Config, p_moe: Dict, xs: List[Tensor], name: str,
     tallies = torch.cat([counts.to(torch.int64),
                          dropped.to(torch.int64)[None]]).cpu().numpy()
     real_counts, n_dropped = tallies[:e], int(tallies[e])
+    bump("moe_dropped_tokens", n_dropped)
     if report is not None:
         report.moe_capacity_dropped[layer_name] = \
             report.moe_capacity_dropped.get(layer_name, 0) + n_dropped
@@ -224,12 +309,15 @@ def _moe_members(cfg: Config, p_moe: Dict, xs: List[Tensor], name: str,
 
 
 def plan_layer(cfg: Config, step: LayerStep, cap: CaptureResult,
-               report: Optional[QuantReport] = None
+               report: Optional[QuantReport] = None,
+               stats: Optional[Dict] = None,
+               spec_routes: Optional[List[moe_mod.RoutePlan]] = None
                ) -> Tuple[Dict, List[str], qplan.QuantPlan]:
     """Stage (b): the captured dense linears and a routed-MoE layer's
     stacked experts → a QuantPlan (``report`` receives the layer's
-    capacity drops). Returns (a fresh copy of the layer subtree, the
-    sorted dense names, the plan)."""
+    capacity drops, ``stats`` the walk's MoE counters; ``spec_routes``
+    feeds the flip repair). Returns (a fresh copy of the layer subtree,
+    the sorted dense names, the plan)."""
     new_params = _copy_tree(step.resolve_params())
     dense_names = sorted(cap.hessians)
     members = [PlanMember(name, _resolve(new_params, name)["w"].float().T,
@@ -237,7 +325,8 @@ def plan_layer(cfg: Config, step: LayerStep, cap: CaptureResult,
                for name in dense_names]
     if cap.is_moe:
         members += _moe_members(cfg, new_params["mlp"], cap.moe_xs, "mlp",
-                                report, layer_name=step.name)
+                                report, layer_name=step.name, stats=stats,
+                                spec_routes=spec_routes)
     return new_params, dense_names, qplan.build_plan(cfg.quant, members)
 
 

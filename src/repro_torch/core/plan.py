@@ -30,17 +30,26 @@ off, a NaN lane passes through to the artifact, as in the JAX package.
 The fault sites ``hessian.cholesky`` (a corruption of lane 0's Gram,
 ``core/hessian.corrupt_stacked``), ``plan.stage1_executor`` and
 ``plan.stage2_executor`` sit where the JAX package has them.
+
+Under the overlap schedule (core/stream.py) :func:`execute_plan` runs with
+``sync=False``: no stage waits for the card (``torch.cuda.synchronize``
+would wait for every stream, the side stream's capture-ahead too), so the
+stage seconds measure dispatch; each group's report records, whose host
+reads would wait, go into ``deferred`` as closures in serial order, and
+the scheduler runs them at the step's boundary, so the report equals the
+serial one. The ladder's one host read a group (``_finite_lanes``) stays,
+as in the JAX package: it waits for the executor's stream only.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.config import QuantConfig
+from repro_torch.config import QuantConfig, not_ported
 from repro_torch.core import faults
 from repro_torch.core import hessian as hess
 from repro_torch.core.gptq import (GPTQResult, gptq_quantize_batched,
@@ -168,8 +177,8 @@ def build_plan(qc: QuantConfig, members: List[PlanMember]) -> QuantPlan:
                      fallbacks)
 
 
-def _sync(t: Tensor) -> None:
-    if t.is_cuda:
+def _sync(t: Tensor, sync: bool) -> None:
+    if sync and t.is_cuda:
         torch.cuda.synchronize(t.device)
 
 
@@ -232,10 +241,13 @@ def _finite_lanes(res1: GPTQResult) -> np.ndarray:
 
 
 def _execute_group(qc: QuantConfig, group: QuantGroup, report: QuantReport,
-                   rpiq_enabled: bool) -> List[MemberResult]:
+                   rpiq_enabled: bool, sync: bool = True,
+                   deferred: Optional[List[Callable[[], None]]] = None
+                   ) -> List[MemberResult]:
     """One stacked dispatch per stage for the whole group: the members'
     lanes concatenated, a stacked member's slab wholesale; stage 1 again
-    on the ladder's rungs (module docstring)."""
+    on the ladder's rungs; ``sync`` and ``deferred`` as in the module
+    docstring."""
     ms = group.members
     t0 = time.perf_counter()
     w = torch.cat([_as3d(m.w_oi.float()) for m in ms])
@@ -304,7 +316,7 @@ def _execute_group(qc: QuantConfig, group: QuantGroup, report: QuantReport,
                           torch.where(sel, rtn.zeros, res1.zeros),
                           torch.where(gl, torch.zeros_like(res1.err),
                                       res1.err))
-    _sync(res1.w_q)
+    _sync(res1.w_q, sync)
     t1 = time.perf_counter()
     report.seconds_stage1 += t1 - t0
 
@@ -322,7 +334,7 @@ def _execute_group(qc: QuantConfig, group: QuantGroup, report: QuantReport,
             exact_gram=not qc.rpiq_use_global_hessian,
             symmetric=qc.symmetric)
         del x
-        _sync(res2.w_q)
+        _sync(res2.w_q, sync)
         report.seconds_stage2 += time.perf_counter() - t1
     del hd
 
@@ -337,30 +349,41 @@ def _execute_group(qc: QuantConfig, group: QuantGroup, report: QuantReport,
         zeros = torch.where(sel, rtn.zeros, zeros)
 
     seconds = (time.perf_counter() - t0) / max(1, int((~starved).sum()))
-    err1 = res1.err.cpu().numpy()
-    if do_rpiq:
-        hist = res2.loss_history.cpu().numpy()
-        ploss = res2.proj_loss.cpu().numpy()
-        iters = res2.iters_run.cpu().numpy()
-    off = 0
-    for m in ms:
-        for li, lname in enumerate(m.lane_names):
-            i = off + li
-            if starved[i]:
-                report.linears.append(LinearRecord(
-                    lname, m.wshape, 0.0, [], 0.0, 0, "rtn-fallback", 0.0))
-            elif guarded[i]:
-                report.linears.append(LinearRecord(
-                    lname, m.wshape, 0.0, [], 0.0, 0, "rtn-guardrail", 0.0))
-            elif do_rpiq:
-                report.linears.append(LinearRecord(
-                    lname, m.wshape, float(err1[i]), _gamma_list(hist[i]),
-                    float(ploss[i]), int(iters[i]), "rpiq", seconds))
-            else:
-                report.linears.append(LinearRecord(
-                    lname, m.wshape, float(err1[i]), [], 0.0, 0, "gptq",
-                    seconds))
-        off += m.lanes
+    # a deferred closure holds only the members' names and shapes and the
+    # small outputs, so that no weight slab, Hessian or input stays alive
+    # until the step's boundary
+    named = [(m.lane_names, m.wshape) for m in ms]
+    outs = [res1.err] + ([res2.loss_history, res2.proj_loss, res2.iters_run]
+                         if do_rpiq else [])
+
+    def record() -> None:
+        # the host reads wait for the executor: under overlap this runs at
+        # the step's boundary
+        err1, *rest = (t.cpu().numpy() for t in outs)
+        i = 0
+        for lane_names, wshape in named:
+            for lname in lane_names:
+                if starved[i]:
+                    rec = LinearRecord(lname, wshape, 0.0, [], 0.0, 0,
+                                       "rtn-fallback", 0.0)
+                elif guarded[i]:
+                    rec = LinearRecord(lname, wshape, 0.0, [], 0.0, 0,
+                                       "rtn-guardrail", 0.0)
+                elif do_rpiq:
+                    hist, ploss, iters = rest
+                    rec = LinearRecord(lname, wshape, float(err1[i]),
+                                       _gamma_list(hist[i]), float(ploss[i]),
+                                       int(iters[i]), "rpiq", seconds)
+                else:
+                    rec = LinearRecord(lname, wshape, float(err1[i]), [],
+                                       0.0, 0, "gptq", seconds)
+                report.linears.append(rec)
+                i += 1
+
+    if deferred is None:
+        record()
+    else:
+        deferred.append(record)
     results = []
     off = 0
     for m in ms:
@@ -371,21 +394,27 @@ def _execute_group(qc: QuantConfig, group: QuantGroup, report: QuantReport,
     return results
 
 
-def _execute_fallback(qc: QuantConfig, m: PlanMember, report: QuantReport
+def _execute_fallback(qc: QuantConfig, m: PlanMember, report: QuantReport,
+                      deferred: Optional[List[Callable[[], None]]] = None
                       ) -> MemberResult:
     """A member whose input dim does not align with the grid: RTN for its
     starved lanes, skipped (kept in float) otherwise. A starved lane gets
     the per-group grid where in aligns with ``group_size`` (only the
     stages need ``blocksize``), else one whole-row group and no stored
-    grid; a stacked member stores a grid only when every lane has one."""
+    grid; a stacked member stores a grid only when every lane has one.
+    Its records read nothing from the card, but with ``deferred`` they
+    queue behind the groups' so that the report keeps serial's order."""
     shape = m.wshape
     aligned = shape[1] % qc.group_size == 0
     gsz = qc.group_size if aligned else shape[1]
     sv = m.starved_mask()
-    for li, lname in enumerate(m.lane_names):
-        report.linears.append(LinearRecord(
-            lname, shape, 0.0, [], 0.0, 0,
-            "rtn-fallback" if sv[li] else "skipped", 0.0))
+    recs = [LinearRecord(lname, shape, 0.0, [], 0.0, 0,
+                         "rtn-fallback" if sv[li] else "skipped", 0.0)
+            for li, lname in enumerate(m.lane_names)]
+    if deferred is None:
+        report.linears.extend(recs)
+    else:
+        deferred.append(lambda: report.linears.extend(recs))
     if not sv.any():
         return MemberResult(m.name, None, None)
     w = m.w_oi.float()
@@ -403,13 +432,33 @@ def _execute_fallback(qc: QuantConfig, m: PlanMember, report: QuantReport
 
 
 def execute_plan(qc: QuantConfig, plan: QuantPlan, report: QuantReport,
-                 rpiq_enabled: bool = True) -> Dict[str, MemberResult]:
+                 rpiq_enabled: bool = True, sync: bool = True,
+                 deferred: Optional[List[Callable[[], None]]] = None
+                 ) -> Dict[str, MemberResult]:
     """Run every group, then the grid-unaligned members; returns {member
-    name → MemberResult}."""
+    name → MemberResult}. ``sync=False`` and ``deferred`` are the overlap
+    schedule's (module docstring). ``quant.batched_executor=false``, the
+    JAX package's per-linear baseline, is not ported; nor is
+    ``quant.gptq_impl`` / ``quant.rpiq_impl`` ``xla``, the JAX package's
+    plain route on the accelerator (the port's stages take the
+    hand-written kernel on the card, their plain version on the CPU:
+    ``auto`` and ``pallas`` both name that one route)."""
+    if not qc.batched_executor:
+        raise not_ported("quant.batched_executor=false (the per-linear "
+                         "baseline)", 9)
+    for key in ("gptq_impl", "rpiq_impl"):
+        impl = getattr(qc, key)
+        if impl == "xla":
+            raise not_ported(f"quant.{key}=xla (the plain route on the "
+                             f"card)", 9)
+        if impl not in ("auto", "pallas"):
+            raise ValueError(f"quant.{key} must be auto, pallas or xla, "
+                             f"got {impl!r}")
     out: Dict[str, MemberResult] = {}
     for group in plan.groups:
-        for r in _execute_group(qc, group, report, rpiq_enabled):
+        for r in _execute_group(qc, group, report, rpiq_enabled, sync,
+                                deferred):
             out[r.name] = r
     for m in plan.fallbacks:
-        out[m.name] = _execute_fallback(qc, m, report)
+        out[m.name] = _execute_fallback(qc, m, report, deferred)
     return out

@@ -25,7 +25,11 @@ an artifact bitwise that of an uninterrupted run (core/stream.py).
 fault plane (core/faults.py) for the run, e.g.
 ``faults.arm=hessian.cholesky@1:nan`` drives the guardrail ladder
 (``quant.guardrail``, ``guardrail_retries``, ``guardrail_damp_factor``).
-``quant.pipeline=overlap`` and ``quant.mesh`` are not ported and raise.
+``quant.pipeline=overlap`` runs the layer walk's second schedule (the next
+layer's capture ahead on a side CUDA stream, core/stream.py), bitwise the
+serial artifact; the walk's counters are printed (``[quantize] pipeline:
+{...}``). ``quant.mesh`` and ``quant.batched_executor=false`` are not
+ported and raise.
 
 Runs on the CUDA card; ``--device cpu`` runs the kernels' plain versions.
 """
@@ -75,6 +79,12 @@ def trained_params(ckpt_dir: str, like: Dict,
 
 
 def main(argv=None):
+    # olmoe-1b-7b's walk peaks within ~8 GiB of an 80 GB card, and under
+    # the overlap schedule blocks freed on one stream are cached for it
+    # alone: segments that grow in place keep them from stranding memory
+    # (read when the allocator starts; the caller's own setting wins)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
@@ -127,6 +137,7 @@ def main(argv=None):
               f"{report.pipeline_stats['resumed_at']}")
     if report.guardrail_stats:
         print(f"[quantize] guardrail: {report.guardrail_stats}")
+    print(f"[quantize] pipeline: {report.pipeline_stats}")
     packed = pack_for_serving(cfg, params_q)
 
     os.makedirs(args.out, exist_ok=True)

@@ -22,6 +22,12 @@ The twin of the JAX package's ``models/moe.py``:
   - deepseek-style shared experts are a plain always-on MLP added to the
     routed output.
 
+The structure of a dispatch (sort, positions, keeps, slots) is a function
+of the expert ids alone: :func:`reuse_plan` rebinds a plan to a new head
+with the same ids, which the overlap schedule's MoE flip repair relies on
+(core/pipeline.py). The JAX package's ``flipped_assignments`` has no twin:
+only its tests call it (the flip repair compares expert ids).
+
 Every shape is static given the token count (``_capacity``), and nothing
 reads a device value on the host, so a decode step holding it can be
 captured into a CUDA graph.
@@ -178,6 +184,16 @@ def route(cfg: ModelConfig, p: Dict, xt: Tensor,
           name: str = "moe") -> RoutePlan:
     """The full dispatch plan for flat tokens xt (T, d)."""
     return plan_from_head(cfg, route_head(cfg, p, xt, name))
+
+
+def reuse_plan(plan: RoutePlan, head: RouteHead) -> RoutePlan:
+    """Rebind a plan's structure to a fresh routing head whose expert ids
+    equal ``plan.experts`` (the caller checks): sort order, positions,
+    keeps, slots and counts carry over bitwise, the gates, the aux loss
+    and the sorted gates come from the new head."""
+    return plan._replace(experts=head.experts, gates=head.gates,
+                         aux=head.aux,
+                         sg=head.gates.reshape(-1)[plan.order])
 
 
 def apply_route(plan: RoutePlan, xt: Tensor) -> Tensor:

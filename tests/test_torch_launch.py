@@ -326,7 +326,6 @@ def test_unusable_checkpoint_warns_and_starts_fresh(damage, tmp_path):
 
 
 @pytest.mark.parametrize("launcher,override,item", [
-    ("quantize", "quant.pipeline=overlap", 15),
     ("quantize", "quant.mesh=auto", 17),
 ])
 def test_options_not_ported_raise(launcher, override, item, tmp_path):
@@ -370,12 +369,21 @@ def test_new_arch_override_keys_are_taken(launcher, arch, override,
 @pytest.mark.parametrize("override", [
     "quant.act_order=true", "quant.keep_best_projection=false",
     "serve.quantized=false", "quant.moe_flip_budget=0.25",
-    "model.opt_attention=false"])
+    "model.opt_attention=false", "quant.jit_capture=false",
+    "quant.gptq_impl=xla", "quant.rpiq_impl=xla", "quant.rpiq_impl=pallas",
+    "quant.batched_executor=false"])
 def test_jax_override_keys_are_taken(launcher, override, tmp_path):
-    """Keys the JAX ``Config`` takes are taken by both launchers: the ones
-    the reference reads nowhere (and the flip budget, whose reader is the
-    unported overlap schedule) run to the end; the naive attention
-    baseline raises and names its ROADMAP item."""
+    """Keys the JAX ``Config`` takes are taken by both launchers and run to
+    the end: the ones read nowhere in the reference (``quant.act_order``,
+    ``quant.keep_best_projection``, ``serve.quantized``), the two the
+    overlap schedule reads (``quant.moe_flip_budget``,
+    ``quant.jit_capture``), here under serial, and the stages' route
+    (``quant.rpiq_impl=pallas``, the port's one route). The naive
+    attention baseline raises in both launchers; the JAX package's plain
+    stage route (``quant.gptq_impl`` / ``quant.rpiq_impl`` ``xla``) and
+    its per-linear executor baseline (``quant.batched_executor=false``)
+    raise in the quantize launcher, which runs the executor; each names
+    its ROADMAP item."""
     argv = ["--arch", "opt-proxy", "--smoke", "--device", "cpu"]
     if launcher == "quantize":
         argv += ["--out", str(tmp_path), f"train.ckpt_dir={tmp_path / 'n'}",
@@ -385,9 +393,15 @@ def test_jax_override_keys_are_taken(launcher, override, tmp_path):
         argv += ["--batch", "2", "--prompt-len", "8",
                  "serve.max_new_tokens=2"]
     mod = tlaunch_quantize if launcher == "quantize" else tlaunch_serve
-    if override == "model.opt_attention=false":
+    refused = {"model.opt_attention=false": 22}
+    if launcher == "quantize":
+        refused.update({"quant.batched_executor=false": 9,
+                        "quant.gptq_impl=xla": 9,
+                        "quant.rpiq_impl=xla": 9})
+    if override in refused:
         with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md, queue 1 item 22"):
+                           match=f"ROADMAP.md, queue 1 item "
+                                 f"{refused[override]}"):
             mod.main(argv + [override])
         return
     out = mod.main(argv + [override])
@@ -395,6 +409,17 @@ def test_jax_override_keys_are_taken(launcher, override, tmp_path):
         assert os.path.exists(out[0])
     else:
         assert tuple(out.tokens.shape) == (2, 2)
+
+
+@pytest.mark.parametrize("key", ["quant.gptq_impl", "quant.rpiq_impl"])
+def test_unknown_stage_route_raises(key, tmp_path):
+    """A stage route that neither package knows raises ``ValueError``."""
+    argv = ["--arch", "opt-proxy", "--smoke", "--device", "cpu",
+            "--out", str(tmp_path), f"train.ckpt_dir={tmp_path / 'n'}",
+            "quant.calib_batches=1", "quant.calib_batch_size=2",
+            "quant.calib_seq_len=16", f"{key}=triton"]
+    with pytest.raises(ValueError, match=key):
+        tlaunch_quantize.main(argv)
 
 
 @pytest.mark.parametrize("script,check", [
