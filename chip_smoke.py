@@ -75,8 +75,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      logits (in fp32 compute), the int8-vs-bf16 cache drift rule, and
      ``quant_pack`` (kernel and plain version) bitwise against every
      packed linear;
-  7. the Mamba-1 main path at full width and depth: falcon-mamba-7b (64
-     layers, d_model 4096, d_inner 8192, d_state 16) → quantize_model →
+  7. the Mamba-1 main path at full width: falcon-mamba-7b (d_model 4096,
+     d_inner 8192, d_state 16) cut to 8 of its 64 layers since phase 16
+     (the run's time) → quantize_model →
      pack_for_serving → generate (4 requests x 512 prompt + 32 new
      tokens), counters reset and read around it (``selective_scan`` at
      prefill, capture and propagate); the packed-vs-float logits and the
@@ -116,8 +117,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      artifact bytes and save / load, prefill, capture, replayed step and
      serve total) beside the card's name and power limit;
   9. the other dense architectures at full width:
-     9a. h2o-danube-1.8b at full depth (24 sliding-window layers, window
-         4096, head_dim 80) → quantize_model → pack_for_serving →
+     9a. h2o-danube-1.8b at full width (window 4096, head_dim 80), cut
+         to 4 of its 24 sliding-window layers since phase 16 (the run's
+         time) → quantize_model → pack_for_serving →
          generate on the int8 ring (2 requests x 4608 prompt tokens + 32
          new: the prefill keeps the last 4096 positions), then generate
          again on 4080-token prompts with the int8 and the bf16 ring, whose
@@ -127,28 +129,30 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
          caches that the window masks (1e-4); the ring's rows and bytes
          against a full-length cache; the int8-vs-bf16 drift rule of
          phase 6 across the wrap;
-     9b. pixtral-12b at full width, cut to 13 of 40 layers (26 fit
+     9b. pixtral-12b at full width, cut to 4 of 40 layers (26 fit
          quantization, which holds the float layers before and after;
-         13 keep the whole run near 1000 s since phases 13 and 14
-         came in), 1024 seeded patch
+         13 kept the whole run near 1000 s once phases 13 and 14 came
+         in, 4 since phase 16), 1024 seeded patch
          embeddings in every calibration batch (4 x 2 x 128 tokens) and
          request (2 x 64 + 32 new): the replay bitwise eager, decode from
          position 64 + 1024, packed int4 against refined float logits in
          fp32 compute (1e-3; bf16 printed); then ``launch.serve --arch
          pixtral-12b --pack-rtn`` at all 40 layers, its tokens those of
          pack_for_serving → generate called directly;
-  10. the encoder-decoder path at full width and depth: whisper-large-v3
-     (32 encoder + 32 decoder layers, d 1280, 20 heads of 64, no RoPE)
+  10. the encoder-decoder path at full width: whisper-large-v3 (d 1280,
+     20 heads of 64, no RoPE), cut to 8 encoder and 8 decoder layers of
+     its 32 + 32 since phase 16 (the run's time)
      from seeded random weights, 1500 seeded frames in every calibration
      clip (4 batches x 2 x 256 tokens) and request (4 x 64 tokens + 32
      new) → quantize_model (the encoder walk, the enc→dec switch, the
      decoder walk) → pack_for_serving → generate with the bf16 and the
      int8 self-cache (the cross-attention cache in bf16), each replay
-     bitwise its eager loop; 320 calibrated and 192 RTN-packed linears;
+     bitwise its eager loop; 10 calibrated and 6 RTN-packed linears a
+     layer;
      the cache bytes, the int8 drift rule, the packed logits against the
      refined float logits and the prefill → decode hand-off against the
      full forward in fp32 compute; then ``launch.serve --arch
-     whisper-large-v3 --pack-rtn``, its tokens those of
+     whisper-large-v3 --pack-rtn`` at the same depth, its tokens those of
      pack_for_serving → generate called directly;
   11. the routed-MoE path at full width and depth: olmoe-1b-7b (16
      layers, d 2048, 64 experts, top 8, d_ff_expert 1024), calibration 4
@@ -177,8 +181,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      token-identical is reported);
   13. the RG-LRU hybrid at full width: recurrentgemma-9b (d 4096, 16
      heads over one kv-head of 256, d_ff 12288, vocab 256000 tied) cut to
-     12 of 38 layers (4 whole periods: 38 do not fit quantization, and
-     12 keep the run inside its time limit since phase 15 came in),
+     6 of 38 layers (2 whole periods: 38 do not fit quantization; 12
+     kept the run inside its time limit once phase 15 came in, 6 since
+     phase 16),
      calibration 4 x 4 x 512 → quantize_model → pack_for_serving →
      generate on the bf16 ring and the int8 ring (4 x 512 + 32), then 1 x
      2040 + 32 on the int8 ring across its wrap, each replay bitwise its
@@ -203,10 +208,34 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      walls and quantization peaks beside the card; then each model cut to
      2 layers, quantized under overlap inside ``torch.profiler``: the
      ``hessian_accum`` kernels of the speculative capture on a second
-     stream.
+     stream; the bytes held on the card before it (and before phase 16)
+     are printed;
+  16. training on the card (no kernel of its own: the reference's training
+     runs none, and every CUDA wrapper refuses inputs that require grad):
+     16a. full-width opt-proxy (12 layers, d 768, vocab 50304; fp32
+         master weights, bf16 compute) through ``launch.train``: 300
+         steps of 16 x 128 tokens at lr 1e-3 on ``MarkovLM(branching=3)``
+         (the loss must fall; step walls, peak, a profiled step's idle
+         share); the same run stopped by SIGTERM half-way (the stream
+         sends it as it makes batch 152; the trainer checkpoints at the
+         next step boundary and returns) and rerun: its final TrainState
+         bitwise the uninterrupted one's, the data stream's position
+         included; ``launch.quantize train.ckpt_dir=`` on the
+         trained checkpoint (the linears stage 2 improved, beside phase
+         8a's count on random weights), held-out CE of the float, RPIQ
+         int4 and RTN int4 models and their logit gaps, ``launch.serve
+         --params`` on the trained artifact;
+     16b. internlm2-1.8b at full width and depth: five steps of 4 x 512
+         tokens under ``parallel.remat=full``, with fp32 and with int8
+         AdamW moments: finite, falling losses, step walls, peaks and the
+         optimizer state's bytes (int8 ~4x smaller);
+     16c. a falcon-mamba smoke train step on the card raises naming
+         ROADMAP.md queue 1 item 23 (``selective_scan`` has no backward)
+         without launching the kernel; the model's no-grad forward runs it.
+Each phase's wall is printed.
 
 The line before the last is a JSON object with one entry per kernel
-(``launches`` sums phases 5 to 15); the last line is ``{"ok": true,
+(``launches`` sums phases 5 to 16); the last line is ``{"ok": true,
 "device": {...}}``.
 
 The process's CUDA allocator grows its segments in place
@@ -2366,8 +2395,18 @@ def paired_route(readings: list, kernel_inputs=None):
         ops.w4a16_matmul, ops.selective_scan = saved
 
 
+# the depths of phases 7, 9a, 10 and 13, cut so that the whole script, with
+# phase 16's training, stays inside its 1200 s (each phase's wall at full
+# depth is in PERF.md §6)
+MAMBA_LAYERS = 8         # of falcon-mamba-7b's 64
+RING_LAYERS = 4          # of h2o-danube-1.8b's 24
+ENCDEC_LAYERS = 8        # of whisper-large-v3's 32 encoder and 32 decoder
+HYBRID_LAYERS = 6        # of recurrentgemma-9b's 38: 2 whole periods
+
+
 def phase_mamba_path() -> dict:
-    """falcon-mamba-7b at full width and depth: the launch counts (the
+    """falcon-mamba-7b at full width, cut to ``MAMBA_LAYERS`` layers: the
+    launch counts (the
     scan once per layer and calibration batch in capture and in
     propagate, once per layer at prefill; no KV attention), the walls,
     bytes and the recurrent state against a bf16 KV cache of the same
@@ -2379,7 +2418,8 @@ def phase_mamba_path() -> dict:
     from repro_torch.models import transformer as T
 
     n_req, n_prompt, n_new = 4, 512, 32
-    r = drive_main_path("falcon-mamba-7b", "fp16", n_req, n_prompt, n_new)
+    r = drive_main_path("falcon-mamba-7b", "fp16", n_req, n_prompt, n_new,
+                        layers=MAMBA_LAYERS)
     cfg, params_q, packed = r["cfg"], r["params_q"], r["packed"]
     launches, res, prompt = r["launches"], r["res"], r["prompt"]
     mc = cfg.model
@@ -2472,7 +2512,7 @@ def phase_mamba_path() -> dict:
     # (b) the prefill -> decode hand-off: the kernel's h_last and the conv
     # inputs feed the plain decode recurrence. In fp32 the two differ in
     # the order of a few sums per layer (the decode's b = (dt*B)*u against
-    # the scan's (dt*u)*B, and y's sum over the states), over 64 layers
+    # the scan's (dt*u)*B, and y's sum over the states), over the layers
     full = T.forward(m32, packed, ptoks)[:, -1]
     _, caches = T.prefill(m32, packed, ptoks[:, :-1], n_prompt)
     last = torch.full((n_req,), n_prompt - 1, dtype=torch.long,
@@ -2599,8 +2639,8 @@ def ring_against_full(cfg, packed, prompt, tokens, n_steps: int) -> tuple:
 
 
 def phase_ring_path(smi: str) -> dict:
-    """9a: h2o-danube-1.8b at full width and depth (24 "swa" layers,
-    window 4096, head_dim 80) → quantize_model → pack_for_serving →
+    """9a: h2o-danube-1.8b at full width (window 4096, head_dim 80), cut to
+    ``RING_LAYERS`` of its 24 "swa" layers → quantize_model → pack_for_serving →
     generate on the int8 ring with a 4608-token prompt (the prefill keeps
     the last 4096 positions), then two more serves of 4080-token prompts
     (int8 and bf16 cache) whose decode crosses the wrap at position 4096
@@ -2614,7 +2654,8 @@ def phase_ring_path(smi: str) -> dict:
     from repro_torch.models import transformer as T
 
     n_req, n_new = 2, 32
-    r = drive_main_path("h2o-danube-1.8b", "int8", n_req, 4608, n_new)
+    r = drive_main_path("h2o-danube-1.8b", "int8", n_req, 4608, n_new,
+                        layers=RING_LAYERS)
     cfg, packed, launches = r["cfg"], r["packed"], r["launches"]
     del r["params_q"]
     mc = cfg.model
@@ -2698,14 +2739,19 @@ def phase_ring_path(smi: str) -> dict:
     return launches
 
 
+# phase 9b's depth: 26 of pixtral's 40 layers fit quantization on the card;
+# 13 kept the run inside its time limit once phases 13 and 14 came in, 4
+# since phase 16 (training) did
+VLM_LAYERS = 4
+
+
 def phase_vlm_path(smi: str) -> dict:
     """9b: pixtral-12b at full width (d 5120, 32 heads over 8 KV heads,
-    head_dim 128, d_ff 14336, vocab 131072), its depth cut to 13 of 40
-    layers: 26 is the most that quantization (the float layers before and
-    after, ~2.3 GB a layer beside ~15 GB of embedding, head and work: ~75
-    GB at 26) fits on the card, and 13 halve the phase's ~100 s of
-    quantization, which keeps the whole run near 1000 s of its 1200 s
-    since phases 13 and 14 came in; every calibration batch (4 x 2 x 128 tokens) and request (2 x 64
+    head_dim 128, d_ff 14336, vocab 131072), its depth cut to
+    ``VLM_LAYERS`` of 40 layers: 26 is the most that quantization (the
+    float layers before and after, ~2.3 GB a layer beside ~15 GB of
+    embedding, head and work: ~75 GB at 26) fits on the card, and the
+    whole run must stay inside its 1200 s; every calibration batch (4 x 2 x 128 tokens) and request (2 x 64
     tokens + 32 new) with the config's 1024 patch embeddings:
     quantize_model → pack_for_serving → generate, the replay bitwise the
     eager loop, decode starting at 64 + 1024, the packed int4 logits
@@ -2724,7 +2770,7 @@ def phase_vlm_path(smi: str) -> dict:
     from repro_torch.serving import engine
     from repro_torch.serving.engine import generate
 
-    n_req, n_prompt, n_new, layers = 2, 64, 32, 13
+    n_req, n_prompt, n_new, layers = 2, 64, 32, VLM_LAYERS
     r = drive_main_path("pixtral-12b", "fp16", n_req, n_prompt, n_new,
                         layers=layers, calib_shape=(4, 2, 128))
     cfg, launches = r["cfg"], r["launches"]
@@ -2798,13 +2844,13 @@ def phase_vlm_path(smi: str) -> dict:
 
 
 def phase_encdec_path(smi: str) -> dict:
-    """10: whisper-large-v3 at full width and depth (32 encoder + 32
-    decoder layers, d 1280, 20 heads of 64, d_ff 5120, vocab 51866, 1500
-    frames), seeded random weights, calibration 4 batches x 2 clips x
+    """10: whisper-large-v3 at full width (d 1280, 20 heads of 64, d_ff
+    5120, vocab 51866, 1500 frames), cut to ``ENCDEC_LAYERS`` encoder and
+    as many decoder layers of its 32 + 32, seeded random weights, calibration 4 batches x 2 clips x
     (1500 seeded frames + 256 tokens): quantize_model → pack_for_serving →
     generate (4 requests x (1500 frames + 64 prompt tokens) + 32 new) with
     the bf16 and then the int8 self-cache, each replay bitwise its eager
-    loop; the calibrated and RTN-packed linears (320 and 192: a decoder
+    loop; the calibrated and RTN-packed linears (10 and 6 a layer: a decoder
     layer's self-attention and MLP sit under its ``layer`` key, which the
     calibration does not pick, as in the JAX package); the cache bytes;
     the int8-vs-bf16 drift rule of phase 6; the packed int4 logits
@@ -2830,6 +2876,7 @@ def phase_encdec_path(smi: str) -> dict:
     n_batches, clips, n_tok = 4, 2, 256
     cfg = get_config("whisper-large-v3")
     mc, qc = cfg.model, cfg.quant
+    mc.num_layers = mc.encoder_layers = ENCDEC_LAYERS
     se = mc.encoder_seq_len
     log(f"  config: {mc.name} encoder layers={mc.encoder_layers} decoder "
         f"layers={mc.num_layers} d_model={mc.d_model} heads={mc.num_heads} "
@@ -2923,9 +2970,10 @@ def phase_encdec_path(smi: str) -> dict:
     log(f"  peak device memory (the decode graph's pool in it): {peak} "
         f"bytes, of which {held_before} were held by earlier phases: this "
         f"path {peak - held_before} bytes")
-    check(n_cal == 320 and xattn == 128 and n_rtn == 192
-          and rtn_under_layer == 192 and len(steps) == 64,
-          "10: 320 calibrated and 192 RTN-packed linears")
+    n_l = mc.num_layers
+    check(n_cal == 10 * n_l and xattn == 4 * n_l and n_rtn == 6 * n_l
+          and rtn_under_layer == 6 * n_l and len(steps) == 2 * n_l,
+          "10: 10 calibrated and 6 RTN-packed linears a layer")
     check(starts == [[n_prompt] * n_req], "10: decode starts at the prompt")
     decode_graph_checks(cfg, packed, prompt, res, gen_launches, n_new)
     for name, n in launches.items():
@@ -2937,6 +2985,7 @@ def phase_encdec_path(smi: str) -> dict:
 
     log("  the int8 self-cache leg")
     cfg8 = get_config("whisper-large-v3")
+    cfg8.model = mc
     cfg8.serve.kv_cache = "int8"
     before = ops.kernel_launches()
     pre8 = []
@@ -3015,14 +3064,14 @@ def phase_encdec_path(smi: str) -> dict:
     rel = {}
     for dt in ("float32", "bfloat16"):
         mdt = dataclasses.replace(mc, dtype=dt)
-        lq = T.encdec_forward(mdt, packed, last["frames"],
-                              last["tokens"].cuda())
-        lf = T.encdec_forward(mdt, refined, last["frames"],
-                              last["tokens"].cuda())
+        lq, _ = T.encdec_forward(mdt, packed, last["frames"],
+                                 last["tokens"].cuda())
+        lf, _ = T.encdec_forward(mdt, refined, last["frames"],
+                                 last["tokens"].cuda())
         rel[dt] = float((lq - lf).norm() / (lf.norm() + 1e-9))
         if dt == "float32":
-            lraw = T.encdec_forward(mdt, params_q, last["frames"],
-                                    last["tokens"].cuda())
+            lraw, _ = T.encdec_forward(mdt, params_q, last["frames"],
+                                       last["tokens"].cuda())
             rel["raw"] = float((lq - lraw).norm() / (lraw.norm() + 1e-9))
             del lraw
         finite = bool(torch.isfinite(lq).all())
@@ -3040,7 +3089,7 @@ def phase_encdec_path(smi: str) -> dict:
     # fp32 compute on fp32 caches
     m32 = dataclasses.replace(mc, dtype="float32")
     toks = torch.cat([ptoks, res.tokens[:, :8].to(ptoks.dtype)], dim=1)
-    full = T.encdec_forward(m32, packed, fr, toks)
+    full, _ = T.encdec_forward(m32, packed, fr, toks)
     lg, caches = T.encdec_prefill(m32, packed, fr, ptoks, n_prompt + 9,
                                   cache_dtype=torch.float32)
 
@@ -3071,7 +3120,8 @@ def phase_encdec_path(smi: str) -> dict:
         f"new)")
     argv = ["--arch", "whisper-large-v3", "--pack-rtn", "--batch",
             str(n_req), "--prompt-len", str(n_prompt),
-            f"serve.max_new_tokens={n_new}"]
+            f"serve.max_new_tokens={n_new}",
+            f"model.num_layers={n_l}", f"model.encoder_layers={n_l}"]
     starts = []
     with patched(engine, "DecodeLoop", recording_starts(starts)):
         res_l, counts = serve_walls(LS, argv, launches, "whisper-large-v3",
@@ -3179,11 +3229,11 @@ def packed_against_refined(mc, packed, params_q, toks) -> dict:
 def phase_hybrid_path(smi: str) -> dict:
     """13: recurrentgemma-9b at full width (d 4096, 16 heads over one
     kv-head of 256, lru_width 4096, d_ff 12288, vocab 256000 tied, window
-    2048, logits soft-capped at 30), its depth cut to 12 of 38 layers (4
-    whole (rglru, rglru, local) periods: quantization holds the float
-    layers before and after, ~2.2x the parameter bytes, and 38 layers
-    reckon at ~82 GB; 33 fit, and 12 take ~55 s off the run, which keeps
-    it inside its 1200 s since phase 15 came in), calibration 4 x 4 x 512 → quantize_model →
+    2048, logits soft-capped at 30), its depth cut to ``HYBRID_LAYERS``
+    of 38 layers (whole (rglru, rglru, local) periods: quantization holds
+    the float layers before and after, ~2.2x the parameter bytes, and 38
+    layers reckon at ~82 GB; 33 fit, and the cut keeps the whole run
+    inside its 1200 s), calibration 4 x 4 x 512 → quantize_model →
     pack_for_serving → generate on the bf16 ring (4 x 512 + 32), then on
     the int8 ring (the R-16 ``int8_kv_attention``) and 1 x 2040 + 32 on
     the int8 ring, whose decode crosses the 2048-slot window inside the
@@ -3201,7 +3251,7 @@ def phase_hybrid_path(smi: str) -> dict:
     from repro_torch.models import transformer as T
     from repro_torch.serving.engine import generate
 
-    n_req, n_prompt, n_new, layers = 4, 512, 32, 12
+    n_req, n_prompt, n_new, layers = 4, 512, 32, HYBRID_LAYERS
     r = drive_main_path("recurrentgemma-9b", "fp16", n_req, n_prompt, n_new,
                         layers=layers, calib_shape=(4, 4, 512))
     cfg, packed, launches = r["cfg"], r["packed"], r["launches"]
@@ -3912,6 +3962,18 @@ def diff_artifacts(got_path: str, want_path: str) -> bool:
     return not bad
 
 
+# phase 8a's stage-2 count on random weights, which phase 16 reads beside
+# the trained model's: {arch: (linears stage 2 improved, linears)}
+RANDOM_STAGE2: dict = {}
+
+
+def stage2_improved(report) -> int:
+    """Linears whose final Γ is under 0.999 of their post-stage-1 Γ (the
+    count ``QuantReport.summary`` prints)."""
+    return sum(1 for r in report.linears
+               if r.gamma and r.gamma_final < r.gamma[0] * 0.999)
+
+
 def phase_entry_points(table: KernelTable, smi: str) -> dict:
     """The launchers' ``main(argv)`` in this process on the card, each
     with the launch counters reset and read around it (8a-8e in the module
@@ -3959,6 +4021,8 @@ def phase_entry_points(table: KernelTable, smi: str) -> dict:
         saves = []
         with patched(LQ, "save_artifact", timed(saves)):
             (path, report), q_wall, _ = run_launcher(LQ, qargs, launches)
+        RANDOM_STAGE2["opt-proxy"] = (stage2_improved(report),
+                                      len(report.linears))
         rest = report.seconds_total - report.seconds_stage1 \
             - report.seconds_stage2
         art_bytes = os.path.getsize(path)
@@ -4307,9 +4371,11 @@ def phase_overlap_path(smi: str) -> dict:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            _, rep2 = quantize_model(cfg, params, calib)
+            params_q2, rep2 = quantize_model(cfg, params, calib)
             torch.cuda.synchronize()
-        del params, calib
+        # the cut's quantized tree must not outlive its leg (it held
+        # 5.6 GB through the next one)
+        del params, calib, params_q2
         by_stream = streams_of_kernel(prof, "hessian_accum")
         log(f"  2-layer cut under torch.profiler: hessian_accum kernels by "
             f"CUDA stream {by_stream}; spec_captures "
@@ -4318,6 +4384,314 @@ def phase_overlap_path(smi: str) -> dict:
               and rep2.pipeline_stats["spec_captures"] == 1,
               f"15: {arch}'s speculative hessian_accum on a second stream")
         release_device()
+    return launches
+
+
+def _train_argv(ck: str, steps: int) -> list:
+    """16a's ``launch.train`` command line: full-width opt-proxy, batch 16
+    x 128, lr 1e-3, a checkpoint every 150 steps (each writes ~2 GB:
+    params and two moments), no remat (the step is host-bound; remat adds
+    about a third to its wall). The corpus is the launcher's
+    ``MarkovLM`` with 3 successors a token (``Branch3``)."""
+    return ["--arch", "opt-proxy", f"train.ckpt_dir={ck}", f"train.steps={steps}",
+            "train.global_batch_size=16", "train.seq_len=128",
+            "train.lr=1e-3", "train.ckpt_every=150", "train.log_every=50",
+            "parallel.remat=none"]
+
+
+def profile_train_steps(cfg, batches, label: str) -> None:
+    """A fresh state of ``cfg`` on the card, one warm step on
+    ``batches[0]``, then one step on ``batches[1]`` through
+    ``device_breakdown`` (wall, the kernels' device time, idle share)."""
+    import torch
+    from repro_torch.training import train_step as TS
+    st = TS.init_train_state(cfg, torch.device("cuda"))
+    step = TS.make_train_step(cfg)
+    st, m = step(st, batches[0])
+    float(m["loss"])
+    device_breakdown(lambda: float(step(st, batches[1])[1]["loss"]), label)
+
+
+def _mean(xs) -> float:
+    return sum(xs) / len(xs)
+
+
+def phase_training_path(smi: str) -> dict:
+    """16: training on the card (module docstring): 16a full-width
+    opt-proxy through ``launch.train`` in this process (uninterrupted; a
+    second run stopped by SIGTERM half-way and rerun, its final
+    checkpoint bitwise the first's), ``launch.quantize
+    train.ckpt_dir=`` on the trained checkpoint (stage 2's count beside
+    phase 8a's on random weights; held-out CE of the float, RPIQ int4 and
+    RTN int4 models and the logit gap), ``launch.serve --params``; 16b
+    internlm2-1.8b at full width and depth, five steps at 4 x 512 under
+    full remat with fp32 and with int8 moments; 16c a falcon-mamba smoke
+    train step refused on the card (no backward for ``selective_scan``).
+    Returns the launches of 16a's quantize, eval and serve and 16c's
+    no-grad forward."""
+    import shutil
+    import signal
+    import torch
+    from repro_torch.config import apply_overrides, parse_overrides
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_numpy, unstack_layers
+    from repro_torch.core.pipeline import pack_for_serving
+    from repro_torch.data import DataState, MarkovLM
+    from repro_torch.distributed.checkpoint import (Checkpointer,
+                                                    load_artifact, tree_paths)
+    from repro_torch.kernels import ops
+    from repro_torch.launch import quantize as LQ
+    from repro_torch.launch import serve as LS
+    from repro_torch.launch import train as LT
+    from repro_torch.models import transformer as T
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import train_step as TS
+
+    class Branch3(MarkovLM):
+        """The launcher's corpus with 3 successors a token (the example
+        twin's), the rest as the launcher builds it."""
+        def __init__(self, vocab_size, seed=0):
+            super().__init__(vocab_size, seed=seed, branching=3)
+
+    launches = {k: 0 for k in KERNEL_SOURCES}
+    root = os.path.join(ROOT, "build", "phase16")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    steps, kill_at = 300, 152
+    ck_a, ck_b = os.path.join(root, "a"), os.path.join(root, "b")
+    try:
+        # -- 16a: uninterrupted, in this process
+        log(f"  16a: launch.train --arch opt-proxy (12 layers, d 768, vocab "
+            f"50304; fp32 master, bf16 compute, no remat) {steps} steps "
+            "of 16 x 128 tokens, lr 1e-3, MarkovLM(branching=3)")
+        torch.cuda.synchronize()
+        release_device()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with patched(LT, "MarkovLM", lambda make: Branch3):
+            out, wall, counts = run_launcher(LT, _train_argv(ck_a, steps),
+                                             launches)
+        peak = torch.cuda.max_memory_allocated() - held
+        hist, a_state = out["history"], out["state"]
+        del out
+        losses = [h["loss"] for h in hist]
+        dts = sorted(h["dt"] for h in hist[1:])
+        first, last = _mean(losses[:10]), _mean(losses[-10:])
+        log(f"  walls (s) [{smi}]: launch.train {wall:.3f}; step median "
+            f"{dts[len(dts) // 2]:.5f}, quartiles {dts[len(dts) // 4]:.5f}"
+            f" / {dts[3 * len(dts) // 4]:.5f}, first step "
+            f"{hist[0]['dt']:.3f} ({2048 / dts[len(dts) // 2]:.0f} tokens/s"
+            f" at the median); peak above what was held {peak} bytes "
+            f"(held {held})")
+        log(f"  loss: mean of steps 0-9 {first:.4f}, of steps 290-299 "
+            f"{last:.4f}; step 0 {losses[0]:.4f}, step 299 "
+            f"{losses[-1]:.4f}; grad_norm step 299 "
+            f"{hist[-1]['grad_norm']:.4f}; kernel launches {counts}")
+        check(len(hist) == steps and all(math.isfinite(x) for x in losses)
+              and last < first - 0.5, "16a: the loss falls")
+        data = MarkovLM(50304, seed=0, branching=3)
+        cfg = get_config("opt-proxy")
+        apply_overrides(cfg, parse_overrides(_train_argv(ck_a, steps)[2:]))
+        profile_train_steps(cfg, [data.batch(16, 128) for _ in range(2)],
+                            "16a train step")
+        release_device()
+
+        # -- the same run again, SIGTERM half-way, then rerun. The stream
+        # sends this process SIGTERM as it makes batch ``kill_at`` (in the
+        # trainer's prefetch thread, which runs up to three batches ahead
+        # of the steps, under the trainer's handler); the trainer stops at
+        # the next step boundary with a checkpoint
+        class Killing(Branch3):
+            def batch(self, *a, **kw):
+                if self.step == kill_at:
+                    os.kill(os.getpid(), signal.SIGTERM)
+                return super().batch(*a, **kw)
+
+        with patched(LT, "MarkovLM", lambda make: Killing):
+            halted, wall, _ = run_launcher(LT, _train_argv(ck_b, steps),
+                                          launches)
+        stopped = Checkpointer(ck_b).latest_step()
+        log(f"  SIGTERM as batch {kill_at} was made: the run stopped after "
+            f"step {halted['history'][-1]['step']}, latest checkpoint step "
+            f"{stopped} ({wall:.1f}s)")
+        check(kill_at - 4 < stopped <= kill_at
+              and stopped == len(halted["history"]), "16a: SIGTERM "
+              "checkpoints at the next step boundary")
+        del halted
+        with patched(LT, "MarkovLM", lambda make: Branch3):
+            again, wall, _ = run_launcher(LT, _train_argv(ck_b, steps),
+                                          launches)
+        log(f"  rerun: steps {again['history'][0]['step']}"
+            f"-{again['history'][-1]['step']} ({wall:.1f}s)")
+        check([h["step"] for h in again["history"]]
+              == list(range(stopped, steps)), "16a: the rerun resumes")
+        want = dict(tree_paths(a_state))
+        got = dict(tree_paths(again["state"]))
+        del again
+        differ = [k for k in want if not torch.equal(got[k], want[k])]
+
+        def extra(ck):
+            with open(os.path.join(ck, f"step_{steps:09d}",
+                                   "manifest.json")) as f:
+                return json.load(f)["extra"]
+        log(f"  resumed final TrainState against the uninterrupted one: "
+            f"{len(want) - len(differ)} of {len(want)} leaves bitwise "
+            f"equal; data stream {extra(ck_b)} / {extra(ck_a)}")
+        for k in differ[:8]:
+            a, b = got[k].double(), want[k].double()
+            log(f"  differs: {k}: rel {float((a - b).norm() / b.norm()):.3e}")
+        check(not differ and got.keys() == want.keys()
+              and extra(ck_b) == extra(ck_a), "16a: the resumed run is "
+              "bitwise the uninterrupted one")
+        del got, want
+
+        # -- quantize the trained checkpoint, evaluate, serve
+        qdir = os.path.join(root, "q")
+        (path, report), q_wall, _ = run_launcher(
+            LQ, ["--arch", "opt-proxy", "--out", qdir,
+                 f"train.ckpt_dir={ck_a}"], launches)
+        improved, n_lin = stage2_improved(report), len(report.linears)
+        rnd = RANDOM_STAGE2.get("opt-proxy")
+        log(f"  walls (s) [{smi}]: launch.quantize on the trained "
+            f"checkpoint {q_wall:.3f}; quantize_model "
+            f"{report.seconds_total:.3f} (stage1 {report.seconds_stage1:.3f}"
+            f" stage2 {report.seconds_stage2:.3f})")
+        log(f"  stage 2 improved {improved} of {n_lin} linears on the "
+            f"trained weights (phase 8a, random weights, same calibration: "
+            f"{rnd[0] if rnd else 'not run'} of "
+            f"{rnd[1] if rnd else n_lin}); modes "
+            f"{sorted(set(r.mode for r in report.linears))}")
+        gammas = sorted((r.gamma_final / r.gamma[0], r.name)
+                        for r in report.linears if r.gamma)
+        log(f"  Γ final / Γ after stage 1: best {gammas[0][0]:.4f} "
+            f"({gammas[0][1]}), median {gammas[len(gammas) // 2][0]:.4f}")
+
+        cfg = get_config("opt-proxy")
+        mc = cfg.model
+        trained = unstack_layers(a_state.params)
+        packed = params_from_numpy(load_artifact(path), "cuda")
+        rtn = pack_for_serving(cfg, trained)
+        held_out = MarkovLM(mc.vocab_size, seed=0, branching=3)
+        held_out.restore(DataState(0, 1_000_000))
+        batches = [held_out.batch(16, 128)["tokens"].cuda()
+                   for _ in range(4)]
+        ops.reset_kernel_launches()
+        ce, gap = {}, {}
+        with torch.no_grad():
+            for label, p in (("float", trained), ("rpiq int4", packed),
+                             ("rtn int4", rtn)):
+                vals = []
+                for i, toks in enumerate(batches):
+                    lg = T.forward(mc, p, toks)
+                    vals.append(float(TS.cross_entropy(lg[:, :-1],
+                                                       toks[:, 1:], None)))
+                    if i == 0:
+                        if label == "float":
+                            ref = lg
+                        else:
+                            gap[label] = float((lg - ref).norm()
+                                               / ref.norm())
+                    del lg
+                ce[label] = _mean(vals)
+            del p
+        counts = ops.kernel_launches()
+        for k, n in counts.items():
+            launches[k] += n
+        log(f"  held-out CE (4 x 16 x 128 tokens at stream step 1e6, bf16 "
+            f"compute): " + ", ".join(f"{k} {v:.4f}" for k, v in ce.items())
+            + "; logit gap to float (rel, first batch): "
+            + ", ".join(f"{k} {v:.4e}" for k, v in gap.items())
+            + f"; launches {json.dumps(counts)}")
+        check(all(math.isfinite(v) for v in ce.values())
+              and ce["float"] < first - 0.5, "16a: the trained model's "
+              "held-out CE")
+        del trained, packed, rtn, ref, batches, a_state
+        release_device()
+        res, _ = serve_walls(LS, ["--arch", "opt-proxy", "--params", path,
+                                  "--batch", "4", "--prompt-len", "16",
+                                  "serve.max_new_tokens=16"], launches,
+                             "opt-proxy trained --params", smi)
+        log(f"  served tokens (request 0): {res.tokens[0].tolist()}")
+        check(tuple(res.tokens.shape) == (4, 16), "16a: launch.serve "
+              "--params on the trained artifact")
+        del res
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # -- 16b: internlm2-1.8b at full width and depth
+    moment_bytes = {}
+    for int8 in (False, True):
+        release_device()
+        cfg = get_config("internlm2-1.8b")
+        cfg.parallel.remat = "full"
+        cfg.parallel.int8_optimizer_state = int8
+        cfg.train.lr, cfg.train.warmup_steps, cfg.train.steps = 3e-4, 1, 5
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        st = TS.init_train_state(cfg, torch.device("cuda"))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t
+        moment_bytes[int8] = O.state_bytes(st.opt)
+        n_params = sum(p.numel() for p in O.tree_leaves(st.params))
+        step = TS.make_train_step(cfg)
+        data = MarkovLM(cfg.model.vocab_size, seed=0, branching=3)
+        losses, walls = [], []
+        for i in range(5):
+            batch = data.batch(4, 512)
+            t = time.perf_counter()
+            st, m = step(st, batch)
+            losses.append(float(m["loss"]))
+            walls.append(time.perf_counter() - t)
+        peak = torch.cuda.max_memory_allocated() - held
+        del st, m, step
+        if not int8:
+            release_device()
+            profile_train_steps(cfg, [data.batch(4, 512) for _ in range(2)],
+                                "16b train step (fp32 moments)")
+        log(f"  16b: internlm2-1.8b ({n_params} parameters, fp32 master, "
+            f"bf16 compute, remat full, {'int8' if int8 else 'fp32'} "
+            f"moments): losses {[round(x, 4) for x in losses]}; walls (s) "
+            f"[{smi}]: init {init_s:.3f}, steps "
+            f"{[round(x, 4) for x in walls]}; optimizer state "
+            f"{moment_bytes[int8]} bytes; peak above what was held {peak} "
+            f"bytes (held {held})")
+        check(all(math.isfinite(x) for x in losses)
+              and losses[-1] < losses[0], f"16b: internlm2-1.8b's loss "
+              f"falls ({'int8' if int8 else 'fp32'} moments)")
+    ratio = moment_bytes[False] / moment_bytes[True]
+    log(f"  optimizer state fp32 / int8: {ratio:.3f}x")
+    check(ratio > 3.5, "16b: int8 moments ~4x smaller")
+
+    # -- 16c: Mamba training refused on the card
+    release_device()
+    cfg = get_config("falcon-mamba-7b", smoke=True)
+    st = TS.init_train_state(cfg, torch.device("cuda"))
+    batch = MarkovLM(cfg.model.vocab_size, seed=0).batch(2, 16)
+    before = ops.kernel_launches()["selective_scan"]
+    try:
+        TS.make_train_step(cfg)(st, batch)
+        refused = ""
+    except NotImplementedError as e:
+        refused = str(e)
+    after = ops.kernel_launches()["selective_scan"]
+    ops.reset_kernel_launches()
+    with torch.no_grad():
+        lg = T.forward(cfg.model, unstack_layers(st.params),
+                       batch["tokens"].cuda())
+    counts = ops.kernel_launches()
+    for k, n in counts.items():
+        launches[k] += n
+    log(f"  16c: falcon-mamba smoke train step on the card: {refused!r}; "
+        f"selective_scan launches during it {after - before}; the same "
+        f"model's forward under no_grad {tuple(lg.shape)}, finite "
+        f"{bool(torch.isfinite(lg).all())}, launches {json.dumps(counts)}")
+    check("ROADMAP.md, queue 1 item 23" in refused and after == before
+          and counts["selective_scan"] > 0, "16c: Mamba training refused, "
+          "its no-grad forward on the kernel")
+    del st, lg
+    release_device()
     return launches
 
 
@@ -4360,15 +4734,18 @@ def main() -> int:
             log(f"  {name}: {ln}")
 
     log("[3] kernels against their plain versions (card)")
+    t = time.perf_counter()
     table = KernelTable()
     phase_kernels(table)
     from repro_torch.kernels import ops
     log(f"  launches in this phase (checks and timing): "
         f"{json.dumps(ops.kernel_launches())}")
+    log(f"  phase 3 took {time.perf_counter() - t:.1f}s")
 
     log("[4] small end to end: smoke configs, card against CPU plain (fp32),"
         " then at their own bf16 and group size on the card; then the "
         "chunked prefill, a continuous run and the guardrail ladder")
+    t = time.perf_counter()
     phase_small_end_to_end("opt-proxy", "fp16")
     phase_small_end_to_end("internlm2-1.8b", "int8")
     phase_small_end_to_end("falcon-mamba-7b", "fp16")
@@ -4381,44 +4758,39 @@ def main() -> int:
     phase_small_starved()
     for arch, kv_cache in SMALL_SERVING:
         phase_small_serving(arch, kv_cache)
+    log(f"  phase 4 took {time.perf_counter() - t:.1f}s")
 
-    log("[5] main path at full width: opt-proxy")
-    launches = phase_main_path()
-
-    log("[6] main path at full width: internlm2-1.8b, int8 KV cache")
-    for name, n in phase_int8_kv_path().items():
-        launches[name] += n
-
-    log("[7] main path at full width: falcon-mamba-7b (Mamba-1)")
-    for name, n in phase_mamba_path().items():
-        launches[name] += n
-
-    log("[8] the entry points at full width: launch.quantize, "
-        "launch.serve, the example twins")
-    for name, n in phase_entry_points(table, smi).items():
-        launches[name] += n
-
-    release_device()
-    log("[9a] the ring path at full width and depth: h2o-danube-1.8b "
-        "(sliding window 4096, head_dim 80)")
-    for name, n in phase_ring_path(smi).items():
-        launches[name] += n
-    release_device()
-    log("[9b] the vision-language path at full width: pixtral-12b with "
-        "1024 patch embeddings")
-    for name, n in phase_vlm_path(smi).items():
-        launches[name] += n
-    release_device()
-    log("[10] the encoder-decoder path at full width and depth: "
-        "whisper-large-v3 (32 + 32 layers, 1500 frames)")
-    for name, n in phase_encdec_path(smi).items():
-        launches[name] += n
-
-    release_device()
-    log("[11] the routed-MoE path at full width and depth: olmoe-1b-7b "
-        "(64 experts, top 8)")
-    for name, n in phase_moe_path(smi).items():
-        launches[name] += n
+    phases = [
+        ("5", "main path at full width: opt-proxy", phase_main_path),
+        ("6", "main path at full width: internlm2-1.8b, int8 KV cache",
+         phase_int8_kv_path),
+        ("7", f"main path at full width: falcon-mamba-7b (Mamba-1, "
+         f"{MAMBA_LAYERS} of 64 layers)", phase_mamba_path),
+        ("8", "the entry points at full width: launch.quantize, "
+         "launch.serve, the example twins",
+         lambda: phase_entry_points(table, smi)),
+        ("9a", f"the ring path at full width: h2o-danube-1.8b ("
+         f"{RING_LAYERS} of 24 layers, sliding window 4096, head_dim 80)",
+         lambda: phase_ring_path(smi)),
+        ("9b", f"the vision-language path at full width: pixtral-12b ("
+         f"{VLM_LAYERS} of 40 layers) with 1024 patch embeddings",
+         lambda: phase_vlm_path(smi)),
+        ("10", f"the encoder-decoder path at full width: whisper-large-v3 "
+         f"({ENCDEC_LAYERS} + {ENCDEC_LAYERS} of 32 + 32 layers, 1500 "
+         "frames)",
+         lambda: phase_encdec_path(smi)),
+        ("11", "the routed-MoE path at full width and depth: olmoe-1b-7b "
+         "(64 experts, top 8)", lambda: phase_moe_path(smi)),
+    ]
+    launches = {k: 0 for k in KERNEL_SOURCES}
+    for n, what, run in phases:
+        if n not in ("5", "6", "7", "8"):
+            release_device()
+        log(f"[{n}] {what}")
+        t = time.perf_counter()
+        for name, n_launched in run().items():
+            launches[name] += n_launched
+        log(f"  phase {n} took {time.perf_counter() - t:.1f}s")
 
     release_device()
     log("[12] the continuous path at full width and depth: internlm2-1.8b "
@@ -4429,8 +4801,9 @@ def main() -> int:
     log(f"  phase 12 took {time.perf_counter() - t:.1f}s")
 
     release_device()
-    log("[13] the RG-LRU hybrid at full width: recurrentgemma-9b (12 of 38 "
-        "layers; bf16 and int8 rings, the wrap inside the replay)")
+    log(f"[13] the RG-LRU hybrid at full width: recurrentgemma-9b "
+        f"({HYBRID_LAYERS} of 38 layers; bf16 and int8 rings, the wrap "
+        "inside the replay)")
     t = time.perf_counter()
     for name, n in phase_hybrid_path(smi).items():
         launches[name] += n
@@ -4447,10 +4820,23 @@ def main() -> int:
     release_device()
     log("[15] the overlap schedule at full width and depth: olmoe-1b-7b and "
         "internlm2-1.8b, the next layer's capture ahead on a side stream")
+    log(f"  bytes held on the card before phase 15: "
+        f"{torch.cuda.memory_allocated()}")
     t = time.perf_counter()
     for name, n in phase_overlap_path(smi).items():
         launches[name] += n
     log(f"  phase 15 took {time.perf_counter() - t:.1f}s")
+
+    release_device()
+    log("[16] training on the card: opt-proxy through launch.train (a "
+        "SIGTERM'd run resumed bitwise), quantized and served; "
+        "internlm2-1.8b at full width and depth; Mamba training refused")
+    log(f"  bytes held on the card before phase 16: "
+        f"{torch.cuda.memory_allocated()}")
+    t = time.perf_counter()
+    for name, n in phase_training_path(smi).items():
+        launches[name] += n
+    log(f"  phase 16 took {time.perf_counter() - t:.1f}s")
 
     log(f"  total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(table.json(launches)), flush=True)

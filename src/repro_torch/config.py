@@ -1,7 +1,8 @@
 """Configuration dataclasses for the PyTorch port.
 
 The port's own copy of the fields its quantize → pack → serve paths
-(decoder-only and encoder-decoder) and its two launchers read, with the
+(decoder-only and encoder-decoder), its training and its launchers read,
+with the
 same names and defaults as the JAX package's configuration, plus the
 dotted ``key=value`` override helpers. A value the port does not run
 (``quant.mesh``, ``quant.batched_executor=false``,
@@ -14,7 +15,10 @@ overlap schedule alone. ``quant.act_order``, ``quant.keep_best_projection``
 and ``serve.quantized`` are taken with the JAX package's defaults and read
 nowhere, as there; so are ``serve.w4a16_impl`` and ``serve.kv_impl``:
 the port has one route per device and no kernel backend to choose (a
-kernel fault raises, it does not degrade).
+kernel fault raises, it does not degrade). Every ``train.*`` field is
+taken (training, ``repro_torch.training``); of ``parallel.*`` training
+reads ``remat`` and ``int8_optimizer_state``, and a sharding field set
+away from its default raises naming ROADMAP.md queue 1 item 17.
 """
 from __future__ import annotations
 
@@ -96,6 +100,7 @@ class ModelConfig:
     logits_softcap: float = 0.0     # tanh(logits / c) * c when > 0
     attn_logits_softcap: float = 0.0    # the same on attention scores
     dtype: str = "bfloat16"         # compute dtype
+    param_dtype: str = "float32"    # master parameter dtype (training)
     moe: MoEConfig = field(default_factory=MoEConfig)
     mla: MLAConfig = field(default_factory=MLAConfig)
     ssm: SSMConfig = field(default_factory=SSMConfig)
@@ -111,8 +116,10 @@ class ModelConfig:
     frontend: str = "none"
     frontend_tokens: int = 0
     # multi-token prediction (deepseek): an "mtp" subtree when > 0
-    # (transformer.mtp_logits)
+    # (transformer.mtp_logits), its CE weighted by mtp_loss_weight in the
+    # training loss
     mtp_depth: int = 0
+    mtp_loss_weight: float = 0.3
     # False selects the JAX package's naive fp32 attention baseline, which
     # is not ported (ROADMAP.md queue 1 item 22): attention raises on it
     opt_attention: bool = True
@@ -194,10 +201,60 @@ class QuantConfig:
 
 
 @dataclass
+class ParallelConfig:
+    """The JAX package's parallelism fields. The port runs on one device:
+    ``remat`` and ``int8_optimizer_state`` are read by training; every
+    sharding field (:data:`SHARDING_FIELDS`) set away from its default
+    raises, naming ROADMAP.md queue 1 item 17 (:func:`refuse_sharding`)."""
+    data: int = 1
+    model: int = 1
+    pod: int = 1
+    fsdp: bool = True
+    sp: bool = False
+    ep: bool = True
+    pipeline_stages: int = 1
+    pp_microbatches: int = 8
+    remat: str = "full"             # none | full | dots: "full" and "dots"
+    #                                 both recompute each superblock in the
+    #                                 backward (torch.utils.checkpoint), as
+    #                                 the reference's one jax.checkpoint
+    scan_layers: bool = True
+    grad_compression: str = "none"
+    int8_optimizer_state: bool = False  # AdamW moments as int8 blocks of
+    #                                     128 with f32 absmax scales
+    overlap_collectives: bool = True
+    ep_local_dispatch: bool = True
+
+
+# the fields of distribution (ROADMAP.md queue 1 item 17)
+SHARDING_FIELDS = ("data", "model", "pod", "fsdp", "sp", "ep",
+                   "pipeline_stages", "pp_microbatches", "grad_compression",
+                   "overlap_collectives", "ep_local_dispatch", "scan_layers")
+
+
+@dataclass
 class TrainConfig:
-    ckpt_dir: str = "/tmp/repro_ckpt"   # a trainer's step checkpoints; the
-    #                                     quantize launcher starts from the
-    #                                     parameters of the latest one
+    global_batch_size: int = 8
+    seq_len: int = 128
+    steps: int = 100
+    lr: float = 3e-4
+    warmup_steps: int = 10
+    schedule: str = "cosine"        # cosine | wsd | constant
+    wsd_stable_frac: float = 0.8
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    grad_accum: int = 1
+    seed: int = 0
+    log_every: int = 10
+    ckpt_every: int = 200
+    ckpt_dir: str = "/tmp/repro_ckpt"   # the trainer's step checkpoints;
+    #                                     the quantize launcher starts from
+    #                                     the parameters of the latest one
+    ckpt_keep: int = 3
+    ckpt_async: bool = True
 
 
 @dataclass
@@ -242,6 +299,7 @@ class FaultsConfig:
 @dataclass
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
     quant: QuantConfig = field(default_factory=QuantConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     serve: ServeConfig = field(default_factory=ServeConfig)
@@ -253,6 +311,14 @@ def not_ported(what: str, item: int) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet; see ROADMAP.md, queue 1 "
         f"item {item}")
+
+
+def refuse_sharding(pc: ParallelConfig) -> None:
+    """Raise, naming item 17, if a sharding field is off its default."""
+    default = ParallelConfig()
+    for f in SHARDING_FIELDS:
+        if getattr(pc, f) != getattr(default, f):
+            raise not_ported(f"parallel.{f}={getattr(pc, f)}", 17)
 
 
 def _coerce(value: str, current: Any) -> Any:
@@ -277,6 +343,8 @@ def apply_overrides(cfg: Any, overrides: Dict[str, str]) -> Any:
             raise KeyError(f"unknown config key: {key}")
         setattr(obj, leaf, _coerce(value, getattr(obj, leaf))
                 if isinstance(value, str) else value)
+        if isinstance(obj, ParallelConfig):
+            refuse_sharding(obj)
     return cfg
 
 

@@ -4,7 +4,8 @@ Full: 61 layers, d_model 7168, 128 heads, per-expert d_ff 2048, vocab
 129280, the first 3 layers dense (d_ff 18432), MLA ranks (q 1536 / kv 512,
 nope 128 / rope 64 / v 128), one MTP depth [arXiv:2412.19437]. Smoke: 3
 layers (1 dense), d_model 64, 8 experts top 2, MLA ranks 32 / 16, quant
-group and blocksize 8, for CPU tests.
+group and blocksize 8, for CPU tests. Training keeps bf16 master weights,
+int8 Adam moments and full remat, as the JAX config does.
 """
 from repro_torch.config import Config, MLAConfig, ModelConfig, MoEConfig
 
@@ -22,8 +23,11 @@ def full() -> Config:
         moe=MoEConfig(num_experts=256, top_k=8, d_ff_expert=2048,
                       num_shared_experts=1, first_dense_layers=3),
         mtp_depth=1,
+        param_dtype="bfloat16",
         max_seq_len=32768 + 8,
     )
+    cfg.parallel.int8_optimizer_state = True
+    cfg.parallel.remat = "full"
     return cfg
 
 

@@ -4,8 +4,8 @@ Full: 40 layers, d_model 2304, 36 heads (36 KV heads, head_dim 64), d_ff
 5760, vocab 122753, RMSNorm, gated SiLU MLP; the head is the embedding
 transposed, so the tree has no ``lm_head`` [arXiv:2404.06395]. Smoke: 2
 layers, d_model 72, 6 heads (head_dim 12), d_ff 160, vocab 128, quant
-group and blocksize 8, for CPU tests. (The JAX config also names the WSD
-training schedule, which the port has no trainer to read.)
+group and blocksize 8, for CPU tests. Both train with the WSD schedule
+(``train.schedule``), as in the JAX config.
 """
 from repro_torch.config import Config, ModelConfig
 
@@ -19,6 +19,7 @@ def full() -> Config:
         norm="rmsnorm", act="silu", gated_mlp=True,
         tie_embeddings=True, max_seq_len=32768 + 8,
     )
+    cfg.train.schedule = "wsd"
     return cfg
 
 
@@ -31,6 +32,7 @@ def smoke() -> Config:
         norm="rmsnorm", act="silu", gated_mlp=True,
         tie_embeddings=True, max_seq_len=64,
     )
+    cfg.train.schedule = "wsd"
     cfg.quant.group_size = 8
     cfg.quant.blocksize = 8
     return cfg

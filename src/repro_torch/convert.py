@@ -7,6 +7,11 @@ this module imports nothing from JAX. A JAX trainer checkpoint read through
 ``distributed.checkpoint`` comes in the same way, its leaves as CPU
 tensors.
 
+:func:`stack_layers` / :func:`unstack_layers` carry a float tree of
+tensors between the port's per-layer list and the JAX layout that training
+keeps (``training/train_step.py``: its leaves are the JAX TrainState's,
+so a trainer checkpoint has the JAX package's paths both ways).
+
 :func:`tree_to_numpy` is the other direction, the payload of a packed
 serving artifact: plain dicts and lists, numpy arrays and Python scalars,
 a ``QuantizedTensor`` as the dict of its six fields and a bfloat16 tensor
@@ -22,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.quant import QuantizedTensor
+from repro_torch.models.transformer import segments
 
 _QT_FIELDS = ("packed", "scales", "zeros", "shape", "bits", "group_size")
 BF16_TAG = "bfloat16"
@@ -136,6 +142,65 @@ def params_from_numpy(tree: Dict, device="cpu") -> Dict:
     if "blocks" in tree:
         out["layers"] = layers
     return out
+
+
+def tree_from_numpy(tree: Any, device="cpu") -> Any:
+    """A tree of numpy leaves → the same structure of tensors on
+    ``device``, leaf for leaf (a JAX TrainState's parameters keep their
+    stacked layout; ``QuantizedTensor`` leaves as in
+    :func:`params_from_numpy`)."""
+    return _convert(tree, device)
+
+
+def _stack_tensors(trees: List[Any]) -> Any:
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack_tensors([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
+def stack_layers(mc, params: Dict) -> Dict:
+    """The port's float tree → the JAX package's layout (the inverse of
+    :func:`unstack_layers`): a decoder-only ``"layers"`` list stacked into
+    ``"blocks"``, one ``{"sub<i>": ...}`` segment per scanned segment of
+    ``transformer.segments(mc)``, every leaf with a leading (count,) axis;
+    an encoder-decoder's ``encoder.layers`` / ``decoder.layers`` stacked
+    along a leading layer axis. Other subtrees are kept."""
+    if mc.is_encoder_decoder:
+        return {k: ({kk: (_stack_tensors(vv) if kk == "layers" else vv)
+                     for kk, vv in v.items()}
+                    if k in ("encoder", "decoder") else v)
+                for k, v in params.items()}
+    out = {k: v for k, v in params.items() if k != "layers"}
+    layers, li, blocks = params["layers"], 0, []
+    for seg in segments(mc):
+        n = len(seg.specs)
+        elems = [layers[li + c * n:li + (c + 1) * n]
+                 for c in range(seg.count)]
+        li += n * seg.count
+        blocks.append({f"sub{i}": _stack_tensors([e[i] for e in elems])
+                       for i in range(n)})
+    out["blocks"] = blocks
+    return out
+
+
+def unstack_layers(params: Dict) -> Dict:
+    """A tree in the JAX layout whose leaves are tensors → the port's
+    layout, each layer's leaves views into the stacked ones (so autograd
+    brings a layer's gradient back to its slice of the stacked leaf)."""
+    dev = next(iter(_tensor_leaves(params))).device
+    return params_from_numpy(params, dev)
+
+
+def _tensor_leaves(tree: Any):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensor_leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensor_leaves(v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
 
 
 def _stack(trees: List[Any]) -> Any:

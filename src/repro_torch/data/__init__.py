@@ -1,2 +1,3 @@
-"""Deterministic synthetic calibration data (torch tensors)."""
-from repro_torch.data.synthetic import MarkovLM, calibration_batches  # noqa: F401
+"""Deterministic synthetic data (torch tensors)."""
+from repro_torch.data.synthetic import (DataState, MarkovLM,  # noqa: F401
+                                        SentimentTask, calibration_batches)

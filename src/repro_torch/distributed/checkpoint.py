@@ -37,9 +37,10 @@ payload's sha256.
 
 Every load passes the ``checkpoint.load`` fault site first: armed with
 mode ``corrupt`` it raises the typed integrity error that real damage
-gives, with any other mode a ``FaultError``. Not ported:
-``SignalCheckpointer``, which waits for training (ROADMAP.md queue 1 item
-18).
+gives, with any other mode a ``FaultError``.
+
+**Preemption**: :class:`SignalCheckpointer` flips a flag on SIGTERM; the
+trainer reads it at each step boundary and checkpoints before it exits.
 """
 from __future__ import annotations
 
@@ -48,6 +49,7 @@ import json
 import os
 import pickle
 import shutil
+import signal
 import threading
 import time
 import warnings
@@ -433,3 +435,26 @@ def load_artifact(path: str) -> Any:
     except Exception as e:         # noqa: BLE001 — wrapped as typed error
         raise ArtifactIntegrityError(
             f"{path}: unloadable artifact ({e!r})") from e
+
+
+class SignalCheckpointer:
+    """SIGTERM → a checkpoint requested at the next step boundary
+    (``requested``); ``install`` / ``uninstall`` set and restore the
+    handler (from the main thread)."""
+
+    def __init__(self):
+        self.requested = False
+        self._orig: Dict[int, Any] = {}
+
+    def install(self) -> "SignalCheckpointer":
+        for sig in (signal.SIGTERM,):
+            self._orig[sig] = signal.signal(sig, self._handler)
+        return self
+
+    def _handler(self, signum, frame) -> None:
+        self.requested = True
+
+    def uninstall(self) -> None:
+        for sig, h in self._orig.items():
+            signal.signal(sig, h)
+        self._orig.clear()

@@ -13,6 +13,10 @@ that its main path went through the kernels. A :class:`CapturedCall`
 (a CUDA graph of wrapper calls) counts each replay as the launches it
 captured.
 
+No kernel has a backward: every ``*_cuda`` wrapper raises when grad mode
+is on and an input requires grad, where it would return an output with
+no ``grad_fn``; on the CPU the plain versions stay differentiable.
+
 The serving kernels' dispatchers, :func:`w4a16_matmul` and
 :func:`int8_kv_attention`, pass the ``kernels.pallas_dispatch`` fault site
 (the JAX package's name) before they choose a route, so an armed fault
@@ -29,6 +33,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.config import not_ported
 from repro_torch.core import faults
 from repro_torch.kernels import build, ref
 
@@ -113,6 +118,14 @@ def _check_cuda(op: str, *tensors: Tensor) -> None:
             raise ValueError(f"{op}: expected CUDA tensors, got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{op}: expected contiguous tensors")
+    # no kernel has a backward: its output would carry no grad_fn, and
+    # every gradient above it would be silently wrong
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        what = (f"{op} on the card with inputs that require grad (the CUDA "
+                "kernel has no backward)")
+        if op == "selective_scan":          # Mamba training on the card
+            raise not_ported(what, 23)
+        raise NotImplementedError(f"{what}; call it under torch.no_grad()")
 
 
 def _launch(op: str, fn, *args) -> None:

@@ -4,9 +4,10 @@
         --smoke quant.rpiq_iters=5 quant.rpiq_alpha=0.01 [--device cpu]
 
 The twin of the JAX package's ``launch/quantize.py``, with the same
-command line. When ``train.ckpt_dir`` holds a step checkpoint (a JAX
-trainer's, say) the parameters of its latest step are quantized (a
-*trained* model); otherwise a fresh init from seed 0. Calibration is
+command line. When ``train.ckpt_dir`` holds a step checkpoint (the
+port's ``launch.train``'s or a JAX trainer's: they share the TrainState
+layout) the parameters of its latest step are quantized (a *trained*
+model); otherwise a fresh init from seed 0. Calibration is
 ``MarkovLM(vocab, seed=7)``: ``quant.calib_batches`` batches of
 ``quant.calib_batch_size`` × ``quant.calib_seq_len`` tokens; an
 encoder-decoder (whisper) also gets ``encoder_seq_len`` standard-normal

@@ -87,7 +87,10 @@ def init_mlp(cfg: ModelConfig, gen: torch.Generator, d_model: int, d_ff: int,
 
 
 def embed(p: Dict, tokens: Tensor, dtype: torch.dtype) -> Tensor:
-    return p["embedding"].to(dtype)[tokens]
+    """The rows of the embedding cast to ``dtype``, a gather (bitwise
+    indexing); its backward on CUDA sums each row's gradients in a fixed
+    order (no atomics), so a training run repeats bitwise."""
+    return F.embedding(tokens, p["embedding"].to(dtype))
 
 
 def unembed(cfg: ModelConfig, params: Dict, h: Tensor) -> Tensor:

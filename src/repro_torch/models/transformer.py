@@ -43,6 +43,14 @@ cache is ``{"self": <a self-attention cache, bf16 or int8>, "cross":
 float (bf16 when the self-cache is int8, as the JAX package's
 ``_float_cache_dtype``).
 
+Training (``forward_train``, ``encdec_forward``) returns the summed
+routed-MoE load-balance losses beside the logits. ``segments(cfg)`` groups
+the layers as the JAX package's ``segment_specs`` does: runs of a periodic
+super-block or of one spec. With ``remat`` each super-block (one scan
+step of the reference) runs under ``torch.utils.checkpoint``, the twin of
+the reference's ``jax.checkpoint``: its activations are recomputed in the
+backward, bitwise the forward's.
+
 The chunked prefill (``prefill_begin`` / ``prefill_step`` /
 ``prefill_finish``, ``prefill_chunked`` and the ``encdec_*`` twins) runs
 a prompt some positions at a time: each chunk's attention reads the
@@ -57,9 +65,10 @@ lane axis first and is written in place.
 from __future__ import annotations
 
 import functools
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import attention as attn
@@ -92,6 +101,43 @@ def layer_specs(cfg: ModelConfig) -> Tuple[LayerSpec, ...]:
                   and i >= cfg.moe.first_dense_layers)
         return (mixer, "moe" if routed else "dense")
     return tuple(spec(i, kind) for i, kind in enumerate(cfg.layer_kinds))
+
+
+class Segment(NamedTuple):
+    specs: Tuple[LayerSpec, ...]    # the super-block's period
+    count: int                      # its repeats
+
+
+def segment_specs(specs: Sequence[LayerSpec],
+                  pattern_len: int) -> List[Segment]:
+    """The JAX package's greedy tiling: periodic super-blocks of
+    ``pattern_len`` where they repeat longer than a run of one spec, runs
+    of one spec elsewhere."""
+    segs: List[Segment] = []
+    i, n = 0, len(specs)
+    while i < n:
+        j = i
+        while j < n and specs[j] == specs[i]:
+            j += 1
+        run1, runq, q = j - i, 0, pattern_len
+        if q > 1 and i + q <= n:
+            base = tuple(specs[i:i + q])
+            while (i + (runq + 1) * q <= n
+                   and tuple(specs[i + runq * q:i + (runq + 1) * q]) == base):
+                runq += 1
+        if q > 1 and runq * q > run1:
+            segs.append(Segment(tuple(specs[i:i + q]), runq))
+            i += runq * q
+        else:
+            segs.append(Segment((specs[i],), run1))
+            i += run1
+    return segs
+
+
+def segments(cfg: ModelConfig) -> List[Segment]:
+    """The layer stack as the reference's scanned segments (its ``blocks``
+    list; ``convert.stack_layers`` stacks the port's layers so)."""
+    return segment_specs(layer_specs(cfg), len(cfg.block_pattern))
 
 
 def init_layer(cfg: ModelConfig, spec: LayerSpec, gen: torch.Generator,
@@ -139,18 +185,34 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device) -> Dict:
 
 def _mlp_residual(cfg: ModelConfig, spec: LayerSpec, p: Dict, h: Tensor,
                   name: str = "") -> Tensor:
+    return _mlp_residual_aux(cfg, spec, p, h, name)[0]
+
+
+def _mlp_residual_aux(cfg: ModelConfig, spec: LayerSpec, p: Dict, h: Tensor,
+                      name: str = "") -> Tuple[Tensor, Optional[Tensor]]:
+    """h plus the layer's MLP, and a routed MLP's load-balance loss (None
+    for a dense MLP or none)."""
     if spec[1] == "none":
-        return h
+        return h, None
     hn = norm(cfg, p["norm2"], h)
     if spec[1] == "moe":
-        return h + moe_mod.moe_ffn(cfg, p["mlp"], hn, name=f"{name}mlp").y
-    return h + mlp(cfg, p["mlp"], hn, name=f"{name}mlp")
+        out = moe_mod.moe_ffn(cfg, p["mlp"], hn, name=f"{name}mlp")
+        return h + out.y, out.aux_loss
+    return h + mlp(cfg, p["mlp"], hn, name=f"{name}mlp"), None
 
 
 def layer_forward(cfg: ModelConfig, spec: LayerSpec, p: Dict, h: Tensor,
                   positions: Tensor, name: str = "") -> Tensor:
     """One layer over a full sequence (no cache); its linears are tapped
     as ``{name}mixer.*`` / ``{name}mlp.*``."""
+    return layer_forward_aux(cfg, spec, p, h, positions, name)[0]
+
+
+def layer_forward_aux(cfg: ModelConfig, spec: LayerSpec, p: Dict, h: Tensor,
+                      positions: Tensor, name: str = ""
+                      ) -> Tuple[Tensor, Optional[Tensor]]:
+    """:func:`layer_forward` and the layer's load-balance loss (None but
+    for a routed MLP), the JAX package's train-mode ``layer_forward``."""
     hn = norm(cfg, p["norm1"], h)
     mixer = f"{name}mixer"
     if spec[0] == "mamba":
@@ -163,7 +225,7 @@ def layer_forward(cfg: ModelConfig, spec: LayerSpec, p: Dict, h: Tensor,
         y = attn.attention_forward(cfg, p["mixer"], hn, positions,
                                    window=_window_of(cfg, spec[0]),
                                    name=mixer)
-    return _mlp_residual(cfg, spec, p, h + y, name)
+    return _mlp_residual_aux(cfg, spec, p, h + y, name)
 
 
 def positions_for(b: int, s: int, device) -> Tensor:
@@ -193,13 +255,54 @@ def forward_hidden(cfg: ModelConfig, params: Dict, tokens: Tensor,
                    ) -> Tuple[Tensor, Tensor]:
     """:func:`forward` that also returns the final-normed hidden states
     (B, F + S, D), the input of the MTP head (:func:`mtp_logits`)."""
+    logits, _, h = forward_train(cfg, params, tokens, embeds,
+                                 return_hidden=True)
+    return logits, h
+
+
+def _superblock(cfg: ModelConfig, specs: Sequence[LayerSpec],
+                layers: Sequence[Dict], h: Tensor, aux: Tensor,
+                positions: Tensor) -> Tuple[Tensor, Tensor]:
+    """One scan step of a segment: its layers in order, the routed
+    layers' load-balance losses added to ``aux`` in layer order."""
+    for spec, p in zip(specs, layers):
+        h, a = layer_forward_aux(cfg, spec, p, h, positions)
+        if a is not None:
+            aux = aux + a
+    return h, aux
+
+
+def forward_train(cfg: ModelConfig, params: Dict, tokens: Tensor,
+                  embeds: Optional[Tensor] = None, *, remat: bool = False,
+                  return_hidden: bool = False):
+    """The training forward, the JAX package's ``forward``: (logits (B, F
+    + S, V) f32, the summed load-balance loss (a f32 scalar, 0 for a model
+    without routed layers)) or, with ``return_hidden``, also the
+    final-normed hidden states (the MTP head's input). The layers run
+    super-block by super-block of :func:`segments`; with ``remat`` each
+    super-block is recomputed in the backward (its activations are not
+    kept)."""
     h = embed_inputs(cfg, params, tokens, embeds)
     b, s, _ = h.shape
     positions = positions_for(b, s, h.device)
-    for spec, p in zip(layer_specs(cfg), params["layers"]):
-        h = layer_forward(cfg, spec, p, h, positions)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    layers = params["layers"]
+    li = 0
+    for seg in segments(cfg):
+        n = len(seg.specs)
+        for _ in range(seg.count):
+            group = layers[li:li + n]
+            li += n
+            if remat:
+                h, aux = torch.utils.checkpoint.checkpoint(
+                    _superblock, cfg, seg.specs, group, h, aux, positions,
+                    use_reentrant=False)
+            else:
+                h, aux = _superblock(cfg, seg.specs, group, h, aux,
+                                     positions)
     h = norm(cfg, params["final_norm"], h)
-    return unembed(cfg, params, h), h
+    logits = unembed(cfg, params, h)
+    return (logits, aux, h) if return_hidden else (logits, aux)
 
 
 def mtp_logits(cfg: ModelConfig, params: Dict, h_final: Tensor,
@@ -518,16 +621,17 @@ def decoder_layer(cfg: ModelConfig, p: Dict, h: Tensor, positions: Tensor,
 
 
 def encdec_forward(cfg: ModelConfig, params: Dict, frames: Tensor,
-                   tokens: Tensor) -> Tensor:
-    """Teacher-forced forward → logits (B, S, V) f32 (the JAX package's
-    ``encdec_forward`` without its zero aux loss, which training reads)."""
+                   tokens: Tensor) -> Tuple[Tensor, Tensor]:
+    """Teacher-forced forward → (logits (B, S, V) f32, the aux loss: a
+    zero f32 scalar, which training adds as the JAX package's does)."""
     enc = encode(cfg, params, frames)
     h = decoder_inputs(cfg, params, tokens)
     positions = positions_for(h.shape[0], h.shape[1], h.device)
     for p in params["decoder"]["layers"]:
         h = decoder_layer(cfg, p, h, positions, enc)
-    return unembed(cfg, params, norm(cfg, params["decoder"]["final_norm"],
-                                     h))
+    logits = unembed(cfg, params, norm(cfg, params["decoder"]["final_norm"],
+                                       h))
+    return logits, torch.zeros((), dtype=torch.float32, device=h.device)
 
 
 def encdec_prefill(cfg: ModelConfig, params: Dict, frames: Tensor,

@@ -152,9 +152,9 @@ def test_encdec_forward_matches_jax(model):
     lj, _ = JT.encdec_forward(model["jcfg"].model, model["jparams"],
                               jnp.asarray(model["frames"]),
                               jnp.asarray(model["toks"]))
-    lt = TT.encdec_forward(model["tcfg"].model, model["tparams"],
-                           torch.from_numpy(model["frames"]),
-                           torch.from_numpy(model["toks"]))
+    lt, _ = TT.encdec_forward(model["tcfg"].model, model["tparams"],
+                              torch.from_numpy(model["frames"]),
+                              torch.from_numpy(model["toks"]))
     assert lt.dtype == torch.float32 and lt.shape == (2, 12, 128)
     assert rel(lt.numpy(), lj) <= 1e-5
 
@@ -271,8 +271,8 @@ def test_packed_layout_codes_and_logits_match_jax(runs):
     total = sum(qt.packed.numel() for qt in ours.values())
     assert diff / total <= 1e-2
     last = runs["tc"][-1]
-    lt = TT.encdec_forward(runs["tcfg"].model, tpacked, last["frames"],
-                           last["tokens"])
+    lt, _ = TT.encdec_forward(runs["tcfg"].model, tpacked, last["frames"],
+                              last["tokens"])
     lj, _ = JT.encdec_forward(runs["jcfg"].model, jpacked_raw,
                               jnp.asarray(last["frames"].numpy()),
                               jnp.asarray(last["tokens"].numpy()))

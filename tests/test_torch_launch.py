@@ -365,13 +365,25 @@ def test_new_arch_override_keys_are_taken(launcher, arch, override,
         assert tuple(out.tokens.shape) == (2, 2)
 
 
+# the fields of distribution, each set away from its JAX default
+SHARDING_OVERRIDES = (
+    "parallel.data=2", "parallel.model=2", "parallel.pod=2",
+    "parallel.fsdp=false", "parallel.sp=true", "parallel.ep=false",
+    "parallel.pipeline_stages=2", "parallel.pp_microbatches=4",
+    "parallel.grad_compression=int8", "parallel.overlap_collectives=false",
+    "parallel.ep_local_dispatch=false", "parallel.scan_layers=false")
+
+
 @pytest.mark.parametrize("launcher", ["quantize", "serve"])
 @pytest.mark.parametrize("override", [
     "quant.act_order=true", "quant.keep_best_projection=false",
     "serve.quantized=false", "quant.moe_flip_budget=0.25",
     "model.opt_attention=false", "quant.jit_capture=false",
     "quant.gptq_impl=xla", "quant.rpiq_impl=xla", "quant.rpiq_impl=pallas",
-    "quant.batched_executor=false"])
+    "quant.batched_executor=false", "parallel.remat=none",
+    "parallel.int8_optimizer_state=true", "train.lr=1e-3",
+    "train.schedule=wsd", "model.param_dtype=bfloat16",
+    *SHARDING_OVERRIDES])
 def test_jax_override_keys_are_taken(launcher, override, tmp_path):
     """Keys the JAX ``Config`` takes are taken by both launchers and run to
     the end: the ones read nowhere in the reference (``quant.act_order``,
@@ -383,7 +395,11 @@ def test_jax_override_keys_are_taken(launcher, override, tmp_path):
     stage route (``quant.gptq_impl`` / ``quant.rpiq_impl`` ``xla``) and
     its per-linear executor baseline (``quant.batched_executor=false``)
     raise in the quantize launcher, which runs the executor; each names
-    its ROADMAP item."""
+    its ROADMAP item. Training's keys are taken (``parallel.remat``,
+    ``parallel.int8_optimizer_state``, ``train.*``, ``model.param_dtype``;
+    every ``train.*`` key in :func:`test_every_train_key_is_taken`), and
+    each sharding field set away from its default raises naming item 17
+    in both."""
     argv = ["--arch", "opt-proxy", "--smoke", "--device", "cpu"]
     if launcher == "quantize":
         argv += ["--out", str(tmp_path), f"train.ckpt_dir={tmp_path / 'n'}",
@@ -393,7 +409,8 @@ def test_jax_override_keys_are_taken(launcher, override, tmp_path):
         argv += ["--batch", "2", "--prompt-len", "8",
                  "serve.max_new_tokens=2"]
     mod = tlaunch_quantize if launcher == "quantize" else tlaunch_serve
-    refused = {"model.opt_attention=false": 22}
+    refused = {"model.opt_attention=false": 22,
+               **{o: 17 for o in SHARDING_OVERRIDES}}
     if launcher == "quantize":
         refused.update({"quant.batched_executor=false": 9,
                         "quant.gptq_impl=xla": 9,
@@ -409,6 +426,29 @@ def test_jax_override_keys_are_taken(launcher, override, tmp_path):
         assert os.path.exists(out[0])
     else:
         assert tuple(out.tokens.shape) == (2, 2)
+
+
+def test_every_train_key_is_taken():
+    """Each JAX ``train.*`` and ``parallel.*`` field exists in the port's
+    config with the JAX default; every ``train.*`` key takes an override
+    as the JAX config takes it."""
+    from repro.config import apply_overrides as japply
+    from repro_torch.config import apply_overrides as tapply
+    jc, tc = jget_config("opt-proxy"), tget_config("opt-proxy")
+    for section in ("train", "parallel"):
+        jd, td = vars(getattr(jc, section)), vars(getattr(tc, section))
+        assert jd == td, section
+    values = {"schedule": "wsd", "ckpt_dir": "elsewhere"}
+    for key, default in vars(jc.train).items():
+        if key in values:
+            value = values[key]
+        else:
+            value = ("false" if isinstance(default, bool)
+                     else str(default * 2 + 1))
+        japply(jc, {f"train.{key}": value})
+        tapply(tc, {f"train.{key}": value})
+    assert vars(tc.train) == vars(jc.train) != vars(
+        tget_config("opt-proxy").train)
 
 
 @pytest.mark.parametrize("key", ["quant.gptq_impl", "quant.rpiq_impl"])
