@@ -3,10 +3,10 @@
 
     python3 chip_compare.py <checkout root> [section ...]
 
-Sections (all but quantize_schedules by default): hessian_accum,
-gptq_block (with rpiq_block), w4a16_matmul, int8_kv_attention,
-quant_pack, selective_scan, decode_walls, quantize_walls,
-quantize_schedules. Run it on two checkouts in turns inside one
+Sections (all but quantize_schedules and gloo_gather by default):
+hessian_accum, gptq_block (with rpiq_block), w4a16_matmul,
+int8_kv_attention, quant_pack, selective_scan, decode_walls,
+quantize_walls, quantize_schedules, gloo_gather. Run it on two checkouts in turns inside one
 call on one card (parent, change, change, parent; the parent unpacked
 with ``git archive`` into a directory that ``.gitignore`` lists) to
 compare them. It prints the checkout's build wall (every kernel from
@@ -84,7 +84,15 @@ per line: the checkout, the kernel and shape, and
   quartiles and the pairs overlap won; then one run
   of each schedule under ``torch.profiler``: kernel time by CUDA stream,
   the device's busy time (the union of the kernels' intervals) and the
-  idle share against the profiled wall.
+  idle share against the profiled wall;
+- ``gloo_gather`` (not in the default set), on a checkout with
+  ``repro_torch.distributed.sharding``: two ranks sharing the card over
+  gloo (the sharded executor's setting on one card), each holding a
+  64 MB fp32 block on the card (half of internlm2-1.8b's (2, 8192, 2048)
+  up/gate group): the wall of ``all_gather_cat`` (the executor's join),
+  ``broadcast_tree`` (the params' broadcast) and ``psum`` of it, and of
+  the host copies the gloo route makes (device → host, host → device),
+  as the mean of 5 after one, with GB/s of the block.
 """
 import contextlib
 import inspect
@@ -432,7 +440,63 @@ def main() -> int:
         quantize_walls(root, dev)
     if "quantize_schedules" in sections:
         quantize_schedules(root, dev)
+    if "gloo_gather" in sections:
+        gloo_gather(root)
     return 0
+
+
+def gloo_rank(rank: int, world: int, root: str, rendezvous: str) -> None:
+    """One rank of ``gloo_gather``."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{rendezvous}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    ag = sharding.AxisGroup(dist.group.WORLD, world, rank,
+                            tuple(range(world)))
+    x = torch.randn((2, 4096, 2048), device="cuda")
+    nbytes = x.numel() * x.element_size()
+
+    def wall(fn, reps: int = 5) -> float:
+        fn()
+        torch.cuda.synchronize()
+        dist.barrier()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / reps
+
+    host = x.cpu()
+    walls = {"all_gather_cat": wall(lambda: sharding.all_gather_cat(
+                 x, 1, ag)),
+             "broadcast_tree": wall(lambda: sharding.broadcast_tree(x)),
+             "psum": wall(lambda: sharding.psum(x, dist.group.WORLD)),
+             "device to host": wall(lambda: x.cpu()),
+             "host to device": wall(lambda: host.to("cuda"))}
+    if rank == 0:
+        for name, sec in walls.items():
+            print(f"{root} gloo_gather {world} ranks, {nbytes} bytes a "
+                  f"rank: {name} {sec * 1e3:.1f} ms "
+                  f"({nbytes / sec / 1e9:.2f} GB/s of the block)",
+                  flush=True)
+    dist.destroy_process_group()
+
+
+def gloo_gather(root: str, world: int = 2) -> None:
+    import tempfile
+    import torch.multiprocessing as mp
+    try:
+        from repro_torch.distributed import sharding  # noqa: F401
+    except ImportError:
+        print(f"{root} gloo_gather: no distributed.sharding", flush=True)
+        return
+    with tempfile.TemporaryDirectory() as d:
+        mp.spawn(gloo_rank, args=(world, root, os.path.join(d, "rdv")),
+                 nprocs=world)
 
 
 def decode_walls(root: str, dev: str, n_steps: int = 16) -> None:

@@ -231,11 +231,34 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
          optimizer state's bytes (int8 ~4x smaller);
      16c. a falcon-mamba smoke train step on the card raises naming
          ROADMAP.md queue 1 item 23 (``selective_scan`` has no backward)
-         without launching the kernel; the model's no-grad forward runs it.
-Each phase's wall is printed.
+         without launching the kernel; the model's no-grad forward runs it;
+  17. sharded quantization (``quant.mesh``) with ranks that share the one
+     card over gloo (NCCL refuses two ranks a device); the kernels are
+     built (phase 2) before the ranks start, and every rank launches the
+     hand-written ``gptq_block`` / ``rpiq_block`` on its shard:
+     17a. opt-proxy at full width on 2x2, 4 ranks spawned here, each
+         calling ``quantize_model(cfg)`` on phase 5's seeded weights and
+         calibration; against phase 5's single-device run (at most 1e-3 of
+         the cells off at rtol 1e-5 / atol 1e-6, names and modes equal);
+     17b. internlm2-1.8b at full width and depth on 1x2 (every group
+         row-sharded: the Γ sum at 2048-8192 rows) through
+         ``torch.distributed.run`` (``python3 chip_smoke.py launcher-rank
+         <argv>`` is one rank of ``launch.quantize``), against the same
+         launcher alone without the mesh: the artifacts' cells, the
+         reports' names and modes, the ranks' artifact digests;
+     17c. olmoe-1b-7b at full width on 1x1x2 under overlap (its
+         records deferred, no stage waiting), cut to one layer, after the
+         one-device run of the same cut has measured one rank's peak (the
+         smoke config if two would not fit), against that run;
+     each leg prints its wall, each rank's launches at its shard shapes
+     and peak, and whether every rank's packed artifact and quantized
+     leaves are bitwise rank 0's; a failed rank fails the run.
+Each phase's wall is printed; phase 3's by kernel section too. Its stage
+kernels' plain versions are timed by the one call their checks make
+(``once_ms``).
 
 The line before the last is a JSON object with one entry per kernel
-(``launches`` sums phases 5 to 16); the last line is ``{"ok": true,
+(``launches`` sums phases 5 to 17, every rank's); the last line is ``{"ok": true,
 "device": {...}}``.
 
 The process's CUDA allocator grows its segments in place
@@ -307,7 +330,8 @@ def log(msg: str = "") -> None:
 
 def time_ms(fn, min_total_s: float = 0.2, max_reps: int = 50) -> float:
     """Mean CUDA-event time of fn() after one warm-up call (for calls long
-    enough that the host's launch cost hides behind the device)."""
+    enough that the host's launch cost hides behind the device); one call
+    that alone lasts ``min_total_s`` is its own reading."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -317,6 +341,8 @@ def time_ms(fn, min_total_s: float = 0.2, max_reps: int = 50) -> float:
     end.record()
     torch.cuda.synchronize()
     once = start.elapsed_time(end)
+    if once >= min_total_s * 1e3:
+        return once
     reps = int(max(1, min(max_reps, min_total_s * 1e3 / max(once, 1e-3))))
     start.record()
     for _ in range(reps):
@@ -324,6 +350,21 @@ def time_ms(fn, min_total_s: float = 0.2, max_reps: int = 50) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def once_ms(fn):
+    """``(fn(), its CUDA-event time in ms)``: a plain version timed by the
+    one call its check makes (its time is a reading, not a yardstick, and
+    its repeats were most of phase 3's wall). A short plain version's time
+    so includes its launches from the host (``w4a16_matmul`` and
+    ``int8_kv_attention`` at decode)."""
+    import torch
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def graph_ms(calls, min_total_s: float = 0.1, max_reps: int = 200) -> float:
@@ -450,6 +491,32 @@ def frac_differing(a, b, tol_abs: float = 0.0, tol_rel: float = 0.0):
     return float((d > tol_abs + tol_rel * b.abs()).float().mean())
 
 
+class Sections:
+    """Phase 3's wall by kernel section: ``with walls("name"):`` times a
+    section (the card synchronised at both ends); ``report()`` prints
+    them, largest first."""
+
+    def __init__(self):
+        self.s: dict = {}
+
+    @contextlib.contextmanager
+    def __call__(self, name: str):
+        import torch
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        try:
+            yield
+        finally:
+            torch.cuda.synchronize()
+            self.s[name] = self.s.get(name, 0.0) + time.perf_counter() - t
+
+    def report(self) -> None:
+        total = sum(self.s.values())
+        for name, sec in sorted(self.s.items(), key=lambda kv: -kv[1]):
+            log(f"  phase 3 section {name}: {sec:.1f}s "
+                f"({100 * sec / total:.1f} %)")
+
+
 def phase_kernels(table: KernelTable) -> None:
     import torch
 
@@ -457,11 +524,13 @@ def phase_kernels(table: KernelTable) -> None:
     g = torch.Generator(device=dev)
     g.manual_seed(1234)
     n_tok, gs, bs, t_max, alpha = 512, 128, 128, 5, 0.01
+    walls = Sections()
 
     # -- hessian_accum: H += X^T X (opt-proxy d, internlm2 d, falcon-mamba
     # d: 256 for dt, 4096 for in, 8192 for x and out) -----------------------
-    for d in (768, 3072, 2048, 8192, 256, 4096):
-        check_hessian_accum(table, g, n_tok, d)
+    with walls("hessian_accum"):
+        for d in (768, 3072, 2048, 8192, 256, 4096):
+            check_hessian_accum(table, g, n_tok, d)
 
     # -- w4a16_matmul: y = x @ dequant(W)^T ----------------------------------
     # opt-proxy (k, n) at decode m 4 and m 64; internlm2's q/o, k/v,
@@ -473,37 +542,47 @@ def phase_kernels(table: KernelTable) -> None:
               for k, n in ((2048, 2048), (2048, 1024), (2048, 8192),
                            (8192, 2048), (4096, 16384), (8192, 288),
                            (256, 8192), (8192, 4096))]
-    for m, k, n in cases:
-        for dt in ((torch.bfloat16, torch.float32) if (m, k, n) ==
-                   (4, 768, 768) else (torch.bfloat16,)):
-            check_w4a16(table, g, m, k, n, dt, gs)
-    kernels_w4a16_other_groups()
+    with walls("w4a16_matmul"):
+        for m, k, n in cases:
+            for dt in ((torch.bfloat16, torch.float32) if (m, k, n) ==
+                       (4, 768, 768) else (torch.bfloat16,)):
+                check_w4a16(table, g, m, k, n, dt, gs)
+        kernels_w4a16_other_groups()
 
     # -- gptq_block and rpiq_block on realistic Hessians ---------------------
     # opt-proxy's three groups, internlm2's q / o, k+v, gate+up, down, then
     # falcon-mamba's in, x (288 rows: dt_rank 256 + 2 x 16), dt, out
-    for b, out_dim, in_dim in ((4, 768, 768), (1, 3072, 768),
-                               (1, 768, 3072), (1, 2048, 2048),
-                               (2, 1024, 2048), (2, 8192, 2048),
-                               (1, 2048, 8192), (1, 16384, 4096),
-                               (1, 288, 8192), (1, 8192, 256),
-                               (1, 4096, 8192)):
-        case = group_case(g, b, out_dim, in_dim, n_tok)
-        w0, scales, zeros = check_gptq(case, gs, bs, table)
-        check_rpiq(case, w0, scales, zeros, gs, bs, t_max, alpha, table)
-    kernels_rpiq_seeds(n_tok, gs, bs, t_max, alpha)
-    kernels_blocksizes(n_tok, gs, t_max, alpha)
+    with walls("gptq_block + rpiq_block groups"):
+        for b, out_dim, in_dim in ((4, 768, 768), (1, 3072, 768),
+                                   (1, 768, 3072), (1, 2048, 2048),
+                                   (2, 1024, 2048), (2, 8192, 2048),
+                                   (1, 2048, 8192), (1, 16384, 4096),
+                                   (1, 288, 8192), (1, 8192, 256),
+                                   (1, 4096, 8192)):
+            case = group_case(g, b, out_dim, in_dim, n_tok)
+            w0, scales, zeros = check_gptq(case, gs, bs, table)
+            check_rpiq(case, w0, scales, zeros, gs, bs, t_max, alpha, table)
+    with walls("rpiq_block seeds"):
+        kernels_rpiq_seeds(n_tok, gs, bs, t_max, alpha)
+    with walls("blocksizes"):
+        kernels_blocksizes(n_tok, gs, t_max, alpha)
 
-    kernels_int8_kv_attention(table, g)
-    kernels_int8_kv_attention_ring(table)
-    kernels_quant_pack(table, g)
-    kernels_selective_scan(table, g)
-    kernels_dense_shapes(table)
-    kernels_encdec_shapes(table)
-    kernels_moe_shapes(table)
-    kernels_continuous_shapes(table)
-    kernels_hybrid_shapes(table)
-    kernels_mla_shapes(table)
+    for name, fn in (
+            ("int8_kv_attention", lambda: kernels_int8_kv_attention(table,
+                                                                    g)),
+            ("int8_kv_attention ring",
+             lambda: kernels_int8_kv_attention_ring(table)),
+            ("quant_pack", lambda: kernels_quant_pack(table, g)),
+            ("selective_scan", lambda: kernels_selective_scan(table, g)),
+            ("dense shapes", lambda: kernels_dense_shapes(table)),
+            ("encdec shapes", lambda: kernels_encdec_shapes(table)),
+            ("moe shapes", lambda: kernels_moe_shapes(table)),
+            ("continuous shapes", lambda: kernels_continuous_shapes(table)),
+            ("hybrid shapes", lambda: kernels_hybrid_shapes(table)),
+            ("mla shapes", lambda: kernels_mla_shapes(table))):
+        with walls(name):
+            fn()
+    walls.report()
 
 
 def check_w4a16(table: KernelTable, g, m: int, k: int, n: int, dt,
@@ -522,7 +601,8 @@ def check_w4a16(table: KernelTable, g, m: int, k: int, n: int, dt,
     qp = compute_qparams(w, 4, gs)
     packed = pack_int4(quantize_codes(w, qp, 4, gs))
     x = torch.randn((m, k), generator=g, device=dev).to(dt)
-    want = ref.w4a16_matmul(x, packed, qp.scales, qp.zeros, gs)
+    want, pms = once_ms(lambda: ref.w4a16_matmul(x, packed, qp.scales,
+                                                 qp.zeros, gs))
     got = ops.w4a16_matmul_cuda(x, packed, qp.scales, qp.zeros, gs)
     # a split-K launch sums its partials in split order: a second launch on
     # the same inputs is bitwise the same
@@ -548,8 +628,6 @@ def check_w4a16(table: KernelTable, g, m: int, k: int, n: int, dt,
         for _ in range(min(255, int(100e6 // nbytes)))]
     ms = graph_ms([(lambda c=c: ops.w4a16_matmul_cuda(x, *c, gs))
                    for c in copies])
-    pms = graph_ms([(lambda c=c: ref.w4a16_matmul(x, *c, gs))
-                    for c in copies])
     del copies
     lib_s = "none"
     if dt == torch.bfloat16:
@@ -630,7 +708,7 @@ def check_gptq(case: dict, gs: int, bs: int, table=None):
     w, u, hd = case["w"], case["u"], case["hd"]
     b, out_dim, in_dim = w.shape
     kw = dict(bits=4, group_size=gs, blocksize=bs, symmetric=False)
-    want = ref.gptq_block(w, u, **kw)
+    want, pms = once_ms(lambda: ref.gptq_block(w, u, **kw))
     got = ops.gptq_block_cuda(w, u, **kw)
     fw = frac_differing(got[0], want[0], tol_abs=1e-6)
     fs = frac_differing(got[1], want[1], tol_rel=1e-6)
@@ -665,7 +743,6 @@ def check_gptq(case: dict, gs: int, bs: int, table=None):
     if table is not None:
         chol_ms = time_ms(lambda: hess.cholesky_inverse_upper(hd), 0.1, 5)
         ms = time_ms(lambda: ops.gptq_block_cuda(w, u, **kw), 0.1, 5)
-        pms = time_ms(lambda: ref.gptq_block(w, u, **kw), 0.1, 2)
         b_ms, by = table.add("gptq_block", ms=ms, plain_ms=pms, flop=flop,
                              nbytes=nbytes, err=err)
         timing = (f" ms={ms:.4f} plain_ms={pms:.4f} library_ms=none "
@@ -743,7 +820,7 @@ def check_rpiq_call(rargs: tuple, rkw: dict, table=None, label: str = "",
     b, out_dim, in_dim = w0.shape
     n_tok = x.shape[1]
     bs, t_max = rkw["block_size"], rkw["t_max"]
-    want_r = ref.rpiq_block(*rargs, **rkw)
+    want_r, pms = once_ms(lambda: ref.rpiq_block(*rargs, **rkw))
     got_r = ops.rpiq_block_cuda(*rargs, **rkw)
     sel_w = ops._rpiq_select(want_r[3], want_r[4], want_r[1], t_max,
                              True)
@@ -769,7 +846,6 @@ def check_rpiq_call(rargs: tuple, rkw: dict, table=None, label: str = "",
     timing = ""
     if table is not None:
         ms = time_ms(lambda: ops.rpiq_block_cuda(*rargs, **rkw), 0.1, 5)
-        pms = time_ms(lambda: ref.rpiq_block(*rargs, **rkw), 0.1, 5)
         b_ms, by = table.add("rpiq_block", ms=ms, plain_ms=pms, flop=flop,
                              nbytes=nbytes, err=err)
         timing = (f" ms={ms:.4f} plain_ms={pms:.4f} library_ms=none "
@@ -1321,7 +1397,7 @@ def kv_attention_row(table, g, b: int, kv: int, r: int, hd: int, s: int,
     err32 = float((got - want).abs().max())
     ok32 = err32 <= 1e-5 * float(want.abs().max())
     q = q32.to(torch.bfloat16)
-    want = ref.int8_kv_attention(q, *cache, blk, cap)
+    want, pms = once_ms(lambda: ref.int8_kv_attention(q, *cache, blk, cap))
     got = ops.int8_kv_attention_cuda(q, *cache, blk, cap)
     diff = (got.float() - want.float()).abs()
     err = float(diff.max())
@@ -1333,12 +1409,12 @@ def kv_attention_row(table, g, b: int, kv: int, r: int, hd: int, s: int,
     nbytes = (2 * valid * kv * hd + 2 * valid * kv * nb * 4 + 4 * b * s
               + 2 * 2 * b * kv * r * hd)
     flop = 4 * kv * r * valid * hd
+    # at most 255 copies, as w4a16_matmul's: a cache of a few KB (minicpm
+    # smoke's) made ~33,000 copies and a 28 s graph
     copies = [cache] + [tuple(t.clone() for t in cache)
-                        for _ in range(int(100e6 // nbytes))]
+                        for _ in range(min(255, int(100e6 // nbytes)))]
     ms = graph_ms([(lambda c=c: ops.int8_kv_attention_cuda(q, *c, blk, cap))
                    for c in copies])
-    pms = graph_ms([(lambda c=c: ref.int8_kv_attention(q, *c, blk, cap))
-                    for c in copies])
     del copies
     if table is not None:
         b_ms, by = table.add("int8_kv_attention", ms=ms, plain_ms=pms,
@@ -1926,6 +2002,16 @@ def _nbytes_bf16_vs_int4(pk) -> tuple:
 # phase 15 holds the overlap schedule against the serial runs of phases 6
 # and 11: each one's leaf digests, report, walls and quantization peak
 SERIAL_RUNS: dict = {}
+# phase 17a holds the sharded opt-proxy run against phase 5's: its
+# quantized leaves on the host and its records' names and modes
+MAIN_RUN: dict = {}
+
+
+def host_leaves(tree) -> dict:
+    """{path: tensor on the host} of a (quantized float) param tree."""
+    from repro_torch.distributed.checkpoint import tree_paths
+    return {k: v.detach().cpu() for k, v in tree_paths(tree)
+            if hasattr(v, "detach")}
 
 
 def leaf_digests(tree) -> list:
@@ -2162,6 +2248,9 @@ def phase_main_path() -> dict:
 
     r = drive_main_path("opt-proxy", "fp16", 4, 16, 16)
     launches, res = r["launches"], r["res"]
+    MAIN_RUN.update(q=host_leaves(r["params_q"]),
+                    leaves=leaf_digests(r["params_q"]),
+                    records=[(x.name, x.mode) for x in r["report"].linears])
     for name in ("hessian_accum", "gptq_block", "rpiq_block",
                  "w4a16_matmul", "quant_pack"):
         check(launches[name] > 0,
@@ -4054,8 +4143,11 @@ def phase_entry_points(table: KernelTable, smi: str) -> dict:
         def keep_layer0(fn):
             def wrapper(*args, **kwargs):
                 if len(layer0) < 3:     # opt-proxy's three groups a layer
+                    # raw64 (fp64 partials for a row shard's sum) is the
+                    # wrapper's alone: the plain version sums in fp32
                     layer0.append((tuple(a.clone() for a in args),
-                                   dict(kwargs)))
+                                   {k: v for k, v in kwargs.items()
+                                    if k != "raw64"}))
                 return fn(*args, **kwargs)
             return wrapper
 
@@ -4695,6 +4787,378 @@ def phase_training_path(smi: str) -> dict:
     return launches
 
 
+# -- phase 17: sharded quantization, ranks sharing the card over gloo -----
+
+PHASE17 = os.path.join(ROOT, "build", "phase17")
+
+
+class ShardShapes:
+    """This process's CUDA launches of ``gptq_block`` / ``rpiq_block`` by
+    the shape of the block each was given (the two kernel wrappers
+    wrapped; ``rpiq_block``'s rows padded to 32 there)."""
+
+    def __init__(self):
+        from repro_torch.kernels import ops
+        self.counts: dict = {}
+        for name in ("gptq_block_cuda", "rpiq_block_cuda"):
+            setattr(ops, name, self._wrap(name[:-len("_cuda")],
+                                          getattr(ops, name)))
+
+    def _wrap(self, op: str, fn):
+        def call(w, *a, **kw):
+            key = f"{op} {tuple(w.shape)}"
+            self.counts[key] = self.counts.get(key, 0) + 1
+            return fn(w, *a, **kw)
+        return call
+
+
+def sharded_rank(rank: int, world: int, job: dict) -> None:
+    """One rank of phase 17a / 17c: the in-process API,
+    ``quantize_model(cfg)`` with ``quant.mesh`` set, on the one card
+    shared over gloo. Writes ``rank<r>.json`` (wall, launches, shard
+    shapes, peak, the digests of its packed artifact and quantized
+    leaves, its records) and, on rank 0 where its leaves are not bitwise
+    the one-device run's (``job["want_leaves"]``), the quantized leaves
+    for the parent to count the cells that differ."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"file://{job['dir']}/rendezvous", rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=600))
+    from repro_torch.core.pipeline import pack_for_serving, quantize_model
+    from repro_torch.data import MarkovLM, calibration_batches
+    from repro_torch.distributed.checkpoint import tree_digest
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    shapes = ShardShapes()
+    cfg = job_config(job)
+    cfg.quant.mesh = job["mesh"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = T.init_params(cfg.model, gen, "cuda")
+    calib = calibration_batches(MarkovLM(cfg.model.vocab_size, seed=7),
+                                *job["calib"])
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_kernel_launches()
+    t = time.perf_counter()
+    params_q, report = quantize_model(cfg, params, calib)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = ops.kernel_launches()
+    peak = torch.cuda.max_memory_allocated() - held
+    del params
+    out = dict(rank=rank, wall=wall, launches=launches,
+               shapes=shapes.counts, peak=peak, held=held,
+               artifact=tree_digest(pack_for_serving(cfg, params_q)),
+               leaves=leaf_digests(params_q), summary=report.summary(),
+               records=[[x.name, x.mode] for x in report.linears],
+               pipeline={k: v for k, v in report.pipeline_stats.items()
+                         if k in ("steps", "spec_captures", "repairs",
+                                  "moe_spec_layers")})
+    if rank == 0 and out["leaves"] != job["want_leaves"]:
+        torch.save(host_leaves(params_q), os.path.join(job["dir"], "q.pt"))
+    with open(os.path.join(job["dir"], f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def job_config(job: dict):
+    from repro_torch.configs import get_config
+    cfg = get_config(job["arch"], smoke=job.get("smoke", False))
+    if job.get("layers"):
+        cfg.model.num_layers = job["layers"]
+    cfg.quant.pipeline = job.get("pipeline", "serial")
+    return cfg
+
+
+def run_ranks(job: dict, world: int, leg: str, smi: str) -> list:
+    """Spawn the ranks of one leg (a failed rank fails the run: spawn
+    kills the others and raises); print each rank's wall, launches at
+    its shard shapes and peak; check that every rank's packed artifact
+    and quantized leaves are bitwise rank 0's."""
+    import torch.multiprocessing as mp
+    os.makedirs(job["dir"], exist_ok=True)
+    t = time.perf_counter()
+    mp.spawn(sharded_rank, args=(world, job), nprocs=world, join=True)
+    wall = time.perf_counter() - t
+    res = []
+    for r in range(world):
+        with open(os.path.join(job["dir"], f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    log(f"  {leg}: {world} ranks on quant.mesh={job['mesh']}, wall "
+        f"{wall:.3f} s (spawn to exit) [{smi}]")
+    for x in res:
+        log(f"  {leg} rank {x['rank']}: quantize_model {x['wall']:.3f} s, "
+            f"peak above what it held {x['peak']} bytes; {x['summary']}; "
+            f"launches gptq_block {x['launches']['gptq_block']} "
+            f"rpiq_block {x['launches']['rpiq_block']} hessian_accum "
+            f"{x['launches']['hessian_accum']}; at shard shapes "
+            f"{json.dumps(x['shapes'], sort_keys=True)}")
+    agree = all(x["artifact"] == res[0]["artifact"]
+                and x["leaves"] == res[0]["leaves"]
+                and x["records"] == res[0]["records"] for x in res)
+    log(f"  {leg}: every rank's packed artifact (sha256 "
+        f"{res[0]['artifact'][:16]}...) and quantized leaves bitwise rank "
+        f"0's: {agree}")
+    check(agree, f"{leg}: the ranks disagree")
+    check(all(x["launches"]["gptq_block"] > 0 and
+              x["launches"]["rpiq_block"] > 0 for x in res),
+          f"{leg}: a rank launched no gptq_block / rpiq_block")
+    return res
+
+
+def cells_differing(got: dict, want: dict) -> tuple:
+    """(cells of ``got`` off ``want`` at rtol 1e-5 / atol 1e-6, cells,
+    largest difference) over two {path: tensor} sets of the same paths;
+    the leaves that differ are printed with their counts."""
+    import torch
+    check(got.keys() == want.keys(), "the two runs' leaves differ in paths")
+    mism = total = 0
+    worst = 0.0
+    where = []
+    for k, a in want.items():
+        a, b = a.float(), got[k].float()
+        bad = ~torch.isclose(b, a, rtol=1e-5, atol=1e-6)
+        mism += int(bad.sum())
+        total += a.numel()
+        if bad.any():
+            worst = max(worst, float((b - a).abs().max()))
+            where.append(f"{k} {int(bad.sum())} (largest "
+                         f"{float((b - a).abs().max()):.3e})")
+    if where:
+        log(f"  leaves that differ: {'; '.join(where)}")
+    return mism, total, worst
+
+
+def cells_against(job: dict, res: list, want_q: dict) -> tuple:
+    """``cells_differing`` of rank 0's quantized leaves against the
+    one-device run's ``want_q``: none where their digests are equal (rank
+    0 then wrote no leaves), else counted on the leaves it wrote."""
+    import torch
+    if res[0]["leaves"] == job["want_leaves"]:
+        return 0, sum(v.numel() for v in want_q.values()), 0.0
+    return cells_differing(torch.load(os.path.join(job["dir"], "q.pt")),
+                           want_q)
+
+
+def artifact_cells(got_path: str, want_path: str) -> tuple:
+    """``cells_differing`` over two packed artifacts' leaves (codes, scales,
+    zeros, float leaves), read through their sha256 sidecars; (0, None,
+    0.0) without reading them where the sidecars' sha256 are equal."""
+    import numpy as np
+    import torch
+    from repro_torch.distributed.checkpoint import (artifact_manifest_path,
+                                                    load_artifact)
+    shas = []
+    for path in (got_path, want_path):
+        with open(artifact_manifest_path(path)) as f:
+            shas.append(json.load(f)["sha256"])
+    if shas[0] == shas[1]:
+        return 0, None, 0.0
+
+    def flat(tree, prefix=""):
+        if isinstance(tree, dict):
+            out = {}
+            for k, v in tree.items():
+                out.update(flat(v, f"{prefix}/{k}"))
+            return out
+        if isinstance(tree, (list, tuple)):
+            out = {}
+            for i, v in enumerate(tree):
+                out.update(flat(v, f"{prefix}/{i}"))
+            return out
+        if isinstance(tree, np.ndarray):
+            return {prefix: torch.from_numpy(np.ascontiguousarray(tree))}
+        return {}
+
+    return cells_differing(flat(load_artifact(got_path)),
+                           flat(load_artifact(want_path)))
+
+
+def launcher_rank(argv: list) -> int:
+    """``python3 chip_smoke.py launcher-rank <launch.quantize argv>``: the
+    launcher's ``main(argv)`` in this process (one rank of a
+    ``torch.distributed.run`` world, or alone), then one line with its
+    wall, launches, shard shapes and peak."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import quantize
+    shapes = ShardShapes()
+    ops.reset_kernel_launches()
+    t = time.perf_counter()
+    quantize.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    print(f"[launcher rank {os.environ.get('RANK', 'alone')}] wall "
+          f"{wall:.3f} s; launches {json.dumps(ops.kernel_launches())}; "
+          f"shard shapes {json.dumps(shapes.counts, sort_keys=True)}; peak "
+          f"{torch.cuda.max_memory_allocated()} bytes", flush=True)
+    return 0
+
+
+def run_launcher_leg(cmd: list, label: str, launches: dict) -> str:
+    """Run one ``launcher-rank`` command (alone, or every rank under
+    ``torch.distributed.run``), print its lines and add each rank's
+    launches to ``launches``; a failure fails the run."""
+    import re
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t = time.perf_counter()
+    p = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                       text=True, timeout=900)
+    wall = time.perf_counter() - t
+    lines = [ln for ln in p.stdout.splitlines()
+             if ln.startswith(("[quantize]", "[launcher rank", "[mesh]"))
+             and "pipeline:" not in ln]
+    for ln in lines:
+        log(f"  {label}: {ln}")
+    log(f"  {label}: exit {p.returncode}, wall {wall:.3f} s (start to exit)")
+    if p.returncode != 0:
+        log(p.stdout[-4000:])
+        log(p.stderr[-4000:])
+    check(p.returncode == 0, f"{label} failed")
+    for counts in re.findall(r"^\[launcher rank .*?\] .*?; launches "
+                             r"(\{.*?\});", p.stdout, re.M):
+        for k, v in json.loads(counts).items():
+            launches[k] += v
+    return p.stdout
+
+
+def phase_sharded_path(smi: str) -> dict:
+    """17a opt-proxy at full width on 2x2 (4 ranks, the in-process API)
+    against phase 5's single-device run; 17b internlm2-1.8b at full width
+    and depth on 1x2 (every group row-sharded) through
+    ``torch.distributed.run`` against the launcher run without the mesh;
+    17c olmoe-1b-7b at full width on 1x1x2 under overlap (cut to one
+    layer; the smoke config if two ranks' peaks would not fit) against the
+    same run on one device. The ranks
+    share the card over gloo; every rank runs the hand-written
+    ``gptq_block`` / ``rpiq_block`` on its shard."""
+    import shutil
+    import torch
+    from repro_torch.core.pipeline import quantize_model
+    from repro_torch.data import MarkovLM, calibration_batches
+    from repro_torch.models import transformer as T
+
+    shutil.rmtree(PHASE17, ignore_errors=True)
+    launches = {k: 0 for k in KERNEL_SOURCES}
+
+    def add(res):
+        for x in res:
+            for k in launches:
+                launches[k] += x["launches"][k]
+
+    # 17a
+    t = time.perf_counter()
+    job = dict(dir=os.path.join(PHASE17, "a"), arch="opt-proxy",
+               mesh="2x2", calib=(4, 4, 128), want_leaves=MAIN_RUN["leaves"])
+    res = run_ranks(job, 4, "17a", smi)
+    add(res)
+    mism, total, worst = cells_against(job, res, MAIN_RUN["q"])
+    modes = [tuple(x) for x in res[0]["records"]] == MAIN_RUN["records"]
+    log(f"  17a against phase 5's single-device run: {mism} of {total} "
+        f"cells differ at rtol 1e-5 / atol 1e-6 (tol 1e-3 of them; largest "
+        f"{worst:.3e}); every linear's name and mode equal {modes}")
+    check(mism <= 1e-3 * total and modes, "17a against phase 5")
+    log(f"  17a took {time.perf_counter() - t:.1f}s")
+
+    # 17b
+    t = time.perf_counter()
+    b = os.path.join(PHASE17, "b")
+    argv = ["--arch", "internlm2-1.8b"]
+    over = [f"train.ckpt_dir={os.path.join(b, 'none')}",
+            "quant.calib_batches=4", "quant.calib_batch_size=4",
+            "quant.calib_seq_len=128"]
+    me = os.path.abspath(__file__)
+    run_launcher_leg([sys.executable, me, "launcher-rank", *argv, "--out",
+                      os.path.join(b, "one"), *over], "17b one device",
+                     launches)
+    out = run_launcher_leg(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", me, "launcher-rank", *argv, "--out",
+         os.path.join(b, "mesh"), *over, "quant.mesh=1x2"], "17b mesh 1x2",
+        launches)
+    art = "internlm2-1.8b.params.pkl"
+    mism, total, worst = artifact_cells(os.path.join(b, "mesh", art),
+                                        os.path.join(b, "one", art))
+    reps = []
+    for leg in ("one", "mesh"):
+        with open(os.path.join(b, leg, "internlm2-1.8b.report.json")) as f:
+            reps.append([(x["name"], x["mode"]) for x in json.load(f)])
+    agree = "2 ranks' packed artifacts bitwise equal" in out
+    placed = "sharded group execution on mesh {'data': 1, 'model': 2}" in out
+    cells = ("bitwise (sha256 equal)" if total is None else
+             f"{mism} of {total} cells differ (tol 1e-3 of them; largest "
+             f"{worst:.3e})")
+    log(f"  17b: the mesh's artifact against the one-device launcher's: "
+        f"{cells}; names and modes equal {reps[0] == reps[1]}; the ranks' "
+        f"artifacts bitwise equal {agree}; placed {placed}")
+    check((total is None or mism <= 1e-3 * total) and reps[0] == reps[1]
+          and agree and placed, "17b against the one-device launcher")
+    log(f"  17b took {time.perf_counter() - t:.1f}s")
+
+    # 17c: one rank's peak first (the one-device run), then the ranks
+    t = time.perf_counter()
+    job = dict(dir=os.path.join(PHASE17, "c"), arch="olmoe-1b-7b",
+               layers=1, mesh="1x1x2", pipeline="overlap",
+               calib=(4, 4, 512))
+    ref = None
+    for attempt in ("full width", "smoke"):
+        cfg = job_config(job)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        params = T.init_params(cfg.model, gen, "cuda")
+        calib = calibration_batches(MarkovLM(cfg.model.vocab_size, seed=7),
+                                    *job["calib"])
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        pbytes = sum(v.numel() * v.element_size()
+                     for v in host_leaves(params).values())
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        q_ref, rep_ref = quantize_model(cfg, params, calib, mesh=None)
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - held
+        ref = dict(q=host_leaves(q_ref),
+                   records=[(x.name, x.mode) for x in rep_ref.linears])
+        job["want_leaves"] = leaf_digests(q_ref)
+        del params, q_ref, rep_ref
+        release_device()
+        card = torch.cuda.get_device_properties(0).total_memory
+        need = 2 * (peak + pbytes + (2 << 30))
+        log(f"  17c one device ({attempt}, {cfg.model.num_layers} layers): "
+            f"quantize_model {one_s:.3f} s, peak above the float params "
+            f"{peak} bytes, params {pbytes} bytes; two ranks would need "
+            f"~{need} of {card} bytes")
+        if need <= 0.9 * card or attempt == "smoke":
+            break
+        log("  17c: two ranks' peaks do not fit the card: the smoke config")
+        job.update(smoke=True, layers=0, calib=(3, 4, 32))
+    res = run_ranks(job, 2, "17c", smi)
+    add(res)
+    mism, total, worst = cells_against(job, res, ref["q"])
+    modes = [tuple(x) for x in res[0]["records"]] == ref["records"]
+    pipe = res[0]["pipeline"]
+    expert = all(any(k.startswith(("gptq_block (32,", "rpiq_block (32,"))
+                     for k in x["shapes"]) for x in res) \
+        if not job.get("smoke") else True
+    log(f"  17c against the one-device run: {mism} of {total} cells differ "
+        f"(tol 1e-3 of them; largest {worst:.3e}; lanes only: bitwise "
+        f"{mism == 0}); names and modes equal {modes}; the walk "
+        f"{json.dumps(pipe)}; expert lanes 64 -> 32 a rank {expert}")
+    check(mism <= 1e-3 * total and modes and pipe["steps"] == 1
+          and expert, "17c against the one-device run")
+    log(f"  17c took {time.perf_counter() - t:.1f}s")
+    shutil.rmtree(PHASE17, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -4838,6 +5302,15 @@ def main() -> int:
         launches[name] += n
     log(f"  phase 16 took {time.perf_counter() - t:.1f}s")
 
+    release_device()
+    log("[17] sharded quantization on the card: quant.mesh ranks sharing it "
+        "over gloo (17a opt-proxy 2x2, 17b internlm2-1.8b 1x2 through "
+        "torch.distributed.run, 17c olmoe-1b-7b 1x1x2 under overlap)")
+    t = time.perf_counter()
+    for name, n in phase_sharded_path(smi).items():
+        launches[name] += n
+    log(f"  phase 17 took {time.perf_counter() - t:.1f}s")
+
     log(f"  total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(table.json(launches)), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -4847,4 +5320,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["launcher-rank"]:
+        sys.exit(launcher_rank(sys.argv[2:]))
     sys.exit(main())

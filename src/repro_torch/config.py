@@ -4,8 +4,10 @@ The port's own copy of the fields its quantize → pack → serve paths
 (decoder-only and encoder-decoder), its training and its launchers read,
 with the
 same names and defaults as the JAX package's configuration, plus the
-dotted ``key=value`` override helpers. A value the port does not run
-(``quant.mesh``, ``quant.batched_executor=false``,
+dotted ``key=value`` override helpers. ``quant.mesh`` shards the
+quantization executor over a ``torch.distributed`` world
+(``launch/mesh.py``). A value the port does not run
+(``quant.batched_executor=false``,
 ``quant.gptq_impl=xla`` / ``quant.rpiq_impl=xla``,
 ``model.opt_attention=false``) is accepted here and raises where it would
 be used, naming its ROADMAP.md item. ``quant.pipeline`` takes both of the
@@ -170,8 +172,10 @@ class QuantConfig:
     batched_executor: bool = True   # false selects the JAX package's
     #                                 per-linear baseline: not ported
     #                                 (ROADMAP.md queue 1 item 9)
-    mesh: str = "off"               # sharded group execution: not ported
-    #                                 (ROADMAP.md queue 1 item 17)
+    mesh: str = "off"               # sharded group execution: off | auto
+    #                                 | DxM | DxMxE over the ranks of a
+    #                                 torch.distributed world
+    #                                 (launch/mesh.make_quant_mesh)
     resume: str = "off"             # off | auto: with "auto" and a ckpt_dir,
     #                                 quantize_model restarts a killed walk
     #                                 at the first incomplete LayerStep;

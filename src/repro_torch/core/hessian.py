@@ -115,3 +115,25 @@ def _cholesky_or_nan(A: Tensor) -> Tensor:
     L, info = torch.linalg.cholesky_ex(A)
     return torch.where((info != 0)[..., None, None],
                        torch.full_like(L, float("nan")), L)
+
+
+# -- distributed reduction / placement ---------------------------------------
+
+def psum_hessian(state: HessianState, group) -> HessianState:
+    """Partial Hessians summed over a process group (a mesh dim's:
+    ``mesh.get_group("data")``), the same on every rank of it."""
+    from repro_torch.distributed.sharding import psum
+    return HessianState(psum(state.H, group), psum(state.count, group))
+
+
+def shard_stacked(state: HessianState, gshard) -> HessianState:
+    """This rank's lane block of a stacked (B, in, in) state, replicated
+    over the rows' ``model`` dim: each lane's damp and Cholesky run where
+    that lane's rows run. ``gshard``: a
+    :class:`repro_torch.distributed.sharding.QuantGroupSharding`; None, or
+    a rows-only group, keeps every lane. The block is a copy, so that the
+    whole state can be freed."""
+    if gshard is None or gshard.lane_axis is None:
+        return state
+    return HessianState(gshard.local(state.H, "hessian").clone(),
+                        gshard.local(state.count, "lane").clone())

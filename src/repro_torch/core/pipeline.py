@@ -50,6 +50,12 @@ of the layer when the flipped share exceeds ``quant.moe_flip_budget``
 (the plan-level flip repair). The per-expert Hessians always accumulate
 true-stream values, so overlap stays bitwise serial.
 
+``quant.mesh`` (``quantize_model(mesh=)``) shards the plan's groups over
+a ``torch.distributed`` world, one process a rank (core/plan.py,
+``launch/mesh.py``): rank 0 broadcasts the params and the calibration
+batches once, every rank walks the same layers and ends with the same
+quantized tree.
+
 :func:`pack_for_serving` then turns every quantized linear into an int4
 :class:`~repro_torch.core.quant.QuantizedTensor` on its stage-1 grid,
 through the ``quant_pack`` kernel on the card (a stacked expert weight as
@@ -62,6 +68,7 @@ import time
 from typing import Dict, List, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.config import Config
 from repro_torch.core import faults
@@ -463,9 +470,13 @@ def _walker_encdec(cfg: Config, params: Dict, calib: List[Dict],
     return LayerWalker(streams={"enc": hs}, items=items, finalize=finalize)
 
 
+_MESH_FROM_CONFIG = object()     # sentinel: resolve the quant.mesh knob
+
+
 def quantize_model(cfg: Config, params: Dict, calib: List[Dict[str, Tensor]],
                    device: Union[str, torch.device, None] = None,
-                   verbose: bool = False) -> Tuple[Dict, QuantReport]:
+                   verbose: bool = False, mesh=_MESH_FROM_CONFIG
+                   ) -> Tuple[Dict, QuantReport]:
     """Quantize every layer of a decoder-only or encoder-decoder model
     (GPTQ + RPIQ).
 
@@ -476,15 +487,32 @@ def quantize_model(cfg: Config, params: Dict, calib: List[Dict[str, Tensor]],
     ``device="cpu"``; params and tokens are moved there. Returns float
     params whose quantized linears hold on-grid values (with their
     ``qscales``/``qzeros``), and the :class:`QuantReport`.
+
+    ``mesh``: a ``DeviceMesh`` (``launch/mesh.make_host_mesh``) for
+    sharded group execution, or None for one device; left unset, the
+    ``quant.mesh`` knob is resolved through ``launch/mesh.
+    make_quant_mesh`` (under torchrun it starts the process group; a spec
+    it cannot honour prints why and runs on one device, as the JAX
+    package does). Under a mesh rank 0's params and batches are broadcast
+    to every rank first, and only rank 0 prints the walk.
     """
     dev = resolve_device(device)
     t_start = time.perf_counter()
     report = QuantReport()
+    if mesh is _MESH_FROM_CONFIG:
+        from repro_torch.launch.mesh import make_quant_mesh
+        mesh = make_quant_mesh(cfg.quant.mesh, device=dev)
     params = _to_device(params, dev)
+    if mesh is not None:
+        from repro_torch.distributed.sharding import broadcast_tree
+        params = broadcast_tree(params)
+        calib = broadcast_tree(calib)
+        verbose = verbose and dist.get_rank() == 0
     build = (_walker_encdec if cfg.model.is_encoder_decoder
              else _walker_decoder_only)
     walker = build(cfg, params, calib, dev)
-    out = qstream.run_walker(cfg, walker, report, verbose=verbose)
+    out = qstream.run_walker(cfg, walker, report, verbose=verbose,
+                             mesh=mesh)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     report.seconds_total = time.perf_counter() - t_start

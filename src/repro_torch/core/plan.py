@@ -39,6 +39,20 @@ reads would wait, go into ``deferred`` as closures in serial order, and
 the scheduler runs them at the step's boundary, so the report equals the
 serial one. The ladder's one host read a group (``_finite_lanes``) stays,
 as in the JAX package: it waits for the executor's stream only.
+
+Under a mesh (``execute_plan(mesh=)``, ``quant.mesh``) every group whose
+lane count or Cout passes the divisibility guards of
+``distributed/sharding.quant_group_sharding`` runs sharded, the process
+model SPMD: every rank holds the group's whole stacked inputs, damps and
+factors the Hessians of its own lanes, and runs both stages through
+``ops.gptq_block_sharded`` / ``ops.rpiq_block_sharded`` on its (lane,
+row) block, which stays on the rank from stage 1 into stage 2; the
+group's weights and grid are gathered once, after the RTN lanes are
+selected, and the ladder's finiteness mask and the records' small
+outputs are joined on every rank, so the ladder, the starved mask and
+the records are the same on every rank. The collectives compose with
+``sync=False``: they order themselves after the work that makes their
+inputs.
 """
 from __future__ import annotations
 
@@ -52,9 +66,12 @@ import torch
 from repro_torch.config import QuantConfig, not_ported
 from repro_torch.core import faults
 from repro_torch.core import hessian as hess
-from repro_torch.core.gptq import (GPTQResult, gptq_quantize_batched,
-                                   rtn_quantize, rtn_quantize_batched)
-from repro_torch.core.rpiq import rpiq_refine_batched
+from repro_torch.core.gptq import (GPTQResult, rtn_quantize,
+                                   rtn_quantize_batched)
+from repro_torch.core.rpiq import RPIQResult
+from repro_torch.distributed.sharding import (QuantGroupSharding,
+                                              quant_group_sharding)
+from repro_torch.kernels import ops
 
 Tensor = torch.Tensor
 
@@ -231,23 +248,37 @@ def _guardrail_stats(report: QuantReport) -> Dict[str, int]:
     return report.guardrail_stats
 
 
-def _finite_lanes(res1: GPTQResult) -> np.ndarray:
+def _finite_lanes(res1: GPTQResult,
+                  gshard: Optional[QuantGroupSharding] = None) -> np.ndarray:
     """(B,) host mask of the lanes whose stage-1 outputs are all finite:
     one sum a lane over each output, which any NaN or Inf poisons (the
-    ladder's detector; it waits for stage 1)."""
+    ladder's detector; it waits for stage 1). Under a mesh ``res1`` holds
+    this rank's blocks: the rows' sums are added and the lanes joined."""
     tot = (res1.w_q.sum(dim=(-2, -1)) + res1.scales.sum(dim=(-2, -1))
            + res1.zeros.sum(dim=(-2, -1)))
-    return torch.isfinite(tot + res1.err).cpu().numpy()
+    if gshard is None:
+        return torch.isfinite(tot + res1.err).cpu().numpy()
+    tot = gshard.psum_rows(tot) + res1.err
+    return torch.isfinite(gshard.gather(tot, "lane")).cpu().numpy()
+
+
+def _mine(gshard: Optional[QuantGroupSharding], t: Tensor,
+          kind: str) -> Tensor:
+    """This rank's block of a whole tensor of the group (``kind`` as in
+    ``distributed/sharding``); the whole tensor without a mesh."""
+    return t if gshard is None else gshard.local(t, kind)
 
 
 def _execute_group(qc: QuantConfig, group: QuantGroup, report: QuantReport,
                    rpiq_enabled: bool, sync: bool = True,
-                   deferred: Optional[List[Callable[[], None]]] = None
+                   deferred: Optional[List[Callable[[], None]]] = None,
+                   gshard: Optional[QuantGroupSharding] = None
                    ) -> List[MemberResult]:
     """One stacked dispatch per stage for the whole group: the members'
     lanes concatenated, a stacked member's slab wholesale; stage 1 again
     on the ladder's rungs; ``sync`` and ``deferred`` as in the module
-    docstring."""
+    docstring; ``gshard`` the group's placement on the mesh (module
+    docstring)."""
     ms = group.members
     t0 = time.perf_counter()
     w = torch.cat([_as3d(m.w_oi.float()) for m in ms])
@@ -258,21 +289,28 @@ def _execute_group(qc: QuantConfig, group: QuantGroup, report: QuantReport,
     fspec = faults.poll("hessian.cholesky")
     if fspec is not None:
         H = hess.corrupt_stacked(H, fspec.mode, qc.percdamp)
+    # under a mesh, the Hessians of this rank's lanes (all of them when
+    # only the rows are sharded)
+    H = hess.shard_stacked(hess.HessianState(H, count), gshard).H
     starved = np.concatenate([m.starved_mask() for m in ms])
+    qkw = dict(bits=qc.bits, group_size=qc.group_size,
+               symmetric=qc.symmetric)
+    # both stages' twins run the single-device stage when no axis is set;
+    # under a mesh their outputs stay this rank's blocks until the end
+    on_mesh = (dict(mesh=None) if gshard is None else
+               dict(mesh=gshard.mesh, lane_axis=gshard.lane_axis,
+                    row_axis=gshard.row_axis, gather=False))
 
     def stage1(hd: Tensor) -> GPTQResult:
         u = hess.cholesky_inverse_upper(hd)
-        return gptq_quantize_batched(w, u, bits=qc.bits,
-                                     group_size=qc.group_size,
-                                     blocksize=qc.blocksize,
-                                     symmetric=qc.symmetric)
+        return GPTQResult(*ops.gptq_block_sharded(
+            w, u, blocksize=qc.blocksize, **on_mesh, **qkw))
 
     def rtn_lanes() -> GPTQResult:
-        return rtn_quantize_batched(w, bits=qc.bits, group_size=qc.group_size,
-                                    symmetric=qc.symmetric)
+        return rtn_quantize_batched(w, **qkw)
 
     faults.fire("plan.stage1_executor")
-    damp = torch.full((w.shape[0],), qc.percdamp, device=w.device)
+    damp = torch.full((H.shape[0],), qc.percdamp, device=w.device)
     hd = hess.damped(hess.HessianState(H, count), damp)
     # the Gram is freed before the factorizations; a rung damps it anew
     # from hd, whose off-diagonal entries are the Gram's exactly, and its
@@ -282,19 +320,20 @@ def _execute_group(qc: QuantConfig, group: QuantGroup, report: QuantReport,
     res1 = stage1(hd)
     rtn = rtn_lanes() if starved.any() else None
     guarded = np.zeros(w.shape[0], bool)
-    bad0 = bad = ~_finite_lanes(res1) if qc.guardrail else guarded
+    bad0 = bad = ~_finite_lanes(res1, gshard) if qc.guardrail else guarded
     rung = 0
     while bad.any() and rung < qc.guardrail_retries:
         rung += 1
         _guardrail_stats(report)["damp_retries"] += 1
-        damp = torch.where(torch.as_tensor(bad, device=w.device),
-                           damp * qc.guardrail_damp_factor, damp)
+        damp = torch.where(_mine(gshard, torch.as_tensor(
+            bad, device=w.device), "lane"),
+            damp * qc.guardrail_damp_factor, damp)
         gram = hd.clone()
         torch.diagonal(gram, dim1=-2, dim2=-1).copy_(diag)
         hd = hess.damped(hess.HessianState(gram, count), damp)
         del gram
         res1 = stage1(hd)
-        bad = ~_finite_lanes(res1)
+        bad = ~_finite_lanes(res1, gshard)
     if bad0.any():
         gs = _guardrail_stats(report)
         gs["lanes_flagged"] += int(bad0.sum())
@@ -307,15 +346,15 @@ def _execute_group(qc: QuantConfig, group: QuantGroup, report: QuantReport,
         guarded = bad
         if rtn is None:
             rtn = rtn_lanes()
-        gl = torch.as_tensor(guarded, device=w.device)
+        gl = _mine(gshard, torch.as_tensor(guarded, device=w.device),
+                   "lane")
         sel = gl[:, None, None]
         hd = torch.where(sel, torch.eye(hd.shape[-1], dtype=hd.dtype,
                                         device=hd.device), hd)
-        res1 = GPTQResult(torch.where(sel, rtn.w_q, res1.w_q),
-                          torch.where(sel, rtn.scales, res1.scales),
-                          torch.where(sel, rtn.zeros, res1.zeros),
-                          torch.where(gl, torch.zeros_like(res1.err),
-                                      res1.err))
+        res1 = GPTQResult(
+            *(torch.where(sel, _mine(gshard, r, "w"), own)
+              for r, own in zip(rtn[:3], res1[:3])),
+            torch.where(gl, torch.zeros_like(res1.err), res1.err))
     _sync(res1.w_q, sync)
     t1 = time.perf_counter()
     report.seconds_stage1 += t1 - t0
@@ -326,13 +365,11 @@ def _execute_group(qc: QuantConfig, group: QuantGroup, report: QuantReport,
         x = torch.cat([_as3d(m.x_last.float()) for m in ms])
         xc = torch.cat([_lane_x_counts(m) for m in ms])
         faults.fire("plan.stage2_executor")
-        res2 = rpiq_refine_batched(
+        res2 = RPIQResult(*ops.rpiq_block_sharded(
             res1.w_q, w, x, hd, res1.scales, res1.zeros, h_count=count,
-            x_count=xc, bits=qc.bits, group_size=qc.group_size,
-            block_size=qc.blocksize, alpha=qc.rpiq_alpha,
+            x_count=xc, block_size=qc.blocksize, alpha=qc.rpiq_alpha,
             t_max=qc.rpiq_iters, early_stop=qc.rpiq_early_stop,
-            exact_gram=not qc.rpiq_use_global_hessian,
-            symmetric=qc.symmetric)
+            exact_gram=not qc.rpiq_use_global_hessian, **on_mesh, **qkw))
         del x
         _sync(res2.w_q, sync)
         report.seconds_stage2 += time.perf_counter() - t1
@@ -342,19 +379,25 @@ def _execute_group(qc: QuantConfig, group: QuantGroup, report: QuantReport,
     w_final = res2.w_q if do_rpiq else res1.w_q
     scales, zeros = res1.scales, res1.zeros
     if rtn is not None:
-        sel = torch.as_tensor(starved | guarded,
-                              device=w.device)[:, None, None]
-        w_final = torch.where(sel, rtn.w_q, w_final)
-        scales = torch.where(sel, rtn.scales, scales)
-        zeros = torch.where(sel, rtn.zeros, zeros)
+        sel = _mine(gshard, torch.as_tensor(starved | guarded,
+                                            device=w.device),
+                    "lane")[:, None, None]
+        w_final, scales, zeros = (
+            torch.where(sel, _mine(gshard, r, "w"), own)
+            for r, own in zip(rtn[:3], (w_final, scales, zeros)))
+    outs = [res1.err] + ([res2.loss_history, res2.proj_loss, res2.iters_run]
+                         if do_rpiq else [])
+    if gshard is not None:
+        # the group's one join: every rank continues with the whole group
+        w_final, scales, zeros = (gshard.gather(t, "w")
+                                  for t in (w_final, scales, zeros))
+        outs = [gshard.gather(t, "lane") for t in outs]
 
     seconds = (time.perf_counter() - t0) / max(1, int((~starved).sum()))
     # a deferred closure holds only the members' names and shapes and the
     # small outputs, so that no weight slab, Hessian or input stays alive
     # until the step's boundary
     named = [(m.lane_names, m.wshape) for m in ms]
-    outs = [res1.err] + ([res2.loss_history, res2.proj_loss, res2.iters_run]
-                         if do_rpiq else [])
 
     def record() -> None:
         # the host reads wait for the executor: under overlap this runs at
@@ -433,11 +476,16 @@ def _execute_fallback(qc: QuantConfig, m: PlanMember, report: QuantReport,
 
 def execute_plan(qc: QuantConfig, plan: QuantPlan, report: QuantReport,
                  rpiq_enabled: bool = True, sync: bool = True,
-                 deferred: Optional[List[Callable[[], None]]] = None
-                 ) -> Dict[str, MemberResult]:
+                 deferred: Optional[List[Callable[[], None]]] = None,
+                 mesh=None) -> Dict[str, MemberResult]:
     """Run every group, then the grid-unaligned members; returns {member
     name → MemberResult}. ``sync=False`` and ``deferred`` are the overlap
-    schedule's (module docstring). ``quant.batched_executor=false``, the
+    schedule's (module docstring). ``mesh``: a ``DeviceMesh`` from
+    ``launch/mesh.py`` turns on sharded group execution (module
+    docstring): a group's placement is ``quant_group_sharding(mesh,
+    lanes, out, expert_stacked)`` with ``expert_stacked`` when every
+    member is a stacked expert slab; the grid-unaligned members run on
+    every rank as on one device. ``quant.batched_executor=false``, the
     JAX package's per-linear baseline, is not ported; nor is
     ``quant.gptq_impl`` / ``quant.rpiq_impl`` ``xla``, the JAX package's
     plain route on the accelerator (the port's stages take the
@@ -456,8 +504,11 @@ def execute_plan(qc: QuantConfig, plan: QuantPlan, report: QuantReport,
                              f"got {impl!r}")
     out: Dict[str, MemberResult] = {}
     for group in plan.groups:
+        gshard = quant_group_sharding(
+            mesh, sum(m.lanes for m in group.members), group.key[0],
+            expert_stacked=all(m.stacked for m in group.members))
         for r in _execute_group(qc, group, report, rpiq_enabled, sync,
-                                deferred):
+                                deferred, gshard):
             out[r.name] = r
     for m in plan.fallbacks:
         out[m.name] = _execute_fallback(qc, m, report, deferred)

@@ -73,16 +73,19 @@ def rpiq_refine_batched(w_init: Tensor, w_fp: Tensor, x_last: Tensor,
                         group_size: int = 128, block_size: int = 128,
                         alpha: float = 0.01, t_max: int = 5,
                         early_stop: bool = True, exact_gram: bool = False,
-                        symmetric: bool = False) -> RPIQResult:
+                        symmetric: bool = False,
+                        loss_psum_group=None) -> RPIQResult:
     """Stage 2 over a stacked group: w_init/w_fp (B, out, in), x_last
     (B, n, in), h_damped (B, in, in), scales/zeros (B, out, groups),
-    h_count/x_count (B,) or None. Every member keeps its own early stop."""
+    h_count/x_count (B,) or None. Every member keeps its own early stop.
+    ``loss_psum_group``: a row shard's peers (``ops.rpiq_block``)."""
     hinv = _block_curvature_inv(x_last, h_damped, h_count, x_count,
                                 block_size=block_size, exact_gram=exact_gram)
     return RPIQResult(*ops.rpiq_block(
         w_init, w_fp, x_last, hinv, scales, zeros, bits=bits,
         group_size=group_size, block_size=block_size, alpha=alpha,
-        t_max=t_max, early_stop=early_stop, symmetric=symmetric))
+        t_max=t_max, early_stop=early_stop, symmetric=symmetric,
+        loss_psum_group=loss_psum_group))
 
 
 def rpiq_refine(w_init: Tensor, w_fp: Tensor, x_last: Tensor,

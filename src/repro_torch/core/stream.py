@@ -76,6 +76,13 @@ so its artifacts are bitwise those of an uninterrupted run. A corrupt
 checkpoint, or one written under another configuration, warns and the
 walk starts fresh; the fault plane's arming is not part of the
 configuration a checkpoint must match (a resumed run disarms it).
+
+Under a mesh (``run_walker(mesh=)``) every rank walks the same items and
+the plan's groups run sharded (core/plan.py). Rank 0 alone writes the
+step checkpoints; with ``quant.resume=auto`` every rank first waits at a
+barrier for the others (so that rank 0 is past the last write of an
+earlier run), then reads rank 0's latest checkpoint and restarts at the
+same step.
 """
 from __future__ import annotations
 
@@ -88,6 +95,7 @@ import warnings
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.config import Config, to_dict
 from repro_torch.core import plan as qplan
@@ -344,11 +352,12 @@ def _spec_block(qc, qpipe, item: LayerStep, nxt: Optional[WalkItem]
 
 
 def run_walker(cfg: Config, walker: LayerWalker, report: QuantReport,
-               verbose: bool = False) -> Dict:
+               verbose: bool = False, mesh=None) -> Dict:
     """Drain the walker under ``quant.pipeline``; returns the finalized
     quantized tree. Both schedules run the same computations in the same
     order on the same inputs (overlap only moves the waits and adds
-    discarded speculative work), so their artifacts are bitwise equal."""
+    discarded speculative work), so their artifacts are bitwise equal.
+    ``mesh``: sharded group execution (module docstring)."""
     from repro_torch.core import pipeline as qpipe   # circular at import only
     qc = cfg.quant
     mode = qc.pipeline
@@ -361,9 +370,13 @@ def run_walker(cfg: Config, walker: LayerWalker, report: QuantReport,
     if qc.ckpt_dir:
         ckpt = Checkpointer(qc.ckpt_dir, keep=qc.ckpt_keep)
         fp = _resume_fingerprint(cfg)
+        if qc.resume == "auto" and mesh is not None:
+            dist.barrier()
         if qc.resume == "auto" and ckpt.latest_step() is not None:
             start, stored_snap = _resume(cfg, ckpt, fp, walker, report,
                                          stats, verbose)
+        if mesh is not None and dist.get_rank() != 0:
+            ckpt = None                 # rank 0 alone writes
     device = next(iter(walker.streams.values()))[0].device
     streams = _Streams(device) if overlap else None
     items = walker.items
@@ -426,7 +439,7 @@ def run_walker(cfg: Config, walker: LayerWalker, report: QuantReport,
             deferred: Optional[List[Callable[[], None]]] = \
                 [] if overlap else None
             results = qplan.execute_plan(qc, plan, report, sync=not overlap,
-                                         deferred=deferred)
+                                         deferred=deferred, mesh=mesh)
             del plan
             # 5. scatter the on-grid weights (and grids) into the subtree
             qpipe.scatter_layer(new_params, dense_names, cap, results)

@@ -150,6 +150,14 @@ def tree_paths(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
     return out
 
 
+def tree_digest(tree: Any) -> str:
+    """The sha256 :func:`save_artifact` would record for ``tree``, without
+    writing it (the sharded launcher compares the ranks' packed artifacts
+    by it)."""
+    return hashlib.sha256(pickle.dumps(
+        tree_to_numpy(tree), protocol=pickle.HIGHEST_PROTOCOL)).hexdigest()
+
+
 def _rebuild(tree: Any, leaf_fn, prefix: str = "") -> Any:
     """``tree``'s structure with each leaf replaced by leaf_fn(path, leaf)."""
     kids = _children(tree)

@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -438,14 +438,15 @@ def rpiq_pad_rows(w0: Tensor, y_orig: Tensor, s_full: Tensor,
 def rpiq_block_cuda(w0: Tensor, y_orig: Tensor, x: Tensor, hinv_flat: Tensor,
                     s_full: Tensor, z_full: Tensor, *, bits: int,
                     block_size: int, alpha: float, t_max: int,
-                    symmetric: bool
+                    symmetric: bool, raw64: bool = False
                     ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
     """Kernel wrapper: same contract as :func:`ref.rpiq_block`, any
     block_size dividing in; the row count must be a multiple of
     RPIQ_ROWS. A block of up to 128 columns (a multiple of 4) runs the
     fused kernel, a wider one the wide path of ``rpiq_block.cu``. The fp64
     loss partials (per row tile, or per product tile on the wide path) are
-    summed here, in tile order, and rounded once to fp32."""
+    summed here, in tile order, and rounded once to fp32 (``raw64``: left
+    in fp64, for a row shard to sum with the others' first)."""
     op = "rpiq_block"
     args = (w0, y_orig, x, hinv_flat, s_full, z_full)
     _check_cuda(op, *args)
@@ -500,8 +501,10 @@ def rpiq_block_cuda(w0: Tensor, y_orig: Tensor, x: Tensor, hinv_flat: Tensor,
                 *outs, hist.data_ptr(), pls.data_ptr(), dbuf.data_ptr(), b,
                 out_dim, in_dim, n, block_size, t_max, float(alpha), bits,
                 int(symmetric), rows, split, _stream())
-    return (w_cont, wp_all, y_q, hist.sum(dim=1).float(),
-            pls.sum(dim=1).float())
+    hist, pls = hist.sum(dim=1), pls.sum(dim=1)
+    if not raw64:
+        hist, pls = hist.float(), pls.float()
+    return w_cont, wp_all, y_q, hist, pls
 
 
 def _rpiq_select(hist_raw: Tensor, pls_raw: Tensor, wp_all: Tensor,
@@ -552,12 +555,18 @@ def rpiq_block(w_init: Tensor, w_fp: Tensor, x_last: Tensor,
                hinv_blocks: Tensor, scales: Tensor, zeros: Tensor, *,
                bits: int = 4, group_size: int = 128, block_size: int = 128,
                alpha: float = 0.01, t_max: int = 5, early_stop: bool = True,
-               symmetric: bool = False):
+               symmetric: bool = False, loss_psum_group=None):
     """The full stage-2 closed loop. w_init/w_fp (out, in) or (B, out, in);
     x_last (B, n, in); hinv_blocks (B, M, bs, bs) explicit block inverses;
     scales/zeros (B, out, in/group_size). Returns ``(w_q, w_cont,
     loss_history, proj_loss, iters_run)``; ``w_cont`` is the t_max-round
-    iterate (every round runs, the bookkeeping is replayed)."""
+    iterate (every round runs, the bookkeeping is replayed).
+
+    ``loss_psum_group``: the process group of a row shard's peers
+    (:func:`rpiq_block_sharded`). The (B, t_max+1) Γ and projected-loss
+    partials are summed over it BEFORE the bookkeeping (on the card in
+    fp64, before their one rounding to fp32), so every shard replays the
+    same early stop and best round for its rows."""
     squeeze = w_init.dim() == 2
     if squeeze:
         w_init, w_fp, x_last, hinv_blocks, scales, zeros = (
@@ -585,14 +594,115 @@ def rpiq_block(w_init: Tensor, w_fp: Tensor, x_last: Tensor,
                                                    z_full, RPIQ_ROWS)
         w_cont, wp_all, _, hist_raw, pls_raw = rpiq_block_cuda(
             *(a.contiguous() for a in (w0, y_orig, xf, hinv_flat, s_full,
-                                       z_full)), **kw)
+                                       z_full)),
+            raw64=loss_psum_group is not None, **kw)
         w_cont, wp_all = w_cont[:, :out_dim], wp_all[:, :, :out_dim]
+    if loss_psum_group is not None:
+        from repro_torch.distributed.sharding import psum
+        hist_raw = psum(hist_raw, loss_psum_group).float()
+        pls_raw = psum(pls_raw, loss_psum_group).float()
     w_q, hist, proj_loss, iters = _rpiq_select(hist_raw, pls_raw, wp_all,
                                                t_max, early_stop)
     out = (w_q, w_cont, hist, proj_loss, iters)
     if squeeze:
         out = tuple(o[0] for o in out)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the mesh-sharded stages (quant.mesh)
+# ---------------------------------------------------------------------------
+
+def gptq_block_sharded(w: Tensor, hinv_u: Tensor, *, mesh, lane_axis=None,
+                       row_axis: Optional[str] = None, bits: int = 4,
+                       group_size: int = 128, blocksize: int = 128,
+                       symmetric: bool = False, gather: bool = True):
+    """Mesh-sharded GPTQ sweep: :func:`gptq_block` on this rank's block.
+
+    w: (B, out, in), whole on every rank; hinv_u: (B, in, in) whole, or
+    this rank's lanes of it already (the executor factors lane-locally).
+    Each rank sweeps its (B/|lane|, out/|row|, in) block, on the card the
+    CUDA kernel (no fallback), on the CPU the plain version; Σerr² is
+    summed over the row group, and the results are gathered so that every
+    rank returns the whole ``(w_q, scales, zeros, err)``; ``gather=False``
+    returns this rank's blocks (err lane-local), for a caller that joins
+    them once after stage 2 (ranks sharing a card gather through the host,
+    on gloo). Exact: lanes are
+    independent linears and rows are independent given U. The
+    divisibility of B and out over the axes is the caller's contract
+    (``distributed.sharding.quant_group_sharding`` guards it); both axes
+    None is :func:`gptq_block`."""
+    kw = dict(bits=bits, group_size=group_size, blocksize=blocksize,
+              symmetric=symmetric)
+    if lane_axis is None and row_axis is None:
+        return gptq_block(w, hinv_u, **kw)
+    from repro_torch.distributed.sharding import QuantGroupSharding
+    gs = QuantGroupSharding(mesh, lane_axis, row_axis)
+    b, out_dim = w.shape[:2]
+    w_q, scales, zeros, err = gptq_block(
+        gs.own(w, "w", b, out_dim), gs.own(hinv_u, "hessian", b), **kw)
+    err = gs.psum_rows(err)
+    if not gather:
+        return w_q, scales, zeros, err
+    return (gs.gather(w_q, "w"), gs.gather(scales, "w"),
+            gs.gather(zeros, "w"), gs.gather(err, "lane"))
+
+
+def rpiq_block_sharded(w_init: Tensor, w_fp: Tensor, x_last: Tensor,
+                       h_damped: Tensor, scales: Tensor, zeros: Tensor, *,
+                       h_count: Optional[Tensor] = None,
+                       x_count: Optional[Tensor] = None, mesh=None,
+                       lane_axis=None, row_axis: Optional[str] = None,
+                       bits: int = 4, group_size: int = 128,
+                       block_size: int = 128, alpha: float = 0.01,
+                       t_max: int = 5, early_stop: bool = True,
+                       symmetric: bool = False, exact_gram: bool = False,
+                       gather: bool = True):
+    """Mesh-sharded stage 2, the :func:`gptq_block_sharded` twin.
+
+    w_fp (B, out, in), whole; w_init (B, out, in), scales/zeros (B, out,
+    groups), x_last (B, n, in), h_damped (B, in, in), h_count/x_count
+    (B,) or None: whole, or this rank's blocks already (stage 1's
+    ``gather=False`` outputs, a lane-local factor). Lanes shard as in
+    stage 1 with no
+    collective. A row shard is not an independent unit of the closed
+    loop: Γ, the early stop and the best round are global over Cout. The
+    rounds run unconditionally and the bookkeeping is deferred
+    (:func:`rpiq_block`), so each rank runs its rows' rounds (the CUDA
+    kernel on the card, its rows padded to RPIQ_ROWS there; the plain
+    version on the CPU, which defers its bookkeeping too) and the row
+    group sums the (B, t_max+1) partials before the bookkeeping: one
+    collective a dispatch. The block curvature inverses are made for this
+    rank's lanes only. Returns the whole ``(w_q, w_cont, loss_history,
+    proj_loss, iters_run)`` on every rank; ``gather=False`` this rank's
+    blocks (the last three lane-local)."""
+    from repro_torch.core.rpiq import rpiq_refine_batched
+    kw = dict(bits=bits, group_size=group_size, block_size=block_size,
+              alpha=alpha, t_max=t_max, early_stop=early_stop,
+              symmetric=symmetric, exact_gram=exact_gram)
+    if lane_axis is None and row_axis is None:
+        return tuple(rpiq_refine_batched(
+            w_init, w_fp, x_last, h_damped, scales, zeros, h_count=h_count,
+            x_count=x_count, **kw))
+    from repro_torch.distributed.sharding import QuantGroupSharding
+    gs = QuantGroupSharding(mesh, lane_axis, row_axis)
+    b, out_dim = w_fp.shape[:2]
+    slabs = [gs.own(t, "w", b, out_dim)
+             for t in (w_init, w_fp, scales, zeros)]
+    lanes = [None if t is None else gs.own(t, "x", b)
+             for t in (x_last, h_damped, h_count, x_count)]
+    res = rpiq_refine_batched(
+        slabs[0], slabs[1], lanes[0], lanes[1], slabs[2], slabs[3],
+        h_count=lanes[2], x_count=lanes[3],
+        loss_psum_group=None if row_axis is None else gs.row_group(), **kw)
+    if not gather:
+        return tuple(res)
+    # the history, loss and iterations are the same on every row shard
+    # after the sum: gathered over the lanes only
+    return (gs.gather(res.w_q, "w"), gs.gather(res.w_cont, "w"),
+            gs.gather(res.loss_history, "lane"),
+            gs.gather(res.proj_loss, "lane"),
+            gs.gather(res.iters_run, "lane"))
 
 
 # ---------------------------------------------------------------------------

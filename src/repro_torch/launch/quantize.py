@@ -29,8 +29,20 @@ fault plane (core/faults.py) for the run, e.g.
 ``quant.pipeline=overlap`` runs the layer walk's second schedule (the next
 layer's capture ahead on a side CUDA stream, core/stream.py), bitwise the
 serial artifact; the walk's counters are printed (``[quantize] pipeline:
-{...}``). ``quant.mesh`` and ``quant.batched_executor=false`` are not
-ported and raise.
+{...}``). ``quant.batched_executor=false`` is not ported and raises.
+
+``quant.mesh=DxM`` / ``DxMxE`` / ``auto`` shards the plan's groups over a
+``torch.distributed`` world (``launch/mesh.py``, core/plan.py), started
+by torchrun, one process a rank::
+
+    python -m torch.distributed.run --standalone --nproc-per-node 2 \
+        -m repro_torch.launch.quantize --arch opt-proxy --smoke \
+        --device cpu quant.mesh=2x1
+
+Every rank quantizes and packs; the ranks' packed artifacts are compared
+by digest (``checkpoint.tree_digest``, a mismatch raises) and rank 0
+alone prints the walk and writes the artifact, the report and the step
+checkpoints. On one card the ranks share it over gloo.
 
 Runs on the CUDA card; ``--device cpu`` runs the kernels' plain versions.
 """
@@ -42,8 +54,9 @@ import os
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 
-from repro_torch.config import apply_overrides, not_ported, parse_overrides
+from repro_torch.config import apply_overrides, parse_overrides
 from repro_torch.configs import get_config
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import faults
@@ -51,8 +64,10 @@ from repro_torch.core.pipeline import pack_for_serving, quantize_model
 from repro_torch.data import MarkovLM, calibration_batches
 from repro_torch.device import resolve_device
 from repro_torch.distributed.checkpoint import (Checkpointer, restore_like,
-                                                save_artifact,
+                                                save_artifact, tree_digest,
                                                 tree_from_paths, tree_paths)
+from repro_torch.launch.mesh import (init_from_env, make_quant_mesh,
+                                     mesh_sizes, rank)
 from repro_torch.models import transformer as T
 
 # a JAX TrainState's parameters: its NamedTuple field ``params``
@@ -100,12 +115,16 @@ def main(argv=None):
     apply_overrides(cfg, parse_overrides(args.overrides))
     mc, qc = cfg.model, cfg.quant
     dev = resolve_device(args.device)
+    started = init_from_env(dev)
+    mesh = make_quant_mesh(qc.mesh, device=dev)
+    # under a mesh rank 0 speaks for the world
+    say = print if rank() == 0 else (lambda *a, **k: None)
     faults.install_from_config(cfg)
     if cfg.faults.arm:
-        print(f"[quantize] fault plane armed: {cfg.faults.arm}")
+        say(f"[quantize] fault plane armed: {cfg.faults.arm}")
     if qc.ckpt_dir:
-        print(f"[quantize] step checkpoints → {qc.ckpt_dir} "
-              f"(quant.resume={qc.resume})")
+        say(f"[quantize] step checkpoints → {qc.ckpt_dir} "
+            f"(quant.resume={qc.resume})")
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -114,8 +133,8 @@ def main(argv=None):
     trained = trained_params(cfg.train.ckpt_dir, params, dev)
     if trained is not None:
         params = trained
-        print(f"[quantize] loaded checkpoint step "
-              f"{Checkpointer(cfg.train.ckpt_dir).latest_step()}")
+        say(f"[quantize] loaded checkpoint step "
+            f"{Checkpointer(cfg.train.ckpt_dir).latest_step()}")
 
     data = MarkovLM(mc.vocab_size, seed=7)
     calib = calibration_batches(data, qc.calib_batches, qc.calib_batch_size,
@@ -127,31 +146,46 @@ def main(argv=None):
             b["frames"] = torch.randn(
                 (qc.calib_batch_size, mc.encoder_seq_len, mc.d_model),
                 generator=frames_gen)
-    if qc.mesh != "off":
-        raise not_ported(f"quant.mesh={qc.mesh}", 17)
+    if mesh is not None:
+        say(f"[quantize] sharded group execution on mesh "
+            f"{mesh_sizes(mesh)}")
     params_q, report = quantize_model(cfg, params, calib, device=dev,
-                                      verbose=True)
+                                      verbose=True, mesh=mesh)
     del params
-    print(f"[quantize] {report.summary()}")
+    say(f"[quantize] {report.summary()}")
     if report.pipeline_stats.get("resumed_at") is not None:
-        print(f"[quantize] resumed from checkpoint at walk item "
-              f"{report.pipeline_stats['resumed_at']}")
+        say(f"[quantize] resumed from checkpoint at walk item "
+            f"{report.pipeline_stats['resumed_at']}")
     if report.guardrail_stats:
-        print(f"[quantize] guardrail: {report.guardrail_stats}")
-    print(f"[quantize] pipeline: {report.pipeline_stats}")
+        say(f"[quantize] guardrail: {report.guardrail_stats}")
+    say(f"[quantize] pipeline: {report.pipeline_stats}")
     packed = pack_for_serving(cfg, params_q)
+    if mesh is not None:
+        digests = [None] * dist.get_world_size()
+        dist.all_gather_object(digests, tree_digest(packed))
+        if len(set(digests)) != 1:
+            raise RuntimeError(f"the ranks' packed artifacts differ: "
+                               f"sha256 {digests}")
+        say(f"[quantize] {len(digests)} ranks' packed artifacts bitwise "
+            f"equal (sha256 {digests[0]})")
+    path = os.path.join(args.out, f"{mc.name}.params.pkl")
+    if rank() == 0:
+        _write(args.out, mc.name, report, packed)
+    if started:
+        dist.destroy_process_group()
+    return path, report
 
-    os.makedirs(args.out, exist_ok=True)
-    tag = mc.name
-    with open(os.path.join(args.out, f"{tag}.report.json"), "w") as f:
+
+def _write(out: str, tag: str, report, packed) -> None:
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, f"{tag}.report.json"), "w") as f:
         json.dump([{**vars(r)} for r in report.linears], f, indent=1)
     # atomic write + sha256 sidecar: launch.serve verifies the digest at
     # load, so a flipped byte in the artifact is a typed error
-    path = os.path.join(args.out, f"{tag}.params.pkl")
-    save_artifact(path, packed, extra={"arch": tag})
-    print(f"[quantize] wrote {args.out}/{tag}.params.pkl (+ integrity "
+    save_artifact(os.path.join(out, f"{tag}.params.pkl"), packed,
+                  extra={"arch": tag})
+    print(f"[quantize] wrote {out}/{tag}.params.pkl (+ integrity "
           "manifest)")
-    return path, report
 
 
 if __name__ == "__main__":

@@ -326,7 +326,7 @@ def test_unusable_checkpoint_warns_and_starts_fresh(damage, tmp_path):
 
 
 @pytest.mark.parametrize("launcher,override,item", [
-    ("quantize", "quant.mesh=auto", 17),
+    ("quantize", "quant.batched_executor=false", 9),
 ])
 def test_options_not_ported_raise(launcher, override, item, tmp_path):
     mod = tlaunch_quantize if launcher == "quantize" else tlaunch_serve
