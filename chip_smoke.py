@@ -240,6 +240,16 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
          calling ``quantize_model(cfg)`` on phase 5's seeded weights and
          calibration; against phase 5's single-device run (at most 1e-3 of
          the cells off at rtol 1e-5 / atol 1e-6, names and modes equal);
+         then the same ranks train it on a 2x2 mesh (``train(cfg,
+         mesh=)``: explicit data parallelism over ``data``, the train
+         state sharded by the placement rules, ``model`` sharding
+         storage): 5 steps of 16 x 128 (no remat, as 16a) from the
+         seeded init, against
+         ``train(device="cuda")`` from the same init (losses within 1e-2,
+         each leaf at 1e-5 or, past it, at the JAX package's sharded pins
+         rtol 3e-2 / atol 3e-3), every rank's final state bitwise rank
+         0's, rank 0's checkpoint restored on one device bitwise; each
+         rank's step walls, gloo bytes a step and peak;
      17b. internlm2-1.8b at full width and depth on 1x2 (every group
          row-sharded: the Γ sum at 2048-8192 rows) through
          ``torch.distributed.run`` (``python3 chip_smoke.py launcher-rank
@@ -4862,10 +4872,92 @@ def sharded_rank(rank: int, world: int, job: dict) -> None:
                                   "moe_spec_layers")})
     if rank == 0 and out["leaves"] != job["want_leaves"]:
         torch.save(host_leaves(params_q), os.path.join(job["dir"], "q.pt"))
+    del params_q
+    if job.get("train"):
+        dist.barrier()
+        out["train"] = sharded_train_rank(job)
     with open(os.path.join(job["dir"], f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.barrier()
     dist.destroy_process_group()
+
+
+# 17a's training leg: opt-proxy at full width, steps of batch x seq tokens
+TRAIN_LEG = dict(steps=5, batch=16, seq=128)
+
+
+def train_leg_config(ckpt_dir: str):
+    """opt-proxy's, no remat as in 16a: the first checkpointed forward of
+    a fresh process imports ``torch._dynamo`` (``torch.utils.checkpoint``
+    loads it at first use), seconds each rank would pay once."""
+    from repro_torch.configs import get_config
+    cfg = get_config("opt-proxy")
+    cfg.parallel.remat = "none"
+    t = cfg.train
+    t.steps, t.global_batch_size, t.seq_len = (TRAIN_LEG["steps"],
+                                               TRAIN_LEG["batch"],
+                                               TRAIN_LEG["seq"])
+    t.ckpt_dir = ckpt_dir
+    return cfg
+
+
+def state_digest(tree) -> str:
+    """One sha256 over every leaf of a (train state) tree, path, dtype
+    and shape included, read on the host."""
+    import hashlib
+    import torch
+    from repro_torch.distributed.checkpoint import tree_paths
+    h = hashlib.sha256()
+    for k, t in tree_paths(tree):
+        h.update(f"{k}{t.dtype}{tuple(t.shape)}".encode())
+        a = t.detach().contiguous().cpu().reshape(-1).view(torch.uint8)
+        h.update(memoryview(a.numpy()))
+    return h.hexdigest()
+
+
+def sharded_train_rank(job: dict) -> dict:
+    """This rank's part of 17a's training leg: ``train(cfg, mesh=)`` on a
+    2x2 mesh of the four ranks, sharing the card over gloo, from the
+    seeded init; rank 0 writes the final checkpoint. Returns the step
+    walls and losses, the bytes handed to gloo a step (each step wrapped),
+    the peak above what the rank held, the wall and the final state's
+    digest."""
+    import torch
+    from repro_torch.data import MarkovLM
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.training import trainer
+    cfg = train_leg_config(os.path.join(job["dir"], "train_ck"))
+    mesh = make_host_mesh(data=2, model=2, device="cuda")
+    step_bytes = []
+    make = trainer.make_sharded_train_step
+
+    def counted(*a, **kw):
+        step = make(*a, **kw)
+
+        def run(state, batch):
+            sharding.reset_comm_bytes()
+            out = step(state, batch)
+            step_bytes.append(sharding.comm_bytes())
+            return out
+        return run
+
+    trainer.make_sharded_train_step = counted
+    release_device()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    out = trainer.train(cfg, MarkovLM(cfg.model.vocab_size,
+                                      seed=cfg.train.seed),
+                        device="cuda", mesh=mesh, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    return dict(wall=wall, step_walls=[h["dt"] for h in out["history"]],
+                losses=[h["loss"] for h in out["history"]],
+                step_bytes=step_bytes,
+                peak=torch.cuda.max_memory_allocated() - held,
+                digest=state_digest(out["state"]))
 
 
 def job_config(job: dict):
@@ -5029,9 +5121,70 @@ def run_launcher_leg(cmd: list, label: str, launches: dict) -> str:
     return p.stdout
 
 
+def sharded_train_leg(job: dict, res: list, smi: str) -> None:
+    """17a's training leg, read from the ranks' results: every rank's
+    final state bitwise rank 0's; rank 0's checkpoint restored on one
+    device bitwise it; against ``train(device="cuda")`` from the same
+    init: the losses within 1e-2 and every leaf at 1e-5 relative or, past
+    it (printed with its distance), at the JAX package's sharded pins
+    (rtol 3e-2 / atol 3e-3). Prints each rank's step walls, gloo bytes a
+    step and peak beside the card."""
+    import torch
+    from repro_torch.data import MarkovLM
+    from repro_torch.distributed.checkpoint import Checkpointer, tree_paths
+    from repro_torch.training.train_step import init_train_state
+    from repro_torch.training.trainer import train
+    t = time.perf_counter()
+    legs = [x["train"] for x in res]
+    for r, x in enumerate(legs):
+        log(f"  17a train rank {r}: train(mesh=2x2) {x['wall']:.3f} s; "
+            f"step walls {[round(w, 4) for w in x['step_walls']]} s; gloo "
+            f"bytes a step {x['step_bytes']}; peak above what it held "
+            f"{x['peak']} bytes [{smi}]")
+    same = all(x["digest"] == legs[0]["digest"] for x in legs)
+    cfg = train_leg_config(os.path.join(job["dir"], "train_one"))
+    t1 = time.perf_counter()
+    ref = train(cfg, MarkovLM(cfg.model.vocab_size, seed=cfg.train.seed),
+                device="cuda", verbose=False)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t1
+    restored, extra = Checkpointer(os.path.join(job["dir"], "train_ck")
+                                   ).restore(init_train_state(cfg, "cuda"))
+    restored_same = (state_digest(restored) == legs[0]["digest"]
+                     and extra["step"] == TRAIN_LEG["steps"])
+    past, within = [], True
+    want = dict(tree_paths(ref["state"]))
+    for k, g in tree_paths(restored):
+        w = want[k].float()
+        g = g.float()
+        rel = float((g - w).norm() / (w.norm() + 1e-30))
+        if rel > 1e-5:
+            past.append(f"{k} {rel:.2e}")
+            within &= bool(torch.allclose(g, w, rtol=3e-2, atol=3e-3))
+    gaps = [abs(a - h["loss"]) for a, h in zip(legs[0]["losses"],
+                                               ref["history"])]
+    log(f"  17a train: one device {one_s:.3f} s (step walls "
+        f"{[round(h['dt'], 4) for h in ref['history']]} s) [{smi}]; "
+        f"losses 2x2 {[round(v, 5) for v in legs[0]['losses']]} one "
+        f"device {[round(h['loss'], 5) for h in ref['history']]} (largest "
+        f"gap {max(gaps):.3e}, tol 1e-2)")
+    log(f"  17a train: every rank's state bitwise rank 0's {same}; rank 0's "
+        f"checkpoint restored on one device bitwise it {restored_same}; "
+        f"{len(past)} of {len(want)} leaves past 1e-5 of the one-device "
+        f"run (held at rtol 3e-2 / atol 3e-3: {within}): {'; '.join(past)}")
+    check(same and restored_same and within and max(gaps) < 1e-2,
+          "17a train against the one-device run")
+    del ref, restored
+    release_device()
+    log(f"  17a train: the one-device run, the restore and the comparisons "
+        f"here took {time.perf_counter() - t:.1f}s")
+
+
 def phase_sharded_path(smi: str) -> dict:
     """17a opt-proxy at full width on 2x2 (4 ranks, the in-process API)
-    against phase 5's single-device run; 17b internlm2-1.8b at full width
+    against phase 5's single-device run, then trained on 2x2 by the same
+    ranks against one device (``sharded_train_leg``); 17b internlm2-1.8b
+    at full width
     and depth on 1x2 (every group row-sharded) through
     ``torch.distributed.run`` against the launcher run without the mesh;
     17c olmoe-1b-7b at full width on 1x1x2 under overlap (cut to one
@@ -5056,7 +5209,8 @@ def phase_sharded_path(smi: str) -> dict:
     # 17a
     t = time.perf_counter()
     job = dict(dir=os.path.join(PHASE17, "a"), arch="opt-proxy",
-               mesh="2x2", calib=(4, 4, 128), want_leaves=MAIN_RUN["leaves"])
+               mesh="2x2", calib=(4, 4, 128), want_leaves=MAIN_RUN["leaves"],
+               train=True)
     res = run_ranks(job, 4, "17a", smi)
     add(res)
     mism, total, worst = cells_against(job, res, MAIN_RUN["q"])
@@ -5065,6 +5219,7 @@ def phase_sharded_path(smi: str) -> dict:
         f"cells differ at rtol 1e-5 / atol 1e-6 (tol 1e-3 of them; largest "
         f"{worst:.3e}); every linear's name and mode equal {modes}")
     check(mism <= 1e-3 * total and modes, "17a against phase 5")
+    sharded_train_leg(job, res, smi)
     log(f"  17a took {time.perf_counter() - t:.1f}s")
 
     # 17b
@@ -5303,9 +5458,10 @@ def main() -> int:
     log(f"  phase 16 took {time.perf_counter() - t:.1f}s")
 
     release_device()
-    log("[17] sharded quantization on the card: quant.mesh ranks sharing it "
-        "over gloo (17a opt-proxy 2x2, 17b internlm2-1.8b 1x2 through "
-        "torch.distributed.run, 17c olmoe-1b-7b 1x1x2 under overlap)")
+    log("[17] sharded quantization and training on the card: ranks sharing "
+        "it over gloo (17a opt-proxy 2x2, quantized then trained; 17b "
+        "internlm2-1.8b 1x2 through torch.distributed.run, 17c olmoe-1b-7b "
+        "1x1x2 under overlap)")
     t = time.perf_counter()
     for name, n in phase_sharded_path(smi).items():
         launches[name] += n

@@ -18,9 +18,10 @@ and ``serve.quantized`` are taken with the JAX package's defaults and read
 nowhere, as there; so are ``serve.w4a16_impl`` and ``serve.kv_impl``:
 the port has one route per device and no kernel backend to choose (a
 kernel fault raises, it does not degrade). Every ``train.*`` field is
-taken (training, ``repro_torch.training``); of ``parallel.*`` training
-reads ``remat`` and ``int8_optimizer_state``, and a sharding field set
-away from its default raises naming ROADMAP.md queue 1 item 17.
+taken (training, ``repro_torch.training``); every ``parallel.*`` field
+is taken (:class:`ParallelConfig` says which are read), and
+``parallel.sp=true`` raises in sharded training, naming ROADMAP.md queue
+1 item 25.
 """
 from __future__ import annotations
 
@@ -206,10 +207,15 @@ class QuantConfig:
 
 @dataclass
 class ParallelConfig:
-    """The JAX package's parallelism fields. The port runs on one device:
-    ``remat`` and ``int8_optimizer_state`` are read by training; every
-    sharding field (:data:`SHARDING_FIELDS`) set away from its default
-    raises, naming ROADMAP.md queue 1 item 17 (:func:`refuse_sharding`)."""
+    """The JAX package's parallelism fields. Training reads ``remat`` and
+    ``int8_optimizer_state``; sharded training (``train(mesh=…)``) reads
+    ``fsdp`` (the placement), ``ep_local_dispatch`` (the routed MoE) and
+    ``sp``, which raises naming ROADMAP.md queue 1 item 25
+    (:func:`refuse_sharding`). The mesh comes from ``--mesh`` /
+    ``make_host_mesh``: ``data``, ``model``, ``pod``, ``ep``,
+    ``pipeline_stages``, ``pp_microbatches``, ``scan_layers``,
+    ``overlap_collectives`` and ``grad_compression`` are taken and read
+    nowhere, as in the reference."""
     data: int = 1
     model: int = 1
     pod: int = 1
@@ -228,12 +234,6 @@ class ParallelConfig:
     #                                     128 with f32 absmax scales
     overlap_collectives: bool = True
     ep_local_dispatch: bool = True
-
-
-# the fields of distribution (ROADMAP.md queue 1 item 17)
-SHARDING_FIELDS = ("data", "model", "pod", "fsdp", "sp", "ep",
-                   "pipeline_stages", "pp_microbatches", "grad_compression",
-                   "overlap_collectives", "ep_local_dispatch", "scan_layers")
 
 
 @dataclass
@@ -318,11 +318,12 @@ def not_ported(what: str, item: int) -> NotImplementedError:
 
 
 def refuse_sharding(pc: ParallelConfig) -> None:
-    """Raise, naming item 17, if a sharding field is off its default."""
-    default = ParallelConfig()
-    for f in SHARDING_FIELDS:
-        if getattr(pc, f) != getattr(default, f):
-            raise not_ported(f"parallel.{f}={getattr(pc, f)}", 17)
+    """Raise, naming item 25, for the sharding field sharded training
+    cannot run yet: ``parallel.sp`` (the residual's sequence over the
+    ``model`` axis)."""
+    if pc.sp:
+        raise not_ported(f"parallel.sp={pc.sp} (the sequence over the "
+                         "model axis in sharded training)", 25)
 
 
 def _coerce(value: str, current: Any) -> Any:
@@ -347,8 +348,6 @@ def apply_overrides(cfg: Any, overrides: Dict[str, str]) -> Any:
             raise KeyError(f"unknown config key: {key}")
         setattr(obj, leaf, _coerce(value, getattr(obj, leaf))
                 if isinstance(value, str) else value)
-        if isinstance(obj, ParallelConfig):
-            refuse_sharding(obj)
     return cfg
 
 

@@ -1,6 +1,8 @@
 """Step checkpoints and integrity-checked serving artifacts
-(``checkpoint``), and quantization-group sharding on ``torch.distributed``
-(``sharding``; the mesh itself comes from ``launch/mesh.py``)."""
+(``checkpoint``); sharding on ``torch.distributed``: the placement rules
+and quantization-group sharding (``sharding``; the mesh itself comes from
+``launch/mesh.py``), gradient compression (``compression``) and GPipe
+(``pipeline_parallel``)."""
 from repro_torch.distributed.sharding import (QuantGroupSharding,
                                               broadcast_tree, psum,
                                               quant_group_sharding)

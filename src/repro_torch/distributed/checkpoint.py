@@ -61,6 +61,7 @@ import torch
 
 from repro_torch.convert import tree_to_numpy
 from repro_torch.core import faults
+from repro_torch.distributed import sharding
 
 #: manifest schema written by Checkpointer.save; schema 1 (no crc fields)
 #: loads unverified, anything newer is refused
@@ -158,12 +159,13 @@ def tree_digest(tree: Any) -> str:
         tree_to_numpy(tree), protocol=pickle.HIGHEST_PROTOCOL)).hexdigest()
 
 
-def _rebuild(tree: Any, leaf_fn, prefix: str = "") -> Any:
-    """``tree``'s structure with each leaf replaced by leaf_fn(path, leaf)."""
+def map_with_path(tree: Any, leaf_fn, prefix: str = "") -> Any:
+    """``tree``'s structure with each leaf replaced by leaf_fn(path, leaf),
+    the path named as :func:`tree_paths` names it."""
     kids = _children(tree)
     if kids is None:
         return None if tree is None else leaf_fn(prefix, tree)
-    new = {part: _rebuild(child, leaf_fn,
+    new = {part: map_with_path(child, leaf_fn,
                           f"{prefix}/{part}" if prefix else part)
            for part, child in kids}
     if isinstance(tree, dict):
@@ -189,7 +191,7 @@ def restore_like(flat: Dict[str, torch.Tensor], tree_like: Any,
                              "configuration's parameter shapes)")
         return t.to(device=device or like.device, dtype=like.dtype)
 
-    return _rebuild(tree_like, leaf)
+    return map_with_path(tree_like, leaf)
 
 
 def tree_from_paths(flat: Dict[str, Any]) -> Any:
@@ -349,12 +351,18 @@ class Checkpointer:
                 raise FileNotFoundError(f"no checkpoint in {self.dir}")
         return step
 
-    def restore(self, tree_like: Any, step: Optional[int] = None
-                ) -> Tuple[Any, Dict[str, Any]]:
-        """Load into the structure of ``tree_like`` (a tree of tensors),
-        each leaf in its like's dtype and on its like's device."""
+    def restore(self, tree_like: Any, step: Optional[int] = None,
+                shardings: Any = None) -> Tuple[Any, Dict[str, Any]]:
+        """Load into the structure of ``tree_like`` (a tree of tensors of
+        the whole shapes), each leaf in its like's dtype and on its like's
+        device. Elastic: ``shardings`` = ``(specs, mesh)`` keeps this
+        rank's block of each whole leaf (``sharding.local``), whatever
+        mesh wrote the checkpoint: the stored leaves are whole."""
         flat, extra = self.load_arrays(step)
-        return restore_like(flat, tree_like), extra
+        tree = restore_like(flat, tree_like)
+        if shardings is not None:
+            tree = sharding.local(tree, *shardings)
+        return tree, extra
 
     def load_arrays(self, step: Optional[int] = None
                     ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:

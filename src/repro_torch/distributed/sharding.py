@@ -1,32 +1,51 @@
-"""Quantization-group sharding on ``torch.distributed`` (the quant-group
-part of the JAX package's ``distributed/sharding.py``).
+"""Sharding on ``torch.distributed``: the placement rules of training
+(params, caches, batches and the train state), the tree twins of
+``jax.device_put`` / ``device_get``, and quantization-group sharding — the
+twin of the JAX package's ``distributed/sharding.py``.
 
-The batched executor (core/plan.py) stacks a group's L same-shape linears
-into (L, Cout, Cin) slabs. Quantization is parallel over both leading
-axes: lanes are independent linears, and rows are independent given the
-per-lane Cholesky factor. So a slab shards its lane axis over ``data``
-(or, for a group made entirely of stacked expert slabs, over ``expert``
-× ``data``) and its Cout rows over ``model``.
+The JAX package runs one controller that places arrays on a mesh and lets
+GSPMD partition the step. The port runs SPMD, one process a rank: every
+rank computes the same placement (:func:`param_pspecs`,
+:func:`train_state_pspecs`, … return trees of :class:`PSpec`, the JAX
+``PartitionSpec``'s entries), :func:`local` takes this rank's block of
+each whole leaf without a scatter, and :func:`gather` makes the whole
+leaves again on every rank. The collectives run on the process groups of
+the mesh's dims; a spec entry over the product of two dims (the data
+parallel axes ``("pod", "data")``) gets a group of its own, built by
+:func:`~repro_torch.launch.mesh.make_host_mesh` on every rank in the same
+order. With the gloo backend a CUDA tensor crosses processes through a
+host copy (ranks that share one card run on gloo, which takes CPU
+tensors); with NCCL it stays on its card. :func:`comm_bytes` counts what
+this rank hands to the collectives.
 
-The JAX package runs one controller that places each group on the mesh.
-The port runs SPMD, one process a rank: every rank walks the same layers
-on the same inputs and holds the whole stacked slabs, so
-:meth:`QuantGroupSharding.local` takes this rank's block without a
-scatter, and :meth:`QuantGroupSharding.gather` makes the whole tensor
-again on every rank from the ranks' blocks. The collectives run on the
-process groups of the mesh's dims; a lane axis over the product of two
-dims gets a group of its own, built by :func:`~repro_torch.launch.mesh.
-make_host_mesh` on every rank in the same order. With the gloo backend a
-CUDA tensor crosses processes through a host copy (ranks that share one
-card run on gloo, which takes CPU tensors); with NCCL it stays on its
-card.
+Training is explicit data parallelism (``training/train_step.
+make_sharded_train_step``): each rank runs the single-device loss on its
+block of the batch. So the JAX package's activation placements over the
+data parallel axes (``shard_hint`` "act", "tokens", "batch1", "logits" at
+``src/repro/models/transformer.py:315,346,431,437,630,664``) hold by
+construction and ``shard_hint`` has no twin. Under :func:`use_rules` the
+loss's sums over the batch (``train_step.cross_entropy``) and the routed
+MoE's load-balance loss (``models/moe.moe_ffn``, the reference's local
+dispatch) read :func:`current_rules` and sum over the data parallel group
+with :func:`psum_local_grad`, whose backward stays on this rank: the
+ranks' parameter gradients then sum to the global batch's. The ``model``
+axis shards storage only (ROADMAP.md queue 1 item 25 has its compute
+split and ``parallel.sp``).
 
-``Rules``, ``shard_hint`` and the param, cache, batch and train-state
-shardings (training's half) are not ported (ROADMAP.md queue 1 item 17).
+Quantization groups: the batched executor (core/plan.py) stacks a group's
+L same-shape linears into (L, Cout, Cin) slabs. Quantization is parallel
+over both leading axes: lanes are independent linears, and rows are
+independent given the per-lane Cholesky factor. So a slab shards its lane
+axis over ``data`` (or, for a group made entirely of stacked expert slabs,
+over ``expert`` × ``data``) and its Cout rows over ``model``
+(:class:`QuantGroupSharding`).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import re
+import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -153,13 +172,66 @@ def _wire(t: Tensor) -> Tensor:
     return t.view(torch.uint8) if t.dtype == torch.bool else t
 
 
+# bytes this process handed to the collectives below (each input once)
+_COMM_BYTES = [0]
+
+
+def comm_bytes() -> int:
+    """Bytes this rank has handed to :func:`psum`, :func:`all_gather_cat`,
+    :func:`broadcast_tree` and :func:`send_recv` since the last reset."""
+    return _COMM_BYTES[0]
+
+
+def reset_comm_bytes() -> None:
+    _COMM_BYTES[0] = 0
+
+
 def psum(t: Tensor, group) -> Tensor:
     """The sum of ``t`` over ``group``'s ranks (a new tensor, the same on
     every rank of the group)."""
     dev = _comm_device(group)
     buf = t.to(dev, copy=True)
+    _COMM_BYTES[0] += buf.numel() * buf.element_size()
     dist.all_reduce(buf, group=group)
     return buf.to(t.device)
+
+
+def psum_tree(tree, group):
+    """:func:`psum` of every leaf of a tree of tensors, one collective a
+    dtype (the leaves joined into one flat buffer)."""
+    from repro_torch.training.optimizer import tree_leaves, tree_map
+    leaves = tree_leaves(tree)
+    out: List[Optional[Tensor]] = [None] * len(leaves)
+    by_dtype: Dict[torch.dtype, List[int]] = {}
+    for i, leaf in enumerate(leaves):
+        by_dtype.setdefault(leaf.dtype, []).append(i)
+    for idx in by_dtype.values():
+        flat = psum(torch.cat([leaves[i].reshape(-1) for i in idx]), group)
+        off = 0
+        for i in idx:
+            n = leaves[i].numel()
+            out[i] = flat[off:off + n].view(leaves[i].shape)
+            off += n
+    it = iter(out)
+    return tree_map(lambda _: next(it), tree)
+
+
+class _SumLocalGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return psum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def psum_local_grad(x: Tensor, group) -> Tensor:
+    """:func:`psum` whose backward reaches this rank's ``x`` only: where
+    every rank goes on to the same loss, the ranks' parameter gradients
+    sum to the gradient of the loss of the summed terms (the data parallel
+    reduction of a batch-summed quantity)."""
+    return _SumLocalGrad.apply(x, group)
 
 
 def all_gather_cat(t: Tensor, dim: int, ag: AxisGroup) -> Tensor:
@@ -167,12 +239,42 @@ def all_gather_cat(t: Tensor, dim: int, ag: AxisGroup) -> Tensor:
     order, on every rank."""
     dev = _comm_device(ag.group)
     src = t.contiguous().to(dev)
+    _COMM_BYTES[0] += src.numel() * src.element_size()
     parts = [torch.empty_like(src) for _ in range(ag.size)]
     dist.all_gather(parts, src, group=ag.group)
     by_shard = [None] * ag.size
     for part, shard in zip(parts, ag.order):
         by_shard[shard] = part
     return torch.cat(by_shard, dim).to(t.device)
+
+
+def any_rank(flag: bool, group=None) -> bool:
+    """True on every rank of ``group`` (default: the world) when any
+    rank's ``flag`` is."""
+    t = torch.tensor([int(flag)], device=_comm_device(group))
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    return bool(t.item())
+
+
+def send_recv(t: Optional[Tensor], dst: Optional[int], like: Tensor,
+              src: Optional[int], group) -> Optional[Tensor]:
+    """Send ``t`` to global rank ``dst`` while receiving a tensor shaped
+    like ``like`` from global rank ``src`` (either side may be None);
+    returns what was received, on ``like``'s device, or None."""
+    dev = _comm_device(group)
+    ops: List[dist.P2POp] = []
+    if dst is not None:
+        buf = t.to(dev, copy=True).contiguous()
+        _COMM_BYTES[0] += buf.numel() * buf.element_size()
+        ops.append(dist.P2POp(dist.isend, buf, dst, group))
+    got = None
+    if src is not None:
+        got = torch.empty(like.shape, dtype=like.dtype, device=dev)
+        ops.append(dist.P2POp(dist.irecv, got, src, group))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return None if got is None else got.to(like.device)
 
 
 def broadcast_tree(tree, src: int = 0):
@@ -185,9 +287,354 @@ def broadcast_tree(tree, src: int = 0):
     if not isinstance(tree, Tensor):
         return tree
     buf = tree.to(_comm_device(None), copy=True).contiguous()
+    _COMM_BYTES[0] += buf.numel() * buf.element_size()
     dist.broadcast(_wire(buf), src=src)
     return buf.to(tree.device)
 
+
+# ---------------------------------------------------------------------------
+# Blocks of a spec: the twins of jax.device_put / device_get
+# ---------------------------------------------------------------------------
+
+class PSpec(tuple):
+    """A JAX ``PartitionSpec``'s entries, a leaf of a spec tree: per dim
+    None, a mesh dim name, or a tuple of names (split over their product,
+    the first major); a one-name tuple is the name, as JAX canonicalises
+    it."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, (
+            e[0] if isinstance(e, tuple) and len(e) == 1 else e
+            for e in entries))
+
+
+def _spec_dims(spec, mesh) -> List[Tuple[int, AxisGroup]]:
+    return [(d, axis_group(mesh, a)) for d, a in enumerate(spec)
+            if a is not None]
+
+
+def local_block(x: Tensor, spec, mesh) -> Tensor:
+    """This rank's block of a whole tensor under ``spec`` (a view)."""
+    for d, ag in _spec_dims(spec, mesh):
+        n = x.shape[d]
+        if n % ag.size:
+            raise ValueError(f"dim {d} of {tuple(x.shape)} does not "
+                             f"split over {ag.size} shards")
+        step = n // ag.size
+        x = x.narrow(d, ag.index * step, step)
+    return x
+
+
+def gather_block(x: Tensor, spec, mesh) -> Tensor:
+    """The whole tensor under ``spec``, on every rank, from the ranks'
+    blocks."""
+    for d, ag in reversed(_spec_dims(spec, mesh)):
+        x = all_gather_cat(x, d, ag)
+    return x
+
+
+def _map_specs(fn, tree, specs):
+    """``fn(leaf, spec)`` over a value tree and its spec tree (a
+    ``Quantized8`` moment's codes and scales each with their own spec)."""
+    from repro_torch.training.optimizer import Quantized8, tree_map
+
+    def one(leaf, spec):
+        if isinstance(leaf, Quantized8):
+            return Quantized8(*(fn(a, s) for a, s in zip(leaf, spec)))
+        return fn(leaf, spec)
+    return tree_map(one, tree, specs)
+
+
+def local(tree, specs, mesh):
+    """This rank's block of each whole leaf (views): the twin of
+    ``jax.device_put(tree, shardings)``."""
+    return _map_specs(lambda x, s: local_block(x, s, mesh), tree, specs)
+
+
+def gather(tree, specs, mesh):
+    """The whole leaves on every rank from the ranks' blocks: the twin of
+    ``jax.device_get`` of a sharded tree (collective over the world)."""
+    return _map_specs(lambda x, s: gather_block(x, s, mesh), tree, specs)
+
+
+# ---------------------------------------------------------------------------
+# The placement rules (training)
+# ---------------------------------------------------------------------------
+
+_STATE = threading.local()
+
+
+@dataclasses.dataclass
+class Rules:
+    """The mesh's roles: batch dims over ``dp_axes`` (``("pod", "data")``
+    or ``("data",)``), Megatron and expert dims over ``tp_axis``;
+    ``mesh`` needs ``mesh_dim_names`` and ``shape`` (a ``DeviceMesh`` for
+    :meth:`dp_group`)."""
+    mesh: Any
+    dp_axes: Tuple[str, ...]
+    tp_axis: Optional[str] = "model"
+    sp: bool = False                    # the residual's sequence over TP
+    ep_local_dispatch: bool = True      # MoE routing local to a data shard
+
+    def axis_size(self, name: Optional[str]) -> int:
+        if name is None:
+            return 1
+        return int(_mesh_sizes(self.mesh)[name])
+
+    def dp_size(self) -> int:
+        out = 1
+        for a in self.dp_axes:
+            out *= self.axis_size(a)
+        return out
+
+    def dp_group(self) -> AxisGroup:
+        """The process group of this rank's data parallel block."""
+        return axis_group(self.mesh, tuple(self.dp_axes))
+
+
+def current_rules() -> Optional[Rules]:
+    return getattr(_STATE, "rules", None)
+
+
+@contextlib.contextmanager
+def use_rules(rules: Optional[Rules]):
+    prev = getattr(_STATE, "rules", None)
+    _STATE.rules = rules
+    try:
+        yield rules
+    finally:
+        _STATE.rules = prev
+
+
+def make_rules(mesh, parallel=None) -> Rules:
+    names = tuple(mesh.mesh_dim_names)
+    dp = tuple(a for a in ("pod", "data") if a in names)
+    tp = "model" if "model" in names else None
+    sp = bool(parallel.sp) if parallel is not None else False
+    epl = bool(parallel.ep_local_dispatch) if parallel is not None else True
+    return Rules(mesh=mesh, dp_axes=dp, tp_axis=tp, sp=sp,
+                 ep_local_dispatch=epl)
+
+
+def _guard(spec_entry, dim: int, rules: Rules):
+    """Drop a sharding axis when the dim doesn't divide it."""
+    if spec_entry is None:
+        return None
+    axes = spec_entry if isinstance(spec_entry, tuple) else (spec_entry,)
+    size = 1
+    for a in axes:
+        size *= rules.axis_size(a)
+    if size <= 1 or dim % size != 0:
+        return None
+    return spec_entry
+
+
+# (regex on the '/'-joined path, spec template for the *trailing* dims):
+# "tp" the model axis, "fsdp" the data axis (the reference's table)
+_PARAM_RULES: List[Tuple[str, Tuple]] = [
+    # embeddings / head
+    (r"embed/embedding$",              ("tp", "fsdp")),
+    (r"lm_head/w$",                    ("fsdp", "tp")),
+    # attention projections (col-parallel q/k/v, row-parallel o)
+    (r"(mixer|xattn)/(q|k|v)/w$",      ("fsdp", "tp")),
+    (r"(mixer|xattn)/o/w$",            ("tp", "fsdp")),
+    (r"(mixer|xattn)/(q|k|v)/b$",      ("tp",)),
+    (r"(mixer|xattn)/o/b$",            (None,)),
+    # MLA
+    (r"mixer/(q_down|kv_down|k_rope)/w$", ("fsdp", None)),
+    (r"mixer/(q_up|k_up|v_up)/w$",     ("fsdp", "tp")),
+    # gated MLP
+    (r"mlp/(gate|up)/w$",              ("fsdp", "tp")),
+    (r"mlp/down/w$",                   ("tp", "fsdp")),
+    (r"mlp/(gate|up)/b$",              ("tp",)),
+    (r"mlp/down/b$",                   (None,)),
+    # MoE (stacked experts, EP over model)
+    (r"mlp/router/w$",                 (None, None)),
+    (r"mlp/w_(gate|up)$",              ("tp", "fsdp", None)),
+    (r"mlp/w_down$",                   ("tp", None, "fsdp")),
+    (r"mlp/shared/(gate|up)/w$",       ("fsdp", "tp")),
+    (r"mlp/shared/down/w$",            ("tp", "fsdp")),
+    # mamba
+    (r"mixer/in/w$",                   ("fsdp", "tp")),
+    (r"mixer/x/w$",                    ("tp", None)),
+    (r"mixer/dt/w$",                   (None, "tp")),
+    (r"mixer/dt/b$",                   ("tp",)),
+    (r"mixer/out/w$",                  ("tp", "fsdp")),
+    (r"mixer/conv/w$",                 (None, "tp")),
+    (r"mixer/conv/b$",                 ("tp",)),
+    (r"mixer/a_log$",                  ("tp", None)),
+    (r"mixer/d_skip$",                 ("tp",)),
+    # rg-lru
+    (r"mixer/(gate)/w$",               ("fsdp", "tp")),
+    (r"mixer/(rg|ig)/w$",              (None, "tp")),
+    (r"mixer/(rg|ig)/b$",              ("tp",)),
+    (r"mixer/lambda$",                 ("tp",)),
+    # mtp
+    (r"mtp/proj/w$",                   ("fsdp", "tp")),
+    # int4-packed serving leaves (QuantizedTensor children /0 /1 /2,
+    # (out, in·)-major: col-parallel puts `out` on tp, row-parallel `in`)
+    (r"(mixer|xattn)/(q|k|v|q_up|k_up|v_up)/w/\d$", ("tp", "fsdp")),
+    (r"(mixer|xattn)/o/w/\d$",         ("fsdp", "tp")),
+    (r"mixer/(q_down|kv_down|k_rope)/w/\d$", (None, "fsdp")),
+    (r"mlp/(gate|up)/w/\d$",           ("tp", "fsdp")),
+    (r"mlp/down/w/\d$",                ("fsdp", "tp")),
+    (r"mlp/shared/(gate|up)/w/\d$",    ("tp", "fsdp")),
+    (r"mlp/shared/down/w/\d$",         ("fsdp", "tp")),
+    (r"mlp/w_(gate|up|down)/\d$",      ("tp", None, "fsdp")),  # (E, out, in·)
+    (r"mixer/(in|gate|rg|ig)/w/\d$",   ("tp", "fsdp")),
+    (r"mixer/x/w/\d$",                 (None, "tp")),
+    (r"mixer/dt/w/\d$",                ("tp", None)),
+    (r"mixer/out/w/\d$",               ("fsdp", "tp")),
+    (r"lm_head/w/\d$",                 ("tp", "fsdp")),
+]
+
+
+def _has_fsdp(rules: Rules, fsdp: bool) -> bool:
+    return fsdp and "data" in tuple(rules.mesh.mesh_dim_names)
+
+
+def _resolve(template: Tuple, shape: Tuple[int, ...], rules: Rules,
+             fsdp: bool) -> PSpec:
+    """The template applies to the trailing dims; leading (stack) dims
+    get None."""
+    ndim = len(shape)
+    t = template[-ndim:] if len(template) >= ndim else template
+    lead = ndim - len(t)
+    entries: List = [None] * lead
+    for dim, tok in zip(shape[lead:], t):
+        if tok == "tp":
+            entries.append(_guard(rules.tp_axis, dim, rules))
+        elif tok == "fsdp":
+            entries.append(_guard("data", dim, rules)
+                           if _has_fsdp(rules, fsdp) else None)
+        else:
+            entries.append(None)
+    return PSpec(*entries)
+
+
+def param_pspecs(params: Any, rules: Rules, fsdp: bool = True) -> Any:
+    """The spec tree of ``params`` (a tree of tensors, paths as the JAX
+    package names them): the first rule whose pattern the path matches,
+    else small leaves replicated and the last ``data``-divisible dim of a
+    2-D+ leaf over ``data`` under ``fsdp``."""
+    from repro_torch.distributed.checkpoint import map_with_path
+
+    def assign(path, leaf):
+        shape = tuple(leaf.shape)
+        if not shape:
+            return PSpec()
+        for pat, template in _PARAM_RULES:
+            if re.search(pat, path):
+                return _resolve(template, shape, rules, fsdp)
+        if fsdp and len(shape) >= 2:
+            ent: List = [None] * len(shape)
+            for i in range(len(shape) - 1, -1, -1):
+                if _guard("data", shape[i], rules) is not None:
+                    ent[i] = "data"
+                    break
+            return PSpec(*ent)
+        return PSpec(*([None] * len(shape)))
+
+    return map_with_path(params, assign)
+
+
+def cache_pspecs(caches: Any, rules: Rules) -> Any:
+    """KV and state caches: batch over the data parallel axes, kv-heads
+    over ``model`` where they divide, else the sequence (leading segment
+    stack dims replicated):
+      k/v:   (..., B, S, KV, hd) → (None.., dp, None, tp, None)
+      ckv:   (..., B, S, rank)   → (None.., dp, None, None)
+      conv:  (..., B, K-1, C)    → (None.., dp, None, tp)
+      h:     (..., B, W[, n])    → (None.., dp, tp[, None])
+    """
+    from repro_torch.distributed.checkpoint import map_with_path
+    dp = tuple(rules.dp_axes) if rules.dp_axes else None
+
+    def assign(s, leaf):
+        shape = tuple(leaf.shape)
+        nd = len(shape)
+        ent: List = [None] * nd
+        if re.search(r"(^|/)(k|v)$", s) and nd >= 4:
+            b, sq, kv, _ = shape[-4:]
+            ent[-4] = _guard(dp, b, rules)
+            ent[-2] = _guard(rules.tp_axis, kv, rules)
+            if ent[-2] is None:
+                # kv heads that do not divide: the sequence instead
+                ent[-3] = _guard(rules.tp_axis, sq, rules)
+        elif re.search(r"(ckv|krope)$", s) and nd >= 3:
+            ent[-3] = _guard(dp, shape[-3], rules)
+        elif re.search(r"conv$", s) and nd >= 3:
+            ent[-3] = _guard(dp, shape[-3], rules)
+            ent[-1] = _guard(rules.tp_axis, shape[-1], rules)
+        elif re.search(r"(^|/)h$", s) and nd >= 2:
+            # mamba h: (B, d_inner, n); rglru h: (B, W)
+            if nd >= 3:
+                ent[-3] = _guard(dp, shape[-3], rules)
+                ent[-2] = _guard(rules.tp_axis, shape[-2], rules)
+            else:
+                ent[-2] = _guard(dp, shape[-2], rules)
+                ent[-1] = _guard(rules.tp_axis, shape[-1], rules)
+        return PSpec(*ent)
+
+    return map_with_path(caches, assign)
+
+
+def batch_pspecs(batch: Any, rules: Rules) -> Any:
+    """Each batch leaf's leading dim over the data parallel axes where it
+    divides them."""
+    from repro_torch.distributed.checkpoint import map_with_path
+    dp = tuple(rules.dp_axes) if rules.dp_axes else None
+
+    def assign(_, leaf):
+        ent: List = [None] * leaf.dim()
+        if ent:
+            ent[0] = _guard(dp, leaf.shape[0], rules)
+        return PSpec(*ent)
+
+    return map_with_path(batch, assign)
+
+
+def train_state_pspecs(state: Any, rules: Rules, fsdp: bool = True) -> Any:
+    """The spec tree of a ``TrainState`` (params, AdamW moments, steps).
+
+    f32 moments mirror the param specs. int8 moments follow the
+    reference's rule as it runs: a ``Quantized8`` child's path ends in
+    ``/.q`` / ``/.scale``, never ``/q`` / ``/scale``, so only the leaves of
+    at most one dim, the (n_blocks,) scales, shard their block dim over
+    ``data`` (under ``fsdp``, where it divides); the (n_blocks, 128) codes
+    are replicated."""
+    from repro_torch.distributed.checkpoint import map_with_path
+    from repro_torch.training.optimizer import (AdamWState, Quantized8,
+                                                tree_leaves, tree_map)
+    from repro_torch.training.train_step import TrainState
+
+    pspecs = param_pspecs(state.params, rules, fsdp)
+
+    def moment_spec(path, leaf):
+        shape = tuple(leaf.shape)
+        if path.endswith("/q") or path.endswith("/scale") or len(shape) <= 1:
+            ent: List = [None] * len(shape)
+            if shape and fsdp:
+                ent[0] = _guard("data", shape[0], rules)
+            return PSpec(*ent)
+        return PSpec(*([None] * len(shape)))
+
+    if any(isinstance(m, Quantized8) for m in tree_leaves(state.opt.m)):
+        m_specs = map_with_path(state.opt.m, moment_spec)
+        v_specs = map_with_path(state.opt.v, moment_spec)
+    else:
+        def mirror(leaf, ps):
+            if len(ps) == leaf.dim():
+                return ps
+            return PSpec(*([None] * leaf.dim()))
+        m_specs = tree_map(mirror, state.opt.m, pspecs)
+        v_specs = tree_map(mirror, state.opt.v, pspecs)
+    return TrainState(pspecs, AdamWState(PSpec(), m_specs, v_specs), PSpec())
+
+
+# ---------------------------------------------------------------------------
+# Quantization-group sharding
+# ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
 class QuantGroupSharding:
@@ -207,26 +654,13 @@ class QuantGroupSharding:
                      else self.row_axis if t == "row" else None
                      for t in _QUANT_GROUP_SPECS[kind])
 
-    def _dims(self, kind: str):
-        return [(d, axis_group(self.mesh, a))
-                for d, a in enumerate(self.spec(kind)) if a is not None]
-
     def local(self, x: Tensor, kind: str) -> Tensor:
         """This rank's block of a whole tensor (a view)."""
-        for d, ag in self._dims(kind):
-            n = x.shape[d]
-            if n % ag.size:
-                raise ValueError(f"dim {d} of {tuple(x.shape)} does not "
-                                 f"split over {ag.size} shards")
-            step = n // ag.size
-            x = x.narrow(d, ag.index * step, step)
-        return x
+        return local_block(x, self.spec(kind), self.mesh)
 
     def gather(self, x: Tensor, kind: str) -> Tensor:
         """The whole tensor, on every rank, from the ranks' blocks."""
-        for d, ag in reversed(self._dims(kind)):
-            x = all_gather_cat(x, d, ag)
-        return x
+        return gather_block(x, self.spec(kind), self.mesh)
 
     def own(self, x: Tensor, kind: str, lanes: int,
             rows: Optional[int] = None) -> Tensor:
@@ -234,7 +668,7 @@ class QuantGroupSharding:
         (``lanes`` lanes, ``rows`` rows) or this rank's block already (a
         factor made lane-locally, a stage's unjoined output): a sharded dim
         is cut where it still has its whole size."""
-        for d, ag in self._dims(kind):
+        for d, ag in _spec_dims(self.spec(kind), self.mesh):
             whole = lanes if d == 0 else rows
             if x.shape[d] == whole:
                 step = whole // ag.size

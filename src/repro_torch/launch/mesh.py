@@ -1,7 +1,9 @@
-"""The ``quant.mesh`` knob → a ``DeviceMesh`` for sharded group execution.
+"""Meshes of ranks: :func:`make_host_mesh` (sharded training's
+``launch.train --mesh d,m``) and the ``quant.mesh`` knob → a
+``DeviceMesh`` for sharded group execution (:func:`make_quant_mesh`).
 
-The twin of the JAX package's ``launch/mesh.py`` (``make_production_mesh``,
-training's, is not ported: ROADMAP.md queue 1 item 19). The JAX package's
+The twin of the JAX package's ``launch/mesh.py`` (``make_production_mesh``
+is not ported: ROADMAP.md queue 1 item 19). The JAX package's
 mesh is devices of one process; the port's is ranks, one process each,
 on ``torch.distributed``:
 
@@ -69,19 +71,27 @@ def init_from_env(device: Union[str, torch.device]) -> bool:
     return True
 
 
-def make_host_mesh(data: int = 1, model: int = 1, expert: int = 1,
+def make_host_mesh(data: int = 1, model: int = 1, pod: int = 1,
+                   expert: int = 1,
                    device: Union[str, torch.device] = "cpu"):
-    """A ``DeviceMesh`` over the first data·model(·expert) ranks with the
-    JAX package's dim names, ``("data", "model")`` or, with
-    ``expert > 1``, ``("data", "model", "expert")``. Every rank of the
-    world calls it (the dims' process groups are made collectively),
-    ranks past the mesh too; with both ``expert`` and ``data`` above 1 the
-    groups over their product (an expert-stacked group's lanes) are made
-    here as well."""
+    """A ``DeviceMesh`` over the first pod·data·model(·expert) ranks with
+    the JAX package's dim names: ``("data", "model")``, with ``pod > 1``
+    ``("pod", "data", "model")``, with ``expert > 1`` ``("data", "model",
+    "expert")`` (the expert axis does not compose with ``pod``: ValueError,
+    as in JAX). Every rank of the world calls it (the dims' process groups
+    are made collectively), ranks past the mesh too. The groups over a
+    product of dims are made here as well: ``("pod", "data")``, training's
+    data parallel axes, and, with both ``expert`` and ``data`` above 1,
+    ``("expert", "data")`` (an expert-stacked group's lanes)."""
     from torch.distributed.device_mesh import DeviceMesh
-    shape = (data, model, expert) if expert > 1 else (data, model)
-    names = (("data", "model", "expert") if expert > 1
-             else ("data", "model"))
+    if expert > 1 and pod > 1:
+        raise ValueError("expert axis does not compose with pod axis")
+    if expert > 1:
+        shape, names = (data, model, expert), ("data", "model", "expert")
+    elif pod > 1:
+        shape, names = (pod, data, model), ("pod", "data", "model")
+    else:
+        shape, names = (data, model), ("data", "model")
     n = 1
     for s in shape:
         n *= s
@@ -89,6 +99,8 @@ def make_host_mesh(data: int = 1, model: int = 1, expert: int = 1,
                       torch.arange(n).reshape(shape), mesh_dim_names=names)
     if expert > 1 and data > 1:
         sharding.build_axis_groups(mesh, ("expert", "data"))
+    if pod > 1:
+        sharding.build_axis_groups(mesh, ("pod", "data"))
     return mesh
 
 

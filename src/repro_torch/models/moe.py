@@ -43,6 +43,8 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.core.quant import QuantizedTensor
+from repro_torch.distributed.sharding import (current_rules, psum,
+                                              psum_local_grad)
 from repro_torch.models.layers import _act, init_mlp, mlp
 from repro_torch.models.linear import dense, init_dense
 
@@ -221,7 +223,29 @@ def _expert_product(a: Tensor, w) -> Tensor:
 
 def moe_ffn(cfg: ModelConfig, p: Dict, x: Tensor,
             name: str = "moe") -> MoEOutput:
-    """x (B, S, D) → the routed expert mixture, same shape and dtype."""
+    """x (B, S, D) → the routed expert mixture, same shape and dtype.
+
+    Under sharding rules with ``ep_local_dispatch`` (the reference's
+    ``shard_map`` over the data parallel axes) ``x`` is this rank's block
+    of the batch, so dispatch is already local to the data shard and its
+    capacity comes from the local token count; the load-balance loss and
+    the expert load are then the mean over the data parallel group, the
+    loss's gradient reaching this rank's parameters once
+    (``sharding.psum_local_grad``)."""
+    out = _moe_ffn_body(cfg, p, x, name)
+    rules = current_rules()
+    if (rules is not None and rules.dp_size() > 1
+            and rules.ep_local_dispatch):
+        group, n = rules.dp_group().group, rules.dp_size()
+        aux = psum_local_grad(out.aux_loss, group)
+        load = psum(out.expert_load, group)
+        return MoEOutput(out.y, aux / torch.full_like(aux, n),
+                         load / torch.full_like(load, n))
+    return out
+
+
+def _moe_ffn_body(cfg: ModelConfig, p: Dict, x: Tensor,
+                  name: str = "moe") -> MoEOutput:
     m = cfg.moe
     b, s, d = x.shape
     t, e, k = b * s, m.num_experts, m.top_k

@@ -4,7 +4,8 @@ The twin of the JAX package's ``training/optimizer.py``. With int8
 moments each moment tensor is flattened into blocks of 128, stored as int8
 codes with a per-block f32 scale ``absmax / 127 + 1e-12`` (codes
 ``round(x / scale)`` half to even, clipped to ±127): 4× smaller optimizer
-state. Moments are dequantized, updated in f32 and requantized every step.
+state (the flat codec of ``kernels/kv_codec.py``). Moments are
+dequantized, updated in f32 and requantized every step.
 
 Every scalar of the update is an f32 tensor on the parameters' device
 (``b1 ** step``, the bias corrections, the learning rate), as JAX computes
@@ -21,9 +22,9 @@ from __future__ import annotations
 from typing import Any, Callable, List, NamedTuple, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.config import TrainConfig
+from repro_torch.kernels.kv_codec import dec_int8, enc_int8
 
 Tensor = torch.Tensor
 _BLOCK = 128
@@ -35,22 +36,11 @@ class Quantized8(NamedTuple):
 
 
 def _q8(x: Tensor) -> Quantized8:
-    flat = x.reshape(-1)
-    n = flat.numel()
-    nb = -(-n // _BLOCK)
-    flat = F.pad(flat, (0, nb * _BLOCK - n)).reshape(nb, _BLOCK)
-    absmax = flat.abs().amax(dim=1)
-    scale = absmax / torch.full_like(absmax, 127.0) + 1e-12
-    q = torch.clamp(torch.round(flat / scale[:, None]), -127, 127)
-    return Quantized8(q.to(torch.int8), scale.float())
+    return Quantized8(*enc_int8(x, _BLOCK))
 
 
 def _dq8(z: Quantized8, shape: Tuple[int, ...]) -> Tensor:
-    flat = (z.q.float() * z.scale[:, None]).reshape(-1)
-    n = 1
-    for d in shape:
-        n *= d
-    return flat[:n].reshape(shape)
+    return dec_int8(z.q, z.scale, shape)
 
 
 class AdamWState(NamedTuple):

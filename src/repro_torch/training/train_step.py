@@ -30,6 +30,15 @@ where the reference casts.
 The step donates its input state, as the JAX trainer's ``jit`` does: the
 parameters and moments are updated in place and the returned state holds
 the same tensors.
+
+:func:`make_sharded_train_step` is the step on a mesh of ranks
+(``torch.distributed``, one process a rank): explicit data parallelism
+over the data parallel axes with the train state sharded by the JAX
+package's placement rules (``distributed/sharding.py``). The ``model``
+axis shards the state's storage only: the ranks of one model group repeat
+their batch block's forward and backward (GSPMD's compute split of the
+Megatron products and ``parallel.sp``'s sequence placement are ROADMAP.md
+queue 1 item 25).
 """
 from __future__ import annotations
 
@@ -37,8 +46,9 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.config import Config
+from repro_torch.config import Config, refuse_sharding
 from repro_torch.convert import stack_layers, unstack_layers
+from repro_torch.distributed import sharding
 from repro_torch.models import transformer as T
 from repro_torch.training import optimizer as opt
 from repro_torch.training.schedule import learning_rate
@@ -79,15 +89,28 @@ def state_from_params(cfg: Config, params: Any) -> TrainState:
 def cross_entropy(logits: Tensor, targets: Tensor,
                   mask: Optional[Tensor]) -> Tensor:
     """Mean CE over the masked positions; logits (B, S, V) f32, targets
-    (B, S)."""
+    (B, S). Under sharding rules with more than one data parallel rank
+    the batch is this rank's block and the mean is the global batch's: the
+    count is summed over the group, and so is the numerator, whose
+    gradient stays local (``sharding.psum_local_grad``)."""
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.take_along_dim(logits, targets[..., None].long(),
                                 dim=-1)[..., 0]
     ce = logz - gold
+    rules = sharding.current_rules()
+    group = (rules.dp_group().group
+             if rules is not None and rules.dp_size() > 1 else None)
     if mask is None:
-        return ce.mean()
+        if group is None:
+            return ce.mean()
+        total = sharding.psum_local_grad(ce.sum(), group)
+        return total / torch.full_like(total, ce.numel() * rules.dp_size())
     m = mask.float()
-    return torch.sum(ce * m) / torch.clamp_min(torch.sum(m), 1.0)
+    num, den = torch.sum(ce * m), torch.sum(m)
+    if group is not None:
+        num = sharding.psum_local_grad(num, group)
+        den = sharding.psum(den, group)
+    return num / torch.clamp_min(den, 1.0)
 
 
 def loss_fn(cfg: Config, params: Any, batch: Dict[str, Tensor]
@@ -143,19 +166,22 @@ def loss_and_grads(cfg: Config, params: Any, batch: Dict[str, Tensor]
             {k: v.detach() for k, v in metrics.items()})
 
 
-def accumulated_grads(cfg: Config, params: Any, batch: Dict[str, Tensor]
+def accumulated_grads(cfg: Config, params: Any, batch: Dict[str, Tensor],
+                      block: Callable = lambda micro: micro
                       ) -> Tuple[Any, Dict[str, Tensor]]:
     """The batch's gradients over ``train.grad_accum`` microbatches (rows
     split in order): f32 sums divided by the count, and the last
-    microbatch's metrics; one batch's gradients when it is 1."""
+    microbatch's metrics; one batch's gradients when it is 1. ``block``
+    maps a microbatch to the rows this rank runs (the sharded step's data
+    parallel block)."""
     accum = max(1, cfg.train.grad_accum)
     if accum == 1:
-        return loss_and_grads(cfg, params, batch)
+        return loss_and_grads(cfg, params, block(batch))
     n = next(iter(batch.values())).shape[0] // accum
     grads = opt.tree_map(lambda p: torch.zeros(
         p.shape, dtype=torch.float32, device=p.device), params)
     for i in range(accum):
-        micro = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+        micro = block({k: v[i * n:(i + 1) * n] for k, v in batch.items()})
         g, metrics = loss_and_grads(cfg, params, micro)
         grads = opt.tree_map(torch.add, grads, g)
         del g
@@ -184,5 +210,110 @@ def make_train_step(cfg: Config) -> Callable:
         metrics["grad_norm"] = gnorm
         metrics["lr"] = lr
         return TrainState(params, ostate, state.step + 1), metrics
+
+    return train_step
+
+
+def _adamw_int8_blocks(grads: Any, params: Any, state: TrainState,
+                       specs: TrainState, mesh, lr: Tensor, tc
+                       ) -> opt.AdamWState:
+    """AdamW with int8 moments on this rank's moment blocks.
+
+    A moment's (n_blocks, 128) blocks cover the flattened, zero-padded
+    leaf; its scales shard their block dim over ``data`` (its codes are
+    replicated, ``sharding.train_state_pspecs``). So the rank updates the
+    flat range its scales cover, from the whole parameters and gradient
+    (the padding stays zero, so each block requantizes as on one device),
+    then joins the ranges over ``data``: the parameters, whose own blocks
+    follow the param spec, and the replicated codes."""
+    rng_p, rng_g, rng_m, rng_v, joins = [], [], [], [], []
+
+    def take(p_loc, p_all, g, m, v, pspec, mspec):
+        nb, blk = m.q.shape
+        ag = (sharding.axis_group(mesh, mspec.scale[0])
+              if mspec.scale[0] is not None else None)
+        rows = nb // ag.size if ag is not None else nb
+        r0 = ag.index * rows if ag is not None else 0
+
+        def flat_range(t):
+            f = torch.nn.functional.pad(t.reshape(-1),
+                                        (0, nb * blk - t.numel()))
+            return f.narrow(0, r0 * blk, rows * blk)
+        rng_p.append(flat_range(p_all).clone())
+        rng_g.append(flat_range(g))
+        rng_m.append(opt.Quantized8(m.q.narrow(0, r0, rows), m.scale))
+        rng_v.append(opt.Quantized8(v.q.narrow(0, r0, rows), v.scale))
+        joins.append((p_loc, p_all, pspec, ag, m.q, v.q, r0, rows))
+
+    opt.tree_map(take, state.params, params, grads, state.opt.m,
+                 state.opt.v, specs.params, specs.opt.m)
+    _, ost = opt.adamw_update(rng_g, opt.AdamWState(
+        state.opt.step, rng_m, rng_v), rng_p, lr=lr, tc=tc, int8=True)
+    for p_new, (p_loc, p_all, pspec, ag, mq, vq, r0, rows) in zip(rng_p,
+                                                                 joins):
+        if ag is not None:
+            p_new = sharding.all_gather_cat(p_new, 0, ag)
+            for q in (mq, vq):
+                q.copy_(sharding.all_gather_cat(q.narrow(0, r0, rows), 0,
+                                                ag))
+        whole = p_new[:p_all.numel()].reshape(p_all.shape)
+        p_loc.copy_(sharding.local_block(whole, pspec, mesh))
+    return opt.AdamWState(ost.step, state.opt.m, state.opt.v)
+
+
+def make_sharded_train_step(cfg: Config, rules: sharding.Rules,
+                            specs: TrainState) -> Callable:
+    """``train_step(state, batch) -> (state, metrics)`` on a mesh of ranks.
+
+    ``state`` holds this rank's block of every leaf under ``specs``
+    (``sharding.train_state_pspecs``); ``batch`` is the global batch, the
+    same on every rank. A step gathers the whole parameters, runs the
+    single-device loss and backward on the rank's data parallel block of
+    each microbatch (``sharding.batch_pspecs``; a batch that does not split
+    stays whole on every rank, as JAX's guard, and so does a routed MoE's
+    under ``ep_local_dispatch=false``, whose dispatch is global), sums the
+    gradients over the data parallel group into the global batch's,
+    clips them by their global norm and runs AdamW on the rank's blocks.
+    The metrics are the global batch's (the last microbatch's under
+    ``train.grad_accum``), the same on every rank. The input state is
+    donated."""
+    refuse_sharding(cfg.parallel)
+    tc = cfg.train
+    int8 = cfg.parallel.int8_optimizer_state
+    mesh = rules.mesh
+    dp = rules.dp_group() if rules.dp_size() > 1 else None
+    global_dispatch = (cfg.model.moe.num_experts > 0
+                       and not rules.ep_local_dispatch)
+    accum = max(1, tc.grad_accum)
+
+    def block(micro):
+        return sharding.local(micro, sharding.batch_pspecs(micro, rules),
+                              mesh)
+
+    def train_step(state: TrainState, batch: Dict[str, Tensor]
+                   ) -> Tuple[TrainState, Dict[str, Tensor]]:
+        batch = {k: v.to(state.step.device) for k, v in batch.items()}
+        params = sharding.gather(state.params, specs.params, mesh)
+        rows = next(iter(batch.values())).shape[0] // accum
+        split = dp is not None and rows % dp.size == 0 \
+            and not global_dispatch
+        with sharding.use_rules(rules if split else None):
+            grads, metrics = accumulated_grads(
+                cfg, params, batch, block if split else (lambda m: m))
+        if split:
+            grads = sharding.psum_tree(grads, dp.group)
+        grads, gnorm = opt.clip_by_global_norm(grads, tc.grad_clip)
+        lr = learning_rate(tc, state.step)
+        if int8:
+            ostate = _adamw_int8_blocks(grads, params, state, specs, mesh,
+                                        lr, tc)
+        else:
+            _, ostate = opt.adamw_update(
+                sharding.local(grads, specs.params, mesh), state.opt,
+                state.params, lr=lr, tc=tc)
+        metrics = dict(metrics)
+        metrics["grad_norm"] = gnorm
+        metrics["lr"] = lr
+        return TrainState(state.params, ostate, state.step + 1), metrics
 
     return train_step

@@ -1,7 +1,7 @@
 """The trainer loop: the train step, checkpoints and restarts, straggler
 statistics.
 
-The twin of the JAX package's ``training/trainer.py`` on one device:
+The twin of the JAX package's ``training/trainer.py``:
 
   - ``train(cfg, data_source, device=…)`` runs ``train.steps`` steps of
     ``make_train_step`` from a fresh state (seed ``train.seed``) or from
@@ -17,8 +17,20 @@ The twin of the JAX package's ``training/trainer.py`` on one device:
     position would over-advance a restart);
   - per-step wall-time EMA with z-score outliers (``StragglerStats``).
 
-A ``mesh`` (sharded training) and any ``parallel`` sharding field are
-not ported (ROADMAP.md queue 1 item 17).
+With a ``mesh`` (a ``DeviceMesh`` over every rank of the world, from
+``launch/mesh.make_host_mesh``; every rank calls ``train``) the run is
+SPMD on ``torch.distributed``: every rank starts from the same state (the
+same seed) and keeps its block of each leaf
+(``sharding.train_state_pspecs`` under ``parallel.fsdp``), draws the same
+global batch from the same stream and steps with
+``train_step.make_sharded_train_step`` (explicit data parallelism; the
+``model`` axis shards storage only, ROADMAP.md queue 1 item 25). The
+SIGTERM flag is reduced (max) over the world at each step boundary, so
+every rank stops at the same step. Every rank reads a checkpoint and keeps
+its blocks of it (``Checkpointer.restore(shardings=…)``), whatever mesh
+wrote it; rank 0 alone writes, the state gathered whole in the
+one-device layout, so the one-device trainers of both packages restore it
+too. The returned state is whole, on every rank.
 """
 from __future__ import annotations
 
@@ -29,12 +41,18 @@ import threading
 import time
 from typing import Any, Dict, Iterator, List, Optional
 
-from repro_torch.config import Config, not_ported, refuse_sharding
+import torch.distributed as dist
+
+from repro_torch.config import Config
 from repro_torch.data.synthetic import DataState
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding
 from repro_torch.distributed.checkpoint import (Checkpointer,
-                                                SignalCheckpointer)
-from repro_torch.training.train_step import init_train_state, make_train_step
+                                                SignalCheckpointer,
+                                                map_with_path)
+from repro_torch.training.train_step import (init_train_state,
+                                             make_sharded_train_step,
+                                             make_train_step)
 
 
 @dataclasses.dataclass
@@ -97,32 +115,48 @@ class Prefetcher:
 
 def train(cfg: Config, data_source, *, device=None, mesh=None,
           verbose: bool = True, restore: bool = True) -> Dict[str, Any]:
-    """Run ``train.steps`` steps on ``device`` (default: the CUDA card);
+    """Run ``train.steps`` steps on ``device`` (default: the CUDA card),
+    on one device or, with ``mesh``, on its ranks (module docstring);
     returns ``{"state", "history", "straggler_outliers"}``, the history one
     dict of floats a step run (its metrics, ``step`` and wall ``dt``)."""
-    if mesh is not None:
-        raise not_ported("train(mesh=...) (sharded training)", 17)
-    refuse_sharding(cfg.parallel)
     tc = cfg.train
     dev = resolve_device(device)
     state = init_train_state(cfg, dev)
-    step_fn = make_train_step(cfg)
+    writer = mesh is None or dist.get_rank() == 0
+    verbose = verbose and writer
+    if mesh is None:
+        specs, shardings = None, None
+        step_fn = make_train_step(cfg)
+    else:
+        if mesh.size() != dist.get_world_size():
+            raise ValueError(f"the mesh holds {mesh.size()} ranks; the world "
+                             f"has {dist.get_world_size()}")
+        rules = sharding.make_rules(mesh, cfg.parallel)
+        specs = sharding.train_state_pspecs(state, rules,
+                                            fsdp=cfg.parallel.fsdp)
+        shardings = (specs, mesh)
+        step_fn = make_sharded_train_step(cfg, rules, specs)
 
     ckpt = Checkpointer(tc.ckpt_dir, keep=tc.ckpt_keep,
                         async_write=tc.ckpt_async)
     start_step = 0
     if restore and ckpt.latest_step() is not None:
-        state, extra = ckpt.restore(state)
+        state, extra = ckpt.restore(state, shardings=shardings)
         start_step = int(extra.get("step", 0))
         if hasattr(data_source, "restore") and "data" in extra:
             data_source.restore(DataState(**extra["data"]))
         if verbose:
             print(f"[trainer] restored step {start_step} from {tc.ckpt_dir}",
                   flush=True)
+    elif mesh is not None:
+        state = sharding.local(state, specs, mesh)
+    if mesh is not None:
+        state = _own(state)
 
     sig = SignalCheckpointer().install()
     stats = StragglerStats()
     history: List[Dict[str, float]] = []
+    whole = None
 
     def batches():
         while True:
@@ -136,6 +170,7 @@ def train(cfg: Config, data_source, *, device=None, mesh=None,
     try:
         for i, (batch, dstate) in zip(range(start_step, tc.steps),
                                       prefetch):
+            whole = None
             t0 = time.perf_counter()
             state, metrics = step_fn(state, batch)
             row = {k: float(v) for k, v in metrics.items()}   # waits
@@ -150,21 +185,36 @@ def train(cfg: Config, data_source, *, device=None, mesh=None,
             if verbose and (i % tc.log_every == 0 or i == tc.steps - 1):
                 print(f"[trainer] step {i} loss={row['loss']:.4f} "
                       f"lr={row['lr']:.2e} {dt*1e3:.0f}ms", flush=True)
-            if (i + 1) % tc.ckpt_every == 0 or sig.requested \
-                    or i == tc.steps - 1:
+            stop = (sig.requested if mesh is None
+                    else sharding.any_rank(sig.requested))
+            if (i + 1) % tc.ckpt_every == 0 or stop or i == tc.steps - 1:
                 extra: Dict[str, Any] = {"step": i + 1}
                 if dstate is not None:
                     extra["data"] = {"seed": dstate.seed,
                                      "step": dstate.step}
-                ckpt.save(i + 1, state, extra)
-                if sig.requested:
+                whole = (state if mesh is None
+                         else sharding.gather(state, specs, mesh))
+                if writer:
+                    ckpt.save(i + 1, whole, extra)
+                if stop:
                     if verbose:
                         print(f"[trainer] SIGTERM: checkpointed at {i + 1}, "
                               "exiting", flush=True)
                     break
         ckpt.wait()
+        if mesh is not None:
+            if whole is None:
+                whole = sharding.gather(state, specs, mesh)
+            state = whole
+            dist.barrier()      # rank 0's checkpoint is on disk for all
     finally:
         prefetch.stop()
         sig.uninstall()
     return {"state": state, "history": history,
             "straggler_outliers": stats.outliers}
+
+
+def _own(tree):
+    """Each leaf of a tree of blocks as a tensor of its own (the step
+    updates them in place; a view would keep the whole leaf alive)."""
+    return map_with_path(tree, lambda _, t: t.clone())

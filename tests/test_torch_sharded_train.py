@@ -1,0 +1,656 @@
+"""Sharded training on ``torch.distributed`` against the single-device
+port and the single-device JAX package.
+
+(a) The placements: ``param_pspecs``, ``cache_pspecs``, ``batch_pspecs``
+and ``train_state_pspecs`` (fp32 and int8 moments) equal the JAX
+package's over every smoke config's param tree, cache tree and TrainState
+on meshes (2,2), (4,1), (1,4) and (pod 2, 2, 1), with ``fsdp`` true and
+false (JAX's functions read only the mesh's names and sizes: a
+``jax.sharding.AbstractMesh`` there, a stand-in here).
+(b) The flat wire codec ``enc_int8`` / ``dec_int8`` bitwise JAX's, at
+lengths that are no multiple of 256 and on ties.
+(c) One gloo world of 4 ranks (``tests/_torch_sharded_train_checks.py``,
+one start-up, ``file://`` rendezvous, one thread a rank), beside it JAX's
+``gpipe_forward`` in a forced-8-device subprocess and ``launch.train
+--mesh 2,1`` under ``torch.distributed.run``:
+
+- ``compress_psum`` over the 4 ranks equals the JAX codec applied rank by
+  rank and averaged (means and error-feedback residues ≤ 1e-6) and holds
+  the JAX check's bounds over six steps (``tests/_distributed_checks.py
+  :88-136``: int8 step error < 0.05, cumulative < 0.02, bf16 cumulative
+  < 0.01);
+- ``gpipe_forward`` on (pod 2, data 2, model 1), its stages made by
+  ``stack_stages``, equals the plain stacked forward and JAX's at rtol
+  1e-4 / atol 1e-5 (``:139-163``);
+- the sharded step against the single-device port at the training pin,
+  fp32 ≤ 1e-5 relative per leaf. The leaves the data parallel
+  reduction's order moves past it are recorded in ``PAST_THE_PIN`` and
+  held at the JAX package's own sharded pins (rtol 3e-2 / atol 3e-3,
+  ``tests/_distributed_checks.py:46-54``): the key bias, whose exact
+  gradient is zero (the softmax ignores a shift common to every key), so
+  Adam moves it by ±lr at the sign of rounding noise (3.5e-5 on 4x1,
+  2.4e-5 and 2.8e-5 on 2x2 after two steps, 1.0e-4 after six), and
+  under int8 moments the parameters of the q, k and up projections, where
+  codes flip at ties (≤ 1.2e-4 of a leaf's codes, by one step; the
+  parameters 1.8e-4, 1.2e-4, 6.0e-5, 4.3e-5 and 2.5e-5 relative after two
+  steps). internlm2-1.8b smoke on 2x2, the JAX check's
+  inputs, is held against the single-device JAX step too (loss ≤ 1e-5,
+  params as above). olmoe-1b-7b smoke with local dispatch (its capacity
+  from the local tokens, the load-balance loss averaged over the data
+  group) is held at the routed-expert pin, 1e-2 per leaf, against the
+  single-device port run on each data block with the losses averaged;
+  with ``ep_local_dispatch=false`` (global dispatch) every rank runs the
+  whole batch, bitwise the one-device step; ``parallel.sp`` raises
+  naming ROADMAP.md queue 1 item 25;
+- ``train(mesh=)`` on 2x2, stopped by a SIGTERM that only rank 1
+  receives, stops every rank at the same step; resumed from its
+  checkpoint on 4x1 and on one device, both end at the pins above against
+  the uninterrupted one-device run; rank 0 alone writes; the checkpoint
+  restores through the JAX ``Checkpointer`` bitwise the ranks' gathered
+  state, and the 4x1 run's restores onto 2x2 and onto one device bitwise;
+- every rank's outputs are bitwise rank 0's;
+- ``launch.train --mesh 2,1`` (2 ranks, ``--device cpu``): rank 0 alone
+  writes, its final state holds the pins against the one-process
+  launcher's, and its printed loss is the one-process launcher's within
+  the print's 1e-4.
+"""
+import _torch_threads  # noqa: F401  (caps torch's CPU threads)
+import contextlib
+import json
+import os
+import pathlib
+import re
+import shutil
+import subprocess
+import sys
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import AbstractMesh, PartitionSpec as P
+
+from repro.configs import get_config as jget_config
+from repro.configs.registry import ARCH_IDS
+from repro.data import MarkovLM as JMarkovLM
+from repro.distributed import sharding as jshd
+from repro.distributed.checkpoint import Checkpointer as JCheckpointer
+from repro.kernels import kv_codec as jcodec
+from repro.models import transformer as JT
+from repro.training import optimizer as jopt
+from repro.training import train_step as JTS
+from repro_torch.configs import get_config as tget_config
+from repro_torch.data import MarkovLM as TMarkovLM
+from repro_torch.distributed import sharding as tshd
+from repro_torch.distributed.checkpoint import Checkpointer, tree_paths
+from repro_torch.kernels import kv_codec as tcodec
+from repro_torch.launch import train as tlaunch_train
+from repro_torch.training import optimizer as topt
+from repro_torch.training import train_step as TTS
+from repro_torch.training.trainer import train as ttrain
+
+import _torch_sharded_train_checks as checks
+from test_torch_train_trajectory import port_state
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+WORLD = 4
+
+
+@contextlib.contextmanager
+def one_thread():
+    """The ranks' one thread for the single-device references: a CPU
+    product's rounding may follow the thread count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+# ---------------------------------------------------------------------------
+# (a) placements
+# ---------------------------------------------------------------------------
+
+MESHES = [((2, 2), ("data", "model")), ((4, 1), ("data", "model")),
+          ((1, 4), ("data", "model")), ((2, 2, 1), ("pod", "data", "model"))]
+
+
+def _jax_specs(tree) -> dict:
+    """{path: spec entries} of a JAX tree of PartitionSpecs or
+    NamedShardings."""
+    is_spec = lambda x: isinstance(x, P) or hasattr(x, "spec")  # noqa
+    return {jshd._path_str(p): tuple(getattr(s, "spec", s))
+            for p, s in jax.tree_util.tree_leaves_with_path(
+                tree, is_leaf=is_spec)}
+
+
+def _port_specs(tree, prefix: str = "") -> dict:
+    """{path: spec entries} of a port spec tree (``PSpec`` leaves), named
+    as ``tree_paths`` names the values."""
+    if isinstance(tree, tshd.PSpec):
+        return {prefix: tuple(tree)}
+    join = lambda part: f"{prefix}/{part}" if prefix else part  # noqa
+    if isinstance(tree, dict):
+        kids = [(str(k), tree[k]) for k in sorted(tree)]
+    elif hasattr(tree, "_fields"):
+        kids = [(f".{f}", getattr(tree, f)) for f in tree._fields]
+    else:
+        kids = [(str(i), v) for i, v in enumerate(tree)]
+    out = {}
+    for part, child in kids:
+        out.update(_port_specs(child, join(part)))
+    return out
+
+
+def _zeros_like_sds(tree):
+    """Port tensors (and ``Quantized8`` moments) of a JAX shape tree."""
+    def leaf(x):
+        if isinstance(x, jopt.Quantized8):
+            return topt.Quantized8(torch.zeros(x.q.shape, dtype=torch.int8),
+                                   torch.zeros(x.scale.shape))
+        return torch.zeros(x.shape)
+    return jax.tree_util.tree_map(
+        leaf, tree, is_leaf=lambda x: isinstance(x, jopt.Quantized8))
+
+
+@pytest.fixture(scope="module")
+def shape_trees():
+    """Per smoke arch: the JAX TrainState's shapes (fp32 and int8
+    moments) and a cache tree's, and the port's zero trees of them."""
+    out = {}
+    for arch in ARCH_IDS:
+        jcfg = jget_config(arch, smoke=True)
+        mc = jcfg.model
+        states = {}
+        for int8 in (False, True):
+            jcfg.parallel.int8_optimizer_state = int8
+            sds = jax.eval_shape(
+                lambda: JTS.init_train_state(jcfg, jax.random.PRNGKey(0)))
+            conv = _zeros_like_sds(sds)
+            states[int8] = (sds, TTS.TrainState(
+                conv.params, topt.AdamWState(*conv.opt), conv.step))
+        if mc.is_encoder_decoder:
+            frames = jax.ShapeDtypeStruct((4, mc.encoder_seq_len,
+                                           mc.d_model), jnp.float32)
+            tokens = jax.ShapeDtypeStruct((4, 8), jnp.int32)
+            caches = jax.eval_shape(
+                lambda p, f, t: JT.encdec_prefill_begin(mc, p, f, t, 32)[1],
+                states[False][0].params, frames, tokens)
+        else:
+            caches = jax.eval_shape(lambda: JT.init_block_caches(mc, 4, 32))
+        out[arch] = (states, caches, _zeros_like_sds(caches))
+    return out
+
+
+@pytest.mark.parametrize("fsdp", [True, False], ids=["fsdp", "nofsdp"])
+@pytest.mark.parametrize("shape,names", MESHES,
+                         ids=["x".join(map(str, s)) for s, _ in MESHES])
+def test_placements_match_jax(shape, names, fsdp, shape_trees):
+    jm = AbstractMesh(shape, names)
+    tm = types.SimpleNamespace(mesh_dim_names=names, shape=shape)
+    for arch, (states, caches, tcaches) in shape_trees.items():
+        jr = jshd.make_rules(jm, jget_config(arch, smoke=True).parallel)
+        tr = tshd.make_rules(tm, tget_config(arch, smoke=True).parallel)
+        assert (tr.dp_axes, tr.tp_axis, tr.dp_size()) == \
+            (jr.dp_axes, jr.tp_axis, jr.dp_size())
+        for int8, (sds, tstate) in states.items():
+            want = _jax_specs(jshd.train_state_shardings(sds, jr, fsdp))
+            got = _port_specs(tshd.train_state_pspecs(tstate, tr, fsdp))
+            assert got == want, (arch, int8)
+        assert _port_specs(tshd.param_pspecs(tstate.params, tr, fsdp)) == \
+            _jax_specs(jshd.param_pspecs(sds.params, jr, fsdp)), arch
+        assert _port_specs(tshd.cache_pspecs(tcaches, tr)) == \
+            _jax_specs(jshd.cache_shardings(caches, jr)), arch
+        for b in (1, 2, 3, 4, 8):
+            jb = {"tokens": jax.ShapeDtypeStruct((b, 16), jnp.int32),
+                  "loss_mask": jax.ShapeDtypeStruct((b, 16), jnp.float32)}
+            tb = {k: torch.zeros(v.shape) for k, v in jb.items()}
+            assert _port_specs(tshd.batch_pspecs(tb, tr)) == \
+                _jax_specs(jshd.batch_shardings(jb, jr)), (arch, b)
+
+
+# ---------------------------------------------------------------------------
+# (b) the flat wire codec
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 2113, 64 * 33])
+def test_wire_codec_bitwise_jax(n):
+    rng = np.random.RandomState(n)
+    x = (rng.randn(n) * np.exp(rng.randn(n))).astype(np.float32)
+    # ties: a block's absmax 127 gives scale 1 + 1e-12 → 1.0 in f32, and
+    # halves round to even
+    x[: min(n, 256)] = np.resize(np.array([127.0, 0.5, 1.5, 2.5, -0.5, -1.5,
+                                           -126.5, 3.5], np.float32),
+                                 min(n, 256))
+    shape = (n,) if n % 33 else (n // 33, 33)
+    x = x.reshape(shape)
+    jq, js = jcodec.enc_int8(jnp.asarray(x))
+    tq, ts = tcodec.enc_int8(torch.from_numpy(x))
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    assert tq.shape[1] == tcodec.WIRE_BLOCK == jcodec.WIRE_BLOCK
+    jd = jcodec.dec_int8(jq, js, shape)
+    td = tcodec.dec_int8(tq, ts, shape)
+    assert tuple(td.shape) == shape
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+
+
+# ---------------------------------------------------------------------------
+# (c) one gloo world of four ranks
+# ---------------------------------------------------------------------------
+
+# leaves the data parallel reduction's order moves past 1e-5, held at the
+# JAX package's sharded pins (module docstring)
+PAST_THE_PIN = r"mixer/k/b$"
+PAST_THE_PIN_INT8 = r"\.params/.*(mixer/(q|k)|mlp/up)/(w|b)$"
+
+_JAX_GPIPE = """
+import os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+sys.path.insert(0, {src!r})
+import jax, numpy as np
+from repro.distributed.pipeline_parallel import gpipe_forward, make_stage_fn
+inp = np.load({inp!r})
+ws, x = inp["gpipe/ws"], inp["gpipe/x"]
+mesh = jax.make_mesh((2, 2, 2), ("pod", "data", "model"))
+fn = make_stage_fn(lambda w, h: jax.numpy.tanh(h @ w), per_stage=2)
+with mesh:
+    y = gpipe_forward(mesh, fn, ws.reshape(2, 2, *ws.shape[1:]), x,
+                      n_microbatches=4, axis="pod")
+np.save({out!r}, np.asarray(y))
+"""
+
+
+def _launch_argv(ckpt: str) -> list:
+    return ["--arch", "opt-proxy", "--smoke", "--device", "cpu",
+            f"train.ckpt_dir={ckpt}", "train.steps=4",
+            "train.global_batch_size=8", "train.seq_len=16",
+            "model.dtype=float32", "train.ckpt_async=false"]
+
+
+def _start(argvs):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    env.pop("XLA_FLAGS", None)
+    return [subprocess.Popen(a, cwd=str(ROOT), env=env,
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             text=True) for a in argvs]
+
+
+def _finish(procs, timeout):
+    """Wait for every process; all must exit 0 (a failed one kills the
+    rest)."""
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+            if p.returncode != 0:
+                raise AssertionError(f"exit {p.returncode}:\n{outs[-1]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs
+
+
+def _jax_state(name):
+    jcfg = jget_config(checks.CASES[name][0], smoke=True)
+    jcfg.model.dtype = "float32"
+    tcfg = checks.case_config(name)
+    jcfg.parallel.int8_optimizer_state = tcfg.parallel.int8_optimizer_state
+    jcfg.train.grad_accum = tcfg.train.grad_accum
+    return jcfg, tcfg, JTS.init_train_state(jcfg, jax.random.PRNGKey(0))
+
+
+def _batches(name, tcfg):
+    """The case's global batches (numpy, from seeds)."""
+    _, _, steps, _ = checks.CASES[name]
+    if name == "intern":       # the JAX check's inputs
+        b = JMarkovLM(tcfg.model.vocab_size, seed=1).batch(4, 16)
+        return [{"tokens": np.asarray(b["tokens"]).astype(np.int64)}]
+    rows = 4 if name.startswith("moe") else 8
+    out = []
+    for i in range(steps):
+        b = {"tokens": TMarkovLM(tcfg.model.vocab_size, seed=10 + i).batch(
+            rows, 16)["tokens"].numpy()}
+        if name == "accum":
+            # each data rank's block of each microbatch keeps another share
+            keep = np.linspace(0.15, 0.95, rows)[:, None]
+            b["loss_mask"] = (np.random.RandomState(i).rand(rows, 16)
+                              < keep).astype(np.float32)
+        out.append(b)
+    return out
+
+
+def _arrays(prefix, tree):
+    return {f"{prefix}/{k}": v.detach().cpu().numpy()
+            for k, v in tree_paths(tree)}
+
+
+def _tbatch(b):
+    return {k: torch.from_numpy(v) for k, v in b.items()}
+
+
+def _per_block_step(tcfg, state, batch, dp=2):
+    """The single-device port's step on the mean of each data block's
+    loss: the sharded step's semantics under local MoE dispatch."""
+    rows = batch["tokens"].shape[0] // dp
+    grads, losses = None, []
+    for r in range(dp):
+        blk = {k: v[r * rows:(r + 1) * rows] for k, v in batch.items()}
+        g, m = TTS.loss_and_grads(tcfg, state.params, blk)
+        losses.append(float(m["loss"]))
+        grads = g if grads is None else topt.tree_map(torch.add, grads, g)
+    grads = topt.tree_map(lambda g: g / torch.full_like(g, dp), grads)
+    grads, _ = topt.clip_by_global_norm(grads, tcfg.train.grad_clip)
+    lr = TTS.learning_rate(tcfg.train, state.step)
+    params, ost = topt.adamw_update(grads, state.opt, state.params, lr=lr,
+                                    tc=tcfg.train)
+    return TTS.TrainState(params, ost, state.step + 1), sum(losses) / dp
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    d = tmp_path_factory.mktemp("sharded_train")
+    inp, want = {}, {"cases": {}}
+    rng = np.random.RandomState(0)
+    inp["compress/g"] = rng.randn(WORLD, 64, 33).astype(np.float32)
+    inp["gpipe/ws"] = (rng.randn(4, 32, 32) * 32 ** -0.5).astype(np.float32)
+    inp["gpipe/x"] = rng.randn(8, 32).astype(np.float32)
+    states = {}
+    for name in checks.CASES:
+        jcfg, tcfg, jst = _jax_state(name)
+        tst = port_state(tcfg, jst)
+        states[name] = (jcfg, tcfg, jst, tst)
+        inp.update(_arrays(f"{name}/state", tst))
+        for i, b in enumerate(_batches(name, tcfg)):
+            for k, v in b.items():
+                inp[f"{name}/batch/{i}/{k}"] = v
+    np.savez(d / "inputs.npz", **inp)
+    helper = str(ROOT / "tests" / "_torch_sharded_train_checks.py")
+    procs = _start(
+        [[sys.executable, helper, str(r), str(WORLD), str(d)]
+         for r in range(WORLD)]
+        + [[sys.executable, "-c", _JAX_GPIPE.format(
+            src=str(ROOT / "src"), inp=str(d / "inputs.npz"),
+            out=str(d / "jax_gpipe.npy"))]]
+        + [[sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc-per-node", "2", helper, "launcher", str(d / "lsaves")]
+           + _launch_argv(str(d / "lck")) + ["--mesh", "2,1"]])
+    try:
+        with one_thread():
+            for name, (jcfg, tcfg, jst, tst) in states.items():
+                batches = [_tbatch(b) for b in _batches(name, tcfg)]
+                if name == "moe":
+                    ref, loss = _per_block_step(tcfg, tst, batches[0])
+                    want["cases"][name] = (ref, [loss])
+                    continue
+                step, losses = TTS.make_train_step(tcfg), []
+                for b in batches:
+                    tst, m = step(tst, b)
+                    losses.append(float(m["loss"]))
+                want["cases"][name] = (tst, losses)
+            jcfg, tcfg, jst, _ = states["intern"]
+            b = _batches("intern", tcfg)[0]
+            jst1, jm = jax.jit(JTS.make_train_step(jcfg))(
+                jst, {"tokens": jnp.asarray(b["tokens"], jnp.int32)})
+            want["jax_intern"] = (port_state(tcfg, jst1), float(jm["loss"]))
+            # the uninterrupted one-device train(), and the one-process
+            # launcher
+            ref = ttrain(checks.train_config(str(d / "ref")),
+                         TMarkovLM(128, seed=0), device="cpu", verbose=False)
+            want["train"] = ref
+            want["launch"] = tlaunch_train.main(_launch_argv(str(d / "one")))
+    except BaseException:
+        for p in procs:
+            p.kill()
+            p.wait()
+        raise
+    outs = _finish(procs, timeout=400)
+    # the one-device resume from a copy of the 2x2 run's checkpoint
+    shutil.copytree(d / "ck_22", d / "one_resume")
+    with one_thread():
+        want["resumed_one"] = ttrain(
+            checks.train_config(str(d / "one_resume")),
+            TMarkovLM(128, seed=0), device="cpu", verbose=False)
+    ranks = [dict(np.load(d / f"rank{r}.npz")) for r in range(WORLD)]
+    metas = [json.loads((d / f"rank{r}.json").read_text())
+             for r in range(WORLD)]
+    return dict(d=d, want=want, ranks=ranks, metas=metas, states=states,
+                launcher_out=outs[-1], jax_gpipe=np.load(d / "jax_gpipe.npy"))
+
+
+def _flat(arrays: dict, prefix: str) -> dict:
+    n = len(prefix) + 1
+    return {k[n:]: v for k, v in arrays.items() if k.startswith(prefix + "/")}
+
+
+def _tflat(tree) -> dict:
+    return {k: v.detach().numpy() for k, v in tree_paths(tree)}
+
+
+def _rel(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / (np.linalg.norm(b) + 1e-30))
+
+
+def assert_state_pins(got: dict, want: dict, past: str):
+    """Every float leaf ≤ 1e-5 relative; a leaf matching ``past`` (the
+    recorded ones) at the JAX sharded pins instead; int8 codes may differ
+    by one step at ties (≤ 1e-3 of them), scales at the JAX pins."""
+    assert got.keys() == want.keys()
+    for k, w in want.items():
+        g = got[k]
+        if g.dtype == np.int8:
+            off = np.abs(g.astype(np.int32) - w.astype(np.int32))
+            assert off.max() <= 1 and (off > 0).mean() <= 1e-3, k
+        elif _rel(g, w) > 1e-5:
+            assert past and re.search(past, k), (k, _rel(g, w))
+            np.testing.assert_allclose(g, w, rtol=3e-2, atol=3e-3,
+                                       err_msg=k)
+
+
+def test_every_rank_bitwise_rank0(world):
+    r0 = world["ranks"][0]
+    for r, got in enumerate(world["ranks"][1:], 1):
+        assert got.keys() == r0.keys()
+        for k, v in r0.items():
+            if k.startswith("compress/") and k.endswith("/err"):
+                continue     # each rank's own residue
+            np.testing.assert_array_equal(got[k], v, err_msg=f"rank {r} {k}")
+        assert world["metas"][r] == world["metas"][0]
+
+
+def _jax_compress(g, method, steps):
+    """JAX's codec applied rank by rank with its error feedback; the means
+    in f32."""
+    n = g.shape[0]
+    err = np.zeros_like(g)
+    out = []
+    for s in range(steps):
+        gs = (g * np.float32(1.0 + 0.3 * s)).astype(np.float32)
+        if method == "none":
+            out.append((gs.sum(0) / np.float32(n), None))
+            continue
+        recon = np.empty_like(gs)
+        for r in range(n):
+            gf = gs[r] + err[r]
+            if method == "bf16":
+                recon[r] = np.asarray(jnp.asarray(gf).astype(
+                    jnp.bfloat16).astype(jnp.float32))
+            else:
+                q, sc = jcodec.enc_int8(jnp.asarray(gf))
+                recon[r] = np.asarray(jcodec.dec_int8(q, sc, gf.shape))
+            err[r] = gf - recon[r]
+        out.append((recon.sum(0) / np.float32(n), err.copy()))
+    return out
+
+
+@pytest.mark.parametrize("method", ["none", "bf16", "int8"])
+def test_compress_psum_matches_jax_codec(world, method):
+    g = np.load(world["d"] / "inputs.npz")["compress/g"]
+    want = _jax_compress(g, method, checks.COMPRESS_STEPS)
+    for r, got in enumerate(world["ranks"]):
+        for s, (red, err) in enumerate(want):
+            np.testing.assert_allclose(got[f"compress/{method}/{s}/red"],
+                                       red, rtol=0, atol=1e-6)
+            if err is not None:
+                np.testing.assert_allclose(got[f"compress/{method}/{s}/err"],
+                                           err[r], rtol=0, atol=1e-6)
+
+
+def test_compress_psum_holds_the_jax_bounds(world):
+    g = np.load(world["d"] / "inputs.npz")["compress/g"]
+    got = world["ranks"][0]
+
+    def errors(method):
+        errs, acc_t, acc_c = [], 0.0, 0.0
+        for s in range(checks.COMPRESS_STEPS):
+            true = (g * np.float32(1.0 + 0.3 * s)).mean(0)
+            red = got[f"compress/{method}/{s}/red"]
+            acc_t, acc_c = acc_t + true, acc_c + red
+            errs.append(np.linalg.norm(red - true) / np.linalg.norm(true))
+        return errs, np.linalg.norm(acc_c - acc_t) / np.linalg.norm(acc_t)
+
+    errs8, cum8 = errors("int8")
+    assert errs8[0] < 0.05 and cum8 < 0.02, (errs8, cum8)
+    assert errors("bf16")[1] < 0.01
+    assert errors("none")[1] < 1e-6
+
+
+def test_gpipe_matches_stacked_forward_and_jax(world):
+    inp = np.load(world["d"] / "inputs.npz")
+    ws, x = torch.from_numpy(inp["gpipe/ws"]), torch.from_numpy(inp["gpipe/x"])
+    ref = x
+    for w in ws:
+        ref = torch.tanh(ref @ w)
+    got = world["ranks"][0]["gpipe/y"]
+    np.testing.assert_allclose(got, ref.numpy(), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(got, world["jax_gpipe"], rtol=1e-4,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("name", [n for n in checks.CASES
+                                  if not n.startswith("moe")])
+def test_sharded_step_matches_single_device(world, name):
+    ref, losses = world["want"]["cases"][name]
+    got = _flat(world["ranks"][0], f"{name}/out")
+    past = PAST_THE_PIN_INT8 if name == "int8" else PAST_THE_PIN
+    assert_state_pins(got, _tflat(ref), past)
+    for m, want in zip(world["metas"][0][name], losses):
+        assert abs(m["loss"] - want) <= 1e-5 * abs(want), (m, want)
+
+
+def test_sharded_step_matches_jax(world):
+    jst1, jloss = world["want"]["jax_intern"]
+    got = _flat(world["ranks"][0], "intern/out")
+    assert abs(world["metas"][0]["intern"][0]["loss"] - jloss) <= \
+        1e-5 * abs(jloss)
+    assert_state_pins(got, _tflat(jst1), PAST_THE_PIN)
+
+
+def test_routed_moe_local_dispatch_per_block(world):
+    ref, (loss,) = world["want"]["cases"]["moe"]
+    got = _flat(world["ranks"][0], "moe/out")
+    want = _tflat(ref)
+    assert got.keys() == want.keys()
+    for k, w in want.items():
+        assert _rel(got[k], w) <= 1e-2, (k, _rel(got[k], w))
+    m = world["metas"][0]["moe"][0]
+    assert abs(m["loss"] - loss) <= 1e-2 * abs(loss), (m["loss"], loss)
+
+
+def test_routed_moe_global_dispatch_is_one_device(world):
+    """Under ``ep_local_dispatch=false`` (the reference's global dispatch)
+    every rank runs the whole batch: the step is the one-device step,
+    bitwise."""
+    ref, (loss,) = world["want"]["cases"]["moe_global"]
+    got = _flat(world["ranks"][0], "moe_global/out")
+    want = _tflat(ref)
+    assert got.keys() == want.keys()
+    for k, w in want.items():
+        np.testing.assert_array_equal(got[k], w, err_msg=k)
+    assert world["metas"][0]["moe_global"][0]["loss"] == loss
+
+
+def test_sequence_parallel_raises_naming_item_25():
+    cfg = tget_config("opt-proxy", smoke=True)
+    cfg.parallel.sp = True
+    mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"),
+                                 shape=(2, 2))
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md, queue 1 item 25"):
+        TTS.make_sharded_train_step(cfg, tshd.make_rules(mesh, cfg.parallel),
+                                    None)
+
+
+def _saves(d, prefix):
+    return {r: (d / f"{prefix}.{r}").read_text().split()
+            for r in range(WORLD) if (d / f"{prefix}.{r}").exists()}
+
+
+def test_train_mesh_stops_together_and_resumes(world):
+    stopped = [m["stopped"] for m in world["metas"]]
+    assert len(set(stopped)) == 1 and 0 < stopped[0] < checks.TRAIN_STEPS
+    meta = world["metas"][0]
+    assert meta["resumed_steps"] == list(range(stopped[0],
+                                               checks.TRAIN_STEPS))
+    saves = _saves(world["d"], "saves")
+    assert list(saves) == [0], saves        # rank 0 alone writes
+    assert saves[0] == [str(stopped[0]), str(checks.TRAIN_STEPS)]
+    assert meta["restored_step"] == checks.TRAIN_STEPS
+    want = _tflat(world["want"]["train"]["state"])
+    assert_state_pins(_flat(world["ranks"][0], "train/resumed"), want,
+                      PAST_THE_PIN)
+    assert_state_pins(_tflat(world["want"]["resumed_one"]["state"]), want,
+                      PAST_THE_PIN)
+    for h, loss in zip(world["want"]["train"]["history"][stopped[0]:],
+                       meta["resumed_loss"]):
+        assert abs(h["loss"] - loss) <= 1e-5 * abs(h["loss"])
+
+
+def test_train_mesh_checkpoints_restore_bitwise(world):
+    d, r0 = world["d"], world["ranks"][0]
+    stopped = _flat(r0, "train/stopped")
+    # the 2x2 run's checkpoint through the JAX Checkpointer
+    jcfg = jget_config("opt-proxy", smoke=True)
+    like = JTS.init_train_state(jcfg, jax.random.PRNGKey(0))
+    jst, extra = JCheckpointer(str(d / "ck_22")).restore(like)
+    assert extra["step"] == world["metas"][0]["stopped"]
+    got = {jshd._path_str(p): np.asarray(v)
+           for p, v in jax.tree_util.tree_leaves_with_path(jst)}
+    assert got.keys() == stopped.keys()
+    for k, v in stopped.items():
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
+    # the 4x1 run's checkpoint onto 2x2 and onto one device
+    resumed = _flat(r0, "train/resumed")
+    onto22 = _flat(r0, "train/restored22")
+    cfg = checks.train_config(str(d / "ck_41"))
+    one, _ = Checkpointer(str(d / "ck_41")).restore(
+        TTS.init_train_state(cfg, "cpu"))
+    one = _tflat(one)
+    assert onto22.keys() == resumed.keys() == one.keys()
+    for k, v in resumed.items():
+        np.testing.assert_array_equal(onto22[k], v, err_msg=k)
+        np.testing.assert_array_equal(one[k], v, err_msg=k)
+
+
+def test_launch_train_mesh_matches_one_process(world):
+    d = world["d"]
+    saves = {r: (d / f"lsaves.{r}").read_text().split()
+             for r in range(2) if (d / f"lsaves.{r}").exists()}
+    assert list(saves) == [0] and saves[0] == ["4"], saves
+    done = [ln for ln in world["launcher_out"].splitlines()
+            if ln.startswith("done:")]
+    assert len(done) == 1, world["launcher_out"]
+    one = world["want"]["launch"]
+    loss = float(done[0].split("loss=")[1])
+    assert abs(loss - one["history"][-1]["loss"]) <= 1e-4
+    cfg = checks.train_config(str(d / "lck"))
+    mesh_state, _ = Checkpointer(str(d / "lck")).restore(
+        TTS.init_train_state(cfg, "cpu"))
+    assert_state_pins(_tflat(mesh_state), _tflat(one["state"]),
+                      PAST_THE_PIN)

@@ -14,8 +14,10 @@ JAX package's trainer (opt-proxy smoke at model dtype float32, batch 4 ×
   stream's position included.
 - ``launch.train`` runs on the CPU, resumes from its checkpoint, and its
   checkpoint quantizes through ``launch.quantize train.ckpt_dir=``;
-  ``--mesh``, ``train(mesh=...)`` and a sharding field raise naming
-  ROADMAP.md queue 1 item 17; ``examples/torch_train_small_lm.py`` runs.
+  ``--mesh 1,1`` and ``train(mesh=...)`` at a world of one end bitwise the
+  one-device run, ``parallel.data`` / ``parallel.fsdp`` are taken
+  (tests/test_torch_sharded_train.py holds sharded training on four
+  ranks); ``examples/torch_train_small_lm.py`` runs.
 
 On the card (``gpu``): every CUDA wrapper of ``kernels/ops.py`` raises on
 an input that requires grad (``selective_scan`` naming queue 1 item 23, a
@@ -26,6 +28,7 @@ and round the bf16 activations apart).
 """
 import _torch_threads  # noqa: F401  (caps torch's CPU threads)
 
+import contextlib
 import os
 import shutil
 import signal
@@ -47,6 +50,7 @@ from repro_torch.distributed.checkpoint import Checkpointer, tree_paths
 from repro_torch.kernels import ops as tops
 from repro_torch.launch import quantize as tlaunch_quantize
 from repro_torch.launch import train as tlaunch_train
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.training import train_step as TTS
 from repro_torch.training.trainer import train as ttrain
 
@@ -190,21 +194,54 @@ def test_launch_train_resumes_and_quantizes(tmp_path, capsys):
     assert os.path.exists(path) and report.linears
 
 
+@contextlib.contextmanager
+def world_of_one(d):
+    """A gloo process group of this process alone (``file://``
+    rendezvous), destroyed after."""
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"file://{d}/rendezvous", rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        torch.distributed.destroy_process_group()
+
+
 @pytest.mark.parametrize("how", ["--mesh", "train(mesh=)", "parallel.data=2",
                                  "parallel.fsdp=false"])
 def test_sharded_training_raises_naming_item_17(how, tmp_path):
+    """Sharded training and the sharding fields at a world of one:
+    ``launch.train --mesh 1,1`` and ``train(mesh=)`` on a 1x1 mesh (a gloo
+    group of this process) end bitwise the one-device run, and ``--mesh
+    2,1`` raises naming the world's size; ``parallel.data=2`` and
+    ``parallel.fsdp=false`` are taken by the one-device launcher and run
+    to the end, as in the reference (which reads them only on a mesh)."""
     argv = ["--arch", "opt-proxy", "--smoke", "--device", "cpu",
-            f"train.ckpt_dir={tmp_path}", "train.steps=1"]
-    match = "ROADMAP.md, queue 1 item 17"
-    with pytest.raises(NotImplementedError, match=match):
-        if how == "--mesh":
-            tlaunch_train.main(argv + ["--mesh", "2,1"])
-        elif how == "train(mesh=)":
-            ttrain(tget_config("opt-proxy", smoke=True), TMarkovLM(128),
-                   device="cpu", mesh=object())
-        else:
-            tlaunch_train.main(argv + [how])
-    assert not os.path.exists(tmp_path / "LATEST")
+            "train.steps=2", "train.global_batch_size=4", "train.seq_len=16"]
+    ref = tlaunch_train.main(argv + [f"train.ckpt_dir={tmp_path / 'one'}"])
+    argv.append(f"train.ckpt_dir={tmp_path / 'run'}")
+    if how == "--mesh":
+        with world_of_one(tmp_path):
+            with pytest.raises(ValueError, match="needs 2 ranks; the world "
+                                                 "has 1"):
+                tlaunch_train.main(argv + ["--mesh", "2,1"])
+            out = tlaunch_train.main(argv + ["--mesh", "1,1"])
+    elif how == "train(mesh=)":
+        cfg = tget_config("opt-proxy", smoke=True)
+        t = cfg.train
+        t.steps, t.global_batch_size, t.seq_len = 2, 4, 16
+        t.ckpt_dir = str(tmp_path / "run")
+        with world_of_one(tmp_path):
+            out = ttrain(cfg, TMarkovLM(cfg.model.vocab_size,
+                                        seed=cfg.train.seed),
+                         device="cpu", mesh=make_host_mesh(1, 1))
+    else:
+        out = tlaunch_train.main(argv + [how])
+    assert Checkpointer(str(tmp_path / "run")).latest_step() == 2
+    assert [h["loss"] for h in out["history"]] == \
+        [h["loss"] for h in ref["history"]]
+    for (k, a), (_, b) in zip(tree_paths(out["state"]),
+                              tree_paths(ref["state"])):
+        assert torch.equal(a, b), k
 
 
 def test_example_twin_trains_on_the_cpu(tmp_path):
