@@ -2,6 +2,8 @@
 """Drive the PyTorch port's main paths on one CUDA card and check them.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py quantize-depth    # not a phase: recurrentgemma-9b
+                                            # quantized at all 38 layers
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
   1. device: name, count, and ``nvidia-smi`` name / power limit;
@@ -181,9 +183,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      token-identical is reported);
   13. the RG-LRU hybrid at full width: recurrentgemma-9b (d 4096, 16
      heads over one kv-head of 256, d_ff 12288, vocab 256000 tied) cut to
-     6 of 38 layers (2 whole periods: 38 do not fit quantization; 12
-     kept the run inside its time limit once phase 15 came in, 6 since
-     phase 16),
+     6 of 38 layers (2 whole periods: all 38 fit quantization, 77.8 GB
+     at its peak, but 12 kept the run inside its time limit once phase
+     15 came in, 6 since phase 16),
      calibration 4 x 4 x 512 → quantize_model → pack_for_serving →
      generate on the bf16 ring and the int8 ring (4 x 512 + 32), then 1 x
      2040 + 32 on the int8 ring across its wrap, each replay bitwise its
@@ -262,13 +264,39 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
          smoke config if two would not fit), against that run;
      each leg prints its wall, each rank's launches at its shard shapes
      and peak, and whether every rank's packed artifact and quantized
-     leaves are bitwise rank 0's; a failed rank fails the run.
+     leaves are bitwise rank 0's; a failed rank fails the run;
+  18. the fault plane's process-level checks and the shape-only dry run
+     (18a's process and the dry run's reckonings of 18c (2) and (3), host
+     processes that do not see the card, start before phase 13 and run
+     beside phases 13 and 14; phase 18 reads them after 18b and 18c (1)):
+     18a. ``scripts/torch_resume_smoke.py --int8-only`` on the card: the
+         clean launcher run beside one killed by ``plan.stage1_executor@4``
+         under ``serve.kv_cache=int8``, its resumed run bitwise the clean
+         artifact leaf by leaf, then ``launch.serve`` on the int8-KV
+         continuous path; each child's wall, the digests and the
+         children's kernel launches (the fp16-KV pass runs in the CPU
+         test);
+     18b. ``scripts/torch_chaos_soak.py --seeds 0 --smoke --device cuda``:
+         no violation of S1-S4 or Q1-Q3;
+     18c. the dry run held against what this script measures: (1)
+         opt-proxy's decode step at phase 5's shapes (packed weights, 4
+         lanes) and internlm2-1.8b's 4 x 512 train step (phase 16b's)
+         traced on fake CUDA tensors on a mesh of one, each kernel
+         wrapper called as often as the eager step launched it, the
+         traced live-bytes high-water against ``max_memory_allocated``
+         inside ``DRYRUN_PEAK_RATIO``; (2) ``--quant-cell --arch
+         deepseek-v3-671b --quant-mesh 1x2x256`` and internlm2-1.8b's
+         ``train_4k`` on 16x16, their per-rank peaks; (3) the
+         quantization walks of recurrentgemma-9b at 33 and 38 layers and
+         pixtral-12b at 26 and 40 (their phases' calibration), against
+         the peaks measured at 33 and 26 (``DRYRUN_MEASURED``) inside the
+         same bound, and whether the full depths fit the card.
 Each phase's wall is printed; phase 3's by kernel section too. Its stage
 kernels' plain versions are timed by the one call their checks make
 (``once_ms``).
 
 The line before the last is a JSON object with one entry per kernel
-(``launches`` sums phases 5 to 17, every rank's); the last line is ``{"ok": true,
+(``launches`` sums phases 5 to 18, every rank's and child's); the last line is ``{"ok": true,
 "device": {...}}``.
 
 The process's CUDA allocator grows its segments in place
@@ -288,6 +316,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -605,7 +634,7 @@ def check_w4a16(table: KernelTable, g, m: int, k: int, n: int, dt,
     import torch
     from repro_torch.core.quant import compute_qparams, pack_int4, \
         quantize_codes
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops, ref, work
     dev = torch.device("cuda")
     w = torch.randn((n, k), generator=g, device=dev) * k ** -0.5
     qp = compute_qparams(w, 4, gs)
@@ -628,9 +657,8 @@ def check_w4a16(table: KernelTable, g, m: int, k: int, n: int, dt,
     else:
         ok = within_bf16_ulp(diff, want)
         tol_s = "1 bf16 ulp"
-    esz = 2 if dt == torch.bfloat16 else 4
-    nbytes = (n * k / 2 + 2 * n * (k / gs) * 4 + m * k * esz
-              + m * n * esz)
+    wk = work.w4a16_matmul(m, n, k, gs, 2 if dt == torch.bfloat16 else 4)
+    nbytes = wk.nbytes
     # distinct weight copies, 100 MB in all: each call reads its weights
     # from device memory, not from L2
     copies = [(packed, qp.scales, qp.zeros)] + [
@@ -646,10 +674,10 @@ def check_w4a16(table: KernelTable, g, m: int, k: int, n: int, dt,
         lib_s = f"{lms:.4f} ({lib_err})"
         # bf16 x runs on the tensor cores: the bf16 rate bounds it
         b_ms, by = table.add("w4a16_matmul", ms=ms, plain_ms=pms,
-                             flop=2 * m * n * k, nbytes=nbytes, err=err,
-                             library_ms=lms, peak=H100_BF16_FLOPS)
+                             flop=wk.flop, nbytes=nbytes, err=err,
+                             library_ms=lms, peak=wk.peak)
     else:
-        b_ms, by = bound(2 * m * n * k, nbytes, H100_FP32_FLOPS)
+        b_ms, by = bound(wk.flop, nbytes, wk.peak)
     log(f"  w4a16_matmul m={m} k={k} n={n} {dt}: max_abs_err={err:.3e} "
         f"({tol_s}) ms={ms:.4f} plain_ms={pms:.4f} library_ms={lib_s} "
         f"bound_ms={b_ms:.4f} ({by}); k splits {splits}, two launches "
@@ -662,7 +690,7 @@ def check_hessian_accum(table: KernelTable, g, n_tok: int, d: int) -> None:
     symmetric H drawn from generator g: 1e-5 of max |H|, two launches
     bitwise equal; timed from CUDA graphs beside ``x.T @ x``."""
     import torch
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops, ref, work
     dev = torch.device("cuda")
     x = torch.randn((n_tok, d), generator=g, device=dev)
     H0 = torch.randn((d, d), generator=g, device=dev)
@@ -677,11 +705,9 @@ def check_hessian_accum(table: KernelTable, g, n_tok: int, d: int) -> None:
     ms = graph_ms([lambda: ops.hessian_accum_cuda(x, Hk)])
     pms = graph_ms([lambda: ref.hessian_accum(x, H0)])
     lms = graph_ms([lambda: x.T @ x])
-    # the symmetric product needs d(d+1)/2 sums of n products; H is
-    # read and written
+    wk = work.hessian_accum(n_tok, d)
     b_ms, by = table.add("hessian_accum", ms=ms, plain_ms=pms,
-                         flop=n_tok * d * (d + 1),
-                         nbytes=(n_tok * d + 2 * d * d) * 4, err=err,
+                         flop=wk.flop, nbytes=wk.nbytes, err=err,
                          library_ms=lms)
     log(f"  hessian_accum n={n_tok} d={d} split "
         f"{ops.hessian_accum_geometry(n_tok, d)}: max_abs_err={err:.3e} "
@@ -714,7 +740,7 @@ def check_gptq(case: dict, gs: int, bs: int, table=None):
     timed (and added to ``table``) where a table is given. Returns the
     plain version's (w_q, scales, zeros), rpiq_block's inputs."""
     from repro_torch.core import hessian as hess
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops, ref, work
     w, u, hd = case["w"], case["u"], case["hd"]
     b, out_dim, in_dim = w.shape
     kw = dict(bits=4, group_size=gs, blocksize=bs, symmetric=False)
@@ -741,20 +767,13 @@ def check_gptq(case: dict, gs: int, bs: int, table=None):
     err = float((got[0] - want[0]).abs().max())
     e_rel = float(((got[3].sum(1) - want[3].sum(1)).abs()
                    / want[3].sum(1).abs()).max())
-    # in-block propagation: column j of a block updates bs-j-1 columns
-    # (a product and a difference each); the tail update is a rank-bs
-    # product
-    flop = b * out_dim * in_dim * (bs - 1) + sum(
-        2 * b * out_dim * bs * (in_dim - c2)
-        for c2 in range(bs, in_dim + 1, bs))
-    nbytes = 4 * (2 * b * out_dim * in_dim + b * in_dim * in_dim
-                  + 2 * b * out_dim * (in_dim // gs) + b * out_dim)
+    wk = work.gptq_block(b, out_dim, in_dim, gs, bs)
     timing = ""
     if table is not None:
         chol_ms = time_ms(lambda: hess.cholesky_inverse_upper(hd), 0.1, 5)
         ms = time_ms(lambda: ops.gptq_block_cuda(w, u, **kw), 0.1, 5)
-        b_ms, by = table.add("gptq_block", ms=ms, plain_ms=pms, flop=flop,
-                             nbytes=nbytes, err=err)
+        b_ms, by = table.add("gptq_block", ms=ms, plain_ms=pms,
+                             flop=wk.flop, nbytes=wk.nbytes, err=err)
         timing = (f" ms={ms:.4f} plain_ms={pms:.4f} library_ms=none "
                   f"bound_ms={b_ms:.4f} ({by}); stage-1 factorization "
                   f"(library Cholesky x2 + solve) ms={chol_ms:.4f}")
@@ -825,7 +844,7 @@ def check_rpiq_call(rargs: tuple, rkw: dict, table=None, label: str = "",
     against its plain version at phase 3's pins; timed (and added to
     ``table``) where a table is given, with the stage-2 block curvature
     where ``curvature`` computes it. Returns whether the Gamma pin held."""
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops, ref, work
     w0, y_orig, x = rargs[:3]
     b, out_dim, in_dim = w0.shape
     n_tok = x.shape[1]
@@ -845,19 +864,12 @@ def check_rpiq_call(rargs: tuple, rkw: dict, table=None, label: str = "",
                    / want_r[4].abs()).max())
     iters_eq = bool((sel_g[3] == sel_w[3]).all())
     err = float((sel_g[0] - sel_w[0]).abs().max())
-    n_m = in_dim // bs
-    flop = b * (2 * n_tok * in_dim * out_dim * (1 + t_max)
-                + t_max * (6 * n_tok * in_dim * out_dim
-                           + 2 * bs * in_dim * out_dim))
-    nbytes = 4 * b * (3 * out_dim * in_dim + n_tok * out_dim
-                      + n_tok * in_dim + n_m * bs * bs
-                      + out_dim * in_dim * (t_max + 2)
-                      + n_tok * out_dim)
+    wk = work.rpiq_block(b, out_dim, in_dim, n_tok, bs, t_max)
     timing = ""
     if table is not None:
         ms = time_ms(lambda: ops.rpiq_block_cuda(*rargs, **rkw), 0.1, 5)
-        b_ms, by = table.add("rpiq_block", ms=ms, plain_ms=pms, flop=flop,
-                             nbytes=nbytes, err=err)
+        b_ms, by = table.add("rpiq_block", ms=ms, plain_ms=pms,
+                             flop=wk.flop, nbytes=wk.nbytes, err=err)
         timing = (f" ms={ms:.4f} plain_ms={pms:.4f} library_ms=none "
                   f"bound_ms={b_ms:.4f} ({by})")
         if curvature is not None:
@@ -1083,7 +1095,7 @@ def kernels_int8_kv_attention(table: KernelTable, g) -> None:
     -1 slots only, as a long preallocated cache early in decode)."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import kv_codec, ops, ref
+    from repro_torch.kernels import kv_codec, ops, ref, work
 
     dev = torch.device("cuda")
     b, kv, r, hd = 4, 8, 2, 128
@@ -1135,9 +1147,7 @@ def kernels_int8_kv_attention(table: KernelTable, g) -> None:
                 s == 77), f"int8_kv_attention S={s} valid={valid}")
             continue
         # each input read once, each output written once
-        nbytes = (2 * b * s * kv * hd + 2 * b * s * kv * nb * 4 + 4 * b * s
-                  + 2 * 2 * b * kv * r * hd)
-        flop = 4 * b * kv * r * s * hd
+        flop, nbytes, _ = work.int8_kv_attention(b, kv, r, hd, s, nb)
         copies = [cache] + [tuple(t.clone() for t in cache)
                             for _ in range(int(100e6 // nbytes))]
         ms = graph_ms([(lambda c=c: ops.int8_kv_attention_cuda(q, *c, blk))
@@ -1191,7 +1201,7 @@ def kernels_int8_kv_attention_ring(table: KernelTable) -> None:
     (it is phase 9a's shape), the capped rows are printed beside it. Its
     inputs come from a generator of its own."""
     import torch
-    from repro_torch.kernels import kv_codec, ops, ref
+    from repro_torch.kernels import kv_codec, ops, ref, work
     from repro_torch.models.attention import cache_key_positions
 
     dev = torch.device("cuda")
@@ -1232,9 +1242,7 @@ def kernels_int8_kv_attention_ring(table: KernelTable) -> None:
                        - ref.int8_kv_attention(q32, *cache, blk, cap))
                       .abs().max()) if cap else 0.0
         splits, per = ops.int8_kv_attention_geometry(b, kv, s)
-        nbytes = (2 * b * s * kv * hd + 2 * b * s * kv * nb * 4 + 4 * b * s
-                  + 2 * 2 * b * kv * r * hd)
-        flop = 4 * b * kv * r * s * hd
+        flop, nbytes, _ = work.int8_kv_attention(b, kv, r, hd, s, nb)
         copies = [cache] + [tuple(t.clone() for t in cache)
                             for _ in range(int(100e6 // nbytes))]
         ms = graph_ms([(lambda c=c: ops.int8_kv_attention_cuda(
@@ -1279,7 +1287,7 @@ def check_quant_pack(table: KernelTable, g, n: int, k: int,
     import torch
     from repro_torch.core.quant import QuantParams, pack_int4, \
         quantize_codes
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops, ref, work
 
     dev = torch.device("cuda")
     scales = torch.exp2(torch.randint(-8, -4, (n, k // gs), generator=g,
@@ -1298,7 +1306,8 @@ def check_quant_pack(table: KernelTable, g, n: int, k: int,
     n_diff = int((got != want).sum())
     err = float((got.int() - want.int()).abs().max())
     same = n_diff == 0 and torch.equal(want, older)
-    nbytes = 4 * n * k + 8 * n * k / gs + n * k / 2
+    wk = work.quant_pack(n, k, gs)
+    nbytes = wk.nbytes
     args = (w, scales, zeros)
     copies = [args] + [tuple(t.clone() for t in args)
                        for _ in range(int(100e6 // nbytes))]
@@ -1307,7 +1316,7 @@ def check_quant_pack(table: KernelTable, g, n: int, k: int,
     pms = graph_ms([(lambda c=c: ref.quant_pack(*c, gs)) for c in copies])
     del copies
     b_ms, by = table.add("quant_pack", ms=ms, plain_ms=pms,
-                         flop=4 * n * k, nbytes=nbytes, err=err)
+                         flop=wk.flop, nbytes=nbytes, err=err)
     w16 = w.to(torch.bfloat16)
     same16 = torch.equal(ops.quant_pack_cuda(w16, scales, zeros, gs),
                          ref.quant_pack(w16, scales, zeros, gs))
@@ -1377,7 +1386,7 @@ def kv_attention_row(table, g, b: int, kv: int, r: int, hd: int, s: int,
     graph over cache copies beyond L2, added to ``table`` where one is
     given. The bound counts the valid slots' bytes and products."""
     import torch
-    from repro_torch.kernels import kv_codec, ops, ref
+    from repro_torch.kernels import kv_codec, ops, ref, work
 
     dev = torch.device("cuda")
     blk = kv_codec.default_kv_block(hd)
@@ -1416,9 +1425,7 @@ def kv_attention_row(table, g, b: int, kv: int, r: int, hd: int, s: int,
                for i, n in enumerate(lengths) if n == 0)
     same = torch.equal(got, ops.int8_kv_attention_cuda(q, *cache, blk, cap))
     splits, per = ops.int8_kv_attention_geometry(b, kv, s)
-    nbytes = (2 * valid * kv * hd + 2 * valid * kv * nb * 4 + 4 * b * s
-              + 2 * 2 * b * kv * r * hd)
-    flop = 4 * kv * r * valid * hd
+    flop, nbytes, _ = work.int8_kv_attention(b, kv, r, hd, s, nb, valid)
     # at most 255 copies, as w4a16_matmul's: a cache of a few KB (minicpm
     # smoke's) made ~33,000 copies and a 28 s graph
     copies = [cache] + [tuple(t.clone() for t in cache)
@@ -1681,7 +1688,7 @@ def kernels_selective_scan(table: KernelTable, g) -> None:
     input copies beyond the 50 MB L2."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops, ref, work
 
     dev = torch.device("cuda")
     b, d, n = 4, 8192, 16
@@ -1709,9 +1716,7 @@ def kernels_selective_scan(table: KernelTable, g) -> None:
             ok = ok and y_ok and h_rel <= 1e-5
             errs[name] = (float(ydiff.max()), y_rel, h_rel, y_ok)
         # bf16 u and y, fp32 dt / B / C / a_log / d_skip / h0 / h_last
-        nbytes = (b * s * d * (2 + 4 + 2) + 2 * b * s * n * 4
-                  + d * n * 4 + d * 4 + 2 * b * d * n * 4)
-        flop = 7 * b * s * d * n
+        flop, nbytes, _ = work.selective_scan(b, s, d, n)
         timing = ""
         if s in (512, 128):
             args = (u.to(torch.bfloat16),) + rest
@@ -3330,9 +3335,9 @@ def phase_hybrid_path(smi: str) -> dict:
     kv-head of 256, lru_width 4096, d_ff 12288, vocab 256000 tied, window
     2048, logits soft-capped at 30), its depth cut to ``HYBRID_LAYERS``
     of 38 layers (whole (rglru, rglru, local) periods: quantization holds
-    the float layers before and after, ~2.2x the parameter bytes, and 38
-    layers reckon at ~82 GB; 33 fit, and the cut keeps the whole run
-    inside its 1200 s), calibration 4 x 4 x 512 → quantize_model →
+    the float layers before and after, ~2.2x the parameter bytes, 77.8 GB
+    at 38 layers, which fit; the cut keeps the whole run inside its
+    1200 s), calibration 4 x 4 x 512 → quantize_model →
     pack_for_serving → generate on the bf16 ring (4 x 512 + 32), then on
     the int8 ring (the R-16 ``int8_kv_attention``) and 1 x 2040 + 32 on
     the int8 ring, whose decode crosses the 2048-slot window inside the
@@ -5314,6 +5319,289 @@ def phase_sharded_path(smi: str) -> dict:
     return launches
 
 
+# -- 18: the fault plane's process-level checks and the dry run ------------
+
+# the dry run's live-bytes high-water over the measured peak: the bound
+# PERF.md states for 18c (each side counts the arguments the traced step
+# runs on)
+DRYRUN_PEAK_RATIO = (0.85, 1.15)
+# peaks this script measured at a cut depth of a full-width quantization
+# walk (PERF.md §5; runs CC and BL): (arch, layers) -> bytes
+DRYRUN_MEASURED = {("recurrentgemma-9b", 33): 69580873728,
+                   ("pixtral-12b", 26): 73196823552}
+# the walks the dry run reckons: arch, depths, calibration (phases 13, 9b)
+DRYRUN_WALKS = (("recurrentgemma-9b", (33, 38), "4x4x512"),
+                ("pixtral-12b", (26, 40), "4x2x128"))
+
+
+def start_phase18_processes(out: str) -> dict:
+    """Phase 18's own processes, started together before phase 13 and read
+    in phase 18: ``"smoke"``, 18a (``scripts/torch_resume_smoke.py
+    --int8-only``, whose launcher children wait on their own start-up most
+    of the time), and ``"reckonings"``, the dry run's reckonings of 18c
+    (2) and (3), one host process each (``launch.dryrun`` writing into
+    ``out``; the card hidden: they need none, and their fake tensors claim
+    the CPU)."""
+    src = os.path.join(ROOT, "src")
+    smoke = subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "scripts",
+                                      "torch_resume_smoke.py"),
+         "--int8-only"], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, PYTHONPATH=src))
+    env = dict(os.environ, PYTHONPATH=src, CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--out", out]
+    jobs = [cmd + ["--quant-cell", "--arch", "deepseek-v3-671b",
+                   "--quant-mesh", "1x2x256"],
+            cmd + ["--arch", "internlm2-1.8b", "--shape", "train_4k",
+                   "--mesh", "pod"]]
+    for arch, depths, calib in DRYRUN_WALKS:
+        jobs += [cmd + ["--quant-walk", "--arch", arch, "--layers", str(n),
+                        "--calib", calib] for n in depths]
+    return {"smoke": smoke,
+            "reckonings": [(j, subprocess.Popen(
+                j, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)) for j in jobs]}
+
+
+def storage_bytes(tree) -> int:
+    """Bytes of the distinct storages under a tree of tensors."""
+    import torch
+    seen = {}
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            seen[x.untyped_storage().data_ptr()] = \
+                x.untyped_storage().nbytes()
+        elif isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+        elif hasattr(x, "__dict__"):
+            for v in vars(x).values():
+                walk(v)
+    walk(tree)
+    return sum(seen.values())
+
+
+def measured_step(step, args) -> tuple:
+    """``step()`` eager on the card: ``(kernel launches, peak bytes)``, the
+    peak the arguments' bytes plus what the step allocated above what was
+    held before it."""
+    import torch
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    release_device()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_kernel_launches()
+    out = step()
+    torch.cuda.synchronize()
+    launches = ops.kernel_launches()
+    peak = torch.cuda.max_memory_allocated() - held + storage_bytes(args)
+    del out
+    return launches, peak
+
+
+def dryrun_against_step(label: str, cfg, shape, real_args, real_step,
+                        smi: str) -> dict:
+    """18c (1): one cell traced on fake CUDA tensors on a mesh of one
+    against the same step run eagerly on the card."""
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import ops
+    from repro_torch.launch import cost, dryrun
+    from repro_torch.launch.mesh import fake_world, make_host_mesh
+    launches, peak = measured_step(real_step, real_args)
+    before = ops.kernel_launches()
+    t = time.perf_counter()
+    with fake_world(1):
+        rules = shd.make_rules(dryrun._groups_ready(make_host_mesh()),
+                               cfg.parallel)
+        cc, _ = dryrun.trace_cell(cfg, shape, rules)
+    wall = time.perf_counter() - t
+    fake = {k: cc.kernels[k] for k in launches}
+    mem = cc.memory_analysis()
+    ratio = mem["peak_memory_in_bytes"] / peak
+    log(f"  18c {label}: eager step launches {json.dumps(launches)}; the "
+        f"fake pass called {json.dumps(fake)} (traced in {wall:.2f}s on "
+        f"fake {cost.fake_device()} tensors); peak: traced {mem['peak_memory_in_bytes']} "
+        f"bytes (arguments {mem['argument_size_in_bytes']}, temporaries "
+        f"{mem['temp_size_in_bytes']}) against measured {peak} "
+        f"(max_memory_allocated above what was held, plus the arguments): "
+        f"ratio {ratio:.4f} (bound {DRYRUN_PEAK_RATIO}) [{smi}]")
+    check(fake == launches, f"18c {label}: the fake pass calls each kernel "
+          "as often as the eager step launches it")
+    check(ops.kernel_launches() == before and not dist.is_initialized(),
+          f"18c {label}: the dry run launched nothing and left no group")
+    check(DRYRUN_PEAK_RATIO[0] <= ratio <= DRYRUN_PEAK_RATIO[1],
+          f"18c {label}: traced peak against measured")
+    return launches
+
+
+def phase_fault_and_dryrun(smi: str, out: str, procs: dict) -> dict:
+    """18 (module docstring): ``procs`` 18a's process and the dry run's
+    reckonings (writing into ``out``), started before phase 13
+    (``start_phase18_processes``). Returns the kernel launches of 18a's
+    children, 18b's soak and 18c's eager steps."""
+    import shutil
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.registry import ShapeSpec
+    from repro_torch.core.pipeline import pack_for_serving
+    from repro_torch.data import MarkovLM
+    from repro_torch.kernels import ops
+    from repro_torch.launch.specs import stand_in_dtypes
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import serve_step
+    from repro_torch.training import train_step as TS
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import torch_chaos_soak
+
+    launches = {k: 0 for k in KERNEL_SOURCES}
+    t0 = time.perf_counter()
+
+    # -- 18b: the chaos soak, seed 0, on the card
+    release_device()
+    t = time.perf_counter()
+    ops.reset_kernel_launches()
+    rc = torch_chaos_soak.main(["--seeds", "0", "--smoke", "--device",
+                                "cuda"])
+    soak = ops.kernel_launches()
+    log(f"  18b: {time.perf_counter() - t:.1f}s, launches "
+        f"{json.dumps(soak)}")
+    check(rc == 0, "18b: torch_chaos_soak found violations")
+    for name in ("hessian_accum", "gptq_block", "rpiq_block", "quant_pack"):
+        check(soak[name] > 0, f"18b: kernel {name} was not launched")
+    for k, v in soak.items():
+        launches[k] += v
+
+    # -- 18c (1): two cells this script runs, traced and measured
+    release_device()
+    cfg = get_config("opt-proxy")
+    mc = cfg.model
+    b, max_len = 4, 16 + 16 + 1
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    # the dry run's stand-in dtypes (launch/specs.py), packed
+    with torch.no_grad():
+        packed = pack_for_serving(cfg, stand_in_dtypes(
+            mc, T.init_params(mc, gen, "cuda")))
+    caches = T.init_caches(mc, b, max_len, "cuda", torch.bfloat16)
+    tok = torch.ones((b,), dtype=torch.long, device="cuda")
+    pos = torch.full((b,), 16, dtype=torch.long, device="cuda")
+
+    def decode():
+        with torch.no_grad():
+            return serve_step(cfg, packed, tok, pos, caches)
+    for k, v in dryrun_against_step(
+            "opt-proxy decode step (packed, 4 lanes, bf16 cache)", cfg,
+            ShapeSpec("phase5", "decode", max_len, b),
+            (packed, caches, tok, pos), decode, smi).items():
+        launches[k] += v
+    del packed, caches, decode
+
+    release_device()
+    cfg = get_config("internlm2-1.8b")
+    cfg.parallel.remat = "full"
+    cfg.train.lr, cfg.train.warmup_steps = 3e-4, 1
+    state = TS.init_train_state(cfg, torch.device("cuda"))
+    batch = MarkovLM(cfg.model.vocab_size, seed=0, branching=3).batch(4, 512)
+    batch = {k: v.cuda() for k, v in batch.items()}
+    step = TS.make_train_step(cfg)
+    dryrun_against_step("internlm2-1.8b train step (4 x 512, remat full, "
+                        "fp32 moments)", cfg,
+                        ShapeSpec("phase16b", "train", 512, 4),
+                        (state, batch), lambda: step(state, batch), smi)
+    del state, batch, step
+    release_device()
+
+    # -- 18a: kill and resume over process boundaries, int8 KV
+    smoke = procs["smoke"]
+    text, _ = smoke.communicate()
+    child = {}
+    for line in text.splitlines():
+        log(f"  {line}")
+        if "the children's kernel launches: " in line:
+            child = json.loads(line.split("launches: ", 1)[1])
+    log(f"  18a read {time.perf_counter() - t0:.1f}s into phase 18, the "
+        f"children's launches {json.dumps(child)} [{smi}]")
+    check(smoke.returncode == 0, "18a: torch_resume_smoke")
+    for name in ("hessian_accum", "gptq_block", "rpiq_block", "quant_pack",
+                 "w4a16_matmul", "int8_kv_attention"):
+        check(child.get(name, 0) > 0, f"18a: kernel {name} was not "
+              "launched by the launchers")
+        launches[name] += child[name]
+
+    # -- 18c (2) and (3): the reckonings started before phase 13
+    for cmd, p in procs["reckonings"]:
+        text, _ = p.communicate()
+        for line in text.splitlines():
+            if line.startswith("[dryrun]"):
+                log(f"  {line}")
+        check(p.returncode == 0, f"18c: {' '.join(cmd[2:])} failed:\n"
+              + text[-4000:])
+    log(f"  18c reckonings read {time.perf_counter() - t0:.1f}s into "
+        "phase 18")
+    card = torch.cuda.get_device_properties(0).total_memory
+    qc = json.load(open(os.path.join(
+        out, "deepseek-v3-671b__quant__1x2x256.json")))
+    tr = json.load(open(os.path.join(
+        out, "internlm2-1.8b__train_4k__16x16.json")))
+    for leg in ("capture", "stage1", "stage2", "serve"):
+        log(f"  18c deepseek-v3-671b quant cell on 1x2x256, {leg}: rank peak "
+            f"{qc[leg + '_memory_analysis']['peak_memory_in_bytes']} bytes, "
+            f"kernels {json.dumps(qc[leg + '_kernel_calls'])}, collectives "
+            f"{json.dumps(qc[leg + '_collectives']['counts'])}")
+    log(f"  18c internlm2-1.8b train_4k on 16x16: rank peak "
+        f"{tr['memory_analysis']['peak_memory_in_bytes']} bytes, "
+        f"{tr['per_device_flops']:.4e} FLOP, {tr['per_device_bytes']:.4e} "
+        f"bytes, collectives {json.dumps(tr['collectives']['counts'])}, "
+        f"dominant {tr['dominant']}")
+    check(qc["stage1_kernel_calls"]["gptq_block"] == 1
+          and qc["stage2_kernel_calls"]["rpiq_block"] == 1
+          and qc["serve_kernel_calls"]["w4a16_matmul"] > 0,
+          "18c: the quant cell's stages reach their kernels")
+    answer = []
+    for arch, depths, _ in DRYRUN_WALKS:
+        for n in depths:
+            art = json.load(open(os.path.join(
+                out, f"{arch}__quantwalk__{n}.json")))
+            peak = art["memory_analysis"]["peak_memory_in_bytes"]
+            want = DRYRUN_MEASURED.get((arch, n))
+            fits = peak <= card
+            vs = ""
+            if want is not None:
+                ratio = peak / want
+                vs = (f" against measured {want}: ratio {ratio:.4f} "
+                      f"(bound {DRYRUN_PEAK_RATIO})")
+                check(DRYRUN_PEAK_RATIO[0] <= ratio <= DRYRUN_PEAK_RATIO[1],
+                      f"18c: {arch} at {n} layers, traced peak against "
+                      "measured")
+            log(f"  18c {arch} quantization walk at {n} of "
+                f"{art['full_layers']} layers: traced peak {peak} bytes"
+                f"{vs}; the card holds {card}: "
+                f"{'fits' if fits else 'does not fit'}")
+            if n == art["full_layers"]:
+                answer.append(f"{arch} at all {n} layers "
+                              f"{'fits' if fits else 'does not fit'} "
+                              f"({peak} bytes)")
+    serve_fits = qc["serve_memory_analysis"]["peak_memory_in_bytes"] <= card
+    capture_fits = qc["capture_memory_analysis"]["peak_memory_in_bytes"] \
+        <= card
+    answer.append(f"deepseek-v3-671b's routed layer capture "
+                  f"{'fits' if capture_fits else 'does not fit'} one card "
+                  f"({qc['capture_memory_analysis']['peak_memory_in_bytes']}"
+                  f" bytes), its quantized serve step on 2x16x16 "
+                  f"{'fits' if serve_fits else 'does not fit'} a rank")
+    log(f"  queue 2 item 7 (quantization memory): {'; '.join(answer)}")
+    shutil.rmtree(out, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -5419,6 +5707,15 @@ def main() -> int:
         launches[name] += n
     log(f"  phase 12 took {time.perf_counter() - t:.1f}s")
 
+    # phase 18's own processes (18a's launchers, the dry run's host-only
+    # reckonings), started here to run beside phases 13 and 14, which keep
+    # the card busy and leave the host's cores free
+    dryrun_out = os.path.join(ROOT, "build", "phase18")
+    shutil.rmtree(dryrun_out, ignore_errors=True)
+    background = start_phase18_processes(dryrun_out)
+    log(f"  phase 18's processes started: 18a and "
+        f"{len(background['reckonings'])} dry-run reckonings")
+
     release_device()
     log(f"[13] the RG-LRU hybrid at full width: recurrentgemma-9b "
         f"({HYBRID_LAYERS} of 38 layers; bf16 and int8 rings, the wrap "
@@ -5467,6 +5764,16 @@ def main() -> int:
         launches[name] += n
     log(f"  phase 17 took {time.perf_counter() - t:.1f}s")
 
+    release_device()
+    log("[18] the fault plane's process-level checks (18a kill and resume "
+        "over process boundaries, 18b the chaos soak) and the shape-only "
+        "dry run held against this run (18c)")
+    t = time.perf_counter()
+    for name, n in phase_fault_and_dryrun(smi, dryrun_out,
+                                          background).items():
+        launches[name] += n
+    log(f"  phase 18 took {time.perf_counter() - t:.1f}s")
+
     log(f"  total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(table.json(launches)), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -5475,7 +5782,59 @@ def main() -> int:
     return 0
 
 
+def quantize_depth(arch: str = "recurrentgemma-9b",
+                   calib_shape=(4, 4, 512)) -> int:
+    """``python3 chip_smoke.py quantize-depth`` (not a phase: ~95 s of
+    quantization): ``quantize_model`` of ``arch`` at full width and all
+    its layers on phase 13's calibration, its wall and its peak above what
+    was held before its params were made, beside the same walk traced on
+    fake tensors (``launch/dryrun.quant_walk``): whether the dry run's
+    "fits" (18c) holds on the card."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipeline import quantize_model
+    from repro_torch.data import MarkovLM, calibration_batches
+    from repro_torch.kernels import build
+    from repro_torch.launch import dryrun
+    from repro_torch.models import transformer as T
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    build.build_all()
+    cfg = get_config(arch)
+    mc = cfg.model
+    cc, traced_s = dryrun.quant_walk(arch, mc.num_layers, calib_shape)
+    traced = cc.memory_analysis()["peak_memory_in_bytes"]
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = T.init_params(mc, gen, "cuda")
+    calib = calibration_batches(MarkovLM(mc.vocab_size, seed=7),
+                                *calib_shape)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, report = quantize_model(cfg, params, calib)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - held
+    card = torch.cuda.get_device_properties(0).total_memory
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    log(f"quantize {arch} at all {mc.num_layers} layers, calibration "
+        f"{'x'.join(map(str, calib_shape))}: quantize_model {wall:.3f} s "
+        f"({report.summary()}); peak above what was held {peak} bytes, "
+        f"the dry run traced {traced} bytes in {traced_s:.1f} s (traced / "
+        f"measured {traced / peak:.4f}); the card holds {card} bytes "
+        f"[{smi}]")
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["launcher-rank"]:
         sys.exit(launcher_rank(sys.argv[2:]))
+    if sys.argv[1:2] == ["quantize-depth"]:
+        sys.exit(quantize_depth())
     sys.exit(main())

@@ -144,6 +144,11 @@ class ModelConfig:
         pat = self.block_pattern
         return tuple(pat[i % len(pat)] for i in range(self.num_layers))
 
+    def is_subquadratic(self) -> bool:
+        """True if the arch decodes unbounded contexts on bounded state
+        (windowed attention, RG-LRU, Mamba), as in the JAX package."""
+        return set(self.layer_kinds) <= {"swa", "local", "rglru", "mamba"}
+
 
 @dataclass
 class QuantConfig:

@@ -9,8 +9,20 @@ embeddings), ``stablelm-1.6b`` (LayerNorm) and ``pixtral-12b``
 mixtures of experts ``olmoe-1b-7b`` and ``deepseek-v3-671b`` (multi-head
 latent attention, an MTP head) and the RG-LRU / local-attention hybrid
 ``recurrentgemma-9b``. An unknown id raises ``KeyError``.
+
+The assigned input-shape grid of the dry run (``launch/dryrun.py``), the
+twin of the JAX package's ``configs/registry.py:45-79``:
+
+  train_4k     seq 4096  x global_batch 256   → train step
+  prefill_32k  seq 32768 x global_batch 32    → prefill forward
+  decode_32k   cache 32768 x global_batch 128 → serve step (1 new token)
+  long_500k    cache 524288 x global_batch 1  → serve step; sub-quadratic
+               archs only (windowed attention, RG-LRU, Mamba)
 """
 from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List
 
 from repro_torch.config import Config
 from repro_torch.configs import (deepseek_v3_671b, falcon_mamba_7b,
@@ -37,3 +49,31 @@ def get_config(arch: str, smoke: bool = False) -> Config:
     cfg = mod.smoke() if smoke else mod.full()
     cfg.model.__post_init__()
     return cfg
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    kind: str          # "train" | "prefill" | "decode"
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeSpec("long_500k", "decode", 524288, 1),
+}
+
+
+def shape_names_for(arch: str) -> List[str]:
+    """The assigned shape cells of this arch (long_500k gated)."""
+    names = ["train_4k", "prefill_32k", "decode_32k"]
+    if get_config(arch).model.is_subquadratic():
+        names.append("long_500k")
+    return names
+
+
+def input_shapes(arch: str, shape: str) -> ShapeSpec:
+    return SHAPES[shape]

@@ -269,6 +269,45 @@ def _mine(gshard: Optional[QuantGroupSharding], t: Tensor,
     return t if gshard is None else gshard.local(t, kind)
 
 
+def _on_mesh(gshard: Optional[QuantGroupSharding]) -> Dict[str, Any]:
+    """The stages' mesh arguments: the single-device stage when no axis
+    is set; under a mesh their outputs stay this rank's blocks."""
+    if gshard is None:
+        return dict(mesh=None)
+    return dict(mesh=gshard.mesh, lane_axis=gshard.lane_axis,
+                row_axis=gshard.row_axis, gather=False)
+
+
+def stage1(qc: QuantConfig, w: Tensor, hd: Tensor,
+           gshard: Optional[QuantGroupSharding] = None) -> GPTQResult:
+    """Stage 1 of a group (the JAX package's ``_make_stage1``,
+    ``src/repro/core/plan.py:344``) on its damped Hessians ``hd``
+    (``hess.damped``): the factorization, then ``ops.gptq_block_sharded``
+    on this rank's (lane, row) block. w (L, out, in) whole; hd (L, in, in)
+    or this rank's lanes of it. No host read: the dry run traces it alone
+    at shard shapes."""
+    u = hess.cholesky_inverse_upper(hd)
+    return GPTQResult(*ops.gptq_block_sharded(
+        w, u, bits=qc.bits, group_size=qc.group_size,
+        symmetric=qc.symmetric, blocksize=qc.blocksize, **_on_mesh(gshard)))
+
+
+def stage2(qc: QuantConfig, res1: GPTQResult, w: Tensor, x: Tensor,
+           hd: Tensor, count: Tensor, x_count: Tensor,
+           gshard: Optional[QuantGroupSharding] = None) -> RPIQResult:
+    """Stage 2 of a group (the JAX package's ``_make_stage2``,
+    ``src/repro/core/plan.py:372``): the block curvature and
+    ``ops.rpiq_block_sharded`` from stage 1's (this rank's) outputs; x
+    (L, n, in), count / x_count (L,). No host read."""
+    return RPIQResult(*ops.rpiq_block_sharded(
+        res1.w_q, w, x, hd, res1.scales, res1.zeros, h_count=count,
+        x_count=x_count, bits=qc.bits, group_size=qc.group_size,
+        symmetric=qc.symmetric, block_size=qc.blocksize,
+        alpha=qc.rpiq_alpha, t_max=qc.rpiq_iters,
+        early_stop=qc.rpiq_early_stop,
+        exact_gram=not qc.rpiq_use_global_hessian, **_on_mesh(gshard)))
+
+
 def _execute_group(qc: QuantConfig, group: QuantGroup, report: QuantReport,
                    rpiq_enabled: bool, sync: bool = True,
                    deferred: Optional[List[Callable[[], None]]] = None,
@@ -295,16 +334,6 @@ def _execute_group(qc: QuantConfig, group: QuantGroup, report: QuantReport,
     starved = np.concatenate([m.starved_mask() for m in ms])
     qkw = dict(bits=qc.bits, group_size=qc.group_size,
                symmetric=qc.symmetric)
-    # both stages' twins run the single-device stage when no axis is set;
-    # under a mesh their outputs stay this rank's blocks until the end
-    on_mesh = (dict(mesh=None) if gshard is None else
-               dict(mesh=gshard.mesh, lane_axis=gshard.lane_axis,
-                    row_axis=gshard.row_axis, gather=False))
-
-    def stage1(hd: Tensor) -> GPTQResult:
-        u = hess.cholesky_inverse_upper(hd)
-        return GPTQResult(*ops.gptq_block_sharded(
-            w, u, blocksize=qc.blocksize, **on_mesh, **qkw))
 
     def rtn_lanes() -> GPTQResult:
         return rtn_quantize_batched(w, **qkw)
@@ -317,7 +346,7 @@ def _execute_group(qc: QuantConfig, group: QuantGroup, report: QuantReport,
     # diagonal, kept here
     diag = torch.diagonal(H, dim1=-2, dim2=-1).clone()
     del H
-    res1 = stage1(hd)
+    res1 = stage1(qc, w, hd, gshard)
     rtn = rtn_lanes() if starved.any() else None
     guarded = np.zeros(w.shape[0], bool)
     bad0 = bad = ~_finite_lanes(res1, gshard) if qc.guardrail else guarded
@@ -332,7 +361,7 @@ def _execute_group(qc: QuantConfig, group: QuantGroup, report: QuantReport,
         torch.diagonal(gram, dim1=-2, dim2=-1).copy_(diag)
         hd = hess.damped(hess.HessianState(gram, count), damp)
         del gram
-        res1 = stage1(hd)
+        res1 = stage1(qc, w, hd, gshard)
         bad = ~_finite_lanes(res1, gshard)
     if bad0.any():
         gs = _guardrail_stats(report)
@@ -365,11 +394,7 @@ def _execute_group(qc: QuantConfig, group: QuantGroup, report: QuantReport,
         x = torch.cat([_as3d(m.x_last.float()) for m in ms])
         xc = torch.cat([_lane_x_counts(m) for m in ms])
         faults.fire("plan.stage2_executor")
-        res2 = RPIQResult(*ops.rpiq_block_sharded(
-            res1.w_q, w, x, hd, res1.scales, res1.zeros, h_count=count,
-            x_count=xc, block_size=qc.blocksize, alpha=qc.rpiq_alpha,
-            t_max=qc.rpiq_iters, early_stop=qc.rpiq_early_stop,
-            exact_gram=not qc.rpiq_use_global_hessian, **on_mesh, **qkw))
+        res2 = stage2(qc, res1, w, x, hd, count, xc, gshard)
         del x
         _sync(res2.w_q, sync)
         report.seconds_stage2 += time.perf_counter() - t1

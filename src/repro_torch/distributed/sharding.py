@@ -15,8 +15,12 @@ parallel axes ``("pod", "data")``) gets a group of its own, built by
 :func:`~repro_torch.launch.mesh.make_host_mesh` on every rank in the same
 order. With the gloo backend a CUDA tensor crosses processes through a
 host copy (ranks that share one card run on gloo, which takes CPU
-tensors); with NCCL it stays on its card. :func:`comm_bytes` counts what
-this rank hands to the collectives.
+tensors); with NCCL it stays on its card; on the ``fake`` backend of the
+shape-only dry run (``launch/mesh.fake_world``) it stays where it is.
+:func:`comm_bytes` counts what this rank hands to the collectives, and
+:func:`comm_by_kind` the same by kind, with the calls. A collective of
+fake tensors is counted and makes its outputs' shapes, and calls no
+backend (its values are none).
 
 Training is explicit data parallelism (``training/train_step.
 make_sharded_train_step``): each rank runs the single-device loss on its
@@ -50,6 +54,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+from torch._subclasses.fake_tensor import FakeTensor
 
 Tensor = torch.Tensor
 
@@ -155,11 +160,15 @@ def axis_group(mesh, axis) -> AxisGroup:
     return ag
 
 
-def _comm_device(group) -> torch.device:
+def _comm_device(group, like: Optional[Tensor] = None) -> torch.device:
     """Where a collective reads its tensors: the host for gloo (ranks
-    sharing a card, or the CPU), the rank's card for NCCL."""
-    if dist.get_backend(group) == "gloo":
+    sharing a card, or the CPU), the rank's card for NCCL, on the fake
+    backend ``like``'s own device (the host for none)."""
+    backend = dist.get_backend(group)
+    if backend == "gloo" or (backend == "fake" and like is None):
         return torch.device("cpu")
+    if backend == "fake":
+        return like.device
     return torch.device("cuda", torch.cuda.current_device())
 
 
@@ -172,8 +181,27 @@ def _wire(t: Tensor) -> Tensor:
     return t.view(torch.uint8) if t.dtype == torch.bool else t
 
 
-# bytes this process handed to the collectives below (each input once)
+# bytes this process handed to the collectives below (each input once),
+# and by kind (the JAX dry run's names where one carries over) the calls,
+# those bytes and a ring's estimate of the bytes a rank's links carry
 _COMM_BYTES = [0]
+_COMM_KINDS: Dict[str, List[float]] = {}
+
+
+def _count(kind: str, t: Tensor, ranks: int) -> None:
+    """Count a collective of ``t`` over ``ranks`` ranks. A rank's link
+    bytes, as the JAX dry run reckons a ring: all-gather S·(g−1),
+    all-reduce 2·S·(g−1)/g, broadcast S·(g−1)/g, a point-to-point send
+    S."""
+    n = t.numel() * t.element_size()
+    _COMM_BYTES[0] += n
+    g = max(1, ranks)
+    link = {"all-gather": n * (g - 1), "all-reduce": 2 * n * (g - 1) / g,
+            "broadcast": n * (g - 1) / g}.get(kind, n)
+    c = _COMM_KINDS.setdefault(kind, [0, 0, 0.0])
+    c[0] += 1
+    c[1] += n
+    c[2] += link
 
 
 def comm_bytes() -> int:
@@ -182,17 +210,27 @@ def comm_bytes() -> int:
     return _COMM_BYTES[0]
 
 
+def comm_by_kind() -> Dict[str, Dict[str, float]]:
+    """``{kind: {"count", "bytes", "link_bytes"}}`` since the last reset:
+    ``all-reduce`` (:func:`psum`), ``all-gather`` (:func:`all_gather_cat`),
+    ``broadcast`` (:func:`broadcast_tree`), ``collective-permute``
+    (:func:`send_recv`); ``link_bytes`` a ring's estimate (``_count``)."""
+    return {k: {"count": int(c), "bytes": int(n), "link_bytes": link}
+            for k, (c, n, link) in _COMM_KINDS.items()}
+
+
 def reset_comm_bytes() -> None:
     _COMM_BYTES[0] = 0
+    _COMM_KINDS.clear()
 
 
 def psum(t: Tensor, group) -> Tensor:
     """The sum of ``t`` over ``group``'s ranks (a new tensor, the same on
     every rank of the group)."""
-    dev = _comm_device(group)
-    buf = t.to(dev, copy=True)
-    _COMM_BYTES[0] += buf.numel() * buf.element_size()
-    dist.all_reduce(buf, group=group)
+    buf = t.to(_comm_device(group, t), copy=True)
+    _count("all-reduce", buf, dist.get_world_size(group))
+    if not isinstance(buf, FakeTensor):
+        dist.all_reduce(buf, group=group)
     return buf.to(t.device)
 
 
@@ -237,11 +275,11 @@ def psum_local_grad(x: Tensor, group) -> Tensor:
 def all_gather_cat(t: Tensor, dim: int, ag: AxisGroup) -> Tensor:
     """The ranks' blocks of ``ag`` concatenated along ``dim`` in shard
     order, on every rank."""
-    dev = _comm_device(ag.group)
-    src = t.contiguous().to(dev)
-    _COMM_BYTES[0] += src.numel() * src.element_size()
+    src = t.contiguous().to(_comm_device(ag.group, t))
+    _count("all-gather", src, ag.size)
     parts = [torch.empty_like(src) for _ in range(ag.size)]
-    dist.all_gather(parts, src, group=ag.group)
+    if not isinstance(src, FakeTensor):
+        dist.all_gather(parts, src, group=ag.group)
     by_shard = [None] * ag.size
     for part, shard in zip(parts, ag.order):
         by_shard[shard] = part
@@ -261,17 +299,17 @@ def send_recv(t: Optional[Tensor], dst: Optional[int], like: Tensor,
     """Send ``t`` to global rank ``dst`` while receiving a tensor shaped
     like ``like`` from global rank ``src`` (either side may be None);
     returns what was received, on ``like``'s device, or None."""
-    dev = _comm_device(group)
+    dev = _comm_device(group, like)
     ops: List[dist.P2POp] = []
     if dst is not None:
         buf = t.to(dev, copy=True).contiguous()
-        _COMM_BYTES[0] += buf.numel() * buf.element_size()
+        _count("collective-permute", buf, 2)
         ops.append(dist.P2POp(dist.isend, buf, dst, group))
     got = None
     if src is not None:
         got = torch.empty(like.shape, dtype=like.dtype, device=dev)
         ops.append(dist.P2POp(dist.irecv, got, src, group))
-    if ops:
+    if ops and not isinstance(like, FakeTensor):
         for req in dist.batch_isend_irecv(ops):
             req.wait()
     return None if got is None else got.to(like.device)
@@ -286,9 +324,10 @@ def broadcast_tree(tree, src: int = 0):
         return type(tree)(broadcast_tree(v, src) for v in tree)
     if not isinstance(tree, Tensor):
         return tree
-    buf = tree.to(_comm_device(None), copy=True).contiguous()
-    _COMM_BYTES[0] += buf.numel() * buf.element_size()
-    dist.broadcast(_wire(buf), src=src)
+    buf = tree.to(_comm_device(None, tree), copy=True).contiguous()
+    _count("broadcast", buf, dist.get_world_size())
+    if not isinstance(buf, FakeTensor):
+        dist.broadcast(_wire(buf), src=src)
     return buf.to(tree.device)
 
 

@@ -24,18 +24,31 @@ raises on either device (on the CPU the plain version stands in for the
 kernel) and reaches the caller: there is no degraded route to retry on.
 The site is host code, so it fires at an eager or a capturing call and
 never inside a graph replay.
+
+A fake tensor (``torch._subclasses.fake_tensor``, the shape-only dry run
+of ``launch/dryrun.py``) takes each ``*_cuda`` wrapper as far as its
+kernel, on whatever device it claims (a torch built without CUDA cannot
+run a fake CUDA tensor's in-place copies, so the dry run fakes CPU tensors
+there): the same refusals, after the same padding, then, where the kernel
+would be built and launched, empty outputs of the kernel's shapes and
+dtypes. Such a call is counted apart (:func:`fake_calls`, with
+its work from :mod:`repro_torch.kernels.work` in :func:`fake_log`), never
+in the launch counters, and never reaches ``build.load``. The kernels'
+alignment checks read no address of a fake tensor.
 """
 from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.config import not_ported
 from repro_torch.core import faults
 from repro_torch.kernels import build, ref
+from repro_torch.kernels import work as kwork
 
 Tensor = torch.Tensor
 
@@ -53,6 +66,39 @@ def kernel_launches() -> Dict[str, int]:
 def reset_kernel_launches() -> None:
     for k in _LAUNCHES:
         _LAUNCHES[k] = 0
+
+
+# the wrappers' calls on fake tensors (the dry run), with their shapes and
+# work, kept apart from the launch counters
+_FAKE_CALLS: Dict[str, int] = dict.fromkeys(_LAUNCHES, 0)
+_FAKE_LOG: List[Tuple[str, tuple, kwork.Work]] = []
+
+
+def fake_calls() -> Dict[str, int]:
+    """Copy of the per-kernel counts of calls on fake tensors."""
+    return dict(_FAKE_CALLS)
+
+
+def fake_log() -> List[Tuple[str, tuple, kwork.Work]]:
+    """``(kernel, shapes, work)`` of every call on fake tensors, in order:
+    the shapes the kernel would have run at (after the wrapper's padding)."""
+    return list(_FAKE_LOG)
+
+
+def reset_fake_calls() -> None:
+    for k in _FAKE_CALLS:
+        _FAKE_CALLS[k] = 0
+    _FAKE_LOG.clear()
+
+
+def _fake(op: str, shapes: tuple, w: kwork.Work) -> None:
+    _FAKE_CALLS[op] += 1
+    _FAKE_LOG.append((op, shapes, w))
+
+
+def _aligned(t: Tensor, n: int = 16) -> bool:
+    """Whether t's data is n-byte aligned; a fake tensor has no address."""
+    return isinstance(t, FakeTensor) or t.data_ptr() % n == 0
 
 
 def _add_launches(counts: Dict[str, int], times: int) -> None:
@@ -114,7 +160,7 @@ def _check_cuda(op: str, *tensors: Tensor) -> None:
     # on the decode path every call passes here: no message is formatted
     # unless a check fails
     for t in tensors:
-        if not t.is_cuda:
+        if not (t.is_cuda or isinstance(t, FakeTensor)):
             raise ValueError(f"{op}: expected CUDA tensors, got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{op}: expected contiguous tensors")
@@ -140,6 +186,8 @@ def _stream() -> int:
 
 
 def _is_plain(t: Tensor, op: str) -> bool:
+    if isinstance(t, FakeTensor):
+        return False            # the kernel's fake branch (module docstring)
     if t.device.type == "cpu":
         return True
     _require(t.device.type == "cuda", op, f"unsupported device {t.device}")
@@ -180,6 +228,9 @@ def hessian_accum_cuda(x: Tensor, H: Tensor) -> Tensor:
              "x and H must be float32")
     n, d = x.shape
     _require(H.shape == (d, d), op, f"H {tuple(H.shape)} != ({d}, {d})")
+    if isinstance(x, FakeTensor):
+        _fake(op, (n, d), kwork.hessian_accum(n, d))
+        return H
     lib = build.load(op)
     _launch(op, lib.hessian_accum_launch, x.data_ptr(), H.data_ptr(), n, d,
             hessian_accum_geometry(n, d), _stream())
@@ -266,7 +317,7 @@ def w4a16_matmul_cuda(x: Tensor, packed: Tensor, scales: Tensor,
             and kh * 2 == k and k % 32 == 0 and group_size > 0
             and group_size % 2 == 0 and k % group_size == 0
             and scales.shape == zeros.shape == (n, k // group_size)
-            and packed.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0):
+            and _aligned(packed) and _aligned(x)):
         raise ValueError(
             f"{op}: x {tuple(x.shape)} {x.dtype}, packed "
             f"{tuple(packed.shape)} {packed.dtype}, scales "
@@ -277,8 +328,14 @@ def w4a16_matmul_cuda(x: Tensor, packed: Tensor, scales: Tensor,
             "zeros (n, k/group_size), an even group_size dividing k, and x "
             "and packed 16-byte aligned (16-byte loads)")
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    lib = build.load(op)
+    fake = isinstance(x, FakeTensor)
+    if fake:
+        _fake(op, (m, n, k, group_size),
+              kwork.w4a16_matmul(m, n, k, group_size, x.element_size()))
+    lib = None if fake else build.load(op)
     if x.dtype == torch.float32 or not w4a16_tensor_core_group(group_size):
+        if fake:
+            return y
         fn = (lib.w4a16_matmul_f32_launch if x.dtype == torch.float32
               else lib.w4a16_matmul_bf16_cc_launch)
         _launch(op, fn, x.data_ptr(), packed.data_ptr(), scales.data_ptr(),
@@ -289,6 +346,8 @@ def w4a16_matmul_cuda(x: Tensor, packed: Tensor, scales: Tensor,
                                                           group_size)
     part = (torch.empty((splits, m, n), dtype=torch.float32,
                         device=x.device) if splits > 1 else None)
+    if fake:
+        return y
     _launch(op, lib.w4a16_matmul_bf16_launch, x.data_ptr(),
             packed.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
             y.data_ptr(), 0 if part is None else part.data_ptr(), m, n, k,
@@ -349,9 +408,10 @@ def gptq_block_cuda(w: Tensor, hinv_u: Tensor, *, bits: int, group_size: int,
              and blocksize % group_size == 0, op,
              f"in={in_dim}, blocksize={blocksize}, group_size={group_size} "
              "are not aligned")
-    _require(w.data_ptr() % 16 == 0 and hinv_u.data_ptr() % 16 == 0, op,
+    _require(_aligned(w) and _aligned(hinv_u), op,
              "w and hinv_u must be 16-byte aligned (16-byte copies)")
-    lib = build.load(op)
+    fake = isinstance(w, FakeTensor)
+    lib = None if fake else build.load(op)
     w_q = w.clone()
     scales = torch.empty((b, out_dim, in_dim // group_size),
                          dtype=torch.float32, device=w.device)
@@ -362,6 +422,10 @@ def gptq_block_cuda(w: Tensor, hinv_u: Tensor, *, bits: int, group_size: int,
     ld_e = _round_up(out_dim, 128)
     errt = torch.empty((b, blocksize, ld_e), dtype=torch.float32,
                        device=w.device)
+    if fake:
+        _fake(op, (b, out_dim, in_dim, group_size, blocksize),
+              kwork.gptq_block(b, out_dim, in_dim, group_size, blocksize))
+        return w_q, scales, zeros, err_rows
     _launch(op, lib.gptq_block_launch, w_q.data_ptr(), hinv_u.data_ptr(),
             scales.data_ptr(), zeros.data_ptr(), err_rows.data_ptr(),
             errt.data_ptr(), b, out_dim, in_dim, ld_e, bits, group_size,
@@ -404,6 +468,8 @@ def gptq_block(w: Tensor, hinv_u: Tensor, *, bits: int = 4,
 # output rows per rpiq_block block; ops.rpiq_block pads the row count to a
 # multiple of it
 RPIQ_ROWS = 32
+# the wide path's square product tile (rpiq_block.cu's WT)
+RPIQ_WIDE_TILE = 64
 
 
 def rpiq_block_geometry(b: int, out_dim: int, n: int) -> int:
@@ -452,7 +518,7 @@ def rpiq_block_cuda(w0: Tensor, y_orig: Tensor, x: Tensor, hinv_flat: Tensor,
     _check_cuda(op, *args)
     _require(all(a.dtype == torch.float32 for a in args), op,
              "all inputs must be float32")
-    _require(all(a.data_ptr() % 16 == 0 for a in args), op,
+    _require(all(_aligned(a) for a in args), op,
              "inputs must be 16-byte aligned (16-byte copies)")
     b, out_dim, in_dim = w0.shape
     n = x.shape[1]
@@ -463,18 +529,26 @@ def rpiq_block_cuda(w0: Tensor, y_orig: Tensor, x: Tensor, hinv_flat: Tensor,
     _require(block_size >= 1 and in_dim % block_size == 0 and n >= 1, op,
              f"block_size {block_size} must divide in={in_dim}, and n={n} "
              ">= 1")
-    lib = build.load(op)
     dev = w0.device
     w_cont = torch.empty_like(w0)
     wp_all = torch.empty((b, t_max + 1, out_dim, in_dim), dtype=torch.float32,
                          device=dev)
     y_q = torch.empty((b, n, out_dim), dtype=torch.float32, device=dev)
-    outs = (w_cont.data_ptr(), wp_all.data_ptr(), y_q.data_ptr())
+    fake = isinstance(w0, FakeTensor)
     wide = block_size % 4 != 0 or block_size > 128
     # Γ and the projected loss, summed in fp64 per row tile (per product
-    # tile on the wide path)
-    parts = (lib.rpiq_block_wide_partials(n, out_dim) if wide
-             else out_dim // rows)
+    # tile on the wide path: rpiq_block.cu's WT-square tiles, which the
+    # library reports and a fake call reckons)
+    if fake:
+        _fake(op, (b, out_dim, in_dim, n, block_size, t_max),
+              kwork.rpiq_block(b, out_dim, in_dim, n, block_size, t_max))
+        lib = None
+        parts = (-(-n // RPIQ_WIDE_TILE) * -(-out_dim // RPIQ_WIDE_TILE)
+                 if wide else out_dim // rows)
+    else:
+        lib = build.load(op)
+        parts = (lib.rpiq_block_wide_partials(n, out_dim) if wide
+                 else out_dim // rows)
     hist = torch.empty((b, parts, t_max + 1), dtype=torch.float64,
                        device=dev)
     pls = torch.empty_like(hist)
@@ -482,25 +556,31 @@ def rpiq_block_cuda(w0: Tensor, y_orig: Tensor, x: Tensor, hinv_flat: Tensor,
         d = torch.empty((b, n, out_dim), dtype=torch.float32, device=dev)
         rhs = torch.empty((b, block_size, out_dim), dtype=torch.float32,
                           device=dev)
-        _launch(op, lib.rpiq_block_wide_launch,
-                *(a.data_ptr() for a in args), *outs, hist.data_ptr(),
-                pls.data_ptr(), d.data_ptr(), rhs.data_ptr(), b, out_dim,
-                in_dim, n, block_size, t_max, float(alpha), bits,
-                int(symmetric), _stream())
+        if not fake:
+            _launch(op, lib.rpiq_block_wide_launch,
+                    *(a.data_ptr() for a in args), w_cont.data_ptr(),
+                    wp_all.data_ptr(), y_q.data_ptr(), hist.data_ptr(),
+                    pls.data_ptr(), d.data_ptr(), rhs.data_ptr(), b,
+                    out_dim, in_dim, n, block_size, t_max, float(alpha),
+                    bits, int(symmetric), _stream())
     else:
-        in_smem = lib.rpiq_block_yq_in_smem(n, block_size, rows, split)
-        _require(in_smem >= 0, op, f"rows={rows}, split={split}, "
-                 f"block_size={block_size}: "
-                 + ("querying the card's shared memory failed"
-                    if in_smem == -1
-                    else "a launch geometry the kernel does not take"))
+        if not fake:
+            in_smem = lib.rpiq_block_yq_in_smem(n, block_size, rows, split)
+            _require(in_smem >= 0, op, f"rows={rows}, split={split}, "
+                     f"block_size={block_size}: "
+                     + ("querying the card's shared memory failed"
+                        if in_smem == -1
+                        else "a launch geometry the kernel does not take"))
         # a cluster's blocks share their directed residuals through here
         dbuf = torch.empty((b, parts, n, rows) if split > 1 else (0,),
                            dtype=torch.float32, device=dev)
-        _launch(op, lib.rpiq_block_launch, *(a.data_ptr() for a in args),
-                *outs, hist.data_ptr(), pls.data_ptr(), dbuf.data_ptr(), b,
-                out_dim, in_dim, n, block_size, t_max, float(alpha), bits,
-                int(symmetric), rows, split, _stream())
+        if not fake:
+            _launch(op, lib.rpiq_block_launch,
+                    *(a.data_ptr() for a in args), w_cont.data_ptr(),
+                    wp_all.data_ptr(), y_q.data_ptr(), hist.data_ptr(),
+                    pls.data_ptr(), dbuf.data_ptr(), b, out_dim, in_dim, n,
+                    block_size, t_max, float(alpha), bits, int(symmetric),
+                    rows, split, _stream())
     hist, pls = hist.sum(dim=1), pls.sum(dim=1)
     if not raw64:
         hist, pls = hist.float(), pls.float()
@@ -780,8 +860,8 @@ def int8_kv_attention_cuda(q: Tensor, k_codes: Tensor, k_scales: Tensor,
                  and kpos.shape == (b, s))
     if not (ok_types and ok_shapes and kv_block and hd % kv_block == 0
             and kv_block % 4 == 0 and 1 <= r <= KV_MAX_R and hd % 4 == 0
-            and hd <= 256 and nb <= 8 and k_codes.data_ptr() % align == 0
-            and v_codes.data_ptr() % align == 0 and softcap >= 0):
+            and hd <= 256 and nb <= 8 and _aligned(k_codes, align)
+            and _aligned(v_codes, align) and softcap >= 0):
         raise ValueError(
             f"{op}: q {tuple(q.shape)}, codes {tuple(k_codes.shape)} / "
             f"{tuple(v_codes.shape)} {k_codes.dtype} / {v_codes.dtype}, "
@@ -802,6 +882,13 @@ def int8_kv_attention_cuda(q: Tensor, k_codes: Tensor, k_scales: Tensor,
     # own source, whose launch takes no R), a group under 16 padded with
     # zero rows whose outputs are dropped
     rk = r if r <= 8 else KV_MAX_R
+    if isinstance(q, FakeTensor):
+        _fake(op, (b, kv, r, hd, s, kv_block),
+              kwork.int8_kv_attention(b, kv, rk, hd, s, nb,
+                                     q_bytes=q.element_size()))
+        q = torch.nn.functional.pad(q, (0, 0, 0, rk - r))
+        out = torch.empty_like(q)
+        return out[:, :, :r] if rk != r else out
     if rk == KV_MAX_R:
         fn = getattr(build.load("int8_kv_attention_r16"),
                      f"int8_kv_attention_r16_{suffix}_launch")
@@ -849,7 +936,7 @@ def quant_pack_cuda(w: Tensor, scales: Tensor, zeros: Tensor,
     op = "quant_pack"
     _check_cuda(op, w, scales, zeros)
     n, k = w.shape
-    _require(k % 8 == 0 and w.data_ptr() % 16 == 0, op,
+    _require(k % 8 == 0 and _aligned(w), op,
              f"k={k} must be a multiple of 8 and w 16-byte aligned "
              "(16-byte loads of 8 columns)")
     _require(n * (k // 8) < 2 ** 31, op, "the kernel indexes n * k / 8 "
@@ -861,6 +948,12 @@ def quant_pack_cuda(w: Tensor, scales: Tensor, zeros: Tensor,
     _require(scales.shape == (n, k // group_size) == zeros.shape, op,
              "scales/zeros must be (n, k/group_size)")
     out = torch.empty((n, k // 2), dtype=torch.uint8, device=w.device)
+    if isinstance(w, FakeTensor):
+        _require(w.dtype in (torch.float32, torch.bfloat16), op,
+                 f"w dtype {w.dtype} not supported")
+        _fake(op, (n, k, group_size),
+              kwork.quant_pack(n, k, group_size, w.element_size()))
+        return out
     lib = build.load(op)
     if w.dtype == torch.float32:
         fn = lib.quant_pack_f32_launch
@@ -887,6 +980,12 @@ def quant_pack(w: Tensor, scales: Tensor, zeros: Tensor, *,
 # Mamba-1 selective scan
 # ---------------------------------------------------------------------------
 
+# selective_scan.cu's channels a block (BD) and states a channel (NMAX):
+# the built library reports them; a fake call reads them here
+SCAN_CHANNELS_PER_BLOCK = 64
+SCAN_MAX_STATE = 16
+
+
 def selective_scan_cuda(u: Tensor, dt: Tensor, bm: Tensor, cm: Tensor,
                         a_log: Tensor, d_skip: Tensor, h0: Tensor
                         ) -> Tuple[Tensor, Tensor]:
@@ -906,14 +1005,24 @@ def selective_scan_cuda(u: Tensor, dt: Tensor, bm: Tensor, cm: Tensor,
     _require(a_log.shape == (d, n) and d_skip.shape == (d,)
              and h0.shape == (b, d, n), op,
              f"a_log must be ({d}, {n}), d_skip ({d},), h0 ({b}, {d}, {n})")
-    lib = build.load(op)
-    tile = lib.selective_scan_channels_per_block()
-    n_max = lib.selective_scan_max_state()
+    fake = isinstance(u, FakeTensor)
+    lib = None if fake else build.load(op)
+    # a fake call reads the kernel's tile and state limit from its source's
+    # constants, which the built library reports
+    tile = (SCAN_CHANNELS_PER_BLOCK if fake
+            else lib.selective_scan_channels_per_block())
+    n_max = SCAN_MAX_STATE if fake else lib.selective_scan_max_state()
     _require(b >= 1 and s >= 1 and d % tile == 0 and 1 <= n <= n_max, op,
              f"B={b}, S={s}, d={d}, n={n}: the kernel takes B, S >= 1, d "
              f"a multiple of {tile} and n <= {n_max}")
-    _require(u.data_ptr() % 16 == 0 and dt.data_ptr() % 16 == 0, op,
+    _require(_aligned(u) and _aligned(dt), op,
              "u and dt must be 16-byte aligned (16-byte copies)")
+    if fake:
+        _require(u.dtype in (torch.float32, torch.bfloat16), op,
+                 f"u dtype {u.dtype} not supported")
+        _fake(op, (b, s, d, n),
+              kwork.selective_scan(b, s, d, n, u.element_size()))
+        return torch.empty_like(u), torch.empty_like(h0)
     if u.dtype == torch.float32:
         fn = lib.selective_scan_f32_launch
     elif u.dtype == torch.bfloat16:

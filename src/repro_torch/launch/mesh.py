@@ -1,9 +1,10 @@
 """Meshes of ranks: :func:`make_host_mesh` (sharded training's
-``launch.train --mesh d,m``) and the ``quant.mesh`` knob → a
-``DeviceMesh`` for sharded group execution (:func:`make_quant_mesh`).
+``launch.train --mesh d,m``), the ``quant.mesh`` knob → a ``DeviceMesh``
+for sharded group execution (:func:`make_quant_mesh`), and the production
+meshes of the shape-only dry run (:func:`make_production_mesh` inside
+:func:`fake_world`).
 
-The twin of the JAX package's ``launch/mesh.py`` (``make_production_mesh``
-is not ported: ROADMAP.md queue 1 item 19). The JAX package's
+The twin of the JAX package's ``launch/mesh.py``. The JAX package's
 mesh is devices of one process; the port's is ranks, one process each,
 on ``torch.distributed``:
 
@@ -16,7 +17,11 @@ on ``torch.distributed``:
 - a caller that set up its own group (a test's ``file://`` rendezvous)
   keeps it;
 - each rank's card is ``cuda:{LOCAL_RANK % device_count}``
-  (``device.resolve_device``).
+  (``device.resolve_device``);
+- the dry run (``launch/dryrun.py``) stands in for one rank of a 256- or
+  512-rank world: :func:`fake_world` opens a process group on the
+  ``fake`` backend (its collectives move nothing) and destroys it on
+  exit.
 
     python -m torch.distributed.run --standalone --nproc-per-node 4 \\
         -m repro_torch.launch.quantize --arch opt-proxy --smoke \\
@@ -24,8 +29,9 @@ on ``torch.distributed``:
 """
 from __future__ import annotations
 
+import contextlib
 import os
-from typing import Optional, Union
+from typing import Iterator, Optional, Union
 
 import torch
 import torch.distributed as dist
@@ -102,6 +108,38 @@ def make_host_mesh(data: int = 1, model: int = 1, pod: int = 1,
     if pod > 1:
         sharding.build_axis_groups(mesh, ("pod", "data"))
     return mesh
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The JAX package's production meshes (``src/repro/launch/mesh.py:23``)
+    as ranks: 16 x 16 over ``("data", "model")``, or with ``multi_pod``
+    2 x 16 x 16 over ``("pod", "data", "model")``. The world must hold 256
+    or 512 ranks (:func:`fake_world` for the dry run)."""
+    if multi_pod:
+        return make_host_mesh(pod=2, data=16, model=16)
+    return make_host_mesh(data=16, model=16)
+
+
+@contextlib.contextmanager
+def fake_world(world: int) -> Iterator[None]:
+    """A process group of ``world`` ranks on torch's ``fake`` backend, this
+    process its rank 0, for the shape-only dry run: collectives return at
+    once and move nothing. The group and every axis group made under it
+    are destroyed on exit, so nothing is left behind for a later group in
+    the process (a test worker's next module). Refuses to run inside a
+    live process group."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("fake_world: a process group is already running")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+    before = set(sharding._AXIS_GROUPS)
+    try:
+        yield
+    finally:
+        for key in set(sharding._AXIS_GROUPS) - before:
+            del sharding._AXIS_GROUPS[key]
+        dist.destroy_process_group()
 
 
 def make_quant_mesh(spec: str = "off",

@@ -45,6 +45,9 @@ alone prints the walk and writes the artifact, the report and the step
 checkpoints. On one card the ranks share it over gloo.
 
 Runs on the CUDA card; ``--device cpu`` runs the kernels' plain versions.
+Before the write it prints this process's kernel launches (``[quantize]
+kernel launches: {...}``, ``ops.kernel_launches``; zero on the CPU), so
+that a caller in another process can see its kernels ran.
 """
 from __future__ import annotations
 
@@ -66,6 +69,7 @@ from repro_torch.device import resolve_device
 from repro_torch.distributed.checkpoint import (Checkpointer, restore_like,
                                                 save_artifact, tree_digest,
                                                 tree_from_paths, tree_paths)
+from repro_torch.kernels import ops
 from repro_torch.launch.mesh import (init_from_env, make_quant_mesh,
                                      mesh_sizes, rank)
 from repro_torch.models import transformer as T
@@ -168,6 +172,7 @@ def main(argv=None):
                                f"sha256 {digests}")
         say(f"[quantize] {len(digests)} ranks' packed artifacts bitwise "
             f"equal (sha256 {digests[0]})")
+    say(f"[quantize] kernel launches: {json.dumps(ops.kernel_launches())}")
     path = os.path.join(args.out, f"{mc.name}.params.pkl")
     if rank() == 0:
         _write(args.out, mc.name, report, packed)

@@ -32,10 +32,13 @@ the integrity check at each rebuild. ``faults.arm=<site@trigger[:mode],
 ``faults.arm=serve.engine_step@3``.
 
 Runs on the CUDA card; ``--device cpu`` runs the kernels' plain versions.
+The last line is this process's kernel launches (``[serve] kernel
+launches: {...}``, ``ops.kernel_launches``; zero on the CPU).
 """
 from __future__ import annotations
 
 import argparse
+import json
 import time
 
 import torch
@@ -48,6 +51,7 @@ from repro_torch.core.pipeline import pack_for_serving
 from repro_torch.data import MarkovLM
 from repro_torch.device import resolve_device
 from repro_torch.distributed.checkpoint import load_artifact
+from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
 from repro_torch.serving.engine import generate
 from repro_torch.serving.scheduler import ContinuousEngine
@@ -145,6 +149,7 @@ def main(argv=None):
           f"({toks / dt:.1f} tok/s incl. kernel build and graph capture)")
     for i in range(min(args.batch, 4)):
         print(f"  seq{i}: {list(map(int, seqs[i]))}")
+    print(f"[serve] kernel launches: {json.dumps(ops.kernel_launches())}")
     return res
 
 if __name__ == "__main__":

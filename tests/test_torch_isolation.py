@@ -4,8 +4,8 @@ silent run on the CPU.
 (1) A fresh interpreter imports every ``repro_torch`` module (the
 launchers too) and finds no ``jax*`` and no ``repro``/``repro.*`` module
 loaded; an AST scan of the port's sources, ``chip_smoke.py``,
-``chip_compare.py`` and the example twins ``examples/torch_*.py`` finds no
-such import. (2) Without a CUDA device the entry points raise unless the
+``chip_compare.py``, the example twins ``examples/torch_*.py`` and the
+fault scripts ``scripts/torch_*.py`` finds no such import. (2) Without a CUDA device the entry points raise unless the
 caller passes ``device="cpu"`` (``--device cpu`` on the launchers and the
 examples).
 """
@@ -22,8 +22,10 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
+SCRIPTS = sorted((ROOT / "scripts").glob("torch_*.py"))
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                        ROOT / "chip_compare.py"] + EXAMPLES
+                                        ROOT / "chip_compare.py"] + \
+    EXAMPLES + SCRIPTS
 
 
 def _modules():
