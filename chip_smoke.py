@@ -10,7 +10,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
   2. build: every CUDA kernel from ``src/repro_torch/kernels/csrc`` with
      nvcc (in parallel), printing each kernel's ptxas registers, shared
      memory and spills;
-  3. kernels: each of the seven kernels' wrappers against its plain
+  3. kernels: each of the eight kernels' wrappers against its plain
      PyTorch version on the card, at the shapes the main paths give it
      (opt-proxy, internlm2-1.8b, falcon-mamba-7b, phase 9's
      h2o-danube-1.8b and pixtral-12b, and phase 10's whisper-large-v3;
@@ -29,7 +29,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      row, slots past the wrap) and with the soft cap (there and at
      internlm2's shape), ``rpiq_block`` on 8 seeded instances of its two
      narrowest groups, ``gptq_block`` and ``rpiq_block`` at blocksizes
-     256 and in (the wide paths), and ``quant_pack`` in fp32 and bf16;
+     256 and in (the wide paths), ``quant_pack`` in fp32 and bf16, and
+     the scan's backward ``selective_scan_bwd`` at falcon-mamba-7b's
+     training shapes (S 512, 128 and a ragged 77; u fp32 and bf16; two
+     launches bitwise equal);
      phase 11's shapes (``kernels_moe_shapes``): the stacked expert groups
      of 128 and 64 lanes on zero-padded capacity buffers (n 320, per-lane
      ``x_count``, starved lanes) and ``quant_pack`` at (65536, 2048) and
@@ -60,7 +63,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      CPU in fp32: the chunked prefill, a short continuous run (2 lanes,
      prefill chunk 3; the card's ticks replay a graph) and the
      guardrail ladder with ``hessian.cholesky@1:nonpsd`` and ``@1:nan``
-     armed (the same ``guardrail_stats`` and record modes);
+     armed (the same ``guardrail_stats`` and record modes); then
+     internlm2 smoke (GQA, bf16 cache) and whisper smoke (cross-attention)
+     under ``model.opt_attention=false`` (the naive attention baseline),
+     card against CPU in fp32 (prefill logits, greedy tokens) and bf16
+     (prefill logits);
   5. main path at full width: opt-proxy (OPT-125M shape) from seeded random
      weights → quantize_model → pack_for_serving → generate, with launch
      counters reset just before and read just after, the packed-vs-float
@@ -212,8 +219,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      ``hessian_accum`` kernels of the speculative capture on a second
      stream; the bytes held on the card before it (and before phase 16)
      are printed;
-  16. training on the card (no kernel of its own: the reference's training
-     runs none, and every CUDA wrapper refuses inputs that require grad):
+  16. training on the card (the reference's training runs no Pallas
+     kernel; the Mamba step's scan has its backward, ``selective_scan_bwd``,
+     and every other CUDA wrapper refuses inputs that require grad):
      16a. full-width opt-proxy (12 layers, d 768, vocab 50304; fp32
          master weights, bf16 compute) through ``launch.train``: 300
          steps of 16 x 128 tokens at lr 1e-3 on ``MarkovLM(branching=3)``
@@ -231,9 +239,14 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
          tokens under ``parallel.remat=full``, with fp32 and with int8
          AdamW moments: finite, falling losses, step walls, peaks and the
          optimizer state's bytes (int8 ~4x smaller);
-     16c. a falcon-mamba smoke train step on the card raises naming
-         ROADMAP.md queue 1 item 23 (``selective_scan`` has no backward)
-         without launching the kernel; the model's no-grad forward runs it;
+     16c. falcon-mamba-7b at full width (d_model 4096, d_inner 8192, n
+         16, vocab 65024) cut to 2 of its 64 layers through
+         ``launch.train`` (remat full, fp32 master, bf16 compute): the loss
+         falls, ``selective_scan_bwd`` launches once a layer a step; the
+         same batch's gradients twice bitwise; in fp32 the gradients
+         against the same step through the plain scan's autograd on the
+         card, per leaf at 1e-5; falcon-mamba smoke's fp32 gradients on the
+         card against the CPU's;
   17. sharded quantization (``quant.mesh``) with ranks that share the one
      card over gloo (NCCL refuses two ranks a device); the kernels are
      built (phase 2) before the ranks start, and every rank launches the
@@ -344,6 +357,10 @@ KERNEL_SOURCES = {
                    "src/repro/kernels/quant_pack.py:40"),
     "selective_scan": ("src/repro_torch/kernels/csrc/selective_scan.cu",
                        "src/repro/kernels/selective_scan.py:71"),
+    # no Pallas counterpart: the VJP of the reference's XLA scan
+    "selective_scan_bwd": (
+        "src/repro_torch/kernels/csrc/selective_scan_bwd.cu",
+        "src/repro/kernels/ops.py:739"),
 }
 
 
@@ -519,6 +536,17 @@ def within_bf16_ulp(diff, want) -> bool:
     return bf16_ulps(diff, want) <= 1.0
 
 
+def check_path_launches(launches: dict, path: str, absent: tuple) -> None:
+    """Every kernel launched on a serving or quantization path but those
+    in ``absent`` and the scan's backward (training's alone), which must
+    not be."""
+    for name, n in launches.items():
+        if name in absent or name == "selective_scan_bwd":
+            check(n == 0, f"{name} launched on the {path}")
+        else:
+            check(n > 0, f"kernel {name} was not launched on the {path}")
+
+
 def resolve(tree, path: str):
     for k in path.split("."):
         tree = tree[int(k)] if isinstance(tree, list) else tree[k]
@@ -613,6 +641,7 @@ def phase_kernels(table: KernelTable) -> None:
              lambda: kernels_int8_kv_attention_ring(table)),
             ("quant_pack", lambda: kernels_quant_pack(table, g)),
             ("selective_scan", lambda: kernels_selective_scan(table, g)),
+            ("selective_scan_bwd", lambda: kernels_selective_scan_bwd(table)),
             ("dense shapes", lambda: kernels_dense_shapes(table)),
             ("encdec shapes", lambda: kernels_encdec_shapes(table)),
             ("moe shapes", lambda: kernels_moe_shapes(table)),
@@ -1739,6 +1768,76 @@ def kernels_selective_scan(table: KernelTable, g) -> None:
         check(ok, f"selective_scan S={s}")
 
 
+SCAN_GRADS = ("du", "ddt", "dB", "dC", "dA_log", "dD", "dh0")
+
+
+def kernels_selective_scan_bwd(table: KernelTable) -> None:
+    """The scan's backward at falcon-mamba-7b's training shapes (B 4, d
+    8192, n 16; S 512 and 128) and a ragged S 77, nonzero h0, dy and
+    dh_last, u (and dy) in fp32 and in bf16: every gradient within 1e-5 of
+    its largest magnitude of ``ref.selective_scan_backward`` on the same
+    inputs, bf16 du within one bf16 ulp; a second launch bitwise the
+    first. Timed in bf16 at S 512 and 128 (CUDA events; the plain
+    version's time is its check's one call). Its inputs come from a
+    generator of its own, so the sections after it draw what they drew
+    before it was added."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref, work
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(29)
+    b, d, n = 4, 8192, 16
+    for s in (512, 128, 77):
+        u = torch.randn((b, s, d), generator=g, device=dev)
+        dt = F.softplus(torch.randn((b, s, d), generator=g, device=dev) - 1)
+        bm, cm = (torch.randn((b, s, n), generator=g, device=dev)
+                  for _ in range(2))
+        a_log = torch.log(torch.arange(1, n + 1, dtype=torch.float32,
+                                       device=dev)).repeat(d, 1)
+        d_skip = torch.randn((d,), generator=g, device=dev)
+        h0 = torch.randn((b, d, n), generator=g, device=dev) * 0.1
+        dy = torch.randn((b, s, d), generator=g, device=dev)
+        dh_last = torch.randn((b, d, n), generator=g, device=dev)
+        rest = (dt, bm, cm, a_log, d_skip, h0)
+        for name, udt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            args = (u.to(udt),) + rest + (dy.to(udt), dh_last)
+            want, pms = once_ms(lambda: ref.selective_scan_backward(*args))
+            got = ops.selective_scan_bwd_cuda(*args)
+            again = ops.selective_scan_bwd_cuda(*args)
+            same = all(torch.equal(x, y) for x, y in zip(got, again))
+            rels, err, ok = {}, 0.0, same
+            for key, x, w in zip(SCAN_GRADS, got, want):
+                diff = (x.float() - w.float()).abs()
+                err = max(err, float(diff.max()))
+                rels[key] = float(diff.max()) / float(w.float().abs().max())
+                if key == "du" and udt == torch.bfloat16:
+                    rels[key] = bf16_ulps(diff, w)
+                    ok = ok and rels[key] <= 1.0
+                else:
+                    ok = ok and rels[key] <= 1e-5
+            timing = ""
+            if name == "bf16" and s in (512, 128):
+                ms = time_ms(lambda: ops.selective_scan_bwd_cuda(*args))
+                w = work.selective_scan_backward(b, s, d, n, 2)
+                b_ms, by = table.add("selective_scan_bwd", ms=ms,
+                                     plain_ms=pms, flop=w.flop,
+                                     nbytes=w.nbytes, err=err)
+                scratch = work.selective_scan_backward_scratch(b, s, d)
+                timing = (f" ms={ms:.4f} plain_ms={pms:.4f} library_ms=none"
+                          f" bound_ms={b_ms:.4f} ({by}); scratch {scratch} "
+                          f"bytes (with it, the bytes bound "
+                          f"{(w.nbytes + 2 * scratch) / H100_BYTES * 1e3:.4f}"
+                          " ms)")
+            log(f"  selective_scan_bwd B={b} S={s} d={d} n={n} u {name}: "
+                + ", ".join(f"{k} {v:.2e}" for k, v in rels.items())
+                + f" (rel to the largest; bf16 du in ulps; tol 1e-5, 1 ulp);"
+                f" two launches bitwise {same}{timing}")
+            check(ok, f"selective_scan_bwd S={s} u {name}")
+            del want, got, again
+
+
 def with_frontend(mc, batch: dict, seed: int, device="cpu") -> dict:
     """``batch`` with ``mc.frontend_tokens`` seeded standard-normal patch
     embeddings (B, F, d_model) added, for a model with a frontend."""
@@ -1860,6 +1959,56 @@ def phase_small_bf16(arch: str, kv_cache: str) -> None:
           and "w4a16_matmul" in worst and max(worst.values()) <= 1.0
           and finite and tuple(toks.tokens.shape) == (n_req, 6),
           f"small bf16 end to end {arch} kv_cache={kv_cache}")
+
+
+# phase 4's naive-attention legs (``model.opt_attention=false``): a GQA
+# family on its bf16 cache, the encoder-decoder (cross-attention)
+NAIVE_LEGS = ("internlm2-1.8b", "whisper-large-v3")
+
+
+def phase_small_naive(arch: str) -> None:
+    """A smoke config under ``model.opt_attention=false`` (the reference's
+    naive attention: fp32 queries, products and probabilities, the
+    head-repeated bf16 cache materialized in fp32 at decode) on float
+    seeded weights, card against CPU: in fp32 compute the prefill logits
+    (1e-4) and generate's greedy tokens (6 new, the card's decode a
+    replayed graph) equal; in bf16 compute the prefill logits (1e-2)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_numpy, tree_to_numpy
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import generate, prefill
+
+    t0 = time.perf_counter()
+    out = []
+    for dtype, tol in (("float32", 1e-4), ("bfloat16", 1e-2)):
+        cfg = get_config(arch, smoke=True)
+        cfg.model.opt_attention = False
+        cfg.model.dtype = dtype
+        mc = cfg.model
+        gen = torch.Generator()
+        gen.manual_seed(0)
+        params = (T.init_encdec_params if mc.is_encoder_decoder
+                  else T.init_params)(mc, gen, "cpu")
+        reqs = [r for r, _ in small_requests(mc, [(8, 6), (8, 6)], 3)]
+        batch = {k: torch.cat([r[k] for r in reqs]) for k in reqs[0]}
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            p = params_from_numpy(tree_to_numpy(params), dev)
+            on = {k: v.to(dev) for k, v in batch.items()}
+            with torch.no_grad():
+                logits, _ = prefill(cfg, p, on, 8 + 7)
+                toks = generate(cfg, p, on, device=dev, max_new_tokens=6)
+            runs[dev] = (logits.float().cpu(), toks.tokens.cpu())
+        (lc, tc), (lg, tg) = runs["cpu"], runs["cuda"]
+        rel = float((lg - lc).norm() / lc.norm())
+        same = bool(torch.equal(tc, tg))
+        out.append(f"{dtype} prefill logits rel {rel:.2e} (tol {tol:.0e}),"
+                   f" greedy tokens equal {same}")
+        check(rel <= tol and (same or dtype == "bfloat16"),
+              f"naive attention {arch} {dtype}, card against CPU")
+    log(f"  {arch} smoke, model.opt_attention=false, card against CPU: "
+        + "; ".join(out) + f" ({time.perf_counter() - t0:.1f}s)")
 
 
 def small_requests(mc, shapes, seed: int) -> list:
@@ -2311,12 +2460,7 @@ def phase_int8_kv_path() -> dict:
         f"scales + error accumulators) {cache_bytes['int8']} vs bf16 "
         f"{cache_bytes['bf16']} "
         f"({cache_bytes['bf16'] / cache_bytes['int8']:.2f}x)")
-    for name, n in launches.items():
-        if name == "selective_scan":    # a Mamba kernel: none here
-            check(n == 0, "selective_scan launched on the int8-KV path")
-        else:
-            check(n > 0, f"kernel {name} was not launched on the int8-KV "
-                  "path")
+    check_path_launches(launches, "int8-KV path", ("selective_scan",))
     decode_calls = mc.num_layers * (n_new - 1)
     check(launches["int8_kv_attention"] == decode_calls,
           f"int8_kv_attention launched {launches['int8_kv_attention']} "
@@ -2527,11 +2671,7 @@ def phase_mamba_path() -> dict:
     cfg, params_q, packed = r["cfg"], r["params_q"], r["packed"]
     launches, res, prompt = r["launches"], r["res"], r["prompt"]
     mc = cfg.model
-    for name, k in launches.items():
-        if name == "int8_kv_attention":
-            check(k == 0, "int8_kv_attention launched on the Mamba path")
-        else:
-            check(k > 0, f"kernel {name} was not launched on the Mamba path")
+    check_path_launches(launches, "Mamba path", ("int8_kv_attention",))
     scans = mc.num_layers * (2 * len(r["calib"]) + 1)
     check(launches["selective_scan"] == scans,
           f"selective_scan launched {launches['selective_scan']} times, "
@@ -2777,11 +2917,7 @@ def phase_ring_path(smi: str) -> dict:
         for k, n in counts.items():
             launches[k] += n
         legs.append((kv, prompt, res))
-    for name, n in launches.items():
-        if name == "selective_scan":
-            check(n == 0, "selective_scan launched on the ring path")
-        else:
-            check(n > 0, f"kernel {name} was not launched on the ring path")
+    check_path_launches(launches, "ring path", ("selective_scan",))
     # the two int8 legs' decode steps after the first eager one
     kv_calls = 2 * mc.num_layers * (n_new - 1)
     check(launches["int8_kv_attention"] == kv_calls,
@@ -2879,12 +3015,8 @@ def phase_vlm_path(smi: str) -> dict:
                         layers=layers, calib_shape=(4, 2, 128))
     cfg, launches = r["cfg"], r["launches"]
     mc = cfg.model
-    for name, n in launches.items():
-        if name in ("selective_scan", "int8_kv_attention"):
-            check(n == 0, f"{name} launched on the pixtral path")
-        else:
-            check(n > 0, f"kernel {name} was not launched on the pixtral "
-                  "path")
+    check_path_launches(launches, "pixtral path",
+                        ("selective_scan", "int8_kv_attention"))
     start = n_prompt + mc.frontend_tokens
     last = r["calib"][-1]
     rel = {}
@@ -3080,12 +3212,8 @@ def phase_encdec_path(smi: str) -> dict:
           "10: 10 calibrated and 6 RTN-packed linears a layer")
     check(starts == [[n_prompt] * n_req], "10: decode starts at the prompt")
     decode_graph_checks(cfg, packed, prompt, res, gen_launches, n_new)
-    for name, n in launches.items():
-        if name in ("selective_scan", "int8_kv_attention"):
-            check(n == 0, f"{name} launched on the bf16-cache whisper leg")
-        else:
-            check(n > 0, f"kernel {name} was not launched on the whisper "
-                  "path")
+    check_path_launches(launches, "bf16-cache whisper leg",
+                        ("selective_scan", "int8_kv_attention"))
 
     log("  the int8 self-cache leg")
     cfg8 = get_config("whisper-large-v3")
@@ -3402,12 +3530,7 @@ def phase_hybrid_path(smi: str) -> dict:
         f"({layers} layers): RG-LRU states {state} bytes, int8 rings of "
         f"{min(mc.window_size, 2040 + n_new + 1)} slots {ring} bytes; "
         f"bounded whatever the session's length")
-    for name, n in launches.items():
-        if name == "selective_scan":
-            check(n == 0, "selective_scan launched on the hybrid path")
-        else:
-            check(n > 0, f"kernel {name} was not launched on the hybrid "
-                  "path")
+    check_path_launches(launches, "hybrid path", ("selective_scan",))
     del r, packed
     torch.cuda.empty_cache()
 
@@ -3501,11 +3624,8 @@ def phase_mla_path(smi: str) -> dict:
         f"{latent} bytes against {expanded} for the expanded K/V "
         f"({mc.num_heads} heads x ({m.qk_nope_head_dim + m.qk_rope_head_dim}"
         f" + {m.v_head_dim})): {expanded / latent:.1f}x smaller")
-    for name, n in launches.items():
-        if name in ("selective_scan", "int8_kv_attention"):
-            check(n == 0, f"{name} launched on the MLA path")
-        else:
-            check(n > 0, f"kernel {name} was not launched on the MLA path")
+    check_path_launches(launches, "MLA path",
+                        ("selective_scan", "int8_kv_attention"))
     log(f"  decoded tokens (request 0): {r['res'].tokens[0].tolist()}")
     check(tuple(r["res"].tokens.shape) == (n_req, n_new) and latent
           < expanded, "14: MLA path output check")
@@ -3573,11 +3693,7 @@ def phase_moe_path(smi: str) -> dict:
     for (label, shape), ms in sorted(walls.items()):
         log(f"  {label} (B, out, in, n)={shape}: {len(ms)} calls, mean "
             f"{sum(ms) / len(ms):.3f} ms, total {sum(ms):.1f} ms")
-    for name, n in launches.items():
-        if name == "selective_scan":
-            check(n == 0, "selective_scan launched on the MoE path")
-        else:
-            check(n > 0, f"kernel {name} was not launched on the MoE path")
+    check_path_launches(launches, "MoE path", ("selective_scan",))
     decode_calls = mc.num_layers * (n_new - 1)
     check(launches["int8_kv_attention"] == decode_calls,
           f"int8_kv_attention launched {launches['int8_kv_attention']} "
@@ -4532,10 +4648,10 @@ def phase_training_path(smi: str) -> dict:
     phase 8a's on random weights; held-out CE of the float, RPIQ int4 and
     RTN int4 models and the logit gap), ``launch.serve --params``; 16b
     internlm2-1.8b at full width and depth, five steps at 4 x 512 under
-    full remat with fp32 and with int8 moments; 16c a falcon-mamba smoke
-    train step refused on the card (no backward for ``selective_scan``).
+    full remat with fp32 and with int8 moments; 16c falcon-mamba-7b
+    trained through the scan's backward kernel (``phase_mamba_training``).
     Returns the launches of 16a's quantize, eval and serve and 16c's
-    no-grad forward."""
+    launch.train."""
     import shutil
     import signal
     import torch
@@ -4771,35 +4887,189 @@ def phase_training_path(smi: str) -> dict:
     log(f"  optimizer state fp32 / int8: {ratio:.3f}x")
     check(ratio > 3.5, "16b: int8 moments ~4x smaller")
 
-    # -- 16c: Mamba training refused on the card
+    # -- 16c: Mamba training on the card
     release_device()
-    cfg = get_config("falcon-mamba-7b", smoke=True)
-    st = TS.init_train_state(cfg, torch.device("cuda"))
-    batch = MarkovLM(cfg.model.vocab_size, seed=0).batch(2, 16)
-    before = ops.kernel_launches()["selective_scan"]
-    try:
-        TS.make_train_step(cfg)(st, batch)
-        refused = ""
-    except NotImplementedError as e:
-        refused = str(e)
-    after = ops.kernel_launches()["selective_scan"]
-    ops.reset_kernel_launches()
-    with torch.no_grad():
-        lg = T.forward(cfg.model, unstack_layers(st.params),
-                       batch["tokens"].cuda())
-    counts = ops.kernel_launches()
-    for k, n in counts.items():
-        launches[k] += n
-    log(f"  16c: falcon-mamba smoke train step on the card: {refused!r}; "
-        f"selective_scan launches during it {after - before}; the same "
-        f"model's forward under no_grad {tuple(lg.shape)}, finite "
-        f"{bool(torch.isfinite(lg).all())}, launches {json.dumps(counts)}")
-    check("ROADMAP.md, queue 1 item 23" in refused and after == before
-          and counts["selective_scan"] > 0, "16c: Mamba training refused, "
-          "its no-grad forward on the kernel")
-    del st, lg
+    phase_mamba_training(smi, launches)
     release_device()
     return launches
+
+
+# 16c: falcon-mamba-7b at full width, cut to 2 of its 64 layers, through
+# launch.train (remat full, the launcher's default): steps of batch x seq
+# tokens at lr (warmup 1)
+MAMBA_TRAIN = dict(layers=2, steps=8, batch=4, seq=256, lr=1e-3)
+
+
+def grads_against(got, want, pin: float = 1e-5) -> list:
+    """The leaves of ``got`` farther than ``pin`` from ``want`` (relative
+    norm per leaf, with tests/test_torch_training.py's floor for a leaf
+    whose gradient is near zero: 1e-3 of the whole gradient's norm), as
+    (path, relative error); pin 0 asks for bitwise equality. The norms are
+    taken on ``want``'s device."""
+    from repro_torch.distributed.checkpoint import tree_paths
+    want = dict(tree_paths(want))
+    got = dict(tree_paths(got))
+    floor = 1e-3 * math.sqrt(sum(float(w.double().pow(2).sum())
+                                 for w in want.values()))
+    bad = []
+    for k, w in want.items():
+        g = got[k].to(w.device)
+        if pin == 0:
+            if not g.equal(w):
+                bad.append((k, float((g.double() - w.double()).norm())))
+            continue
+        err = float((g.double() - w.double()).norm())
+        scale = max(float(w.double().norm()), floor)
+        if err > pin * scale:
+            bad.append((k, err / scale))
+    return bad
+
+
+def phase_mamba_training(smi: str, launches: dict) -> None:
+    """16c: Mamba training on the card through the scan's backward kernel.
+    falcon-mamba-7b at full width (d_model 4096, d_inner 8192, n 16, vocab
+    65024) cut to ``MAMBA_TRAIN['layers']`` layers trains through
+    ``launch.train`` (the counters reset just before and read just after:
+    ``selective_scan_bwd`` once a layer a step, the forward twice under
+    remat); the loss on a held-out batch must fall (the launcher's seeded
+    initial weights against the trained ones; the training losses are
+    printed, not checked, as they swing from step to step). Then on
+    the trained weights: the same
+    batch's gradients twice, bitwise equal; in fp32 compute the gradients
+    against the same step with ``ops.selective_scan`` swapped for the
+    plain function (autograd through ``ref.selective_scan`` on the card),
+    per leaf at 1e-5 of the leaf; falcon-mamba smoke's fp32 gradients on
+    the card against the CPU's at the same pin."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataState, MarkovLM
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import train as LT
+    from repro_torch.training import train_step as TS
+
+    mt = MAMBA_TRAIN
+    t0 = time.perf_counter()
+    ck = os.path.join(ROOT, "build", "phase16c")
+    shutil.rmtree(ck, ignore_errors=True)
+    argv = ["--arch", "falcon-mamba-7b", f"model.num_layers={mt['layers']}",
+            f"train.steps={mt['steps']}",
+            f"train.global_batch_size={mt['batch']}",
+            f"train.seq_len={mt['seq']}", f"train.lr={mt['lr']}",
+            "train.warmup_steps=1", "train.log_every=1",
+            f"train.ckpt_dir={ck}"]
+    log(f"  16c: launch.train {' '.join(argv)} (fp32 master, bf16 compute, "
+        "remat full)")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    bwd_events = []
+
+    def timed_bwd(fn):
+        # CUDA events around each launch of the scan's backward in the steps
+        def call(*a):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = fn(*a)
+            ev[1].record()
+            bwd_events.append(ev)
+            return out
+        return call
+
+    try:
+        with patched(ops, "selective_scan_bwd_cuda", timed_bwd):
+            out, wall, counts = run_launcher(LT, argv, launches)
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated() - held
+    hist, state = out["history"], out["state"]
+    del out
+    losses = [h["loss"] for h in hist]
+    layer_steps = mt["layers"] * mt["steps"]
+    steps_s = sum(h["dt"] for h in hist)
+    bwd_s = sum(a.elapsed_time(b) for a, b in bwd_events) / 1e3
+    log(f"  16c: losses {[round(x, 4) for x in losses]}; step walls (s) "
+        f"[{smi}] {[round(h['dt'], 4) for h in hist]}; launch.train "
+        f"{wall:.3f} s (the steps {steps_s:.3f}, the rest: init and the "
+        f"final checkpoint); peak above what was held {peak} bytes")
+    log(f"  16c: selective_scan_bwd inside the steps (CUDA events) [{smi}]: "
+        f"{len(bwd_events)} launches, {bwd_s * 1e3:.4f} ms in all, "
+        f"{bwd_s * 1e3 / max(len(bwd_events), 1):.4f} ms each, "
+        f"{bwd_s / steps_s:.4f} of the steps' wall")
+    cfg = get_config("falcon-mamba-7b")
+    cfg.model.num_layers = mt["layers"]
+    held_out = MarkovLM(cfg.model.vocab_size, seed=cfg.train.seed)
+    held_out.restore(DataState(cfg.train.seed, 1_000_000))
+    batch = {"tokens": held_out.batch(mt["batch"], mt["seq"])["tokens"]
+             .cuda()}
+    with torch.no_grad():
+        ce = [float(TS.loss_fn(cfg, p, batch)[0]) for p in (
+            TS.init_train_state(cfg, torch.device("cuda")).params,
+            state.params)]
+    half = mt["steps"] // 2
+    log(f"  16c: held-out CE ({mt['batch']} x {mt['seq']} tokens at stream "
+        f"step 1e6): initial weights {ce[0]:.4f}, trained {ce[1]:.4f}; "
+        f"training loss, mean of the first {half} steps "
+        f"{sum(losses[:half]) / half:.4f}, of the last {half} "
+        f"{sum(losses[-half:]) / half:.4f}")
+    # the training losses swing by a tenth from step to step at this lr,
+    # so the gate is the held-out batch: one loss of the initial weights
+    # and one of the trained ones
+    check(len(losses) == mt["steps"]
+          and all(math.isfinite(x) for x in losses + ce) and ce[1] < ce[0],
+          "16c: falcon-mamba's held-out loss falls")
+    check(counts["selective_scan_bwd"] == layer_steps
+          and counts["selective_scan"] == 2 * layer_steps,
+          f"16c: selective_scan_bwd launched {counts['selective_scan_bwd']}"
+          f" times (expected {layer_steps}: layers x steps), the forward "
+          f"{counts['selective_scan']} (expected {2 * layer_steps})")
+
+    # the same batch's gradients twice: bitwise
+    batch = {"tokens": batch["tokens"][:2]}
+    params = state.params
+    del state
+    g1, _ = TS.loss_and_grads(cfg, params, batch)
+    g2, _ = TS.loss_and_grads(cfg, params, batch)
+    differ = grads_against(g2, g1, 0.0)
+    log(f"  16c: the same batch's gradients twice (bf16 compute): "
+        f"{len(differ)} leaves differ ({time.perf_counter() - t0:.1f}s in)")
+    check(not differ, "16c: the gradients repeat bitwise")
+    del g1, g2
+
+    # fp32 compute: the kernels against autograd through the plain scan
+    cfg.model.dtype = "float32"
+    ops.reset_kernel_launches()
+    got, m_got = TS.loss_and_grads(cfg, params, batch)
+    kern = ops.kernel_launches()
+    with patched(ops, "selective_scan", lambda f: ref.selective_scan):
+        want, m_want = TS.loss_and_grads(cfg, params, batch)
+    bad = grads_against(got, want)
+    loss_rel = abs(float(m_got["loss"]) - float(m_want["loss"])) / abs(
+        float(m_want["loss"]))
+    log(f"  16c: fp32 gradients, kernels against the plain scan on the "
+        f"card: loss rel {loss_rel:.2e}; {len(bad)} leaves past 1e-5 "
+        f"{[(k, f'{e:.2e}') for k, e in bad[:8]]}; kernel launches "
+        f"{json.dumps(kern)} ({time.perf_counter() - t0:.1f}s in)")
+    check(not bad and loss_rel <= 1e-5 and kern["selective_scan_bwd"]
+          == mt["layers"], "16c: the scan's backward against the plain "
+          "scan's autograd, per leaf")
+    del got, want, params
+
+    # falcon-mamba smoke: the card's fp32 gradients against the CPU's
+    cfg = get_config("falcon-mamba-7b", smoke=True)
+    cfg.model.dtype = "float32"
+    st = TS.init_train_state(cfg, "cpu")
+    batch = MarkovLM(cfg.model.vocab_size, seed=0).batch(4, 32)
+    want, m_want = TS.loss_and_grads(cfg, st.params, batch)
+    on_card = TS.opt.tree_map(lambda a: a.cuda(), st.params)
+    got, m_got = TS.loss_and_grads(
+        cfg, on_card, {k: v.cuda() for k, v in batch.items()})
+    bad = grads_against(got, want)
+    log(f"  16c: falcon-mamba smoke fp32 gradients, card against CPU: loss "
+        f"{float(m_got['loss']):.6f} / {float(m_want['loss']):.6f}; "
+        f"{len(bad)} leaves past 1e-5 {bad[:8]}; 16c took "
+        f"{time.perf_counter() - t0:.1f}s")
+    check(not bad, "16c: the smoke step's gradients on the card against "
+          "the CPU's")
 
 
 # -- phase 17: sharded quantization, ranks sharing the card over gloo -----
@@ -5665,6 +5935,8 @@ def main() -> int:
     phase_small_starved()
     for arch, kv_cache in SMALL_SERVING:
         phase_small_serving(arch, kv_cache)
+    for arch in NAIVE_LEGS:
+        phase_small_naive(arch)
     log(f"  phase 4 took {time.perf_counter() - t:.1f}s")
 
     phases = [
@@ -5746,7 +6018,8 @@ def main() -> int:
     release_device()
     log("[16] training on the card: opt-proxy through launch.train (a "
         "SIGTERM'd run resumed bitwise), quantized and served; "
-        "internlm2-1.8b at full width and depth; Mamba training refused")
+        "internlm2-1.8b at full width and depth; falcon-mamba-7b (2 of 64 "
+        "layers) through the scan's backward kernel")
     log(f"  bytes held on the card before phase 16: "
         f"{torch.cuda.memory_allocated()}")
     t = time.perf_counter()

@@ -8,9 +8,10 @@ dotted ``key=value`` override helpers. ``quant.mesh`` shards the
 quantization executor over a ``torch.distributed`` world
 (``launch/mesh.py``). A value the port does not run
 (``quant.batched_executor=false``,
-``quant.gptq_impl=xla`` / ``quant.rpiq_impl=xla``,
-``model.opt_attention=false``) is accepted here and raises where it would
-be used, naming its ROADMAP.md item. ``quant.pipeline`` takes both of the
+``quant.gptq_impl=xla`` / ``quant.rpiq_impl=xla``) is accepted here and
+raises where it would be used, naming its ROADMAP.md item.
+``model.opt_attention=false`` runs the reference's naive attention
+baseline (models/attention.py). ``quant.pipeline`` takes both of the
 JAX package's schedules, ``serial`` and ``overlap`` (core/stream.py);
 ``quant.jit_capture`` and ``quant.moe_flip_budget`` are read by the
 overlap schedule alone. ``quant.act_order``, ``quant.keep_best_projection``
@@ -123,8 +124,8 @@ class ModelConfig:
     # training loss
     mtp_depth: int = 0
     mtp_loss_weight: float = 0.3
-    # False selects the JAX package's naive fp32 attention baseline, which
-    # is not ported (ROADMAP.md queue 1 item 22): attention raises on it
+    # False selects the JAX package's naive fp32 attention baseline
+    # (models/attention.py)
     opt_attention: bool = True
 
     def __post_init__(self):

@@ -24,14 +24,16 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("hessian_accum", "gptq_block", "rpiq_block", "w4a16_matmul",
            "int8_kv_attention", "int8_kv_attention_r16", "quant_pack",
-           "selective_scan")
+           "selective_scan", "selective_scan_bwd")
 BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # the sweep kernels and the scan's state update must round `a - b*c` and
 # `a*h + b*c` like the plain version: no contraction into a fused
-# multiply-add (the sweeps' dot products call fmaf)
+# multiply-add (the sweeps' dot products call fmaf); the scan's backward
+# recomputes the forward's states bitwise
 EXTRA_FLAGS = {"gptq_block": ["-fmad=false"], "rpiq_block": ["-fmad=false"],
-               "selective_scan": ["-fmad=false"]}
+               "selective_scan": ["-fmad=false"],
+               "selective_scan_bwd": ["-fmad=false"]}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -156,6 +158,11 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
             "selective_scan_bf16_launch": [p] * 9 + [i] * 4 + [p],
             "selective_scan_channels_per_block": [],
             "selective_scan_max_state": []},
+        "selective_scan_bwd": {
+            "selective_scan_bwd_f32_launch": [p] * 20 + [i] * 4 + [p],
+            "selective_scan_bwd_bf16_launch": [p] * 20 + [i] * 4 + [p],
+            "selective_scan_bwd_channels_per_block": [],
+            "selective_scan_bwd_max_state": []},
     }[name]
     for fn, args in sigs.items():
         getattr(lib, fn).argtypes = args

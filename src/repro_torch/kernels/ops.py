@@ -1,4 +1,5 @@
-"""Dispatch layer for the port's seven kernels.
+"""Dispatch layer for the port's eight kernels: the seven of the quantize
+→ serve path and the selective scan's backward.
 
 Each op takes the plain PyTorch version (:mod:`repro_torch.kernels.ref`)
 for a tensor on the CPU and launches its hand-written CUDA kernel for a
@@ -13,9 +14,13 @@ that its main path went through the kernels. A :class:`CapturedCall`
 (a CUDA graph of wrapper calls) counts each replay as the launches it
 captured.
 
-No kernel has a backward: every ``*_cuda`` wrapper raises when grad mode
-is on and an input requires grad, where it would return an output with
-no ``grad_fn``; on the CPU the plain versions stay differentiable.
+Every ``*_cuda`` wrapper raises when grad mode is on and an input
+requires grad, where it would return an output with no ``grad_fn``; on
+the CPU the plain versions stay differentiable. The one kernel with a
+backward is the selective scan: :func:`selective_scan` goes through
+``_SelectiveScanFn``, whose forward and backward each take the plain
+version for CPU tensors and the kernel (``selective_scan`` /
+``selective_scan_bwd``) for CUDA tensors.
 
 The serving kernels' dispatchers, :func:`w4a16_matmul` and
 :func:`int8_kv_attention`, pass the ``kernels.pallas_dispatch`` fault site
@@ -45,7 +50,6 @@ from typing import Dict, List, Optional, Tuple
 import torch
 from torch._subclasses.fake_tensor import FakeTensor
 
-from repro_torch.config import not_ported
 from repro_torch.core import faults
 from repro_torch.kernels import build, ref
 from repro_torch.kernels import work as kwork
@@ -55,7 +59,7 @@ Tensor = torch.Tensor
 _LAUNCHES: Dict[str, int] = {"hessian_accum": 0, "gptq_block": 0,
                              "rpiq_block": 0, "w4a16_matmul": 0,
                              "int8_kv_attention": 0, "quant_pack": 0,
-                             "selective_scan": 0}
+                             "selective_scan": 0, "selective_scan_bwd": 0}
 
 
 def kernel_launches() -> Dict[str, int]:
@@ -164,14 +168,12 @@ def _check_cuda(op: str, *tensors: Tensor) -> None:
             raise ValueError(f"{op}: expected CUDA tensors, got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{op}: expected contiguous tensors")
-    # no kernel has a backward: its output would carry no grad_fn, and
-    # every gradient above it would be silently wrong
+    # a wrapper's output carries no grad_fn: every gradient above it would
+    # be silently wrong (the scan's backward is _SelectiveScanFn's)
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        what = (f"{op} on the card with inputs that require grad (the CUDA "
-                "kernel has no backward)")
-        if op == "selective_scan":          # Mamba training on the card
-            raise not_ported(what, 23)
-        raise NotImplementedError(f"{what}; call it under torch.no_grad()")
+        raise NotImplementedError(
+            f"{op} on the card with inputs that require grad (the CUDA "
+            "kernel has no backward); call it under torch.no_grad()")
 
 
 def _launch(op: str, fn, *args) -> None:
@@ -1036,16 +1038,112 @@ def selective_scan_cuda(u: Tensor, dt: Tensor, bm: Tensor, cm: Tensor,
     return y, h_last
 
 
+def selective_scan_bwd_cuda(u: Tensor, dt: Tensor, bm: Tensor, cm: Tensor,
+                            a_log: Tensor, d_skip: Tensor, h0: Tensor,
+                            dy: Tensor, dh_last: Optional[Tensor] = None
+                            ) -> Tuple[Tensor, ...]:
+    """Kernel wrapper: same contract as :func:`ref.selective_scan_backward`
+    with the forward wrapper's inputs, dy (B, S, d) in u's dtype and
+    dh_last (B, d, n) float32 or None (zeros). Returns (du in u's dtype,
+    ddt, dB, dC, dA_log, dD, dh0), float32 but du. Scratch: every state
+    but the last and the partial sums (``work.selective_scan_backward_
+    scratch``), allocated here, freed on return."""
+    op = "selective_scan_bwd"
+    args = (u, dt, bm, cm, a_log, d_skip, h0)
+    cot = (dy,) if dh_last is None else (dy, dh_last)
+    _check_cuda(op, *args, *cot)
+    _require(all(a.dtype == torch.float32 for a in args[1:] + cot[1:]), op,
+             "dt, B, C, a_log, d_skip, h0 and dh_last must be float32")
+    b, s, d = u.shape
+    n = bm.shape[-1]
+    _require(dt.shape == dy.shape == (b, s, d) and dy.dtype == u.dtype, op,
+             f"dt and dy must be ({b}, {s}, {d}), dy in u's dtype")
+    _require(bm.shape == (b, s, n) == cm.shape, op,
+             f"B and C must be ({b}, {s}, n)")
+    _require(a_log.shape == (d, n) and d_skip.shape == (d,)
+             and h0.shape == (b, d, n)
+             and (dh_last is None or dh_last.shape == (b, d, n)), op,
+             f"a_log must be ({d}, {n}), d_skip ({d},), h0 and dh_last "
+             f"({b}, {d}, {n})")
+    _require(u.dtype in (torch.float32, torch.bfloat16), op,
+             f"u dtype {u.dtype} not supported")
+    fake = isinstance(u, FakeTensor)
+    lib = None if fake else build.load(op)
+    # the same tile and state limit as the forward (a fake call reads the
+    # constants the built library reports)
+    tile = (SCAN_CHANNELS_PER_BLOCK if fake
+            else lib.selective_scan_bwd_channels_per_block())
+    n_max = SCAN_MAX_STATE if fake else lib.selective_scan_bwd_max_state()
+    _require(b >= 1 and s >= 1 and d % tile == 0 and 1 <= n <= n_max, op,
+             f"B={b}, S={s}, d={d}, n={n}: the kernel takes B, S >= 1, d "
+             f"a multiple of {tile} and n <= {n_max}")
+    _require(_aligned(u) and _aligned(dt) and _aligned(dy), op,
+             "u, dt and dy must be 16-byte aligned (16-byte copies)")
+    f32 = dict(dtype=torch.float32, device=u.device)
+    outs = (torch.empty_like(u), torch.empty_like(dt), torch.empty_like(bm),
+            torch.empty_like(cm), torch.empty_like(a_log),
+            torch.empty_like(d_skip), torch.empty_like(h0))
+    # scratch: the states (B, S-1, d, NMAX), the dB / dC partials of each
+    # block of channels, the dA_log and dD partials of each batch row
+    scratch = (torch.empty((b, max(s - 1, 1), d, n_max), **f32),
+               torch.empty((b, d // tile, s, 2 * n_max), **f32),
+               torch.empty((b, d, n_max), **f32),
+               torch.empty((b, d), **f32))
+    if fake:
+        _fake(op, (b, s, d, n),
+              kwork.selective_scan_backward(b, s, d, n, u.element_size(),
+                                            dh_last is not None))
+        return outs
+    fn = (lib.selective_scan_bwd_f32_launch if u.dtype == torch.float32
+          else lib.selective_scan_bwd_bf16_launch)
+    du, ddt, dB, dC, dA, dD, dh0 = outs
+    hs, part_bc, part_a, part_d = scratch
+    _launch(op, fn, *(a.data_ptr() for a in args), dy.data_ptr(),
+            None if dh_last is None else dh_last.data_ptr(),
+            hs.data_ptr(), du.data_ptr(), ddt.data_ptr(), dB.data_ptr(),
+            dC.data_ptr(), dA.data_ptr(), dD.data_ptr(), dh0.data_ptr(),
+            part_bc.data_ptr(), part_a.data_ptr(), part_d.data_ptr(), b, s,
+            d, n, _stream())
+    return outs
+
+
+class _SelectiveScanFn(torch.autograd.Function):
+    """The scan with its backward: on CPU tensors the plain versions
+    (:func:`ref.selective_scan`, :func:`ref.selective_scan_backward`), on
+    CUDA tensors the two kernels. Takes the kernel wrappers' inputs (u
+    contiguous, the rest contiguous float32); h_last's cotangent is None
+    when h_last is unused, as in training."""
+
+    @staticmethod
+    def forward(ctx, u, dt, bm, cm, a_log, d_skip, h0):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(u, dt, bm, cm, a_log, d_skip, h0)
+        if _is_plain(u, "selective_scan"):
+            return ref.selective_scan(u, dt, bm, cm, a_log, d_skip, h0)
+        return selective_scan_cuda(u, dt, bm, cm, a_log, d_skip, h0)
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        saved = ctx.saved_tensors
+        u = saved[0]
+        dy = torch.zeros_like(u) if dy is None else dy.contiguous()
+        if dh_last is not None:
+            dh_last = dh_last.contiguous()
+        if _is_plain(u, "selective_scan_bwd"):
+            return ref.selective_scan_backward(*saved, dy, dh_last)
+        return selective_scan_bwd_cuda(*saved, dy, dh_last)
+
+
 def selective_scan(u: Tensor, dt: Tensor, bm: Tensor, cm: Tensor,
                    a_log: Tensor, d_skip: Tensor, h0: Tensor
                    ) -> Tuple[Tensor, Tensor]:
     """u/dt (B, S, d); bm/cm (B, S, n); a_log (d, n); d_skip (d,); h0
     (B, d, n). Returns (y (B, S, d) in u's dtype, h_last in h0's dtype).
     B and C arrive as views of the x projection (row stride dt_rank + 2n)
-    and are made contiguous here."""
-    args = (u, dt, bm, cm, a_log, d_skip, h0)
-    if _is_plain(u, "selective_scan"):
-        return ref.selective_scan(*args)
-    y, h_last = selective_scan_cuda(
-        u.contiguous(), *(a.float().contiguous() for a in args[1:]))
+    and are made contiguous here. The call goes through
+    ``_SelectiveScanFn``: with grad off, or no input that requires grad,
+    that is its forward alone (its backward a kernel on the card)."""
+    y, h_last = _SelectiveScanFn.apply(
+        u.contiguous(), *(a.float().contiguous()
+                          for a in (dt, bm, cm, a_log, d_skip, h0)))
     return y, h_last.to(h0.dtype)

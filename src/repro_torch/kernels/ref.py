@@ -1,5 +1,5 @@
 """Plain PyTorch versions of the seven kernels of the quantize → serve
-path.
+path, and of the selective scan's backward (Mamba training).
 
 Each function has the signature of its kernel wrapper in
 :mod:`repro_torch.kernels.ops` and computes what the kernel computes, in
@@ -10,7 +10,7 @@ the card (called directly there, never through the dispatcher).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -228,3 +228,47 @@ def selective_scan(u: Tensor, dt: Tensor, bm: Tensor, cm: Tensor,
         h = a_t * h + (dt_t * u_t)[..., None] * bf[:, t, None, :]
         y[:, t] = torch.einsum("bdn,bn->bd", h, cf[:, t]) + u_t * dsk
     return y.to(u.dtype), h.to(h0.dtype)
+
+
+def selective_scan_backward(u: Tensor, dt: Tensor, bm: Tensor, cm: Tensor,
+                            a_log: Tensor, d_skip: Tensor, h0: Tensor,
+                            dy: Tensor, dh_last: Optional[Tensor] = None
+                            ) -> Tuple[Tensor, ...]:
+    """The VJP of :func:`selective_scan` for the cotangents dy (B, S, d) of
+    y and dh_last (B, d, n) of h_last (None: zeros), in fp32.
+
+    The states are recomputed forward from h0 and kept, then a reverse
+    loop carries ``g_t = ∂L/∂h_t = dy_t ⊗ C_t + a_{t+1} ⊙ g_{t+1}``
+    (seeded by dh_last) and forms ``du = dt Σ_n g·B + d_skip·dy``,
+    ``ddt = Σ_n g·(A·a_t·h_{t-1} + u·B)``, ``dB = Σ_d g·dt·u``, ``dC =
+    Σ_d dy·h_t``, ``dA_log = A·Σ_{b,t} g·a_t·h_{t-1}·dt``, ``dD = Σ_{b,t}
+    dy·u`` and ``dh0 = a_0 ⊙ g_0``. Returns (du in u's dtype, ddt, dB, dC,
+    dA_log, dD, dh0) in fp32.
+    """
+    A = -torch.exp(a_log.float())
+    uf, dtf, bf, cf, dyf = (t.float() for t in (u, dt, bm, cm, dy))
+    dsk = d_skip.float()
+    hs = [h0.float()]
+    for t in range(u.shape[1]):
+        a_t = torch.exp(dtf[:, t, :, None] * A[None])
+        hs.append(a_t * hs[-1] + (dtf[:, t] * uf[:, t])[..., None]
+                  * bf[:, t, None, :])
+    g = (torch.zeros_like(hs[0]) if dh_last is None
+         else dh_last.float().clone())
+    du, ddt = torch.empty_like(uf), torch.empty_like(dtf)
+    dB, dC = torch.empty_like(bf), torch.empty_like(cf)
+    dA = torch.zeros_like(A)
+    for t in reversed(range(u.shape[1])):
+        dt_t, u_t, dy_t = dtf[:, t], uf[:, t], dyf[:, t]
+        b_t = bf[:, t, None, :]
+        a_t = torch.exp(dt_t[..., None] * A[None])
+        g = g + dy_t[..., None] * cf[:, t, None, :]          # ∂L/∂h_t
+        ah = a_t * hs[t]                                     # a_t h_{t-1}
+        dC[:, t] = torch.einsum("bdn,bd->bn", hs[t + 1], dy_t)
+        dB[:, t] = torch.einsum("bdn,bd->bn", g, dt_t * u_t)
+        du[:, t] = dt_t * (g * b_t).sum(-1) + dsk * dy_t
+        ddt[:, t] = (g * (A[None] * ah + u_t[..., None] * b_t)).sum(-1)
+        dA += (g * ah * dt_t[..., None]).sum(0)
+        g = a_t * g
+    dD = (dyf * uf).sum(dim=(0, 1))
+    return du.to(u.dtype), ddt, dB, dC, dA * A, dD, g

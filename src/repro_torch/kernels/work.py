@@ -1,4 +1,4 @@
-"""The work of each of the seven kernels: the FLOP it does and the bytes it
+"""The work of each of the eight kernels: the FLOP it does and the bytes it
 must move (each input read once, each output written once), as functions
 of its shapes, and the least time the card could take for it.
 
@@ -102,3 +102,31 @@ def selective_scan(b: int, s: int, d: int, n: int, u_bytes: int = 2
     nbytes = (b * s * d * (2 * u_bytes + 4) + 2 * b * s * n * 4
               + d * n * 4 + d * 4 + 2 * b * d * n * 4)
     return Work(7 * b * s * d * n, nbytes)
+
+
+def selective_scan_backward(b: int, s: int, d: int, n: int,
+                            u_bytes: int = 2, dh_last: bool = True) -> Work:
+    """The scan's VJP over b x s x d channels of n states, each product
+    counted once: the states recomputed (dt·A, its exp a_t, a_t·h_{t-1},
+    dt·u·B and their sum: 5 a state) and the reverse pass (g from dy·C and
+    the carry a_t·g; g·B, g·(A·a_t·h_{t-1} + u·B), g·a_t·h_{t-1}·dt, g·dt·u
+    and dy·h with their sums over n, d or time: 17 a state, a_t and
+    a_t·h_{t-1} taken from the recompute). Bytes: u and dy (u's dtype), dt, B, C,
+    a_log, d_skip, h0 and dh_last (when given) read once; du (u's dtype),
+    ddt, dB, dC, dA_log, dD and dh0 written once. The kernel's scratch
+    (:func:`selective_scan_backward_scratch`) is not work the function
+    must do, so the bound leaves it out."""
+    nbytes = (b * s * d * (2 * u_bytes + 4) + 2 * b * s * n * 4
+              + d * n * 4 + d * 4 + (1 + dh_last) * b * d * n * 4
+              + b * s * d * (u_bytes + 4) + 2 * b * s * n * 4
+              + d * n * 4 + d * 4 + b * d * n * 4)
+    return Work(22 * b * s * d * n, nbytes)
+
+
+def selective_scan_backward_scratch(b: int, s: int, d: int) -> int:
+    """Bytes of scratch ``selective_scan_bwd.cu`` takes: every state but
+    the last (b, max(s-1, 1), d, 16) fp32, the per-block partials of dB and
+    dC (b, d/64, s, 32), and per-batch-row partials of dA_log (b, d, 16)
+    and dD (b, d). Each is written once and read once."""
+    return 4 * (b * max(s - 1, 1) * d * 16 + b * (d // 64) * s * 32
+                + b * d * 16 + b * d)

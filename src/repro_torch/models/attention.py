@@ -5,7 +5,12 @@ attention (MLA, at the end of the module).
 The math mirrors the JAX package's ``opt_attention`` path: queries are
 pre-scaled in fp32 and cast to the compute dtype, scores and values are
 products of compute-dtype operands accumulated in fp32, softmax runs in
-fp32 with masked slots at -1e30. The products are plain matmuls and a
+fp32 with masked slots at -1e30. ``model.opt_attention=false`` selects the
+reference's naive baseline: the query scaled in fp32 and kept there,
+fp32 × fp32 score and value products with the probabilities unrounded,
+and, at decode on a bf16 cache, the head-repeated cache materialized in
+fp32 (an int8 cache is read by ``ops.int8_kv_attention`` under either
+value, as in the reference). The products are plain matmuls and a
 softmax (no fused attention operator). Query head h reads kv-head
 ``h // n_rep`` (``n_rep = num_heads // num_kv_heads``), the order of
 ``repeat_kv``.
@@ -39,7 +44,7 @@ from typing import Dict, Optional, Tuple, Union
 
 import torch
 
-from repro_torch.config import ModelConfig, not_ported
+from repro_torch.config import ModelConfig
 from repro_torch.kernels import kv_codec, ops
 from repro_torch.models.layers import apply_rope, tanh_softcap
 from repro_torch.models.linear import dense, init_dense
@@ -65,13 +70,15 @@ def _mm(a: Tensor, b: Tensor) -> Tensor:
 def _attend_chunked(q: Tensor, k: Tensor, v: Tensor, q_positions: Tensor,
                     kv_positions: Tensor, *, causal: bool = True,
                     window: int = 0, softcap: float = 0.0,
-                    chunk: int = 512) -> Tensor:
+                    chunk: int = 512, opt: bool = True) -> Tensor:
     """Attention. q/k/v (B, S, H, hd); positions (B, Sq) / (B, Sk), a
     negative one a padding slot. A key is seen when ``causal`` and
     ``kpos <= qpos`` (every key when not ``causal``), and with ``window``
     > 0 also ``kpos > qpos - window``; scores are soft-capped
     (``softcap`` > 0) before the mask. Queries go in chunks of ``chunk``; each chunk takes a
-    full softmax over the keys. Returns (B, Sq, H, hd) in q's dtype."""
+    full softmax over the keys. ``opt`` False is the naive baseline: the
+    scaled query and the probabilities stay fp32 (module docstring).
+    Returns (B, Sq, H, hd) in q's dtype."""
     b, sq, h, hd = q.shape
     scale = hd ** -0.5
     kT = k.permute(0, 2, 3, 1)                      # (B, H, hd, Sk)
@@ -81,8 +88,10 @@ def _attend_chunked(q: Tensor, k: Tensor, v: Tensor, q_positions: Tensor,
     for c0 in range(0, sq, chunk):
         qi = q[:, c0:c0 + chunk]
         pi = q_positions[:, c0:c0 + chunk]
-        qs = (qi.float() * scale).to(qi.dtype).permute(0, 2, 1, 3)
-        s = tanh_softcap(_mm(qs, kT), softcap)     # (B, H, c, Sk)
+        qs = qi.float() * scale
+        if opt:
+            qs = qs.to(qi.dtype)
+        s = tanh_softcap(_mm(qs.permute(0, 2, 1, 3), kT), softcap)
         dq = pi[:, None, :, None]
         mask = (dq >= 0) & (dk >= 0)
         if causal:
@@ -91,7 +100,7 @@ def _attend_chunked(q: Tensor, k: Tensor, v: Tensor, q_positions: Tensor,
             mask = mask & (dk > dq - window)
         s = torch.where(mask, s, torch.full_like(s, NEG_INF))
         p = torch.softmax(s, dim=-1)
-        o = _mm(p.to(vT.dtype), vT)                 # (B, H, c, hd)
+        o = _mm(p.to(vT.dtype) if opt else p, vT)   # (B, H, c, hd)
         outs.append(o.permute(0, 2, 1, 3).to(q.dtype))
     return torch.cat(outs, dim=1)
 
@@ -106,16 +115,7 @@ def init_attention(cfg: ModelConfig, gen: torch.Generator, bias: bool,
                             scale=(h * hd) ** -0.5, device=device)}
 
 
-def _refuse_naive_baseline(cfg: ModelConfig) -> None:
-    """``model.opt_attention=false`` is the JAX package's naive fp32
-    attention baseline; only the default path is ported."""
-    if not cfg.opt_attention:
-        raise not_ported("model.opt_attention=false (the naive attention "
-                         "baseline)", 22)
-
-
 def _project_qkv(cfg: ModelConfig, p: Dict, x: Tensor, name: str):
-    _refuse_naive_baseline(cfg)
     b, s, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = dense(p["q"], x, f"{name}.q").reshape(b, s, h, hd)
@@ -143,7 +143,8 @@ def attention_forward(cfg: ModelConfig, p: Dict, x: Tensor,
     n_rep = _n_rep(cfg)
     o = _attend_chunked(q, repeat_kv(k, n_rep), repeat_kv(v, n_rep),
                         positions, positions, causal=causal, window=window,
-                        softcap=cfg.attn_logits_softcap)
+                        softcap=cfg.attn_logits_softcap,
+                        opt=cfg.opt_attention)
     b, s = x.shape[:2]
     return dense(p["o"], o.reshape(b, s, -1), f"{name}.o")
 
@@ -222,7 +223,8 @@ def attention_prefill(cfg: ModelConfig, p: Dict, x: Tensor,
         kv_pos = torch.cat([old, positions], dim=1)
     o = _attend_chunked(q, repeat_kv(k_att, n_rep), repeat_kv(v_att, n_rep),
                         positions, kv_pos, window=window,
-                        softcap=cfg.attn_logits_softcap)
+                        softcap=cfg.attn_logits_softcap,
+                        opt=cfg.opt_attention)
     y = dense(p["o"], o.reshape(b, s, -1), f"{name}.o")
     bidx = torch.arange(b, device=x.device)[:, None]
     if window > 0 and w_cache < s:
@@ -278,7 +280,9 @@ def attention_decode(cfg: ModelConfig, p: Dict, x: Tensor, pos: Tensor,
     """One-token decode against the cache. x (B, 1, D); pos (B,). The new
     K/V row is written in place at slot ``pos`` (a ring: ``pos % W``); on
     the int8 layout it is appended with error feedback and the history is
-    read by ``ops.int8_kv_attention``."""
+    read by ``ops.int8_kv_attention`` (under either ``opt_attention``).
+    The naive baseline on a bf16 cache materializes the head-repeated
+    cache in fp32 and takes fp32 products, as the reference's does."""
     b = x.shape[0]
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q, k, v = _project_qkv(cfg, p, x, name)
@@ -307,11 +311,21 @@ def attention_decode(cfg: ModelConfig, p: Dict, x: Tensor, pos: Tensor,
     else:
         ck[bidx, slot] = k[:, 0].to(ck.dtype)
         cv[bidx, slot] = v[:, 0].to(cv.dtype)
-        s = _mm(qg.to(ck.dtype), ck.permute(0, 2, 3, 1))  # (B, KV, R, S)
-        s = torch.where(kpos[:, None, None, :] >= 0, tanh_softcap(s, cap),
-                        torch.full_like(s, NEG_INF))
-        pw = torch.softmax(s, dim=-1)
-        o = _mm(pw.to(cv.dtype), cv.permute(0, 2, 1, 3)).to(x.dtype)
+        if cfg.opt_attention:
+            s = _mm(qg.to(ck.dtype), ck.permute(0, 2, 3, 1))  # B,KV,R,S
+            s = torch.where(kpos[:, None, None, :] >= 0,
+                            tanh_softcap(s, cap),
+                            torch.full_like(s, NEG_INF))
+            pw = torch.softmax(s, dim=-1)
+            o = _mm(pw.to(cv.dtype), cv.permute(0, 2, 1, 3)).to(x.dtype)
+        else:
+            kk = repeat_kv(ck, h // kv).float().permute(0, 2, 3, 1)
+            vv = repeat_kv(cv, h // kv).float().permute(0, 2, 1, 3)
+            qf = (q[:, 0].float() * hd ** -0.5)[:, :, None, :]   # B,H,1,hd
+            s = tanh_softcap(qf @ kk, cap)                       # B,H,1,S
+            s = torch.where(kpos[:, None, None, :] >= 0, s,
+                            torch.full_like(s, NEG_INF))
+            o = (torch.softmax(s, dim=-1) @ vv).to(x.dtype)      # B,H,1,hd
     y = dense(p["o"], o.reshape(b, 1, h * hd), f"{name}.o")
     return y, cache
 
@@ -337,7 +351,6 @@ def cross_attention(cfg: ModelConfig, p: Dict, x: Tensor, kv_cache: Dict,
     """Decoder queries x (B, S, D) against the fixed encoder K/V: no
     positions, no mask. Plain products, as the JAX package computes them
     outside any Pallas kernel."""
-    _refuse_naive_baseline(cfg)
     b, s, _ = x.shape
     h, hd = cfg.num_heads, cfg.head_dim
     q = dense(p["q"], x, f"{name}.q").reshape(b, s, h, hd)
@@ -346,7 +359,8 @@ def cross_attention(cfg: ModelConfig, p: Dict, x: Tensor, kv_cache: Dict,
     v = repeat_kv(kv_cache["v"], n_rep)
     zeros = torch.zeros((b, 1), dtype=torch.long, device=x.device)
     o = _attend_chunked(q, k, v, zeros.expand(b, s),
-                        zeros.expand(b, k.shape[1]), causal=False)
+                        zeros.expand(b, k.shape[1]), causal=False,
+                        opt=cfg.opt_attention)
     return dense(p["o"], o.reshape(b, s, -1), f"{name}.o")
 
 
@@ -387,7 +401,6 @@ def _mla_qkv(cfg: ModelConfig, p: Dict, x: Tensor, positions: Tensor,
              name: str):
     """x (B, S, D) → (q_nope, q_rope (B, S, H, ·), ckv (B, S, rank),
     k_rope (B, S, rope)), the rope halves rotated."""
-    _refuse_naive_baseline(cfg)
     m = cfg.mla
     b, s, _ = x.shape
     ql = dense(p["q_down"], x, f"{name}.q_down")
@@ -421,7 +434,8 @@ def _mla_attend(cfg: ModelConfig, p: Dict, q_nope: Tensor, q_rope: Tensor,
     if m.v_head_dim < qk_hd:
         v = torch.nn.functional.pad(v, (0, qk_hd - m.v_head_dim))
     o = _attend_chunked(q, k, v, q_positions, kv_positions,
-                        softcap=cfg.attn_logits_softcap)[..., :m.v_head_dim]
+                        softcap=cfg.attn_logits_softcap,
+                        opt=cfg.opt_attention)[..., :m.v_head_dim]
     return dense(p["o"], o.reshape(b, o.shape[1], -1), f"{name}.o")
 
 

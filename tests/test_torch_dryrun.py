@@ -14,8 +14,10 @@ package's ``launch/dryrun.py``, ``specs.py`` and ``hlo_analysis.py``.
 - a fake pass of the smoke decode and prefill cells of opt-proxy and
   internlm2-1.8b (int8 KV) calls each kernel wrapper as often, at the
   same shapes, as a real CPU run of the same step; no dry run moves
-  ``ops.kernel_launches()``; every fake wrapper refuses what its CUDA
-  path refuses and never reaches ``build.load``;
+  ``ops.kernel_launches()``; a fake falcon-mamba smoke train pass calls
+  the scan's forward (twice a layer under remat) and its backward (once
+  a layer) at the shapes the card's step runs them; every fake wrapper
+  refuses what its CUDA path refuses and never reaches ``build.load``;
 - a dry run under a 2x2 fake world leaves no process group behind;
 - the olmoe smoke quant cell on 1x2x4 runs its stages at the shard shapes
   ``quant_group_sharding`` gives;
@@ -222,6 +224,26 @@ def test_fake_pass_calls_kernels_as_a_cpu_run(arch, kv, kind, recorded):
     assert not dist.is_initialized()
 
 
+def test_fake_mamba_train_pass_calls_the_scan_and_its_backward():
+    cfg = treg.get_config("falcon-mamba-7b", smoke=True)
+    mc = cfg.model
+    b, s = 4, 16
+    before = ops.kernel_launches()
+    with fake_world(1):
+        rules = tshd.make_rules(dryrun._groups_ready(make_host_mesh()),
+                                cfg.parallel)
+        cc, _ = dryrun.trace_cell(cfg, treg.ShapeSpec("t", "train", s, b),
+                                  rules)
+    assert ops.kernel_launches() == before
+    shape = (b, s, mc.ssm.expand * mc.d_model, mc.ssm.d_state)
+    calls = [(n, tuple(sh)) for n, sh, _ in cc.kernel_log]
+    assert calls.count(("selective_scan", shape)) == 2 * mc.num_layers
+    assert calls.count(("selective_scan_bwd", shape)) == mc.num_layers
+    assert len(calls) == 3 * mc.num_layers
+    bwd = [w for n, _, w in cc.kernel_log if n == "selective_scan_bwd"]
+    assert bwd[0] == work.selective_scan_backward(*shape, 2, False)
+
+
 def test_fake_wrappers_refuse_as_the_card_and_never_build(monkeypatch):
     def no_build(name):
         raise AssertionError(f"build.load({name!r}) in a fake call")
@@ -252,13 +274,14 @@ def test_fake_wrappers_refuse_as_the_card_and_never_build(monkeypatch):
                                   kv_block=64)
         u = torch.empty((1, 4, 96), dtype=torch.bfloat16, device=dev)
         f32 = dict(device=dev)
+        scan = (u, torch.empty((1, 4, 96), **f32),
+                torch.empty((1, 4, 16), **f32),
+                torch.empty((1, 4, 16), **f32), torch.empty((96, 16), **f32),
+                torch.empty((96,), **f32), torch.empty((1, 96, 16), **f32))
         with pytest.raises(ValueError, match="multiple of 64"):
-            ops.selective_scan(u, torch.empty((1, 4, 96), **f32),
-                               torch.empty((1, 4, 16), **f32),
-                               torch.empty((1, 4, 16), **f32),
-                               torch.empty((96, 16), **f32),
-                               torch.empty((96,), **f32),
-                               torch.empty((1, 96, 16), **f32))
+            ops.selective_scan(*scan)
+        with pytest.raises(ValueError, match="selective_scan_bwd.*multiple"):
+            ops.selective_scan_bwd_cuda(*scan, torch.empty_like(u))
         hinv = torch.empty((2, 64, 64), device=dev)
         with pytest.raises(ValueError, match="not aligned"):
             ops.rpiq_block(w, w, torch.empty((2, 8, 64), device=dev),
@@ -270,6 +293,10 @@ def test_fake_wrappers_refuse_as_the_card_and_never_build(monkeypatch):
 
 def test_fake_scan_constants_are_the_kernels():
     src = (ROOT / "src/repro_torch/kernels/csrc/selective_scan.cu"
+           ).read_text()
+    assert f"constexpr int BD = {ops.SCAN_CHANNELS_PER_BLOCK};" in src
+    assert f"constexpr int NMAX = {ops.SCAN_MAX_STATE};" in src
+    src = (ROOT / "src/repro_torch/kernels/csrc/selective_scan_bwd.cu"
            ).read_text()
     assert f"constexpr int BD = {ops.SCAN_CHANNELS_PER_BLOCK};" in src
     assert f"constexpr int NMAX = {ops.SCAN_MAX_STATE};" in src
@@ -359,8 +386,10 @@ def test_command_line_writes_the_jax_keys(tmp_path):
     (work.int8_kv_attention(4, 8, 2, 128, 4096, 1), 0.0104, "bytes"),
     (work.quant_pack(2048, 8192, 128), 0.0228, "bytes"),
     (work.selective_scan(4, 512, 8192, 16), 0.0416, "bytes"),
+    (work.selective_scan_backward(4, 512, 8192, 16), 0.0881, "operations"),
 ], ids=["hessian_accum", "gptq_block", "rpiq_block", "w4a16_matmul",
-        "int8_kv_attention", "quant_pack", "selective_scan"])
+        "int8_kv_attention", "quant_pack", "selective_scan",
+        "selective_scan_bwd"])
 def test_work_formula_gives_the_printed_bound(w, printed, by):
     digits = len(str(printed).split(".")[1])
     assert round(w.bound_ms(), digits) == printed

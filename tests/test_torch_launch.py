@@ -389,10 +389,10 @@ def test_jax_override_keys_are_taken(launcher, override, tmp_path):
     the end: the ones read nowhere in the reference (``quant.act_order``,
     ``quant.keep_best_projection``, ``serve.quantized``), the two the
     overlap schedule reads (``quant.moe_flip_budget``,
-    ``quant.jit_capture``), here under serial, and the stages' route
-    (``quant.rpiq_impl=pallas``, the port's one route). The naive
-    attention baseline raises in both launchers; the JAX package's plain
-    stage route (``quant.gptq_impl`` / ``quant.rpiq_impl`` ``xla``) and
+    ``quant.jit_capture``), here under serial, the stages' route
+    (``quant.rpiq_impl=pallas``, the port's one route) and the naive
+    attention baseline (``model.opt_attention=false``). The JAX package's
+    plain stage route (``quant.gptq_impl`` / ``quant.rpiq_impl`` ``xla``) and
     its per-linear executor baseline (``quant.batched_executor=false``)
     raise in the quantize launcher, which runs the executor; each names
     its ROADMAP item. Training's keys are taken (``parallel.remat``,
@@ -411,7 +411,7 @@ def test_jax_override_keys_are_taken(launcher, override, tmp_path):
         argv += ["--batch", "2", "--prompt-len", "8",
                  "serve.max_new_tokens=2"]
     mod = tlaunch_quantize if launcher == "quantize" else tlaunch_serve
-    refused = {"model.opt_attention=false": 22}
+    refused = {}
     if launcher == "quantize":
         refused.update({"quant.batched_executor=false": 9,
                         "quant.gptq_impl=xla": 9,

@@ -20,11 +20,12 @@ JAX package's trainer (opt-proxy smoke at model dtype float32, batch 4 ×
   ranks); ``examples/torch_train_small_lm.py`` runs.
 
 On the card (``gpu``): every CUDA wrapper of ``kernels/ops.py`` raises on
-an input that requires grad (``selective_scan`` naming queue 1 item 23, a
-Mamba model's train step too); an opt-proxy smoke train step at its own
-bf16 on the card against the same step on the CPU (loss and parameters
-≤ 1e-2 relative: the two devices sum the fp32 products in other orders
-and round the bf16 activations apart).
+an input that requires grad (the scan's dispatcher takes such inputs
+through its autograd Function instead, its backward the
+``selective_scan_bwd`` kernel); an opt-proxy and a falcon-mamba smoke
+train step at their own bf16 on the card against the same step on the
+CPU (loss and parameters ≤ 1e-2 relative: the two devices sum the fp32
+products in other orders and round the bf16 activations apart).
 """
 import _torch_threads  # noqa: F401  (caps torch's CPU threads)
 
@@ -294,9 +295,13 @@ def _wrapper_calls(dev):
             r(1, 16, 2, 1), kpos, 64),
         "quant_pack": lambda: tops.quant_pack_cuda(x, r(64, 1), r(64, 1),
                                                    128),
-        "selective_scan": lambda: tops.selective_scan(
+        "selective_scan": lambda: tops.selective_scan_cuda(
             r(1, 8, 64).requires_grad_(True), r(1, 8, 64), r(1, 8, 16),
             r(1, 8, 16), r(64, 16), r(64), r(1, 64, 16)),
+        "selective_scan_bwd": lambda: tops.selective_scan_bwd_cuda(
+            r(1, 8, 64), r(1, 8, 64), r(1, 8, 16), r(1, 8, 16),
+            r(64, 16).requires_grad_(True), r(64), r(1, 64, 16),
+            r(1, 8, 64)),
     }
 
 
@@ -304,27 +309,29 @@ def _wrapper_calls(dev):
 @pytest.mark.parametrize("op", sorted(tops.kernel_launches()))
 def test_gpu_wrappers_refuse_inputs_that_require_grad(cuda, op):
     before = tops.kernel_launches()[op]
-    match = ("ROADMAP.md, queue 1 item 23" if op == "selective_scan"
-             else "has no backward")
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(NotImplementedError, match="has no backward"):
         _wrapper_calls(cuda)[op]()
     assert tops.kernel_launches()[op] == before
 
 
 @pytest.mark.gpu
-def test_gpu_mamba_train_step_raises_naming_item_23(cuda):
-    cfg = tget_config("falcon-mamba-7b", smoke=True)
-    st = TTS.init_train_state(cfg, cuda)
-    step = TTS.make_train_step(cfg)
-    batch = TMarkovLM(cfg.model.vocab_size, seed=0).batch(2, 16)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md, queue 1 item 23"):
-        step(st, batch)
+def test_gpu_mamba_train_step_matches_cpu(cuda):
+    """falcon-mamba smoke: the card's step runs the scan's forward and
+    backward kernels (each layer's forward twice under remat)."""
+    tops.reset_kernel_launches()
+    check_step_matches_cpu(cuda, "falcon-mamba-7b")
+    launches = tops.kernel_launches()
+    assert launches["selective_scan_bwd"] == 3           # smoke: 3 layers
+    assert launches["selective_scan"] == 6
 
 
 @pytest.mark.gpu
 def test_gpu_train_step_matches_cpu(cuda):
-    cfg = tget_config("opt-proxy", smoke=True)
+    check_step_matches_cpu(cuda, "opt-proxy")
+
+
+def check_step_matches_cpu(cuda, arch: str) -> None:
+    cfg = tget_config(arch, smoke=True)
     cfg.train.lr, cfg.train.warmup_steps = 3e-3, 2
     batch = TMarkovLM(cfg.model.vocab_size, seed=0).batch(8, 32)
     out = {}
