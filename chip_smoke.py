@@ -223,11 +223,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      kernel; the Mamba step's scan has its backward, ``selective_scan_bwd``,
      and every other CUDA wrapper refuses inputs that require grad):
      16a. full-width opt-proxy (12 layers, d 768, vocab 50304; fp32
-         master weights, bf16 compute) through ``launch.train``: 300
-         steps of 16 x 128 tokens at lr 1e-3 on ``MarkovLM(branching=3)``
-         (the loss must fall; step walls, peak, a profiled step's idle
-         share); the same run stopped by SIGTERM half-way (the stream
-         sends it as it makes batch 152; the trainer checkpoints at the
+         master weights, bf16 compute) through ``launch.train``: 150
+         steps (cut from 300, for time) of 16 x 128 tokens at lr
+         1e-3 on ``MarkovLM(branching=3)`` (the loss must fall; step
+         walls, peak, a profiled step's idle share); the same run
+         stopped by SIGTERM half-way (the stream sends it as it makes
+         batch 77; the trainer checkpoints at the
          next step boundary and returns) and rerun: its final TrainState
          bitwise the uninterrupted one's, the data stream's position
          included; ``launch.quantize train.ckpt_dir=`` on the
@@ -257,15 +258,21 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
          the cells off at rtol 1e-5 / atol 1e-6, names and modes equal);
          then the same ranks train it on a 2x2 mesh (``train(cfg,
          mesh=)``: explicit data parallelism over ``data``, the train
-         state sharded by the placement rules, ``model`` sharding
-         storage): 5 steps of 16 x 128 (no remat, as 16a) from the
-         seeded init, against
-         ``train(device="cuda")`` from the same init (losses within 1e-2,
-         each leaf at 1e-5 or, past it, at the JAX package's sharded pins
-         rtol 3e-2 / atol 3e-3), every rank's final state bitwise rank
-         0's, rank 0's checkpoint restored on one device bitwise; each
-         rank's step walls, gloo bytes a step and peak;
-     17b. internlm2-1.8b at full width and depth on 1x2 (every group
+         state sharded by the placement rules, the ``model`` axis
+         computing its share: attention by heads, the MLP by ``d_ff``,
+         the embedding, head and loss by vocab): 5 steps of 16 x 128
+         under ``parallel.remat=full`` from the seeded init, then 2 steps
+         from the same init under ``parallel.sp`` (the residual's
+         sequence over ``model``), each against one run of
+         ``train(device="cuda")`` from the same init, on rank 0, at its
+         step 5 and step 2 (losses within 1e-2, each leaf at 1e-5 or,
+         past it, at the JAX package's sharded pins rtol 3e-2 / atol
+         3e-3), every rank's final state bitwise rank 0's, rank 0's
+         checkpoint of the split run restored on one device bitwise; each
+         rank's step walls, gloo bytes a step (by kind, beside the
+         1,136,099,332 before the split) and peak;
+     17b. internlm2-1.8b at full width, 8 of its 24 layers (for
+         time), on 1x2 (every group
          row-sharded: the Γ sum at 2048-8192 rows) through
          ``torch.distributed.run`` (``python3 chip_smoke.py launcher-rank
          <argv>`` is one rank of ``launch.quantize``), against the same
@@ -4680,7 +4687,7 @@ def phase_training_path(smi: str) -> dict:
     root = os.path.join(ROOT, "build", "phase16")
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
-    steps, kill_at = 300, 152
+    steps, kill_at = 150, 77
     ck_a, ck_b = os.path.join(root, "a"), os.path.join(root, "b")
     try:
         # -- 16a: uninterrupted, in this process
@@ -4706,10 +4713,11 @@ def phase_training_path(smi: str) -> dict:
             f"{hist[0]['dt']:.3f} ({2048 / dts[len(dts) // 2]:.0f} tokens/s"
             f" at the median); peak above what was held {peak} bytes "
             f"(held {held})")
-        log(f"  loss: mean of steps 0-9 {first:.4f}, of steps 290-299 "
-            f"{last:.4f}; step 0 {losses[0]:.4f}, step 299 "
-            f"{losses[-1]:.4f}; grad_norm step 299 "
-            f"{hist[-1]['grad_norm']:.4f}; kernel launches {counts}")
+        log(f"  loss: mean of steps 0-9 {first:.4f}, of steps "
+            f"{steps - 10}-{steps - 1} {last:.4f}; step 0 {losses[0]:.4f},"
+            f" step {steps - 1} {losses[-1]:.4f}; grad_norm step "
+            f"{steps - 1} {hist[-1]['grad_norm']:.4f}; kernel launches "
+            f"{counts}")
         check(len(hist) == steps and all(math.isfinite(x) for x in losses)
               and last < first - 0.5, "16a: the loss falls")
         data = MarkovLM(50304, seed=0, branching=3)
@@ -5157,21 +5165,28 @@ def sharded_rank(rank: int, world: int, job: dict) -> None:
     dist.destroy_process_group()
 
 
-# 17a's training leg: opt-proxy at full width, steps of batch x seq tokens
-TRAIN_LEG = dict(steps=5, batch=16, seq=128)
+# 17a's training leg: opt-proxy at full width, steps of batch x seq tokens,
+# then sp_steps of them from the seeded init under parallel.sp
+TRAIN_LEG = dict(steps=5, batch=16, seq=128, sp_steps=2)
+# the bytes a rank handed to gloo a step before the model axis computed
+# its share (whole parameters gathered on every rank; opt-proxy 2x2 on
+# an NVIDIA H100 80GB HBM3, 700 W)
+GLOO_BYTES_WHOLE = 1136099332
 
 
-def train_leg_config(ckpt_dir: str):
-    """opt-proxy's, no remat as in 16a: the first checkpointed forward of
-    a fresh process imports ``torch._dynamo`` (``torch.utils.checkpoint``
-    loads it at first use), seconds each rank would pay once."""
+def train_leg_config(ckpt_dir: str, sp: bool = False):
+    """opt-proxy's, under ``parallel.remat=full`` (the launcher's
+    default: a super-block's forward, its collectives and the split plan
+    it reads, recomputed on autograd's own thread in the backward).
+    ``sp``: ``parallel.sp`` and ``sp_steps`` steps."""
     from repro_torch.configs import get_config
     cfg = get_config("opt-proxy")
-    cfg.parallel.remat = "none"
+    cfg.parallel.remat = "full"
+    cfg.parallel.sp = sp
     t = cfg.train
-    t.steps, t.global_batch_size, t.seq_len = (TRAIN_LEG["steps"],
-                                               TRAIN_LEG["batch"],
-                                               TRAIN_LEG["seq"])
+    t.steps, t.global_batch_size, t.seq_len = (
+        TRAIN_LEG["sp_steps" if sp else "steps"], TRAIN_LEG["batch"],
+        TRAIN_LEG["seq"])
     t.ckpt_dir = ckpt_dir
     return cfg
 
@@ -5190,22 +5205,47 @@ def state_digest(tree) -> str:
     return h.hexdigest()
 
 
+def against_one_device(got, want: dict) -> tuple:
+    """(the leaves of the state ``got`` past 1e-5 relative of ``want``
+    ({path: tensor}), each with its distance; whether those are inside
+    the JAX package's sharded pins, rtol 3e-2 / atol 3e-3)."""
+    import torch
+    from repro_torch.distributed.checkpoint import tree_paths
+    past, within = [], True
+    for k, g in tree_paths(got):
+        w, g = want[k].float(), g.float()
+        rel = float((g - w).norm() / (w.norm() + 1e-30))
+        if rel > 1e-5:
+            past.append(f"{k} {rel:.2e}")
+            within &= bool(torch.allclose(g, w, rtol=3e-2, atol=3e-3))
+    return past, within
+
+
 def sharded_train_rank(job: dict) -> dict:
     """This rank's part of 17a's training leg: ``train(cfg, mesh=)`` on a
     2x2 mesh of the four ranks, sharing the card over gloo, from the
-    seeded init; rank 0 writes the final checkpoint. Returns the step
-    walls and losses, the bytes handed to gloo a step (each step wrapped),
-    the peak above what the rank held, the wall and the final state's
-    digest."""
+    seeded init, the ``model`` axis computing its share (the Megatron
+    split); rank 0 writes the final checkpoint. Then ``sp_steps`` steps
+    from the same init under ``parallel.sp``. Returns, for each run
+    (``sp`` the second), the step walls and losses, the bytes handed to
+    gloo a step and by kind (each step wrapped), the peak above what the
+    rank held, the wall and the final state's digest. Rank 0 then runs
+    ``train(cfg, device="cuda")`` from the same init for ``steps`` steps
+    (its state kept at ``sp_steps``) and returns, under ``one``, its walls
+    and losses and each run's leaves against it
+    (:func:`against_one_device`)."""
     import torch
+    import torch.distributed as dist
     from repro_torch.data import MarkovLM
     from repro_torch.distributed import sharding
+    from repro_torch.distributed.checkpoint import tree_paths
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.training import trainer
-    cfg = train_leg_config(os.path.join(job["dir"], "train_ck"))
     mesh = make_host_mesh(data=2, model=2, device="cuda")
-    step_bytes = []
     make = trainer.make_sharded_train_step
+    make_one = trainer.make_train_step
+    steps: list = []
+    finals: list = []
 
     def counted(*a, **kw):
         step = make(*a, **kw)
@@ -5213,26 +5253,69 @@ def sharded_train_rank(job: dict) -> dict:
         def run(state, batch):
             sharding.reset_comm_bytes()
             out = step(state, batch)
-            step_bytes.append(sharding.comm_bytes())
+            steps.append((sharding.comm_bytes(), sharding.comm_by_kind()))
             return out
         return run
 
     trainer.make_sharded_train_step = counted
-    release_device()
-    torch.cuda.synchronize()
-    held = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    t = time.perf_counter()
-    out = trainer.train(cfg, MarkovLM(cfg.model.vocab_size,
-                                      seed=cfg.train.seed),
-                        device="cuda", mesh=mesh, verbose=False)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t
-    return dict(wall=wall, step_walls=[h["dt"] for h in out["history"]],
-                losses=[h["loss"] for h in out["history"]],
-                step_bytes=step_bytes,
-                peak=torch.cuda.max_memory_allocated() - held,
-                digest=state_digest(out["state"]))
+
+    def one_run(cfg) -> dict:
+        steps.clear()
+        release_device()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out = trainer.train(cfg, MarkovLM(cfg.model.vocab_size,
+                                          seed=cfg.train.seed),
+                            device="cuda", mesh=mesh, verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        if dist.get_rank() == 0:
+            finals.append(out["state"])
+        return dict(wall=wall, step_walls=[h["dt"] for h in out["history"]],
+                    losses=[h["loss"] for h in out["history"]],
+                    step_bytes=[n for n, _ in steps],
+                    step_kinds=[{k: v["bytes"] for k, v in kinds.items()}
+                                for _, kinds in steps],
+                    peak=torch.cuda.max_memory_allocated() - held,
+                    digest=state_digest(out["state"]))
+
+    res = one_run(train_leg_config(os.path.join(job["dir"], "train_ck")))
+    res["sp"] = one_run(train_leg_config(
+        os.path.join(job["dir"], "train_ck_sp"), sp=True))
+    if finals:
+        at_sp: dict = {}
+
+        def keeping(cfg):
+            step = make_one(cfg)
+
+            def run(state, batch):
+                state, m = step(state, batch)
+                if int(state.step) == TRAIN_LEG["sp_steps"]:
+                    at_sp.update((k, t.clone()) for k, t in
+                                 tree_paths(state))
+                return state, m
+            return run
+
+        trainer.make_train_step = keeping
+        cfg = train_leg_config(os.path.join(job["dir"], "train_ck_one"))
+        t = time.perf_counter()
+        ref = trainer.train(cfg, MarkovLM(cfg.model.vocab_size,
+                                          seed=cfg.train.seed),
+                            device="cuda", verbose=False)
+        torch.cuda.synchronize()
+        one = dict(wall=time.perf_counter() - t,
+                   step_walls=[h["dt"] for h in ref["history"]],
+                   losses=[h["loss"] for h in ref["history"]])
+        one["past"], one["within"] = against_one_device(
+            finals[0], dict(tree_paths(ref["state"])))
+        one["sp_past"], one["sp_within"] = against_one_device(finals[1],
+                                                              at_sp)
+        res["one"] = one
+        del ref, at_sp, finals[:]
+    dist.barrier()
+    return res
 
 
 def job_config(job: dict):
@@ -5397,70 +5480,71 @@ def run_launcher_leg(cmd: list, label: str, launches: dict) -> str:
 
 
 def sharded_train_leg(job: dict, res: list, smi: str) -> None:
-    """17a's training leg, read from the ranks' results: every rank's
-    final state bitwise rank 0's; rank 0's checkpoint restored on one
-    device bitwise it; against ``train(device="cuda")`` from the same
-    init: the losses within 1e-2 and every leaf at 1e-5 relative or, past
-    it (printed with its distance), at the JAX package's sharded pins
-    (rtol 3e-2 / atol 3e-3). Prints each rank's step walls, gloo bytes a
-    step and peak beside the card."""
-    import torch
-    from repro_torch.data import MarkovLM
-    from repro_torch.distributed.checkpoint import Checkpointer, tree_paths
+    """17a's training leg, read from the ranks' results, for the split
+    run and then the ``parallel.sp`` run: every rank's final state bitwise
+    rank 0's; against ``train(device="cuda")`` from the same init and as
+    many steps (rank 0's ``one``): the losses within 1e-2 and every leaf
+    at 1e-5 relative or, past it (printed with its distance), at the JAX
+    package's sharded pins (rtol 3e-2 / atol 3e-3); the split run's
+    checkpoint (rank 0's) restored on one device bitwise its state.
+    Prints each rank's step walls, gloo bytes a step (by kind, beside the
+    bytes before the split) and peak beside the card."""
+    from repro_torch.distributed.checkpoint import Checkpointer
     from repro_torch.training.train_step import init_train_state
-    from repro_torch.training.trainer import train
     t = time.perf_counter()
-    legs = [x["train"] for x in res]
-    for r, x in enumerate(legs):
-        log(f"  17a train rank {r}: train(mesh=2x2) {x['wall']:.3f} s; "
-            f"step walls {[round(w, 4) for w in x['step_walls']]} s; gloo "
-            f"bytes a step {x['step_bytes']}; peak above what it held "
-            f"{x['peak']} bytes [{smi}]")
-    same = all(x["digest"] == legs[0]["digest"] for x in legs)
-    cfg = train_leg_config(os.path.join(job["dir"], "train_one"))
-    t1 = time.perf_counter()
-    ref = train(cfg, MarkovLM(cfg.model.vocab_size, seed=cfg.train.seed),
-                device="cuda", verbose=False)
-    torch.cuda.synchronize()
-    one_s = time.perf_counter() - t1
-    restored, extra = Checkpointer(os.path.join(job["dir"], "train_ck")
-                                   ).restore(init_train_state(cfg, "cuda"))
-    restored_same = (state_digest(restored) == legs[0]["digest"]
-                     and extra["step"] == TRAIN_LEG["steps"])
-    past, within = [], True
-    want = dict(tree_paths(ref["state"]))
-    for k, g in tree_paths(restored):
-        w = want[k].float()
-        g = g.float()
-        rel = float((g - w).norm() / (w.norm() + 1e-30))
-        if rel > 1e-5:
-            past.append(f"{k} {rel:.2e}")
-            within &= bool(torch.allclose(g, w, rtol=3e-2, atol=3e-3))
-    gaps = [abs(a - h["loss"]) for a, h in zip(legs[0]["losses"],
-                                               ref["history"])]
-    log(f"  17a train: one device {one_s:.3f} s (step walls "
-        f"{[round(h['dt'], 4) for h in ref['history']]} s) [{smi}]; "
-        f"losses 2x2 {[round(v, 5) for v in legs[0]['losses']]} one "
-        f"device {[round(h['loss'], 5) for h in ref['history']]} (largest "
-        f"gap {max(gaps):.3e}, tol 1e-2)")
-    log(f"  17a train: every rank's state bitwise rank 0's {same}; rank 0's "
-        f"checkpoint restored on one device bitwise it {restored_same}; "
-        f"{len(past)} of {len(want)} leaves past 1e-5 of the one-device "
-        f"run (held at rtol 3e-2 / atol 3e-3: {within}): {'; '.join(past)}")
-    check(same and restored_same and within and max(gaps) < 1e-2,
-          "17a train against the one-device run")
-    del ref, restored
-    release_device()
-    log(f"  17a train: the one-device run, the restore and the comparisons "
-        f"here took {time.perf_counter() - t:.1f}s")
+    one = res[0]["train"]["one"]
+    log(f"  17a train: one device (rank 0, after the mesh runs) "
+        f"{one['wall']:.3f} s; step walls "
+        f"{[round(w, 4) for w in one['step_walls']]} s [{smi}]")
+    for sp in (False, True):
+        label = "17a train sp" if sp else "17a train"
+        legs = [x["train"]["sp"] if sp else x["train"] for x in res]
+        for r, x in enumerate(legs):
+            log(f"  {label} rank {r}: train(mesh=2x2{', sp' if sp else ''}) "
+                f"{x['wall']:.3f} s; step walls "
+                f"{[round(w, 4) for w in x['step_walls']]} s; gloo bytes a "
+                f"step {x['step_bytes']} (before the split "
+                f"{GLOO_BYTES_WHOLE}), by kind {x['step_kinds'][-1]}; peak "
+                f"above what it held {x['peak']} bytes [{smi}]")
+        same = all(x["digest"] == legs[0]["digest"] for x in legs)
+        past = one["sp_past" if sp else "past"]
+        within = one["sp_within" if sp else "within"]
+        want = one["losses"][:len(legs[0]["losses"])]
+        gaps = [abs(a - b) for a, b in zip(legs[0]["losses"], want)]
+        log(f"  {label}: losses 2x2 {[round(v, 5) for v in legs[0]['losses']]}"
+            f" one device {[round(v, 5) for v in want]} (largest gap "
+            f"{max(gaps):.3e}, tol 1e-2)")
+        restored_same = True
+        if not sp:
+            cfg = train_leg_config(os.path.join(job["dir"], "train_ck"))
+            restored, extra = Checkpointer(cfg.train.ckpt_dir).restore(
+                init_train_state(cfg, "cuda"))
+            restored_same = (state_digest(restored) == legs[0]["digest"]
+                             and extra["step"] == cfg.train.steps)
+            del restored
+            release_device()
+        restore = ("" if sp else "; rank 0's checkpoint restored on one "
+                   f"device bitwise it {restored_same}")
+        log(f"  {label}: every rank's state bitwise rank 0's {same}"
+            f"{restore}; {len(past)} leaves past 1e-5 of the one-device "
+            f"run (held at rtol 3e-2 / atol 3e-3: {within}): "
+            f"{'; '.join(past)}")
+        check(same and restored_same and within and len(gaps) == len(
+            legs[0]["losses"]) and max(gaps) < 1e-2,
+            f"{label} against the one-device run")
+    log(f"  17a train: the restore and the checks here took "
+        f"{time.perf_counter() - t:.1f}s")
+
+
+SHARDED_LAYERS = 8      # of internlm2-1.8b's 24 in 17b
 
 
 def phase_sharded_path(smi: str) -> dict:
     """17a opt-proxy at full width on 2x2 (4 ranks, the in-process API)
     against phase 5's single-device run, then trained on 2x2 by the same
     ranks against one device (``sharded_train_leg``); 17b internlm2-1.8b
-    at full width
-    and depth on 1x2 (every group row-sharded) through
+    at full width, ``SHARDED_LAYERS`` of its layers, on 1x2 (every group
+    row-sharded) through
     ``torch.distributed.run`` against the launcher run without the mesh;
     17c olmoe-1b-7b at full width on 1x1x2 under overlap (cut to one
     layer; the smoke config if two ranks' peaks would not fit) against the
@@ -5503,7 +5587,7 @@ def phase_sharded_path(smi: str) -> dict:
     argv = ["--arch", "internlm2-1.8b"]
     over = [f"train.ckpt_dir={os.path.join(b, 'none')}",
             "quant.calib_batches=4", "quant.calib_batch_size=4",
-            "quant.calib_seq_len=128"]
+            "quant.calib_seq_len=128", f"model.num_layers={SHARDED_LAYERS}"]
     me = os.path.abspath(__file__)
     run_launcher_leg([sys.executable, me, "launcher-rank", *argv, "--out",
                       os.path.join(b, "one"), *over], "17b one device",

@@ -20,9 +20,10 @@ nowhere, as there; so are ``serve.w4a16_impl`` and ``serve.kv_impl``:
 the port has one route per device and no kernel backend to choose (a
 kernel fault raises, it does not degrade). Every ``train.*`` field is
 taken (training, ``repro_torch.training``); every ``parallel.*`` field
-is taken (:class:`ParallelConfig` says which are read), and
-``parallel.sp=true`` raises in sharded training, naming ROADMAP.md queue
-1 item 25.
+is taken (:class:`ParallelConfig` says which are read);
+``parallel.sp=true`` runs in sharded training on the architectures whose
+layers the ``model`` axis splits and raises on the others (routed experts,
+Mamba, RG-LRU, MLA, the MTP head), naming ROADMAP.md queue 1 item 26.
 """
 from __future__ import annotations
 
@@ -216,8 +217,9 @@ class ParallelConfig:
     """The JAX package's parallelism fields. Training reads ``remat`` and
     ``int8_optimizer_state``; sharded training (``train(mesh=…)``) reads
     ``fsdp`` (the placement), ``ep_local_dispatch`` (the routed MoE) and
-    ``sp``, which raises naming ROADMAP.md queue 1 item 25
-    (:func:`refuse_sharding`). The mesh comes from ``--mesh`` /
+    ``sp`` (the residual's sequence over ``model``; refused on the layer
+    kinds the axis does not split, :func:`refuse_sharding`). The mesh
+    comes from ``--mesh`` /
     ``make_host_mesh``: ``data``, ``model``, ``pod``, ``ep``,
     ``pipeline_stages``, ``pp_microbatches``, ``scan_layers``,
     ``overlap_collectives`` and ``grad_compression`` are taken and read
@@ -323,13 +325,19 @@ def not_ported(what: str, item: int) -> NotImplementedError:
         f"item {item}")
 
 
-def refuse_sharding(pc: ParallelConfig) -> None:
-    """Raise, naming item 25, for the sharding field sharded training
-    cannot run yet: ``parallel.sp`` (the residual's sequence over the
-    ``model`` axis)."""
-    if pc.sp:
-        raise not_ported(f"parallel.sp={pc.sp} (the sequence over the "
-                         "model axis in sharded training)", 25)
+def refuse_sharding(pc: ParallelConfig, mc: ModelConfig) -> None:
+    """Raise, naming item 26, where sharded training cannot run
+    ``parallel.sp`` (the residual's sequence over the ``model`` axis):
+    on a model with a layer kind the axis computes whole (routed experts,
+    Mamba, RG-LRU, MLA, deepseek's MTP head)."""
+    kinds = set(mc.layer_kinds)
+    whole = [name for name, has in (
+        ("routed experts", mc.moe.num_experts > 0),
+        ("Mamba", "mamba" in kinds), ("RG-LRU", "rglru" in kinds),
+        ("MLA", mc.mla.enabled), ("the MTP head", mc.mtp_depth > 0)) if has]
+    if pc.sp and whole:
+        raise not_ported(f"parallel.sp=true on {mc.name} ({', '.join(whole)}"
+                         ": the sequence over the model axis)", 26)
 
 
 def _coerce(value: str, current: Any) -> Any:

@@ -56,6 +56,15 @@ def accumulate(state: HessianState, x: Tensor) -> HessianState:
     return HessianState(H, state.count + x3.shape[1])
 
 
+def stack_states(states) -> HessianState:
+    """Singleton states stacked into one (B, in, in) state, the counts
+    (B,) int32."""
+    return HessianState(
+        torch.stack([s.H for s in states]),
+        torch.stack([torch.as_tensor(s.count, dtype=torch.int32).reshape(())
+                     for s in states]))
+
+
 def damped(state: HessianState, percdamp) -> Tensor:
     """eq. 10: H̃ = H + percdamp·mean(diag H)·I; dead columns get diag 1.
 
@@ -109,6 +118,31 @@ def cholesky_inverse_upper(Hd: Tensor) -> Tensor:
     eye = torch.eye(Hd.shape[-1], dtype=Hd.dtype, device=Hd.device)
     hinv = torch.cholesky_solve(eye.expand_as(Hd), L)
     return _cholesky_or_nan(hinv).transpose(-1, -2)
+
+
+def block_solver(Hd: Tensor, c1: int, c2: int):
+    """``solve(rhs)`` against the damped Hessian's diagonal block
+    ``H̃[c1:c2, c1:c2]`` (eq. 12-14: stage 2's curvature), factored once."""
+    return _cho_solver(torch.linalg.cholesky(Hd[c1:c2, c1:c2]))
+
+
+def gram_solver(Xb: Tensor, damp_rel: float = 1e-6):
+    """``solve(rhs)`` against ``X_bᵀX_b + λI`` with ``λ = damp_rel ·
+    mean(diag G) + 1e-12`` (eq. 6 taken literally: one batch's Gram may be
+    singular)."""
+    G = Xb.T @ Xb
+    lam = damp_rel * torch.mean(torch.diagonal(G)) + 1e-12
+    return _cho_solver(torch.linalg.cholesky(
+        G + lam * torch.eye(G.shape[0], dtype=G.dtype, device=G.device)))
+
+
+def _cho_solver(L: Tensor):
+    """``solve(rhs)`` by the lower factor ``L``; rhs (n,) or (n, k)."""
+    def solve(rhs: Tensor) -> Tensor:
+        if rhs.dim() == 1:
+            return torch.cholesky_solve(rhs[:, None], L)[:, 0]
+        return torch.cholesky_solve(rhs, L)
+    return solve
 
 
 def _cholesky_or_nan(A: Tensor) -> Tensor:

@@ -107,6 +107,38 @@ def dequantize_codes(q: Tensor, qp: QuantParams, group_size: int,
     return ((q.float() - zero) * scale).to(dtype)
 
 
+def fake_quantize(w: Tensor, bits: int, group_size: int,
+                  symmetric: bool = False,
+                  qp: QuantParams | None = None) -> Tensor:
+    """Quantize then dequantize (the paper's ``Q(.)``, eq. 7), in w's
+    dtype: on the grid ``qp`` when given (a fixed grid), else on the RTN
+    grid of ``w`` itself."""
+    if qp is None:
+        qp = compute_qparams(w, bits, group_size, symmetric)
+    q = quantize_codes(w, qp, bits, group_size, symmetric)
+    return dequantize_codes(q, qp, group_size, symmetric, dtype=w.dtype)
+
+
+def quantize_column(w_col: Tensor, scale: Tensor, zero: Tensor, bits: int,
+                    symmetric: bool = False) -> Tensor:
+    """Quantize then dequantize one column (out,) on per-row ``scale`` /
+    ``zero`` (out,), the step of a column-by-column GPTQ loop."""
+    if symmetric:
+        lo, hi = -(2.0 ** (bits - 1)), 2.0 ** (bits - 1) - 1
+        return torch.clamp(torch.round(w_col / scale), lo, hi) * scale
+    q = torch.clamp(torch.round(w_col / scale) + zero, 0.0,
+                    2.0 ** bits - 1.0)
+    return (q - zero) * scale
+
+
+def quant_error(w: Tensor, bits: int, group_size: int,
+                symmetric: bool = False) -> Tensor:
+    """The Frobenius norm of ``w``'s round-to-nearest error (a
+    diagnostic)."""
+    return torch.linalg.norm(w - fake_quantize(w, bits, group_size,
+                                               symmetric))
+
+
 def pack_int4(q: Tensor) -> Tensor:
     """Codes in [0, 15], (out, in) → (out, in//2) uint8, low nibble = even
     column."""

@@ -27,14 +27,29 @@ make_sharded_train_step``): each rank runs the single-device loss on its
 block of the batch. So the JAX package's activation placements over the
 data parallel axes (``shard_hint`` "act", "tokens", "batch1", "logits" at
 ``src/repro/models/transformer.py:315,346,431,437,630,664``) hold by
-construction and ``shard_hint`` has no twin. Under :func:`use_rules` the
+construction. Under :func:`use_rules` the
 loss's sums over the batch (``train_step.cross_entropy``) and the routed
 MoE's load-balance loss (``models/moe.moe_ffn``, the reference's local
 dispatch) read :func:`current_rules` and sum over the data parallel group
 with :func:`psum_local_grad`, whose backward stays on this rank: the
-ranks' parameter gradients then sum to the global batch's. The ``model``
-axis shards storage only (ROADMAP.md queue 1 item 25 has its compute
-split and ``parallel.sp``).
+ranks' parameter gradients then sum to the global batch's.
+
+The ``model`` axis splits the Megatron products as GSPMD does
+(:class:`ModelSplit`, made by :func:`model_split` and set by
+:func:`use_split` for the step's forward and backward): a rank runs the
+one-device layers at 1/m of the heads, of ``d_ff`` and of the vocab, on
+its blocks of the column-parallel (q/k/v, gate/up, the head, the
+embedding's rows) and row-parallel (o, down) weights. The operators are
+autograd Functions on the counted collectives: :func:`copy_to_model`
+(Megatron's *f*: identity, its gradient summed over ``model``) before a
+column-parallel product, :func:`reduce_from_model` (*g*: the sum over
+``model``, identity backward) after a row-parallel one, and for
+``parallel.sp`` :func:`gather_seq` / :func:`scatter_seq`, the residual's
+sequence over ``model`` (``shard_hint`` "act" with ``sp``).
+
+The rules and the plan are held for the process, not for a thread:
+autograd runs a CUDA tensor's backward on a thread of its own, and under
+remat the super-block's forward is recomputed there, reading both.
 
 Quantization groups: the batched executor (core/plan.py) stacks a group's
 L same-shape linears into (L, Cout, Cin) slabs. Quantization is parallel
@@ -49,7 +64,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import re
-import threading
+import types
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -214,7 +229,9 @@ def comm_by_kind() -> Dict[str, Dict[str, float]]:
     """``{kind: {"count", "bytes", "link_bytes"}}`` since the last reset:
     ``all-reduce`` (:func:`psum`), ``all-gather`` (:func:`all_gather_cat`),
     ``broadcast`` (:func:`broadcast_tree`), ``collective-permute``
-    (:func:`send_recv`); ``link_bytes`` a ring's estimate (``_count``)."""
+    (:func:`send_recv`); :func:`pmax` and :func:`reduce_scatter` count
+    as all-reduces; ``link_bytes`` a ring's
+    estimate (``_count``)."""
     return {k: {"count": int(c), "bytes": int(n), "link_bytes": link}
             for k, (c, n, link) in _COMM_KINDS.items()}
 
@@ -262,6 +279,26 @@ class _SumLocalGrad(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+def pmax(t: Tensor, group) -> Tensor:
+    """The elementwise maximum of ``t`` over ``group``'s ranks (no
+    gradient), counted as an all-reduce."""
+    buf = t.detach().to(_comm_device(group, t), copy=True)
+    _count("all-reduce", buf, dist.get_world_size(group))
+    if not isinstance(buf, FakeTensor):
+        dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=group)
+    return buf.to(t.device)
+
+
+def reduce_scatter(t: Tensor, dim: int, ag: AxisGroup) -> Tensor:
+    """The sum of ``t`` over ``ag``'s ranks, this rank's block of it along
+    ``dim`` (shard order): a :func:`psum` and a cut, counted as the
+    all-reduce it is (the same bits on every rank, whatever gloo's
+    version takes; a reduce-scatter waits for a run on cards of their
+    own)."""
+    n = t.shape[dim] // ag.size
+    return psum(t, ag.group).narrow(dim, ag.index * n, n)
 
 
 def psum_local_grad(x: Tensor, group) -> Tensor:
@@ -400,7 +437,9 @@ def gather(tree, specs, mesh):
 # The placement rules (training)
 # ---------------------------------------------------------------------------
 
-_STATE = threading.local()
+# the rules (:func:`use_rules`) and the model split (:func:`use_split`) the
+# layers read; for the process (module docstring)
+_STATE = types.SimpleNamespace(rules=None, split=None)
 
 
 @dataclasses.dataclass
@@ -432,12 +471,12 @@ class Rules:
 
 
 def current_rules() -> Optional[Rules]:
-    return getattr(_STATE, "rules", None)
+    return _STATE.rules
 
 
 @contextlib.contextmanager
 def use_rules(rules: Optional[Rules]):
-    prev = getattr(_STATE, "rules", None)
+    prev = _STATE.rules
     _STATE.rules = rules
     try:
         yield rules
@@ -669,6 +708,245 @@ def train_state_pspecs(state: Any, rules: Rules, fsdp: bool = True) -> Any:
         m_specs = tree_map(mirror, state.opt.m, pspecs)
         v_specs = tree_map(mirror, state.opt.v, pspecs)
     return TrainState(pspecs, AdamWState(PSpec(), m_specs, v_specs), PSpec())
+
+
+# ---------------------------------------------------------------------------
+# The model axis's compute split (Megatron) and parallel.sp
+# ---------------------------------------------------------------------------
+
+class _CopyToModel(torch.autograd.Function):
+    """Megatron's *f* over several tensors: identity forward, the
+    gradients summed over the group in one collective backward."""
+
+    @staticmethod
+    def forward(ctx, group, *xs):
+        ctx.group = group
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        flat = psum(torch.cat([g.reshape(-1) for g in gs]), ctx.group)
+        out, off = [], 0
+        for g in gs:
+            out.append(flat[off:off + g.numel()].view(g.shape))
+            off += g.numel()
+        return (None, *out)
+
+
+def copy_to_model(x: Tensor, group) -> Tensor:
+    """Identity forward, the gradient summed over ``group`` backward
+    (Megatron's *f*): the input of a column-parallel product, each rank's
+    gradient of it a partial over its columns."""
+    return _CopyToModel.apply(group, x)[0]
+
+
+def reduce_from_model(x: Tensor, group) -> Tensor:
+    """The sum over ``group`` forward, identity backward (Megatron's *g*):
+    the output of a row-parallel product, or a vocab-parallel term of a
+    loss every rank of the group computes alike."""
+    return psum_local_grad(x, group)
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, ag, summed):
+        ctx.dim, ctx.ag, ctx.summed, ctx.n = dim, ag, summed, x.shape[dim]
+        return all_gather_cat(x, dim, ag)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.summed:
+            return reduce_scatter(g, ctx.dim, ctx.ag), None, None, None
+        return (g.narrow(ctx.dim, ctx.ag.index * ctx.n, ctx.n).contiguous(),
+                None, None, None)
+
+
+class _ScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, ag, summed):
+        ctx.dim, ctx.ag = dim, ag
+        if summed:
+            return reduce_scatter(x, dim, ag)
+        n = x.shape[dim] // ag.size
+        return x.narrow(dim, ag.index * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_cat(g, ctx.dim, ctx.ag), None, None, None
+
+
+def gather_seq(x: Tensor, ag: AxisGroup, summed: bool = True) -> Tensor:
+    """The whole sequence (dim 1) from the ranks' blocks (all-gather
+    forward). Backward: the gradient's sum over the ranks, this rank's
+    block of it
+    (reduce-scatter), where each rank's product makes a partial of it
+    (``summed``); else this rank's block of a gradient every rank holds
+    whole (the input of a product every rank computes whole)."""
+    return _GatherSeq.apply(x, 1, ag, summed)
+
+
+def scatter_seq(x: Tensor, ag: AxisGroup, summed: bool = True) -> Tensor:
+    """This rank's block of the sequence (dim 1) of the ranks' partials'
+    sum (reduce-scatter forward; ``summed`` False: of a tensor every rank
+    holds whole, a cut); the gradient's blocks gathered backward."""
+    return _ScatterSeq.apply(x, 1, ag, summed)
+
+
+# which leaves a layer kind's split computes at 1/m (paths as
+# ``checkpoint.tree_paths`` names them; a row-parallel bias is replicated
+# and stays whole, deepseek's MTP head is never split)
+_SPLIT_LEAVES = {
+    "attn": r"(mixer|xattn)/(q|k|v|o)/w$|(mixer|xattn)/(q|k|v)/b$",
+    "mlp": r"mlp/(gate|up|down)/w$|mlp/(gate|up)/b$",
+    "vocab": r"^(embed/embedding|lm_head/w)$",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelSplit:
+    """What the ranks of one ``model`` group compute split, the same on
+    every rank (:func:`model_split`): self- and cross-attention by heads
+    (``attn``), the dense MLP by ``d_ff`` (``mlp``), the embedding and the
+    head by vocab (``vocab``); ``cfg`` is the layers' local ModelConfig (a
+    rank's heads and ``d_ff``). With ``sp`` a residual whose sequence
+    divides the axis is sequence-sharded over it (:meth:`seq_split`)."""
+    ag: AxisGroup
+    cfg: Any
+    attn: bool
+    mlp: bool
+    vocab: bool
+    sp: bool
+    tp_axis: str = "model"
+
+    @property
+    def index(self) -> int:
+        return self.ag.index
+
+    def seq_split(self, seq_len: int) -> bool:
+        """True where a residual of ``seq_len`` positions is sharded over
+        the axis (JAX's ``_guard(seq, x.shape[1])``)."""
+        return self.sp and seq_len % self.ag.size == 0
+
+    def splits(self, path: str) -> bool:
+        """True for a leaf the plan computes at its ``model`` block."""
+        if path.startswith("mtp/"):
+            return False
+        return any(getattr(self, kind) and re.search(pat, path)
+                   for kind, pat in _SPLIT_LEAVES.items())
+
+    def enter(self, x: Tensor, split: bool, seq: bool) -> Tensor:
+        """A product's input from the residual side: for a split product
+        :func:`copy_to_model`, or the sequence gathered with a summed
+        gradient (``seq``: x is this rank's block of it); for a product
+        every rank computes whole, x itself or the sequence gathered."""
+        if seq:
+            return gather_seq(x, self.ag, summed=split)
+        return copy_to_model(x, self.ag.group) if split else x
+
+    def leave(self, y: Tensor, seq: bool) -> Tensor:
+        """A whole product's output back to the residual: this rank's
+        block of the sequence where it is sharded."""
+        return scatter_seq(y, self.ag, summed=False) if seq else y
+
+    def row_reduce(self, seq: bool):
+        """The sum of a row-parallel product's fp32 partials (``dense``'s
+        ``reduce``): over the axis, or reduce-scattered over the
+        sequence."""
+        if seq:
+            return lambda y: scatter_seq(y, self.ag)
+        return lambda y: reduce_from_model(y, self.ag.group)
+
+    def partial(self, p: Dict[str, Tensor], seq: bool) -> Dict[str, Tensor]:
+        """A replicated leaf dict (a norm's, a row-parallel bias's) as
+        used on this rank's block of the sequence: its gradient, a partial
+        over the blocks, summed over the axis (one collective)."""
+        if not seq:
+            return p
+        keys = [k for k, v in p.items() if isinstance(v, Tensor)]
+        outs = _CopyToModel.apply(self.ag.group, *(p[k] for k in keys))
+        return dict(p, **dict(zip(keys, outs)))
+
+    def row_params(self, p: Dict, seq: bool) -> Dict:
+        """A mixer's or MLP's params with the row-parallel product's bias
+        (``o``, ``down``) made :meth:`partial` where the sequence is
+        sharded: it is added after the reduce-scatter."""
+        if not seq:
+            return p
+        return {k: (dict(v, **self.partial({"b": v["b"]}, seq))
+                    if k in ("o", "down") and isinstance(v, dict)
+                    and "b" in v else v)
+                for k, v in p.items()}
+
+
+def model_split(mc, rules: Rules) -> Optional[ModelSplit]:
+    """The plan of a ModelConfig on ``rules``' mesh, or None where the
+    ``model`` axis is absent or of one rank: attention split where both
+    ``num_heads`` and ``num_kv_heads`` divide the axis (not MLA), the
+    dense MLP where ``d_ff`` does, the embedding and the head where the
+    vocab does; every other leaf is gathered and computed whole. ``sp``
+    as ``rules.sp`` (``config.refuse_sharding`` refuses the layer kinds it
+    does not cover)."""
+    tp = rules.tp_axis
+    m = rules.axis_size(tp)
+    if tp is None or m <= 1:
+        return None
+    attn = (not mc.mla.enabled and mc.num_heads % m == 0
+            and mc.num_kv_heads % m == 0)
+    mlp = mc.d_ff > 0 and mc.d_ff % m == 0
+    local = dataclasses.replace(
+        mc, num_heads=mc.num_heads // m if attn else mc.num_heads,
+        num_kv_heads=mc.num_kv_heads // m if attn else mc.num_kv_heads,
+        d_ff=mc.d_ff // m if mlp else mc.d_ff)
+    return ModelSplit(axis_group(rules.mesh, tp), local, attn, mlp,
+                      mc.vocab_size % m == 0, rules.sp, tp)
+
+
+def _spec_paths(fn, specs, prefix: str = ""):
+    """``fn(path, spec)`` over a spec tree (PSpec leaves, dicts and
+    lists), the paths as ``checkpoint.tree_paths`` names the values."""
+    if isinstance(specs, PSpec):
+        return fn(prefix, specs)
+    if isinstance(specs, dict):
+        return {k: _spec_paths(fn, v, f"{prefix}/{k}" if prefix else str(k))
+                for k, v in specs.items()}
+    if isinstance(specs, (list, tuple)):
+        return type(specs)(_spec_paths(fn, v, f"{prefix}/{i}" if prefix
+                                       else str(i))
+                           for i, v in enumerate(specs))
+    return specs
+
+
+def split_specs(split: Optional[ModelSplit], pspecs) -> Tuple[Any, Any]:
+    """(the specs a step gathers the params by, the tree of split flags):
+    a leaf the plan splits keeps its ``model`` block (its spec without the
+    axis: gathered over the data axes only); every other leaf is gathered
+    whole. Without a plan the specs themselves, no leaf split."""
+    def flag(path, spec):
+        return (split is not None and split.splits(path)
+                and split.tp_axis in spec)
+
+    def gather_by(path, spec):
+        if not flag(path, spec):
+            return spec
+        return PSpec(*(None if e == split.tp_axis else e for e in spec))
+    return _spec_paths(gather_by, pspecs), _spec_paths(flag, pspecs)
+
+
+def current_split() -> Optional[ModelSplit]:
+    return _STATE.split
+
+
+@contextlib.contextmanager
+def use_split(split: Optional[ModelSplit]):
+    """The plan the layers read (``models/transformer``, ``layers.embed``,
+    ``train_step.cross_entropy``) for a sharded step's forward and
+    backward (whose recomputed forward, under remat, reads it too)."""
+    prev = _STATE.split
+    _STATE.split = split
+    try:
+        yield split
+    finally:
+        _STATE.split = prev
 
 
 # ---------------------------------------------------------------------------

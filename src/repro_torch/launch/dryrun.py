@@ -25,14 +25,18 @@ points that run for real stay on the card by default.
 Each cell writes ``<out>/<arch>__<shape>__<mesh>.json``: the JAX
 artifact's keys where their meaning carries over (``launch/cost.
 cost_terms``) and each rank's peak against the card's 80 GB; a cell that
-would not fit is reported, not refused. Under the port's explicit data
-parallelism every rank gathers whole parameters (ROADMAP.md queue 1 item
-25), so large models' cells do not fit one card.
+would not fit is reported, not refused.
 
 - train cells trace ``make_sharded_train_step``'s forward, backward and
-  AdamW on the rank's blocks of the train state (the global batch in);
-- prefill cells gather the parameters and run ``T.prefill`` (an
-  encoder-decoder's ``encdec_prefill``) on the rank's batch block;
+  AdamW on the rank's blocks of the train state (the global batch in):
+  the ``model`` axis computes its share (attention by heads where the
+  heads and kv-heads divide it, the dense MLP by ``d_ff``, the embedding,
+  head and loss by vocab; routed experts, Mamba, RG-LRU, MLA and the MTP
+  head whole on every rank, ROADMAP.md queue 1 item 26), so a rank's
+  FLOPs, peak and model-axis all-reduces are its share's;
+- prefill cells gather the whole parameters and run ``T.prefill`` (an
+  encoder-decoder's ``encdec_prefill``) on the rank's batch block (their
+  model-axis split is item 26);
 - decode cells gather the parameters (int4-packed unless
   ``--fp-decode``) and run the eager ``serve_step`` on the rank's batch
   block and caches, never a captured CUDA graph;

@@ -24,12 +24,16 @@ shapes, so that an argument's bytes are the rank's: the params by
 ``param_pspecs`` (a packed weight's codes, scales and zeros as the JAX
 package's children ``/0 /1 /2``), the train state by
 ``train_state_pspecs``, the prefill and decode batches and the caches by
-``batch_pspecs`` / ``cache_pspecs`` over the data parallel axes. The
-``model`` axis shards storage only (ROADMAP.md queue 1 item 25): the
-ranks of a model group gather the whole parameters and each runs the
-one-device step on its batch block, so a cache keeps every head. The
-train batch stays global, as ``make_sharded_train_step`` takes it (it
-takes each rank's block itself).
+``batch_pspecs`` / ``cache_pspecs`` over the data parallel axes. A train
+cell's ``model`` axis computes its share (``make_sharded_train_step``
+gathers the leaves ``sharding.model_split`` splits over the data axes
+only: attention by heads where the heads and kv-heads divide the axis,
+the dense MLP by ``d_ff``, the embedding and head by vocab). Prefill and
+decode cells gather the whole parameters and each rank runs the
+one-device step on its batch block, so a cache keeps every head
+(ROADMAP.md queue 1 item 26). The train batch stays global, as
+``make_sharded_train_step`` takes it (it takes each rank's block
+itself).
 """
 from __future__ import annotations
 
@@ -239,8 +243,8 @@ def input_specs(cfg: Config, shape: ShapeSpec, rules: shd.Rules, *,
     tp = {"t": tok, "p": pos}
     tp = own_blocks(tp, shd.batch_pspecs(tp, rules), mesh)
     caches = cache_specs(cfg, shape, device, cdt)
-    # the model axis shards no compute (item 25): a rank's cache holds its
-    # batch block and every head
+    # serving splits no compute over the model axis (item 26): a rank's
+    # cache holds its batch block and every head
     crules = dataclasses.replace(rules, tp_axis=None)
     out.update(token=tp["t"], pos=tp["p"],
                caches=own_blocks(caches, shd.cache_pspecs(caches, crules),

@@ -131,11 +131,14 @@ def _n_rep(cfg: ModelConfig) -> int:
 def attention_forward(cfg: ModelConfig, p: Dict, x: Tensor,
                       positions: Tensor, *, causal: bool = True,
                       window: int = 0, name: str = "attn",
-                      use_rope: Optional[bool] = None) -> Tensor:
+                      use_rope: Optional[bool] = None,
+                      reduce=None) -> Tensor:
     """Self-attention over a full sequence: causal (windowed when
     ``window`` > 0) or, with ``causal=False``, bidirectional (whisper's
     encoder). RoPE is applied when ``use_rope`` says so (None: when
-    ``cfg.use_rope``). x (B, S, D)."""
+    ``cfg.use_rope``). x (B, S, D). ``reduce``: the o product's
+    row-parallel sum (``linear.dense``), where ``cfg`` holds a rank's
+    heads."""
     q, k, v = _project_qkv(cfg, p, x, name)
     if cfg.use_rope if use_rope is None else use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
@@ -146,7 +149,7 @@ def attention_forward(cfg: ModelConfig, p: Dict, x: Tensor,
                         softcap=cfg.attn_logits_softcap,
                         opt=cfg.opt_attention)
     b, s = x.shape[:2]
-    return dense(p["o"], o.reshape(b, s, -1), f"{name}.o")
+    return dense(p["o"], o.reshape(b, s, -1), f"{name}.o", reduce)
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, device,
@@ -347,10 +350,10 @@ def cross_attention_kv(cfg: ModelConfig, p: Dict, enc: Tensor,
 
 
 def cross_attention(cfg: ModelConfig, p: Dict, x: Tensor, kv_cache: Dict,
-                    name: str = "xattn") -> Tensor:
+                    name: str = "xattn", reduce=None) -> Tensor:
     """Decoder queries x (B, S, D) against the fixed encoder K/V: no
     positions, no mask. Plain products, as the JAX package computes them
-    outside any Pallas kernel."""
+    outside any Pallas kernel. ``reduce``: as :func:`attention_forward`'s."""
     b, s, _ = x.shape
     h, hd = cfg.num_heads, cfg.head_dim
     q = dense(p["q"], x, f"{name}.q").reshape(b, s, h, hd)
@@ -361,7 +364,7 @@ def cross_attention(cfg: ModelConfig, p: Dict, x: Tensor, kv_cache: Dict,
     o = _attend_chunked(q, k, v, zeros.expand(b, s),
                         zeros.expand(b, k.shape[1]), causal=False,
                         opt=cfg.opt_attention)
-    return dense(p["o"], o.reshape(b, s, -1), f"{name}.o")
+    return dense(p["o"], o.reshape(b, s, -1), f"{name}.o", reduce)
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,9 @@ whisper's sinusoidal positions, the depthwise causal conv of the Mamba
 block.
 
 Plain functions over param dicts. Compute dtype follows the input; norm
-statistics and RoPE run in float32, as in the JAX package.
+statistics and RoPE run in float32, as in the JAX package. Under a
+sharded step's ``model`` split (``sharding.use_split``) :func:`embed` is
+vocab-parallel: the rank holds a block of the embedding's rows.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed.sharding import current_split, reduce_from_model
 from repro_torch.models.linear import dense, init_dense
 
 Tensor = torch.Tensor
@@ -66,14 +69,16 @@ def _act(name: str, x: Tensor) -> Tensor:
     raise ValueError(name)
 
 
-def mlp(cfg: ModelConfig, p: Dict, x: Tensor, name: str = "mlp") -> Tensor:
-    """Gated (llama-style) or plain two-layer MLP."""
+def mlp(cfg: ModelConfig, p: Dict, x: Tensor, name: str = "mlp",
+        reduce=None) -> Tensor:
+    """Gated (llama-style) or plain two-layer MLP; ``reduce``: ``down``'s
+    row-parallel sum (``linear.dense``)."""
     if cfg.gated_mlp:
         h = _act(cfg.act, dense(p["gate"], x, f"{name}.gate")) \
             * dense(p["up"], x, f"{name}.up")
     else:
         h = _act(cfg.act, dense(p["up"], x, f"{name}.up"))
-    return dense(p["down"], h, f"{name}.down")
+    return dense(p["down"], h, f"{name}.down", reduce)
 
 
 def init_mlp(cfg: ModelConfig, gen: torch.Generator, d_model: int, d_ff: int,
@@ -89,8 +94,21 @@ def init_mlp(cfg: ModelConfig, gen: torch.Generator, d_model: int, d_ff: int,
 def embed(p: Dict, tokens: Tensor, dtype: torch.dtype) -> Tensor:
     """The rows of the embedding cast to ``dtype``, a gather (bitwise
     indexing); its backward on CUDA sums each row's gradients in a fixed
-    order (no atomics), so a training run repeats bitwise."""
-    return F.embedding(tokens, p["embedding"].to(dtype))
+    order (no atomics), so a training run repeats bitwise.
+
+    Vocab-parallel under a ``model`` split that covers the vocab: the
+    rank holds rows ``[i·n, (i+1)·n)``, gathers those of its tokens,
+    writes zeros for the others and the rows are summed over the axis in
+    fp32 (exact: one term is not zero), then cast."""
+    split = current_split()
+    if split is None or not split.vocab:
+        return F.embedding(tokens, p["embedding"].to(dtype))
+    w = p["embedding"]
+    local = tokens - split.index * w.shape[0]
+    own = (local >= 0) & (local < w.shape[0])
+    rows = F.embedding(torch.where(own, local, 0), w).float()
+    rows = torch.where(own[..., None], rows, 0.0)
+    return reduce_from_model(rows, split.ag.group).to(dtype)
 
 
 def unembed(cfg: ModelConfig, params: Dict, h: Tensor) -> Tensor:

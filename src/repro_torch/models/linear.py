@@ -4,7 +4,9 @@ Every matmul the quantizer can touch goes through :func:`dense`, decided
 by the value stored under ``"w"``:
 
   - a float tensor of shape (in, out): ``x @ w`` with fp32 accumulation,
-    cast back to x's dtype;
+    cast back to x's dtype; a row-parallel product (sharded training's
+    ``model`` axis) sums its fp32 partials over the ranks first
+    (``reduce``);
   - a :class:`~repro_torch.core.quant.QuantizedTensor` (packed int4,
     (out, in)-major): the W4A16 path through ``ops.w4a16_matmul``;
   - inside a :class:`Tap` context the layer's input is recorded by name,
@@ -39,8 +41,12 @@ class Tap:
         _ACTIVE_TAPS.remove(self)
 
 
-def dense(p: Dict, x: Tensor, name: str = "") -> Tensor:
-    """y = x @ w (+ b). p: {"w": (in, out) tensor | QuantizedTensor, "b"?}."""
+def dense(p: Dict, x: Tensor, name: str = "",
+          reduce: Optional[Callable[[Tensor], Tensor]] = None) -> Tensor:
+    """y = x @ w (+ b). p: {"w": (in, out) tensor | QuantizedTensor, "b"?}.
+    ``reduce`` (float weights): applied to the fp32 product before the
+    cast, the sum of a row-parallel product's partials
+    (``sharding.ModelSplit.row_reduce``); the bias is added after it."""
     w = p["w"]
     if name:
         for tap in _ACTIVE_TAPS:
@@ -49,7 +55,10 @@ def dense(p: Dict, x: Tensor, name: str = "") -> Tensor:
         y = ops.w4a16_matmul(x, w.packed, w.scales, w.zeros,
                              group_size=w.group_size)
     else:
-        y = (x.float() @ w.to(x.dtype).float()).to(x.dtype)
+        y = x.float() @ w.to(x.dtype).float()
+        if reduce is not None:
+            y = reduce(y)
+        y = y.to(x.dtype)
     if p.get("b") is not None:
         y = y + p["b"].to(y.dtype)
     return y

@@ -51,6 +51,20 @@ step of the reference) runs under ``torch.utils.checkpoint``, the twin of
 the reference's ``jax.checkpoint``: its activations are recomputed in the
 backward, bitwise the forward's.
 
+Under a sharded step's ``model`` split (``sharding.use_split``, the plan
+of ``sharding.model_split``) the training forward runs on the rank's
+blocks: attention (self and cross) on its heads and the dense MLP on its
+``d_ff`` columns, entered by ``ModelSplit.enter`` and left by the o /
+down product's row-parallel sum; the embedding and the head on its vocab
+rows (``layers.embed``; the logits stay vocab-parallel for
+``train_step.cross_entropy``); every other mixer and MLP (Mamba, RG-LRU,
+MLA, routed experts, deepseek's MTP layer) whole on every rank. Where the
+plan's ``sp`` holds and a residual's sequence divides the axis, the
+residual between layers is the rank's block of the sequence: norms run on
+it, a product's input is gathered over the sequence and a row-parallel
+output reduce-scattered (``ModelSplit.seq_split``; the encoder's and the
+decoder's sequences each on their own).
+
 The chunked prefill (``prefill_begin`` / ``prefill_step`` /
 ``prefill_finish``, ``prefill_chunked`` and the ``encdec_*`` twins) runs
 a prompt some positions at a time: each chunk's attention reads the
@@ -71,6 +85,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed.sharding import current_split, use_split
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import recurrent as rec
@@ -183,22 +198,78 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device) -> Dict:
     return params
 
 
+# -- the training forward's pieces under a model split (module docstring):
+# without a split each is the one-device function itself
+
+def _norm_of(cfg: ModelConfig, p: Dict, h: Tensor, seq: bool) -> Tensor:
+    """The norm of ``h``; where ``h`` is this rank's block of the
+    sequence its weights' gradients are summed over the axis."""
+    split = current_split()
+    return norm(cfg, p if split is None else split.partial(p, seq), h)
+
+
+def _whole(fn, hn: Tensor, seq: bool):
+    """``fn(hn)`` computed whole on every rank of the axis (a product the
+    split does not cover), ``hn`` and the output the residual's."""
+    split = current_split()
+    if split is None:
+        return fn(hn)
+    return split.leave(fn(split.enter(hn, False, seq)), seq)
+
+
+def _self_attention(cfg: ModelConfig, p: Dict, hn: Tensor,
+                    positions: Tensor, seq: bool, **kw) -> Tensor:
+    """A layer's self-attention of its normed input; split by heads where
+    the plan splits attention."""
+    split = current_split()
+    if split is None or not split.attn:
+        return _whole(lambda x: attn.attention_forward(cfg, p, x, positions,
+                                                       **kw), hn, seq)
+    return attn.attention_forward(
+        split.cfg, split.row_params(p, seq), split.enter(hn, True, seq),
+        positions, reduce=split.row_reduce(seq), **kw)
+
+
+def _dense_mlp(cfg: ModelConfig, p: Dict, hn: Tensor, seq: bool,
+               name: str) -> Tensor:
+    """A dense MLP of the normed input; split by ``d_ff`` where the plan
+    splits it."""
+    split = current_split()
+    if split is None or not split.mlp:
+        return _whole(lambda x: mlp(cfg, p, x, name=name), hn, seq)
+    return mlp(split.cfg, split.row_params(p, seq), split.enter(hn, True, seq),
+               name=name, reduce=split.row_reduce(seq))
+
+
+def _head(cfg: ModelConfig, params: Dict, h: Tensor, seq: bool) -> Tensor:
+    """The logits of the final-normed ``h``: vocab-parallel (the rank's
+    vocab block) where the plan splits the vocab."""
+    split = current_split()
+    if split is not None:
+        h = split.enter(h, split.vocab, seq)
+    return unembed(cfg, params, h)
+
+
 def _mlp_residual(cfg: ModelConfig, spec: LayerSpec, p: Dict, h: Tensor,
                   name: str = "") -> Tensor:
     return _mlp_residual_aux(cfg, spec, p, h, name)[0]
 
 
 def _mlp_residual_aux(cfg: ModelConfig, spec: LayerSpec, p: Dict, h: Tensor,
-                      name: str = "") -> Tuple[Tensor, Optional[Tensor]]:
+                      name: str = "", seq: bool = False
+                      ) -> Tuple[Tensor, Optional[Tensor]]:
     """h plus the layer's MLP, and a routed MLP's load-balance loss (None
     for a dense MLP or none)."""
     if spec[1] == "none":
         return h, None
-    hn = norm(cfg, p["norm2"], h)
+    hn = _norm_of(cfg, p["norm2"], h, seq)
     if spec[1] == "moe":
-        out = moe_mod.moe_ffn(cfg, p["mlp"], hn, name=f"{name}mlp")
-        return h + out.y, out.aux_loss
-    return h + mlp(cfg, p["mlp"], hn, name=f"{name}mlp"), None
+        split = current_split()
+        x = hn if split is None else split.enter(hn, False, seq)
+        out = moe_mod.moe_ffn(cfg, p["mlp"], x, name=f"{name}mlp")
+        return (h + (out.y if split is None else split.leave(out.y, seq)),
+                out.aux_loss)
+    return h + _dense_mlp(cfg, p["mlp"], hn, seq, f"{name}mlp"), None
 
 
 def layer_forward(cfg: ModelConfig, spec: LayerSpec, p: Dict, h: Tensor,
@@ -209,23 +280,27 @@ def layer_forward(cfg: ModelConfig, spec: LayerSpec, p: Dict, h: Tensor,
 
 
 def layer_forward_aux(cfg: ModelConfig, spec: LayerSpec, p: Dict, h: Tensor,
-                      positions: Tensor, name: str = ""
+                      positions: Tensor, name: str = "", seq: bool = False
                       ) -> Tuple[Tensor, Optional[Tensor]]:
     """:func:`layer_forward` and the layer's load-balance loss (None but
-    for a routed MLP), the JAX package's train-mode ``layer_forward``."""
-    hn = norm(cfg, p["norm1"], h)
+    for a routed MLP), the JAX package's train-mode ``layer_forward``.
+    ``seq``: ``h`` is this rank's block of the sequence (a model split's
+    ``sp``; ``positions`` are the whole sequence's)."""
+    hn = _norm_of(cfg, p["norm1"], h, seq)
     mixer = f"{name}mixer"
     if spec[0] == "mamba":
-        y, _ = rec.mamba_block(cfg, p["mixer"], hn, None, name=mixer)
+        y = _whole(lambda x: rec.mamba_block(cfg, p["mixer"], x, None,
+                                             name=mixer)[0], hn, seq)
     elif spec[0] == "rglru":
-        y, _ = rec.rglru_block(cfg, p["mixer"], hn, None, name=mixer)
+        y = _whole(lambda x: rec.rglru_block(cfg, p["mixer"], x, None,
+                                             name=mixer)[0], hn, seq)
     elif spec[0] == "mla":
-        y = attn.mla_forward(cfg, p["mixer"], hn, positions, name=mixer)
+        y = _whole(lambda x: attn.mla_forward(cfg, p["mixer"], x, positions,
+                                              name=mixer), hn, seq)
     else:
-        y = attn.attention_forward(cfg, p["mixer"], hn, positions,
-                                   window=_window_of(cfg, spec[0]),
-                                   name=mixer)
-    return _mlp_residual_aux(cfg, spec, p, h + y, name)
+        y = _self_attention(cfg, p["mixer"], hn, positions, seq,
+                            window=_window_of(cfg, spec[0]), name=mixer)
+    return _mlp_residual_aux(cfg, spec, p, h + y, name, seq)
 
 
 def positions_for(b: int, s: int, device) -> Tensor:
@@ -262,11 +337,12 @@ def forward_hidden(cfg: ModelConfig, params: Dict, tokens: Tensor,
 
 def _superblock(cfg: ModelConfig, specs: Sequence[LayerSpec],
                 layers: Sequence[Dict], h: Tensor, aux: Tensor,
-                positions: Tensor) -> Tuple[Tensor, Tensor]:
+                positions: Tensor, seq: bool = False
+                ) -> Tuple[Tensor, Tensor]:
     """One scan step of a segment: its layers in order, the routed
     layers' load-balance losses added to ``aux`` in layer order."""
     for spec, p in zip(specs, layers):
-        h, a = layer_forward_aux(cfg, spec, p, h, positions)
+        h, a = layer_forward_aux(cfg, spec, p, h, positions, seq=seq)
         if a is not None:
             aux = aux + a
     return h, aux
@@ -281,10 +357,15 @@ def forward_train(cfg: ModelConfig, params: Dict, tokens: Tensor,
     final-normed hidden states (the MTP head's input). The layers run
     super-block by super-block of :func:`segments`; with ``remat`` each
     super-block is recomputed in the backward (its activations are not
-    kept)."""
+    kept). Under a model split with ``sp`` the returned hidden states are
+    this rank's block of the sequence, where it divides the axis."""
     h = embed_inputs(cfg, params, tokens, embeds)
     b, s, _ = h.shape
     positions = positions_for(b, s, h.device)
+    split = current_split()
+    seq = split is not None and split.seq_split(s)
+    if seq:
+        h = split.leave(h, True)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     layers = params["layers"]
     li = 0
@@ -296,12 +377,12 @@ def forward_train(cfg: ModelConfig, params: Dict, tokens: Tensor,
             if remat:
                 h, aux = torch.utils.checkpoint.checkpoint(
                     _superblock, cfg, seg.specs, group, h, aux, positions,
-                    use_reentrant=False)
+                    seq, use_reentrant=False)
             else:
                 h, aux = _superblock(cfg, seg.specs, group, h, aux,
-                                     positions)
-    h = norm(cfg, params["final_norm"], h)
-    logits = unembed(cfg, params, h)
+                                     positions, seq)
+    h = _norm_of(cfg, params["final_norm"], h, seq)
+    logits = _head(cfg, params, h, seq)
     return (logits, aux, h) if return_hidden else (logits, aux)
 
 
@@ -310,15 +391,18 @@ def mtp_logits(cfg: ModelConfig, params: Dict, h_final: Tensor,
     """deepseek's multi-token prediction head: position t predicts token
     t + 2 from (h_t, e_{t+1}). h_final (B, S, D) the final-normed hidden
     states, tokens (B, S) → logits (B, S - 1, V) f32. Training reads it
-    (the JAX package's train step); serving does not."""
+    (the JAX package's train step); serving does not. Under a model
+    split the head (and the embedding) may be vocab-parallel; the MTP
+    layer runs whole."""
     p = params["mtp"]
     e_next = embed(params["embed"], tokens[:, 1:], h_final.dtype)
     h0 = dense(p["proj"], torch.cat([h_final[:, :-1], e_next], dim=-1),
                "mtp.proj")
     b, s, _ = h0.shape
-    h1 = layer_forward(cfg, layer_specs(cfg)[-1], p["layer"], h0,
-                       positions_for(b, s, h0.device), name="mtp.")
-    return unembed(cfg, params, norm(cfg, p["norm"], h1))
+    with use_split(None):
+        h1 = layer_forward(cfg, layer_specs(cfg)[-1], p["layer"], h0,
+                           positions_for(b, s, h0.device), name="mtp.")
+    return _head(cfg, params, norm(cfg, p["norm"], h1), False)
 
 
 def _float_cache_dtype(dtype: CacheDtype) -> torch.dtype:
@@ -569,25 +653,32 @@ def with_positions(cfg: ModelConfig, h: Tensor) -> Tensor:
     return h + table.to(h.dtype)[None]
 
 
-def encoder_layer(cfg: ModelConfig, p: Dict, h: Tensor, positions: Tensor
-                  ) -> Tensor:
-    """One bidirectional encoder layer (no RoPE)."""
-    hn = norm(cfg, p["norm1"], h)
-    h = h + attn.attention_forward(cfg, p["mixer"], hn, positions,
-                                   causal=False, use_rope=False,
-                                   name="mixer")
-    return h + mlp(cfg, p["mlp"], norm(cfg, p["norm2"], h), name="mlp")
+def encoder_layer(cfg: ModelConfig, p: Dict, h: Tensor, positions: Tensor,
+                  seq: bool = False) -> Tensor:
+    """One bidirectional encoder layer (no RoPE); ``seq`` as
+    :func:`layer_forward_aux`'s."""
+    hn = _norm_of(cfg, p["norm1"], h, seq)
+    h = h + _self_attention(cfg, p["mixer"], hn, positions, seq,
+                            causal=False, use_rope=False, name="mixer")
+    return h + _dense_mlp(cfg, p["mlp"], _norm_of(cfg, p["norm2"], h, seq),
+                          seq, "mlp")
 
 
 def encode(cfg: ModelConfig, params: Dict, frames: Tensor) -> Tensor:
     """frames (B, Se, D), the conv frontend's outputs (a stub: they are
     given) → the encoder's final-normed states (B, Se, D) in the compute
-    dtype."""
+    dtype (whole on every rank under a model split, also where the
+    encoder ran sequence-sharded)."""
     h = with_positions(cfg, frames.to(compute_dtype(cfg)))
     positions = positions_for(h.shape[0], h.shape[1], h.device)
+    split = current_split()
+    seq = split is not None and split.seq_split(h.shape[1])
+    if seq:
+        h = split.leave(h, True)
     for p in params["encoder"]["layers"]:
-        h = encoder_layer(cfg, p, h, positions)
-    return norm(cfg, params["encoder"]["final_norm"], h)
+        h = encoder_layer(cfg, p, h, positions, seq)
+    h = _norm_of(cfg, params["encoder"]["final_norm"], h, seq)
+    return split.enter(h, False, True) if seq else h
 
 
 def decoder_inputs(cfg: ModelConfig, params: Dict, tokens: Tensor
@@ -607,17 +698,37 @@ def _cross_residual(cfg: ModelConfig, p: Dict, h: Tensor, kv: Dict
                    name="layer.mlp")
 
 
+def _cross_attention(cfg: ModelConfig, p: Dict, h: Tensor, enc: Tensor,
+                     seq: bool) -> Tensor:
+    """The cross-attention of the decoder's ``h`` (its ``xnorm`` here) to
+    the whole encoder states ``enc``, its K/V computed here; split by
+    heads where the plan splits attention."""
+    split = current_split()
+    if split is None or not split.attn:
+        kv = attn.cross_attention_kv(cfg, p["xattn"], enc, "xattn")
+        return _whole(lambda x: attn.cross_attention(cfg, p["xattn"], x, kv,
+                                                     "xattn"),
+                      _norm_of(cfg, p["xnorm"], h, seq), seq)
+    kv = attn.cross_attention_kv(split.cfg, p["xattn"],
+                                 split.enter(enc, True, False), "xattn")
+    hn = _norm_of(cfg, p["xnorm"], h, seq)
+    return attn.cross_attention(split.cfg, split.row_params(p["xattn"], seq),
+                                split.enter(hn, True, seq), kv, "xattn",
+                                reduce=split.row_reduce(seq))
+
+
 def decoder_layer(cfg: ModelConfig, p: Dict, h: Tensor, positions: Tensor,
-                  enc: Tensor) -> Tensor:
+                  enc: Tensor, seq: bool = False) -> Tensor:
     """One decoder layer over a full sequence: causal self-attention, the
     cross-attention to the encoder states ``enc`` (its K/V computed
-    here), the MLP."""
+    here), the MLP; ``seq`` as :func:`layer_forward_aux`'s."""
     lp = p["layer"]
-    hn = norm(cfg, lp["norm1"], h)
-    h = h + attn.attention_forward(cfg, lp["mixer"], hn, positions,
-                                   use_rope=False, name="layer.mixer")
-    kv = attn.cross_attention_kv(cfg, p["xattn"], enc, "xattn")
-    return _cross_residual(cfg, p, h, kv)
+    hn = _norm_of(cfg, lp["norm1"], h, seq)
+    h = h + _self_attention(cfg, lp["mixer"], hn, positions, seq,
+                            use_rope=False, name="layer.mixer")
+    h = h + _cross_attention(cfg, p, h, enc, seq)
+    return h + _dense_mlp(cfg, lp["mlp"], _norm_of(cfg, lp["norm2"], h, seq),
+                          seq, "layer.mlp")
 
 
 def encdec_forward(cfg: ModelConfig, params: Dict, frames: Tensor,
@@ -627,10 +738,15 @@ def encdec_forward(cfg: ModelConfig, params: Dict, frames: Tensor,
     enc = encode(cfg, params, frames)
     h = decoder_inputs(cfg, params, tokens)
     positions = positions_for(h.shape[0], h.shape[1], h.device)
+    split = current_split()
+    seq = split is not None and split.seq_split(h.shape[1])
+    if seq:
+        h = split.leave(h, True)
     for p in params["decoder"]["layers"]:
-        h = decoder_layer(cfg, p, h, positions, enc)
-    logits = unembed(cfg, params, norm(cfg, params["decoder"]["final_norm"],
-                                       h))
+        h = decoder_layer(cfg, p, h, positions, enc, seq)
+    logits = _head(cfg, params,
+                   _norm_of(cfg, params["decoder"]["final_norm"], h, seq),
+                   seq)
     return logits, torch.zeros((), dtype=torch.float32, device=h.device)
 
 

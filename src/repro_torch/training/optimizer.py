@@ -19,7 +19,7 @@ NamedTuples; a :class:`Quantized8` is one leaf of a moment tree.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, NamedTuple, Tuple
+from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -149,10 +149,12 @@ def global_norm(tree: Any) -> Tensor:
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(tree: Any, max_norm: float) -> Tuple[Any, Tensor]:
+def clip_by_global_norm(tree: Any, max_norm: float,
+                        norm: Optional[Tensor] = None) -> Tuple[Any, Tensor]:
     """The leaves scaled by ``min(1, max_norm / (‖tree‖ + 1e-9))`` (in
-    f32, back to each leaf's dtype), and the norm."""
-    gn = global_norm(tree)
+    f32, back to each leaf's dtype), and the norm (``norm``: the norm
+    given, a sharded tree's)."""
+    gn = global_norm(tree) if norm is None else norm
     factor = torch.clamp_max(torch.full_like(gn, max_norm) / (gn + 1e-9),
                              1.0)
     return tree_map(lambda g: (g.float() * factor).to(g.dtype), tree), gn

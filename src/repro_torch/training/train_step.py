@@ -34,11 +34,10 @@ the same tensors.
 :func:`make_sharded_train_step` is the step on a mesh of ranks
 (``torch.distributed``, one process a rank): explicit data parallelism
 over the data parallel axes with the train state sharded by the JAX
-package's placement rules (``distributed/sharding.py``). The ``model``
-axis shards the state's storage only: the ranks of one model group repeat
-their batch block's forward and backward (GSPMD's compute split of the
-Megatron products and ``parallel.sp``'s sequence placement are ROADMAP.md
-queue 1 item 25).
+package's placement rules (``distributed/sharding.py``), and the ``model``
+axis computing its share as GSPMD does: the Megatron products split over
+it (``sharding.model_split``), the loss vocab-parallel and, with
+``parallel.sp``, the residual's sequence over it.
 """
 from __future__ import annotations
 
@@ -86,16 +85,39 @@ def state_from_params(cfg: Config, params: Any) -> TrainState:
         torch.zeros((), dtype=torch.int32, device=dev))
 
 
+def _logz_gold(logits: Tensor, targets: Tensor) -> Tuple[Tensor, Tensor]:
+    """(log Σ exp, the target's logit) per position. Vocab-parallel
+    logits (a model split's vocab block of V/m columns): the max over the
+    axis (MAX all-reduce, no gradient), the sum of exp over it, and the
+    target's logit from the rank that owns it (sums whose backward stays
+    on the rank: every rank of the axis goes on to the same loss)."""
+    split = sharding.current_split()
+    if split is None or not split.vocab:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.take_along_dim(logits, targets[..., None].long(),
+                                    dim=-1)[..., 0]
+        return logz, gold
+    group, n = split.ag.group, logits.shape[-1]
+    mx = sharding.pmax(logits.detach().amax(dim=-1), group)
+    sumexp = sharding.reduce_from_model(
+        torch.exp(logits - mx[..., None]).sum(dim=-1), group)
+    local = targets.long() - split.index * n
+    own = (local >= 0) & (local < n)
+    gold = torch.take_along_dim(logits, torch.where(own, local, 0)[..., None],
+                                dim=-1)[..., 0]
+    gold = sharding.reduce_from_model(torch.where(own, gold, 0.0), group)
+    return mx + torch.log(sumexp), gold
+
+
 def cross_entropy(logits: Tensor, targets: Tensor,
                   mask: Optional[Tensor]) -> Tensor:
-    """Mean CE over the masked positions; logits (B, S, V) f32, targets
-    (B, S). Under sharding rules with more than one data parallel rank
-    the batch is this rank's block and the mean is the global batch's: the
-    count is summed over the group, and so is the numerator, whose
-    gradient stays local (``sharding.psum_local_grad``)."""
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.take_along_dim(logits, targets[..., None].long(),
-                                dim=-1)[..., 0]
+    """Mean CE over the masked positions; logits (B, S, V) f32 (under a
+    model split that covers the vocab, the rank's (B, S, V/m) block),
+    targets (B, S). Under sharding rules with more than one data parallel
+    rank the batch is this rank's block and the mean is the global
+    batch's: the count is summed over the group, and so is the numerator,
+    whose gradient stays local (``sharding.psum_local_grad``)."""
+    logz, gold = _logz_gold(logits, targets)
     ce = logz - gold
     rules = sharding.current_rules()
     group = (rules.dp_group().group
@@ -223,9 +245,10 @@ def _adamw_int8_blocks(grads: Any, params: Any, state: TrainState,
     leaf; its scales shard their block dim over ``data`` (its codes are
     replicated, ``sharding.train_state_pspecs``). So the rank updates the
     flat range its scales cover, from the whole parameters and gradient
-    (the padding stays zero, so each block requantizes as on one device),
-    then joins the ranges over ``data``: the parameters, whose own blocks
-    follow the param spec, and the replicated codes."""
+    (the padding stays zero, so each block requantizes as on one device;
+    the caller gathers a split leaf's over ``model``), then joins the
+    ranges over ``data``: the parameters, whose own blocks follow the
+    param spec, and the replicated codes."""
     rng_p, rng_g, rng_m, rng_v, joins = [], [], [], [], []
 
     def take(p_loc, p_all, g, m, v, pspec, mspec):
@@ -261,23 +284,51 @@ def _adamw_int8_blocks(grads: Any, params: Any, state: TrainState,
     return opt.AdamWState(ost.step, state.opt.m, state.opt.v)
 
 
+def _split_global_norm(grads: Any, flags: Any,
+                       plan: Optional[sharding.ModelSplit]) -> Tensor:
+    """The global norm of gradients whose split leaves (``flags``) hold
+    the rank's ``model`` block: their squares summed over the axis, every
+    other leaf's counted once (each in tree order, in f32)."""
+    sums: Dict[bool, Tensor] = {}
+    for g, split in zip(opt.tree_leaves(grads), opt.tree_leaves(flags)):
+        s = torch.sum(torch.square(g.float()))
+        sums[split] = s if split not in sums else sums[split] + s
+    total = sums.get(False)
+    if True in sums:
+        part = sharding.psum(sums[True], plan.ag.group)
+        total = part if total is None else total + part
+    return torch.sqrt(total)
+
+
 def make_sharded_train_step(cfg: Config, rules: sharding.Rules,
                             specs: TrainState) -> Callable:
     """``train_step(state, batch) -> (state, metrics)`` on a mesh of ranks.
 
     ``state`` holds this rank's block of every leaf under ``specs``
     (``sharding.train_state_pspecs``); ``batch`` is the global batch, the
-    same on every rank. A step gathers the whole parameters, runs the
-    single-device loss and backward on the rank's data parallel block of
-    each microbatch (``sharding.batch_pspecs``; a batch that does not split
-    stays whole on every rank, as JAX's guard, and so does a routed MoE's
-    under ``ep_local_dispatch=false``, whose dispatch is global), sums the
+    same on every rank. A step gathers the parameters, runs the loss and
+    backward on the rank's data parallel block of each microbatch
+    (``sharding.batch_pspecs``; a batch that does not split stays whole on
+    every rank, as JAX's guard, and so does a routed MoE's under
+    ``ep_local_dispatch=false``, whose dispatch is global), sums the
     gradients over the data parallel group into the global batch's,
     clips them by their global norm and runs AdamW on the rank's blocks.
+
+    On a ``model`` axis of m > 1 ranks (``sharding.model_split``) the
+    leaves the plan splits are gathered over the data axes only and the
+    rank computes with its ``model`` block of them (1/m of the heads,
+    ``d_ff`` and vocab; the layers under ``sharding.use_split``); every
+    other leaf is gathered whole and computed whole. A split leaf's
+    gradient is the rank's block: the global norm sums its squares over
+    the axis, and int8 moments, whose blocks cover the whole leaf, update
+    from its gradient gathered over ``model``. ``parallel.sp`` puts the
+    residual's sequence over the axis (refused on the layer kinds the
+    axis computes whole, ``config.refuse_sharding``).
+
     The metrics are the global batch's (the last microbatch's under
     ``train.grad_accum``), the same on every rank. The input state is
     donated."""
-    refuse_sharding(cfg.parallel)
+    refuse_sharding(cfg.parallel, cfg.model)
     tc = cfg.train
     int8 = cfg.parallel.int8_optimizer_state
     mesh = rules.mesh
@@ -285,31 +336,46 @@ def make_sharded_train_step(cfg: Config, rules: sharding.Rules,
     global_dispatch = (cfg.model.moe.num_experts > 0
                        and not rules.ep_local_dispatch)
     accum = max(1, tc.grad_accum)
+    plan = sharding.model_split(cfg.model, rules)
+    gather_by, flags = sharding.split_specs(plan, specs.params)
 
     def block(micro):
         return sharding.local(micro, sharding.batch_pspecs(micro, rules),
                               mesh)
 
+    def whole_over_model(tree):
+        """The split leaves gathered over ``model`` (the others as
+        they are)."""
+        return opt.tree_map(
+            lambda t, split, spec: sharding.gather_block(t, sharding.PSpec(
+                *(e if e == plan.tp_axis else None for e in spec)), mesh)
+            if split else t, tree, flags, specs.params)
+
     def train_step(state: TrainState, batch: Dict[str, Tensor]
                    ) -> Tuple[TrainState, Dict[str, Tensor]]:
         batch = {k: v.to(state.step.device) for k, v in batch.items()}
-        params = sharding.gather(state.params, specs.params, mesh)
+        params = sharding.gather(state.params, gather_by, mesh)
         rows = next(iter(batch.values())).shape[0] // accum
         split = dp is not None and rows % dp.size == 0 \
             and not global_dispatch
-        with sharding.use_rules(rules if split else None):
+        with sharding.use_rules(rules if split else None), \
+                sharding.use_split(plan):
             grads, metrics = accumulated_grads(
                 cfg, params, batch, block if split else (lambda m: m))
         if split:
             grads = sharding.psum_tree(grads, dp.group)
-        grads, gnorm = opt.clip_by_global_norm(grads, tc.grad_clip)
+        grads, gnorm = opt.clip_by_global_norm(
+            grads, tc.grad_clip, _split_global_norm(grads, flags, plan))
         lr = learning_rate(tc, state.step)
         if int8:
+            if plan is not None:
+                grads, params = whole_over_model(grads), \
+                    whole_over_model(params)
             ostate = _adamw_int8_blocks(grads, params, state, specs, mesh,
                                         lr, tc)
         else:
             _, ostate = opt.adamw_update(
-                sharding.local(grads, specs.params, mesh), state.opt,
+                sharding.local(grads, gather_by, mesh), state.opt,
                 state.params, lr=lr, tc=tc)
         metrics = dict(metrics)
         metrics["grad_norm"] = gnorm

@@ -24,7 +24,8 @@ same seed) and keeps its block of each leaf
 (``sharding.train_state_pspecs`` under ``parallel.fsdp``), draws the same
 global batch from the same stream and steps with
 ``train_step.make_sharded_train_step`` (explicit data parallelism; the
-``model`` axis shards storage only, ROADMAP.md queue 1 item 25). The
+``model`` axis computes its share of the Megatron products, and with
+``parallel.sp`` holds the residual's sequence). The
 SIGTERM flag is reduced (max) over the world at each step boundary, so
 every rank stops at the same step. Every rank reads a checkpoint and keeps
 its blocks of it (``Checkpointer.restore(shardings=…)``), whatever mesh

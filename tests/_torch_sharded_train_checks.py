@@ -12,15 +12,22 @@ and numpy: this file imports no JAX); the ranks meet through
 - ``gpipe_forward``, two stages on (pod 2, data 2, model 1);
 - the sharded train step (``CASES``: internlm2-1.8b smoke on 2x2,
   opt-proxy smoke on 4x1, 1x4, 2x2 without fsdp, 2x2 with int8 moments,
-  2x2 with ``grad_accum=2`` and a loss mask, olmoe-1b-7b smoke on 2x2
-  with local and with global dispatch);
+  2x2 with ``grad_accum=2`` and a loss mask, 2x2 with ``parallel.sp``
+  under fp32 and int8 moments, minicpm-2b smoke on 1x4 (6 heads: the
+  attention whole, its MLP and tied vocab split), whisper-large-v3 smoke
+  on 2x2 with and without ``parallel.sp``, pixtral-12b smoke with
+  ``parallel.sp`` and frontend embeddings on 2x2 and on 1x4 (a sequence
+  that does not divide the axis), olmoe-1b-7b smoke on 2x2 with
+  local and with global dispatch and on 4x1 with global dispatch; the
+  smoke configs run ``parallel.remat=full``);
 - ``train(mesh=)``: opt-proxy smoke on 2x2 stopped by a SIGTERM that rank
   1 alone receives, then resumed on 4x1 from a copy of its checkpoint;
   the 4x1 run's checkpoint restored onto 2x2 (``Checkpointer.restore(
   shardings=…)``).
 
 Each rank writes ``<dir>/rank<r>.npz`` (every output, whole) and
-``<dir>/rank<r>.json`` (metrics, stop steps, checkpoint writes).
+``<dir>/rank<r>.json`` (metrics, the input widths of the row-parallel
+products in a case's first step, stop steps, checkpoint writes).
 
     python -m torch.distributed.run … tests/_torch_sharded_train_checks.py \\
         launcher <log> <launch.train argv>
@@ -28,6 +35,7 @@ Each rank writes ``<dir>/rank<r>.npz`` (every output, whole) and
 is one rank of ``launch.train`` that logs each ``Checkpointer.save`` it
 makes to ``<log>.<rank>``.
 """
+import contextlib
 import json
 import os
 import shutil
@@ -49,9 +57,22 @@ CASES = {
     "nofsdp": ("opt-proxy", (2, 2), 2, {"parallel.fsdp": False}),
     "int8": ("opt-proxy", (2, 2), 2, {"parallel.int8_optimizer_state": True}),
     "accum": ("opt-proxy", (2, 2), 2, {"train.grad_accum": 2}),
+    "sp": ("opt-proxy", (2, 2), 2, {"parallel.sp": True}),
+    "sp_int8": ("opt-proxy", (2, 2), 2,
+                {"parallel.sp": True, "parallel.int8_optimizer_state": True}),
+    "minicpm": ("minicpm-2b", (1, 4), 2, {}),
+    "whisper": ("whisper-large-v3", (2, 2), 2, {}),
+    "whisper_sp": ("whisper-large-v3", (2, 2), 2, {"parallel.sp": True}),
+    # 8 patch embeddings before 16 tokens: 24 positions, sequence-sharded;
+    # 3 before 16 on 1x4: 19 stay whole, and 2 kv-heads keep attention
+    # whole
+    "pixtral_sp": ("pixtral-12b", (2, 2), 2, {"parallel.sp": True}),
+    "pixtral_sp19": ("pixtral-12b", (1, 4), 2, {"parallel.sp": True}),
     "moe": ("olmoe-1b-7b", (2, 2), 1, {}),
     "moe_global": ("olmoe-1b-7b", (2, 2), 1,
                    {"parallel.ep_local_dispatch": False}),
+    "moe_global41": ("olmoe-1b-7b", (4, 1), 1,
+                     {"parallel.ep_local_dispatch": False}),
 }
 COMPRESS_STEPS = 6
 # train(mesh=): the steps of the whole run and the batch at which rank 1's
@@ -140,6 +161,7 @@ def gpipe_check(inp, out: dict) -> None:
 def step_checks(inp, meshes, out: dict, meta: dict) -> None:
     from repro_torch.distributed import sharding
     from repro_torch.distributed.checkpoint import map_with_path
+    from repro_torch.models.linear import Tap
     from repro_torch.training import train_step as TS
     for name, (_, shape, steps, _) in CASES.items():
         cfg = case_config(name)
@@ -152,10 +174,18 @@ def step_checks(inp, meshes, out: dict, meta: dict) -> None:
         state = map_with_path(sharding.local(state, specs, mesh),
                               lambda _, t: t.clone())
         step = TS.make_sharded_train_step(cfg, rules, specs)
-        metrics = []
-        for batch in batches_of(inp, f"{name}/batch")[:steps]:
-            state, m = step(state, batch)
+        metrics, widths = [], {}
+
+        def width(layer, x):
+            widths.setdefault(layer, set()).add(int(x.shape[-1]))
+        for i, batch in enumerate(batches_of(inp, f"{name}/batch")[:steps]):
+            with contextlib.ExitStack() as tap:
+                if i == 0:      # the row-parallel products' input widths
+                    tap.enter_context(Tap(width))
+                state, m = step(state, batch)
             metrics.append({k: float(v) for k, v in m.items()})
+        meta[f"{name}/widths"] = {k: sorted(v) for k, v in widths.items()
+                                  if k.endswith((".o", ".down"))}
         out.update(arrays(f"{name}/out", sharding.gather(state, specs,
                                                          mesh)))
         meta[name] = metrics

@@ -19,6 +19,12 @@ package's ``launch/dryrun.py``, ``specs.py`` and ``hlo_analysis.py``.
   a layer) at the shapes the card's step runs them; every fake wrapper
   refuses what its CUDA path refuses and never reaches ``build.load``;
 - a dry run under a 2x2 fake world leaves no process group behind;
+- opt-proxy's ``train_4k`` cell on a fake world of (data 1, model 2)
+  counts at most 0.55 of the (1, 1) cell's FLOPs a rank (every dense
+  product, the attention and the vocab head split) and the model axis's
+  all-reduces: two a layer forward (o, down), two backward (the inputs
+  of q/k/v and of up), the embedding's, the forward's again where
+  ``remat=full`` recomputes it;
 - the olmoe smoke quant cell on 1x2x4 runs its stages at the shard shapes
   ``quant_group_sharding`` gives;
 - ``python -m repro_torch.launch.dryrun --arch opt-proxy --shape
@@ -322,6 +328,30 @@ def test_dry_run_on_a_fake_world_leaves_no_group():
     assert cc.collectives["all-reduce"]["count"] > 0
     mem = cc.memory_analysis()
     assert mem["temp_size_in_bytes"] > 0 and mem["argument_size_in_bytes"]
+
+
+def test_train_cell_splits_over_the_model_axis():
+    shape = treg.SHAPES["train_4k"]
+    cells = {}
+    for m in (1, 2):
+        cfg = treg.get_config("opt-proxy")
+        with fake_world(m):
+            mesh = dryrun._groups_ready(make_host_mesh(data=1, model=m))
+            cells[m], _ = dryrun.trace_cell(cfg, shape,
+                                            tshd.make_rules(mesh,
+                                                            cfg.parallel))
+    mc = cfg.model
+    assert cells[1].collectives == {}
+    assert cells[2].flops <= 0.55 * cells[1].flops
+    ar = cells[2].collectives["all-reduce"]
+    layers, act = mc.num_layers, shape.global_batch * shape.seq_len
+    # forward 2 a layer + the embedding's, backward 2 a layer, each of the
+    # (B, S, D) f32 activations; the loss's and the norm's are smaller
+    assert ar["count"] >= 4 * layers + 1
+    assert ar["bytes"] >= (4 * layers + 1) * act * mc.d_model * 4
+    peak = {m: c.memory_analysis()["peak_memory_in_bytes"]
+            for m, c in cells.items()}
+    assert peak[2] < 0.55 * peak[1]
 
 
 def test_olmoe_smoke_quant_cell_runs_at_shard_shapes():

@@ -23,25 +23,42 @@ one start-up, ``file://`` rendezvous, one thread a rank), beside it JAX's
   ``stack_stages``, equals the plain stacked forward and JAX's at rtol
   1e-4 / atol 1e-5 (``:139-163``);
 - the sharded step against the single-device port at the training pin,
-  fp32 ≤ 1e-5 relative per leaf. The leaves the data parallel
-  reduction's order moves past it are recorded in ``PAST_THE_PIN`` and
-  held at the JAX package's own sharded pins (rtol 3e-2 / atol 3e-3,
-  ``tests/_distributed_checks.py:46-54``): the key bias, whose exact
-  gradient is zero (the softmax ignores a shift common to every key), so
-  Adam moves it by ±lr at the sign of rounding noise (3.5e-5 on 4x1,
-  2.4e-5 and 2.8e-5 on 2x2 after two steps, 1.0e-4 after six), and
-  under int8 moments the parameters of the q, k and up projections, where
-  codes flip at ties (≤ 1.2e-4 of a leaf's codes, by one step; the
-  parameters 1.8e-4, 1.2e-4, 6.0e-5, 4.3e-5 and 2.5e-5 relative after two
-  steps). internlm2-1.8b smoke on 2x2, the JAX check's
-  inputs, is held against the single-device JAX step too (loss ≤ 1e-5,
-  params as above). olmoe-1b-7b smoke with local dispatch (its capacity
-  from the local tokens, the load-balance loss averaged over the data
-  group) is held at the routed-expert pin, 1e-2 per leaf, against the
-  single-device port run on each data block with the losses averaged;
-  with ``ep_local_dispatch=false`` (global dispatch) every rank runs the
-  whole batch, bitwise the one-device step; ``parallel.sp`` raises
-  naming ROADMAP.md queue 1 item 25;
+  loss ≤ 1e-5 and fp32 ≤ 1e-5 relative per leaf. On a ``model`` axis of
+  2 or 4 the step computes its share (attention by heads, the MLP by
+  ``d_ff``, the embedding, head and loss by vocab; with ``parallel.sp``
+  the residual's sequence over the axis). The leaves the data parallel
+  reduction's and the row-parallel sums' order moves past the pin are
+  recorded in ``PAST_THE_PIN`` and held at the JAX package's own sharded
+  pins (rtol 3e-2 / atol 3e-3, ``tests/_distributed_checks.py:46-54``):
+  the key biases (self and cross), whose exact gradient is zero (the
+  softmax ignores a shift common to every key), so Adam moves them by
+  ±lr at the sign of rounding noise (3.5e-5 on 4x1, 2.4e-5 and 2.8e-5
+  on 2x2 after two steps, 1.0e-4 after six; under the split 8.0e-5 on
+  1x4, 4.2e-5 to 6.2e-5 on 2x2, 2.2e-4 after six; whisper's, every
+  element noise, 0.78 to 1.4 relative, at most 3.8e-6 apart); opt-proxy's
+  first up-projection bias under ``grad_accum=2`` and the split (7.9e-5
+  after two steps), whose smallest gradient element is 4.9e-6 of the
+  leaf's largest, so the ~7e-7 the split's sum order moves the gradient
+  by is a tenth of that element, which Adam's normalised step carries;
+  and
+  under int8 moments the parameters of the q, k and up projections,
+  where codes flip at ties (≤ 1.2e-4 of a leaf's codes, by one step; the
+  parameters 1.8e-4, 1.2e-4, 6.0e-5, 4.3e-5 and 2.5e-5 relative after
+  two steps). internlm2-1.8b smoke on 2x2, the JAX check's inputs, is
+  held against the single-device JAX step too (loss ≤ 1e-5, params as
+  above). olmoe-1b-7b smoke on 2x2 (attention split, experts whole) with
+  local dispatch (its capacity from the local tokens, the load-balance
+  loss averaged over the data group) is held at the routed-expert pin,
+  1e-2 per leaf, against the single-device port run on each data block
+  with the losses averaged, and with ``ep_local_dispatch=false`` (global
+  dispatch: every rank runs the whole batch) against the one-device step
+  at the same pin; pixtral-12b smoke under ``parallel.sp`` with 8
+  frontend embeddings (24 positions, sharded) and, on 1x4, 3 (19
+  positions: the residual stays whole, as JAX's guard leaves it); on 4x1
+  (no model split) global dispatch is the
+  one-device step bitwise; ``parallel.sp`` runs on the covered
+  architectures and raises naming ROADMAP.md queue 1 item 26 on routed
+  experts, Mamba, RG-LRU and MLA;
 - ``train(mesh=)`` on 2x2, stopped by a SIGTERM that only rank 1
   receives, stops every rank at the same step; resumed from its
   checkpoint on 4x1 and on one device, both end at the pins above against
@@ -63,6 +80,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import types
 
 import jax
@@ -244,7 +262,7 @@ def test_wire_codec_bitwise_jax(n):
 
 # leaves the data parallel reduction's order moves past 1e-5, held at the
 # JAX package's sharded pins (module docstring)
-PAST_THE_PIN = r"mixer/k/b$"
+PAST_THE_PIN = r"(mixer|xattn)/k/b$|blocks/0/sub0/mlp/up/b$"
 PAST_THE_PIN_INT8 = r"\.params/.*(mixer/(q|k)|mlp/up)/(w|b)$"
 
 _JAX_GPIPE = """
@@ -321,6 +339,14 @@ def _batches(name, tcfg):
             keep = np.linspace(0.15, 0.95, rows)[:, None]
             b["loss_mask"] = (np.random.RandomState(i).rand(rows, 16)
                               < keep).astype(np.float32)
+        if tcfg.model.is_encoder_decoder:
+            b["frames"] = np.random.RandomState(20 + i).randn(
+                rows, tcfg.model.encoder_seq_len,
+                tcfg.model.d_model).astype(np.float32)
+        if name.startswith("pixtral"):
+            f = 8 if name == "pixtral_sp" else 3
+            b["embeds"] = (np.random.RandomState(30 + i).randn(
+                rows, f, tcfg.model.d_model) * 0.02).astype(np.float32)
         out.append(b)
     return out
 
@@ -538,10 +564,28 @@ def test_gpipe_matches_stacked_forward_and_jax(world):
 def test_sharded_step_matches_single_device(world, name):
     ref, losses = world["want"]["cases"][name]
     got = _flat(world["ranks"][0], f"{name}/out")
-    past = PAST_THE_PIN_INT8 if name == "int8" else PAST_THE_PIN
+    past = PAST_THE_PIN_INT8 if "int8" in name else PAST_THE_PIN
     assert_state_pins(got, _tflat(ref), past)
     for m, want in zip(world["metas"][0][name], losses):
         assert abs(m["loss"] - want) <= 1e-5 * abs(want), (m, want)
+
+
+@pytest.mark.parametrize("name", list(checks.CASES))
+def test_split_products_run_at_local_widths(world, name):
+    """Each case's o and down products take the rank's heads and ``d_ff``
+    columns where the plan splits them (the heads and kv-heads, or
+    ``d_ff``, divide the ``model`` axis), the whole width elsewhere."""
+    mc = checks.case_config(name).model
+    m = checks.CASES[name][1][1]
+    attn = mc.num_heads % m == 0 and mc.num_kv_heads % m == 0
+    heads = mc.num_heads // m if attn else mc.num_heads
+    want = {".o": [heads * mc.head_dim]}
+    if mc.moe.num_experts == 0:
+        want[".down"] = [mc.d_ff // m if mc.d_ff % m == 0 else mc.d_ff]
+    got = world["metas"][0][f"{name}/widths"]
+    assert got, name
+    for layer, widths in got.items():
+        assert widths == want[layer[layer.rfind("."):]], (layer, widths)
 
 
 def test_sharded_step_matches_jax(world):
@@ -552,39 +596,125 @@ def test_sharded_step_matches_jax(world):
     assert_state_pins(got, _tflat(jst1), PAST_THE_PIN)
 
 
-def test_routed_moe_local_dispatch_per_block(world):
-    ref, (loss,) = world["want"]["cases"]["moe"]
-    got = _flat(world["ranks"][0], "moe/out")
+def _routed_pin(world, name):
+    ref, (loss,) = world["want"]["cases"][name]
+    got = _flat(world["ranks"][0], f"{name}/out")
     want = _tflat(ref)
     assert got.keys() == want.keys()
     for k, w in want.items():
         assert _rel(got[k], w) <= 1e-2, (k, _rel(got[k], w))
-    m = world["metas"][0]["moe"][0]
+    m = world["metas"][0][name][0]
     assert abs(m["loss"] - loss) <= 1e-2 * abs(loss), (m["loss"], loss)
+
+
+def test_routed_moe_local_dispatch_per_block(world):
+    """2x2, the attention split over ``model``, the experts whole: local
+    dispatch against the per-block one-device step at the routed-expert
+    pin."""
+    _routed_pin(world, "moe")
+
+
+def test_routed_moe_global_dispatch_split_at_the_routed_pin(world):
+    """2x2 under global dispatch: every rank runs the whole batch, the
+    attention split over ``model``, the experts whole. Against the
+    one-device step: the loss and the parameters at the dense pins (no
+    token changes its experts: the loss is the one device's); the
+    moments at the routed-expert pin, 1e-2 per leaf. The experts' bf16
+    products round the split's fp32 sum-order change into bf16 steps of
+    the gradient (the moments ~1e-3 off, 3.3e-3 at most, the parameters
+    within 1e-5, on the CPU)."""
+    ref, (loss,) = world["want"]["cases"]["moe_global"]
+    got, want = _flat(world["ranks"][0], "moe_global/out"), _tflat(ref)
+    moments = [k for k in want if k.startswith(".opt/")]
+    assert moments
+    for k in moments:
+        assert _rel(got.pop(k), want.pop(k)) <= 1e-2, k
+    assert_state_pins(got, want, PAST_THE_PIN)
+    m = world["metas"][0]["moe_global"][0]
+    assert abs(m["loss"] - loss) <= 1e-5 * abs(loss), (m["loss"], loss)
 
 
 def test_routed_moe_global_dispatch_is_one_device(world):
     """Under ``ep_local_dispatch=false`` (the reference's global dispatch)
-    every rank runs the whole batch: the step is the one-device step,
-    bitwise."""
-    ref, (loss,) = world["want"]["cases"]["moe_global"]
-    got = _flat(world["ranks"][0], "moe_global/out")
+    every rank runs the whole batch: on 4x1, where no product is split
+    over ``model``, the step is the one-device step, bitwise."""
+    ref, (loss,) = world["want"]["cases"]["moe_global41"]
+    got = _flat(world["ranks"][0], "moe_global41/out")
     want = _tflat(ref)
     assert got.keys() == want.keys()
     for k, w in want.items():
         np.testing.assert_array_equal(got[k], w, err_msg=k)
-    assert world["metas"][0]["moe_global"][0]["loss"] == loss
+    assert world["metas"][0]["moe_global41"][0]["loss"] == loss
+
+
+def _mesh22():
+    return types.SimpleNamespace(mesh_dim_names=("data", "model"),
+                                 shape=(2, 2))
 
 
 def test_sequence_parallel_raises_naming_item_25():
+    """``parallel.sp`` once raised naming item 25: on a covered
+    architecture it now builds a sharded step whose plan shards the
+    sequence (the gloo world's ``sp`` cases run it) and nothing names
+    that item."""
+    from repro_torch.launch.mesh import fake_world, make_host_mesh
     cfg = tget_config("opt-proxy", smoke=True)
     cfg.parallel.sp = True
-    mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"),
-                                 shape=(2, 2))
+    state = TTS.init_train_state(cfg, "cpu")
+    with fake_world(4):
+        rules = tshd.make_rules(make_host_mesh(data=2, model=2),
+                                cfg.parallel)
+        specs = tshd.train_state_pspecs(state, rules)
+        assert callable(TTS.make_sharded_train_step(cfg, rules, specs))
+        plan = tshd.model_split(cfg.model, rules)
+        assert plan.sp and plan.seq_split(16) and not plan.seq_split(15)
+        assert (plan.attn, plan.mlp, plan.vocab) == (True, True, True)
+        assert (plan.cfg.num_heads, plan.cfg.d_ff) == (2, 128)
+
+
+def test_remat_recompute_reads_the_plan_on_another_thread():
+    """autograd runs a CUDA tensor's backward on a thread of its own and
+    recomputes a remat'd super-block there: the recomputed forward reads
+    the same rules and plan as the forward did."""
+    seen, errors = [], []
+
+    def block(x):
+        seen.append((tshd.current_rules(), tshd.current_split()))
+        return torch.sin(x)
+
+    def backward(y):
+        try:
+            y.sum().backward()
+        except Exception as e:      # noqa: BLE001  (re-raised below)
+            errors.append(e)
+
+    rules, plan = object(), object()
+    x = torch.ones(3, requires_grad=True)
+    with tshd.use_rules(rules), tshd.use_split(plan):
+        y = torch.utils.checkpoint.checkpoint(block, x, use_reentrant=False)
+        t = threading.Thread(target=backward, args=(y,))
+        t.start()
+        t.join()
+    assert not errors, errors
+    assert seen == [(rules, plan)] * 2
+    assert (tshd.current_rules(), tshd.current_split()) == (None, None)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "falcon-mamba-7b",
+                                  "recurrentgemma-9b", "deepseek-v3-671b"])
+def test_sequence_parallel_raises_naming_item_26(arch):
+    """Routed experts, Mamba, RG-LRU and MLA (and deepseek's MTP head)
+    are computed whole over ``model``: ``parallel.sp`` on them raises
+    naming the ROADMAP item that will split them."""
+    cfg = tget_config(arch, smoke=True)
+    cfg.parallel.sp = True
     with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md, queue 1 item 25"):
-        TTS.make_sharded_train_step(cfg, tshd.make_rules(mesh, cfg.parallel),
-                                    None)
+                       match="ROADMAP.md, queue 1 item 26"):
+        TTS.make_sharded_train_step(
+            cfg, tshd.make_rules(_mesh22(), cfg.parallel), None)
+    cfg.parallel.sp = False
+    from repro_torch.config import refuse_sharding
+    refuse_sharding(cfg.parallel, cfg.model)      # sp off: nothing refused
 
 
 def _saves(d, prefix):
