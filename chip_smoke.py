@@ -270,14 +270,31 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
          3e-3), every rank's final state bitwise rank 0's, rank 0's
          checkpoint of the split run restored on one device bitwise; each
          rank's step walls, gloo bytes a step (by kind, beside the
-         1,136,099,332 before the split) and peak;
+         1,136,099,332 before the split) and peak; then the same ranks
+         on 1x4 (``split_train_rank``): falcon-mamba-7b at full width, 2
+         of its 64 layers, bf16 compute (Mamba split by ``d_inner``:
+         2048 channels a rank, ``selective_scan`` / ``selective_scan_bwd``
+         at d 2048, the [u | z] in projection re-blocked by an
+         all-to-all), and olmoe-1b-7b at full width, 1 of its 16 layers,
+         fp32 compute (16 of 64 experts a rank, the routing whole; the
+         attention by heads), each 3 steps of 4 x 256 through
+         ``make_sharded_train_step`` under ``parallel.remat=full``, then 1
+         under ``parallel.sp``, from the seeded init, against the
+         one-device step run first on each rank in its turn (every
+         rank's blocks of it kept): losses within 1e-2, each leaf at 1e-5
+         or the JAX sharded pins, the experts' at 1e-2; every rank's
+         losses and replicated leaves bitwise rank 0's; the scan kernels'
+         launches at d 2048 counted (twice forward, once backward, a
+         layer a step); each rank's step walls, gloo bytes by kind and
+         peak;
      17b. internlm2-1.8b at full width, 8 of its 24 layers (for
          time), on 1x2 (every group
          row-sharded: the Γ sum at 2048-8192 rows) through
          ``torch.distributed.run`` (``python3 chip_smoke.py launcher-rank
          <argv>`` is one rank of ``launch.quantize``), against the same
-         launcher alone without the mesh: the artifacts' cells, the
-         reports' names and modes, the ranks' artifact digests;
+         launcher alone without the mesh, run beside it: the artifacts'
+         cells, the reports' names and modes, the ranks' artifact
+         digests;
      17c. olmoe-1b-7b at full width on 1x1x2 under overlap (its
          records deferred, no stage waiting), cut to one layer, after the
          one-device run of the same cut has measured one rank's peak (the
@@ -391,12 +408,16 @@ def log(msg: str = "") -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, min_total_s: float = 0.2, max_reps: int = 50) -> float:
+def time_ms(fn, min_total_s: float = 0.2, max_reps: int = 50,
+            warm: bool = False) -> float:
     """Mean CUDA-event time of fn() after one warm-up call (for calls long
     enough that the host's launch cost hides behind the device); one call
-    that alone lasts ``min_total_s`` is its own reading."""
+    that alone lasts ``min_total_s`` is its own reading. ``warm``: the
+    caller has just made the same call (its check's), which stands for
+    the warm-up."""
     import torch
-    fn()
+    if not warm:
+        fn()
     torch.cuda.synchronize()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
@@ -806,8 +827,10 @@ def check_gptq(case: dict, gs: int, bs: int, table=None):
     wk = work.gptq_block(b, out_dim, in_dim, gs, bs)
     timing = ""
     if table is not None:
-        chol_ms = time_ms(lambda: hess.cholesky_inverse_upper(hd), 0.1, 5)
-        ms = time_ms(lambda: ops.gptq_block_cuda(w, u, **kw), 0.1, 5)
+        chol_ms = time_ms(lambda: hess.cholesky_inverse_upper(hd), 0.1, 5,
+                          warm=True)
+        ms = time_ms(lambda: ops.gptq_block_cuda(w, u, **kw), 0.1, 5,
+                     warm=True)
         b_ms, by = table.add("gptq_block", ms=ms, plain_ms=pms,
                              flop=wk.flop, nbytes=wk.nbytes, err=err)
         timing = (f" ms={ms:.4f} plain_ms={pms:.4f} library_ms=none "
@@ -903,14 +926,15 @@ def check_rpiq_call(rargs: tuple, rkw: dict, table=None, label: str = "",
     wk = work.rpiq_block(b, out_dim, in_dim, n_tok, bs, t_max)
     timing = ""
     if table is not None:
-        ms = time_ms(lambda: ops.rpiq_block_cuda(*rargs, **rkw), 0.1, 5)
+        ms = time_ms(lambda: ops.rpiq_block_cuda(*rargs, **rkw), 0.1, 5,
+                     warm=True)
         b_ms, by = table.add("rpiq_block", ms=ms, plain_ms=pms,
                              flop=wk.flop, nbytes=wk.nbytes, err=err)
         timing = (f" ms={ms:.4f} plain_ms={pms:.4f} library_ms=none "
                   f"bound_ms={b_ms:.4f} ({by})")
         if curvature is not None:
             timing += (f"; stage-2 block curvature (library) "
-                       f"ms={time_ms(curvature, 0.1, 5):.4f}")
+                       f"ms={time_ms(curvature, 0.1, 5, warm=True):.4f}")
     # Gamma = |y_orig - Y_q|^2 sees a difference d in Y_q (the final
     # Y_q rel above) through the residual r: 2<r, d>/|r|^2, where a
     # random d meets r at a cosine ~ 1/sqrt(n x out). The 1e-5 pin was
@@ -1718,25 +1742,32 @@ def kernels_moe_shapes(table: KernelTable) -> None:
 def kernels_selective_scan(table: KernelTable, g) -> None:
     """The Mamba-1 scan at falcon-mamba-7b's prefill (S 512) and
     calibration (S 128) shapes and a ragged S 77: B 4, d 8192, n 16,
-    nonzero h0, dt > 0 as softplus gives it. u in fp32 (y and h_last within
-    1e-5 of their largest value) and in bf16, the path's dtype (y within
-    one bf16 ulp, h_last within 1e-5); timed in bf16 from a CUDA graph over
-    input copies beyond the 50 MB L2."""
+    nonzero h0, dt > 0 as softplus gives it; then 17a's split training
+    shape, a rank's 2048 of the 8192 channels at S 256 (from a generator
+    of its own, so the sections after it draw what they drew before it
+    was added). u in fp32 (y and h_last within 1e-5 of their largest
+    value) and in bf16, the path's dtype (y within one bf16 ulp, h_last
+    within 1e-5); timed in bf16 from a CUDA graph over input copies
+    beyond the 50 MB L2."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref, work
 
     dev = torch.device("cuda")
-    b, d, n = 4, 8192, 16
-    for s in (512, 128, 77):
-        u = torch.randn((b, s, d), generator=g, device=dev)
-        dt = F.softplus(torch.randn((b, s, d), generator=g, device=dev) - 1)
-        bm, cm = (torch.randn((b, s, n), generator=g, device=dev)
+    split = torch.Generator(device=dev)
+    split.manual_seed(31)
+    b, n = 4, 16
+    for s, d, gen in ((512, 8192, g), (128, 8192, g), (77, 8192, g),
+                      (SPLIT_RUN["seq"], 8192 // SPLIT_RUN["model"], split)):
+        u = torch.randn((b, s, d), generator=gen, device=dev)
+        dt = F.softplus(torch.randn((b, s, d), generator=gen, device=dev)
+                        - 1)
+        bm, cm = (torch.randn((b, s, n), generator=gen, device=dev)
                   for _ in range(2))
         a_log = torch.log(torch.arange(1, n + 1, dtype=torch.float32,
                                        device=dev)).repeat(d, 1)
-        d_skip = torch.randn((d,), generator=g, device=dev)
-        h0 = torch.randn((b, d, n), generator=g, device=dev) * 0.1
+        d_skip = torch.randn((d,), generator=gen, device=dev)
+        h0 = torch.randn((b, d, n), generator=gen, device=dev) * 0.1
         rest = (dt, bm, cm, a_log, d_skip, h0)
         errs, ok = {}, True
         for name, udt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
@@ -1754,7 +1785,7 @@ def kernels_selective_scan(table: KernelTable, g) -> None:
         # bf16 u and y, fp32 dt / B / C / a_log / d_skip / h0 / h_last
         flop, nbytes, _ = work.selective_scan(b, s, d, n)
         timing = ""
-        if s in (512, 128):
+        if s != 77:
             args = (u.to(torch.bfloat16),) + rest
             copies = [args] + [tuple(t.clone() for t in args)
                                for _ in range(int(100e6 // nbytes))]
@@ -1772,7 +1803,7 @@ def kernels_selective_scan(table: KernelTable, g) -> None:
             f"{f32[0]:.3e} rel {f32[1]:.2e}, h_last rel {f32[2]:.2e} (tol "
             f"1e-5 each); bf16 y max_abs_err={b16[0]:.3e} within 1 bf16 "
             f"ulp {b16[3]}, h_last rel {b16[2]:.2e} (tol 1e-5){timing}")
-        check(ok, f"selective_scan S={s}")
+        check(ok, f"selective_scan S={s} d={d}")
 
 
 SCAN_GRADS = ("du", "ddt", "dB", "dC", "dA_log", "dD", "dh0")
@@ -1780,14 +1811,14 @@ SCAN_GRADS = ("du", "ddt", "dB", "dC", "dA_log", "dD", "dh0")
 
 def kernels_selective_scan_bwd(table: KernelTable) -> None:
     """The scan's backward at falcon-mamba-7b's training shapes (B 4, d
-    8192, n 16; S 512 and 128) and a ragged S 77, nonzero h0, dy and
-    dh_last, u (and dy) in fp32 and in bf16: every gradient within 1e-5 of
-    its largest magnitude of ``ref.selective_scan_backward`` on the same
-    inputs, bf16 du within one bf16 ulp; a second launch bitwise the
-    first. Timed in bf16 at S 512 and 128 (CUDA events; the plain
-    version's time is its check's one call). Its inputs come from a
-    generator of its own, so the sections after it draw what they drew
-    before it was added."""
+    8192, n 16; S 512 and 128), a ragged S 77 and 17a's split shape (d
+    2048, S 256), nonzero h0, dy and dh_last, u (and dy) in fp32 and in
+    bf16: every gradient within 1e-5 of its largest magnitude of
+    ``ref.selective_scan_backward`` on the same inputs, bf16 du within
+    one bf16 ulp; a second launch bitwise the first. Timed in bf16 but at
+    S 77 (CUDA events; the plain version's time is its check's one call).
+    Its inputs come from a generator of its own, so the sections after it
+    draw what they drew before it was added."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref, work
@@ -1795,8 +1826,9 @@ def kernels_selective_scan_bwd(table: KernelTable) -> None:
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(29)
-    b, d, n = 4, 8192, 16
-    for s in (512, 128, 77):
+    b, n = 4, 16
+    for s, d in ((512, 8192), (128, 8192), (77, 8192),
+                 (SPLIT_RUN["seq"], 8192 // SPLIT_RUN["model"])):
         u = torch.randn((b, s, d), generator=g, device=dev)
         dt = F.softplus(torch.randn((b, s, d), generator=g, device=dev) - 1)
         bm, cm = (torch.randn((b, s, n), generator=g, device=dev)
@@ -1825,7 +1857,7 @@ def kernels_selective_scan_bwd(table: KernelTable) -> None:
                 else:
                     ok = ok and rels[key] <= 1e-5
             timing = ""
-            if name == "bf16" and s in (512, 128):
+            if name == "bf16" and s != 77:
                 ms = time_ms(lambda: ops.selective_scan_bwd_cuda(*args))
                 w = work.selective_scan_backward(b, s, d, n, 2)
                 b_ms, by = table.add("selective_scan_bwd", ms=ms,
@@ -1841,7 +1873,7 @@ def kernels_selective_scan_bwd(table: KernelTable) -> None:
                 + ", ".join(f"{k} {v:.2e}" for k, v in rels.items())
                 + f" (rel to the largest; bf16 du in ulps; tol 1e-5, 1 ulp);"
                 f" two launches bitwise {same}{timing}")
-            check(ok, f"selective_scan_bwd S={s} u {name}")
+            check(ok, f"selective_scan_bwd S={s} d={d} u {name}")
             del want, got, again
 
 
@@ -5159,6 +5191,7 @@ def sharded_rank(rank: int, world: int, job: dict) -> None:
     if job.get("train"):
         dist.barrier()
         out["train"] = sharded_train_rank(job)
+        out["split"] = split_train_rank()
     with open(os.path.join(job["dir"], f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.barrier()
@@ -5318,6 +5351,223 @@ def sharded_train_rank(job: dict) -> dict:
     return res
 
 
+# 17a's split legs, in the same world after the opt-proxy leg: the model
+# axis computing its share of Mamba (falcon-mamba-7b, 2 of 64 layers: 2048
+# of 8192 channels a rank) and of routed experts (olmoe-1b-7b, 1 of 16
+# layers: 16 of 64 experts a rank) at full width on 1x4, SPLIT_RUN's
+# steps of batch x seq tokens, then sp_steps of them from the seeded init
+# under parallel.sp; remat full; falcon-mamba in bf16 compute (as 16c),
+# olmoe in fp32 (its experts' products bf16 as always; in bf16 compute
+# the routing flips that the split's sum order causes carry the experts'
+# moments past the routed pin within three steps)
+SPLIT_LEGS = (("falcon-mamba-7b", 2, "bfloat16"),
+              ("olmoe-1b-7b", 1, "float32"))
+SPLIT_RUN = dict(steps=3, sp_steps=1, batch=4, seq=256, model=4)
+# the leaves held at the routed-expert pin (1e-2 relative) against one
+# device, params and moments
+ROUTED_LEAF = r"mlp/w_(gate|up|down)$"
+
+
+def split_leg_config(arch: str, layers: int, dtype: str, sp: bool = False):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    cfg.model.num_layers = layers
+    cfg.model.dtype = dtype
+    cfg.parallel.remat = "full"
+    cfg.parallel.sp = sp
+    t = cfg.train
+    t.steps = SPLIT_RUN["sp_steps" if sp else "steps"]
+    t.global_batch_size, t.seq_len = SPLIT_RUN["batch"], SPLIT_RUN["seq"]
+    return cfg
+
+
+def split_train_rank(device: str = "cuda") -> dict:
+    """This rank's part of 17a's split legs (``SPLIT_LEGS``). For each
+    arch, every rank in turn (one whole state on the card at a time)
+    builds the seeded init, keeps its 1x4 blocks of it, then steps one
+    device (``make_train_step``) from that init ``steps`` steps and keeps
+    its blocks of the state after ``sp_steps`` and after the last (rank
+    0's run is the one-device run; every rank's is the same program on
+    the same card). Then the sharded step (``make_sharded_train_step``)
+    runs ``steps`` steps on the blocks, and ``sp_steps`` under
+    ``parallel.sp`` from the same init, the counters reset just before
+    each run and read just after (and the scan kernels' launches by
+    channel width), each step's gloo bytes by kind. Each rank holds its
+    blocks against its blocks of the one-device states; the per-leaf sums
+    (squared difference and norm, the JAX sharded pins' allclose) meet in
+    one all-reduce. Returns, by arch and run, the walls, losses, bytes,
+    peak, launches, a digest of the replicated leaves and the losses
+    (every rank's must be rank 0's), the one-device run's walls and
+    losses, and each leaf's distance: 1e-5 relative or, past it, rtol
+    3e-2 / atol 3e-3; the routed experts' at 1e-2."""
+    import hashlib
+    import re
+    import torch
+    import torch.distributed as dist
+    from repro_torch.data import MarkovLM
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.checkpoint import map_with_path, tree_paths
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.training import train_step as TS
+    rank, world = dist.get_rank(), dist.get_world_size()
+    mesh = make_host_mesh(data=1, model=SPLIT_RUN["model"], device=device)
+    release_device()        # what the legs before left cached
+    widths: dict = {}
+
+    def by_width(op):
+        def make(fn):
+            def call(u, *a):
+                key = f"{op} d={u.shape[-1]}"
+                widths[key] = widths.get(key, 0) + 1
+                return fn(u, *a)
+            return call
+        return make
+
+    def batches(cfg):
+        data = MarkovLM(cfg.model.vocab_size, seed=cfg.train.seed)
+        for _ in range(cfg.train.steps):
+            b = data.batch(cfg.train.global_batch_size, cfg.train.seq_len)
+            yield b[0] if isinstance(b, tuple) else b
+
+    def blocks(state, specs):
+        return map_with_path(sharding.local(state, specs, mesh),
+                             lambda _, t: t.clone())
+
+    def run(cfg, state, specs) -> tuple:
+        rules = sharding.make_rules(mesh, cfg.parallel)
+        step = TS.make_sharded_train_step(cfg, rules, specs)
+        widths.clear()
+        release_device()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        walls, losses, nbytes, kinds = [], [], [], []
+        ops.reset_kernel_launches()
+        with patched(ops, "selective_scan_cuda", by_width("selective_scan")), \
+                patched(ops, "selective_scan_bwd_cuda",
+                        by_width("selective_scan_bwd")):
+            for batch in batches(cfg):
+                sharding.reset_comm_bytes()
+                t = time.perf_counter()
+                state, m = step(state, batch)
+                losses.append(float(m["loss"]))      # waits
+                walls.append(time.perf_counter() - t)
+                nbytes.append(sharding.comm_bytes())
+                kinds.append({k: v["bytes"] for k, v in
+                              sharding.comm_by_kind().items()})
+        torch.cuda.synchronize()
+        rep = dict(step_walls=walls, losses=losses, step_bytes=nbytes,
+                   step_kinds=kinds, launches=ops.kernel_launches(),
+                   widths=dict(widths),
+                   peak=torch.cuda.max_memory_allocated() - held)
+        h = hashlib.sha256(json.dumps(losses).encode())
+        for (k, t), (_, spec) in zip(tree_paths(state),
+                                     tree_paths_specs(specs)):
+            if all(a is None for a in spec):
+                h.update(k.encode())
+                h.update(memoryview(t.detach().contiguous().cpu().reshape(
+                    -1).view(torch.uint8).numpy()))
+        rep["digest"] = h.hexdigest()
+        return rep, state
+
+    def against(state, ref, specs) -> dict:
+        """Every leaf's distance to the one-device state: this rank's
+        sums over its blocks, summed over the ranks for a leaf split over
+        ``model`` (rank 0's alone for a replicated one)."""
+        names, sums = [], []
+        for (k, g), (_, w), (_, spec) in zip(
+                tree_paths(state), tree_paths(ref), tree_paths_specs(specs)):
+            split = any(a is not None for a in spec)
+            g, w = g.float(), w.float()
+            mine = split or rank == 0
+            names.append(k)
+            sums.append([float((g - w).double().pow(2).sum()) * mine,
+                         float(w.double().pow(2).sum()) * mine,
+                         float(not torch.allclose(g, w, rtol=3e-2,
+                                                  atol=3e-3)) * mine])
+        tot = torch.tensor(sums, dtype=torch.float64)
+        dist.all_reduce(tot)
+        past, within, routed = [], True, []
+        for k, (d2, w2, off) in zip(names, tot.tolist()):
+            rel = d2 ** 0.5 / (w2 ** 0.5 + 1e-30)
+            if re.search(ROUTED_LEAF, k):
+                routed.append(rel)
+                if rel > 1e-2:
+                    past.append(f"{k} {rel:.2e} (routed pin 1e-2)")
+                    within = False
+            elif rel > 1e-5:
+                past.append(f"{k} {rel:.2e}")
+                within &= off == 0
+        return dict(past=past, within=within,
+                    routed_max=max(routed, default=0.0))
+
+    out: dict = {}
+    for arch, layers, dtype in SPLIT_LEGS:
+        cfg = split_leg_config(arch, layers, dtype)
+        t0 = time.perf_counter()
+        res: dict = {}
+        for r in range(world):
+            if r == rank:
+                state = TS.init_train_state(cfg, device)
+                specs = sharding.train_state_pspecs(
+                    state, sharding.make_rules(mesh, cfg.parallel))
+                init = blocks(state, specs)
+                step = TS.make_train_step(cfg)
+                t = time.perf_counter()
+                walls, losses = [], []
+                for i, batch in enumerate(batches(cfg)):
+                    t1 = time.perf_counter()
+                    state, m = step(state, batch)
+                    losses.append(float(m["loss"]))
+                    walls.append(time.perf_counter() - t1)
+                    if i + 1 == SPLIT_RUN["sp_steps"]:
+                        at_sp = blocks(state, specs)
+                one = blocks(state, specs)
+                res["one"] = dict(wall=time.perf_counter() - t,
+                                  step_walls=walls, losses=losses)
+                del state
+                release_device()
+            dist.barrier()
+        res["init_s"] = time.perf_counter() - t0
+        first = map_with_path(init, lambda _, t: t.clone())
+        res["split"], done = run(cfg, first, specs)
+        res["sp"], done_sp = run(split_leg_config(arch, layers, dtype,
+                                                  sp=True), init, specs)
+        t = time.perf_counter()
+        res["split"].update(against(done, one, specs))
+        res["sp"].update(against(done_sp, at_sp, specs))
+        res["compare_s"] = time.perf_counter() - t
+        del first, init, done, done_sp, one, at_sp
+        release_device()
+        dist.barrier()
+        out[arch] = res
+    return out
+
+
+def tree_paths_specs(specs):
+    """``(path, spec)`` of a spec tree in ``checkpoint.tree_paths``'
+    order (its PSpec leaves; a ``Quantized8`` spec is not expected)."""
+    from repro_torch.distributed import sharding
+    out = []
+
+    def walk(tree, prefix):
+        if isinstance(tree, sharding.PSpec):
+            out.append((prefix, tree))
+        elif isinstance(tree, dict):
+            for k in sorted(tree):
+                walk(tree[k], f"{prefix}/{k}" if prefix else str(k))
+        elif hasattr(tree, "_fields"):
+            for f in tree._fields:
+                walk(getattr(tree, f), f"{prefix}/.{f}" if prefix
+                     else f".{f}")
+        else:
+            for i, v in enumerate(tree):
+                walk(v, f"{prefix}/{i}" if prefix else str(i))
+    walk(specs, "")
+    return out
+
+
 def job_config(job: dict):
     from repro_torch.configs import get_config
     cfg = get_config(job["arch"], smoke=job.get("smoke", False))
@@ -5452,15 +5702,28 @@ def launcher_rank(argv: list) -> int:
     return 0
 
 
-def run_launcher_leg(cmd: list, label: str, launches: dict) -> str:
-    """Run one ``launcher-rank`` command (alone, or every rank under
-    ``torch.distributed.run``), print its lines and add each rank's
-    launches to ``launches``; a failure fails the run."""
-    import re
+def start_launcher_leg(cmd: list) -> tuple:
+    """Start one ``launcher-rank`` command (alone, or every rank under
+    ``torch.distributed.run``); :func:`finish_launcher_leg` reads it."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    t = time.perf_counter()
-    p = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
-                       text=True, timeout=900)
+    return (subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True),
+            time.perf_counter())
+
+
+def finish_launcher_leg(started: tuple, label: str, launches: dict) -> str:
+    """Wait for a started ``launcher-rank`` command, print its lines and
+    add each rank's launches to ``launches``; a failure fails the run."""
+    import re
+    proc, t = started
+    try:
+        stdout, stderr = proc.communicate(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    p = subprocess.CompletedProcess(proc.args, proc.returncode, stdout,
+                                    stderr)
     wall = time.perf_counter() - t
     lines = [ln for ln in p.stdout.splitlines()
              if ln.startswith(("[quantize]", "[launcher rank", "[mesh]"))
@@ -5536,13 +5799,75 @@ def sharded_train_leg(job: dict, res: list, smi: str) -> None:
         f"{time.perf_counter() - t:.1f}s")
 
 
+def split_train_leg(res: list, smi: str, launches: dict) -> None:
+    """17a's split legs, read from the ranks' results (``split_train_rank``):
+    for each arch and run each rank's step walls, losses, gloo bytes a
+    step by kind, peak and the scan kernels' launches by channel width;
+    every rank's losses and replicated leaves bitwise rank 0's; against
+    one device (rank 0's) the losses within 1e-2 and every leaf at its
+    pin (printed past 1e-5); on falcon-mamba-7b ``selective_scan`` twice
+    and ``selective_scan_bwd`` once a layer a step at d 2048 on every
+    rank. Adds the runs' launches to ``launches``."""
+    d_rank = 8192 // SPLIT_RUN["model"]
+    for arch, layers, _ in SPLIT_LEGS:
+        one = res[0]["split"][arch]["one"]
+        same_one = all(x["split"][arch]["one"]["losses"] == one["losses"]
+                       for x in res)
+        log(f"  17a {arch}: each rank's init and one-device run in turn "
+            f"{res[0]['split'][arch]['init_s']:.1f} s; one device (rank 0) "
+            f"{one['wall']:.3f} s, step walls "
+            f"{[round(w, 4) for w in one['step_walls']]} s, every rank's "
+            f"one-device losses rank 0's {same_one} [{smi}]")
+        for key in ("split", "sp"):
+            legs = [x["split"][arch][key] for x in res]
+            label = f"17a {arch} 1x{SPLIT_RUN['model']}" + (
+                ", sp" if key == "sp" else "")
+            for r, x in enumerate(legs):
+                log(f"  {label} rank {r}: step walls "
+                    f"{[round(w, 4) for w in x['step_walls']]} s; gloo bytes"
+                    f" a step {x['step_bytes']}, by kind {x['step_kinds'][-1]}"
+                    f"; peak above what it held {x['peak']} bytes; scan "
+                    f"launches by width {json.dumps(x['widths'], sort_keys=True)}"
+                    f" [{smi}]")
+                for k in launches:
+                    launches[k] += x["launches"].get(k, 0)
+            same = all(x["digest"] == legs[0]["digest"] for x in legs)
+            want = one["losses"][:len(legs[0]["losses"])]
+            gaps = [abs(a - b) for a, b in zip(legs[0]["losses"], want)]
+            x0 = legs[0]
+            log(f"  {label}: losses {[round(v, 5) for v in x0['losses']]} one "
+                f"device {[round(v, 5) for v in want]} (largest gap "
+                f"{max(gaps):.3e}, tol 1e-2); every rank's losses and "
+                f"replicated leaves bitwise rank 0's {same}; {len(x0['past'])}"
+                f" leaves past 1e-5 of the one-device run (held at rtol 3e-2 "
+                f"/ atol 3e-3, the routed experts' at 1e-2, largest "
+                f"{x0['routed_max']:.3e}: {x0['within']}): "
+                f"{'; '.join(x0['past'])}")
+            steps = len(x0["losses"])
+            scans = True
+            if arch == "falcon-mamba-7b":
+                scans = all(x["widths"] == {
+                    f"selective_scan d={d_rank}": 2 * layers * steps,
+                    f"selective_scan_bwd d={d_rank}": layers * steps}
+                    for x in legs)
+                log(f"  {label}: selective_scan {2 * layers * steps} and "
+                    f"selective_scan_bwd {layers * steps} launches at d "
+                    f"{d_rank} on every rank: {scans}")
+            check(same and x0["within"] and scans and max(gaps) < 1e-2,
+                  f"{label} against the one-device run")
+        log(f"  17a {arch}: the comparisons took "
+            f"{res[0]['split'][arch]['compare_s']:.1f}s")
+
+
 SHARDED_LAYERS = 8      # of internlm2-1.8b's 24 in 17b
 
 
 def phase_sharded_path(smi: str) -> dict:
     """17a opt-proxy at full width on 2x2 (4 ranks, the in-process API)
     against phase 5's single-device run, then trained on 2x2 by the same
-    ranks against one device (``sharded_train_leg``); 17b internlm2-1.8b
+    ranks against one device (``sharded_train_leg``), then falcon-mamba-7b
+    and olmoe-1b-7b trained on 1x4 by them (``split_train_leg``); 17b
+    internlm2-1.8b
     at full width, ``SHARDED_LAYERS`` of its layers, on 1x2 (every group
     row-sharded) through
     ``torch.distributed.run`` against the launcher run without the mesh;
@@ -5579,6 +5904,7 @@ def phase_sharded_path(smi: str) -> dict:
         f"{worst:.3e}); every linear's name and mode equal {modes}")
     check(mism <= 1e-3 * total and modes, "17a against phase 5")
     sharded_train_leg(job, res, smi)
+    split_train_leg(res, smi, launches)
     log(f"  17a took {time.perf_counter() - t:.1f}s")
 
     # 17b
@@ -5589,14 +5915,18 @@ def phase_sharded_path(smi: str) -> dict:
             "quant.calib_batches=4", "quant.calib_batch_size=4",
             "quant.calib_seq_len=128", f"model.num_layers={SHARDED_LAYERS}"]
     me = os.path.abspath(__file__)
-    run_launcher_leg([sys.executable, me, "launcher-rank", *argv, "--out",
-                      os.path.join(b, "one"), *over], "17b one device",
-                     launches)
-    out = run_launcher_leg(
+    # the one-device launcher and the mesh's ranks run side by side (their
+    # walls each under the other's load)
+    one = start_launcher_leg([sys.executable, me, "launcher-rank", *argv,
+                              "--out", os.path.join(b, "one"), *over])
+    mesh = start_launcher_leg(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
          "--nproc-per-node", "2", me, "launcher-rank", *argv, "--out",
-         os.path.join(b, "mesh"), *over, "quant.mesh=1x2"], "17b mesh 1x2",
-        launches)
+         os.path.join(b, "mesh"), *over, "quant.mesh=1x2"])
+    try:
+        finish_launcher_leg(one, "17b one device", launches)
+    finally:
+        out = finish_launcher_leg(mesh, "17b mesh 1x2", launches)
     art = "internlm2-1.8b.params.pkl"
     mism, total, worst = artifact_cells(os.path.join(b, "mesh", art),
                                         os.path.join(b, "one", art))
@@ -6113,7 +6443,8 @@ def main() -> int:
 
     release_device()
     log("[17] sharded quantization and training on the card: ranks sharing "
-        "it over gloo (17a opt-proxy 2x2, quantized then trained; 17b "
+        "it over gloo (17a opt-proxy 2x2, quantized then trained, then "
+        "falcon-mamba-7b and olmoe-1b-7b trained on 1x4; 17b "
         "internlm2-1.8b 1x2 through torch.distributed.run, 17c olmoe-1b-7b "
         "1x1x2 under overlap)")
     t = time.perf_counter()

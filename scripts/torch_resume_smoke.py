@@ -19,7 +19,10 @@ the clean one), and the resumed artifact is served through
 Every child takes ``--device`` (default: the card). ``--int8-only`` runs
 the clean run and the int8-KV kill, resume and serve only (the fp16-KV
 pass is the same matrix without the override). The clean run and the
-first killed run start together. Each child's wall and each artifact's
+first killed run start together. Every quantize child reads its
+trainer checkpoint from ``train.ckpt_dir=<work>/none``, a directory that
+never exists: a checkpoint left at the default ``/tmp/repro_ckpt`` is
+never read. Each child's wall and each artifact's
 sha256 (its integrity sidecar's) are printed, and the children's kernel
 launches summed (each launcher prints its own; :data:`CHILD_LAUNCHES`);
 exit 0 when every check holds.
@@ -89,10 +92,15 @@ class Child:
                 f"{rc}: {' '.join(self.cmd)}")
 
 
-def quantize(label: str, out_dir: str, extra: List[str],
+def quantize(label: str, work: str, out_dir: str, extra: List[str],
              device: Optional[str], expect_rc: int) -> Child:
+    """A ``launch.quantize`` child writing to ``out_dir``; its
+    ``train.ckpt_dir`` is ``<work>/none``, which never exists, so no
+    trainer checkpoint left at the default directory is read."""
     return Child(label, "repro_torch.launch.quantize",
-                 ["--out", out_dir, *CALIB, *extra], device, expect_rc)
+                 ["--out", out_dir, *CALIB,
+                  f"train.ckpt_dir={os.path.join(work, 'none')}", *extra],
+                 device, expect_rc)
 
 
 def load_leaves(path: str) -> list:
@@ -165,7 +173,7 @@ def main(argv=None) -> int:
             matrices.insert(0, ("fp16-kv matrix", []))
         print("[torch_resume_smoke] the clean reference run, beside the "
               "first killed run (plan.stage1_executor@4)", flush=True)
-        clean = quantize("clean run", ref_dir, [], dev, 0)
+        clean = quantize("clean run", work, ref_dir, [], dev, 0)
         resumed = {}
         for i, (what, over) in enumerate(matrices):
             out = os.path.join(work, f"res{i}")
@@ -174,13 +182,14 @@ def main(argv=None) -> int:
             if i:
                 print(f"[torch_resume_smoke] killed run ({what})",
                       flush=True)
-            k = quantize(f"killed run ({what})", out, [*arm, *over], dev, 1)
+            k = quantize(f"killed run ({what})", work, out, [*arm, *over],
+                         dev, 1)
             if i == 0:
                 clean.wait()
             k.wait()
             killed(ckpt, what)
             print(f"[torch_resume_smoke] resumed run ({what})", flush=True)
-            quantize(f"resumed run ({what})", out,
+            quantize(f"resumed run ({what})", work, out,
                      [f"quant.ckpt_dir={ckpt}", "quant.resume=auto", *over],
                      dev, 0).wait()
             resumed[what] = os.path.join(out, name)

@@ -22,8 +22,10 @@ kernel fault raises, it does not degrade). Every ``train.*`` field is
 taken (training, ``repro_torch.training``); every ``parallel.*`` field
 is taken (:class:`ParallelConfig` says which are read);
 ``parallel.sp=true`` runs in sharded training on the architectures whose
-layers the ``model`` axis splits and raises on the others (routed experts,
-Mamba, RG-LRU, MLA, the MTP head), naming ROADMAP.md queue 1 item 26.
+layers the ``model`` axis splits or whose layers gather the sequence
+whole (dense attention and MLPs, GQA, Mamba, routed experts) and raises
+on the others (RG-LRU, MLA, the MTP head), naming ROADMAP.md queue 1
+item 26.
 """
 from __future__ import annotations
 
@@ -54,6 +56,9 @@ class SSMConfig:
     d_conv: int = 4
     expand: int = 2
     dt_rank: int = 0                # 0 => ceil(d_model/16)
+    d_inner: int = 0                # 0 => expand * d_model (the port's
+    #                                 own field: a sharded step's rank
+    #                                 runs d_inner / m channels)
 
 
 @dataclass
@@ -142,6 +147,12 @@ class ModelConfig:
                              f"{list(PORTED_KINDS)})")
 
     @property
+    def d_inner(self) -> int:
+        """A Mamba layer's channels: ``ssm.d_inner`` where set, else
+        ``expand · d_model``."""
+        return self.ssm.d_inner or self.ssm.expand * self.d_model
+
+    @property
     def layer_kinds(self) -> Tuple[str, ...]:
         pat = self.block_pattern
         return tuple(pat[i % len(pat)] for i in range(self.num_layers))
@@ -217,8 +228,8 @@ class ParallelConfig:
     """The JAX package's parallelism fields. Training reads ``remat`` and
     ``int8_optimizer_state``; sharded training (``train(mesh=…)``) reads
     ``fsdp`` (the placement), ``ep_local_dispatch`` (the routed MoE) and
-    ``sp`` (the residual's sequence over ``model``; refused on the layer
-    kinds the axis does not split, :func:`refuse_sharding`). The mesh
+    ``sp`` (the residual's sequence over ``model``; refused on RG-LRU,
+    MLA and the MTP head, :func:`refuse_sharding`). The mesh
     comes from ``--mesh`` /
     ``make_host_mesh``: ``data``, ``model``, ``pod``, ``ep``,
     ``pipeline_stages``, ``pp_microbatches``, ``scan_layers``,
@@ -328,13 +339,13 @@ def not_ported(what: str, item: int) -> NotImplementedError:
 def refuse_sharding(pc: ParallelConfig, mc: ModelConfig) -> None:
     """Raise, naming item 26, where sharded training cannot run
     ``parallel.sp`` (the residual's sequence over the ``model`` axis):
-    on a model with a layer kind the axis computes whole (routed experts,
-    Mamba, RG-LRU, MLA, deepseek's MTP head)."""
+    on a model with a layer kind the sequence-sharded step does not cover
+    yet (RG-LRU, MLA, deepseek's MTP head). Routed experts and Mamba run
+    under it, split over the axis (``sharding.model_split``) or whole."""
     kinds = set(mc.layer_kinds)
     whole = [name for name, has in (
-        ("routed experts", mc.moe.num_experts > 0),
-        ("Mamba", "mamba" in kinds), ("RG-LRU", "rglru" in kinds),
-        ("MLA", mc.mla.enabled), ("the MTP head", mc.mtp_depth > 0)) if has]
+        ("RG-LRU", "rglru" in kinds), ("MLA", mc.mla.enabled),
+        ("the MTP head", mc.mtp_depth > 0)) if has]
     if pc.sp and whole:
         raise not_ported(f"parallel.sp=true on {mc.name} ({', '.join(whole)}"
                          ": the sequence over the model axis)", 26)

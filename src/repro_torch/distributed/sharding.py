@@ -37,15 +37,20 @@ ranks' parameter gradients then sum to the global batch's.
 The ``model`` axis splits the Megatron products as GSPMD does
 (:class:`ModelSplit`, made by :func:`model_split` and set by
 :func:`use_split` for the step's forward and backward): a rank runs the
-one-device layers at 1/m of the heads, of ``d_ff`` and of the vocab, on
-its blocks of the column-parallel (q/k/v, gate/up, the head, the
-embedding's rows) and row-parallel (o, down) weights. The operators are
+one-device layers at 1/m of the heads (or of the q-heads over its one
+kv-head, GQA), of ``d_ff``, of Mamba's ``d_inner``, of the routed
+experts and of the vocab, on its blocks of the column-parallel (q/k/v,
+gate/up, Mamba's in / dt / conv, the head, the embedding's rows) and
+row-parallel (o, down, Mamba's x and out) weights. The operators are
 autograd Functions on the counted collectives: :func:`copy_to_model`
 (Megatron's *f*: identity, its gradient summed over ``model``) before a
 column-parallel product, :func:`reduce_from_model` (*g*: the sum over
-``model``, identity backward) after a row-parallel one, and for
-``parallel.sp`` :func:`gather_seq` / :func:`scatter_seq`, the residual's
-sequence over ``model`` (``shard_hint`` "act" with ``sp``).
+``model``, identity backward) after a row-parallel one, ``_AllReduce``
+(*g* then *f*) after Mamba's x projection, which every rank reads at its
+own channels, ``_Reblock`` (an :func:`exchange`, all-to-all) from the
+stored [u | z] block of Mamba's in projection to the rank's columns, and
+for ``parallel.sp`` :func:`gather_seq` / :func:`scatter_seq`, the
+residual's sequence over ``model`` (``shard_hint`` "act" with ``sp``).
 
 The rules and the plan are held for the process, not for a thread:
 autograd runs a CUDA tensor's backward on a thread of its own, and under
@@ -221,7 +226,8 @@ def _count(kind: str, t: Tensor, ranks: int) -> None:
 
 def comm_bytes() -> int:
     """Bytes this rank has handed to :func:`psum`, :func:`all_gather_cat`,
-    :func:`broadcast_tree` and :func:`send_recv` since the last reset."""
+    :func:`broadcast_tree`, :func:`send_recv` and :func:`exchange` since
+    the last reset."""
     return _COMM_BYTES[0]
 
 
@@ -229,9 +235,10 @@ def comm_by_kind() -> Dict[str, Dict[str, float]]:
     """``{kind: {"count", "bytes", "link_bytes"}}`` since the last reset:
     ``all-reduce`` (:func:`psum`), ``all-gather`` (:func:`all_gather_cat`),
     ``broadcast`` (:func:`broadcast_tree`), ``collective-permute``
-    (:func:`send_recv`); :func:`pmax` and :func:`reduce_scatter` count
-    as all-reduces; ``link_bytes`` a ring's
-    estimate (``_count``)."""
+    (:func:`send_recv`), ``all-to-all`` (:func:`exchange`); :func:`pmax`
+    and :func:`reduce_scatter` count as all-reduces; ``link_bytes`` a
+    ring's estimate (``_count``; an all-to-all's, the bytes it sends to
+    other ranks)."""
     return {k: {"count": int(c), "bytes": int(n), "link_bytes": link}
             for k, (c, n, link) in _COMM_KINDS.items()}
 
@@ -321,6 +328,36 @@ def all_gather_cat(t: Tensor, dim: int, ag: AxisGroup) -> Tensor:
     for part, shard in zip(parts, ag.order):
         by_shard[shard] = part
     return torch.cat(by_shard, dim).to(t.device)
+
+
+def exchange(sends: Dict[int, Tensor], recv_from: Sequence[int],
+             like: Tensor, ag: AxisGroup) -> Dict[int, Tensor]:
+    """One all-to-all over ``ag``: ``sends[s]`` goes to the rank of shard
+    ``s`` and this rank receives one tensor shaped like ``like`` from the
+    rank of each shard in ``recv_from`` (returned by shard). Counted as
+    ``all-to-all``, its link bytes those sent to other ranks."""
+    dev = _comm_device(ag.group, like)
+    by_pos = {shard: i for i, shard in enumerate(ag.order)}
+    pos_send = {by_pos[s]: t for s, t in sends.items()}
+    pos_recv = sorted(by_pos[s] for s in recv_from)
+    n = like.numel()
+    src = torch.cat([pos_send[i].reshape(-1).to(dev) for i in sorted(
+        pos_send)]) if pos_send else like.new_empty((0,), device=dev)
+    out = torch.empty((n * len(pos_recv),), dtype=like.dtype, device=dev)
+    nbytes = src.numel() * src.element_size()
+    _COMM_BYTES[0] += nbytes
+    c = _COMM_KINDS.setdefault("all-to-all", [0, 0, 0.0])
+    c[0] += 1
+    c[1] += nbytes
+    c[2] += sum(t.numel() * t.element_size() for s, t in sends.items()
+                if s != ag.index)
+    if not isinstance(src, FakeTensor):
+        dist.all_to_all_single(
+            _wire(out), _wire(src), [n if i in pos_recv else 0 for i in range(ag.size)],
+            [pos_send[i].numel() if i in pos_send else 0
+             for i in range(ag.size)], group=ag.group)
+    got = out.view(len(pos_recv), *like.shape).to(like.device)
+    return {ag.order[i]: got[j] for j, i in enumerate(pos_recv)}
 
 
 def any_rank(flag: bool, group=None) -> bool:
@@ -740,6 +777,12 @@ def copy_to_model(x: Tensor, group) -> Tensor:
     return _CopyToModel.apply(group, x)[0]
 
 
+def copy_all_to_model(group, *xs: Tensor) -> Tuple[Tensor, ...]:
+    """:func:`copy_to_model` of several tensors, their gradients summed in
+    one collective."""
+    return _CopyToModel.apply(group, *xs)
+
+
 def reduce_from_model(x: Tensor, group) -> Tensor:
     """The sum over ``group`` forward, identity backward (Megatron's *g*):
     the output of a row-parallel product, or a vocab-parallel term of a
@@ -794,22 +837,82 @@ def scatter_seq(x: Tensor, ag: AxisGroup, summed: bool = True) -> Tensor:
 
 # which leaves a layer kind's split computes at 1/m (paths as
 # ``checkpoint.tree_paths`` names them; a row-parallel bias is replicated
-# and stays whole, deepseek's MTP head is never split)
+# and stays whole, deepseek's MTP head is never split; under ``gqa`` the
+# k / v leaves are gathered whole and each rank reads its kv-head's
+# columns)
 _SPLIT_LEAVES = {
     "attn": r"(mixer|xattn)/(q|k|v|o)/w$|(mixer|xattn)/(q|k|v)/b$",
+    "gqa": r"mixer/(q|o)/w$|mixer/q/b$",
     "mlp": r"mlp/(gate|up|down)/w$|mlp/(gate|up)/b$",
     "vocab": r"^(embed/embedding|lm_head/w)$",
+    "mamba": (r"mixer/(in|x|dt|out|conv)/w$|mixer/(dt|conv)/b$"
+              r"|mixer/(a_log|d_skip)$"),
+    "experts": r"mlp/w_(gate|up|down)$|mlp/shared/(gate|up|down)/w$",
 }
+
+
+class _AllReduce(torch.autograd.Function):
+    """The sum over the group forward and backward (Megatron's *g*
+    followed by *f*): a row-parallel product's output that every rank
+    reads at its own columns downstream, so that each rank's gradient of
+    it is a partial too."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return psum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum(g, ctx.group), None
+
+
+class _Reblock(torch.autograd.Function):
+    """A [u | z] column-parallel weight from its stored ``model`` block to
+    the rank's [u_r | z_r] (one all-to-all over the axis), and its
+    gradient back (the inverse all-to-all).
+
+    Of the 2m column chunks of d/m (d the width of u and of z), the
+    stored block of shard q holds chunks 2q and 2q + 1; chunk c is u_c
+    (c < m) or z_(c-m), so it goes to shard c mod m."""
+
+    @staticmethod
+    def forward(ctx, w, ag):
+        ctx.ag = ag
+        m, q = ag.size, ag.index
+        half = w.shape[-1] // 2
+        pieces = {}
+        for j in range(2):
+            pieces[(2 * q + j) % m] = w[..., j * half:(j + 1) * half]
+        src = (q // 2, (m + q) // 2)        # the holders of u_q and z_q
+        got = exchange(pieces, src, pieces[(2 * q) % m], ag)
+        return torch.cat([got[src[0]], got[src[1]]], dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        ag = ctx.ag
+        m, q = ag.size, ag.index
+        half = g.shape[-1] // 2
+        back = {q // 2: g[..., :half], (m + q) // 2: g[..., half:]}
+        dst = ((2 * q) % m, (2 * q + 1) % m)
+        got = exchange(back, dst, back[q // 2], ag)
+        return torch.cat([got[dst[0]], got[dst[1]]], dim=-1), None
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelSplit:
     """What the ranks of one ``model`` group compute split, the same on
     every rank (:func:`model_split`): self- and cross-attention by heads
-    (``attn``), the dense MLP by ``d_ff`` (``mlp``), the embedding and the
-    head by vocab (``vocab``); ``cfg`` is the layers' local ModelConfig (a
-    rank's heads and ``d_ff``). With ``sp`` a residual whose sequence
-    divides the axis is sequence-sharded over it (:meth:`seq_split`)."""
+    (``attn``), or, where the kv-heads do not divide the axis but the
+    axis is a multiple of them, self-attention by q-heads with each rank
+    reading its one kv-head (``gqa``); the dense MLP by ``d_ff``
+    (``mlp``); the embedding and the head by vocab (``vocab``); Mamba by
+    its ``d_inner`` channels (``mamba``); routed experts by their E axis
+    (``experts``; the routing whole on every rank). ``cfg`` is the
+    layers' local ModelConfig (a rank's heads and kv-heads, ``d_ff``,
+    ``d_inner`` and experts); ``kv_heads`` the whole model's kv-heads.
+    With ``sp`` a residual whose sequence divides the axis is
+    sequence-sharded over it (:meth:`seq_split`)."""
     ag: AxisGroup
     cfg: Any
     attn: bool
@@ -817,6 +920,10 @@ class ModelSplit:
     vocab: bool
     sp: bool
     tp_axis: str = "model"
+    gqa: bool = False
+    mamba: bool = False
+    experts: bool = False
+    kv_heads: int = 0
 
     @property
     def index(self) -> int:
@@ -856,6 +963,12 @@ class ModelSplit:
             return lambda y: scatter_seq(y, self.ag)
         return lambda y: reduce_from_model(y, self.ag.group)
 
+    def all_reduce(self, y: Tensor) -> Tensor:
+        """The sum of a row-parallel product's fp32 partials that every
+        rank reads at its own columns downstream (Mamba's x projection):
+        an all-reduce forward and backward."""
+        return _AllReduce.apply(y, self.ag.group)
+
     def partial(self, p: Dict[str, Tensor], seq: bool) -> Dict[str, Tensor]:
         """A replicated leaf dict (a norm's, a row-parallel bias's) as
         used on this rank's block of the sequence: its gradient, a partial
@@ -863,7 +976,7 @@ class ModelSplit:
         if not seq:
             return p
         keys = [k for k, v in p.items() if isinstance(v, Tensor)]
-        outs = _CopyToModel.apply(self.ag.group, *(p[k] for k in keys))
+        outs = copy_all_to_model(self.ag.group, *(p[k] for k in keys))
         return dict(p, **dict(zip(keys, outs)))
 
     def row_params(self, p: Dict, seq: bool) -> Dict:
@@ -877,28 +990,70 @@ class ModelSplit:
                     and "b" in v else v)
                 for k, v in p.items()}
 
+    def kv_share(self, p: Dict) -> Dict:
+        """A ``gqa`` mixer's params with k and v (weights and biases,
+        gathered whole) cut to this rank's kv-head, ``index · kv // m``.
+        Several ranks read one kv-head, so each rank's gradient of the
+        whole leaf is a partial, zero outside its kv-head's columns: the
+        whole leaves enter through :func:`copy_to_model` before the cut,
+        which sums them (one collective)."""
+        keys = [(n, k) for n in ("k", "v") for k in ("w", "b")
+                if p[n].get(k) is not None]
+        whole = copy_all_to_model(self.ag.group,
+                                  *(p[n][k] for n, k in keys))
+        hd = self.cfg.head_dim
+        c0 = self.index * self.kv_heads // self.ag.size * hd
+        out = {n: dict(p[n]) for n in ("k", "v")}
+        for (n, k), t in zip(keys, whole):
+            out[n][k] = t[..., c0:c0 + hd]
+        return dict(p, **out)
+
+    def mamba_params(self, p: Dict) -> Dict:
+        """A Mamba mixer's params at this rank's channels: the stored
+        ``model`` block of ``in`` (the rule ``(fsdp, tp)`` cuts [u | z]
+        into contiguous blocks) re-blocked into [u_r | z_r]
+        (:class:`_Reblock`); every other leaf is its block already."""
+        return dict(p, **{"in": dict(p["in"], w=_Reblock.apply(
+            p["in"]["w"], self.ag))})
+
 
 def model_split(mc, rules: Rules) -> Optional[ModelSplit]:
     """The plan of a ModelConfig on ``rules``' mesh, or None where the
-    ``model`` axis is absent or of one rank: attention split where both
-    ``num_heads`` and ``num_kv_heads`` divide the axis (not MLA), the
-    dense MLP where ``d_ff`` does, the embedding and the head where the
-    vocab does; every other leaf is gathered and computed whole. ``sp``
-    as ``rules.sp`` (``config.refuse_sharding`` refuses the layer kinds it
-    does not cover)."""
+    ``model`` axis is absent or of one rank (m its size): attention split
+    where both ``num_heads`` and ``num_kv_heads`` divide the axis, or
+    (``gqa``) where ``num_heads`` does, ``num_kv_heads`` does not and m
+    is a multiple of it (not MLA; rank r keeps q-heads ``[r·H/m,
+    (r+1)·H/m)``, all reading kv-head ``r·kv // m``); the dense MLP where
+    ``d_ff`` divides the axis, the embedding and the head where the vocab
+    does, Mamba where ``d_inner`` does, routed experts where E does (and a
+    shared expert's width); every other leaf is gathered and computed
+    whole. ``sp`` as ``rules.sp`` (``config.refuse_sharding`` refuses the
+    layer kinds it does not cover)."""
     tp = rules.tp_axis
     m = rules.axis_size(tp)
     if tp is None or m <= 1:
         return None
-    attn = (not mc.mla.enabled and mc.num_heads % m == 0
-            and mc.num_kv_heads % m == 0)
+    h, kv = mc.num_heads, mc.num_kv_heads
+    attn = not mc.mla.enabled and h % m == 0 and kv % m == 0
+    gqa = (not mc.mla.enabled and h % m == 0 and kv % m != 0
+           and m % kv == 0)
     mlp = mc.d_ff > 0 and mc.d_ff % m == 0
+    kinds = set(mc.layer_kinds)
+    mamba = "mamba" in kinds and mc.d_inner % m == 0
+    e, shared = mc.moe.num_experts, mc.moe.num_shared_experts
+    experts = (e > 0 and e % m == 0
+               and (mc.moe.d_ff_expert * shared) % m == 0)
     local = dataclasses.replace(
-        mc, num_heads=mc.num_heads // m if attn else mc.num_heads,
-        num_kv_heads=mc.num_kv_heads // m if attn else mc.num_kv_heads,
-        d_ff=mc.d_ff // m if mlp else mc.d_ff)
+        mc, num_heads=h // m if attn or gqa else h,
+        num_kv_heads=kv // m if attn else 1 if gqa else kv,
+        d_ff=mc.d_ff // m if mlp else mc.d_ff,
+        ssm=dataclasses.replace(mc.ssm, d_inner=mc.d_inner // m)
+        if mamba else mc.ssm,
+        moe=dataclasses.replace(mc.moe, num_experts=e // m)
+        if experts else mc.moe)
     return ModelSplit(axis_group(rules.mesh, tp), local, attn, mlp,
-                      mc.vocab_size % m == 0, rules.sp, tp)
+                      mc.vocab_size % m == 0, rules.sp, tp, gqa=gqa,
+                      mamba=mamba, experts=experts, kv_heads=kv)
 
 
 def _spec_paths(fn, specs, prefix: str = ""):

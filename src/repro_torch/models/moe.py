@@ -43,7 +43,8 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.core.quant import QuantizedTensor
-from repro_torch.distributed.sharding import (current_rules, psum,
+from repro_torch.distributed.sharding import (copy_all_to_model,
+                                              current_rules, psum,
                                               psum_local_grad)
 from repro_torch.models.layers import _act, init_mlp, mlp
 from repro_torch.models.linear import dense, init_dense
@@ -222,8 +223,22 @@ def _expert_product(a: Tensor, w) -> Tensor:
 
 
 def moe_ffn(cfg: ModelConfig, p: Dict, x: Tensor,
-            name: str = "moe") -> MoEOutput:
+            name: str = "moe", split=None, reduce=None) -> MoEOutput:
     """x (B, S, D) → the routed expert mixture, same shape and dtype.
+
+    Under a sharded step's experts split (``split``, a
+    ``sharding.ModelSplit`` whose ``experts`` holds; ``p``'s expert
+    stacks, and a shared expert's gate / up columns and down rows, the
+    rank's ``model`` blocks) the routing runs whole on every rank, from x
+    as it enters: the router, top-k, capacity, the stable-sort dispatch,
+    the load-balance loss and the load. The rank then runs the products
+    of its E/m experts on their rows of the (E, C, d) buffer and combines
+    only their gated rows; ``reduce`` sums the fp32 partial over the axis
+    (or reduce-scatters it over the sequence) before the cast. The
+    buffer's input and the sorted gates enter the expert path through
+    ``copy_to_model`` (the router's own input does not): x's gradient is
+    the routing path's, whole on every rank, plus the summed expert
+    path's, and the load-balance loss is counted once.
 
     Under sharding rules with ``ep_local_dispatch`` (the reference's
     ``shard_map`` over the data parallel axes) ``x`` is this rank's block
@@ -232,7 +247,7 @@ def moe_ffn(cfg: ModelConfig, p: Dict, x: Tensor,
     the expert load are then the mean over the data parallel group, the
     loss's gradient reaching this rank's parameters once
     (``sharding.psum_local_grad``)."""
-    out = _moe_ffn_body(cfg, p, x, name)
+    out = _moe_ffn_body(cfg, p, x, name, split, reduce)
     rules = current_rules()
     if (rules is not None and rules.dp_size() > 1
             and rules.ep_local_dispatch):
@@ -245,15 +260,29 @@ def moe_ffn(cfg: ModelConfig, p: Dict, x: Tensor,
 
 
 def _moe_ffn_body(cfg: ModelConfig, p: Dict, x: Tensor,
-                  name: str = "moe") -> MoEOutput:
+                  name: str = "moe", split=None, reduce=None) -> MoEOutput:
     m = cfg.moe
     b, s, d = x.shape
     t, e, k = b * s, m.num_experts, m.top_k
     xt = x.reshape(t, d)
     plan = route(cfg, p, xt, name)
     cap = plan.cap
+    if split is None:
+        el, keep, slot, xe, sg = e, plan.keep, plan.slot, xt, plan.sg
+        buf = apply_route(plan, xt)
+    else:
+        # the rank's experts [lo, lo + el): its rows of the buffer
+        el = split.cfg.moe.num_experts
+        lo = split.index * el
+        keep = plan.keep & (plan.se >= lo) & (plan.se < lo + el)
+        slot = torch.where(keep, plan.slot - lo * cap,
+                           torch.full_like(plan.slot, el * cap))
+        xe, sg = copy_all_to_model(split.ag.group, xt, plan.sg)
+        buf = xe.new_zeros((el * cap + 1, d))
+        buf[slot] = xe[plan.st]
+        buf = buf[:-1].reshape(el, cap, d)
 
-    buf = apply_route(plan, xt).to(torch.bfloat16)
+    buf = buf.to(torch.bfloat16)
     g = _expert_product(buf, p["w_gate"])
     u = _expert_product(buf, p["w_up"])
     hmid = _act(cfg.act, g.float()).to(torch.bfloat16) * u
@@ -262,10 +291,10 @@ def _moe_ffn_body(cfg: ModelConfig, p: Dict, x: Tensor,
     # combine: each sorted assignment's gated contribution (0 if dropped),
     # gathered back to (token, k) through the inverse of the sort, then
     # summed per token in ascending expert id
-    yflat = yexp.reshape(e * cap, d)
-    rows = yflat[plan.slot.clamp(max=e * cap - 1)]
-    contrib = torch.where(plan.keep[:, None], rows,
-                          torch.zeros_like(rows)).float() * plan.sg[:, None]
+    yflat = yexp.reshape(el * cap, d)
+    rows = yflat[slot.clamp(max=el * cap - 1)]
+    contrib = torch.where(keep[:, None], rows,
+                          torch.zeros_like(rows)).float() * sg[:, None]
     inv = torch.empty_like(plan.order)
     inv[plan.order] = torch.arange(t * k, device=x.device)
     by_expert = torch.argsort(plan.experts, dim=1, stable=True)  # (T, K)
@@ -276,8 +305,16 @@ def _moe_ffn_body(cfg: ModelConfig, p: Dict, x: Tensor,
     for j in range(1, k):
         y = y + parts[:, j]
 
+    load = plan.counts.float() * e / (t * k)
+    if split is not None:
+        y = y.reshape(b, s, d)
+        if reduce is not None:
+            y = reduce(y)
+        if m.num_shared_experts > 0:
+            y = y + mlp(cfg, p["shared"], xe.reshape(b, s, d),
+                        name=f"{name}.shared", reduce=reduce).float()
+        return MoEOutput(y.to(x.dtype), plan.aux, load)
     if m.num_shared_experts > 0:
         y = y + mlp(cfg, p["shared"], xt[None],
                     name=f"{name}.shared")[0].float()
-    load = plan.counts.float() * e / (t * k)
     return MoEOutput(y.reshape(b, s, d).to(x.dtype), plan.aux, load)

@@ -169,7 +169,7 @@ def init_mamba_block(cfg: ModelConfig, gen: torch.Generator, device
                      ) -> Dict:
     s = cfg.ssm
     d = cfg.d_model
-    d_inner = s.expand * d
+    d_inner = cfg.d_inner
     a = torch.arange(1, s.d_state + 1, dtype=torch.float32,
                      device=device)[None, :].expand(d_inner, s.d_state)
     return {
@@ -185,11 +185,13 @@ def init_mamba_block(cfg: ModelConfig, gen: torch.Generator, device
     }
 
 
-def _x_projection(cfg: ModelConfig, p: Dict, u: Tensor, name: str):
+def _x_projection(cfg: ModelConfig, p: Dict, u: Tensor, name: str,
+                  reduce=None):
     """u (B, S, d_inner) post-conv → (dt (B, S, d_inner) f32, B, C (B, S,
-    n) f32 views of the projection)."""
+    n) f32 views of the projection). ``reduce``: the x product's
+    row-parallel sum, where u holds a rank's channels."""
     s = cfg.ssm
-    proj = dense(p["x"], u, f"{name}.x").float()
+    proj = dense(p["x"], u, f"{name}.x", reduce).float()
     dt, bm, cm = torch.split(proj, [s.dt_rank, s.d_state, s.d_state],
                              dim=-1)
     dt = softplus(dense(p["dt"], dt.to(u.dtype), f"{name}.dt").float())
@@ -207,31 +209,34 @@ def _mamba_ssm_inputs(cfg: ModelConfig, p: Dict, u: Tensor, name: str):
 
 
 def _split_in(cfg: ModelConfig, p: Dict, x: Tensor, name: str):
-    d_inner = cfg.ssm.expand * cfg.d_model
+    d_inner = cfg.d_inner
     xz = dense(p["in"], x, f"{name}.in")
     return xz[..., :d_inner], xz[..., d_inner:]
 
 
 def mamba_block(cfg: ModelConfig, p: Dict, x: Tensor,
-                state: Optional[Dict] = None, name: str = "mamba"
-                ) -> Tuple[Tensor, Dict]:
+                state: Optional[Dict] = None, name: str = "mamba",
+                reduce=None, x_reduce=None) -> Tuple[Tensor, Dict]:
     """Full-sequence Mamba block. x (B, S, D); state None (zeros) or a
-    state dict. Returns (y (B, S, D), the new state)."""
+    state dict. Returns (y (B, S, D), the new state). Where ``cfg`` and
+    ``p`` hold a rank's ``d_inner`` channels (a sharded step's split),
+    ``x_reduce`` sums the x projection's fp32 partials over the ranks and
+    ``reduce`` the out product's (``linear.dense``)."""
     s = cfg.ssm
-    d_inner = s.expand * cfg.d_model
+    d_inner = cfg.d_inner
     u, z = _split_in(cfg, p, x, name)
     u, conv_state = causal_conv1d(p["conv"], u,
                                   None if state is None else state["conv"])
     # a copy: the view would keep the whole padded input alive in the state
     conv_state = conv_state.clone()
     u = F.silu(u)
-    dt, bm, cm = _x_projection(cfg, p, u, name)
+    dt, bm, cm = _x_projection(cfg, p, u, name, x_reduce)
     h0 = (torch.zeros((x.shape[0], d_inner, s.d_state), device=x.device)
           if state is None else state["h"].float())
     y, h_last = ops.selective_scan(u, dt, bm, cm, p["a_log"], p["d_skip"],
                                    h0)
     y = (y.float() * F.silu(z.float())).to(x.dtype)
-    out = dense(p["out"], y, f"{name}.out")
+    out = dense(p["out"], y, f"{name}.out", reduce)
     return out, {"conv": conv_state, "h": h_last.to(x.dtype)}
 
 
@@ -259,7 +264,7 @@ def mamba_decode(cfg: ModelConfig, p: Dict, x: Tensor, state: Dict,
 def init_mamba_state(cfg: ModelConfig, batch: int, device,
                      dtype: torch.dtype = torch.bfloat16) -> Dict:
     s = cfg.ssm
-    d_inner = s.expand * cfg.d_model
+    d_inner = cfg.d_inner
     return {"conv": torch.zeros((batch, s.d_conv - 1, d_inner), dtype=dtype,
                                 device=device),
             "h": torch.zeros((batch, d_inner, s.d_state), dtype=dtype,

@@ -53,12 +53,16 @@ backward, bitwise the forward's.
 
 Under a sharded step's ``model`` split (``sharding.use_split``, the plan
 of ``sharding.model_split``) the training forward runs on the rank's
-blocks: attention (self and cross) on its heads and the dense MLP on its
-``d_ff`` columns, entered by ``ModelSplit.enter`` and left by the o /
-down product's row-parallel sum; the embedding and the head on its vocab
+blocks: attention (self and cross) on its heads, or a GQA self-attention
+on its q-heads over its one kv-head, and the dense MLP on its ``d_ff``
+columns, entered by ``ModelSplit.enter`` and left by the o / down
+product's row-parallel sum; a Mamba mixer on its ``d_inner`` channels
+(left by the out product's sum); a routed MLP on its experts (the
+routing whole on every rank); the embedding and the head on its vocab
 rows (``layers.embed``; the logits stay vocab-parallel for
-``train_step.cross_entropy``); every other mixer and MLP (Mamba, RG-LRU,
-MLA, routed experts, deepseek's MTP layer) whole on every rank. Where the
+``train_step.cross_entropy``); every other mixer and MLP (RG-LRU, MLA,
+deepseek's MTP layer, a kind whose widths do not divide the axis) whole
+on every rank. Where the
 plan's ``sp`` holds and a residual's sequence divides the axis, the
 residual between layers is the rank's block of the sequence: norms run on
 it, a product's input is gathered over the sequence and a row-parallel
@@ -220,11 +224,14 @@ def _whole(fn, hn: Tensor, seq: bool):
 def _self_attention(cfg: ModelConfig, p: Dict, hn: Tensor,
                     positions: Tensor, seq: bool, **kw) -> Tensor:
     """A layer's self-attention of its normed input; split by heads where
-    the plan splits attention."""
+    the plan splits attention, by q-heads over the rank's one kv-head
+    where it splits GQA (``ModelSplit.kv_share``)."""
     split = current_split()
-    if split is None or not split.attn:
+    if split is None or not (split.attn or split.gqa):
         return _whole(lambda x: attn.attention_forward(cfg, p, x, positions,
                                                        **kw), hn, seq)
+    if split.gqa:
+        p = split.kv_share(p)
     return attn.attention_forward(
         split.cfg, split.row_params(p, seq), split.enter(hn, True, seq),
         positions, reduce=split.row_reduce(seq), **kw)
@@ -239,6 +246,43 @@ def _dense_mlp(cfg: ModelConfig, p: Dict, hn: Tensor, seq: bool,
         return _whole(lambda x: mlp(cfg, p, x, name=name), hn, seq)
     return mlp(split.cfg, split.row_params(p, seq), split.enter(hn, True, seq),
                name=name, reduce=split.row_reduce(seq))
+
+
+def _mamba(cfg: ModelConfig, p: Dict, hn: Tensor, seq: bool,
+           name: str) -> Tensor:
+    """A Mamba mixer of the normed input; split by its ``d_inner``
+    channels where the plan splits Mamba: the in product column-parallel
+    (``ModelSplit.mamba_params``), the conv, the scan and the x / dt
+    products on the rank's channels, the x projection summed over the
+    axis forward and backward, the out product row-parallel."""
+    split = current_split()
+    if split is None or not split.mamba:
+        return _whole(lambda x: rec.mamba_block(cfg, p, x, None,
+                                                name=name)[0], hn, seq)
+    return rec.mamba_block(split.cfg, split.mamba_params(p),
+                           split.enter(hn, True, seq), None, name=name,
+                           reduce=split.row_reduce(seq),
+                           x_reduce=split.all_reduce)[0]
+
+
+def _routed(cfg: ModelConfig, p: Dict, hn: Tensor, seq: bool, name: str
+            ) -> Tuple[Tensor, Tensor]:
+    """A routed MLP of the normed input and its load-balance loss; split
+    by experts where the plan splits them (``moe.moe_ffn``'s ``split``:
+    the routing whole on every rank, the rank's experts' products, their
+    fp32 partials summed over the axis or reduce-scattered over the
+    sequence)."""
+    split = current_split()
+    if split is None:
+        out = moe_mod.moe_ffn(cfg, p, hn, name=name)
+        return out.y, out.aux_loss
+    x = split.enter(hn, False, seq)
+    if not split.experts:
+        out = moe_mod.moe_ffn(cfg, p, x, name=name)
+        return split.leave(out.y, seq), out.aux_loss
+    out = moe_mod.moe_ffn(cfg, p, x, name=name, split=split,
+                          reduce=split.row_reduce(seq))
+    return out.y, out.aux_loss
 
 
 def _head(cfg: ModelConfig, params: Dict, h: Tensor, seq: bool) -> Tensor:
@@ -264,11 +308,8 @@ def _mlp_residual_aux(cfg: ModelConfig, spec: LayerSpec, p: Dict, h: Tensor,
         return h, None
     hn = _norm_of(cfg, p["norm2"], h, seq)
     if spec[1] == "moe":
-        split = current_split()
-        x = hn if split is None else split.enter(hn, False, seq)
-        out = moe_mod.moe_ffn(cfg, p["mlp"], x, name=f"{name}mlp")
-        return (h + (out.y if split is None else split.leave(out.y, seq)),
-                out.aux_loss)
+        y, aux = _routed(cfg, p["mlp"], hn, seq, f"{name}mlp")
+        return h + y, aux
     return h + _dense_mlp(cfg, p["mlp"], hn, seq, f"{name}mlp"), None
 
 
@@ -289,8 +330,7 @@ def layer_forward_aux(cfg: ModelConfig, spec: LayerSpec, p: Dict, h: Tensor,
     hn = _norm_of(cfg, p["norm1"], h, seq)
     mixer = f"{name}mixer"
     if spec[0] == "mamba":
-        y = _whole(lambda x: rec.mamba_block(cfg, p["mixer"], x, None,
-                                             name=mixer)[0], hn, seq)
+        y = _mamba(cfg, p["mixer"], hn, seq, mixer)
     elif spec[0] == "rglru":
         y = _whole(lambda x: rec.rglru_block(cfg, p["mixer"], x, None,
                                              name=mixer)[0], hn, seq)

@@ -316,14 +316,16 @@ def make_sharded_train_step(cfg: Config, rules: sharding.Rules,
 
     On a ``model`` axis of m > 1 ranks (``sharding.model_split``) the
     leaves the plan splits are gathered over the data axes only and the
-    rank computes with its ``model`` block of them (1/m of the heads,
-    ``d_ff`` and vocab; the layers under ``sharding.use_split``); every
-    other leaf is gathered whole and computed whole. A split leaf's
+    rank computes with its ``model`` block of them (1/m of the heads or
+    q-heads, ``d_ff``, vocab, Mamba's ``d_inner`` and the routed experts;
+    the layers under ``sharding.use_split``); every other leaf is
+    gathered whole and computed whole (a GQA layer's k / v, of which each
+    rank reads its kv-head's columns). A split leaf's
     gradient is the rank's block: the global norm sums its squares over
     the axis, and int8 moments, whose blocks cover the whole leaf, update
     from its gradient gathered over ``model``. ``parallel.sp`` puts the
-    residual's sequence over the axis (refused on the layer kinds the
-    axis computes whole, ``config.refuse_sharding``).
+    residual's sequence over the axis (refused on RG-LRU, MLA and the MTP
+    head, ``config.refuse_sharding``).
 
     The metrics are the global batch's (the last microbatch's under
     ``train.grad_accum``), the same on every rank. The input state is

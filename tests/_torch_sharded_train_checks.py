@@ -18,8 +18,15 @@ and numpy: this file imports no JAX); the ranks meet through
   on 2x2 with and without ``parallel.sp``, pixtral-12b smoke with
   ``parallel.sp`` and frontend embeddings on 2x2 and on 1x4 (a sequence
   that does not divide the axis), olmoe-1b-7b smoke on 2x2 with
-  local and with global dispatch and on 4x1 with global dispatch; the
-  smoke configs run ``parallel.remat=full``);
+  local and with global dispatch and on 4x1 with global dispatch; then
+  the split of GQA, Mamba and routed experts: internlm2-1.8b smoke on 1x4
+  (4 q-heads over 2 kv-heads, each kv-head read by two ranks),
+  recurrentgemma-9b smoke on 1x4 (local MQA 4 / 1, RG-LRU whole),
+  falcon-mamba-7b smoke on 1x4, on 2x2 and on 2x2 under
+  ``parallel.sp``, olmoe-1b-7b smoke on 1x4 (2 experts a rank) and on
+  2x2 under ``parallel.sp`` with local dispatch; the smoke configs run
+  ``parallel.remat=full``); the falcon-mamba 1x4 run's gathered state
+  is checkpointed (rank 0 writes) and restored onto 2x2;
 - ``train(mesh=)``: opt-proxy smoke on 2x2 stopped by a SIGTERM that rank
   1 alone receives, then resumed on 4x1 from a copy of its checkpoint;
   the 4x1 run's checkpoint restored onto 2x2 (``Checkpointer.restore(
@@ -73,7 +80,16 @@ CASES = {
                    {"parallel.ep_local_dispatch": False}),
     "moe_global41": ("olmoe-1b-7b", (4, 1), 1,
                      {"parallel.ep_local_dispatch": False}),
+    "intern14": ("internlm2-1.8b", (1, 4), 1, {}),
+    "rgemma14": ("recurrentgemma-9b", (1, 4), 2, {}),
+    "mamba14": ("falcon-mamba-7b", (1, 4), 2, {}),
+    "mamba22": ("falcon-mamba-7b", (2, 2), 2, {}),
+    "mamba22_sp": ("falcon-mamba-7b", (2, 2), 2, {"parallel.sp": True}),
+    "moe14": ("olmoe-1b-7b", (1, 4), 1, {}),
+    "moe22_sp": ("olmoe-1b-7b", (2, 2), 1, {"parallel.sp": True}),
 }
+# the case whose gathered state is checkpointed and restored onto 2x2
+CKPT_CASE = "mamba14"
 COMPRESS_STEPS = 6
 # train(mesh=): the steps of the whole run and the batch at which rank 1's
 # stream sends it SIGTERM
@@ -158,9 +174,10 @@ def gpipe_check(inp, out: dict) -> None:
                                    n_microbatches=4, axis="pod").numpy()
 
 
-def step_checks(inp, meshes, out: dict, meta: dict) -> None:
+def step_checks(inp, meshes, out: dict, meta: dict, d: str) -> None:
     from repro_torch.distributed import sharding
-    from repro_torch.distributed.checkpoint import map_with_path
+    from repro_torch.distributed.checkpoint import (Checkpointer,
+                                                    map_with_path)
     from repro_torch.models.linear import Tap
     from repro_torch.training import train_step as TS
     for name, (_, shape, steps, _) in CASES.items():
@@ -185,10 +202,23 @@ def step_checks(inp, meshes, out: dict, meta: dict) -> None:
                 state, m = step(state, batch)
             metrics.append({k: float(v) for k, v in m.items()})
         meta[f"{name}/widths"] = {k: sorted(v) for k, v in widths.items()
-                                  if k.endswith((".o", ".down"))}
-        out.update(arrays(f"{name}/out", sharding.gather(state, specs,
-                                                         mesh)))
+                                  if k.endswith((".o", ".down", ".out"))}
+        whole = sharding.gather(state, specs, mesh)
+        out.update(arrays(f"{name}/out", whole))
         meta[name] = metrics
+        if name == CKPT_CASE:
+            ck = Checkpointer(os.path.join(d, f"ck_{name}"))
+            if dist.get_rank() == 0:
+                ck.save(steps, whole, {"step": steps})
+                ck.wait()
+            dist.barrier()
+            rules22 = sharding.make_rules(meshes[(2, 2)], cfg.parallel)
+            like = TS.init_train_state(cfg, "cpu")
+            specs22 = sharding.train_state_pspecs(like, rules22)
+            blocks, _ = ck.restore(like, shardings=(specs22,
+                                                    meshes[(2, 2)]))
+            out.update(arrays(f"{name}/restored22", sharding.gather(
+                blocks, specs22, meshes[(2, 2)])))
 
 
 class _SigtermAt:
@@ -265,14 +295,14 @@ def main(rank: int, world: int, d: str) -> None:
     dist.init_process_group("gloo", init_method=f"file://{d}/rendezvous",
                             rank=rank, world_size=world)
     from repro_torch.launch.mesh import make_host_mesh
-    _LogSaves(os.path.join(d, f"saves.{rank}"))
     inp = np.load(os.path.join(d, "inputs.npz"))
     out, meta = {}, {}
     meshes = {s: make_host_mesh(data=s[0], model=s[1])
               for s in ((2, 2), (4, 1), (1, 4))}
     compress_checks(inp, out)
     gpipe_check(inp, out)
-    step_checks(inp, meshes, out, meta)
+    step_checks(inp, meshes, out, meta, d)
+    _LogSaves(os.path.join(d, f"saves.{rank}"))    # train(mesh=)'s saves
     trainer_checks(d, meshes, out, meta)
     np.savez(os.path.join(d, f"rank{rank}.npz"), **out)
     with open(os.path.join(d, f"rank{rank}.json"), "w") as f:

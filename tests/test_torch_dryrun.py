@@ -354,6 +354,37 @@ def test_train_cell_splits_over_the_model_axis():
     assert peak[2] < 0.55 * peak[1]
 
 
+def test_train_cell_splits_mamba_over_the_model_axis():
+    """falcon-mamba smoke's train cell on (1, 2): the scan and its
+    backward run at d_inner / 2 channels, so the Mamba FLOPs (the scan
+    kernels' work) and the step's, and the rank peak, fall below (1, 1)'s;
+    the in projection's [u | z] re-blocking is one all-to-all forward,
+    one backward and one in the remat recompute a layer."""
+    cfg = treg.get_config("falcon-mamba-7b", smoke=True)
+    mc = cfg.model
+    shape = treg.ShapeSpec("t", "train", 32, 4)
+    cells = {}
+    for m in (1, 2):
+        with fake_world(m):
+            mesh = dryrun._groups_ready(make_host_mesh(data=1, model=m))
+            cells[m], _ = dryrun.trace_cell(cfg, shape, tshd.make_rules(
+                mesh, cfg.parallel))
+    scan = {m: sum(w.flop for n, _, w in c.kernel_log
+                   if n.startswith("selective_scan"))
+            for m, c in cells.items()}
+    widths = {m: {sh[2] for n, sh, _ in c.kernel_log} for m, c in
+              cells.items()}
+    assert widths == {1: {mc.d_inner}, 2: {mc.d_inner // 2}}
+    assert 0 < scan[2] <= 0.5 * scan[1]
+    assert cells[2].flops + cells[2].kernel_flops < \
+        cells[1].flops + cells[1].kernel_flops
+    peak = {m: c.memory_analysis()["peak_memory_in_bytes"]
+            for m, c in cells.items()}
+    assert peak[2] < peak[1]
+    a2a = cells[2].collectives["all-to-all"]
+    assert a2a["count"] == 3 * mc.num_layers
+
+
 def test_olmoe_smoke_quant_cell_runs_at_shard_shapes():
     art = dryrun.lower_quant_cell("olmoe-1b-7b", "1x2x4", smoke=True)
     assert not dist.is_initialized()

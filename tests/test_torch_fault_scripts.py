@@ -4,7 +4,10 @@ and ``scripts/torch_chaos_soak.py``, against the JAX package's
 
 - the resume smoke on ``--device cpu``: a launcher process killed by the
   fault plane and resumed gives the clean run's artifact bitwise, under
-  the fp16 and the int8 KV setting, and the resumed artifact serves;
+  the fp16 and the int8 KV setting, and the resumed artifact serves; a
+  stale trainer checkpoint at the children's default ``train.ckpt_dir``
+  (another architecture's, which fails a child that reads it) leaves the
+  script passing: its children read ``<work>/none``;
 - the soak (``chaos`` marker, as ``tests/test_chaos.py``) finds no
   violation for seed 7, serving and quantize;
 - the schedules: the port's ``_arm_string`` equals JAX's for the same
@@ -45,6 +48,50 @@ def test_resume_smoke_on_cpu(monkeypatch, capsys):
     out = capsys.readouterr().out
     for what in ("fp16-kv matrix", "int8-kv matrix"):
         assert f"{what}: 108 leaves bitwise-identical" in out
+    assert "OK: kill+resume matrix holds" in out
+
+
+def test_resume_smoke_ignores_a_stale_default_checkpoint(tmp_path,
+                                                         monkeypatch,
+                                                         capsys):
+    import subprocess
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.checkpoint import Checkpointer
+    from repro_torch.launch.quantize import trained_params
+    from repro_torch.models import transformer as T
+    from repro_torch.training.train_step import init_train_state
+    stale = tmp_path / "stale"
+    ck = Checkpointer(str(stale))
+    ck.save(1, init_train_state(get_config("internlm2-1.8b", smoke=True),
+                                "cpu"), {"step": 1})
+    ck.wait()
+    gen = torch.Generator().manual_seed(0)
+    like = T.init_params(get_config(tsmoke.ARCH, smoke=True).model, gen,
+                         "cpu")
+    with pytest.raises(Exception):      # a child that read it would fail
+        trained_params(str(stale), like, torch.device("cpu"))
+    # the children's default directory made the stale one: a
+    # sitecustomize on their path rewrites TrainConfig's default
+    site = tmp_path / "site"
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(
+        "import repro_torch.config as c\n"
+        "_init = c.TrainConfig.__init__\n"
+        "def __init__(self, *a, **kw):\n"
+        "    _init(self, *a, **kw)\n"
+        "    if self.ckpt_dir == '/tmp/repro_ckpt':\n"
+        f"        self.ckpt_dir = {str(stale)!r}\n"
+        "c.TrainConfig.__init__ = __init__\n")
+    monkeypatch.setenv("PYTHONPATH", str(site))
+    monkeypatch.setenv("OMP_NUM_THREADS", str(torch.get_num_threads()))
+    seen = subprocess.run(
+        [sys.executable, "-c", "from repro_torch.config import Config; "
+         "print(Config().train.ckpt_dir)"], env=tsmoke._env(),
+        capture_output=True, text=True, check=True).stdout.strip()
+    assert seen == str(stale)
+    assert tsmoke.main(["--device", "cpu", "--int8-only"]) == 0
+    out = capsys.readouterr().out
+    assert "int8-kv matrix: 108 leaves bitwise-identical" in out
     assert "OK: kill+resume matrix holds" in out
 
 
