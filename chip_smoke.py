@@ -149,7 +149,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
          pixtral-12b --pack-rtn`` at all 40 layers, its tokens those of
          pack_for_serving → generate called directly;
   10. the encoder-decoder path at full width: whisper-large-v3 (d 1280,
-     20 heads of 64, no RoPE), cut to 8 encoder and 8 decoder layers of
+     20 heads of 64, no RoPE), cut to 4 encoder and 4 decoder layers of
      its 32 + 32 since phase 16 (the run's time)
      from seeded random weights, 1500 seeded frames in every calibration
      clip (4 batches x 2 x 256 tokens) and request (4 x 64 tokens + 32
@@ -190,9 +190,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      token-identical is reported);
   13. the RG-LRU hybrid at full width: recurrentgemma-9b (d 4096, 16
      heads over one kv-head of 256, d_ff 12288, vocab 256000 tied) cut to
-     6 of 38 layers (2 whole periods: all 38 fit quantization, 77.8 GB
+     3 of 38 layers (a whole period: all 38 fit quantization, 77.8 GB
      at its peak, but 12 kept the run inside its time limit once phase
-     15 came in, 6 since phase 16),
+     15 came in, 6 since phase 16, 3 since 17a's recurrentgemma and
+     deepseek legs),
      calibration 4 x 4 x 512 → quantize_model → pack_for_serving →
      generate on the bf16 ring and the int8 ring (4 x 512 + 32), then 1 x
      2040 + 32 on the int8 ring across its wrap, each replay bitwise its
@@ -260,7 +261,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
          mesh=)``: explicit data parallelism over ``data``, the train
          state sharded by the placement rules, the ``model`` axis
          computing its share: attention by heads, the MLP by ``d_ff``,
-         the embedding, head and loss by vocab): 5 steps of 16 x 128
+         the embedding, head and loss by vocab): 4 steps of 16 x 128
          under ``parallel.remat=full`` from the seeded init, then 2 steps
          from the same init under ``parallel.sp`` (the residual's
          sequence over ``model``), each against one run of
@@ -277,17 +278,32 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
          at d 2048, the [u | z] in projection re-blocked by an
          all-to-all), and olmoe-1b-7b at full width, 1 of its 16 layers,
          fp32 compute (16 of 64 experts a rank, the routing whole; the
-         attention by heads), each 3 steps of 4 x 256 through
+         attention by heads), each 2 steps of 4 x 256 through
          ``make_sharded_train_step`` under ``parallel.remat=full``, then 1
          under ``parallel.sp``, from the seeded init, against the
          one-device step run first on each rank in its turn (every
-         rank's blocks of it kept): losses within 1e-2, each leaf at 1e-5
-         or the JAX sharded pins, the experts' at 1e-2; every rank's
-         losses and replicated leaves bitwise rank 0's; the scan kernels'
-         launches at d 2048 counted (twice forward, once backward, a
-         layer a step); each rank's step walls, gloo bytes by kind and
-         peak;
-     17b. internlm2-1.8b at full width, 8 of its 24 layers (for
+         rank's blocks of it kept): losses within 1e-2, each
+         leaf at 1e-5 or the JAX sharded pins, the experts' at 1e-2;
+         every rank's losses and replicated leaves bitwise rank 0's; the
+         scan kernels' launches at d 2048 counted (twice forward, once
+         backward, a layer a step); each rank's step walls, gloo bytes by
+         kind, peak and the row-parallel products' input widths; the
+         same for recurrentgemma-9b at full width, one period of 3 of its
+         38 layers, bf16 compute (RG-LRU by ``lru_width``: 1024 of 4096
+         channels a rank, u all-gathered for rg / ig; the local MQA
+         layer's 4 q-heads a rank over the one kv-head; the tied 256000
+         vocab by rows; its blocks of the one-device states kept in
+         pinned host memory); then deepseek-v3-671b at full width, its dense
+         layer and the MTP head, fp32 (``split_grads_rank``: its train
+         step does not fit four ranks beside a one-device run on the
+         card): the loss and every gradient, forward and backward, on 1x4
+         (32 of 128 MLA heads a rank, its latents whole; the MTP
+         projection at 1792 of 7168 columns; d_ff and the vocab split)
+         and under ``parallel.sp``, against one device's on each rank in
+         its turn: the loss at 1e-5, each gradient leaf at 1e-5 or, past
+         it, 1e-4 relative; every rank's replicated gradients bitwise
+         rank 0's;
+     17b. internlm2-1.8b at full width, 4 of its 24 layers (for
          time), on 1x2 (every group
          row-sharded: the Γ sum at 2048-8192 rows) through
          ``torch.distributed.run`` (``python3 chip_smoke.py launcher-rank
@@ -2683,12 +2699,13 @@ def paired_route(readings: list, kernel_inputs=None):
 
 
 # the depths of phases 7, 9a, 10 and 13, cut so that the whole script, with
-# phase 16's training, stays inside its 1200 s (each phase's wall at full
-# depth is in PERF.md §6)
+# phase 16's training and 17a's split legs, stays inside its 1200 s (each
+# phase's wall at full depth is in PERF.md §6; 10 and 13 halved when 17a
+# gained recurrentgemma and deepseek)
 MAMBA_LAYERS = 8         # of falcon-mamba-7b's 64
 RING_LAYERS = 4          # of h2o-danube-1.8b's 24
-ENCDEC_LAYERS = 8        # of whisper-large-v3's 32 encoder and 32 decoder
-HYBRID_LAYERS = 6        # of recurrentgemma-9b's 38: 2 whole periods
+ENCDEC_LAYERS = 4        # of whisper-large-v3's 32 encoder and 32 decoder
+HYBRID_LAYERS = 3        # of recurrentgemma-9b's 38: one whole period
 
 
 def phase_mamba_path() -> dict:
@@ -5192,6 +5209,7 @@ def sharded_rank(rank: int, world: int, job: dict) -> None:
         dist.barrier()
         out["train"] = sharded_train_rank(job)
         out["split"] = split_train_rank()
+        out["split_grads"] = split_grads_rank()
     with open(os.path.join(job["dir"], f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.barrier()
@@ -5199,8 +5217,10 @@ def sharded_rank(rank: int, world: int, job: dict) -> None:
 
 
 # 17a's training leg: opt-proxy at full width, steps of batch x seq tokens,
-# then sp_steps of them from the seeded init under parallel.sp
-TRAIN_LEG = dict(steps=5, batch=16, seq=128, sp_steps=2)
+# then sp_steps of them from the seeded init under parallel.sp (4 steps,
+# 5 before the recurrentgemma and deepseek legs came: with the split
+# legs' 2, the cut that pays for them)
+TRAIN_LEG = dict(steps=4, batch=16, seq=128, sp_steps=2)
 # the bytes a rank handed to gloo a step before the model axis computed
 # its share (whole parameters gathered on every rank; opt-proxy 2x2 on
 # an NVIDIA H100 80GB HBM3, 700 W)
@@ -5353,16 +5373,27 @@ def sharded_train_rank(job: dict) -> dict:
 
 # 17a's split legs, in the same world after the opt-proxy leg: the model
 # axis computing its share of Mamba (falcon-mamba-7b, 2 of 64 layers: 2048
-# of 8192 channels a rank) and of routed experts (olmoe-1b-7b, 1 of 16
-# layers: 16 of 64 experts a rank) at full width on 1x4, SPLIT_RUN's
-# steps of batch x seq tokens, then sp_steps of them from the seeded init
-# under parallel.sp; remat full; falcon-mamba in bf16 compute (as 16c),
-# olmoe in fp32 (its experts' products bf16 as always; in bf16 compute
-# the routing flips that the split's sum order causes carry the experts'
-# moments past the routed pin within three steps)
-SPLIT_LEGS = (("falcon-mamba-7b", 2, "bfloat16"),
-              ("olmoe-1b-7b", 1, "float32"))
-SPLIT_RUN = dict(steps=3, sp_steps=1, batch=4, seq=256, model=4)
+# of 8192 channels a rank), of routed experts (olmoe-1b-7b, 1 of 16
+# layers: 16 of 64 experts a rank) and of RG-LRU (recurrentgemma-9b, one
+# period of 3 of 38 layers: 1024 of 4096 channels, 4 of 16 q-heads a
+# rank; 1,705,062,400 parameters) at full width on 1x4, SPLIT_RUN's steps
+# of batch x seq tokens, then sp_steps of them from the seeded init under
+# parallel.sp; remat full; falcon-mamba and recurrentgemma in bf16
+# compute (as 16c), olmoe in fp32 (its experts' products bf16 as always;
+# in bf16 compute the routing flips that the split's sum order causes
+# carry the experts' moments past the routed pin within three steps).
+# (arch, layers, compute dtype, whether a rank keeps its blocks of the
+# one-device states in pinned host memory: recurrentgemma's two sets are
+# 10.2 GB a rank, and four ranks' beside a one-device step (~50 GB with
+# AdamW's fp32 temporaries of the 1.05e9-element tied embedding) do not fit
+# the card; kept on the card by the rank past its turn, they ran it out
+# of memory)
+SPLIT_LEGS = (("falcon-mamba-7b", 2, "bfloat16", False),
+              ("olmoe-1b-7b", 1, "float32", False),
+              ("recurrentgemma-9b", 3, "bfloat16", True))
+# 2 steps since the recurrentgemma and deepseek legs came (3 before: the
+# cut pays for them; every check the same)
+SPLIT_RUN = dict(steps=2, sp_steps=1, batch=4, seq=256, model=4)
 # the leaves held at the routed-expert pin (1e-2 relative) against one
 # device, params and moments
 ROUTED_LEAF = r"mlp/w_(gate|up|down)$"
@@ -5386,20 +5417,23 @@ def split_train_rank(device: str = "cuda") -> dict:
     arch, every rank in turn (one whole state on the card at a time)
     builds the seeded init, keeps its 1x4 blocks of it, then steps one
     device (``make_train_step``) from that init ``steps`` steps and keeps
-    its blocks of the state after ``sp_steps`` and after the last (rank
-    0's run is the one-device run; every rank's is the same program on
-    the same card). Then the sharded step (``make_sharded_train_step``)
-    runs ``steps`` steps on the blocks, and ``sp_steps`` under
-    ``parallel.sp`` from the same init, the counters reset just before
-    each run and read just after (and the scan kernels' launches by
-    channel width), each step's gloo bytes by kind. Each rank holds its
-    blocks against its blocks of the one-device states; the per-leaf sums
-    (squared difference and norm, the JAX sharded pins' allclose) meet in
-    one all-reduce. Returns, by arch and run, the walls, losses, bytes,
-    peak, launches, a digest of the replicated leaves and the losses
-    (every rank's must be rank 0's), the one-device run's walls and
-    losses, and each leaf's distance: 1e-5 relative or, past it, rtol
-    3e-2 / atol 3e-3; the routed experts' at 1e-2."""
+    its blocks of the state after ``sp_steps`` and after the last (in
+    pinned host memory where the leg says so; rank 0's run is the
+    one-device run; every rank's is the same
+    program on the same card). Then the sharded step
+    (``make_sharded_train_step``) runs ``steps`` steps on the blocks, and
+    ``sp_steps`` under ``parallel.sp`` from the same init, the counters
+    reset just before each run and read just after (and the scan kernels'
+    launches by channel width), each step's gloo bytes by kind, the first
+    step's row-parallel products' input widths (``linear.Tap``). Each
+    rank holds its blocks against its blocks of the one-device states;
+    the per-leaf sums (squared difference and norm, the JAX sharded pins'
+    allclose) meet in one all-reduce. Returns, by arch and run, the
+    walls, losses, bytes, peak, launches, widths, a digest of the
+    replicated leaves and the losses (every rank's must be rank 0's), the
+    one-device run's walls and losses, and each leaf's distance: 1e-5
+    relative or, past it, rtol 3e-2 / atol 3e-3; the routed experts' at
+    1e-2."""
     import hashlib
     import re
     import torch
@@ -5409,6 +5443,7 @@ def split_train_rank(device: str = "cuda") -> dict:
     from repro_torch.distributed.checkpoint import map_with_path, tree_paths
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.linear import Tap
     from repro_torch.training import train_step as TS
     rank, world = dist.get_rank(), dist.get_world_size()
     mesh = make_host_mesh(data=1, model=SPLIT_RUN["model"], device=device)
@@ -5430,14 +5465,25 @@ def split_train_rank(device: str = "cuda") -> dict:
             b = data.batch(cfg.train.global_batch_size, cfg.train.seq_len)
             yield b[0] if isinstance(b, tuple) else b
 
-    def blocks(state, specs):
-        return map_with_path(sharding.local(state, specs, mesh),
-                             lambda _, t: t.clone())
+    def blocks(state, specs, host: bool = False):
+        def keep(_, t):
+            if not host:
+                return t.clone()
+            return torch.empty(t.shape, dtype=t.dtype,
+                               pin_memory=True).copy_(t)
+        return map_with_path(sharding.local(state, specs, mesh), keep)
+
+    dense_widths: dict = {}
+
+    def row_width(name, x):
+        if name.endswith((".o", ".down", ".out")):
+            dense_widths.setdefault(name, set()).add(int(x.shape[-1]))
 
     def run(cfg, state, specs) -> tuple:
         rules = sharding.make_rules(mesh, cfg.parallel)
         step = TS.make_sharded_train_step(cfg, rules, specs)
         widths.clear()
+        dense_widths.clear()
         release_device()
         torch.cuda.synchronize()
         held = torch.cuda.memory_allocated()
@@ -5447,10 +5493,13 @@ def split_train_rank(device: str = "cuda") -> dict:
         with patched(ops, "selective_scan_cuda", by_width("selective_scan")), \
                 patched(ops, "selective_scan_bwd_cuda",
                         by_width("selective_scan_bwd")):
-            for batch in batches(cfg):
+            for i, batch in enumerate(batches(cfg)):
                 sharding.reset_comm_bytes()
                 t = time.perf_counter()
-                state, m = step(state, batch)
+                with contextlib.ExitStack() as tap:
+                    if i == 0:
+                        tap.enter_context(Tap(row_width))
+                    state, m = step(state, batch)
                 losses.append(float(m["loss"]))      # waits
                 walls.append(time.perf_counter() - t)
                 nbytes.append(sharding.comm_bytes())
@@ -5460,6 +5509,8 @@ def split_train_rank(device: str = "cuda") -> dict:
         rep = dict(step_walls=walls, losses=losses, step_bytes=nbytes,
                    step_kinds=kinds, launches=ops.kernel_launches(),
                    widths=dict(widths),
+                   dense_widths={k: sorted(v)
+                                 for k, v in dense_widths.items()},
                    peak=torch.cuda.max_memory_allocated() - held)
         h = hashlib.sha256(json.dumps(losses).encode())
         for (k, t), (_, spec) in zip(tree_paths(state),
@@ -5479,7 +5530,7 @@ def split_train_rank(device: str = "cuda") -> dict:
         for (k, g), (_, w), (_, spec) in zip(
                 tree_paths(state), tree_paths(ref), tree_paths_specs(specs)):
             split = any(a is not None for a in spec)
-            g, w = g.float(), w.float()
+            g, w = g.float(), w.to(g.device).float()
             mine = split or rank == 0
             names.append(k)
             sums.append([float((g - w).double().pow(2).sum()) * mine,
@@ -5503,7 +5554,7 @@ def split_train_rank(device: str = "cuda") -> dict:
                     routed_max=max(routed, default=0.0))
 
     out: dict = {}
-    for arch, layers, dtype in SPLIT_LEGS:
+    for arch, layers, dtype, host in SPLIT_LEGS:
         cfg = split_leg_config(arch, layers, dtype)
         t0 = time.perf_counter()
         res: dict = {}
@@ -5522,8 +5573,8 @@ def split_train_rank(device: str = "cuda") -> dict:
                     losses.append(float(m["loss"]))
                     walls.append(time.perf_counter() - t1)
                     if i + 1 == SPLIT_RUN["sp_steps"]:
-                        at_sp = blocks(state, specs)
-                one = blocks(state, specs)
+                        at_sp = blocks(state, specs, host)
+                one = blocks(state, specs, host)
                 res["one"] = dict(wall=time.perf_counter() - t,
                                   step_walls=walls, losses=losses)
                 del state
@@ -5543,6 +5594,161 @@ def split_train_rank(device: str = "cuda") -> dict:
         dist.barrier()
         out[arch] = res
     return out
+
+
+# 17a's deepseek-v3-671b leg: at full width, its dense layer and the MTP
+# head (3,123,095,552 parameters) in fp32, the loss and its gradients on
+# 1x4 and under parallel.sp against one device. Its train step does not
+# fit four ranks beside a one-device run on the shared card (PERF.md
+# §6: a one-device step holds 50 GB, each rank's three block sets
+# 9.6 GB each), and in its own bf16 params and int8 moments a free run
+# parts at rounding and code ties.
+SPLIT_GRADS = dict(arch="deepseek-v3-671b", layers=1, dtype="float32",
+                   batch=4, seq=256)
+
+
+def split_grads_rank(device: str = "cuda") -> dict:
+    """This rank's part of 17a's deepseek leg (``SPLIT_GRADS``): every rank
+    in turn builds the seeded init whole and runs the one-device
+    ``train_step.loss_and_grads`` (remat full), keeping its 1x4 blocks of
+    the parameters and the gradients; then the split's
+    (``sharding.model_split`` under ``use_split``, as
+    ``make_sharded_train_step`` runs it, the counters reset just before
+    and read just after) on the blocks, without and with
+    ``parallel.sp``. Returns the one-device loss and wall and, for each
+    run, its loss, wall, gloo bytes by kind, peak, the products' widths
+    (row-parallel inputs, the MTP projection's output), a digest of the
+    loss and the replicated leaves' gradients (every rank's must be rank
+    0's) and each gradient leaf's distance to one device's (the sums meet
+    in one all-reduce): 1e-5 relative or, past it, 1e-4."""
+    import copy
+    import hashlib
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.convert import stack_layers
+    from repro_torch.data import MarkovLM
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.checkpoint import map_with_path, tree_paths
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.linear import Tap
+    from repro_torch.training import train_step as TS
+    from repro_torch.training.optimizer import tree_leaves
+    rank, world = dist.get_rank(), dist.get_world_size()
+    mesh = make_host_mesh(data=1, model=SPLIT_RUN["model"], device=device)
+    release_device()
+    cfg = get_config(SPLIT_GRADS["arch"])
+    mc = cfg.model
+    mc.num_layers = SPLIT_GRADS["layers"]
+    mc.dtype = mc.param_dtype = SPLIT_GRADS["dtype"]
+    cfg.parallel.remat = "full"
+    batch = MarkovLM(mc.vocab_size, seed=cfg.train.seed).batch(
+        SPLIT_GRADS["batch"], SPLIT_GRADS["seq"])
+    batch = {k: v.to(device) for k, v in (
+        batch[0] if isinstance(batch, tuple) else batch).items()}
+    rules = {}
+    for sp in (False, True):
+        par = copy.copy(cfg.parallel)
+        par.sp = sp
+        rules[sp] = sharding.make_rules(mesh, par)
+    res: dict = {}
+    t0 = time.perf_counter()
+    for r in range(world):
+        if r == rank:
+            gen = torch.Generator(device=device)
+            gen.manual_seed(cfg.train.seed)
+            params = stack_layers(mc, T.init_params(mc, gen, device))
+            specs = sharding.param_pspecs(params, rules[False])
+            plan = sharding.model_split(mc, rules[False])
+            gather_by, flags = sharding.split_specs(plan, specs)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            grads, m = TS.loss_and_grads(cfg, params, batch)
+            torch.cuda.synchronize()
+            res["one"] = dict(wall=time.perf_counter() - t,
+                              loss=float(m["loss"]))
+            mine = map_with_path(sharding.local(params, specs, mesh),
+                                 lambda _, x: x.clone())
+            # the gradients as the split holds them: a split leaf's
+            # model block, every other leaf whole
+            cut = {}
+            sharding._spec_paths(lambda k, sp: cut.__setitem__(k, sp),
+                                 specs)
+            sharding._spec_paths(lambda k, f: cut.__setitem__(
+                k, cut[k] if f else None), flags)
+            ref = map_with_path(grads, lambda k, x: (
+                x if cut[k] is None
+                else sharding.local_block(x, cut[k], mesh)).clone())
+            del params, grads
+            release_device()
+        dist.barrier()
+    res["init_s"] = time.perf_counter() - t0
+    names = [k for k, _ in tree_paths(ref)]
+    split = tree_leaves(flags)
+    widths: dict = {}
+
+    def width(name, x):
+        if name.endswith((".o", ".down")):
+            widths.setdefault(name, set()).add(int(x.shape[-1]))
+
+    def proj_out(fn):
+        def call(p, x, name="", reduce=None):
+            y = fn(p, x, name, reduce)
+            if name == "mtp.proj":
+                widths.setdefault("mtp.proj:out", set()).add(
+                    int(y.shape[-1]))
+            return y
+        return call
+
+    for key, sp in (("split", False), ("sp", True)):
+        plan = sharding.model_split(mc, rules[sp])
+        params = sharding.gather(mine, gather_by, mesh)
+        widths.clear()
+        release_device()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        sharding.reset_comm_bytes()
+        t = time.perf_counter()
+        with sharding.use_split(plan), Tap(width), \
+                patched(T, "dense", proj_out):
+            grads, m = TS.loss_and_grads(cfg, params, batch)
+        loss = float(m["loss"])                   # waits
+        wall = time.perf_counter() - t
+        rep = dict(wall=wall, loss=loss, sp=plan.seq_split(
+            SPLIT_GRADS["seq"]), bytes=sharding.comm_bytes(),
+            kinds={k: v["bytes"] for k, v in
+                   sharding.comm_by_kind().items()},
+            peak=torch.cuda.max_memory_allocated() - held,
+            widths={k: sorted(v) for k, v in widths.items()})
+        h = hashlib.sha256(json.dumps(loss).encode())
+        sums = []
+        for k, g, w, f in zip(names, tree_leaves(grads), tree_leaves(ref),
+                              split):
+            g, w = g.float(), w.float()
+            if not f:
+                h.update(k.encode())
+                h.update(memoryview(g.detach().contiguous().cpu().reshape(
+                    -1).view(torch.uint8).numpy()))
+            mine_too = f or rank == 0
+            sums.append([float((g - w).double().pow(2).sum()) * mine_too,
+                         float(w.double().pow(2).sum()) * mine_too])
+        tot = torch.tensor(sums, dtype=torch.float64)
+        dist.all_reduce(tot)
+        rels = [d2 ** 0.5 / (w2 ** 0.5 + 1e-30) for d2, w2 in tot.tolist()]
+        rep["digest"] = h.hexdigest()
+        rep["max_rel"] = max(rels)
+        rep["past"] = [f"{k} {x:.2e}" for k, x in zip(names, rels)
+                       if x > 1e-5]
+        rep["within"] = all(x <= 1e-4 for x in rels)
+        rep["leaves"] = len(rels)
+        res[key] = rep
+        del params, grads
+    del mine, ref
+    release_device()
+    dist.barrier()
+    return res
 
 
 def tree_paths_specs(specs):
@@ -5802,14 +6008,17 @@ def sharded_train_leg(job: dict, res: list, smi: str) -> None:
 def split_train_leg(res: list, smi: str, launches: dict) -> None:
     """17a's split legs, read from the ranks' results (``split_train_rank``):
     for each arch and run each rank's step walls, losses, gloo bytes a
-    step by kind, peak and the scan kernels' launches by channel width;
-    every rank's losses and replicated leaves bitwise rank 0's; against
-    one device (rank 0's) the losses within 1e-2 and every leaf at its
-    pin (printed past 1e-5); on falcon-mamba-7b ``selective_scan`` twice
-    and ``selective_scan_bwd`` once a layer a step at d 2048 on every
-    rank. Adds the runs' launches to ``launches``."""
+    step by kind, peak, the scan kernels' launches by channel width and
+    the row-parallel products' input widths; every rank's losses and
+    replicated leaves bitwise rank 0's; against one device (rank 0's) the
+    losses within 1e-2 and every leaf at its pin (printed past 1e-5); on
+    falcon-mamba-7b ``selective_scan`` twice and ``selective_scan_bwd``
+    once a layer a step at d 2048 on every rank; on recurrentgemma-9b
+    RG-LRU's out at 1024 channels, the local layer's o at 4 q-heads and
+    the MLP's down at d_ff / 4 on every rank. Adds the runs' launches to
+    ``launches``."""
     d_rank = 8192 // SPLIT_RUN["model"]
-    for arch, layers, _ in SPLIT_LEGS:
+    for arch, layers, _, _ in SPLIT_LEGS:
         one = res[0]["split"][arch]["one"]
         same_one = all(x["split"][arch]["one"]["losses"] == one["losses"]
                        for x in res)
@@ -5828,7 +6037,8 @@ def split_train_leg(res: list, smi: str, launches: dict) -> None:
                     f" a step {x['step_bytes']}, by kind {x['step_kinds'][-1]}"
                     f"; peak above what it held {x['peak']} bytes; scan "
                     f"launches by width {json.dumps(x['widths'], sort_keys=True)}"
-                    f" [{smi}]")
+                    f"; row-parallel input widths "
+                    f"{json.dumps(x['dense_widths'], sort_keys=True)} [{smi}]")
                 for k in launches:
                     launches[k] += x["launches"].get(k, 0)
             same = all(x["digest"] == legs[0]["digest"] for x in legs)
@@ -5853,20 +6063,86 @@ def split_train_leg(res: list, smi: str, launches: dict) -> None:
                 log(f"  {label}: selective_scan {2 * layers * steps} and "
                     f"selective_scan_bwd {layers * steps} launches at d "
                     f"{d_rank} on every rank: {scans}")
+            if arch == "recurrentgemma-9b":
+                # RG-LRU's out at lru_width / m, the local layer's o at
+                # its rank's q-heads, the MLP's down at d_ff / m
+                mc = split_leg_config(arch, layers, "bfloat16").model
+                m = SPLIT_RUN["model"]
+                want_w = {"mixer.out": [mc.rglru.lru_width // m],
+                          "mixer.o": [mc.num_heads // m * mc.head_dim],
+                          "mlp.down": [mc.d_ff // m]}
+                scans = all(x["dense_widths"] == want_w for x in legs)
+                log(f"  {label}: the row-parallel products at "
+                    f"{json.dumps(want_w, sort_keys=True)} on every rank: "
+                    f"{scans}")
             check(same and x0["within"] and scans and max(gaps) < 1e-2,
                   f"{label} against the one-device run")
         log(f"  17a {arch}: the comparisons took "
             f"{res[0]['split'][arch]['compare_s']:.1f}s")
 
 
-SHARDED_LAYERS = 8      # of internlm2-1.8b's 24 in 17b
+def split_grads_leg(res: list, smi: str) -> None:
+    """17a's deepseek leg, read from the ranks' results
+    (``split_grads_rank``): for each run every rank's loss and
+    replicated gradients bitwise rank 0's, the loss within 1e-5 relative
+    of one device's (every rank's one-device loss rank 0's), every
+    gradient leaf at 1e-5 or, past it (printed), 1e-4; the row-parallel
+    products at their local widths (MLA's o at 32 of 128 heads, the
+    dense MLP's down at d_ff / 4, the MTP layer's too) and the MTP
+    projection's output at d_model / 4. Prints each rank's wall, gloo
+    bytes by kind and peak."""
+    from repro_torch.configs import get_config
+    mc = get_config(SPLIT_GRADS["arch"]).model
+    m = SPLIT_RUN["model"]
+    arch = SPLIT_GRADS["arch"]
+    one = res[0]["split_grads"]["one"]
+    same_one = all(x["split_grads"]["one"]["loss"] == one["loss"]
+                   for x in res)
+    log(f"  17a {arch} (dense layer + MTP head, fp32, loss and gradients):"
+        f" each rank's init and one-device pass in turn "
+        f"{res[0]['split_grads']['init_s']:.1f} s; one device (rank 0) "
+        f"{one['wall']:.3f} s, loss {one['loss']:.6f}; every rank's "
+        f"one-device loss rank 0's {same_one} [{smi}]")
+    want_w = {"mixer.o": [mc.num_heads // m * mc.mla.v_head_dim],
+              "mlp.down": [mc.d_ff // m], "mtp.mixer.o":
+              [mc.num_heads // m * mc.mla.v_head_dim],
+              "mtp.mlp.down": [mc.d_ff // m],
+              "mtp.proj:out": [mc.d_model // m]}
+    for key in ("split", "sp"):
+        legs = [x["split_grads"][key] for x in res]
+        label = f"17a {arch} 1x{m}" + (", sp" if key == "sp" else "")
+        for r, x in enumerate(legs):
+            log(f"  {label} rank {r}: loss and gradients {x['wall']:.3f} s"
+                f"; gloo bytes {x['bytes']}, by kind {x['kinds']}; peak "
+                f"above what it held {x['peak']} bytes; widths "
+                f"{json.dumps(x['widths'], sort_keys=True)} [{smi}]")
+        x0 = legs[0]
+        same = all(x["digest"] == x0["digest"] for x in legs)
+        gap = abs(x0["loss"] - one["loss"]) / abs(one["loss"])
+        widths_ok = all(x["widths"] == want_w for x in legs)
+        log(f"  {label}: sequence sharded {x0['sp']}; loss {x0['loss']:.6f}"
+            f" one device {one['loss']:.6f} (relative {gap:.3e}, tol "
+            f"1e-5); every rank's loss and replicated gradients bitwise "
+            f"rank 0's {same}; {x0['leaves']} gradient leaves, largest "
+            f"{x0['max_rel']:.3e}, {len(x0['past'])} past 1e-5 (held at "
+            f"1e-4: {x0['within']}): {'; '.join(x0['past'])}; widths "
+            f"as the plan's {widths_ok}")
+        check(same and same_one and gap <= 1e-5 and x0["within"]
+              and widths_ok and x0["sp"] == (key == "sp"),
+              f"{label} against one device")
+
+
+SHARDED_LAYERS = 4      # of internlm2-1.8b's 24 in 17b (8 before 17a's
+#                         recurrentgemma and deepseek legs)
 
 
 def phase_sharded_path(smi: str) -> dict:
     """17a opt-proxy at full width on 2x2 (4 ranks, the in-process API)
     against phase 5's single-device run, then trained on 2x2 by the same
-    ranks against one device (``sharded_train_leg``), then falcon-mamba-7b
-    and olmoe-1b-7b trained on 1x4 by them (``split_train_leg``); 17b
+    ranks against one device (``sharded_train_leg``), then falcon-mamba-7b,
+    olmoe-1b-7b and recurrentgemma-9b trained on 1x4 by them
+    (``split_train_leg``) and deepseek-v3-671b's loss and gradients
+    (``split_grads_leg``); 17b
     internlm2-1.8b
     at full width, ``SHARDED_LAYERS`` of its layers, on 1x2 (every group
     row-sharded) through
@@ -5905,6 +6181,7 @@ def phase_sharded_path(smi: str) -> dict:
     check(mism <= 1e-3 * total and modes, "17a against phase 5")
     sharded_train_leg(job, res, smi)
     split_train_leg(res, smi, launches)
+    split_grads_leg(res, smi)
     log(f"  17a took {time.perf_counter() - t:.1f}s")
 
     # 17b
@@ -6444,7 +6721,8 @@ def main() -> int:
     release_device()
     log("[17] sharded quantization and training on the card: ranks sharing "
         "it over gloo (17a opt-proxy 2x2, quantized then trained, then "
-        "falcon-mamba-7b and olmoe-1b-7b trained on 1x4; 17b "
+        "falcon-mamba-7b, olmoe-1b-7b and recurrentgemma-9b trained on "
+        "1x4, deepseek-v3-671b's loss and gradients on 1x4; 17b "
         "internlm2-1.8b 1x2 through torch.distributed.run, 17c olmoe-1b-7b "
         "1x1x2 under overlap)")
     t = time.perf_counter()

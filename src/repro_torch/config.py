@@ -21,11 +21,10 @@ the port has one route per device and no kernel backend to choose (a
 kernel fault raises, it does not degrade). Every ``train.*`` field is
 taken (training, ``repro_torch.training``); every ``parallel.*`` field
 is taken (:class:`ParallelConfig` says which are read);
-``parallel.sp=true`` runs in sharded training on the architectures whose
-layers the ``model`` axis splits or whose layers gather the sequence
-whole (dense attention and MLPs, GQA, Mamba, routed experts) and raises
-on the others (RG-LRU, MLA, the MTP head), naming ROADMAP.md queue 1
-item 26.
+``parallel.sp=true`` runs in sharded training on every architecture: the
+``model`` axis splits each layer kind (dense attention and MLPs, GQA,
+MLA, Mamba, RG-LRU, routed experts, the MTP head) or gathers the
+sequence whole for it.
 """
 from __future__ import annotations
 
@@ -228,8 +227,7 @@ class ParallelConfig:
     """The JAX package's parallelism fields. Training reads ``remat`` and
     ``int8_optimizer_state``; sharded training (``train(mesh=…)``) reads
     ``fsdp`` (the placement), ``ep_local_dispatch`` (the routed MoE) and
-    ``sp`` (the residual's sequence over ``model``; refused on RG-LRU,
-    MLA and the MTP head, :func:`refuse_sharding`). The mesh
+    ``sp`` (the residual's sequence over ``model``). The mesh
     comes from ``--mesh`` /
     ``make_host_mesh``: ``data``, ``model``, ``pod``, ``ep``,
     ``pipeline_stages``, ``pp_microbatches``, ``scan_layers``,
@@ -334,21 +332,6 @@ def not_ported(what: str, item: int) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet; see ROADMAP.md, queue 1 "
         f"item {item}")
-
-
-def refuse_sharding(pc: ParallelConfig, mc: ModelConfig) -> None:
-    """Raise, naming item 26, where sharded training cannot run
-    ``parallel.sp`` (the residual's sequence over the ``model`` axis):
-    on a model with a layer kind the sequence-sharded step does not cover
-    yet (RG-LRU, MLA, deepseek's MTP head). Routed experts and Mamba run
-    under it, split over the axis (``sharding.model_split``) or whole."""
-    kinds = set(mc.layer_kinds)
-    whole = [name for name, has in (
-        ("RG-LRU", "rglru" in kinds), ("MLA", mc.mla.enabled),
-        ("the MTP head", mc.mtp_depth > 0)) if has]
-    if pc.sp and whole:
-        raise not_ported(f"parallel.sp=true on {mc.name} ({', '.join(whole)}"
-                         ": the sequence over the model axis)", 26)
 
 
 def _coerce(value: str, current: Any) -> Any:

@@ -38,17 +38,22 @@ The ``model`` axis splits the Megatron products as GSPMD does
 (:class:`ModelSplit`, made by :func:`model_split` and set by
 :func:`use_split` for the step's forward and backward): a rank runs the
 one-device layers at 1/m of the heads (or of the q-heads over its one
-kv-head, GQA), of ``d_ff``, of Mamba's ``d_inner``, of the routed
-experts and of the vocab, on its blocks of the column-parallel (q/k/v,
-gate/up, Mamba's in / dt / conv, the head, the embedding's rows) and
-row-parallel (o, down, Mamba's x and out) weights. The operators are
+kv-head, GQA; MLA's heads over its whole latents), of ``d_ff``, of
+Mamba's ``d_inner``, of RG-LRU's ``lru_width``, of the routed experts,
+of the MTP projection's columns and of the vocab, on its blocks of the
+column-parallel (q/k/v, MLA's q_up / k_up / v_up, gate/up, Mamba's in /
+dt / conv, RG-LRU's in / gate / conv / rg / ig, the MTP projection, the
+head, the embedding's rows) and row-parallel (o, down, Mamba's x and
+out, RG-LRU's out) weights. The operators are
 autograd Functions on the counted collectives: :func:`copy_to_model`
 (Megatron's *f*: identity, its gradient summed over ``model``) before a
 column-parallel product, :func:`reduce_from_model` (*g*: the sum over
 ``model``, identity backward) after a row-parallel one, ``_AllReduce``
 (*g* then *f*) after Mamba's x projection, which every rank reads at its
 own channels, ``_Reblock`` (an :func:`exchange`, all-to-all) from the
-stored [u | z] block of Mamba's in projection to the rank's columns, and
+stored [u | z] block of Mamba's in projection to the rank's columns,
+``ModelSplit.gather_channels`` (RG-LRU's input of rg / ig, the MTP
+projection's output, all-gathered over the last dim) and
 for ``parallel.sp`` :func:`gather_seq` / :func:`scatter_seq`, the
 residual's sequence over ``model`` (``shard_hint`` "act" with ``sp``).
 
@@ -837,9 +842,9 @@ def scatter_seq(x: Tensor, ag: AxisGroup, summed: bool = True) -> Tensor:
 
 # which leaves a layer kind's split computes at 1/m (paths as
 # ``checkpoint.tree_paths`` names them; a row-parallel bias is replicated
-# and stays whole, deepseek's MTP head is never split; under ``gqa`` the
-# k / v leaves are gathered whole and each rank reads its kv-head's
-# columns)
+# and stays whole; under ``gqa`` the k / v leaves are gathered whole and
+# each rank reads its kv-head's columns; deepseek's MTP layer follows the
+# main layers' kinds, its ``proj`` is ``mtp``'s)
 _SPLIT_LEAVES = {
     "attn": r"(mixer|xattn)/(q|k|v|o)/w$|(mixer|xattn)/(q|k|v)/b$",
     "gqa": r"mixer/(q|o)/w$|mixer/q/b$",
@@ -848,6 +853,10 @@ _SPLIT_LEAVES = {
     "mamba": (r"mixer/(in|x|dt|out|conv)/w$|mixer/(dt|conv)/b$"
               r"|mixer/(a_log|d_skip)$"),
     "experts": r"mlp/w_(gate|up|down)$|mlp/shared/(gate|up|down)/w$",
+    "rglru": (r"mixer/(in|gate|rg|ig|out)/w$|mixer/conv/(w|b)$"
+              r"|mixer/(rg|ig)/b$|mixer/lambda$"),
+    "mla": r"mixer/(q_up|k_up|v_up|o)/w$",
+    "mtp": r"^mtp/proj/w$",
 }
 
 
@@ -908,11 +917,15 @@ class ModelSplit:
     reading its one kv-head (``gqa``); the dense MLP by ``d_ff``
     (``mlp``); the embedding and the head by vocab (``vocab``); Mamba by
     its ``d_inner`` channels (``mamba``); routed experts by their E axis
-    (``experts``; the routing whole on every rank). ``cfg`` is the
-    layers' local ModelConfig (a rank's heads and kv-heads, ``d_ff``,
-    ``d_inner`` and experts); ``kv_heads`` the whole model's kv-heads.
-    With ``sp`` a residual whose sequence divides the axis is
-    sequence-sharded over it (:meth:`seq_split`)."""
+    (``experts``; the routing whole on every rank); RG-LRU by its
+    ``lru_width`` channels (``rglru``); MLA by heads (``mla``; its
+    latents whole on every rank); deepseek's MTP projection by its
+    ``d_model`` output columns (``mtp``; the MTP layer follows the main
+    layers' flags). ``cfg`` is the layers' local ModelConfig (a rank's
+    heads and kv-heads, ``d_ff``, ``d_inner``, experts and ``lru_width``);
+    ``kv_heads`` the whole model's kv-heads. With ``sp`` a residual whose
+    sequence divides the axis is sequence-sharded over it
+    (:meth:`seq_split`)."""
     ag: AxisGroup
     cfg: Any
     attn: bool
@@ -924,6 +937,9 @@ class ModelSplit:
     mamba: bool = False
     experts: bool = False
     kv_heads: int = 0
+    rglru: bool = False
+    mla: bool = False
+    mtp: bool = False
 
     @property
     def index(self) -> int:
@@ -936,8 +952,6 @@ class ModelSplit:
 
     def splits(self, path: str) -> bool:
         """True for a leaf the plan computes at its ``model`` block."""
-        if path.startswith("mtp/"):
-            return False
         return any(getattr(self, kind) and re.search(pat, path)
                    for kind, pat in _SPLIT_LEAVES.items())
 
@@ -962,6 +976,21 @@ class ModelSplit:
         if seq:
             return lambda y: scatter_seq(y, self.ag)
         return lambda y: reduce_from_model(y, self.ag.group)
+
+    def gather_channels(self, x: Tensor, summed: bool = True) -> Tensor:
+        """The ranks' blocks of the last dim concatenated (all-gather
+        forward). Backward: this rank's block of the gradient's sum over
+        the ranks (reduce-scatter; ``summed``: each rank's product makes
+        a partial of it, RG-LRU's gathered input of ``rg`` / ``ig``), or
+        of a gradient every rank holds whole (a cut: the MTP
+        projection's output, read whole by every rank)."""
+        return _GatherSeq.apply(x, -1, self.ag, summed)
+
+    def copy_all(self, *xs: Tensor) -> Tuple[Tensor, ...]:
+        """:func:`copy_all_to_model` over the axis: inputs every rank
+        holds whole whose gradients are partials over its share (MLA's
+        latents, read by the rank's heads)."""
+        return copy_all_to_model(self.ag.group, *xs)
 
     def all_reduce(self, y: Tensor) -> Tensor:
         """The sum of a row-parallel product's fp32 partials that every
@@ -1023,12 +1052,13 @@ def model_split(mc, rules: Rules) -> Optional[ModelSplit]:
     where both ``num_heads`` and ``num_kv_heads`` divide the axis, or
     (``gqa``) where ``num_heads`` does, ``num_kv_heads`` does not and m
     is a multiple of it (not MLA; rank r keeps q-heads ``[r·H/m,
-    (r+1)·H/m)``, all reading kv-head ``r·kv // m``); the dense MLP where
-    ``d_ff`` divides the axis, the embedding and the head where the vocab
-    does, Mamba where ``d_inner`` does, routed experts where E does (and a
-    shared expert's width); every other leaf is gathered and computed
-    whole. ``sp`` as ``rules.sp`` (``config.refuse_sharding`` refuses the
-    layer kinds it does not cover)."""
+    (r+1)·H/m)``, all reading kv-head ``r·kv // m``); MLA where
+    ``num_heads`` divides it; the dense MLP where ``d_ff`` divides the
+    axis, the embedding and the head where the vocab does, Mamba where
+    ``d_inner`` does, routed experts where E does (and a shared expert's
+    width), RG-LRU where ``lru_width`` does, the MTP projection where
+    ``d_model`` does; every other leaf is gathered and computed whole.
+    ``sp`` as ``rules.sp``."""
     tp = rules.tp_axis
     m = rules.axis_size(tp)
     if tp is None or m <= 1:
@@ -1037,23 +1067,30 @@ def model_split(mc, rules: Rules) -> Optional[ModelSplit]:
     attn = not mc.mla.enabled and h % m == 0 and kv % m == 0
     gqa = (not mc.mla.enabled and h % m == 0 and kv % m != 0
            and m % kv == 0)
+    mla = mc.mla.enabled and h % m == 0
     mlp = mc.d_ff > 0 and mc.d_ff % m == 0
     kinds = set(mc.layer_kinds)
     mamba = "mamba" in kinds and mc.d_inner % m == 0
+    rglru = "rglru" in kinds and mc.rglru.lru_width % m == 0
     e, shared = mc.moe.num_experts, mc.moe.num_shared_experts
     experts = (e > 0 and e % m == 0
                and (mc.moe.d_ff_expert * shared) % m == 0)
     local = dataclasses.replace(
-        mc, num_heads=h // m if attn or gqa else h,
+        mc, num_heads=h // m if attn or gqa or mla else h,
         num_kv_heads=kv // m if attn else 1 if gqa else kv,
         d_ff=mc.d_ff // m if mlp else mc.d_ff,
         ssm=dataclasses.replace(mc.ssm, d_inner=mc.d_inner // m)
         if mamba else mc.ssm,
+        rglru=dataclasses.replace(mc.rglru,
+                                  lru_width=mc.rglru.lru_width // m)
+        if rglru else mc.rglru,
         moe=dataclasses.replace(mc.moe, num_experts=e // m)
         if experts else mc.moe)
     return ModelSplit(axis_group(rules.mesh, tp), local, attn, mlp,
                       mc.vocab_size % m == 0, rules.sp, tp, gqa=gqa,
-                      mamba=mamba, experts=experts, kv_heads=kv)
+                      mamba=mamba, experts=experts, kv_heads=kv,
+                      rglru=rglru, mla=mla,
+                      mtp=mc.mtp_depth > 0 and mc.d_model % m == 0)
 
 
 def _spec_paths(fn, specs, prefix: str = ""):

@@ -31,12 +31,13 @@ would not fit is reported, not refused.
   AdamW on the rank's blocks of the train state (the global batch in):
   the ``model`` axis computes its share (attention by heads where the
   heads and kv-heads divide it, or by q-heads over one kv-head a rank
-  where the axis is a multiple of the kv-heads; the dense MLP by
-  ``d_ff``; Mamba by ``d_inner``, its [u | z] in projection re-blocked
-  by an all-to-all; routed experts by E, the routing whole; the
-  embedding, head and loss by vocab; RG-LRU, MLA and the MTP head whole
-  on every rank, ROADMAP.md queue 1 item 26), so a rank's FLOPs, peak
-  and model-axis collectives are its share's;
+  where the axis is a multiple of the kv-heads; MLA by heads, its
+  latents whole; the dense MLP by ``d_ff``; Mamba by ``d_inner``, its
+  [u | z] in projection re-blocked by an all-to-all; RG-LRU by
+  ``lru_width``, its u all-gathered for rg / ig; routed experts by E,
+  the routing whole; the MTP projection by its output columns, the MTP
+  layer as the main layers; the embedding, head and loss by vocab), so a
+  rank's FLOPs, peak and model-axis collectives are its share's;
 - prefill cells gather the whole parameters and run ``T.prefill`` (an
   encoder-decoder's ``encdec_prefill``) on the rank's batch block (their
   model-axis split is item 26);

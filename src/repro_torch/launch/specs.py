@@ -28,9 +28,10 @@ package's children ``/0 /1 /2``), the train state by
 cell's ``model`` axis computes its share (``make_sharded_train_step``
 gathers the leaves ``sharding.model_split`` splits over the data axes
 only: attention by heads where the heads and kv-heads divide the axis,
-or by q-heads where the axis is a multiple of the kv-heads, the dense
-MLP by ``d_ff``, Mamba by ``d_inner``, routed experts by E, the
-embedding and head by vocab). Prefill and
+or by q-heads where the axis is a multiple of the kv-heads, MLA by
+heads, the dense MLP by ``d_ff``, Mamba by ``d_inner``, RG-LRU by
+``lru_width``, routed experts by E, the MTP projection by its columns,
+the embedding and head by vocab). Prefill and
 decode cells gather the whole parameters and each rank runs the
 one-device step on its batch block, so a cache keeps every head
 (ROADMAP.md queue 1 item 26). The train batch stays global, as

@@ -401,28 +401,35 @@ def init_mla(cfg: ModelConfig, gen: torch.Generator, device) -> Dict:
 
 
 def _mla_qkv(cfg: ModelConfig, p: Dict, x: Tensor, positions: Tensor,
-             name: str):
+             name: str, split=None):
     """x (B, S, D) → (q_nope, q_rope (B, S, H, ·), ckv (B, S, rank),
-    k_rope (B, S, rope)), the rope halves rotated."""
+    k_rope (B, S, rope)), the rope halves rotated. ``split`` (a sharded
+    step's ``sharding.ModelSplit``; ``cfg`` and ``q_up`` at a rank's
+    heads): the latents ql, ckv and k_rope, computed whole, enter one
+    ``ModelSplit.copy_all``, as each rank's gradient of them is a partial
+    over its heads."""
     m = cfg.mla
     b, s, _ = x.shape
     ql = dense(p["q_down"], x, f"{name}.q_down")
-    q = dense(p["q_up"], ql, f"{name}.q_up").reshape(
-        b, s, cfg.num_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
-    q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
-    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     ckv = dense(p["kv_down"], x, f"{name}.kv_down")
     k_rope = dense(p["k_rope"], x, f"{name}.k_rope")
     k_rope = apply_rope(k_rope[:, :, None, :], positions,
                         cfg.rope_theta)[:, :, 0, :]
+    if split is not None:
+        ql, ckv, k_rope = split.copy_all(ql, ckv, k_rope)
+    q = dense(p["q_up"], ql, f"{name}.q_up").reshape(
+        b, s, cfg.num_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     return q_nope, q_rope, ckv, k_rope
 
 
 def _mla_attend(cfg: ModelConfig, p: Dict, q_nope: Tensor, q_rope: Tensor,
                 ckv: Tensor, k_rope: Tensor, q_positions: Tensor,
-                kv_positions: Tensor, name: str) -> Tensor:
+                kv_positions: Tensor, name: str, reduce=None) -> Tensor:
     """Expand the latents ckv (B, Sk, rank) to per-head K/V, attend
-    causally, project out: (B, Sq, D)."""
+    causally, project out: (B, Sq, D). ``reduce``: the o product's
+    row-parallel sum, where the heads are a rank's (``linear.dense``)."""
     m = cfg.mla
     b, sk = ckv.shape[:2]
     h = cfg.num_heads
@@ -439,15 +446,18 @@ def _mla_attend(cfg: ModelConfig, p: Dict, q_nope: Tensor, q_rope: Tensor,
     o = _attend_chunked(q, k, v, q_positions, kv_positions,
                         softcap=cfg.attn_logits_softcap,
                         opt=cfg.opt_attention)[..., :m.v_head_dim]
-    return dense(p["o"], o.reshape(b, o.shape[1], -1), f"{name}.o")
+    return dense(p["o"], o.reshape(b, o.shape[1], -1), f"{name}.o", reduce)
 
 
 def mla_forward(cfg: ModelConfig, p: Dict, x: Tensor, positions: Tensor,
-                name: str = "attn") -> Tensor:
-    """Causal MLA over a full sequence (no cache). x (B, S, D)."""
-    q_nope, q_rope, ckv, k_rope = _mla_qkv(cfg, p, x, positions, name)
+                name: str = "attn", split=None, reduce=None) -> Tensor:
+    """Causal MLA over a full sequence (no cache). x (B, S, D).
+    ``split`` / ``reduce``: a sharded step's rank at its heads
+    (:func:`_mla_qkv`, :func:`_mla_attend`)."""
+    q_nope, q_rope, ckv, k_rope = _mla_qkv(cfg, p, x, positions, name,
+                                           split)
     return _mla_attend(cfg, p, q_nope, q_rope, ckv, k_rope, positions,
-                       positions, name)
+                       positions, name, reduce)
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, device,

@@ -105,11 +105,17 @@ def init_rglru_block(cfg: ModelConfig, gen: torch.Generator, device
     }
 
 
-def _rglru_gates(p: Dict, x: Tensor, name: str) -> Tuple[Tensor, Tensor]:
+def _rglru_gates(p: Dict, x: Tensor, name: str,
+                 gate_in: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
     """(a, b) of the recurrence, fp32 (B, S, W): a = exp(-c · r ·
-    softplus(-Λ)), b = sqrt(max(1 - a², 1e-12)) ⊙ (i ⊙ x)."""
-    r = torch.sigmoid(dense(p["rg"], x, f"{name}.rg").float())
-    i = torch.sigmoid(dense(p["ig"], x, f"{name}.ig").float())
+    softplus(-Λ)), b = sqrt(max(1 - a², 1e-12)) ⊙ (i ⊙ x), r and i the
+    rg / ig products of ``gate_in`` (x where None). Where x holds a
+    rank's channels (a sharded step's split) ``gate_in`` is the whole
+    width, gathered over the ranks: rg / ig take every channel in and
+    give the rank's out."""
+    g = x if gate_in is None else gate_in
+    r = torch.sigmoid(dense(p["rg"], g, f"{name}.rg").float())
+    i = torch.sigmoid(dense(p["ig"], g, f"{name}.ig").float())
     a = torch.exp(-RGLRU_C * r * softplus(-p["lambda"].float()))
     b = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * (i * x.float())
     return a, b
@@ -125,17 +131,21 @@ def _rglru_in(p: Dict, x: Tensor, conv_state: Optional[Tensor], name: str):
 
 
 def rglru_block(cfg: ModelConfig, p: Dict, x: Tensor,
-                state: Optional[Dict] = None, name: str = "rglru"
-                ) -> Tuple[Tensor, Dict]:
+                state: Optional[Dict] = None, name: str = "rglru",
+                reduce=None, gather=None) -> Tuple[Tensor, Dict]:
     """Full-sequence RG-LRU block. x (B, S, D); state None (zeros) or a
-    state dict. Returns (y (B, S, D), the new state)."""
+    state dict. Returns (y (B, S, D), the new state). Where ``cfg`` and
+    ``p`` hold a rank's ``lru_width`` channels (a sharded step's split),
+    ``gather`` makes the whole width of u for rg / ig from the ranks'
+    channels and ``reduce`` sums the out product's fp32 partials
+    (``linear.dense``); the recurrence is per channel."""
     gate, u, conv_state = _rglru_in(
         p, x, None if state is None else state["conv"], name)
-    a, b = _rglru_gates(p, u, name)
+    a, b = _rglru_gates(p, u, name, None if gather is None else gather(u))
     h0 = (torch.zeros_like(a[:, 0]) if state is None
           else state["h"].float())
     h, h_last = _chunked_recurrence(a, b, h0)
-    y = dense(p["out"], h.to(x.dtype) * gate, f"{name}.out")
+    y = dense(p["out"], h.to(x.dtype) * gate, f"{name}.out", reduce)
     # a copy: the view would keep the whole padded input alive in the state
     return y, {"conv": conv_state.clone(), "h": h_last.to(x.dtype)}
 

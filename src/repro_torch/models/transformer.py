@@ -57,12 +57,14 @@ blocks: attention (self and cross) on its heads, or a GQA self-attention
 on its q-heads over its one kv-head, and the dense MLP on its ``d_ff``
 columns, entered by ``ModelSplit.enter`` and left by the o / down
 product's row-parallel sum; a Mamba mixer on its ``d_inner`` channels
-(left by the out product's sum); a routed MLP on its experts (the
-routing whole on every rank); the embedding and the head on its vocab
-rows (``layers.embed``; the logits stay vocab-parallel for
-``train_step.cross_entropy``); every other mixer and MLP (RG-LRU, MLA,
-deepseek's MTP layer, a kind whose widths do not divide the axis) whole
-on every rank. Where the
+and an RG-LRU mixer on its ``lru_width`` channels (each left by the out
+product's sum); an MLA mixer on its heads over the whole latents; a
+routed MLP on its experts (the routing whole on every rank); deepseek's
+MTP projection on its output columns and the MTP layer by the main
+layers' kinds; the embedding and the head on its vocab rows
+(``layers.embed``; the logits stay vocab-parallel for
+``train_step.cross_entropy``); a kind whose widths do not divide the
+axis whole on every rank. Where the
 plan's ``sp`` holds and a residual's sequence divides the axis, the
 residual between layers is the rank's block of the sequence: norms run on
 it, a product's input is gathered over the sequence and a row-parallel
@@ -89,7 +91,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.config import ModelConfig
-from repro_torch.distributed.sharding import current_split, use_split
+from repro_torch.distributed.sharding import current_split, gather_seq
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import recurrent as rec
@@ -265,6 +267,41 @@ def _mamba(cfg: ModelConfig, p: Dict, hn: Tensor, seq: bool,
                            x_reduce=split.all_reduce)[0]
 
 
+def _rglru(cfg: ModelConfig, p: Dict, hn: Tensor, seq: bool,
+           name: str) -> Tensor:
+    """An RG-LRU mixer of the normed input; split by its ``lru_width``
+    channels where the plan splits RG-LRU: in and gate column-parallel,
+    the conv, ``lambda`` and the recurrence on the rank's channels, u
+    all-gathered over the axis for rg / ig (``ModelSplit.
+    gather_channels``: their input is every channel, their output the
+    rank's), the out product row-parallel."""
+    split = current_split()
+    if split is None or not split.rglru:
+        return _whole(lambda x: rec.rglru_block(cfg, p, x, None,
+                                                name=name)[0], hn, seq)
+    return rec.rglru_block(split.cfg, p, split.enter(hn, True, seq), None,
+                           name=name, reduce=split.row_reduce(seq),
+                           gather=split.gather_channels)[0]
+
+
+def _mla(cfg: ModelConfig, p: Dict, hn: Tensor, positions: Tensor,
+         seq: bool, name: str) -> Tensor:
+    """An MLA mixer of the normed input; split by heads where the plan
+    splits MLA: the latents (q_down, kv_down, k_rope) whole on every
+    rank, x entering without a copy and the latents through one
+    (``attention._mla_qkv``: a copy on x as well would count their
+    gradient twice), q_up / k_up / v_up and the attention at the rank's
+    heads, o row-parallel."""
+    split = current_split()
+    if split is None or not split.mla:
+        return _whole(lambda x: attn.mla_forward(cfg, p, x, positions,
+                                                 name=name), hn, seq)
+    return attn.mla_forward(split.cfg, split.row_params(p, seq),
+                            split.enter(hn, False, seq), positions,
+                            name=name, split=split,
+                            reduce=split.row_reduce(seq))
+
+
 def _routed(cfg: ModelConfig, p: Dict, hn: Tensor, seq: bool, name: str
             ) -> Tuple[Tensor, Tensor]:
     """A routed MLP of the normed input and its load-balance loss; split
@@ -332,11 +369,9 @@ def layer_forward_aux(cfg: ModelConfig, spec: LayerSpec, p: Dict, h: Tensor,
     if spec[0] == "mamba":
         y = _mamba(cfg, p["mixer"], hn, seq, mixer)
     elif spec[0] == "rglru":
-        y = _whole(lambda x: rec.rglru_block(cfg, p["mixer"], x, None,
-                                             name=mixer)[0], hn, seq)
+        y = _rglru(cfg, p["mixer"], hn, seq, mixer)
     elif spec[0] == "mla":
-        y = _whole(lambda x: attn.mla_forward(cfg, p["mixer"], x, positions,
-                                              name=mixer), hn, seq)
+        y = _mla(cfg, p["mixer"], hn, positions, seq, mixer)
     else:
         y = _self_attention(cfg, p["mixer"], hn, positions, seq,
                             window=_window_of(cfg, spec[0]), name=mixer)
@@ -431,17 +466,31 @@ def mtp_logits(cfg: ModelConfig, params: Dict, h_final: Tensor,
     """deepseek's multi-token prediction head: position t predicts token
     t + 2 from (h_t, e_{t+1}). h_final (B, S, D) the final-normed hidden
     states, tokens (B, S) → logits (B, S - 1, V) f32. Training reads it
-    (the JAX package's train step); serving does not. Under a model
-    split the head (and the embedding) may be vocab-parallel; the MTP
-    layer runs whole."""
+    (the JAX package's train step); serving does not.
+
+    Under a model split the MTP layer runs under the plan, as the main
+    layers do, on its whole S − 1 positions; the projection is
+    column-parallel where the plan's ``mtp`` holds: its input enters
+    ``copy_to_model``, the rank computes its d/m columns of h0 and they
+    are all-gathered (``ModelSplit.gather_channels``, a cut backward: the
+    residual's gradient is whole on every rank). Under ``sp`` h_final is
+    this rank's block of the sequence (``forward_train``) and is gathered
+    first; the embedding and the head may be vocab-parallel."""
     p = params["mtp"]
+    split = current_split()
+    if split is not None and split.seq_split(tokens.shape[1]):
+        h_final = gather_seq(h_final, split.ag, summed=False)
     e_next = embed(params["embed"], tokens[:, 1:], h_final.dtype)
-    h0 = dense(p["proj"], torch.cat([h_final[:, :-1], e_next], dim=-1),
-               "mtp.proj")
+    x = torch.cat([h_final[:, :-1], e_next], dim=-1)
+    if split is not None and split.mtp:
+        h0 = split.gather_channels(
+            dense(p["proj"], split.enter(x, True, False), "mtp.proj"),
+            summed=False)
+    else:
+        h0 = dense(p["proj"], x, "mtp.proj")
     b, s, _ = h0.shape
-    with use_split(None):
-        h1 = layer_forward(cfg, layer_specs(cfg)[-1], p["layer"], h0,
-                           positions_for(b, s, h0.device), name="mtp.")
+    h1 = layer_forward(cfg, layer_specs(cfg)[-1], p["layer"], h0,
+                       positions_for(b, s, h0.device), name="mtp.")
     return _head(cfg, params, norm(cfg, p["norm"], h1), False)
 
 

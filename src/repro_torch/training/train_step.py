@@ -45,7 +45,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.config import Config, refuse_sharding
+from repro_torch.config import Config
 from repro_torch.convert import stack_layers, unstack_layers
 from repro_torch.distributed import sharding
 from repro_torch.models import transformer as T
@@ -317,20 +317,19 @@ def make_sharded_train_step(cfg: Config, rules: sharding.Rules,
     On a ``model`` axis of m > 1 ranks (``sharding.model_split``) the
     leaves the plan splits are gathered over the data axes only and the
     rank computes with its ``model`` block of them (1/m of the heads or
-    q-heads, ``d_ff``, vocab, Mamba's ``d_inner`` and the routed experts;
+    q-heads, MLA's heads, ``d_ff``, vocab, Mamba's ``d_inner``, RG-LRU's
+    ``lru_width``, the routed experts and the MTP projection's columns;
     the layers under ``sharding.use_split``); every other leaf is
     gathered whole and computed whole (a GQA layer's k / v, of which each
-    rank reads its kv-head's columns). A split leaf's
-    gradient is the rank's block: the global norm sums its squares over
-    the axis, and int8 moments, whose blocks cover the whole leaf, update
-    from its gradient gathered over ``model``. ``parallel.sp`` puts the
-    residual's sequence over the axis (refused on RG-LRU, MLA and the MTP
-    head, ``config.refuse_sharding``).
+    rank reads its kv-head's columns; MLA's latent projections). A split
+    leaf's gradient is the rank's block: the global norm sums its squares
+    over the axis, and int8 moments, whose blocks cover the whole leaf,
+    update from its gradient gathered over ``model``. ``parallel.sp``
+    puts the residual's sequence over the axis.
 
     The metrics are the global batch's (the last microbatch's under
     ``train.grad_accum``), the same on every rank. The input state is
     donated."""
-    refuse_sharding(cfg.parallel, cfg.model)
     tc = cfg.train
     int8 = cfg.parallel.int8_optimizer_state
     mesh = rules.mesh

@@ -21,12 +21,18 @@ and numpy: this file imports no JAX); the ranks meet through
   local and with global dispatch and on 4x1 with global dispatch; then
   the split of GQA, Mamba and routed experts: internlm2-1.8b smoke on 1x4
   (4 q-heads over 2 kv-heads, each kv-head read by two ranks),
-  recurrentgemma-9b smoke on 1x4 (local MQA 4 / 1, RG-LRU whole),
+  recurrentgemma-9b smoke on 1x4 (local MQA 4 / 1, RG-LRU by its
+  channels, 16 of 64 a rank) and on 2x2 under ``parallel.sp``,
   falcon-mamba-7b smoke on 1x4, on 2x2 and on 2x2 under
   ``parallel.sp``, olmoe-1b-7b smoke on 1x4 (2 experts a rank) and on
-  2x2 under ``parallel.sp`` with local dispatch; the smoke configs run
-  ``parallel.remat=full``); the falcon-mamba 1x4 run's gathered state
-  is checkpointed (rank 0 writes) and restored onto 2x2;
+  2x2 under ``parallel.sp`` with local dispatch, deepseek-v3-671b smoke
+  cut to its one dense layer on 1x4 (1 MLA head a rank, a dense MTP
+  layer, the MTP projection at 16 of 64 columns) and at its full smoke
+  depth on 2x2 under ``parallel.sp`` with local dispatch (2 heads and 4
+  experts a rank, a routed MTP layer); the smoke configs run
+  ``parallel.remat=full``); the falcon-mamba, recurrentgemma and
+  deepseek 1x4 runs' gathered states are checkpointed (rank 0 writes)
+  and restored onto 2x2;
 - ``train(mesh=)``: opt-proxy smoke on 2x2 stopped by a SIGTERM that rank
   1 alone receives, then resumed on 4x1 from a copy of its checkpoint;
   the 4x1 run's checkpoint restored onto 2x2 (``Checkpointer.restore(
@@ -34,7 +40,8 @@ and numpy: this file imports no JAX); the ranks meet through
 
 Each rank writes ``<dir>/rank<r>.npz`` (every output, whole) and
 ``<dir>/rank<r>.json`` (metrics, the input widths of the row-parallel
-products in a case's first step, stop steps, checkpoint writes).
+products and the MTP projection's output width in a case's first step,
+stop steps, checkpoint writes).
 
     python -m torch.distributed.run … tests/_torch_sharded_train_checks.py \\
         launcher <log> <launch.train argv>
@@ -82,14 +89,20 @@ CASES = {
                      {"parallel.ep_local_dispatch": False}),
     "intern14": ("internlm2-1.8b", (1, 4), 1, {}),
     "rgemma14": ("recurrentgemma-9b", (1, 4), 2, {}),
+    "rgemma22_sp": ("recurrentgemma-9b", (2, 2), 2, {"parallel.sp": True}),
+    # deepseek cut to its one dense layer: 1 MLA head a rank, a dense MTP
+    # layer; at full smoke depth on 2x2 under sp: 2 heads and 4 experts a
+    # rank, a routed MTP layer
+    "ds14": ("deepseek-v3-671b", (1, 4), 2, {"model.num_layers": 1}),
+    "ds22_sp": ("deepseek-v3-671b", (2, 2), 1, {"parallel.sp": True}),
     "mamba14": ("falcon-mamba-7b", (1, 4), 2, {}),
     "mamba22": ("falcon-mamba-7b", (2, 2), 2, {}),
     "mamba22_sp": ("falcon-mamba-7b", (2, 2), 2, {"parallel.sp": True}),
     "moe14": ("olmoe-1b-7b", (1, 4), 1, {}),
     "moe22_sp": ("olmoe-1b-7b", (2, 2), 1, {"parallel.sp": True}),
 }
-# the case whose gathered state is checkpointed and restored onto 2x2
-CKPT_CASE = "mamba14"
+# the cases whose gathered state is checkpointed and restored onto 2x2
+CKPT_CASES = ("mamba14", "rgemma14", "ds14")
 COMPRESS_STEPS = 6
 # train(mesh=): the steps of the whole run and the batch at which rank 1's
 # stream sends it SIGTERM
@@ -178,7 +191,8 @@ def step_checks(inp, meshes, out: dict, meta: dict, d: str) -> None:
     from repro_torch.distributed import sharding
     from repro_torch.distributed.checkpoint import (Checkpointer,
                                                     map_with_path)
-    from repro_torch.models.linear import Tap
+    from repro_torch.models import transformer as T
+    from repro_torch.models.linear import Tap, dense
     from repro_torch.training import train_step as TS
     for name, (_, shape, steps, _) in CASES.items():
         cfg = case_config(name)
@@ -195,18 +209,26 @@ def step_checks(inp, meshes, out: dict, meta: dict, d: str) -> None:
 
         def width(layer, x):
             widths.setdefault(layer, set()).add(int(x.shape[-1]))
+
+        def proj_out(p, x, name="", reduce=None):
+            y = dense(p, x, name, reduce)
+            if name == "mtp.proj":
+                width("mtp.proj:out", y)
+            return y
         for i, batch in enumerate(batches_of(inp, f"{name}/batch")[:steps]):
             with contextlib.ExitStack() as tap:
                 if i == 0:      # the row-parallel products' input widths
                     tap.enter_context(Tap(width))
+                    tap.enter_context(_patched(T, "dense", proj_out))
                 state, m = step(state, batch)
             metrics.append({k: float(v) for k, v in m.items()})
         meta[f"{name}/widths"] = {k: sorted(v) for k, v in widths.items()
-                                  if k.endswith((".o", ".down", ".out"))}
+                                  if k.endswith((".o", ".down", ".out",
+                                                 ":out"))}
         whole = sharding.gather(state, specs, mesh)
         out.update(arrays(f"{name}/out", whole))
         meta[name] = metrics
-        if name == CKPT_CASE:
+        if name in CKPT_CASES:
             ck = Checkpointer(os.path.join(d, f"ck_{name}"))
             if dist.get_rank() == 0:
                 ck.save(steps, whole, {"step": steps})
@@ -219,6 +241,16 @@ def step_checks(inp, meshes, out: dict, meta: dict, d: str) -> None:
                                                     meshes[(2, 2)]))
             out.update(arrays(f"{name}/restored22", sharding.gather(
                 blocks, specs22, meshes[(2, 2)])))
+
+
+@contextlib.contextmanager
+def _patched(mod, name: str, fn):
+    orig = getattr(mod, name)
+    setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        setattr(mod, name, orig)
 
 
 class _SigtermAt:

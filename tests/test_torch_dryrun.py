@@ -25,6 +25,10 @@ package's ``launch/dryrun.py``, ``specs.py`` and ``hlo_analysis.py``.
   all-reduces: two a layer forward (o, down), two backward (the inputs
   of q/k/v and of up), the embedding's, the forward's again where
   ``remat=full`` recomputes it;
+- recurrentgemma-9b and deepseek-v3-671b smoke train cells on (1, 2)
+  against (1, 1): RG-LRU by channels (u all-gathered for rg / ig), MLA
+  by heads and the MTP projection by columns, their FLOPs and peaks
+  below the whole cell's;
 - the olmoe smoke quant cell on 1x2x4 runs its stages at the shard shapes
   ``quant_group_sharding`` gives;
 - ``python -m repro_torch.launch.dryrun --arch opt-proxy --shape
@@ -383,6 +387,61 @@ def test_train_cell_splits_mamba_over_the_model_axis():
     assert peak[2] < peak[1]
     a2a = cells[2].collectives["all-to-all"]
     assert a2a["count"] == 3 * mc.num_layers
+
+
+def _train_cells(arch: str) -> dict:
+    """A smoke arch's 4 x 32 train cell on (data 1, model m), m 1 and 2."""
+    cfg = treg.get_config(arch, smoke=True)
+    cells = {}
+    for m in (1, 2):
+        with fake_world(m):
+            mesh = dryrun._groups_ready(make_host_mesh(data=1, model=m))
+            cells[m], _ = dryrun.trace_cell(
+                cfg, treg.ShapeSpec("t", "train", 32, 4),
+                tshd.make_rules(mesh, cfg.parallel))
+    return cells
+
+
+def test_train_cell_splits_rglru_over_the_model_axis():
+    """recurrentgemma smoke's train cell on (1, 2): the RG-LRU runs at
+    ``lru_width`` / 2 channels, so the step's FLOPs fall to at most 0.55
+    of (1, 1)'s and the rank peak below it; each RG-LRU layer all-gathers
+    its u (4 x 32 x 32 bf16) for rg / ig once forward and once in the
+    remat recompute, beside the local layer's k and v gathered whole (its
+    one kv-head read by both ranks)."""
+    cells = _train_cells("recurrentgemma-9b")
+    mc = treg.get_config("recurrentgemma-9b", smoke=True).model
+    n_rglru = mc.layer_kinds.count("rglru")
+    n_local = mc.layer_kinds.count("local")
+    assert cells[1].collectives == {}
+    assert cells[2].flops <= 0.55 * cells[1].flops
+    peak = {m: c.memory_analysis()["peak_memory_in_bytes"]
+            for m, c in cells.items()}
+    assert peak[2] < peak[1]
+    ag = cells[2].collectives["all-gather"]
+    u = 4 * 32 * (mc.rglru.lru_width // 2) * 2
+    kv = mc.d_model * mc.head_dim // 2 * 4
+    assert ag["count"] == 2 * n_rglru + 2 * n_local
+    assert ag["bytes"] == 2 * n_rglru * u + 2 * n_local * kv
+
+
+def test_train_cell_splits_mla_over_the_model_axis():
+    """deepseek smoke's train cell on (1, 2): MLA by heads (2 of 4 a
+    rank), its experts by E and the MTP projection by its columns, so the
+    step's FLOPs fall to at most 0.6 of (1, 1)'s (the latents and the
+    routing stay whole) and the rank peak below it; the one all-gather is
+    the MTP projection's d/2 columns over S − 1 positions (the MTP head
+    runs outside the remat'd super-blocks)."""
+    cells = _train_cells("deepseek-v3-671b")
+    mc = treg.get_config("deepseek-v3-671b", smoke=True).model
+    assert cells[1].collectives == {}
+    assert cells[2].flops <= 0.6 * cells[1].flops
+    peak = {m: c.memory_analysis()["peak_memory_in_bytes"]
+            for m, c in cells.items()}
+    assert peak[2] < peak[1]
+    ag = cells[2].collectives["all-gather"]
+    assert ag["count"] == 1
+    assert ag["bytes"] == 4 * 31 * (mc.d_model // 2) * 2
 
 
 def test_olmoe_smoke_quant_cell_runs_at_shard_shapes():

@@ -56,22 +56,29 @@ one start-up, ``file://`` rendezvous, one thread a rank), beside it JAX's
   frontend embeddings (24 positions, sharded) and, on 1x4, 3 (19
   positions: the residual stays whole, as JAX's guard leaves it); on 4x1
   (no model split) global dispatch is the
-  one-device step bitwise; ``parallel.sp`` runs on the covered
-  architectures and raises naming ROADMAP.md queue 1 item 26 on RG-LRU
-  and MLA;
-- the split of GQA, Mamba and routed experts (``sharding.model_split``'s
-  ``gqa``, ``mamba`` and ``experts``, each unit-tested): internlm2-1.8b
+  one-device step bitwise; ``parallel.sp`` builds a step on every
+  architecture (it once raised naming ROADMAP.md queue 1 item 26 on
+  RG-LRU, MLA and the MTP head);
+- the split of GQA, Mamba, routed experts, RG-LRU, MLA and the MTP head
+  (``sharding.model_split``'s ``gqa``, ``mamba``, ``experts``,
+  ``rglru``, ``mla`` and ``mtp``, each unit-tested): internlm2-1.8b
   smoke on 1x4 (4 q-heads over 2 kv-heads: each kv-head read by two
   ranks, its k / v leaves' gradients summed before the cut),
-  recurrentgemma-9b smoke on 1x4 (local MQA 4 / 1 split, RG-LRU whole),
-  falcon-mamba-7b smoke on 1x4, 2x2 and 2x2 under ``parallel.sp`` (the
-  [u | z] in projection re-blocked by an all-to-all, the x projection
-  all-reduced both ways) at the training pins against the one-device
-  port; internlm2 and falcon-mamba on 1x4 against the single-device JAX
-  step too (``PAST_THE_PIN_JAX``); olmoe-1b-7b smoke on 1x4 (2 experts a
-  rank) and on 2x2 under ``parallel.sp`` with local dispatch at the
-  routed pin; the falcon-mamba 1x4 run's gathered state restores
-  through the JAX ``Checkpointer`` and onto 2x2 and one device bitwise;
+  recurrentgemma-9b smoke on 1x4 (local MQA 4 / 1 split, RG-LRU by its
+  channels, u all-gathered for rg / ig) and on 2x2 under
+  ``parallel.sp``, falcon-mamba-7b smoke on 1x4, 2x2 and 2x2 under
+  ``parallel.sp`` (the [u | z] in projection re-blocked by an
+  all-to-all, the x projection all-reduced both ways), deepseek-v3-671b
+  smoke cut to its dense layer on 1x4 (MLA by heads, its latents whole,
+  the MTP projection by columns, a dense MTP layer) at the training pins
+  against the one-device port; internlm2, falcon-mamba, recurrentgemma
+  and deepseek on 1x4 against the single-device JAX step too
+  (``PAST_THE_PIN_JAX``); olmoe-1b-7b smoke on 1x4 (2 experts a rank)
+  and on 2x2 under ``parallel.sp`` with local dispatch, and deepseek
+  smoke at its full smoke depth on 2x2 under ``parallel.sp`` (its MTP
+  layer routed), at the routed pin; the falcon-mamba, recurrentgemma and
+  deepseek 1x4 runs' gathered states restore through the JAX
+  ``Checkpointer`` and onto 2x2 and one device bitwise;
 - ``train(mesh=)`` on 2x2, stopped by a SIGTERM that only rank 1
   receives, stops every rank at the same step; resumed from its
   checkpoint on 4x1 and on one device, both end at the pins above against
@@ -279,7 +286,7 @@ PAST_THE_PIN = r"(mixer|xattn)/k/b$|blocks/0/sub0/mlp/up/b$"
 # the routed cases under local dispatch over 2 data ranks: held against
 # the one-device step on each data block; the cases also held against
 # the single-device JAX step
-PER_BLOCK = ("moe", "moe22_sp")
+PER_BLOCK = ("moe", "moe22_sp", "ds22_sp")
 # against JAX also Mamba's dt bias and the scan leaves' second moments:
 # the single-device port is itself 1.38e-5 and 1.07e-5 from the JAX step
 # on the dt bias after one and two steps (falcon-mamba smoke; a
@@ -290,9 +297,17 @@ PER_BLOCK = ("moe", "moe22_sp")
 # which moves the scan's gradients by rounding, squared in the second
 # moments (up to 9.9e-6 from the one-device port): together 1.75e-5 (x),
 # 1.27e-5 (a_log), 1.25e-5 (dt bias) and 1.18e-5 (d_skip)
+# ; and recurrentgemma smoke's second layer's norm2 scale, where the
+# single-device port is itself 2.01e-5 from the JAX step after two steps
+# (its RG-LRU doubling scan multiplies in another order than JAX's
+# associative scan) and the 1x4 split 1.83e-5
 PAST_THE_PIN_JAX = (PAST_THE_PIN + r"|mixer/dt/b$"
-                    r"|\.opt/\.v/.*mixer/(x/w|a_log|d_skip)$")
-JAX_CASES = ("intern", "intern14", "mamba14")
+                    r"|\.opt/\.v/.*mixer/(x/w|a_log|d_skip)$"
+                    r"|\.params/blocks/0/sub1/norm2/scale$")
+JAX_CASES = ("intern", "intern14", "mamba14", "rgemma14", "ds14")
+# the cases held at the routed-expert pin (1e-2 per leaf and on the loss)
+ROUTED = ("moe", "moe_global", "moe_global41", "moe14", "moe22_sp",
+          "ds22_sp")
 PAST_THE_PIN_INT8 = r"\.params/.*(mixer/(q|k)|mlp/up)/(w|b)$"
 
 _JAX_GPIPE = """
@@ -347,6 +362,9 @@ def _finish(procs, timeout):
 def _jax_state(name):
     jcfg = jget_config(checks.CASES[name][0], smoke=True)
     jcfg.model.dtype = "float32"
+    for key, v in checks.CASES[name][3].items():
+        if key.startswith("model."):
+            setattr(jcfg.model, key.split(".")[1], v)
     tcfg = checks.case_config(name)
     jcfg.parallel.int8_optimizer_state = tcfg.parallel.int8_optimizer_state
     jcfg.train.grad_accum = tcfg.train.grad_accum
@@ -359,7 +377,7 @@ def _batches(name, tcfg):
     if name in ("intern", "intern14"):       # the JAX check's inputs
         b = JMarkovLM(tcfg.model.vocab_size, seed=1).batch(4, 16)
         return [{"tokens": np.asarray(b["tokens"]).astype(np.int64)}]
-    rows = 4 if name.startswith("moe") else 8
+    rows = 4 if name.startswith(("moe", "ds")) else 8
     out = []
     for i in range(steps):
         b = {"tokens": TMarkovLM(tcfg.model.vocab_size, seed=10 + i).batch(
@@ -593,7 +611,7 @@ def test_gpipe_matches_stacked_forward_and_jax(world):
 
 
 @pytest.mark.parametrize("name", [n for n in checks.CASES
-                                  if not n.startswith("moe")])
+                                  if n not in ROUTED])
 def test_sharded_step_matches_single_device(world, name):
     ref, losses = world["want"]["cases"][name]
     got = _flat(world["ranks"][0], f"{name}/out")
@@ -605,28 +623,39 @@ def test_sharded_step_matches_single_device(world, name):
 
 @pytest.mark.parametrize("name", list(checks.CASES))
 def test_split_products_run_at_local_widths(world, name):
-    """Each case's o, down and (Mamba's) out products take the rank's
-    heads, ``d_ff`` columns and ``d_inner`` channels where the plan splits
-    them (the heads and kv-heads divide the ``model`` axis, or the heads
-    do and the axis is a multiple of the kv-heads; ``d_ff``; ``d_inner``),
-    the whole width elsewhere (RG-LRU's out)."""
+    """Each case's o, down and (Mamba's, RG-LRU's) out products take the
+    rank's heads, ``d_ff`` columns, ``d_inner`` and ``lru_width``
+    channels where the plan splits them (the heads and kv-heads divide
+    the ``model`` axis, or the heads do and the axis is a multiple of the
+    kv-heads, or, MLA, the heads do; ``d_ff``; ``d_inner``;
+    ``lru_width``), a shared expert's down its width / m where the
+    experts split, and deepseek's MTP projection gives d/m columns."""
     mc = checks.case_config(name).model
     m = checks.CASES[name][1][1]
     h, kv = mc.num_heads, mc.num_kv_heads
-    split = h % m == 0 and (kv % m == 0 or m % kv == 0)
+    split = h % m == 0 and (mc.mla.enabled or kv % m == 0 or m % kv == 0)
     heads = h // m if split else h
-    want = {".o": [heads * mc.head_dim]}
-    if mc.moe.num_experts == 0:
-        want[".down"] = [mc.d_ff // m if mc.d_ff % m == 0 else mc.d_ff]
+    hd = mc.mla.v_head_dim if mc.mla.enabled else mc.head_dim
+
+    def cut(n):
+        return n // m if n % m == 0 else n
+    e = mc.moe
+    shared = e.d_ff_expert * e.num_shared_experts
+    want = {".o": [heads * hd], ".down": [cut(mc.d_ff)],
+            "shared.down": [shared // m if e.num_experts % m == 0
+                            and shared % m == 0 else shared],
+            ":out": [cut(mc.d_model)]}
     if "mamba" in mc.layer_kinds:
-        want[".out"] = [mc.d_inner // m if mc.d_inner % m == 0
-                        else mc.d_inner]
+        want[".out"] = [cut(mc.d_inner)]
     if "rglru" in mc.layer_kinds:
-        want[".out"] = [mc.rglru.lru_width]
+        want[".out"] = [cut(mc.rglru.lru_width)]
     got = world["metas"][0][f"{name}/widths"]
     assert got, name
+    assert ("mtp.proj:out" in got) == (mc.mtp_depth > 0), got
     for layer, widths in got.items():
-        assert widths == want[layer[layer.rfind("."):]], (layer, widths)
+        key = ("shared.down" if layer.endswith("shared.down")
+               else layer[max(layer.rfind("."), layer.rfind(":")):])
+        assert widths == want[key], (layer, widths)
 
 
 def test_sharded_step_matches_jax(world):
@@ -637,14 +666,19 @@ def test_sharded_step_matches_jax(world):
     assert_state_pins(got, _tflat(jst1), PAST_THE_PIN)
 
 
-@pytest.mark.parametrize("name", ["intern14", "mamba14"])
+@pytest.mark.parametrize("name", ["intern14", "mamba14", "rgemma14",
+                                  "ds14"])
 def test_split_step_matches_jax(world, name):
-    """internlm2-1.8b smoke on 1x4 (each kv-head read by two ranks) and
+    """internlm2-1.8b smoke on 1x4 (each kv-head read by two ranks),
     falcon-mamba-7b smoke on 1x4 (32 of 128 channels a rank, [u | z]
-    re-blocked) against the single-device JAX step: the losses at 1e-5,
-    the state at the training pins (``PAST_THE_PIN_JAX``: Mamba's dt bias
-    and the scan leaves' second moments, where the one-device port
-    already differs from JAX by up to 1.38e-5)."""
+    re-blocked), recurrentgemma-9b smoke on 1x4 (16 of 64 RG-LRU
+    channels a rank) and deepseek-v3-671b smoke cut to its dense layer on
+    1x4 (1 MLA head a rank, the MTP projection at 16 of 64 columns)
+    against the single-device JAX step: the losses at 1e-5, the state at
+    the training pins (``PAST_THE_PIN_JAX``: Mamba's dt bias and the scan
+    leaves' second moments, where the one-device port already differs
+    from JAX by up to 1.38e-5, and one recurrentgemma norm scale, 2.01e-5
+    on one device)."""
     jst, jlosses = world["want"][f"jax/{name}"]
     got = _flat(world["ranks"][0], f"{name}/out")
     for m, want in zip(world["metas"][0][name], jlosses):
@@ -657,7 +691,20 @@ def test_split_mamba_checkpoint_restores_bitwise(world):
     restores through the JAX ``Checkpointer`` bitwise (the stored [u | z]
     layout is the JAX rule's: the exchange happens inside the step), and
     onto 2x2 and onto one device bitwise."""
-    name = checks.CKPT_CASE
+    _restores_bitwise(world, "mamba14")
+
+
+@pytest.mark.parametrize("name", ["rgemma14", "ds14"])
+def test_split_checkpoint_restores_bitwise(world, name):
+    """The recurrentgemma 1x4 run's gathered state (its RG-LRU split by
+    channels) and deepseek's (MLA by heads, the MTP projection by
+    columns), checkpointed by rank 0, restore through the JAX
+    ``Checkpointer``, onto 2x2 and onto one device bitwise: the stored
+    blocks are the JAX rules' own."""
+    _restores_bitwise(world, name)
+
+
+def _restores_bitwise(world, name):
     d, r0 = world["d"], world["ranks"][0]
     got = _flat(r0, f"{name}/out")
     jcfg, tcfg, jst, _ = world["states"][name]
@@ -676,13 +723,16 @@ def test_split_mamba_checkpoint_restores_bitwise(world):
         np.testing.assert_array_equal(onto22[k], v, err_msg=k)
 
 
-@pytest.mark.parametrize("name", ["moe14", "moe22_sp"])
+@pytest.mark.parametrize("name", ["moe14", "moe22_sp", "ds22_sp"])
 def test_routed_experts_split_at_the_routed_pin(world, name):
     """olmoe-1b-7b smoke with its experts split over ``model`` (the
     routing whole on every rank): on 1x4, 2 of 8 experts a rank, against
     the one-device step; on 2x2 under ``parallel.sp`` with local
-    dispatch against the per-block one-device step. Both at the
-    routed-expert pin, 1e-2 per leaf and on the loss."""
+    dispatch against the per-block one-device step; deepseek-v3-671b
+    smoke at its full smoke depth on 2x2 under ``parallel.sp`` (2 MLA
+    heads and 4 experts a rank, its MTP layer routed) against the
+    per-block one-device step. All at the routed-expert pin, 1e-2 per
+    leaf and on the loss."""
     _routed_pin(world, name)
 
 
@@ -793,31 +843,30 @@ def test_remat_recompute_reads_the_plan_on_another_thread():
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "falcon-mamba-7b",
                                   "recurrentgemma-9b", "deepseek-v3-671b"])
 def test_sequence_parallel_raises_naming_item_26(arch):
-    """RG-LRU and MLA (and deepseek's MTP head) are computed whole over
-    ``model``: ``parallel.sp`` on them raises naming the ROADMAP item
-    that will split them. Routed experts and Mamba are split: their sp
-    step builds without raising (the gloo world's ``mamba22_sp`` and
-    ``moe22_sp`` cases run it)."""
+    """``parallel.sp`` once raised naming item 26 on RG-LRU, MLA and
+    deepseek's MTP head: the ``model`` axis now splits every layer kind,
+    so on each of the four archs the sp step builds and its plan shards
+    the sequence and splits the arch's own kind (routed experts, Mamba,
+    RG-LRU, MLA with the MTP projection); the gloo world's
+    ``moe22_sp``, ``mamba22_sp``, ``rgemma22_sp`` and ``ds22_sp`` run it.
+    ``config.refuse_sharding`` is gone."""
+    import repro_torch.config as tconfig
     from repro_torch.launch.mesh import fake_world, make_host_mesh
     cfg = tget_config(arch, smoke=True)
     cfg.parallel.sp = True
-    if arch in ("olmoe-1b-7b", "falcon-mamba-7b"):
-        state = TTS.init_train_state(cfg, "cpu")
-        with fake_world(4):
-            rules = tshd.make_rules(make_host_mesh(data=2, model=2),
-                                    cfg.parallel)
-            specs = tshd.train_state_pspecs(state, rules)
-            assert callable(TTS.make_sharded_train_step(cfg, rules, specs))
-            plan = tshd.model_split(cfg.model, rules)
-            assert plan.sp and (plan.mamba or plan.experts)
-        return
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md, queue 1 item 26"):
-        TTS.make_sharded_train_step(
-            cfg, tshd.make_rules(_mesh22(), cfg.parallel), None)
-    cfg.parallel.sp = False
-    from repro_torch.config import refuse_sharding
-    refuse_sharding(cfg.parallel, cfg.model)      # sp off: nothing refused
+    state = TTS.init_train_state(cfg, "cpu")
+    with fake_world(4):
+        rules = tshd.make_rules(make_host_mesh(data=2, model=2),
+                                cfg.parallel)
+        specs = tshd.train_state_pspecs(state, rules)
+        assert callable(TTS.make_sharded_train_step(cfg, rules, specs))
+        plan = tshd.model_split(cfg.model, rules)
+    assert plan.sp and plan.seq_split(16)
+    kind = {"olmoe-1b-7b": "experts", "falcon-mamba-7b": "mamba",
+            "recurrentgemma-9b": "rglru", "deepseek-v3-671b": "mla"}[arch]
+    assert getattr(plan, kind)
+    assert plan.mtp == (arch == "deepseek-v3-671b")
+    assert not hasattr(tconfig, "refuse_sharding")
 
 
 @pytest.mark.parametrize("heads,kv,m,want", [
@@ -827,22 +876,32 @@ def test_sequence_parallel_raises_naming_item_26(arch):
     (32, 8, 16, {"gqa": True, "q": (2, 1), "kv_of": [r // 2
                                                    for r in range(16)]}),
     (36, 36, 16, {"gqa": False, "q": (36, 36), "kv_of": None}),
-], ids=["16-8-m16", "16-1-m2", "32-8-m16", "36-36-m16-whole"])
+    (16, 1, 16, {"kind": "rglru", "width": 4096}),
+    (16, 1, 16, {"kind": "rglru", "width": 4104}),
+    (128, 128, 16, {"kind": "mla", "d_model": 7168}),
+    (12, 12, 16, {"kind": "mla", "d_model": 7168}),
+], ids=["16-8-m16", "16-1-m2", "32-8-m16", "36-36-m16-whole",
+        "rglru-4096-m16", "rglru-4104-m16-whole", "mla-128-m16",
+        "mla-12-m16-whole"])
 def test_model_split_flags(heads, kv, m, want):
-    """``model_split``'s three new flags: ``gqa`` where the q-heads divide
+    """``model_split``'s flags: ``gqa`` where the q-heads divide
     the axis, the kv-heads do not and the axis is a multiple of them
     (rank r keeps q-heads ``[r·H/m, (r+1)·H/m)``, all of kv-head
     ``r·kv // m``), whole otherwise (minicpm's 36 heads on 16); ``mamba``
-    where ``d_inner`` divides the axis; ``experts`` where E does. Each
-    flag is set by its own condition alone."""
+    where ``d_inner`` divides the axis; ``experts`` where E does;
+    ``rglru`` where ``lru_width`` does (recurrentgemma-9b's 4096 on 16:
+    256 channels a rank), never reaching Mamba's [u | z] re-blocking;
+    ``mla`` where the heads do (deepseek-v3-671b's 128 on 16: 8 a rank),
+    with ``mtp`` where ``d_model`` does. Each flag is set by its own
+    condition alone."""
+    if "kind" in want:
+        _kind_flags(heads, kv, m, want)
+        return
     import dataclasses
     from repro_torch.config import ModelConfig, MoEConfig, SSMConfig
     base = ModelConfig(num_heads=heads, num_kv_heads=kv,
                        d_model=heads * 8, d_ff=64 * m)
-    names = ("data", "model")
-    rules = tshd.Rules(mesh=types.SimpleNamespace(mesh_dim_names=names,
-                                                  shape=(1, m)),
-                       dp_axes=("data",))
+    rules = _rules_1xm(m)
     plans = []
     for r in range(m):
         ag = tshd.AxisGroup(None, m, r, tuple(range(m)))
@@ -883,6 +942,53 @@ def test_model_split_flags(heads, kv, m, want):
         few = dataclasses.replace(moe, moe=MoEConfig(
             num_experts=m + 1, top_k=2, d_ff_expert=8))
         assert not tshd.model_split(few, rules).experts
+
+
+def _rules_1xm(m):
+    names = ("data", "model")
+    return tshd.Rules(mesh=types.SimpleNamespace(mesh_dim_names=names,
+                                                 shape=(1, m)),
+                      dp_axes=("data",))
+
+
+def _kind_flags(heads, kv, m, want):
+    """``test_model_split_flags``' RG-LRU and MLA ids: the flag, the local
+    width, the leaves it splits, and the whole layer where the width
+    does not divide the axis."""
+    from repro_torch.config import MLAConfig, ModelConfig, RGLRUConfig
+    if want["kind"] == "rglru":
+        w = want["width"]
+        mc = ModelConfig(num_heads=heads, num_kv_heads=kv, d_model=4096,
+                         d_ff=12288, num_layers=3,
+                         block_pattern=("rglru", "rglru", "local"),
+                         rglru=RGLRUConfig(enabled=True, lru_width=w))
+        leaves = ["blocks/0/sub0/mixer/" + n for n in (
+            "in/w", "gate/w", "rg/w", "ig/w", "rg/b", "ig/b", "out/w",
+            "conv/w", "conv/b", "lambda")]
+    else:
+        mc = ModelConfig(num_heads=heads, num_kv_heads=kv,
+                         d_model=want["d_model"], d_ff=18432, mtp_depth=1,
+                         mla=MLAConfig(enabled=True))
+        leaves = [f"{p}mixer/{n}/w" for p in ("blocks/0/sub0/",
+                                               "mtp/layer/")
+                  for n in ("q_up", "k_up", "v_up", "o")]
+    with patched_axis_group(tshd.AxisGroup(None, m, 0, tuple(range(m)))):
+        plan = tshd.model_split(mc, _rules_1xm(m))
+    kind = want["kind"]
+    split = (w if kind == "rglru" else heads) % m == 0
+    assert getattr(plan, kind) == split
+    assert not (plan.mamba or plan.experts or plan.attn)
+    if kind == "rglru":
+        assert plan.gqa and not plan.mla
+        assert plan.cfg.rglru.lru_width == (w // m if split else w)
+        assert mc.rglru.lru_width == w
+    else:
+        assert not (plan.gqa or plan.rglru)
+        assert plan.cfg.num_heads == (heads // m if split else heads)
+        assert plan.mtp and plan.splits("mtp/proj/w")
+        for whole in ("q_down", "kv_down", "k_rope"):
+            assert not plan.splits(f"blocks/0/sub0/mixer/{whole}/w")
+    assert all(plan.splits(p) == split for p in leaves), leaves
 
 
 @contextlib.contextmanager
